@@ -1,0 +1,312 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
+
+Drives the port's main path on one NVIDIA GPU and fails (non-zero exit, no
+result line) if anything is off:
+
+1. environment: the card's name and power limit, torch/CUDA versions, and
+   the build of every hand-written kernel from this checkout's sources;
+2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
+   the card, both held to the float64 oracle's ULP bound, at the full-width
+   DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
+   empty-phase case (stride > kernel) and ragged C/N — every output comes
+   from ``torch.empty`` on memory pre-filled with NaN;
+3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
+   ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
+   launches per batcher launch, each row equal to a B = 1 forward;
+4. times (CUDA events): per DCGAN site at B = 1 and 64 the kernel, its plain
+   version, ``F.conv_transpose2d`` as the library yardstick and the
+   roofline bound; one full generator forward per bucket;
+5. the ``kernels`` line, the card line, and the result line.
+
+    python3 chip_smoke.py        # from the repository root, one GPU
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# forward tolerance of the served rows against a B = 1 forward: the kernel's
+# per-element sum order does not depend on the batch, but the projection GEMM
+# (cuBLAS) may pick another algorithm per batch size
+TOL_ROW = 2e-4
+# published dense peaks (fp32 on CUDA cores, HBM bytes/s) by card
+PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
+         "H100": (67e12, 3.35e12), "H200": (67e12, 4.8e12)}
+BURST = 24
+
+
+def card_peaks(name: str) -> tuple[float, float]:
+    for key, peaks in PEAKS.items():
+        if all(part in name for part in key.split()):
+            return peaks
+    raise RuntimeError(f"no published peaks recorded for {name!r}")
+
+
+def library_args(x, kernel, strides, padding):
+    """``F.conv_transpose2d`` arguments computing the port's transposed conv
+    (NHWC ``x``, HWIO ``kernel``, lhs-dilated correlation padding): NCHW
+    input, the kernel flipped in space and laid out (C_in, C_out, kH, kW),
+    ``padding = R - 1 - pad_lo`` and ``output_padding = pad_hi - pad_lo``."""
+    r, s = kernel.shape[:2]
+    (plh, phh), (plw, phw) = padding
+    pad = (r - 1 - plh, s - 1 - plw)
+    out_pad = (phh - plh, phw - plw)
+    if min(pad + out_pad) < 0 or out_pad[0] >= strides[0] \
+            or out_pad[1] >= strides[1]:
+        raise ValueError(f"padding {padding} has no conv_transpose2d form")
+    w = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    return (x.permute(0, 3, 1, 2).contiguous(), w,
+            dict(stride=tuple(strides), padding=pad, output_padding=out_pad))
+
+
+def main() -> int:
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import reference as ref
+    from repro_torch.core.plan import BATCH_BUCKETS, ConvSpec, plan_conv
+    from repro_torch.core.untangle import pad_or_crop
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.untangled_conv import (untangled_deconv2d,
+                                                    untangled_deconv2d_ref)
+    from repro_torch.models import gan
+    from repro_torch.serving.image_batcher import DynamicImageBatcher
+
+    dev = torch.device("cuda", 0)
+    # ---- 1. environment + build ------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw = card_peaks(card)
+    print(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
+          f" | peaks fp32 {peak_flops / 1e12:.0f} TFLOP/s, "
+          f"HBM {peak_bw / 1e12:.2f} TB/s")
+    t0 = time.perf_counter()
+    logs = _build.build(verbose=True)
+    print(f"[build] {len(logs)} kernel source(s) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def poison(numel):
+        # NaN-fill a block the caching allocator will hand out next, so an
+        # output element the kernel leaves unwritten cannot pass as a value
+        torch.full((numel,), float("nan"), device=dev)
+
+    def site(h, c, n, k, s, pads, backend="cuda"):
+        return plan_conv(ConvSpec(
+            kind="transposed", in_hw=(h, h), in_c=c, out_c=n,
+            kernel_hw=(k, k), strides=(s, s), padding=pads,
+            backend=backend))
+
+    def kernel_call(plan, xg, packed):
+        return untangled_deconv2d(xg, packed, phases=plan.phases,
+                                  out_hw=plan.out_hw,
+                                  strides=plan.spec.strides,
+                                  sum_uv=plan.sum_uv)
+
+    def ref_call(plan, xg, packed):
+        return untangled_deconv2d_ref(xg, packed, phases=plan.phases,
+                                      out_hw=plan.out_hw,
+                                      strides=plan.spec.strides,
+                                      sum_uv=plan.sum_uv)
+
+    # ---- 2. kernel A vs its plain version, both vs the f64 oracle ----------
+    dc = gan.DCGAN_LAYERS
+    pad52 = gan.deconv_padding(5, 2)
+    cases = [(f"DCGAN_DC{i + 1}_B{b}", b, l.in_hw, l.in_c, l.out_c, l.kernel,
+              l.stride, gan.deconv_padding(l.kernel, l.stride))
+             for b in (1, 64) for i, l in enumerate(dc)]
+    cases += [(f"cGAN_DC{i + 1}_B16", 16, l.in_hw, l.in_c, l.out_c,
+               l.kernel, l.stride, gan.deconv_padding(l.kernel, l.stride))
+              for i, l in enumerate(gan.CGAN_LAYERS)]
+    cases += [("nonuniform_7_k5s2", 2, 7, 16, 8, 5, 2, ((1, 1), (1, 1))),
+              ("empty_phase_4_k2s3", 2, 4, 8, 8, 2, 3, ((1, 1), (1, 1))),
+              ("ragged_C5_N3", 3, 5, 5, 3, 3, 2, ((1, 1), (1, 1))),
+              ("ragged_C6_N20", 2, 6, 6, 20, 5, 2, pad52),
+              ("ragged_C8_N36", 2, 6, 8, 36, 5, 2, pad52)]
+    max_err = 0.0
+    for name, b, h, c, n, k, s, pads in cases:
+        plan = site(h, c, n, k, s, pads)
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        packed = plan.pack(kern)
+        xg = pad_or_crop(x, plan.gpad)
+        poison(b * plan.out_hw[0] * plan.out_hw[1] * n)
+        y_k = kernel_call(plan, xg, packed)
+        y_r = ref_call(plan, xg, packed)
+        torch.cuda.synchronize()
+        y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)), kern,
+                                        padding=pads)
+        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
+        for ex in plan.phases:
+            terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
+        bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+        ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
+        ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
+        err = float((y_k - y_r).abs().max())
+        max_err = max(max_err, err)
+        print(f"[kernel] {name}: out {tuple(y_k.shape)} |kernel-plain| "
+              f"{err:.3e} kernel<=ulp_bound {ok_k} plain<=ulp_bound {ok_r} "
+              f"(max bound {float(bound.max()):.3e})")
+        if not (ok_k and ok_r and torch.isfinite(y_k).all()):
+            raise RuntimeError(f"kernel A disagrees on {name}")
+        if name.startswith("empty_phase"):
+            empty = [ex for ex in plan.phases if ex.taps[0] * ex.taps[1] == 0]
+            if not empty or any(bool(y_k[:, ex.q[0]::s, ex.q[1]::s].ne(0).any())
+                                for ex in empty):
+                raise RuntimeError("empty phases are not zero")
+
+    # ---- 3. serving at full width on the 'cuda' route ----------------------
+    cfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
+    plans = gan.generator_plans(cfg)
+    bad = [(i, r.batch, r.path) for i, p in enumerate(plans)
+           for r in p.routes if r.path != "cuda"]
+    if bad:
+        raise RuntimeError(f"sites off the cuda route: {bad}")
+    params = gan.generator_init(0, cfg, device=dev)
+    batcher = DynamicImageBatcher(
+        lambda z: gan.generator_apply(params, z, cfg), device=dev)
+    proto = torch.zeros(cfg.z_dim).numpy()
+    batcher.warmup(proto)
+    rng = torch.Generator().manual_seed(1)
+    lat = torch.randn((BURST, cfg.z_dim), generator=rng).numpy()
+    untangled_deconv2d.launches = 0
+    done = batcher.drive_open_loop(lambda i: lat[i], BURST)
+    launches = untangled_deconv2d.launches
+    st = batcher.stats()
+    if sorted(r.rid for r in done) != list(range(BURST)):
+        raise RuntimeError("a request was dropped or answered twice")
+    if launches != 4 * len(batcher.launches) or launches == 0:
+        raise RuntimeError(f"{launches} kernel launches for "
+                           f"{len(batcher.launches)} batcher launches")
+    worst = 0.0
+    with torch.inference_mode():
+        for r in done:
+            if r.out.shape != (64, 64, 3) or not torch.isfinite(
+                    torch.from_numpy(r.out)).all():
+                raise RuntimeError(f"request {r.rid}: bad output")
+            one = gan.generator_apply(
+                params, torch.from_numpy(lat[r.rid][None]).to(dev), cfg)
+            diff = (one[0].cpu() - torch.from_numpy(r.out)).abs()
+            worst = max(worst, float(diff.max()))
+            if not bool((diff <= TOL_ROW * (1 + one[0].cpu().abs())).all()):
+                raise RuntimeError(f"request {r.rid} differs from its B=1 "
+                                   f"forward by {float(diff.max()):.3e}")
+    print(f"[serve] {st['completed']}/{BURST} answered once, batcher "
+          f"launches {batcher.launches}, kernel launches {launches} "
+          f"(= 4 x {len(batcher.launches)}), max |row - B=1 forward| "
+          f"{worst:.3e} (tol {TOL_ROW}), p50 {st['p50_ms']:.3f} ms, "
+          f"p99 {st['p99_ms']:.3f} ms")
+
+    # ---- 4. times ------------------------------------------------------------
+    def time_ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    sites, counted = [], None
+    for b in (1, 64):
+        for i, l in enumerate(dc):
+            pads = gan.deconv_padding(l.kernel, l.stride)
+            plan = site(l.in_hw, l.in_c, l.out_c, l.kernel, l.stride, pads)
+            x = randn(b, l.in_hw, l.in_hw, l.in_c)
+            kern = randn(l.kernel, l.kernel, l.in_c, l.out_c)
+            packed = plan.pack(kern)
+            xg = pad_or_crop(x, plan.gpad)
+            xl, wl, kw = library_args(x, kern, plan.spec.strides, pads)
+            y_lib = F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1)
+            y_k = kernel_call(plan, xg, packed)
+            lib_err = float((y_lib - y_k).abs().max())
+            if lib_err > TOL_ROW * (1 + float(y_k.abs().max())):
+                raise RuntimeError(f"library yardstick disagrees on DC{i + 1}"
+                                   f" B={b}: {lib_err:.3e}")
+            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
+                            * ex.taps[1] for ex in plan.phases) \
+                * l.in_c * l.out_c
+            nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+            t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+            rec = {
+                "site": f"DC{i + 1}", "batch": b, "flops": flops,
+                "bytes": nbytes,
+                "ms": time_ms(lambda: kernel_call(plan, xg, packed)),
+                "plain_ms": time_ms(lambda: ref_call(plan, xg, packed)),
+                "library_ms": time_ms(
+                    lambda: F.conv_transpose2d(xl, wl, **kw)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_max_abs_err": lib_err}
+            sites.append(rec)
+            print(f"[time] DC{i + 1} B={b}: kernel {rec['ms']:.4f} ms, "
+                  f"plain {rec['plain_ms']:.4f} ms, library "
+                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+                  f" ms ({rec['bound_by']}), kernel at "
+                  f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+    gen_ms = {}
+    with torch.inference_mode():
+        for b in BATCH_BUCKETS:
+            z = randn(b, cfg.z_dim)
+            gen_ms[b] = time_ms(lambda: gan.generator_apply(params, z, cfg),
+                                iters=10)
+    print(f"[time] generator forward (4 kernel launches + proj/bias/act) "
+          f"ms per bucket: {json.dumps(gen_ms)}")
+    print(json.dumps({"sites": sites, "generator_ms": gen_ms}))
+
+    # ---- 5. the kernels line, the card line, the result line ---------------
+    b64 = [r for r in sites if r["batch"] == 64]
+    t_ops = sum(r["flops"] for r in b64) / peak_flops * 1e3
+    t_bytes = sum(r["bytes"] for r in b64) / peak_bw * 1e3
+    kernels = [{
+        "name": "untangled_deconv2d", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:373",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_deconv_kernel",
+        "launches": launches, "held_against_plain": True,
+        "max_abs_err": max_err,
+        "shape": "DCGAN generator, 4 sites, B=64 (sums)",
+        "ms": sum(r["ms"] for r in b64),
+        "plain_ms": sum(r["plain_ms"] for r in b64),
+        "bound_ms": sum(r["bound_ms"] for r in b64),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": sum(r["library_ms"] for r in b64)}]
+    for k in kernels:
+        print(f"[kernels] {k['name']} <- {k['tpu_kernel']}: {k['launches']} "
+              f"launches on the main path, held against its plain version")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

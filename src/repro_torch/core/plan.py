@@ -1,0 +1,568 @@
+"""Plan/executor engine for the transposed kind, on PyTorch.
+
+Counterpart of ``repro.core.plan``.  A convolution site is described by a
+hashable ``ConvSpec``, compiled once by ``plan_conv`` (LRU-cached) into a
+``ConvPlan`` that holds the per-phase geometry, the tap-major superpack
+layout and one ``Route`` per batch bucket.  ``ConvPlan.apply`` runs the
+planned forward on the superpack.
+
+Backend policy (``ConvSpec.backend``), the port's reading of JAX's
+``'xla' | 'pallas' | 'auto'``:
+
+* ``'torch'`` — the route heuristic of the JAX ``'xla'`` policy, every
+  route a plain PyTorch product (``fused_tap``, ``fused_plane``,
+  ``pixel_shuffle``, ``taps``).  These are the CPU path and the parity
+  partners of the kernel.
+* ``'cuda'``  — every transposed site takes the ``'cuda'`` route at every
+  bucket: one launch of the hand-written fused multi-phase kernel
+  (``repro_torch.kernels.untangled_conv.untangled_deconv2d``).  The kernel
+  tiles its own output, so no VMEM tile search is made.
+* ``'auto'``  — ``'cuda'`` when a card is present, else ``'torch'``.
+
+Only the transposed kind is ported; ``'conv'``/``'dilated'`` specs raise
+``NotImplementedError`` (ROADMAP Queue 1, item 6).  The kernel route is
+forward-only: its wrapper raises on inputs that require grad, while the
+torch routes differentiate through plain autograd.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import decompose as dec
+from repro_torch.core.untangle import pad_or_crop
+from repro_torch.kernels.untangled_conv import untangled_deconv2d
+
+Pair = tuple[int, int]
+
+# per-phase fallback: concatenate tap views into one GEMM when the phase
+# output has too few rows to amortize per-tap products
+_FUSE_MAX_ROWS = 128
+
+# batch buckets every plan sizes a route for at build time; serving pads
+# each request batch up to the nearest bucket
+BATCH_BUCKETS = (1, 4, 16, 64)
+
+# whole-conv torch route heuristic: take the plane GEMM when its FLOP
+# overhead Hg*Wg*ΣT / Σ u·v·T stays below this
+_PLANE_RATIO_MAX = 1.6
+# cap of the (per-bucket) f32 plane-GEMM / tap-stack intermediate
+_PLANE_BYTES_MAX = 64 * 1024 * 1024
+
+_BACKENDS = ("auto", "torch", "cuda")
+_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def norm_padding(padding, k_hw) -> tuple[Pair, Pair]:
+    """Normalize 'SAME'/'VALID'/int-pair/nested paddings to ((lo,hi),(lo,hi))."""
+    if isinstance(padding, str):
+        r, s = k_hw
+        if padding.upper() == "SAME":
+            return ((r // 2, (r - 1) // 2), (s // 2, (s - 1) // 2))
+        if padding.upper() == "VALID":
+            return ((0, 0), (0, 0))
+        raise ValueError(padding)
+    (a, b) = padding
+    if isinstance(a, int):
+        return ((a, a), (b, b))
+    return (tuple(a), tuple(b))
+
+
+def dtype_name(dtype) -> str:
+    """'float32'-style name of a torch / numpy dtype or a dtype string."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(getattr(dtype, "name", dtype))
+
+
+# ---------------------------------------------------------------------------
+# spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    """Hashable description of one convolution site — the plan-cache key.
+    Fields match ``repro.core.plan.ConvSpec`` one for one."""
+
+    kind: str                     # 'transposed' ('conv' | 'dilated' later)
+    in_hw: Pair                   # input spatial (H, W)
+    in_c: int
+    out_c: int
+    kernel_hw: Pair               # (R, S)
+    strides: Pair = (1, 1)
+    padding: tuple[Pair, Pair] = ((0, 0), (0, 0))
+    dilation: Pair = (1, 1)
+    dtype: str = "float32"
+    backend: str = "auto"         # 'auto' | 'torch' | 'cuda'
+    spatial: Pair = (1, 1)        # device tiling: only (1, 1) is ported
+    wdtype: str = "float32"       # weight storage: only 'float32' is ported
+
+
+def conv_spec(kind: str, x_shape: Sequence[int], kernel_shape: Sequence[int],
+              *, strides=(1, 1), padding=((0, 0), (0, 0)), dilation=(1, 1),
+              dtype=None, backend: str = "auto",
+              spatial: Pair = (1, 1), wdtype: str = "float32") -> ConvSpec:
+    """Build a normalized (cache-canonical) spec from array shapes."""
+    r, s, c, n = kernel_shape
+    if x_shape[-1] != c:
+        raise ValueError(f"channel mismatch {x_shape[-1]} vs {c}")
+    return ConvSpec(
+        kind=kind, in_hw=(int(x_shape[-3]), int(x_shape[-2])),
+        in_c=int(c), out_c=int(n), kernel_hw=(int(r), int(s)),
+        strides=tuple(int(v) for v in strides),
+        padding=norm_padding(padding, (r, s)),
+        dilation=tuple(int(v) for v in dilation),
+        dtype=dtype_name(dtype) if dtype is not None else "float32",
+        backend=backend, spatial=tuple(int(v) for v in spatial),
+        wdtype=str(wdtype))
+
+
+# ---------------------------------------------------------------------------
+# per-phase execution record + routes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PhaseExec:
+    """Plan-time geometry record for one output phase.
+
+    ``tap_off`` rows (in taps) into the superpack, ``acc_off`` rows (in
+    output pixels) into the TPU kernel's accumulator (kept so plans compare
+    field by field with JAX's), ``xoff`` the phase's tap origin inside the
+    globally padded plane.
+    """
+
+    key: str                      # legacy per-phase pytree key (checkpoints)
+    q: Pair                       # (q_h, q_w) output phase
+    rho: Pair                     # first kernel tap per dim
+    taps: Pair                    # (T_h, T_w) sub-kernel extent
+    pad: tuple[Pair, Pair]        # input pad/crop for this phase's stride-1 conv
+    out_hw: Pair                  # (U, V) phase output extent
+    tap_off: int = 0              # taps preceding this phase in the superpack
+    acc_off: int = 0              # U·V rows preceding this phase
+    xoff: Pair = (0, 0)           # tap origin in the globally padded plane
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """One batch bucket's execution decision, fixed at plan time.
+
+    ``path`` is 'cuda' (the hand-written kernel) or one of the torch routes
+    'fused_plane' | 'fused_tap' | 'pixel_shuffle' | 'taps'.  ``tiles`` is
+    ``None``: the kernel picks its block tile from the call's shapes.
+    ``fused_bwd``, ``sp_tiles`` and ``dev_tiles`` keep JAX's route schema;
+    the transposed slice never sets the latter two."""
+
+    batch: int
+    path: str
+    tiles: Pair | None
+    fused_bwd: bool = True
+    sp_tiles: Pair | None = None
+    dev_tiles: Pair | None = None
+
+
+def _want_cuda(backend: str) -> bool:
+    return backend == "cuda" or (backend == "auto"
+                                 and torch.cuda.is_available())
+
+
+def _pixel_shuffle_geom(spec: ConvSpec,
+                        phases) -> tuple[Pair, tuple[Pair, Pair]] | None:
+    """The sub-pixel rewrite's shared stride-1 footprint, or ``None``.
+
+    Eligible when every phase shares output extent ``(U, V) == (H, W)``,
+    tap extent and input pad (k % s == 0 'SAME' geometry, e.g. k=4 s=2)."""
+    if not phases:
+        return None
+    first = phases[0]
+    th, tw = first.taps
+    if th == 0 or tw == 0:
+        return None
+    if first.out_hw != spec.in_hw:
+        return None
+    for ex in phases[1:]:
+        if (ex.taps != first.taps or ex.pad != first.pad
+                or ex.out_hw != first.out_hw):
+            return None
+    return first.taps, first.pad
+
+
+def _pixel_shuffle_route(spec: ConvSpec, phases, batch: int) -> Route | None:
+    """'pixel_shuffle' at one bucket: the spec admits the rewrite and the
+    bucket's f32 tap-stack buffer clears the plane-bytes cap."""
+    geom = _pixel_shuffle_geom(spec, phases)
+    if geom is None:
+        return None
+    (th, tw), _ = geom
+    h, w = spec.in_hw
+    if 4 * batch * th * tw * h * w * spec.in_c > _PLANE_BYTES_MAX:
+        return None
+    return Route(batch, "pixel_shuffle", None)
+
+
+def _transposed_route_1dev(spec: ConvSpec, hg: int, wg: int, out_hw: Pair,
+                           total_taps: int, sum_uv: int, sum_uvt: int,
+                           uniform: bool, phases, batch: int) -> Route:
+    """Whole-conv route for the transposed kind at one batch bucket."""
+    if _want_cuda(spec.backend):
+        return Route(batch, "cuda", None)
+    ps = _pixel_shuffle_route(spec, phases, batch)
+    if ps is not None:
+        return ps
+    plane_ratio = hg * wg * total_taps / max(1, sum_uvt)
+    plane_bytes = 4 * batch * hg * wg * total_taps * spec.out_c
+    if plane_ratio <= _PLANE_RATIO_MAX and plane_bytes <= _PLANE_BYTES_MAX:
+        return Route(batch, "fused_plane", None)
+    if uniform:
+        return Route(batch, "fused_tap", None)
+    return Route(batch, "taps", None)
+
+
+def _route_exact(plan: "ConvPlan", batch: int) -> Route:
+    """Re-run the plan-time route choice for an exact (bucket-less) batch."""
+    spec = plan.spec
+    h, w = spec.in_hw
+    (glh, ghh), (glw, ghw) = plan.gpad
+    sum_uvt = sum(ex.out_hw[0] * ex.out_hw[1] * ex.taps[0] * ex.taps[1]
+                  for ex in plan.phases)
+    return _transposed_route_1dev(
+        spec, h + glh + ghh, w + glw + ghw, plan.out_hw, plan.total_taps,
+        plan.sum_uv, sum_uvt, plan.uniform, plan.phases, batch)
+
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class ConvPlan:
+    """Compiled execution plan (identity-hashable cache singleton)."""
+
+    spec: ConvSpec
+    out_hw: Pair
+    phases: tuple[PhaseExec, ...]
+    gpad: tuple[Pair, Pair] | None         # single global input pad
+    total_taps: int                        # Σ_q T_h·T_w (superpack rows / C)
+    sum_uv: int                            # Σ_q U·V
+    uniform: bool                          # all phases share (U, V)
+    bwd_pad: tuple[Pair, Pair] | None      # dy padding for dx/dK (next slice)
+    dx_taps: tuple[tuple, ...] | None      # (m, n, superpack row) dx schedule
+    routes: tuple[Route, ...] = ()         # one per BATCH_BUCKETS, ascending
+    build_ms: float = 0.0
+    _xl_routes: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def path(self) -> str:
+        """The B=1 bucket's path."""
+        return self.routes[0].path
+
+    def route_for_batch(self, batch: int) -> Route:
+        """The route of the smallest bucket that fits ``batch``; a batch
+        beyond the largest bucket gets an exactly-sized, memoized route."""
+        for r in self.routes:
+            if batch <= r.batch:
+                return r
+        if batch not in self._xl_routes:
+            self._xl_routes[batch] = _route_exact(self, batch)
+        return self._xl_routes[batch]
+
+    def with_routes(self, routes: tuple[Route, ...]) -> "ConvPlan":
+        """A sibling plan sharing the geometry with a replaced route table
+        (how tests force a route)."""
+        return ConvPlan(
+            spec=self.spec, out_hw=self.out_hw, phases=self.phases,
+            gpad=self.gpad, total_taps=self.total_taps, sum_uv=self.sum_uv,
+            uniform=self.uniform, bwd_pad=self.bwd_pad, dx_taps=self.dx_taps,
+            routes=tuple(routes), build_ms=self.build_ms)
+
+    # -- weight layout -----------------------------------------------------
+    def pack(self, kernel: torch.Tensor) -> torch.Tensor:
+        """Kernel (R,S,C,N) -> superpack ``(Σ_q T_h·T_w·C, N)``: every phase
+        sub-kernel flattened tap-major, concatenated in phase order — the
+        same rows, in the same order, as ``repro.core.plan.ConvPlan.pack``."""
+        subs = dec.decompose_kernel(kernel, self.spec.strides,
+                                    self.spec.padding)
+        c, n = self.spec.in_c, self.spec.out_c
+        return torch.cat([subs[ex.q].reshape(ex.taps[0] * ex.taps[1] * c, n)
+                          for ex in self.phases if ex.taps[0] * ex.taps[1]],
+                         dim=0).contiguous()
+
+    def as_superpack(self, packed):
+        """Superpack tensors pass through; a legacy per-phase dict
+        ({'q0x1': buf} or {(0, 1): buf}) is concatenated onto it."""
+        if not isinstance(packed, dict):
+            return packed
+        segs = []
+        for ex in self.phases:
+            if ex.taps[0] * ex.taps[1] == 0:
+                continue
+            sub = packed[ex.key] if ex.key in packed else packed[ex.q]
+            segs.append(sub.reshape(-1, self.spec.out_c))
+        return torch.cat(segs, dim=0)
+
+    def unpack(self, packed) -> torch.Tensor:
+        """Superpack (or legacy dict) -> the full (R,S,C,N) kernel; exact
+        inverse of ``pack``."""
+        packed = self.as_superpack(packed)
+        r, s = self.spec.kernel_hw
+        c, n = self.spec.in_c, self.spec.out_c
+        (sh, sw) = self.spec.strides
+        kernel = packed.new_zeros((r, s, c, n))
+        for ex in self.phases:
+            th, tw = ex.taps
+            if th * tw == 0:
+                continue
+            sub = packed[ex.tap_off * c:(ex.tap_off + th * tw) * c]
+            kernel[ex.rho[0]::sh, ex.rho[1]::sw] = sub.reshape(th, tw, c, n)
+        return kernel
+
+    # -- execution ---------------------------------------------------------
+    def apply(self, x: torch.Tensor, packed) -> torch.Tensor:
+        """Planned forward of NHWC ``x`` on the superpack."""
+        if (tuple(x.shape[-3:-1]) != self.spec.in_hw
+                or x.shape[-1] != self.spec.in_c):
+            raise ValueError(
+                f"input {tuple(x.shape[-3:])} does not match plan spec "
+                f"{self.spec.in_hw + (self.spec.in_c,)} — plans bake geometry "
+                f"at build time; plan_conv a spec for this shape")
+        return _transposed_fwd(self, x, self.as_superpack(packed))
+
+    __call__ = apply
+
+
+def plan_conv(spec: ConvSpec, autotune=None) -> ConvPlan:
+    """Compile ``spec`` into a ``ConvPlan`` (LRU-cached per frozen spec)."""
+    if autotune is not None:
+        raise NotImplementedError(
+            "measured autotuning is not ported yet (ROADMAP Queue 1, "
+            "item 11)")
+    return _plan_conv_cached(spec)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
+    t0 = time.perf_counter()
+    if spec.kind in ("conv", "dilated"):
+        raise NotImplementedError(
+            f"{spec.kind!r} plans are not ported yet (ROADMAP Queue 1, "
+            f"item 6: single-correlation kind)")
+    if spec.kind != "transposed":
+        raise ValueError(f"unknown conv kind {spec.kind!r}")
+    if spec.backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {spec.backend!r} "
+                         f"(supported: {_BACKENDS})")
+    if spec.spatial != (1, 1):
+        raise NotImplementedError(
+            "plane-parallel plans are not ported yet (ROADMAP Queue 1, "
+            "item 13)")
+    if spec.wdtype != "float32":
+        raise NotImplementedError(
+            f"wdtype {spec.wdtype!r} is not ported yet (ROADMAP Queue 1, "
+            f"item 8: int8 superpacks)")
+    if spec.dilation != (1, 1):
+        raise ValueError("transposed plans do not support rhs dilation")
+    if spec.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {spec.dtype!r}")
+    h, w = spec.in_hw
+    r, s = spec.kernel_hw
+    (sh, sw) = spec.strides
+    (ph, pw) = spec.padding
+
+    plans_h = dec.plan_phases_1d(h, r, sh, ph)
+    plans_w = dec.plan_phases_1d(w, s, sw, pw)
+    oh = dec.transposed_out_size(h, r, sh, ph)
+    ow = dec.transposed_out_size(w, s, sw, pw)
+    # single global pad: one residency of the input serves every phase
+    gl_h = max(0, max(p.pad[0] for p in plans_h))
+    gh_h = max(0, max(p.pad[1] for p in plans_h))
+    gl_w = max(0, max(p.pad[0] for p in plans_w))
+    gh_w = max(0, max(p.pad[1] for p in plans_w))
+    gpad = ((gl_h, gh_h), (gl_w, gh_w))
+    hg, wg = h + gl_h + gh_h, w + gl_w + gh_w
+    phases = []
+    tap_off = acc_off = sum_uvt = 0
+    for p_h in plans_h:
+        for p_w in plans_w:
+            taps = (p_h.taps, p_w.taps)
+            out_hw = (p_h.out_size, p_w.out_size)
+            phases.append(PhaseExec(
+                key=f"q{p_h.phase}x{p_w.phase}", q=(p_h.phase, p_w.phase),
+                rho=(p_h.rho, p_w.rho), taps=taps,
+                pad=(p_h.pad, p_w.pad), out_hw=out_hw,
+                tap_off=tap_off, acc_off=acc_off,
+                xoff=(gl_h - p_h.pad[0], gl_w - p_w.pad[0])))
+            tap_off += taps[0] * taps[1]
+            acc_off += out_hw[0] * out_hw[1]
+            sum_uvt += out_hw[0] * out_hw[1] * taps[0] * taps[1]
+    total_taps, sum_uv = tap_off, acc_off
+    uniform = len({ex.out_hw for ex in phases}) == 1
+    routes = tuple(_transposed_route_1dev(
+        spec, hg, wg, (oh, ow), total_taps, sum_uv, sum_uvt, uniform,
+        tuple(phases), bb) for bb in BATCH_BUCKETS)
+    # dx schedule (strided-conv form): tap (m, n) of the flipped/swapped
+    # kernel reads full-kernel tap (r-1-m, s-1-n), which lives in phase
+    # ((pl-r') % s) at superpack row tap_off + r'//s (tap units)
+    by_q = {ex.q: ex for ex in phases}
+    dx_taps = []
+    for m in range(r):
+        for nn in range(s):
+            rp, sp = r - 1 - m, s - 1 - nn
+            ex = by_q[((ph[0] - rp) % sh, (pw[0] - sp) % sw)]
+            dx_taps.append((m, nn, ex.tap_off + (rp // sh) * ex.taps[1]
+                            + (sp // sw)))
+    bwd_pad = ((r - 1 - ph[0], r - 1 - ph[1]), (s - 1 - pw[0], s - 1 - pw[1]))
+    plan = ConvPlan(spec=spec, out_hw=(oh, ow), phases=tuple(phases),
+                    gpad=gpad, total_taps=total_taps, sum_uv=sum_uv,
+                    uniform=uniform, bwd_pad=bwd_pad, dx_taps=tuple(dx_taps),
+                    routes=routes)
+    plan.build_ms = (time.perf_counter() - t0) * 1e3
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# torch routes: plain products on the views the JAX routes use
+# ---------------------------------------------------------------------------
+
+def _global_plane(plan: ConvPlan, x4: torch.Tensor) -> torch.Tensor:
+    return pad_or_crop(x4, plan.gpad)
+
+
+def _phase_tap_view(xg: torch.Tensor, ex: PhaseExec, ti: int, tj: int):
+    u, v = ex.out_hw
+    return xg[:, ex.xoff[0] + ti:ex.xoff[0] + ti + u,
+              ex.xoff[1] + tj:ex.xoff[1] + tj + v, :]
+
+
+def _fused_tap_fwd(plan: ConvPlan, xg: torch.Tensor, packed: torch.Tensor):
+    """One wide product, exact FLOPs: every tap view of every phase stacked
+    against the superpack (ΣT, C, N), then per-phase tap-segment sums.
+    Stacking needs equal views, so this route serves uniform plans."""
+    spec = plan.spec
+    c, n = spec.in_c, spec.out_c
+    b = xg.shape[0]
+    views = [_phase_tap_view(xg, ex, *divmod(t, ex.taps[1]))
+             for ex in plan.phases for t in range(ex.taps[0] * ex.taps[1])]
+    buf = torch.stack(views, dim=0)                    # (ΣT, B, U, V, C)
+    w3 = packed.reshape(plan.total_taps, c, n)
+    yt = torch.einsum("tbuvc,tcn->tbuvn", buf, w3)
+    outs = []
+    for ex in plan.phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0:
+            outs.append(xg.new_zeros((b, u, v, n)))
+            continue
+        outs.append(yt[ex.tap_off:ex.tap_off + th * tw].sum(dim=0))
+    return outs
+
+
+def _fused_plane_fwd(plan: ConvPlan, xg: torch.Tensor, packed: torch.Tensor):
+    """One wide product of the whole resident plane against the superpack
+    viewed (C, ΣT·N); per-phase shifted slice-accumulate reads the tap planes."""
+    spec = plan.spec
+    c, n = spec.in_c, spec.out_c
+    b, hg, wg, _ = xg.shape
+    w2 = packed.reshape(plan.total_taps, c, n).permute(1, 0, 2) \
+        .reshape(c, plan.total_taps * n)
+    yf = torch.matmul(xg.reshape(b * hg * wg, c), w2)
+    yf = yf.reshape(b, hg, wg, plan.total_taps, n)
+    outs = []
+    for ex in plan.phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0 or u == 0 or v == 0:
+            outs.append(xg.new_zeros((b, u, v, n)))
+            continue
+        acc = None
+        for t in range(th * tw):
+            ti, tj = divmod(t, tw)
+            sl = yf[:, ex.xoff[0] + ti:ex.xoff[0] + ti + u,
+                    ex.xoff[1] + tj:ex.xoff[1] + tj + v, ex.tap_off + t, :]
+            acc = sl if acc is None else acc + sl
+        outs.append(acc)
+    return outs
+
+
+def _pixel_shuffle_fwd(plan: ConvPlan, x4: torch.Tensor,
+                       packed: torch.Tensor):
+    """Sub-pixel route: the eligible transposed conv as ONE dense stride-1
+    correlation against the superpack viewed (Q, T, C, N), then
+    depth-to-space (phases are q_h-major, matching the (s_h, s_w) split)."""
+    spec = plan.spec
+    sh, sw = spec.strides
+    c, n = spec.in_c, spec.out_c
+    th, tw = plan.phases[0].taps
+    h, w = spec.in_hw
+    xp = pad_or_crop(x4, plan.phases[0].pad)
+    b = xp.shape[0]
+    views = [xp[:, ti:ti + h, tj:tj + w, :]
+             for ti in range(th) for tj in range(tw)]
+    buf = torch.stack(views, dim=0)                    # (T, B, H, W, C)
+    w4 = packed.reshape(sh * sw, th * tw, c, n)        # (Q, T, C, N)
+    y = torch.einsum("tbhwc,qtcn->bhwqn", buf, w4)
+    y = y.reshape(b, h, w, sh, sw, n).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(b, h * sh, w * sw, n)
+
+
+def _taps_fallback_fwd(plan: ConvPlan, xg: torch.Tensor,
+                       packed: torch.Tensor):
+    """General fallback: one global pad, per-phase products."""
+    spec = plan.spec
+    c, n = spec.in_c, spec.out_c
+    b = xg.shape[0]
+    outs = {}
+    for ex in plan.phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0 or u == 0 or v == 0:
+            outs[ex.q] = xg.new_zeros((b, u, v, n))
+            continue
+        seg = packed[ex.tap_off * c:(ex.tap_off + th * tw) * c]
+        if u * v <= _FUSE_MAX_ROWS and th * tw > 2:
+            buf = torch.cat([_phase_tap_view(xg, ex, *divmod(t, tw))
+                             for t in range(th * tw)], dim=-1)
+            acc = torch.matmul(buf, seg)
+        else:
+            acc = None
+            for t in range(th * tw):
+                term = torch.matmul(_phase_tap_view(xg, ex, *divmod(t, tw)),
+                                    seg[t * c:(t + 1) * c])
+                acc = term if acc is None else acc + term
+        outs[ex.q] = acc
+    return dec.interleave_phases(outs, spec.strides, plan.out_hw)
+
+
+def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
+    spec = plan.spec
+    lead = tuple(x.shape[:-3])
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    path = plan.route_for_batch(x4.shape[0]).path
+    if path == "pixel_shuffle":
+        # pads with the shared phase footprint (eligibility guarantees one
+        # pad fits all phases), so it bypasses the global plane below
+        y = _pixel_shuffle_fwd(plan, x4, packed)
+        return y.reshape(lead + tuple(y.shape[1:]))
+    xg = _global_plane(plan, x4)
+    if path == "cuda":
+        y = untangled_deconv2d(xg, packed, phases=plan.phases,
+                               out_hw=plan.out_hw, strides=spec.strides,
+                               sum_uv=plan.sum_uv, out_dtype=x.dtype)
+    elif path in ("fused_tap", "fused_plane"):
+        fwd = _fused_tap_fwd if path == "fused_tap" else _fused_plane_fwd
+        outs = fwd(plan, xg, packed)
+        if plan.uniform:
+            y = dec.interleave_uniform(outs, spec.strides, plan.out_hw)
+        else:
+            y = dec.interleave_phases(
+                {ex.q: o for ex, o in zip(plan.phases, outs)},
+                spec.strides, plan.out_hw)
+    elif path == "taps":
+        y = _taps_fallback_fwd(plan, xg, packed)
+    else:
+        raise ValueError(f"route {path!r} is not ported (transposed routes: "
+                         f"cuda, fused_tap, fused_plane, pixel_shuffle, "
+                         f"taps)")
+    return y.reshape(lead + tuple(y.shape[1:])).to(x.dtype)

@@ -1,0 +1,185 @@
+"""Kernel A: the fused multi-phase transposed conv, hand-written for Hopper.
+
+``untangled_deconv2d`` is the port of ``repro.kernels.untangled_conv
+.untangled_deconv2d_pallas`` (TPU kernel ``_deconv_kernel``): ONE launch
+computes every s_h·s_w output phase over the globally padded plane and
+stores the output interleaved, with no zero inserted.  The CUDA source is
+``csrc/untangled_deconv.cu`` (its header says what bounds the kernel on the
+card and what the design does about it); ``_build`` compiles it with
+``nvcc`` at first use and binds its plain C entry with ``ctypes``.
+
+The wrapper launches the kernel for CUDA tensors, and raises on anything the
+kernel does not take.  It takes the plain version ``untangled_deconv2d_ref``
+only for tensors on the CPU.  It is forward-only: inputs that require grad
+raise (the backward is the next slice).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+Pair = tuple[int, int]
+
+# block tiles (BM, BN) of the kernel's configs, indexed as in the source
+_CONFIGS = ((128, 128), (64, 64), (256, 16))
+# the big tile is taken when it alone yields this many blocks (132 SMs)
+_BIG_TILE_MIN_BLOCKS = 120
+_INT32_MAX = 2 ** 31 - 1
+
+
+def untangled_deconv2d_ref(xg: torch.Tensor, superpack: torch.Tensor, *,
+                           phases, out_hw: Pair, strides: Pair, sum_uv: int,
+                           out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel A: per phase, the tap products of the
+    plane views at ``xoff + tap`` against superpack rows ``tap_off + t``,
+    accumulated in f32 and written to ``y[:, q_h::s_h, q_w::s_w]``."""
+    b, _, _, c = xg.shape
+    n = superpack.shape[1]
+    sh, sw = strides
+    y = torch.zeros((b, *out_hw, n), dtype=torch.float32, device=xg.device)
+    x32, w32 = xg.float(), superpack.float()
+    for ex in phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0 or u * v == 0:
+            continue                       # empty phase: stays zero
+        acc = None
+        for t in range(th * tw):
+            ti, tj = divmod(t, tw)
+            xs = x32[:, ex.xoff[0] + ti:ex.xoff[0] + ti + u,
+                     ex.xoff[1] + tj:ex.xoff[1] + tj + v, :]
+            row = (ex.tap_off + t) * c
+            term = torch.matmul(xs, w32[row:row + c])
+            acc = term if acc is None else acc + term
+        y[:, ex.q[0]::sh, ex.q[1]::sw, :] = acc
+    return y.to(out_dtype or xg.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _phase_table(phases: tuple, device: torch.device) -> torch.Tensor:
+    """The per-phase records ``(q_h, q_w, tap_off, T_h, T_w, xoff_h,
+    xoff_w, U, V)`` as an int32 tensor on ``device``.  Plans are cache
+    singletons and ``phases`` is one of their constants, so this is built
+    (and copied to the card) once per plan and device, never per call."""
+    rows = [(ex.q[0], ex.q[1], ex.tap_off, ex.taps[0], ex.taps[1],
+             ex.xoff[0], ex.xoff[1], ex.out_hw[0], ex.out_hw[1])
+            for ex in phases]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _pick_config(b: int, n: int, phases) -> int:
+    """The block tile: 256x16 for a thin N (the RGB head), 128x128 when it
+    fills the card, else 64x64 (more, smaller blocks)."""
+    if n <= 16:
+        return 2
+    bm, bn = _CONFIGS[0]
+    blocks = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm)
+                 for ex in phases) * -(-n // bn)
+    return 0 if blocks >= _BIG_TILE_MIN_BLOCKS else 1
+
+
+# the C entry's parameters: every pointer and the stream as c_void_p (a bare
+# Python int would be passed as a 32-bit int and cut the address)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+             + [ctypes.c_void_p])
+
+
+@functools.cache
+def _entry():
+    from repro_torch.kernels import _build
+    fn = _build.load("untangled_deconv").untangled_deconv2d_f32
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
+           out_hw: Pair, strides: Pair, sum_uv: int):
+    if xg.dim() != 4 or superpack.dim() != 2:
+        raise ValueError(f"want xg (B, Hg, Wg, C) and superpack (ΣT·C, N), "
+                         f"got {tuple(xg.shape)} and {tuple(superpack.shape)}")
+    c = xg.shape[3]
+    total_taps = sum(ex.taps[0] * ex.taps[1] for ex in phases)
+    if superpack.shape[0] != total_taps * c:
+        raise ValueError(f"superpack has {superpack.shape[0]} rows, the "
+                         f"phases need {total_taps}·{c}")
+    if sum(ex.out_hw[0] * ex.out_hw[1] for ex in phases) != sum_uv \
+            or sum_uv != out_hw[0] * out_hw[1] \
+            or len({ex.q for ex in phases}) != len(phases):
+        raise ValueError("the phases do not partition the output")
+    sh, sw = strides
+    for ex in phases:
+        u, v = ex.out_hw
+        if u * v and (ex.q[0] + sh * (u - 1) >= out_hw[0]
+                      or ex.q[1] + sw * (v - 1) >= out_hw[1]):
+            raise ValueError(f"phase {ex.q} writes outside {out_hw}")
+        if u * v and ex.taps[0] * ex.taps[1] and (
+                ex.xoff[0] + ex.taps[0] - 1 + u > xg.shape[1]
+                or ex.xoff[1] + ex.taps[1] - 1 + v > xg.shape[2]
+                or min(ex.xoff) < 0):
+            raise ValueError(f"phase {ex.q} reads outside the plane "
+                             f"{tuple(xg.shape[1:3])}")
+
+
+def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
+                       phases: Sequence, out_hw: Pair, strides: Pair,
+                       sum_uv: int, out_dtype=None) -> torch.Tensor:
+    """Fused transposed conv: ONE kernel launch for all s_h·s_w phases.
+
+    xg: (B, Hg, Wg, C) globally padded plane; superpack: (ΣT·C, N) tap-major
+    phase sub-kernels (``ConvPlan.pack``); ``phases`` the plan's
+    ``PhaseExec`` records.  Returns (B, out_h, out_w, N), written
+    interleaved by the kernel.  CUDA tensors launch the kernel (float32,
+    contiguous, no grad) and count one in ``untangled_deconv2d.launches``;
+    CPU tensors run ``untangled_deconv2d_ref``."""
+    phases = tuple(phases)
+    out_dtype = out_dtype or xg.dtype
+    _check(xg, superpack, phases, out_hw, strides, sum_uv)
+    if xg.device.type == "cpu" and superpack.device.type == "cpu":
+        return untangled_deconv2d_ref(xg, superpack, phases=phases,
+                                      out_hw=out_hw, strides=strides,
+                                      sum_uv=sum_uv, out_dtype=out_dtype)
+    if xg.device.type != "cuda" or superpack.device != xg.device:
+        raise ValueError(f"kernel A needs both operands on one CUDA device, "
+                         f"got {xg.device} and {superpack.device}")
+    if xg.requires_grad or superpack.requires_grad:
+        raise NotImplementedError(
+            "kernel A is forward-only: its backward (_pt_bwd as a "
+            "torch.autograd.Function) is not ported yet")
+    for name, t in (("xg", xg), ("superpack", superpack)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel A takes float32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"kernel A takes a contiguous {name}")
+    if out_dtype != torch.float32:
+        raise TypeError(f"kernel A writes float32, asked for {out_dtype}")
+    b, hg, wg, c = xg.shape
+    n = superpack.shape[1]
+    oh, ow = out_hw
+    y = torch.empty((b, oh, ow, n), dtype=torch.float32, device=xg.device)
+    if max(xg.numel(), superpack.numel(), y.numel()) > _INT32_MAX:
+        raise ValueError("kernel A indexes with int32: tensor too large")
+    if y.numel() == 0:
+        return y
+    config = _pick_config(b, n, phases)
+    bm, bn = _CONFIGS[config]
+    grid_m = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm) for ex in phases)
+    vec = int(c % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (xg, superpack, y)))
+    table = _phase_table(phases, xg.device)
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream(xg.device).cuda_stream
+        rc = _entry()(xg.data_ptr(), superpack.data_ptr(), table.data_ptr(),
+                      y.data_ptr(), b, hg, wg, c, n, oh, ow,
+                      strides[0], strides[1], len(phases), config, vec,
+                      grid_m, -(-n // bn), stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel A launch failed: cudaError {rc}")
+    untangled_deconv2d.launches += 1
+    return y
+
+
+untangled_deconv2d.launches = 0

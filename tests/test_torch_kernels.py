@@ -1,0 +1,243 @@
+"""Kernel A's plain version and the port's torch routes against the JAX
+package: ``untangled_deconv2d_pallas`` in interpret mode (as
+``tests/test_fused_single_launch.py`` runs it), JAX's own routes, and the
+float64 oracle's ULP bound.  The card-side checks of the CUDA kernel are
+in ``tests/test_torch_cuda.py``."""
+import dataclasses
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as jplan
+from repro.kernels.untangled_conv import untangled_deconv2d_pallas
+from repro_torch.core import plan as tplan
+from repro_torch.core import reference as tref
+from repro_torch.core.untangle import pad_or_crop
+from repro_torch.kernels import untangled_conv as tk
+
+from tests.conftest import assert_close, ulp_bound
+from tests.test_quantized import transposed_oracle_f64
+from tests.test_torch_cuda import CASE_IDS, CASES, inputs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def plans(case, backend):
+    _, b, h, c, n, k, s, pads = case
+    jb = {"cuda": "pallas", "torch": "xla"}[backend]
+    jp = jplan.plan_conv(jplan.conv_spec(
+        "transposed", (b, h, h, c), (k, k, c, n), strides=(s, s),
+        padding=pads, backend=jb))
+    tp = tplan.plan_conv(tplan.conv_spec(
+        "transposed", (b, h, h, c), (k, k, c, n), strides=(s, s),
+        padding=pads, backend=backend))
+    return jp, tp
+
+
+def phase_terms(plan, c):
+    """Per-output-element term count T_h·T_w·C of its phase, (1, OH, OW, 1)."""
+    (sh, sw) = plan.spec.strides
+    terms = np.zeros(plan.out_hw)
+    for ex in plan.phases:
+        terms[ex.q[0]::sh, ex.q[1]::sw] = ex.taps[0] * ex.taps[1] * c
+    return terms[None, :, :, None]
+
+
+def assert_within_ulp(got, y64, amax, terms):
+    err = np.abs(np.asarray(got, np.float64) - y64)
+    bound = ulp_bound(y64, amax, terms)
+    assert np.all(err <= bound), float(np.max(err - bound))
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_kernel_plain_version_matches_pallas_and_oracle(case):
+    _, b, h, c, n, k, s, pads = case
+    x, kern = inputs(case)
+    jp, tp = plans(case, "cuda")
+    # JAX: the Pallas kernel in interpret mode on the same superpack
+    route = jp.route_for_batch(b)
+    packed_j = jp.pack(kern)
+    xg_j = jnp.pad(x, ((0, 0), *jp.gpad, (0, 0)))
+    y_pallas = np.asarray(untangled_deconv2d_pallas(
+        xg_j, packed_j, phases=jp.phases, out_hw=jp.out_hw, strides=(s, s),
+        sum_uv=jp.sum_uv, c_tile=route.tiles[0], n_tile=route.tiles[1],
+        interpret=True))
+    # the port: the plain version and the wrapper on CPU tensors
+    packed_t = tp.pack(torch.from_numpy(kern))
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
+    xg_t = pad_or_crop(torch.from_numpy(x), tp.gpad)
+    kw = dict(phases=tp.phases, out_hw=tp.out_hw, strides=(s, s),
+              sum_uv=tp.sum_uv)
+    launches = tk.untangled_deconv2d.launches
+    y_ref = tk.untangled_deconv2d_ref(xg_t, packed_t, **kw).numpy()
+    y_wrap = tk.untangled_deconv2d(xg_t, packed_t, **kw).numpy()
+    assert tk.untangled_deconv2d.launches == launches   # CPU: no launch
+    y64, amax = transposed_oracle_f64(x, kern, strides=(s, s), padding=pads)
+    terms = phase_terms(tp, c)
+    for got in (y_pallas, y_ref, y_wrap):
+        assert got.shape == y64.shape
+        assert_within_ulp(got, y64, amax, terms)
+    assert_close(y_ref, y_pallas)
+    # phases with no taps come out exactly zero
+    for ex in tp.phases:
+        if ex.taps[0] * ex.taps[1] == 0:
+            assert not y_wrap[:, ex.q[0]::s, ex.q[1]::s].any()
+
+
+def test_port_oracle_harness_matches_conftest():
+    """The port's f64 oracle and ULP bound (what ``chip_smoke.py`` holds
+    the card to) are the JAX suite's, number for number."""
+    case = CASES[2]
+    _, b, h, c, n, k, s, pads = case
+    x, kern = inputs(case)
+    y64, amax = transposed_oracle_f64(x, kern, strides=(s, s), padding=pads)
+    ty64, tamax = tref.conv_oracle_f64(
+        tref.zero_insert(torch.from_numpy(x), (s, s)), kern, padding=pads)
+    np.testing.assert_allclose(ty64.numpy(), y64, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(tamax.numpy(), amax, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        tref.ulp_bound(ty64, tamax, 25 * c).numpy(),
+        ulp_bound(y64, amax, 25 * c), rtol=1e-12)
+    # the float32 references agree with the f64 oracle too
+    xt, kt = torch.from_numpy(x), torch.from_numpy(kern)
+    for fn in (tref.oracle_conv_transpose2d, tref.naive_conv_transpose2d):
+        got = fn(xt, kt, strides=(s, s), padding=pads).numpy()
+        assert_within_ulp(got, y64, amax, 25 * c)
+
+
+def test_library_yardstick_mapping():
+    """``chip_smoke.library_args`` (the flip, the (C_in, C_out, kH, kW)
+    layout, padding R-1-lo and output_padding hi-lo) turns
+    ``F.conv_transpose2d`` into the port's transposed conv."""
+    import chip_smoke
+    for case in (CASES[0], CASES[2]):
+        _, b, h, c, n, k, s, pads = case
+        x, kern = inputs(case)
+        xl, wl, kw = chip_smoke.library_args(
+            torch.from_numpy(x), torch.from_numpy(kern), (s, s), pads)
+        got = torch.nn.functional.conv_transpose2d(xl, wl, **kw)
+        y64, amax = transposed_oracle_f64(x, kern, strides=(s, s),
+                                          padding=pads)
+        assert_within_ulp(got.permute(0, 2, 3, 1).numpy(), y64, amax,
+                          k * k * c)
+    with pytest.raises(ValueError):     # output_padding would reach stride
+        chip_smoke.library_args(torch.zeros(1, 8, 8, 2),
+                                torch.zeros(4, 4, 2, 2), (2, 2),
+                                ((1, 3), (1, 3)))
+
+
+ROUTE_CASES = [
+    ("fused_tap", CASES[0]), ("fused_tap", CASES[1]),
+    ("fused_plane", CASES[0]), ("fused_plane", CASES[2]),
+    ("fused_plane", CASES[3]),
+    ("pixel_shuffle", CASES[1]),
+    ("taps", CASES[0]), ("taps", CASES[2]), ("taps", CASES[3]),
+    ("taps", CASES[4]),
+]
+
+
+@pytest.mark.parametrize("path,case", ROUTE_CASES,
+                         ids=[f"{p}-{c[0]}" for p, c in ROUTE_CASES])
+def test_torch_route_matches_jax_route(path, case):
+    _, b, h, c, n, k, s, pads = case
+    x, kern = inputs(case)
+    jp, tp = plans(case, "torch")
+    jp = jp.with_routes(tuple(jplan.Route(bb, path, None)
+                              for bb in jplan.BATCH_BUCKETS))
+    tp = tp.with_routes(tuple(tplan.Route(bb, path, None)
+                              for bb in tplan.BATCH_BUCKETS))
+    want = np.asarray(jp.apply(x, jp.pack(kern)))
+    got = tp.apply(torch.from_numpy(x), tp.pack(torch.from_numpy(kern)))
+    assert got.shape == want.shape
+    assert_close(got.numpy(), want)
+
+
+def test_cuda_route_on_cpu_runs_plain_version_and_differentiates():
+    """Under backend='cuda' a CPU tensor takes the kernel's plain version
+    (no launch), and the torch routes differentiate through autograd."""
+    case = CASES[0]
+    _, b, h, c, n, k, s, pads = case
+    x, kern = inputs(case)
+    jp, tp = plans(case, "cuda")
+    assert tp.path == "cuda"
+    xt = torch.from_numpy(x).requires_grad_()
+    launches = tk.untangled_deconv2d.launches
+    y = tp.apply(xt, tp.pack(torch.from_numpy(kern)))
+    assert tk.untangled_deconv2d.launches == launches
+    y64, amax = transposed_oracle_f64(x, kern, strides=(s, s), padding=pads)
+    assert_within_ulp(y.detach().numpy(), y64, amax, phase_terms(tp, c))
+    y.sum().backward()
+    assert xt.grad is not None and xt.grad.shape == xt.shape
+
+
+def test_wrapper_refuses_non_cpu_non_cuda_tensors():
+    """Off the CPU the wrapper launches the kernel or raises: a tensor on
+    another device never falls back to the plain version."""
+    case = CASES[0]
+    _, b, h, c, n, k, s, pads = case
+    _, tp = plans(case, "cuda")
+    hg = h + sum(tp.gpad[0])
+    xg = torch.empty((b, hg, hg, c), device="meta")
+    sp = torch.empty((tp.total_taps * c, n), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.untangled_deconv2d(xg, sp, phases=tp.phases, out_hw=tp.out_hw,
+                              strides=(s, s), sum_uv=tp.sum_uv)
+    with pytest.raises(ValueError, match="phases"):
+        tk.untangled_deconv2d(xg, sp, phases=tp.phases[:2],
+                              out_hw=tp.out_hw, strides=(s, s),
+                              sum_uv=tp.sum_uv)
+
+
+def test_kernel_tile_choice():
+    """Thin N takes the 256x16 tile; the 128x128 tile only when it alone
+    fills the card (the DCGAN sites at B=64), else 64x64."""
+    dc1 = tplan.plan_conv(tplan.conv_spec(
+        "transposed", (1, 4, 4, 1024), (5, 5, 1024, 512), strides=(2, 2),
+        padding=((2, 3), (2, 3)), backend="cuda"))
+    assert tk._pick_config(64, 512, dc1.phases) == 0
+    assert tk._pick_config(1, 512, dc1.phases) == 1
+    assert tk._pick_config(64, 3, dc1.phases) == 2
+
+
+def test_ctypes_binding_matches_the_c_entry():
+    """The wrapper's argtypes follow the C signature in the source: every
+    pointer (and the stream) is ``c_void_p``, every int ``c_int``."""
+    import ctypes
+    import re
+    src = (pathlib.Path(tk.__file__).parent / "csrc"
+           / "untangled_deconv.cu").read_text()
+    sig = re.search(r'extern "C" int untangled_deconv2d_f32\(([^)]*)\)',
+                    src).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params)
+    assert tk._ARGTYPES == want
+
+
+def test_ieee_fp32_turns_tf32_off_and_restores():
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tref.ieee_fp32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_kernel_spec_fields_match_jax_spec_fields():
+    """``ConvSpec`` keeps every field of JAX's, in order."""
+    assert [f.name for f in dataclasses.fields(tplan.ConvSpec)] == \
+        [f.name for f in dataclasses.fields(jplan.ConvSpec)]
