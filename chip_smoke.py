@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main path on one NVIDIA GPU and fails (non-zero exit, no
+Drives the port's main paths on one NVIDIA GPU and fails (non-zero exit, no
 result line) if anything is off:
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   the build of every hand-written kernel from this checkout's sources;
+   the build of every hand-written kernel from this checkout's sources (one
+   ``nvcc`` per source, all started together);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
    empty-phase case (stride > kernel) and ragged C/N — every output comes
    from ``torch.empty`` on memory pre-filled with NaN;
+2b. kernel B (``untangled_conv2d_superpack``) the same way, at the four
+   DCGAN discriminator sites (B = 1 and 64), both cGAN discriminator sites
+   (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases;
 3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
    ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
    launches per batcher launch, each row equal to a B = 1 forward;
-4. times (CUDA events): per DCGAN site at B = 1 and 64 the kernel, its plain
-   version, ``F.conv_transpose2d`` as the library yardstick and the
-   roofline bound; one full generator forward per bucket;
+3b. training at full width: the Table-1 DCGAN generator and discriminator
+   on the 'cuda' route through ``train_step`` (3 SGD steps at B = 16), with
+   finite losses and params, A and B launched exactly once per planned
+   forward, and every gradient of one step equal to the 'torch' route's
+   within ``max|Δ| ≤ TOL_GRAD·max|g_torch|`` per tensor (TF32 off);
+4. times (CUDA events): per DCGAN generator site at B = 1 and 64 kernel A,
+   its plain version, ``F.conv_transpose2d`` as the library yardstick and
+   the roofline bound; one full generator forward per bucket;
+4b. per discriminator site at B = 1 and 64 the same for kernel B, with
+   ``F.conv2d`` on the pre-padded plane as the yardstick; ms per train step
+   at B = 16 and 64 on 'cuda' and on 'torch';
 5. the ``kernels`` line, the card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
@@ -35,6 +47,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # per-element sum order does not depend on the batch, but the projection GEMM
 # (cuBLAS) may pick another algorithm per batch size
 TOL_ROW = 2e-4
+# gradient tolerance of the 'cuda' route against the 'torch' route (both
+# IEEE fp32, other summation orders through up to eight stacked layers;
+# ReLU kinks turn forward rounding into whole-element gradient changes),
+# relative to each tensor's own scale: max|Δ| ≤ TOL_GRAD·max|g_torch|, the
+# form and value of the CPU tests' gradient check against JAX
+TOL_GRAD = 1e-3
+TOL_LOSS = 1e-4               # relative, on the two losses
+TRAIN_STEPS = 3
+TRAIN_BATCH = 16
 # published dense peaks (fp32 on CUDA cores, HBM bytes/s) by card
 PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
          "H100": (67e12, 3.35e12), "H200": (67e12, 4.8e12)}
@@ -65,6 +86,29 @@ def library_args(x, kernel, strides, padding):
             dict(stride=tuple(strides), padding=pad, output_padding=out_pad))
 
 
+def conv_library_args(xp, kernel, strides, dilation):
+    """``F.conv2d`` arguments computing kernel B's valid correlation: the
+    pre-padded NCHW plane (``padding=0``), the kernel as (N, C, R, S)."""
+    return (xp.permute(0, 3, 1, 2).contiguous(),
+            kernel.permute(3, 2, 0, 1).contiguous(),
+            dict(stride=tuple(strides), dilation=tuple(dilation)))
+
+
+def disc_sites():
+    """(name, in_hw, C, N, k, stride, pads) of every discriminator site of
+    the Table-1 DCGAN and cGAN (``discriminator_plans``' mirror)."""
+    from repro_torch.models import gan
+    sites = []
+    for tag, layers in (("DCGAN", gan.DCGAN_LAYERS),
+                        ("cGAN", gan.CGAN_LAYERS)):
+        for i, l in enumerate(reversed(layers)):
+            k = l.kernel
+            sites.append((f"{tag}_D{i + 1}", l.in_hw * l.stride, l.out_c,
+                          l.in_c, k, l.stride,
+                          ((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2))))
+    return sites
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -79,10 +123,14 @@ def main() -> int:
     from repro_torch.core.plan import BATCH_BUCKETS, ConvSpec, plan_conv
     from repro_torch.core.untangle import pad_or_crop
     from repro_torch.kernels import _build
-    from repro_torch.kernels.untangled_conv import (untangled_deconv2d,
-                                                    untangled_deconv2d_ref)
+    from repro_torch import train_gan
+    from repro_torch.kernels.untangled_conv import (
+        single_out_hw, untangled_conv2d_superpack,
+        untangled_conv2d_superpack_ref, untangled_deconv2d,
+        untangled_deconv2d_ref)
     from repro_torch.models import gan
     from repro_torch.serving.image_batcher import DynamicImageBatcher
+    from repro_torch.train.data import GANPipeline
 
     dev = torch.device("cuda", 0)
     # ---- 1. environment + build ------------------------------------------
@@ -177,6 +225,51 @@ def main() -> int:
                                 for ex in empty):
                 raise RuntimeError("empty phases are not zero")
 
+    # ---- 2b. kernel B vs its plain version, both vs the f64 oracle --------
+    def conv_call(xp, sp, k, s, d, plain=False):
+        fn = untangled_conv2d_superpack_ref if plain \
+            else untangled_conv2d_superpack
+        return fn(xp, sp, taps_hw=(k, k), strides=(s, s),
+                  rhs_dilation=(d, d))
+
+    conv_cases = [(f"{name}_B{b}", b, h, c, n, k, s, 1, pads)
+                  for b in (1, 64)
+                  for name, h, c, n, k, s, pads in disc_sites()
+                  if name.startswith("DCGAN")]
+    conv_cases += [(f"{name}_B16", 16, h, c, n, k, s, 1, pads)
+                   for name, h, c, n, k, s, pads in disc_sites()
+                   if name.startswith("cGAN")]
+    conv_cases += [("dilated_17_k3_d2", 4, 17, 16, 32, 3, 1, 2,
+                    ((2, 2), (2, 2))),
+                   ("dilated_17_k3_d4", 4, 17, 16, 32, 3, 1, 4,
+                    ((4, 4), (4, 4))),
+                   ("ragged_C5_N3", 3, 9, 5, 3, 3, 2, 1, ((1, 1), (1, 1))),
+                   ("ragged_C6_N20", 2, 9, 6, 20, 5, 1, 1, ((2, 2), (2, 2))),
+                   ("odd_9_k5s2", 2, 9, 8, 8, 5, 2, 1, ((2, 2), (2, 2)))]
+    max_err_b = 0.0
+    for name, b, h, c, n, k, s, d, pads in conv_cases:
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        xp = pad_or_crop(x, pads).contiguous()
+        sp = kern.reshape(k * k * c, n)
+        oh, ow = single_out_hw(xp.shape[1], xp.shape[2], (k, k), (s, s),
+                               (d, d))
+        poison(b * oh * ow * n)
+        y_k = conv_call(xp, sp, k, s, d)
+        y_r = conv_call(xp, sp, k, s, d, plain=True)
+        torch.cuda.synchronize()
+        y64, amax = ref.conv_oracle_f64(x, kern, strides=(s, s),
+                                        dilation=(d, d), padding=pads)
+        bound = ref.ulp_bound(y64, amax, k * k * c)
+        ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
+        ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
+        err = float((y_k - y_r).abs().max())
+        max_err_b = max(max_err_b, err)
+        print(f"[kernel B] {name}: out {tuple(y_k.shape)} |kernel-plain| "
+              f"{err:.3e} kernel<=ulp_bound {ok_k} plain<=ulp_bound {ok_r} "
+              f"(n_terms {k * k * c}, max bound {float(bound.max()):.3e})")
+        if not (ok_k and ok_r and torch.isfinite(y_k).all()):
+            raise RuntimeError(f"kernel B disagrees on {name}")
+
     # ---- 3. serving at full width on the 'cuda' route ----------------------
     cfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
     plans = gan.generator_plans(cfg)
@@ -218,6 +311,81 @@ def main() -> int:
           f"(= 4 x {len(batcher.launches)}), max |row - B=1 forward| "
           f"{worst:.3e} (tol {TOL_ROW}), p50 {st['p50_ms']:.3f} ms, "
           f"p99 {st['p99_ms']:.3f} ms")
+
+    # ---- 3b. training at full width on the 'cuda' route --------------------
+    tcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
+    t_plans = gan.generator_plans(tcfg) + gan.discriminator_plans(tcfg)
+    bad = [(p.spec.kind, p.spec.in_hw, r.batch, r.path) for p in t_plans
+           for r in p.routes if r.path != "cuda"]
+    if bad:
+        raise RuntimeError(f"training sites off the cuda route: {bad}")
+    gp = gan.generator_init(2, tcfg, device=dev)
+    dp = gan.discriminator_init(3, tcfg, device=dev)
+    pipe = GANPipeline(tcfg, TRAIN_BATCH, image_hw=64)
+
+    def batch_on_card(step):
+        bt = pipe.batch_at(step)
+        return (torch.from_numpy(bt["z"]).to(dev),
+                torch.from_numpy(bt["real"]).to(dev))
+
+    z0, real0 = batch_on_card(0)
+    gp0, dp0 = gp, dp
+    untangled_deconv2d.launches = 0
+    untangled_conv2d_superpack.launches = 0
+    losses = []
+    for step in range(TRAIN_STEPS):
+        z, real = batch_on_card(step)
+        gp, dp, gl, dl = train_gan.train_step(gp, dp, z, real, tcfg, 2e-4)
+        losses.append((float(gl), float(dl)))
+    torch.cuda.synchronize()
+    train_launches = {"A": untangled_deconv2d.launches,
+                      "B": untangled_conv2d_superpack.launches}
+    n_layers = len(tcfg.layers)
+    # per step: two passes (d-grads, g-grads), each one generator (A at
+    # every generator site) and two discriminators (B at every disc site)
+    want = {"A": TRAIN_STEPS * 2 * n_layers, "B": TRAIN_STEPS * 4 * n_layers}
+    if train_launches != want:
+        raise RuntimeError(f"train launches {train_launches}, want {want}")
+    if not all(torch.isfinite(torch.tensor(l)).all() for l in losses) or \
+            not all(bool(torch.isfinite(v).all())
+                    for v in list(gp.values()) + list(dp.values())):
+        raise RuntimeError(f"non-finite training state: losses {losses}")
+    # one step's gradients, 'cuda' against 'torch', same params and batch
+    ccfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="torch")
+    out_c = train_gan.step_grads(gp0, dp0, z0, real0, tcfg)
+    out_t = train_gan.step_grads(gp0, dp0, z0, real0, ccfg)
+    # fp32 noise floor of the comparison: the 'torch' route again with every
+    # latent moved by one ulp
+    out_n = train_gan.step_grads(
+        gp0, dp0, torch.nextafter(z0, torch.full_like(z0, float("inf"))),
+        real0, ccfg)
+    torch.cuda.synchronize()
+    worst_grad, leaf_lines, bad = 0.0, [], []
+    for i, who in ((2, "g"), (3, "d")):
+        gc_, gt_, gn_ = out_c[i], out_t[i], out_n[i]
+        for k in gt_:
+            scale = float(gt_[k].abs().max()) or float("nan")
+            rel = float((gc_[k] - gt_[k]).abs().max()) / scale
+            noise = float((gn_[k] - gt_[k]).abs().max()) / scale
+            worst_grad = max(worst_grad, rel)
+            leaf_lines.append(f"{who}.{k} max|g| {scale:.3e} max|Δ|/max|g| "
+                              f"{rel:.3e} (1-ulp z nudge {noise:.3e})")
+            if not (rel <= TOL_GRAD and bool(torch.isfinite(gc_[k]).all())):
+                bad.append(leaf_lines[-1])
+    print("[train] one step's gradients per tensor, cuda vs torch: "
+          + "; ".join(leaf_lines))
+    if bad:
+        raise RuntimeError(f"gradients off by more than {TOL_GRAD} of their "
+                           f"scale (or non-finite): {bad}")
+    loss_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                   for a, b in zip(out_c[:2], out_t[:2]))
+    if loss_rel > TOL_LOSS:
+        raise RuntimeError(f"losses differ by {loss_rel:.3e} of their size")
+    print(f"[train] DCGAN full width, B={TRAIN_BATCH}, {TRAIN_STEPS} SGD "
+          f"steps on 'cuda': (g_loss, d_loss) {losses}; launches "
+          f"{train_launches} (= {want}); one step's gradients cuda vs torch "
+          f"max|Δ|/max|g| {worst_grad:.3e} (tol {TOL_GRAD}), losses "
+          f"|Δ|/|loss| {loss_rel:.3e} (tol {TOL_LOSS})")
 
     # ---- 4. times ------------------------------------------------------------
     def time_ms(fn, iters=20, warmup=3):
@@ -278,25 +446,134 @@ def main() -> int:
                                 iters=10)
     print(f"[time] generator forward (4 kernel launches + proj/bias/act) "
           f"ms per bucket: {json.dumps(gen_ms)}")
-    print(json.dumps({"sites": sites, "generator_ms": gen_ms}))
+
+    # ---- 4b. kernel B times, train-step times --------------------------------
+    dsites = []
+    for b in (1, 64):
+        for name, h, c, n, k, s, pads in disc_sites():
+            x, kern = randn(b, h, h, c), randn(k, k, c, n)
+            xp = pad_or_crop(x, pads).contiguous()
+            sp = kern.reshape(k * k * c, n)
+            xl, wl, kw = conv_library_args(xp, kern, (s, s), (1, 1))
+            y_lib = F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1)
+            y_k = conv_call(xp, sp, k, s, 1)
+            lib_err = float((y_lib - y_k).abs().max())
+            if lib_err > TOL_ROW * (1 + float(y_k.abs().max())):
+                raise RuntimeError(f"library yardstick disagrees on {name} "
+                                   f"B={b}: {lib_err:.3e}")
+            oh, ow = y_k.shape[1:3]
+            flops = 2 * b * oh * ow * k * k * c * n
+            nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+            t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+            rec = {
+                "site": name, "batch": b, "flops": flops, "bytes": nbytes,
+                "ms": time_ms(lambda: conv_call(xp, sp, k, s, 1)),
+                "plain_ms": time_ms(
+                    lambda: conv_call(xp, sp, k, s, 1, plain=True)),
+                "library_ms": time_ms(lambda: F.conv2d(xl, wl, **kw)),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_max_abs_err": lib_err}
+            dsites.append(rec)
+            print(f"[time B] {name} B={b}: kernel {rec['ms']:.4f} ms, "
+                  f"plain {rec['plain_ms']:.4f} ms, library "
+                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
+                  f" ms ({rec['bound_by']}), kernel at "
+                  f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+
+    def step_ms(cfg, b, iters=5):
+        gp_, dp_ = gan.generator_init(4, cfg, device=dev), \
+            gan.discriminator_init(5, cfg, device=dev)
+        bt = GANPipeline(cfg, b, image_hw=64).batch_at(0)
+        z_, r_ = (torch.from_numpy(bt[k]).to(dev) for k in ("z", "real"))
+        for _ in range(2):
+            train_gan.train_step(gp_, dp_, z_, r_, cfg, 2e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            gp_, dp_, _, _ = train_gan.train_step(gp_, dp_, z_, r_, cfg,
+                                                  2e-4)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def step_split(b, wall_ms):
+        """One 'cuda' train step under ``torch.profiler``: device time of
+        kernel A, kernel B and everything else (the backward products, the
+        pads, the elementwise ops), summed over the device-side events only
+        (an op's own entry repeats its kernels' time), and the idle share
+        against ``wall_ms``, the step's time measured without the profiler
+        (which slows the host)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        gp_ = gan.generator_init(4, tcfg, device=dev)
+        dp_ = gan.discriminator_init(5, tcfg, device=dev)
+        bt = GANPipeline(tcfg, b, image_hw=64).batch_at(0)
+        z_, r_ = (torch.from_numpy(bt[k]).to(dev) for k in ("z", "real"))
+        for _ in range(2):
+            train_gan.train_step(gp_, dp_, z_, r_, tcfg, 2e-4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train_gan.train_step(gp_, dp_, z_, r_, tcfg, 2e-4)
+            torch.cuda.synchronize()
+        out = {"A_ms": 0.0, "B_ms": 0.0, "other_ms": 0.0, "A_calls": 0,
+               "B_calls": 0, "other_calls": 0}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            part = ("A" if "deconv_kernel" in ev.name
+                    else "B" if "conv_kernel" in ev.name else "other")
+            out[f"{part}_ms"] += ev.device_time_total / 1e3
+            out[f"{part}_calls"] += 1
+        busy = out["A_ms"] + out["B_ms"] + out["other_ms"]
+        out.update(device_busy_ms=busy, wall_ms=wall_ms,
+                   idle_share=1 - busy / wall_ms)
+        return out
+
+    train_ms = {f"{backend}_B{b}": step_ms(
+        gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend=backend), b)
+        for b in (TRAIN_BATCH, 64) for backend in ("cuda", "torch")}
+    print(f"[time] DCGAN train step (full width; host clock over 5 steps "
+          f"after 2, synchronized) ms: {json.dumps(train_ms)}")
+    split = {f"B{b}": step_split(b, train_ms[f"cuda_B{b}"])
+             for b in (TRAIN_BATCH, 64)}
+    print(f"[time] DCGAN 'cuda' train step, device time by kernel "
+          f"(torch.profiler, one step after 2): {json.dumps(split)}")
+    print(json.dumps({"sites": sites, "generator_ms": gen_ms,
+                      "disc_sites": dsites, "train_step_ms": train_ms,
+                      "train_step_device_split": split}))
 
     # ---- 5. the kernels line, the card line, the result line ---------------
-    b64 = [r for r in sites if r["batch"] == 64]
-    t_ops = sum(r["flops"] for r in b64) / peak_flops * 1e3
-    t_bytes = sum(r["bytes"] for r in b64) / peak_bw * 1e3
+    def sums(recs):
+        t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
+        t_bytes = sum(r["bytes"] for r in recs) / peak_bw * 1e3
+        return {"ms": sum(r["ms"] for r in recs),
+                "plain_ms": sum(r["plain_ms"] for r in recs),
+                "bound_ms": sum(r["bound_ms"] for r in recs),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": sum(r["library_ms"] for r in recs)}
+
     kernels = [{
         "name": "untangled_deconv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:373",
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_deconv_kernel",
-        "launches": launches, "held_against_plain": True,
-        "max_abs_err": max_err,
+        "launches": train_launches["A"],
+        "launches_by_path": {"serve": launches,
+                             "train": train_launches["A"]},
+        "held_against_plain": True, "max_abs_err": max_err,
         "shape": "DCGAN generator, 4 sites, B=64 (sums)",
-        "ms": sum(r["ms"] for r in b64),
-        "plain_ms": sum(r["plain_ms"] for r in b64),
-        "bound_ms": sum(r["bound_ms"] for r in b64),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": sum(r["library_ms"] for r in b64)}]
+        **sums([r for r in sites if r["batch"] == 64])}, {
+        "name": "untangled_conv2d_superpack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_conv.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:77",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_kernel",
+        "launches": train_launches["B"],
+        "launches_by_path": {"train": train_launches["B"]},
+        "held_against_plain": True, "max_abs_err": max_err_b,
+        "shape": "DCGAN discriminator, 4 sites, B=64 (sums)",
+        **sums([r for r in dsites if r["batch"] == 64
+                and r["site"].startswith("DCGAN")])}]
     for k in kernels:
         print(f"[kernels] {k['name']} <- {k['tpu_kernel']}: {k['launches']} "
               f"launches on the main path, held against its plain version")

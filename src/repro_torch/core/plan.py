@@ -1,28 +1,32 @@
-"""Plan/executor engine for the transposed kind, on PyTorch.
+"""Plan/executor engine for every conv kind, on PyTorch.
 
 Counterpart of ``repro.core.plan``.  A convolution site is described by a
 hashable ``ConvSpec``, compiled once by ``plan_conv`` (LRU-cached) into a
-``ConvPlan`` that holds the per-phase geometry, the tap-major superpack
-layout and one ``Route`` per batch bucket.  ``ConvPlan.apply`` runs the
-planned forward on the superpack.
+``ConvPlan`` that holds the geometry (the transposed kind's output phases,
+or the single phase of a strided/dilated correlation), the tap-major
+superpack layout and one ``Route`` per batch bucket.  ``ConvPlan.apply``
+runs the planned forward on the superpack.
 
 Backend policy (``ConvSpec.backend``), the port's reading of JAX's
 ``'xla' | 'pallas' | 'auto'``:
 
 * ``'torch'`` — the route heuristic of the JAX ``'xla'`` policy, every
-  route a plain PyTorch product (``fused_tap``, ``fused_plane``,
-  ``pixel_shuffle``, ``taps``).  These are the CPU path and the parity
-  partners of the kernel.
-* ``'cuda'``  — every transposed site takes the ``'cuda'`` route at every
-  bucket: one launch of the hand-written fused multi-phase kernel
-  (``repro_torch.kernels.untangled_conv.untangled_deconv2d``).  The kernel
-  tiles its own output, so no VMEM tile search is made.
+  route a plain PyTorch product (transposed: ``fused_tap``,
+  ``fused_plane``, ``pixel_shuffle``, ``taps``; single: ``fused_tap``,
+  ``taps``).  These are the CPU path and the parity partners of the kernels.
+* ``'cuda'``  — every site takes the ``'cuda'`` route at every bucket: one
+  launch of the hand-written kernel of its kind (transposed: the fused
+  multi-phase ``untangled_deconv2d``; conv/dilated: the single-correlation
+  ``untangled_conv2d_superpack``).  The kernels tile their own output, so
+  no VMEM tile search is made.
 * ``'auto'``  — ``'cuda'`` when a card is present, else ``'torch'``.
 
-Only the transposed kind is ported; ``'conv'``/``'dilated'`` specs raise
-``NotImplementedError`` (ROADMAP Queue 1, item 6).  The kernel route is
-forward-only: its wrapper raises on inputs that require grad, while the
-torch routes differentiate through plain autograd.
+Every route of both kinds differentiates through the paper's §3.2.3
+backward, as JAX's custom VJPs do: ``apply`` goes through the autograd
+Functions ``_PlannedTransposed`` / ``_PlannedSingle``, whose forward runs
+the route on detached inputs (the kernel wrappers refuse tensors that
+require grad) and whose backward is ``_pt_bwd`` / ``_ps_bwd``, plain
+products on the superpack as in JAX.
 """
 from __future__ import annotations
 
@@ -32,10 +36,12 @@ import time
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import decompose as dec
 from repro_torch.core.untangle import pad_or_crop
-from repro_torch.kernels.untangled_conv import untangled_deconv2d
+from repro_torch.kernels.untangled_conv import (untangled_conv2d_superpack,
+                                                untangled_deconv2d)
 
 Pair = tuple[int, int]
 
@@ -88,7 +94,7 @@ class ConvSpec:
     """Hashable description of one convolution site — the plan-cache key.
     Fields match ``repro.core.plan.ConvSpec`` one for one."""
 
-    kind: str                     # 'transposed' ('conv' | 'dilated' later)
+    kind: str                     # 'transposed' | 'conv' | 'dilated'
     in_hw: Pair                   # input spatial (H, W)
     in_c: int
     out_c: int
@@ -153,8 +159,9 @@ class Route:
     ``path`` is 'cuda' (the hand-written kernel) or one of the torch routes
     'fused_plane' | 'fused_tap' | 'pixel_shuffle' | 'taps'.  ``tiles`` is
     ``None``: the kernel picks its block tile from the call's shapes.
-    ``fused_bwd``, ``sp_tiles`` and ``dev_tiles`` keep JAX's route schema;
-    the transposed slice never sets the latter two."""
+    ``fused_bwd`` picks the single kind's backward form (one wide GEMM vs
+    per-tap products); ``sp_tiles`` and ``dev_tiles`` keep JAX's route
+    schema and are never set (spatial tiling is not ported)."""
 
     batch: int
     path: str
@@ -221,9 +228,29 @@ def _transposed_route_1dev(spec: ConvSpec, hg: int, wg: int, out_hw: Pair,
     return Route(batch, "taps", None)
 
 
+def _single_route_1dev(spec: ConvSpec, out_hw: Pair, batch: int) -> Route:
+    """Whole-conv route for the single-correlation kinds at one bucket.
+
+    ``fused_ok`` caps the f32 tap-stack buffer B·OH·OW·R·S·C that the
+    ``fused_tap`` forward and the fused backward materialize; it is the
+    ``fused_bwd`` verdict of every row, the 'cuda' ones included (JAX's
+    'pallas' rows carry the same one), so the backward takes the same form
+    on both packages."""
+    r, s = spec.kernel_hw
+    oh, ow = out_hw
+    fused_ok = 4 * batch * oh * ow * r * s * spec.in_c <= _PLANE_BYTES_MAX
+    if _want_cuda(spec.backend):
+        return Route(batch, "cuda", None, fused_bwd=fused_ok)
+    if fused_ok:
+        return Route(batch, "fused_tap", None, fused_bwd=True)
+    return Route(batch, "taps", None, fused_bwd=False)
+
+
 def _route_exact(plan: "ConvPlan", batch: int) -> Route:
     """Re-run the plan-time route choice for an exact (bucket-less) batch."""
     spec = plan.spec
+    if spec.kind != "transposed":
+        return _single_route_1dev(spec, plan.out_hw, batch)
     h, w = spec.in_hw
     (glh, ghh), (glw, ghw) = plan.gpad
     sum_uvt = sum(ex.out_hw[0] * ex.out_hw[1] * ex.taps[0] * ex.taps[1]
@@ -243,13 +270,13 @@ class ConvPlan:
 
     spec: ConvSpec
     out_hw: Pair
-    phases: tuple[PhaseExec, ...]
-    gpad: tuple[Pair, Pair] | None         # single global input pad
+    phases: tuple[PhaseExec, ...]          # len 1 for 'conv'/'dilated'
+    gpad: tuple[Pair, Pair] | None         # transposed: single global pad
     total_taps: int                        # Σ_q T_h·T_w (superpack rows / C)
     sum_uv: int                            # Σ_q U·V
     uniform: bool                          # all phases share (U, V)
-    bwd_pad: tuple[Pair, Pair] | None      # dy padding for dx/dK (next slice)
-    dx_taps: tuple[tuple, ...] | None      # (m, n, superpack row) dx schedule
+    bwd_pad: tuple[Pair, Pair] | None      # transposed: dy pad for dx/dK
+    dx_taps: tuple[tuple, ...] | None      # (m, n, superpack row) schedule
     routes: tuple[Route, ...] = ()         # one per BATCH_BUCKETS, ascending
     build_ms: float = 0.0
     _xl_routes: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -280,20 +307,30 @@ class ConvPlan:
 
     # -- weight layout -----------------------------------------------------
     def pack(self, kernel: torch.Tensor) -> torch.Tensor:
-        """Kernel (R,S,C,N) -> superpack ``(Σ_q T_h·T_w·C, N)``: every phase
-        sub-kernel flattened tap-major, concatenated in phase order — the
-        same rows, in the same order, as ``repro.core.plan.ConvPlan.pack``."""
+        """Kernel (R,S,C,N) -> the superpack, row for row
+        ``repro.core.plan.ConvPlan.pack``'s.  'transposed': ``(Σ_q
+        T_h·T_w·C, N)``, every phase sub-kernel flattened tap-major and
+        concatenated in phase order.  'conv'/'dilated': the free tap-major
+        flatten ``(R·S·C, N)`` (tap ``t = m·S + n`` owns rows
+        ``[t·C, (t+1)·C)``; dilation never changes the layout)."""
+        c, n = self.spec.in_c, self.spec.out_c
+        if self.spec.kind != "transposed":
+            r, s = self.spec.kernel_hw
+            return kernel.reshape(r * s * c, n)
         subs = dec.decompose_kernel(kernel, self.spec.strides,
                                     self.spec.padding)
-        c, n = self.spec.in_c, self.spec.out_c
         return torch.cat([subs[ex.q].reshape(ex.taps[0] * ex.taps[1] * c, n)
                           for ex in self.phases if ex.taps[0] * ex.taps[1]],
                          dim=0).contiguous()
 
     def as_superpack(self, packed):
-        """Superpack tensors pass through; a legacy per-phase dict
-        ({'q0x1': buf} or {(0, 1): buf}) is concatenated onto it."""
+        """Superpack tensors pass through.  Transposed: a legacy per-phase
+        dict ({'q0x1': buf} or {(0, 1): buf}) is concatenated onto it.
+        'conv'/'dilated': a full 4-D HWIO kernel is flattened (free), and
+        its gradient flows back 4-D."""
         if not isinstance(packed, dict):
+            if self.spec.kind != "transposed" and packed.dim() == 4:
+                return self.pack(packed)
             return packed
         segs = []
         for ex in self.phases:
@@ -304,11 +341,13 @@ class ConvPlan:
         return torch.cat(segs, dim=0)
 
     def unpack(self, packed) -> torch.Tensor:
-        """Superpack (or legacy dict) -> the full (R,S,C,N) kernel; exact
-        inverse of ``pack``."""
+        """Superpack (or legacy dict / HWIO kernel) -> the full (R,S,C,N)
+        kernel; exact inverse of ``pack``."""
         packed = self.as_superpack(packed)
         r, s = self.spec.kernel_hw
         c, n = self.spec.in_c, self.spec.out_c
+        if self.spec.kind != "transposed":
+            return packed.reshape(r, s, c, n)
         (sh, sw) = self.spec.strides
         kernel = packed.new_zeros((r, s, c, n))
         for ex in self.phases:
@@ -321,16 +360,24 @@ class ConvPlan:
 
     # -- execution ---------------------------------------------------------
     def apply(self, x: torch.Tensor, packed) -> torch.Tensor:
-        """Planned forward of NHWC ``x`` on the superpack."""
+        """Planned forward of NHWC ``x`` on the superpack, differentiable
+        through the §3.2.3 backward of the plan's kind."""
         if (tuple(x.shape[-3:-1]) != self.spec.in_hw
                 or x.shape[-1] != self.spec.in_c):
             raise ValueError(
                 f"input {tuple(x.shape[-3:])} does not match plan spec "
                 f"{self.spec.in_hw + (self.spec.in_c,)} — plans bake geometry "
                 f"at build time; plan_conv a spec for this shape")
-        return _transposed_fwd(self, x, self.as_superpack(packed))
+        fn = (_PlannedTransposed if self.spec.kind == "transposed"
+              else _PlannedSingle)
+        return fn.apply(self, x, self.as_superpack(packed))
 
     __call__ = apply
+
+    def apply_kernel(self, x: torch.Tensor, kernel: torch.Tensor):
+        """Pack per call, then execute (the one-call engine API; the
+        gradient reaches ``kernel`` through the differentiable pack)."""
+        return self.apply(x, self.pack(kernel))
 
 
 def plan_conv(spec: ConvSpec, autotune=None) -> ConvPlan:
@@ -345,11 +392,7 @@ def plan_conv(spec: ConvSpec, autotune=None) -> ConvPlan:
 @functools.lru_cache(maxsize=4096)
 def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
     t0 = time.perf_counter()
-    if spec.kind in ("conv", "dilated"):
-        raise NotImplementedError(
-            f"{spec.kind!r} plans are not ported yet (ROADMAP Queue 1, "
-            f"item 6: single-correlation kind)")
-    if spec.kind != "transposed":
+    if spec.kind not in ("transposed", "conv", "dilated"):
         raise ValueError(f"unknown conv kind {spec.kind!r}")
     if spec.backend not in _BACKENDS:
         raise ValueError(f"unknown backend {spec.backend!r} "
@@ -362,10 +405,41 @@ def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
         raise NotImplementedError(
             f"wdtype {spec.wdtype!r} is not ported yet (ROADMAP Queue 1, "
             f"item 8: int8 superpacks)")
-    if spec.dilation != (1, 1):
-        raise ValueError("transposed plans do not support rhs dilation")
     if spec.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {spec.dtype!r}")
+    plan = (_plan_transposed(spec) if spec.kind == "transposed"
+            else _plan_single(spec))
+    plan.build_ms = (time.perf_counter() - t0) * 1e3
+    return plan
+
+
+def _plan_single(spec: ConvSpec) -> ConvPlan:
+    """'conv'/'dilated': one phase covering the whole output."""
+    h, w = spec.in_hw
+    r, s = spec.kernel_hw
+    (sh, sw) = spec.strides
+    (ph, pw) = spec.padding
+    (dh, dw) = spec.dilation if spec.kind == "dilated" else (1, 1)
+    oh = dec.single_out_size(h, r, sh, dh, ph)
+    ow = dec.single_out_size(w, s, sw, dw, pw)
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"non-positive output {oh}x{ow}")
+    routes = tuple(_single_route_1dev(spec, (oh, ow), bb)
+                   for bb in BATCH_BUCKETS)
+    ex = PhaseExec(key="k", q=(0, 0), rho=(0, 0), taps=(r, s),
+                   pad=spec.padding, out_hw=(oh, ow))
+    # superpack row of tap (m, n) is m*S + n, recorded like the transposed
+    # dx schedule so the backward never re-derives the layout
+    taps_sched = tuple((m, nn, m * s + nn)
+                       for m in range(r) for nn in range(s))
+    return ConvPlan(spec=spec, out_hw=(oh, ow), phases=(ex,), gpad=None,
+                    total_taps=r * s, sum_uv=oh * ow, uniform=True,
+                    bwd_pad=None, dx_taps=taps_sched, routes=routes)
+
+
+def _plan_transposed(spec: ConvSpec) -> ConvPlan:
+    if spec.dilation != (1, 1):
+        raise ValueError("transposed plans do not support rhs dilation")
     h, w = spec.in_hw
     r, s = spec.kernel_hw
     (sh, sw) = spec.strides
@@ -414,12 +488,10 @@ def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
             dx_taps.append((m, nn, ex.tap_off + (rp // sh) * ex.taps[1]
                             + (sp // sw)))
     bwd_pad = ((r - 1 - ph[0], r - 1 - ph[1]), (s - 1 - pw[0], s - 1 - pw[1]))
-    plan = ConvPlan(spec=spec, out_hw=(oh, ow), phases=tuple(phases),
+    return ConvPlan(spec=spec, out_hw=(oh, ow), phases=tuple(phases),
                     gpad=gpad, total_taps=total_taps, sum_uv=sum_uv,
                     uniform=uniform, bwd_pad=bwd_pad, dx_taps=tuple(dx_taps),
                     routes=routes)
-    plan.build_ms = (time.perf_counter() - t0) * 1e3
-    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -547,7 +619,7 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
         return y.reshape(lead + tuple(y.shape[1:]))
     xg = _global_plane(plan, x4)
     if path == "cuda":
-        y = untangled_deconv2d(xg, packed, phases=plan.phases,
+        y = untangled_deconv2d(xg.contiguous(), packed, phases=plan.phases,
                                out_hw=plan.out_hw, strides=spec.strides,
                                sum_uv=plan.sum_uv, out_dtype=x.dtype)
     elif path in ("fused_tap", "fused_plane"):
@@ -566,3 +638,214 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
                          f"cuda, fused_tap, fused_plane, pixel_shuffle, "
                          f"taps)")
     return y.reshape(lead + tuple(y.shape[1:])).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# single correlation ('conv' / 'dilated'): superpack executors
+# ---------------------------------------------------------------------------
+
+def _single_geom(plan: ConvPlan):
+    spec = plan.spec
+    dilation = spec.dilation if spec.kind == "dilated" else (1, 1)
+    return spec.strides, dilation, spec.kernel_hw, plan.out_hw
+
+
+def _single_tap_view(xp: torch.Tensor, m: int, nn: int, strides: Pair,
+                     dilation: Pair, out_hw: Pair) -> torch.Tensor:
+    """Tap (m, n)'s strided/dilated window of the padded plane (a view):
+    the zero-free read the naive engine replaces with kernel zero-insertion."""
+    (sh, sw), (dh, dw) = strides, dilation
+    u, v = out_hw
+    return xp[:, m * dh:m * dh + (u - 1) * sh + 1:sh,
+              nn * dw:nn * dw + (v - 1) * sw + 1:sw, :]
+
+
+def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
+    """Planned single-correlation forward on the (R·S·C, N) superpack: pad
+    once, keep the plane resident, tap products on strided/dilated views."""
+    spec = plan.spec
+    strides, dilation, (r, s), out_hw = _single_geom(plan)
+    c = spec.in_c
+    lead = tuple(x.shape[:-3])
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    xp = pad_or_crop(x4, spec.padding)
+    path = plan.route_for_batch(x4.shape[0]).path
+    if path == "cuda":
+        y = untangled_conv2d_superpack(
+            xp.contiguous(), packed, taps_hw=(r, s), strides=strides,
+            rhs_dilation=dilation, out_dtype=x.dtype)
+    elif path == "fused_tap":
+        # ONE wide product: tap views concatenated channel-major in
+        # superpack row order against the whole (R·S·C, N) buffer
+        buf = torch.cat([_single_tap_view(xp, m, nn, strides, dilation,
+                                          out_hw)
+                         for m in range(r) for nn in range(s)], dim=-1)
+        y = torch.matmul(buf, packed)
+    elif path == "taps":
+        # per-tap products; panels are superpack rows [t·C, (t+1)·C)
+        y = None
+        for (m, nn, row) in plan.dx_taps:
+            t = torch.matmul(
+                _single_tap_view(xp, m, nn, strides, dilation, out_hw),
+                packed[row * c:(row + 1) * c])
+            y = t if y is None else y + t
+    else:
+        raise ValueError(f"route {path!r} is not ported (single routes: "
+                         f"cuda, fused_tap, taps)")
+    return y.to(x.dtype).reshape(lead + tuple(y.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the §3.2.3 backwards (paper Fig. 6) on the superpack, as autograd
+# Functions around every route — JAX's custom VJPs _pt_bwd / _ps_bwd.
+# The products stay plain PyTorch, as JAX leaves them to XLA.
+# ---------------------------------------------------------------------------
+
+def _weight_cotangent(packed: torch.Tensor, dk: torch.Tensor):
+    """The cotangent of a dense superpack: the f32 dK in its dtype."""
+    return dk.to(packed.dtype)
+
+
+def _pt_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
+            dy: torch.Tensor, need_dx: bool = True, need_dk: bool = True):
+    """Transposed backward: dx in the strided-conv form (dy windows against
+    superpack panels at ``dx_taps`` rows, contracting N), dK in the
+    dilated-kernel form, emitted directly in superpack row order."""
+    spec = plan.spec
+    h, w = spec.in_hw
+    r, s = spec.kernel_hw
+    (sh, sw) = spec.strides
+    c = spec.in_c
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    dy4 = dy.reshape((-1,) + tuple(dy.shape[-3:]))
+    dy_p = pad_or_crop(dy4, plan.bwd_pad)
+
+    def window(oh0, ow0):
+        return dy_p[:, oh0:oh0 + sh * (h - 1) + 1:sh,
+                    ow0:ow0 + sw * (w - 1) + 1:sw, :]
+
+    dx = dk = None
+    if need_dx:
+        for (m, nn, row) in plan.dx_taps:
+            t = torch.matmul(window(m, nn), packed[row * c:(row + 1) * c].T)
+            dx = t if dx is None else dx + t
+        dx = dx.to(x.dtype).reshape(x.shape)
+    if need_dk:
+        segs = []
+        m_rows = x4.reshape(-1, c).T                       # (C, B·H·W)
+        for ex in plan.phases:
+            th, tw = ex.taps
+            for t in range(th * tw):
+                t_h, t_w = divmod(t, tw)
+                rr = ex.rho[0] + sh * t_h
+                ss = ex.rho[1] + sw * t_w
+                wnd = window(r - 1 - rr, s - 1 - ss)
+                segs.append(torch.matmul(m_rows, wnd.reshape(-1, spec.out_c)))
+        dk = (torch.cat(segs, dim=0) if segs
+              else packed.new_zeros(packed.shape, dtype=torch.float32))
+        dk = _weight_cotangent(packed, dk)
+    return dx, dk
+
+
+def _unpad_transpose(dxp: torch.Tensor, pads, in_hw: Pair) -> torch.Tensor:
+    """Exact transpose of ``pad_or_crop``: slice off the positive pads,
+    zero-pad back anything the forward cropped (negative pads)."""
+    (ph, pw) = pads
+    hp, wp = dxp.shape[-3], dxp.shape[-2]
+    dx = dxp[..., max(0, ph[0]):hp - max(0, ph[1]),
+             max(0, pw[0]):wp - max(0, pw[1]), :]
+    grow = (0, 0, max(0, -pw[0]), max(0, -pw[1]),
+            max(0, -ph[0]), max(0, -ph[1]))
+    if any(grow):
+        dx = torch.nn.functional.pad(dx, grow)
+    assert tuple(dx.shape[-3:-1]) == tuple(in_hw), (dx.shape, in_hw)
+    return dx
+
+
+def _ps_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
+            dy: torch.Tensor, need_dx: bool = True, need_dk: bool = True):
+    """Single-correlation backward, mirroring ``_pt_bwd``: dx in the
+    transposed-tap form (dy against the superpack's (C, N) panels, each
+    tap's plane scattered back through the exact transpose of its forward
+    read), dK from tap views of the padded plane against dy, in superpack
+    row order.  ``fused_bwd`` of the actual batch's route picks one wide
+    GEMM per half or per-tap products."""
+    spec = plan.spec
+    strides, dilation, (r, s), (oh, ow) = _single_geom(plan)
+    (sh, sw), (dh, dw) = strides, dilation
+    c, n = spec.in_c, spec.out_c
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    dy4 = dy.reshape((-1,) + tuple(dy.shape[-3:]))
+    xp = pad_or_crop(x4, spec.padding)
+    b, hp, wp = xp.shape[0], xp.shape[1], xp.shape[2]
+    fused_bwd = plan.route_for_batch(b).fused_bwd
+    dy2 = dy4.reshape(-1, n)                               # (B·OH·OW, N)
+
+    dx = dk = None
+    if need_dx:
+        g = None
+        if fused_bwd:
+            # one GEMM over the (ΣT, C, N) view: (B, OH, OW, ΣT, C)
+            g = torch.matmul(dy2, packed.T).reshape(b, oh, ow, r * s, c)
+        dxp = torch.zeros((b, hp, wp, c), dtype=torch.float32,
+                          device=x.device)
+        for (m, nn, row) in plan.dx_taps:
+            if g is not None:
+                gt = g[..., row, :]
+            else:
+                gt = torch.matmul(dy4, packed[row * c:(row + 1) * c].T)
+            dxp[:, m * dh:m * dh + (oh - 1) * sh + 1:sh,
+                nn * dw:nn * dw + (ow - 1) * sw + 1:sw, :] += gt
+        dx = _unpad_transpose(dxp, spec.padding, spec.in_hw)
+        dx = dx.to(x.dtype).reshape(x.shape)
+    if need_dk:
+        views = [_single_tap_view(xp, m, nn, strides, dilation, (oh, ow))
+                 for (m, nn, _) in plan.dx_taps]
+        if fused_bwd:
+            buf = torch.stack(views, dim=0).reshape(r * s, -1, c)
+            dk = torch.matmul(buf.transpose(1, 2), dy2).reshape(r * s * c, n)
+        else:
+            dk = torch.cat([torch.matmul(v.reshape(-1, c).T, dy2)
+                            for v in views], dim=0)
+        dk = _weight_cotangent(packed, dk)
+    return dx, dk
+
+
+class _PlannedTransposed(torch.autograd.Function):
+    """The transposed kind's forward on any route, with ``_pt_bwd`` as its
+    backward (JAX: ``_planned_transposed``)."""
+
+    @staticmethod
+    def forward(ctx, plan, x, packed):
+        ctx.plan = plan
+        ctx.save_for_backward(x, packed)
+        return _transposed_fwd(plan, x.detach(), packed.detach())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, packed = ctx.saved_tensors
+        dx, dk = _pt_bwd(ctx.plan, x, packed, dy,
+                         need_dx=ctx.needs_input_grad[1],
+                         need_dk=ctx.needs_input_grad[2])
+        return None, dx, dk
+
+
+class _PlannedSingle(torch.autograd.Function):
+    """The conv/dilated kinds' forward on any route, with ``_ps_bwd`` as
+    its backward (JAX: ``_planned_single``)."""
+
+    @staticmethod
+    def forward(ctx, plan, x, packed):
+        ctx.plan = plan
+        ctx.save_for_backward(x, packed)
+        return _single_fwd(plan, x.detach(), packed.detach())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, packed = ctx.saved_tensors
+        dx, dk = _ps_bwd(ctx.plan, x, packed, dy,
+                         need_dx=ctx.needs_input_grad[1],
+                         need_dk=ctx.needs_input_grad[2])
+        return None, dx, dk

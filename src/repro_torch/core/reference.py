@@ -1,7 +1,8 @@
 """Reference engines and the f64 oracle harness, on PyTorch.
 
 Counterpart of ``repro.core.reference`` (the DarkNet-style zero-insert +
-im2col engine and the lhs-dilated oracle) plus the float64 oracle and its
+im2col engines, the lhs-dilated, rhs-dilated and strided oracles) plus the
+float64 oracle and its
 ULP-scaled error bound from the JAX suite's ``tests/conftest.py``, so the
 card can check the kernel with nothing of JAX present.
 
@@ -48,6 +49,17 @@ def zero_insert(x: torch.Tensor, strides: Pair) -> torch.Tensor:
     return out
 
 
+def dilate_kernel(kernel: torch.Tensor, dilation: Pair) -> torch.Tensor:
+    """Materialize the zero-inserted (atrous) kernel."""
+    dh, dw = dilation
+    if dh == 1 and dw == 1:
+        return kernel
+    r, s, c, n = kernel.shape
+    out = kernel.new_zeros(((r - 1) * dh + 1, (s - 1) * dw + 1, c, n))
+    out[::dh, ::dw] = kernel
+    return out
+
+
 def im2col(x: torch.Tensor, rs: Pair, strides: Pair = (1, 1)) -> torch.Tensor:
     """Explicit im2col: (B,H,W,C) -> (B, OH, OW, R*S*C) patch buffer."""
     r, s = rs
@@ -88,6 +100,38 @@ def oracle_conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, *,
     with ieee_fp32():
         y = F.conv2d(xd.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1))
     return y.permute(0, 2, 3, 1)
+
+
+def naive_dilated_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
+                         dilation: Pair, strides: Pair = (1, 1),
+                         padding: Sequence[Pair] = ((0, 0), (0, 0))
+                         ) -> torch.Tensor:
+    """DarkNet path: materialize the dilated kernel, then im2col GEMM."""
+    return im2col_conv(x, dilate_kernel(kernel, dilation), strides=strides,
+                       padding=padding)
+
+
+def oracle_dilated_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
+                          dilation: Pair, strides: Pair = (1, 1),
+                          padding: Sequence[Pair] = ((0, 0), (0, 0))
+                          ) -> torch.Tensor:
+    """The rhs-dilated strided correlation (``lax.conv_general_dilated``
+    with ``window_strides``/``rhs_dilation``) through PyTorch's ``conv2d``
+    on the padded (or cropped) plane: NHWC ``x``, HWIO ``kernel``, NHWC
+    out."""
+    xp = pad_or_crop(x, padding)
+    with ieee_fp32():
+        y = F.conv2d(xp.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                     stride=tuple(strides), dilation=tuple(dilation))
+    return y.permute(0, 2, 3, 1)
+
+
+def oracle_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
+                  strides: Pair = (1, 1),
+                  padding: Sequence[Pair] = ((0, 0), (0, 0))) -> torch.Tensor:
+    """The single-kind ('conv') oracle: the strided correlation."""
+    return oracle_dilated_conv2d(x, kernel, dilation=(1, 1), strides=strides,
+                                 padding=padding)
 
 
 def conv_oracle_f64(x, k, *, strides=(1, 1), dilation=(1, 1),

@@ -1,7 +1,8 @@
 """Untangling (paper §3.2) helpers: padding with crops and output sizes.
 
-Counterpart of ``repro.core.untangle``; only what the transposed slice
-needs is here (``untangled_conv2d`` comes with the single-correlation kind).
+Counterpart of ``repro.core.untangle``; only what the plans need is here
+(the untangled correlation itself is ``ConvPlan.apply`` on a 'conv' or
+'dilated' plan, or kernel B's ``untangled_conv2d``).
 """
 from __future__ import annotations
 

@@ -1,17 +1,24 @@
-"""Kernel A: the fused multi-phase transposed conv, hand-written for Hopper.
+"""Kernels A and B: the untangled convolutions, hand-written for Hopper.
 
-``untangled_deconv2d`` is the port of ``repro.kernels.untangled_conv
-.untangled_deconv2d_pallas`` (TPU kernel ``_deconv_kernel``): ONE launch
-computes every s_h·s_w output phase over the globally padded plane and
-stores the output interleaved, with no zero inserted.  The CUDA source is
-``csrc/untangled_deconv.cu`` (its header says what bounds the kernel on the
-card and what the design does about it); ``_build`` compiles it with
-``nvcc`` at first use and binds its plain C entry with ``ctypes``.
+``untangled_deconv2d`` (kernel A) is the port of ``repro.kernels
+.untangled_conv.untangled_deconv2d_pallas`` (TPU kernel ``_deconv_kernel``):
+ONE launch computes every s_h·s_w output phase of a transposed conv over
+the globally padded plane and stores the output interleaved, with no zero
+inserted.  ``untangled_conv2d_superpack`` (kernel B) is the port of
+``untangled_conv2d_superpack_pallas`` (TPU kernel ``_kernel``): ONE launch
+of the strided or dilated correlation of a pre-padded plane with the
+tap-major ``(R·S·C, N)`` superpack, with no zero inserted in the kernel.
+The CUDA sources are ``csrc/untangled_deconv.cu`` and
+``csrc/untangled_conv.cu`` (their headers say what bounds each kernel on the
+card and what the design does about it); ``_build`` compiles them with
+``nvcc`` at first use and binds their plain C entries with ``ctypes``.
 
-The wrapper launches the kernel for CUDA tensors, and raises on anything the
-kernel does not take.  It takes the plain version ``untangled_deconv2d_ref``
-only for tensors on the CPU.  It is forward-only: inputs that require grad
-raise (the backward is the next slice).
+Each wrapper launches its kernel for CUDA tensors, and raises on anything
+the kernel does not take.  It takes its plain version (``*_ref``) only for
+tensors on the CPU.  The kernels have no backward of their own: inputs that
+require grad raise, and training goes through ``ConvPlan.apply``, whose
+autograd Functions call the wrappers on detached inputs and run the §3.2.3
+backward as plain products.
 """
 from __future__ import annotations
 
@@ -70,14 +77,15 @@ def _phase_table(phases: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _pick_config(b: int, n: int, phases) -> int:
-    """The block tile: 256x16 for a thin N (the RGB head), 128x128 when it
-    fills the card, else 64x64 (more, smaller blocks)."""
+def _pick_config(n: int, rows: Sequence[int]) -> int:
+    """The block tile of kernels A and B, for N output channels and the GEMM
+    rows of each phase (A: B·U·V per phase; B: its one phase's B·OH·OW):
+    256x16 for a thin N (the RGB head), 128x128 when it fills the card, else
+    64x64 (more, smaller blocks)."""
     if n <= 16:
         return 2
     bm, bn = _CONFIGS[0]
-    blocks = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm)
-                 for ex in phases) * -(-n // bn)
+    blocks = sum(-(-m // bm) for m in rows) * -(-n // bn)
     return 0 if blocks >= _BIG_TILE_MIN_BLOCKS else 1
 
 
@@ -147,8 +155,8 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                          f"got {xg.device} and {superpack.device}")
     if xg.requires_grad or superpack.requires_grad:
         raise NotImplementedError(
-            "kernel A is forward-only: its backward (_pt_bwd as a "
-            "torch.autograd.Function) is not ported yet")
+            "kernel A has no backward of its own: differentiate through "
+            "ConvPlan.apply (its autograd Function runs _pt_bwd)")
     for name, t in (("xg", xg), ("superpack", superpack)):
         if t.dtype != torch.float32:
             raise TypeError(f"kernel A takes float32 {name}, got {t.dtype}")
@@ -164,7 +172,8 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         raise ValueError("kernel A indexes with int32: tensor too large")
     if y.numel() == 0:
         return y
-    config = _pick_config(b, n, phases)
+    config = _pick_config(n, [b * ex.out_hw[0] * ex.out_hw[1]
+                              for ex in phases])
     bm, bn = _CONFIGS[config]
     grid_m = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm) for ex in phases)
     vec = int(c % 4 == 0 and n % 4 == 0 and all(
@@ -183,3 +192,137 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
 
 
 untangled_deconv2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel B: the single (strided / dilated) correlation on the superpack
+# ---------------------------------------------------------------------------
+
+def single_out_hw(hp: int, wp: int, taps_hw: Pair, strides: Pair,
+                  rhs_dilation: Pair) -> Pair:
+    """Output extent of the valid correlation of a pre-padded plane."""
+    (r, s), (sh, sw), (dh, dw) = taps_hw, strides, rhs_dilation
+    return ((hp - (r - 1) * dh - 1) // sh + 1,
+            (wp - (s - 1) * dw - 1) // sw + 1)
+
+
+def untangled_conv2d_superpack_ref(x: torch.Tensor, superpack: torch.Tensor,
+                                   *, taps_hw: Pair, strides: Pair = (1, 1),
+                                   rhs_dilation: Pair = (1, 1),
+                                   out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B: per tap (m, n), the plane view at
+    ``(oh·s_h + m·d_h, ow·s_w + n·d_w)`` times superpack rows
+    ``[(m·S + n)·C, (m·S + n + 1)·C)``, accumulated in f32."""
+    c = x.shape[3]
+    r, s = taps_hw
+    (sh, sw), (dh, dw) = strides, rhs_dilation
+    oh, ow = single_out_hw(x.shape[1], x.shape[2], taps_hw, strides,
+                           rhs_dilation)
+    x32, w32 = x.float(), superpack.float()
+    acc = None
+    for m in range(r):
+        for n in range(s):
+            xs = x32[:, m * dh:m * dh + (oh - 1) * sh + 1:sh,
+                     n * dw:n * dw + (ow - 1) * sw + 1:sw, :]
+            row = (m * s + n) * c
+            term = torch.matmul(xs, w32[row:row + c])
+            acc = term if acc is None else acc + term
+    return acc.to(out_dtype or x.dtype)
+
+
+# the C entry's parameters, as for kernel A
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
+                  + [ctypes.c_void_p])
+
+
+@functools.cache
+def _conv_entry():
+    from repro_torch.kernels import _build
+    fn = _build.load("untangled_conv").untangled_conv2d_f32
+    fn.argtypes = _CONV_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
+                               taps_hw: Pair, strides: Pair = (1, 1),
+                               rhs_dilation: Pair = (1, 1),
+                               out_dtype=None) -> torch.Tensor:
+    """ONE launch of the valid (pre-padded) untangled correlation.
+
+    x: (B, Hp, Wp, C) padded plane; superpack: (R·S·C, N) tap-major
+    (``ConvPlan.pack``).  Strided and dilated kinds run the same kernel:
+    dilation only moves each tap's read origin.  Returns (B, OH, OW, N).
+    CUDA tensors launch the kernel (float32, contiguous, no grad) and count
+    one in ``untangled_conv2d_superpack.launches``; CPU tensors run
+    ``untangled_conv2d_superpack_ref``."""
+    if x.dim() != 4 or superpack.dim() != 2:
+        raise ValueError(f"want x (B, Hp, Wp, C) and superpack (R·S·C, N), "
+                         f"got {tuple(x.shape)} and {tuple(superpack.shape)}")
+    b, hp, wp, c = x.shape
+    r, s = taps_hw
+    n = superpack.shape[1]
+    if superpack.shape[0] != r * s * c:
+        raise ValueError(f"superpack has {superpack.shape[0]} rows, taps "
+                         f"{taps_hw} need {r}·{s}·{c}")
+    oh, ow = single_out_hw(hp, wp, taps_hw, strides, rhs_dilation)
+    if oh <= 0 or ow <= 0 or min(*strides, *rhs_dilation) < 1:
+        raise ValueError(f"no valid output: plane {hp}x{wp}, taps "
+                         f"{taps_hw}, strides {strides}, dilation "
+                         f"{rhs_dilation}")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu" and superpack.device.type == "cpu":
+        return untangled_conv2d_superpack_ref(
+            x, superpack, taps_hw=taps_hw, strides=strides,
+            rhs_dilation=rhs_dilation, out_dtype=out_dtype)
+    if x.device.type != "cuda" or superpack.device != x.device:
+        raise ValueError(f"kernel B needs both operands on one CUDA device, "
+                         f"got {x.device} and {superpack.device}")
+    if x.requires_grad or superpack.requires_grad:
+        raise NotImplementedError(
+            "kernel B has no backward of its own: differentiate through "
+            "ConvPlan.apply (its autograd Function runs _ps_bwd)")
+    for name, t in (("x", x), ("superpack", superpack)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel B takes float32 {name}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"kernel B takes a contiguous {name}")
+    if out_dtype != torch.float32:
+        raise TypeError(f"kernel B writes float32, asked for {out_dtype}")
+    y = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
+    if max(x.numel(), superpack.numel(), y.numel()) > _INT32_MAX:
+        raise ValueError("kernel B indexes with int32: tensor too large")
+    if y.numel() == 0:
+        return y
+    config = _pick_config(n, [b * oh * ow])
+    bm, bn = _CONFIGS[config]
+    vec = int(c % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, superpack, y)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _conv_entry()(x.data_ptr(), superpack.data_ptr(), y.data_ptr(),
+                           b, hp, wp, c, n, oh, ow, r, s,
+                           strides[0], strides[1], rhs_dilation[0],
+                           rhs_dilation[1], config, vec,
+                           -(-(b * oh * ow) // bm), -(-n // bn), stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
+    untangled_conv2d_superpack.launches += 1
+    return y
+
+
+untangled_conv2d_superpack.launches = 0
+
+
+def untangled_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
+                     strides: Pair = (1, 1), rhs_dilation: Pair = (1, 1),
+                     out_dtype=None) -> torch.Tensor:
+    """Valid (pre-padded) untangled correlation with an HWIO kernel
+    (R, S, C, N): flattens it into the tap-major superpack (free, same
+    memory order) and runs ``untangled_conv2d_superpack``."""
+    r, s, c, n = kernel.shape
+    if c != x.shape[-1]:
+        raise ValueError(f"channel mismatch {x.shape[-1]} vs {c}")
+    return untangled_conv2d_superpack(
+        x, kernel.reshape(r * s * c, n), taps_hw=(r, s), strides=strides,
+        rhs_dilation=rhs_dilation, out_dtype=out_dtype)

@@ -1,11 +1,14 @@
-"""DCGAN / cGAN generators (paper Table 1) on the port's plan/executor engine.
+"""DCGAN / cGAN (paper Table 1) on the port's plan/executor engine.
 
-Counterpart of the generator half of ``repro.models.gan``.  Every deconv
-site gets a ``ConvPlan`` once at model load (``generator_plans``, backed by
-the plan cache), and its weights are stored superpacked — one tap-major
-``(Σ T_h·T_w·C, N)`` buffer per layer, row for row the JAX package's — so
-``params_from_jax`` carries JAX weights across as plain arrays.  The
-discriminator and ``gan_losses`` come with the training slice.
+Counterpart of ``repro.models.gan``.  Generators stack the Table-1
+transposed convs; discriminators mirror them with strided convs.  Every
+conv site gets a ``ConvPlan`` once at model load (``generator_plans`` /
+``discriminator_plans``, backed by the plan cache), and its weights are
+stored superpacked — one tap-major buffer per layer, row for row the JAX
+package's — so ``params_from_jax`` / ``dparams_from_jax`` carry JAX weights
+across as plain arrays.  Both halves train through the plans' §3.2.3
+backwards (``ConvPlan.apply``'s autograd Functions); ``gan_losses`` is the
+non-saturating loss pair.
 
 ``GANConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto').
 """
@@ -15,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import resolve_device
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
@@ -55,7 +59,7 @@ def deconv_padding(kernel: int, stride: int):
 
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
-    """Generator config: float32 weights and activations, one device."""
+    """GAN config: float32 weights and activations, one device."""
 
     name: str
     layers: tuple[DeconvLayer, ...]
@@ -78,6 +82,27 @@ def generator_plans(cfg: GANConfig,
         dtype=dtype_name(dtype), backend=cfg.backend)) for l in cfg.layers)
 
 
+def discriminator_plans(cfg: GANConfig,
+                        dtype=torch.float32) -> tuple[ConvPlan, ...]:
+    """Plans for the mirrored strided-conv sites (image -> features)."""
+    plans = []
+    for l in reversed(cfg.layers):
+        k = l.kernel
+        plans.append(plan_conv(ConvSpec(
+            kind="conv", in_hw=(l.in_hw * l.stride, l.in_hw * l.stride),
+            in_c=l.out_c, out_c=l.in_c, kernel_hw=(k, k),
+            strides=(l.stride, l.stride),
+            padding=((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2)),
+            dtype=dtype_name(dtype), backend=cfg.backend)))
+    return tuple(plans)
+
+
+def _cpu_generator(seed_or_generator) -> torch.Generator:
+    if isinstance(seed_or_generator, torch.Generator):
+        return seed_or_generator
+    return torch.Generator().manual_seed(int(seed_or_generator))
+
+
 def generator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
     """Random generator params with the deconv weights already packed.
 
@@ -86,9 +111,7 @@ def generator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
     device) and moved to ``device``.  Returns ``{'proj', 'dc{i}', 'b{i}'}``.
     """
     dev = resolve_device(device)
-    gen = seed_or_generator
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator().manual_seed(int(seed_or_generator))
+    gen = _cpu_generator(seed_or_generator)
     plans = generator_plans(cfg)
     l0 = cfg.layers[0]
     p = {"proj": torch.randn((cfg.z_dim, l0.in_hw * l0.in_hw * l0.in_c),
@@ -99,6 +122,39 @@ def generator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
         p[f"dc{i}"] = plans[i].pack(kernel)
         p[f"b{i}"] = torch.zeros((l.out_c,))
     return {k: v.to(dev) for k, v in p.items()}
+
+
+def discriminator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
+    """Random discriminator params: ``c{i}`` the mirrored strided convs'
+    (R·S·C, N) superpacks, ``head`` the (features, 1) logit projection.
+    Draws are made on the CPU, as in ``generator_init``."""
+    dev = resolve_device(device)
+    gen = _cpu_generator(seed_or_generator)
+    plans = discriminator_plans(cfg)
+    layers = tuple(reversed(cfg.layers))
+    p = {}
+    for i, l in enumerate(layers):
+        kernel = torch.randn((l.kernel, l.kernel, l.out_c, l.in_c),
+                             generator=gen) * 0.02
+        p[f"c{i}"] = plans[i].pack(kernel)
+    p["head"] = torch.randn((_head_features(cfg), 1), generator=gen) * 0.02
+    return {k: v.to(dev) for k, v in p.items()}
+
+
+def _head_features(cfg: GANConfig) -> int:
+    first = cfg.layers[0]
+    return first.in_hw * first.in_hw * first.in_c
+
+
+def _from_numpy(np_params: dict, want: dict, dev: torch.device) -> dict:
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(np_params[name], np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, config wants "
+                             f"{shape}")
+        out[name] = torch.from_numpy(arr.copy()).to(dev)
+    return out
 
 
 def params_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
@@ -112,14 +168,17 @@ def params_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
     for i, (l, plan) in enumerate(zip(cfg.layers, plans)):
         want[f"dc{i}"] = (plan.total_taps * l.in_c, l.out_c)
         want[f"b{i}"] = (l.out_c,)
-    out = {}
-    for name, shape in want.items():
-        arr = np.asarray(np_params[name], np.float32)
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape}, config wants "
-                             f"{shape}")
-        out[name] = torch.from_numpy(arr.copy()).to(dev)
-    return out
+    return _from_numpy(np_params, want, dev)
+
+
+def dparams_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
+    """Map JAX ``discriminator_init`` params (converted to numpy) onto the
+    port's: ``c{i}`` (the (R·S·C, N) superpack, as is) and ``head``."""
+    dev = resolve_device(device)
+    want = {f"c{i}": (plan.total_taps * plan.spec.in_c, plan.spec.out_c)
+            for i, plan in enumerate(discriminator_plans(cfg))}
+    want["head"] = (_head_features(cfg), 1)
+    return _from_numpy(np_params, want, dev)
 
 
 def generator_apply(p, z: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
@@ -141,3 +200,38 @@ def generator_unpack(p, cfg: GANConfig):
     for i, plan in enumerate(plans):
         out[f"dc{i}"] = plan.unpack(p[f"dc{i}"])
     return out
+
+
+def discriminator_apply(p, x: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
+    """Images (B, H, W, 3) NHWC -> logits (B, 1)."""
+    plans = discriminator_plans(cfg, x.dtype)
+    for i, plan in enumerate(plans):
+        x = F.leaky_relu(plan.apply(x, p[f"c{i}"]), 0.2)
+    return torch.matmul(x.reshape(x.shape[0], -1), p["head"])
+
+
+def discriminator_unpack(p, cfg: GANConfig):
+    """Packed discriminator params -> full (R,S,C,N) HWIO kernels."""
+    plans = discriminator_plans(cfg)
+    out = dict(p)
+    for i, plan in enumerate(plans):
+        out[f"c{i}"] = plan.unpack(p[f"c{i}"])
+    return out
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(1 + e^x)`` as ``logaddexp(x, 0)``, exact
+    at every x (``F.softplus`` switches to the identity above 20)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def gan_losses(gp, dp, z: torch.Tensor, real: torch.Tensor,
+               cfg: GANConfig):
+    """Non-saturating GAN loss pair ``(g_loss, d_loss)``: one generator
+    forward, two discriminator forwards (fake, then real)."""
+    fake = generator_apply(gp, z, cfg)
+    d_fake = discriminator_apply(dp, fake, cfg)
+    d_real = discriminator_apply(dp, real, cfg)
+    d_loss = (softplus(-d_real) + softplus(d_fake)).mean()
+    g_loss = softplus(-d_fake).mean()
+    return g_loss, d_loss

@@ -1,14 +1,16 @@
-"""Card-side tests of the port: kernel A on CUDA tensors against the float64
-oracle's ULP bound and its plain version, the wrapper's refusals, and the
-generator and serve driver on the 'cuda' route.
+"""Card-side tests of the port: kernels A and B on CUDA tensors against the
+float64 oracle's ULP bound and their plain versions, the wrappers'
+refusals, the generator and serve entry point on the 'cuda' route, and one
+'cuda' train step against the 'torch' one.
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-``tests/test_torch_kernels.py`` shares ``CASES``/``inputs`` and holds the
-same geometries to the JAX package on the CPU."""
+``tests/test_torch_kernels.py`` shares ``CASES``/``inputs`` and
+``CONV_CASES``/``conv_inputs`` and holds the same geometries to the JAX
+package on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,29 @@ CASES = [
     ("ragged_c5_n3", 3, 5, 5, 3, 3, 2, ((1, 1), (1, 1))),
 ]
 CASE_IDS = [c[0] for c in CASES]
+
+
+# (name, b, h, c, n, k, s, d, pads) for kernel B: the DCGAN
+# discriminator's first site (C = 3) and a wide one, the cGAN's asymmetric
+# pad, dilated sites (d = 2, 4), ragged C/N, an odd output (9 -> 5)
+CONV_CASES = [
+    ("disc_c3_k5s2", 2, 16, 3, 8, 5, 2, 1, ((2, 2), (2, 2))),
+    ("disc_wide_k5s2", 2, 8, 32, 24, 5, 2, 1, ((2, 2), (2, 2))),
+    ("cgan_asym_k4s2", 2, 8, 16, 8, 4, 2, 1, ((2, 1), (2, 1))),
+    ("dilated_d2", 1, 17, 8, 8, 3, 1, 2, ((2, 2), (2, 2))),
+    ("dilated_d4", 1, 17, 4, 4, 3, 1, 4, ((4, 4), (4, 4))),
+    ("ragged_c5_n3", 3, 9, 5, 3, 3, 2, 1, ((1, 1), (1, 1))),
+    ("ragged_c6_n20", 2, 9, 6, 20, 5, 1, 1, ((2, 2), (2, 2))),
+    ("odd_9_k5s2", 2, 9, 8, 8, 5, 2, 1, ((2, 2), (2, 2))),
+]
+
+
+def conv_inputs(case):
+    """(x, kernel) float32 numpy arrays drawn from a per-case seed."""
+    name, b, h, c, n, k = case[:6]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return (rng.standard_normal((b, h, h, c)).astype(np.float32),
+            rng.standard_normal((k, k, c, n)).astype(np.float32))
 
 
 def inputs(case):
@@ -118,3 +143,69 @@ def test_serve_driver_on_the_card(cuda_device):
     st = serve_dcgan.main(["--small", "--requests", "20"])
     assert st["completed"] == 20
     assert tk.untangled_deconv2d.launches > launches
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_kernel_within_ulp_bound_and_plain_version(case, cuda_device):
+    _, b, h, c, n, k, s, d, pads = case
+    x, kern = (torch.from_numpy(a).to(cuda_device) for a in conv_inputs(case))
+    xp = pad_or_crop(x, pads).contiguous()
+    sp = kern.reshape(k * k * c, n)
+    kw = dict(taps_hw=(k, k), strides=(s, s), rhs_dilation=(d, d))
+    torch.full((b * h * h * n,), float("nan"), device=cuda_device)
+    launches = tk.untangled_conv2d_superpack.launches
+    y = tk.untangled_conv2d_superpack(xp, sp, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_conv2d_superpack.launches == launches + 1
+    y_ref = tk.untangled_conv2d_superpack_ref(xp, sp, **kw)
+    y64, amax = ref.conv_oracle_f64(x, kern, strides=(s, s), dilation=(d, d),
+                                    padding=pads)
+    bound = ref.ulp_bound(y64, amax, k * k * c)
+    assert bool(((y.double() - y64).abs() <= bound).all())
+    assert bool(((y_ref.double() - y64).abs() <= bound).all())
+
+
+def test_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.randn((2, 9, 9, 4), device=cuda_device)
+    sp = torch.randn((25 * 4, 8), device=cuda_device)
+    kw = dict(taps_hw=(5, 5), strides=(2, 2))
+    with pytest.raises(NotImplementedError):
+        tk.untangled_conv2d_superpack(x.clone().requires_grad_(), sp, **kw)
+    with pytest.raises(TypeError):
+        tk.untangled_conv2d_superpack(x.double(), sp.double(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.untangled_conv2d_superpack(x.transpose(1, 2), sp, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.untangled_conv2d_superpack(x, sp.cpu(), **kw)
+
+
+def test_cuda_train_step_matches_torch(cuda_device):
+    """One step of the reduced DCGAN on the 'cuda' route: the kernels run
+    every planned forward (A: one generator per pass, B: two
+    discriminators per pass, two passes) and every gradient matches the
+    'torch' route's."""
+    from repro_torch import train_gan
+    from repro_torch.models import gan
+    from repro_torch.train.data import GANPipeline
+    cfgs = [gan.GANConfig("g", train_gan.SMALL_LAYERS, backend=be)
+            for be in ("cuda", "torch")]
+    gp = gan.generator_init(0, cfgs[0], device=cuda_device)
+    dp = gan.discriminator_init(1, cfgs[0], device=cuda_device)
+    bt = GANPipeline(cfgs[0], 5, image_hw=32).batch_at(0)
+    z, real = (torch.from_numpy(bt[k]).to(cuda_device) for k in ("z", "real"))
+    a0 = tk.untangled_deconv2d.launches
+    b0 = tk.untangled_conv2d_superpack.launches
+    out_cuda = train_gan.step_grads(gp, dp, z, real, cfgs[0])
+    torch.cuda.synchronize()
+    n_layers = len(train_gan.SMALL_LAYERS)
+    assert tk.untangled_deconv2d.launches == a0 + 2 * n_layers
+    assert tk.untangled_conv2d_superpack.launches == b0 + 4 * n_layers
+    out_torch = train_gan.step_grads(gp, dp, z, real, cfgs[1])
+    for lc, lt in zip(out_cuda[:2], out_torch[:2]):
+        assert abs(float(lc) - float(lt)) <= 1e-4 * abs(float(lt))
+    # each gradient within 1e-4 of its own scale
+    for gc, gt in zip(out_cuda[2:], out_torch[2:]):
+        for k in gt:
+            scale = float(gt[k].abs().max())
+            assert scale > 0, k
+            assert float((gc[k] - gt[k]).abs().max()) <= 1e-4 * scale, k

@@ -1,8 +1,8 @@
-"""Kernel A's plain version and the port's torch routes against the JAX
-package: ``untangled_deconv2d_pallas`` in interpret mode (as
-``tests/test_fused_single_launch.py`` runs it), JAX's own routes, and the
-float64 oracle's ULP bound.  The card-side checks of the CUDA kernel are
-in ``tests/test_torch_cuda.py``."""
+"""Kernels A's and B's plain versions and the port's torch routes against
+the JAX package: ``untangled_deconv2d_pallas`` and
+``untangled_conv2d_superpack_pallas`` in interpret mode (as the JAX suite
+runs them), JAX's own routes, and the float64 oracle's ULP bound.  The
+card-side checks of the CUDA kernels are in ``tests/test_torch_cuda.py``."""
 import dataclasses
 import pathlib
 
@@ -12,15 +12,17 @@ import pytest
 import torch
 
 from repro.core import plan as jplan
-from repro.kernels.untangled_conv import untangled_deconv2d_pallas
+from repro.kernels.untangled_conv import (untangled_conv2d_superpack_pallas,
+                                          untangled_deconv2d_pallas)
 from repro_torch.core import plan as tplan
 from repro_torch.core import reference as tref
 from repro_torch.core.untangle import pad_or_crop
 from repro_torch.kernels import untangled_conv as tk
 
-from tests.conftest import assert_close, ulp_bound
+from tests.conftest import assert_close, conv_oracle_f64, ulp_bound
 from tests.test_quantized import transposed_oracle_f64
-from tests.test_torch_cuda import CASE_IDS, CASES, inputs
+from tests.test_torch_cuda import (CASE_IDS, CASES, CONV_CASES, conv_inputs,
+                                   inputs)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -163,7 +165,7 @@ def test_torch_route_matches_jax_route(path, case):
 
 def test_cuda_route_on_cpu_runs_plain_version_and_differentiates():
     """Under backend='cuda' a CPU tensor takes the kernel's plain version
-    (no launch), and the torch routes differentiate through autograd."""
+    (no launch), and the route differentiates through ``_PlannedTransposed``."""
     case = CASES[0]
     _, b, h, c, n, k, s, pads = case
     x, kern = inputs(case)
@@ -203,9 +205,11 @@ def test_kernel_tile_choice():
     dc1 = tplan.plan_conv(tplan.conv_spec(
         "transposed", (1, 4, 4, 1024), (5, 5, 1024, 512), strides=(2, 2),
         padding=((2, 3), (2, 3)), backend="cuda"))
-    assert tk._pick_config(64, 512, dc1.phases) == 0
-    assert tk._pick_config(1, 512, dc1.phases) == 1
-    assert tk._pick_config(64, 3, dc1.phases) == 2
+    def rows(b):
+        return [b * ex.out_hw[0] * ex.out_hw[1] for ex in dc1.phases]
+    assert tk._pick_config(512, rows(64)) == 0
+    assert tk._pick_config(512, rows(1)) == 1
+    assert tk._pick_config(3, rows(64)) == 2
 
 
 def test_ctypes_binding_matches_the_c_entry():
@@ -241,3 +245,123 @@ def test_kernel_spec_fields_match_jax_spec_fields():
     """``ConvSpec`` keeps every field of JAX's, in order."""
     assert [f.name for f in dataclasses.fields(tplan.ConvSpec)] == \
         [f.name for f in dataclasses.fields(jplan.ConvSpec)]
+
+
+# ---------------------------------------------------------------------------
+# kernel B: the single correlation on the superpack
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_kernel_plain_version_matches_pallas_and_oracle(case):
+    """Kernel B's plain version and its wrapper on CPU tensors against
+    ``untangled_conv2d_superpack_pallas`` in interpret mode, all within the
+    f64 oracle's ULP bound (n_terms = R·S·C)."""
+    _, b, h, c, n, k, s, d, pads = case
+    x, kern = conv_inputs(case)
+    xp = np.pad(x, ((0, 0), *pads, (0, 0)))
+    packed = kern.reshape(k * k * c, n)
+    kw = dict(taps_hw=(k, k), strides=(s, s), rhs_dilation=(d, d))
+    y_pallas = np.asarray(untangled_conv2d_superpack_pallas(
+        jnp.asarray(xp), jnp.asarray(packed), interpret=True, **kw))
+    xt, pt = torch.from_numpy(xp), torch.from_numpy(packed)
+    launches = tk.untangled_conv2d_superpack.launches
+    y_ref = tk.untangled_conv2d_superpack_ref(xt, pt, **kw).numpy()
+    y_wrap = tk.untangled_conv2d_superpack(xt, pt, **kw).numpy()
+    y_hwio = tk.untangled_conv2d(xt, torch.from_numpy(kern),
+                                 strides=(s, s), rhs_dilation=(d, d)).numpy()
+    assert tk.untangled_conv2d_superpack.launches == launches  # CPU: none
+    y64, amax = conv_oracle_f64(x, kern, strides=(s, s), dilation=(d, d),
+                                padding=pads)
+    for got in (y_pallas, y_ref, y_wrap, y_hwio):
+        assert got.shape == y64.shape
+        assert_within_ulp(got, y64, amax, k * k * c)
+    assert_close(y_ref, y_pallas)
+    # the port's own f64 oracle is the suite's, number for number
+    ty64, tamax = tref.conv_oracle_f64(torch.from_numpy(x), kern,
+                                       strides=(s, s), dilation=(d, d),
+                                       padding=pads)
+    np.testing.assert_allclose(ty64.numpy(), y64, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(tamax.numpy(), amax, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", CONV_CASES[:3], ids=[c[0] for c in
+                                                      CONV_CASES[:3]])
+def test_conv_references_match_oracle(case):
+    """The port's float32 single-kind references (``oracle_dilated_conv2d``
+    / ``oracle_conv2d`` through ``F.conv2d`` with TF32 off, and the
+    DarkNet-style ``naive_dilated_conv2d``) sit within the ULP bound."""
+    _, b, h, c, n, k, s, d, pads = case
+    x, kern = conv_inputs(case)
+    y64, amax = conv_oracle_f64(x, kern, strides=(s, s), dilation=(d, d),
+                                padding=pads)
+    xt, kt = torch.from_numpy(x), torch.from_numpy(kern)
+    got = [tref.oracle_dilated_conv2d(xt, kt, dilation=(d, d),
+                                      strides=(s, s), padding=pads),
+           tref.naive_dilated_conv2d(xt, kt, dilation=(d, d),
+                                     strides=(s, s), padding=pads)]
+    if d == 1:
+        got.append(tref.oracle_conv2d(xt, kt, strides=(s, s), padding=pads))
+    for y in got:
+        assert_within_ulp(y.numpy(), y64, amax, k * k * c)
+    dk = tref.dilate_kernel(kt, (2, 3))
+    assert dk.shape == ((k - 1) * 2 + 1, (k - 1) * 3 + 1, c, n)
+    assert torch.equal(dk[::2, ::3], kt) and int(dk.ne(0).sum()) == \
+        int(kt.ne(0).sum())
+
+
+def test_conv_wrapper_checks_shapes_and_devices():
+    """Off the CPU kernel B launches or raises; mismatched shapes raise."""
+    x = torch.empty((1, 9, 9, 4), device="meta")
+    sp = torch.empty((25 * 4, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.untangled_conv2d_superpack(x, sp, taps_hw=(5, 5), strides=(2, 2))
+    with pytest.raises(ValueError, match="rows"):
+        tk.untangled_conv2d_superpack(x, sp, taps_hw=(3, 3))
+    with pytest.raises(ValueError, match="no valid output"):
+        tk.untangled_conv2d_superpack(x, sp, taps_hw=(5, 5),
+                                      rhs_dilation=(3, 3))
+    assert tk._pick_config(256, [64 * 16 * 16]) == 0   # D2 at B=64
+    assert tk._pick_config(1024, [16]) == 1            # D4 at B=1
+    assert tk._pick_config(3, [1024]) == 2
+
+
+def test_conv_ctypes_binding_matches_the_c_entry():
+    """Kernel B's argtypes follow the C signature in its source."""
+    import ctypes
+    import re
+    src = (pathlib.Path(tk.__file__).parent / "csrc"
+           / "untangled_conv.cu").read_text()
+    sig = re.search(r'extern "C" int untangled_conv2d_f32\(([^)]*)\)',
+                    src).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params)
+    assert tk._CONV_ARGTYPES == want
+    from repro_torch.kernels import _build
+    assert set(_build.SOURCES) == {"untangled_deconv", "untangled_conv"}
+
+
+def test_conv_library_yardstick_and_sites():
+    """``chip_smoke.conv_library_args`` turns ``F.conv2d`` into kernel B's
+    valid correlation of the pre-padded plane, and ``chip_smoke.disc_sites``
+    lists exactly the DCGAN and cGAN discriminator plans' geometry."""
+    import chip_smoke
+    from repro_torch.models import gan as tgan
+    for case in (CONV_CASES[0], CONV_CASES[3]):
+        _, b, h, c, n, k, s, d, pads = case
+        x, kern = conv_inputs(case)
+        xp = torch.from_numpy(np.pad(x, ((0, 0), *pads, (0, 0))))
+        xl, wl, kw = chip_smoke.conv_library_args(
+            xp, torch.from_numpy(kern), (s, s), (d, d))
+        got = torch.nn.functional.conv2d(xl, wl, **kw).permute(0, 2, 3, 1)
+        y64, amax = conv_oracle_f64(x, kern, strides=(s, s),
+                                    dilation=(d, d), padding=pads)
+        assert_within_ulp(got.numpy(), y64, amax, k * k * c)
+    want = []
+    for layers in (tgan.DCGAN_LAYERS, tgan.CGAN_LAYERS):
+        cfg = tgan.GANConfig("g", layers)
+        want += [(p.spec.in_hw[0], p.spec.in_c, p.spec.out_c,
+                  p.spec.kernel_hw[0], p.spec.strides[0], p.spec.padding)
+                 for p in tgan.discriminator_plans(cfg)]
+    assert [site[1:] for site in chip_smoke.disc_sites()] == want

@@ -1,6 +1,6 @@
 """The port's plans against the JAX package's: geometry field by field,
-bit-equal superpacks, and route verdicts, over every transposed site of the
-golden route table (``tools/gen_route_table.py``)."""
+bit-equal superpacks, and route verdicts, over every transposed, conv and
+dilated site of the golden route table (``tools/gen_route_table.py``)."""
 import dataclasses
 import json
 import pathlib
@@ -24,8 +24,17 @@ def transposed_sites():
             and spec.spatial == (1, 1)]
 
 
+def single_sites():
+    """The f32, single-device 'conv'/'dilated' sites the port covers."""
+    return [(name, spec) for name, spec in route_specs()
+            if spec.kind in ("conv", "dilated")
+            and spec.wdtype == "float32" and spec.spatial == (1, 1)]
+
+
 SITES = transposed_sites()
 SITE_IDS = [name for name, _ in SITES]
+SINGLE_SITES = single_sites()
+SINGLE_IDS = [name for name, _ in SINGLE_SITES]
 
 
 def port_spec(spec, backend):
@@ -117,9 +126,51 @@ def test_unpack_pack_roundtrip_odd_geometry():
                                       packed.numpy())
 
 
+@pytest.mark.parametrize("name,spec", SINGLE_SITES, ids=SINGLE_IDS)
+def test_single_geometry_and_superpack_match_jax(name, spec):
+    jp = jplan.plan_conv(dataclasses.replace(spec, backend="xla"))
+    tp = tplan.plan_conv(port_spec(spec, "torch"))
+    for field in ("out_hw", "gpad", "total_taps", "sum_uv", "uniform",
+                  "bwd_pad", "dx_taps"):
+        assert getattr(tp, field) == getattr(jp, field), field
+    assert [dataclasses.asdict(ex) for ex in tp.phases] == \
+        [dataclasses.asdict(ex) for ex in jp.phases]
+    r, s = spec.kernel_hw
+    k = np.random.default_rng(len(name)).standard_normal(
+        (r, s, spec.in_c, spec.out_c)).astype(np.float32)
+    packed_t = tp.pack(torch.from_numpy(k))
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(jp.pack(k)))
+    np.testing.assert_array_equal(tp.unpack(packed_t).numpy(), k)
+    # a 4-D HWIO kernel adapts onto the superpack (the free flatten)
+    assert torch.equal(tp.as_superpack(torch.from_numpy(k)), packed_t)
+
+
+@pytest.mark.parametrize("name,spec", SINGLE_SITES, ids=SINGLE_IDS)
+def test_single_routes_equal_fixture_rows(name, spec):
+    """'torch' routes are the fixture's 'xla' rows (path and fused_bwd per
+    bucket); 'cuda' routes are 'cuda' with the 'pallas' rows' fused_bwd."""
+    xla, pallas = _fixture_rows("xla")[name], _fixture_rows("pallas")[name]
+    tp = tplan.plan_conv(port_spec(spec, "torch"))
+    assert [(r.batch, r.path, r.fused_bwd) for r in tp.routes] == \
+        [(w["batch"], w["path"], w["fused_bwd"]) for w in xla]
+    cp = tplan.plan_conv(port_spec(spec, "cuda"))
+    assert [(r.batch, r.path, r.fused_bwd) for r in cp.routes] == \
+        [(w["batch"], "cuda", w["fused_bwd"]) for w in pallas]
+    assert all(r.tiles is None and r.sp_tiles is None and r.dev_tiles is None
+               for r in tp.routes + cp.routes)
+    # beyond the largest bucket: an exactly sized, memoized route with the
+    # verdict JAX gives that batch
+    jp = jplan.plan_conv(dataclasses.replace(spec, backend="xla"))
+    for plan in (tp, cp):
+        big = plan.route_for_batch(100)
+        assert big is plan.route_for_batch(100) and big.batch == 100
+        assert big.fused_bwd == jp.route_for_batch(100).fused_bwd
+
+
 @pytest.mark.parametrize("change,exc", [
-    ({"kind": "conv"}, NotImplementedError),
-    ({"kind": "dilated", "dilation": (2, 2)}, NotImplementedError),
+    ({"kind": "conv", "spatial": (2, 1)}, NotImplementedError),
+    ({"kind": "dilated", "dilation": (2, 2), "wdtype": "int8"},
+     NotImplementedError),
     ({"spatial": (2, 1)}, NotImplementedError),
     ({"wdtype": "int8"}, NotImplementedError),
     ({"backend": "pallas"}, ValueError),
