@@ -15,6 +15,14 @@ result line) if anything is off:
 2b. kernel B (``untangled_conv2d_superpack``) the same way, at the four
    DCGAN discriminator sites (B = 1 and 64), both cGAN discriminator sites
    (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases;
+2c. kernel B's int8 entry (kernel E inside B) and its plain version against
+   the f64 oracle of ``(x, dequantize_int8(q, scale))``, at the 10 SegNet
+   sites (B = 1 and 64), the six discriminator sites (B = 16) and ragged
+   C/N, each superpack with an all-zero row; the int8 kernel bit-equal to
+   the f32 kernel on the dequantized superpack;
+2d. kernel A's int8 entry the same way, at the DCGAN (B = 1 and 64) and
+   cGAN (B = 16) generator sites, the non-uniform, empty-phase and ragged
+   cases;
 3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
    ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
    launches per batcher launch, each row equal to a B = 1 forward;
@@ -23,13 +31,28 @@ result line) if anything is off:
    finite losses and params, A and B launched exactly once per planned
    forward, and every gradient of one step equal to the 'torch' route's
    within ``max|Δ| ≤ TOL_GRAD·max|g_torch|`` per tensor (TF32 off);
+3c. SegNet serving at full width (``SEGNET``, 64 px, width 128) on the
+   'cuda' route, f32 and int8: a burst answered once per request, kernel B
+   (f32 or int8 entry) launched exactly 10 times per batcher launch, every
+   served argmax map equal to a B = 1 forward's, the int8 logits within
+   10/127 rel L∞ of the f32 twin's and the int8 weights at most half the
+   f32 bytes; the forward's time per bucket, and at B = 1 and 64 its device
+   time by kernel and idle share (``torch.profiler``);
+3d. the int8 DCGAN generator served the same way: 4 int8 kernel-A launches
+   per batcher launch, rows equal to B = 1 forwards, output within 4/127
+   rel L∞ of the f32 generator from the same seed;
 4. times (CUDA events): per DCGAN generator site at B = 1 and 64 kernel A,
    its plain version, ``F.conv_transpose2d`` as the library yardstick and
    the roofline bound; one full generator forward per bucket;
 4b. per discriminator site at B = 1 and 64 the same for kernel B, with
    ``F.conv2d`` on the pre-padded plane as the yardstick; ms per train step
    at B = 16 and 64 on 'cuda' and on 'torch';
-5. the ``kernels`` line, the card line, and the result line.
+4c. the int8 entries: kernel B at every SegNet site and kernel A at every
+   DCGAN site (B = 1 and 64) against the f32 kernel, the plain version, the
+   library call on the dequantized weights and the bound (1 B per weight
+   plus 4 B per scale row); the SegNet forward per bucket, f32 and int8;
+5. the ``kernels`` line (A, B, A-int8, B-int8), the card line, and the
+   result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 """
@@ -94,6 +117,15 @@ def conv_library_args(xp, kernel, strides, dilation):
             dict(stride=tuple(strides), dilation=tuple(dilation)))
 
 
+def seg_sites():
+    """(name, in_hw, C, N, k, stride, dilation, pads) of every site of the
+    full-width SegNet (``SEGNET``, ``segnet_plans``' geometry)."""
+    from repro_torch.models import segnet
+    return [(f"SegNet_L{i}", l.in_hw, l.in_c, l.out_c, l.kernel, l.stride,
+             l.dilation, segnet.atrous_padding(l.kernel, l.dilation))
+            for i, l in enumerate(segnet.SEGNET.layers)]
+
+
 def disc_sites():
     """(name, in_hw, C, N, k, stride, pads) of every discriminator site of
     the Table-1 DCGAN and cGAN (``discriminator_plans``' mirror)."""
@@ -123,12 +155,14 @@ def main() -> int:
     from repro_torch.core.plan import BATCH_BUCKETS, ConvSpec, plan_conv
     from repro_torch.core.untangle import pad_or_crop
     from repro_torch.kernels import _build
-    from repro_torch import train_gan
+    from repro_torch import serve_segnet, train_gan
     from repro_torch.kernels.untangled_conv import (
         single_out_hw, untangled_conv2d_superpack,
         untangled_conv2d_superpack_ref, untangled_deconv2d,
         untangled_deconv2d_ref)
-    from repro_torch.models import gan
+    from repro_torch.models import gan, segnet
+    from repro_torch.runtime.compress import (dequantize_int8,
+                                              quantize_int8_rows)
     from repro_torch.serving.image_batcher import DynamicImageBatcher
     from repro_torch.train.data import GANPipeline
 
@@ -162,23 +196,81 @@ def main() -> int:
         # output element the kernel leaves unwritten cannot pass as a value
         torch.full((numel,), float("nan"), device=dev)
 
+    def time_ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def check_library(name, y_lib, y_k):
+        """The library yardstick's output against the kernel's (the library
+        call must compute the same function before it is timed)."""
+        err = float((y_lib - y_k).abs().max())
+        if err > TOL_ROW * (1 + float(y_k.abs().max())):
+            raise RuntimeError(f"library yardstick disagrees on {name}: "
+                               f"{err:.3e}")
+        return err
+
+    def device_split(fn, wall_ms):
+        """One call of ``fn`` (after the warm-up ``time_ms`` gave it) under
+        ``torch.profiler``: device time of kernel B's launches and of
+        everything else, summed over device-side events only, the idle
+        share against ``wall_ms`` (its time measured without the profiler)
+        and the host ops of most self CPU time (name, calls, ms)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {"kernel_ms": 0.0, "other_ms": 0.0, "kernel_calls": 0,
+               "other_calls": 0}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            part = "kernel" if "conv_kernel" in ev.name else "other"
+            out[f"{part}_ms"] += ev.device_time_total / 1e3
+            out[f"{part}_calls"] += 1
+        busy = out["kernel_ms"] + out["other_ms"]
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        out.update(device_busy_ms=busy, wall_ms=wall_ms,
+                   idle_share=1 - busy / wall_ms,
+                   top_host_ops=[(e.key, e.count, e.self_cpu_time_total / 1e3)
+                                 for e in top[:8]])
+        return out
+
     def site(h, c, n, k, s, pads, backend="cuda"):
         return plan_conv(ConvSpec(
             kind="transposed", in_hw=(h, h), in_c=c, out_c=n,
             kernel_hw=(k, k), strides=(s, s), padding=pads,
             backend=backend))
 
-    def kernel_call(plan, xg, packed):
+    def kernel_call(plan, xg, packed, **scales):
         return untangled_deconv2d(xg, packed, phases=plan.phases,
                                   out_hw=plan.out_hw,
                                   strides=plan.spec.strides,
-                                  sum_uv=plan.sum_uv)
+                                  sum_uv=plan.sum_uv, **scales)
 
-    def ref_call(plan, xg, packed):
+    def ref_call(plan, xg, packed, **scales):
         return untangled_deconv2d_ref(xg, packed, phases=plan.phases,
                                       out_hw=plan.out_hw,
                                       strides=plan.spec.strides,
-                                      sum_uv=plan.sum_uv)
+                                      sum_uv=plan.sum_uv, **scales)
+
+    def int8_of(sp):
+        """(q, scale, dequantized) of an f32 superpack whose middle row is
+        zeroed first (an all-zero row: its scale floors, its codes are 0)."""
+        sp = sp.clone()
+        sp[sp.shape[0] // 2] = 0.0
+        q, scale = quantize_int8_rows(sp)
+        return q, scale, dequantize_int8(q, scale)
 
     # ---- 2. kernel A vs its plain version, both vs the f64 oracle ----------
     dc = gan.DCGAN_LAYERS
@@ -226,11 +318,11 @@ def main() -> int:
                 raise RuntimeError("empty phases are not zero")
 
     # ---- 2b. kernel B vs its plain version, both vs the f64 oracle --------
-    def conv_call(xp, sp, k, s, d, plain=False):
+    def conv_call(xp, sp, k, s, d, plain=False, **scales):
         fn = untangled_conv2d_superpack_ref if plain \
             else untangled_conv2d_superpack
         return fn(xp, sp, taps_hw=(k, k), strides=(s, s),
-                  rhs_dilation=(d, d))
+                  rhs_dilation=(d, d), **scales)
 
     conv_cases = [(f"{name}_B{b}", b, h, c, n, k, s, 1, pads)
                   for b in (1, 64)
@@ -269,6 +361,73 @@ def main() -> int:
               f"(n_terms {k * k * c}, max bound {float(bound.max()):.3e})")
         if not (ok_k and ok_r and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel B disagrees on {name}")
+
+    # ---- 2c. kernel B int8 (kernel E) vs plain, f64 oracle, f32 kernel ----
+    i8_conv_cases = [(f"{name}_B{b}", b, h, c, n, k, s, d, pads)
+                     for b in (1, 64)
+                     for name, h, c, n, k, s, d, pads in seg_sites()]
+    i8_conv_cases += [(f"{name}_B16", 16, h, c, n, k, s, 1, pads)
+                      for name, h, c, n, k, s, pads in disc_sites()]
+    i8_conv_cases += [("ragged_C5_N3", 3, 9, 5, 3, 3, 2, 1, ((1, 1), (1, 1))),
+                      ("ragged_C6_N20", 2, 9, 6, 20, 5, 1, 1,
+                       ((2, 2), (2, 2)))]
+    max_err_bi8 = 0.0
+    for name, b, h, c, n, k, s, d, pads in i8_conv_cases:
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        xp = pad_or_crop(x, pads).contiguous()
+        q, scale, wd = int8_of(kern.reshape(k * k * c, n))
+        oh, ow = single_out_hw(xp.shape[1], xp.shape[2], (k, k), (s, s),
+                               (d, d))
+        poison(b * oh * ow * n)
+        y_k = conv_call(xp, q, k, s, d, scales=scale)
+        y_r = conv_call(xp, q, k, s, d, plain=True, scales=scale)
+        y_f = conv_call(xp, wd, k, s, d)
+        torch.cuda.synchronize()
+        y64, amax = ref.conv_oracle_f64(x, wd.reshape(k, k, c, n),
+                                        strides=(s, s), dilation=(d, d),
+                                        padding=pads)
+        bound = ref.ulp_bound(y64, amax, k * k * c)
+        ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
+        ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
+        bit = torch.equal(y_k, y_f)
+        err = float((y_k - y_r).abs().max())
+        max_err_bi8 = max(max_err_bi8, err)
+        print(f"[kernel B int8] {name}: out {tuple(y_k.shape)} "
+              f"|kernel-plain| {err:.3e} kernel<=ulp_bound {ok_k} "
+              f"plain<=ulp_bound {ok_r} bit-equal to f32 kernel on "
+              f"dequant {bit} (n_terms {k * k * c})")
+        if not (ok_k and ok_r and bit and torch.isfinite(y_k).all()):
+            raise RuntimeError(f"kernel B int8 disagrees on {name}")
+
+    # ---- 2d. kernel A int8 (kernel E) vs plain, f64 oracle, f32 kernel ----
+    max_err_ai8 = 0.0
+    for name, b, h, c, n, k, s, pads in cases:
+        plan = site(h, c, n, k, s, pads)
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        q, scale, wd = int8_of(plan.pack(kern))
+        xg = pad_or_crop(x, plan.gpad)
+        poison(b * plan.out_hw[0] * plan.out_hw[1] * n)
+        y_k = kernel_call(plan, xg, q, scales=scale)
+        y_r = ref_call(plan, xg, q, scales=scale)
+        y_f = kernel_call(plan, xg, wd)
+        torch.cuda.synchronize()
+        y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)),
+                                        plan.unpack(wd), padding=pads)
+        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
+        for ex in plan.phases:
+            terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
+        bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+        ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
+        ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
+        bit = torch.equal(y_k, y_f)
+        err = float((y_k - y_r).abs().max())
+        max_err_ai8 = max(max_err_ai8, err)
+        print(f"[kernel A int8] {name}: out {tuple(y_k.shape)} "
+              f"|kernel-plain| {err:.3e} kernel<=ulp_bound {ok_k} "
+              f"plain<=ulp_bound {ok_r} bit-equal to f32 kernel on "
+              f"dequant {bit}")
+        if not (ok_k and ok_r and bit and torch.isfinite(y_k).all()):
+            raise RuntimeError(f"kernel A int8 disagrees on {name}")
 
     # ---- 3. serving at full width on the 'cuda' route ----------------------
     cfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
@@ -387,21 +546,117 @@ def main() -> int:
           f"max|Δ|/max|g| {worst_grad:.3e} (tol {TOL_GRAD}), losses "
           f"|Δ|/|loss| {loss_rel:.3e} (tol {TOL_LOSS})")
 
-    # ---- 4. times ------------------------------------------------------------
-    def time_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
+    # ---- 3c. SegNet serving at full width, f32 and int8, on 'cuda' --------
+    seg_serve = {}
+    seg_launches = {}
+    for wdtype in ("float32", "int8"):
+        scfg, sparams = serve_segnet.load_model(
+            full=True, backend="cuda", wdtype=wdtype, device=dev)
+        splans = segnet.segnet_plans(scfg)
+        bad = [(i, r.batch, r.path) for i, p in enumerate(splans)
+               for r in p.routes if r.path != "cuda"]
+        if bad or len(splans) != 10:
+            raise RuntimeError(f"SegNet sites off the cuda route: {bad}")
 
-    sites, counted = [], None
+        def seg_fn(x, p=sparams, c=scfg):
+            return torch.argmax(segnet.segnet_apply(p, x, c), dim=-1)
+
+        sb = DynamicImageBatcher(seg_fn, device=dev)
+        sb.warmup(torch.zeros((scfg.in_hw, scfg.in_hw, scfg.in_c)).numpy())
+        imgs = (torch.rand((BURST, scfg.in_hw, scfg.in_hw, scfg.in_c),
+                           generator=torch.Generator().manual_seed(4))
+                * 2 - 1).numpy()
+        untangled_conv2d_superpack.launches = 0
+        untangled_conv2d_superpack.launches_int8 = 0
+        done = sb.drive_open_loop(lambda i: imgs[i], BURST)
+        got = {"float32": untangled_conv2d_superpack.launches,
+               "int8": untangled_conv2d_superpack.launches_int8}
+        st = sb.stats()
+        want = {w: (10 * len(sb.launches) if w == wdtype else 0)
+                for w in got}
+        if sorted(r.rid for r in done) != list(range(BURST)):
+            raise RuntimeError("a SegNet request was dropped or answered "
+                               "twice")
+        if got != want or not sb.launches:
+            raise RuntimeError(f"SegNet {wdtype}: kernel B launches {got}, "
+                               f"want {want} (10 per batcher launch)")
+        seg_launches[wdtype] = got[wdtype]
+        with torch.inference_mode():
+            for r in done:
+                one = seg_fn(torch.from_numpy(imgs[r.rid][None]).to(dev))
+                if r.out.shape != (scfg.out_hw, scfg.out_hw) or \
+                        not (one[0].cpu().numpy() == r.out).all():
+                    raise RuntimeError(f"SegNet {wdtype} request {r.rid}: "
+                                       f"served map differs from its B=1 "
+                                       f"forward's")
+        gate = None
+        if wdtype == "int8":
+            gate = serve_segnet.int8_gate(scfg, sparams, dev)
+            if gate["int8_bytes"] > 0.5 * gate["f32_bytes"]:
+                raise RuntimeError(f"int8 SegNet weights too large: {gate}")
+        seg_serve[wdtype] = {
+            "batcher_launches": sb.launches, "kernel_b_launches": got,
+            "img_per_s": st["throughput_rps"], "p50_ms": st["p50_ms"],
+            "p99_ms": st["p99_ms"], "int8_gate": gate,
+            "forward_ms": {}}
+        with torch.inference_mode():
+            for bb in BATCH_BUCKETS:
+                xb = randn(bb, scfg.in_hw, scfg.in_hw, scfg.in_c)
+                seg_serve[wdtype]["forward_ms"][bb] = time_ms(
+                    lambda: segnet.segnet_apply(sparams, xb, scfg), iters=10)
+                if bb in (1, 64):
+                    seg_serve[wdtype][f"device_split_B{bb}"] = device_split(
+                        lambda: segnet.segnet_apply(sparams, xb, scfg),
+                        seg_serve[wdtype]["forward_ms"][bb])
+        print(f"[serve SegNet {wdtype}] {st['completed']}/{BURST} answered "
+              f"once, batcher launches {sb.launches}, kernel B launches "
+              f"{got} (= 10 x {len(sb.launches)}), every map == its B=1 "
+              f"forward's; {st['throughput_rps']:.1f} img/s, p50 "
+              f"{st['p50_ms']:.3f} ms; forward ms per bucket "
+              f"{json.dumps(seg_serve[wdtype]['forward_ms'])}"
+              + (f"; int8 gate {json.dumps(gate)}" if gate else "")
+              + f" | {smi}")
+
+    # ---- 3d. the int8 DCGAN generator served on 'cuda' --------------------
+    qcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda",
+                         wdtype="int8")
+    qparams = gan.generator_init(0, qcfg, device=dev)
+    qb = DynamicImageBatcher(
+        lambda z: gan.generator_apply(qparams, z, qcfg), device=dev)
+    qb.warmup(proto)
+    untangled_deconv2d.launches = 0
+    untangled_deconv2d.launches_int8 = 0
+    done = qb.drive_open_loop(lambda i: lat[i], BURST)
+    q_launches = {"float32": untangled_deconv2d.launches,
+                  "int8": untangled_deconv2d.launches_int8}
+    if sorted(r.rid for r in done) != list(range(BURST)):
+        raise RuntimeError("an int8 DCGAN request was dropped or answered "
+                           "twice")
+    if q_launches != {"float32": 0, "int8": 4 * len(qb.launches)} \
+            or not qb.launches:
+        raise RuntimeError(f"int8 DCGAN kernel A launches {q_launches}")
+    with torch.inference_mode():
+        for r in done:
+            one = gan.generator_apply(
+                qparams, torch.from_numpy(lat[r.rid][None]).to(dev), qcfg)
+            diff = (one[0].cpu() - torch.from_numpy(r.out)).abs()
+            if not bool((diff <= TOL_ROW * (1 + one[0].cpu().abs())).all()):
+                raise RuntimeError(f"int8 request {r.rid} differs from its "
+                                   f"B=1 forward by {float(diff.max()):.3e}")
+        zb = torch.from_numpy(lat).to(dev)
+        yq = gan.generator_apply(qparams, zb, qcfg)
+        yf = gan.generator_apply(params, zb, cfg)
+    dcgan_rel = float((yq - yf).abs().max() / yf.abs().max())
+    if not dcgan_rel <= len(qcfg.layers) / 127.0:
+        raise RuntimeError(f"int8 DCGAN off its f32 twin: {dcgan_rel:.4f}")
+    print(f"[serve DCGAN int8] {len(done)}/{BURST} answered once, batcher "
+          f"launches {qb.launches}, kernel A launches {q_launches} "
+          f"(= 4 x {len(qb.launches)}), rows == B=1 forwards; output rel "
+          f"L-inf vs the f32 twin {dcgan_rel:.4e} (bound "
+          f"{len(qcfg.layers) / 127.0:.4f})")
+
+    # ---- 4. times ------------------------------------------------------------
+    sites = []
     for b in (1, 64):
         for i, l in enumerate(dc):
             pads = gan.deconv_padding(l.kernel, l.stride)
@@ -411,12 +666,10 @@ def main() -> int:
             packed = plan.pack(kern)
             xg = pad_or_crop(x, plan.gpad)
             xl, wl, kw = library_args(x, kern, plan.spec.strides, pads)
-            y_lib = F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1)
             y_k = kernel_call(plan, xg, packed)
-            lib_err = float((y_lib - y_k).abs().max())
-            if lib_err > TOL_ROW * (1 + float(y_k.abs().max())):
-                raise RuntimeError(f"library yardstick disagrees on DC{i + 1}"
-                                   f" B={b}: {lib_err:.3e}")
+            lib_err = check_library(
+                f"DC{i + 1} B={b}",
+                F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1), y_k)
             flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
                             * ex.taps[1] for ex in plan.phases) \
                 * l.in_c * l.out_c
@@ -455,12 +708,10 @@ def main() -> int:
             xp = pad_or_crop(x, pads).contiguous()
             sp = kern.reshape(k * k * c, n)
             xl, wl, kw = conv_library_args(xp, kern, (s, s), (1, 1))
-            y_lib = F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1)
             y_k = conv_call(xp, sp, k, s, 1)
-            lib_err = float((y_lib - y_k).abs().max())
-            if lib_err > TOL_ROW * (1 + float(y_k.abs().max())):
-                raise RuntimeError(f"library yardstick disagrees on {name} "
-                                   f"B={b}: {lib_err:.3e}")
+            lib_err = check_library(
+                f"{name} B={b}", F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
+                y_k)
             oh, ow = y_k.shape[1:3]
             flops = 2 * b * oh * ow * k * k * c * n
             nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
@@ -539,9 +790,85 @@ def main() -> int:
              for b in (TRAIN_BATCH, 64)}
     print(f"[time] DCGAN 'cuda' train step, device time by kernel "
           f"(torch.profiler, one step after 2): {json.dumps(split)}")
-    print(json.dumps({"sites": sites, "generator_ms": gen_ms,
+
+    # ---- 4c. the int8 entries' times -----------------------------------------
+    def bound_of(flops, nbytes):
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    def time_int8(name, b, flops, in_bytes, out_numel, kernel, f32_kernel,
+                  plain, library, lib_err):
+        """One int8 site's record: the int8 kernel against the f32 kernel
+        on the dequantized weights, the plain version and the library call
+        (already checked against the kernel); the bound counts the input,
+        1 B per code, 4 B per scale row and the f32 output."""
+        bound, by = bound_of(flops, in_bytes + 4 * out_numel)
+        rec = {"site": name, "batch": b, "flops": flops,
+               "bytes": in_bytes + 4 * out_numel,
+               "ms": time_ms(kernel), "f32_ms": time_ms(f32_kernel),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               "bound_ms": bound, "bound_by": by,
+               "library_max_abs_err": lib_err}
+        print(f"[time int8] {name} B={b}: int8 kernel {rec['ms']:.4f} ms, "
+              f"f32 kernel {rec['f32_ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
+              f"ms, bound {bound:.4f} ms ({by}), int8 kernel at "
+              f"{bound / rec['ms']:.1%} of bound")
+        return rec
+
+    print(f"[time int8] kernel E inside B at the SegNet sites, inside A at "
+          f"the DCGAN sites, B = 1 and 64, CUDA events; card {smi}")
+    i8_bsites, i8_asites = [], []
+    for b in (1, 64):
+        for name, h, c, n, k, s, d, pads in seg_sites():
+            x, kern = randn(b, h, h, c), randn(k, k, c, n)
+            xp = pad_or_crop(x, pads).contiguous()
+            q, scale, wd = int8_of(kern.reshape(k * k * c, n))
+            xl, wl, kw = conv_library_args(xp, wd.reshape(k, k, c, n),
+                                           (s, s), (d, d))
+            y_k = conv_call(xp, q, k, s, d, scales=scale)
+            lib_err = check_library(
+                f"{name} B={b}", F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
+                y_k)
+            oh, ow = y_k.shape[1:3]
+            i8_bsites.append(time_int8(
+                name, b, 2 * b * oh * ow * k * k * c * n,
+                4 * xp.numel() + q.numel() + 4 * scale.numel(), y_k.numel(),
+                lambda: conv_call(xp, q, k, s, d, scales=scale),
+                lambda: conv_call(xp, wd, k, s, d),
+                lambda: conv_call(xp, q, k, s, d, plain=True, scales=scale),
+                lambda: F.conv2d(xl, wl, **kw), lib_err))
+        for i, l in enumerate(dc):
+            pads = gan.deconv_padding(l.kernel, l.stride)
+            plan = site(l.in_hw, l.in_c, l.out_c, l.kernel, l.stride, pads)
+            x = randn(b, l.in_hw, l.in_hw, l.in_c)
+            q, scale, wd = int8_of(plan.pack(
+                randn(l.kernel, l.kernel, l.in_c, l.out_c)))
+            xg = pad_or_crop(x, plan.gpad)
+            xl, wl, kw = library_args(x, plan.unpack(wd), plan.spec.strides,
+                                      pads)
+            y_k = kernel_call(plan, xg, q, scales=scale)
+            lib_err = check_library(
+                f"DC{i + 1} B={b}",
+                F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1), y_k)
+            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
+                            * ex.taps[1] for ex in plan.phases) \
+                * l.in_c * l.out_c
+            i8_asites.append(time_int8(
+                f"DC{i + 1}", b, flops,
+                4 * xg.numel() + q.numel() + 4 * scale.numel(), y_k.numel(),
+                lambda: kernel_call(plan, xg, q, scales=scale),
+                lambda: kernel_call(plan, xg, wd),
+                lambda: ref_call(plan, xg, q, scales=scale),
+                lambda: F.conv_transpose2d(xl, wl, **kw), lib_err))
+    print(json.dumps({"card": smi, "sites": sites, "generator_ms": gen_ms,
                       "disc_sites": dsites, "train_step_ms": train_ms,
-                      "train_step_device_split": split}))
+                      "train_step_device_split": split,
+                      "int8_segnet_sites": i8_bsites,
+                      "int8_dcgan_sites": i8_asites,
+                      "segnet_serve": seg_serve,
+                      "dcgan_int8_rel_err": dcgan_rel}))
 
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
@@ -553,14 +880,15 @@ def main() -> int:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": sum(r["library_ms"] for r in recs)}
 
+    a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"]}
+    b_paths = {"train_dcgan": train_launches["B"],
+               "serve_segnet": seg_launches["float32"]}
     kernels = [{
         "name": "untangled_deconv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:373",
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_deconv_kernel",
-        "launches": train_launches["A"],
-        "launches_by_path": {"serve": launches,
-                             "train": train_launches["A"]},
+        "launches": sum(a_paths.values()), "launches_by_path": a_paths,
         "held_against_plain": True, "max_abs_err": max_err,
         "shape": "DCGAN generator, 4 sites, B=64 (sums)",
         **sums([r for r in sites if r["batch"] == 64])}, {
@@ -568,12 +896,31 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/untangled_conv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:77",
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_kernel",
-        "launches": train_launches["B"],
-        "launches_by_path": {"train": train_launches["B"]},
+        "launches": sum(b_paths.values()), "launches_by_path": b_paths,
         "held_against_plain": True, "max_abs_err": max_err_b,
         "shape": "DCGAN discriminator, 4 sites, B=64 (sums)",
         **sums([r for r in dsites if r["batch"] == 64
-                and r["site"].startswith("DCGAN")])}]
+                and r["site"].startswith("DCGAN")])}, {
+        "name": "untangled_deconv2d_i8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:63",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
+                      "inside _deconv_kernel",
+        "launches": q_launches["int8"],
+        "launches_by_path": {"serve_dcgan_int8": q_launches["int8"]},
+        "held_against_plain": True, "max_abs_err": max_err_ai8,
+        "shape": "DCGAN generator int8, 4 sites, B=64 (sums)",
+        **sums([r for r in i8_asites if r["batch"] == 64])}, {
+        "name": "untangled_conv2d_i8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_conv.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:63",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
+                      "inside _kernel",
+        "launches": seg_launches["int8"],
+        "launches_by_path": {"serve_segnet_int8": seg_launches["int8"]},
+        "held_against_plain": True, "max_abs_err": max_err_bi8,
+        "shape": "SegNet int8, 10 sites, B=64 (sums)",
+        **sums([r for r in i8_bsites if r["batch"] == 64])}]
     for k in kernels:
         print(f"[kernels] {k['name']} <- {k['tpu_kernel']}: {k['launches']} "
               f"launches on the main path, held against its plain version")

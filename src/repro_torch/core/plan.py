@@ -27,6 +27,13 @@ Functions ``_PlannedTransposed`` / ``_PlannedSingle``, whose forward runs
 the route on detached inputs (the kernel wrappers refuse tensors that
 require grad) and whose backward is ``_pt_bwd`` / ``_ps_bwd``, plain
 products on the superpack as in JAX.
+
+``ConvSpec.wdtype='int8'`` stores the weights as a ``QuantizedSuperpack``
+(int8 codes in the superpack's row order and one f32 scale per row).  The
+torch routes read it dequantized (``_deq``), the 'cuda' route hands codes
+and scales to the kernels' int8 entries (kernel E inside A and B), and the
+backward gives the scale column its closed-form gradient.  Route verdicts
+do not depend on ``wdtype``.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from repro_torch.core import decompose as dec
 from repro_torch.core.untangle import pad_or_crop
 from repro_torch.kernels.untangled_conv import (untangled_conv2d_superpack,
                                                 untangled_deconv2d)
+from repro_torch.runtime.compress import dequantize_int8, quantize_int8_rows
 
 Pair = tuple[int, int]
 
@@ -61,6 +69,7 @@ _PLANE_BYTES_MAX = 64 * 1024 * 1024
 
 _BACKENDS = ("auto", "torch", "cuda")
 _DTYPES = ("float32", "bfloat16", "float16")
+_WDTYPES = ("float32", "int8")
 
 
 def norm_padding(padding, k_hw) -> tuple[Pair, Pair]:
@@ -105,7 +114,10 @@ class ConvSpec:
     dtype: str = "float32"
     backend: str = "auto"         # 'auto' | 'torch' | 'cuda'
     spatial: Pair = (1, 1)        # device tiling: only (1, 1) is ported
-    wdtype: str = "float32"       # weight storage: only 'float32' is ported
+    # weight *storage* dtype: 'float32' (dense superpack) or 'int8' (the
+    # quantized superpack: ``pack`` emits a ``QuantizedSuperpack``).
+    # Activations and accumulation stay ``dtype``/f32 regardless
+    wdtype: str = "float32"
 
 
 def conv_spec(kind: str, x_shape: Sequence[int], kernel_shape: Sequence[int],
@@ -125,6 +137,45 @@ def conv_spec(kind: str, x_shape: Sequence[int], kernel_shape: Sequence[int],
         dtype=dtype_name(dtype) if dtype is not None else "float32",
         backend=backend, spatial=tuple(int(v) for v in spatial),
         wdtype=str(wdtype))
+
+
+def _weight_itemsize(spec: ConvSpec) -> int:
+    """Bytes per stored weight element: 1 for the int8 superpack (its f32
+    scale rows are counted apart), the activation itemsize otherwise."""
+    if spec.wdtype == "int8":
+        return 1
+    return torch.empty((), dtype=getattr(torch, spec.dtype)).element_size()
+
+
+@dataclasses.dataclass(eq=False)
+class QuantizedSuperpack:
+    """The int8 superpack: the tap-major weight buffer quantized per row.
+
+    ``q`` is the ``(rows, N)`` int8 buffer in the exact row order of the f32
+    superpack (transposed: phase-concatenated taps; conv/dilated: tap
+    ``t = m·S + n`` owns rows ``[t·C, (t+1)·C)``); ``scale`` is the f32
+    ``(rows, 1)`` column of per-row scales riding with it, so slicing rows
+    of both yields a dequantizable panel at any plan-time offset.  Scales
+    come from ``runtime.compress.quantize_int8_rows``, which bounds the
+    per-element weight error by ``0.5·scale[row]``."""
+
+    q: torch.Tensor               # (rows, N) int8
+    scale: torch.Tensor           # (rows, 1) f32
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def dequant(self) -> torch.Tensor:
+        """The f32 superpack: ``q · scale`` row by row."""
+        return dequantize_int8(self.q, self.scale)
+
+    def nbytes(self) -> int:
+        """Stored bytes: 1 per code plus 4 per scale row."""
+        return self.q.numel() + 4 * self.scale.numel()
+
+    def to(self, device) -> "QuantizedSuperpack":
+        return QuantizedSuperpack(self.q.to(device), self.scale.to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -306,44 +357,60 @@ class ConvPlan:
             routes=tuple(routes), build_ms=self.build_ms)
 
     # -- weight layout -----------------------------------------------------
-    def pack(self, kernel: torch.Tensor) -> torch.Tensor:
+    def pack(self, kernel: torch.Tensor):
         """Kernel (R,S,C,N) -> the superpack, row for row
         ``repro.core.plan.ConvPlan.pack``'s.  'transposed': ``(Σ_q
         T_h·T_w·C, N)``, every phase sub-kernel flattened tap-major and
         concatenated in phase order.  'conv'/'dilated': the free tap-major
         flatten ``(R·S·C, N)`` (tap ``t = m·S + n`` owns rows
-        ``[t·C, (t+1)·C)``; dilation never changes the layout)."""
+        ``[t·C, (t+1)·C)``; dilation never changes the layout).
+        ``wdtype='int8'`` specs return a ``QuantizedSuperpack`` of the same
+        rows instead."""
         c, n = self.spec.in_c, self.spec.out_c
         if self.spec.kind != "transposed":
             r, s = self.spec.kernel_hw
-            return kernel.reshape(r * s * c, n)
+            return self._maybe_quantize(kernel.reshape(r * s * c, n))
         subs = dec.decompose_kernel(kernel, self.spec.strides,
                                     self.spec.padding)
-        return torch.cat([subs[ex.q].reshape(ex.taps[0] * ex.taps[1] * c, n)
-                          for ex in self.phases if ex.taps[0] * ex.taps[1]],
-                         dim=0).contiguous()
+        return self._maybe_quantize(torch.cat(
+            [subs[ex.q].reshape(ex.taps[0] * ex.taps[1] * c, n)
+             for ex in self.phases if ex.taps[0] * ex.taps[1]],
+            dim=0).contiguous())
+
+    def _maybe_quantize(self, packed):
+        """Float superpack -> ``QuantizedSuperpack`` when the spec stores
+        int8 weights; a ``QuantizedSuperpack`` passes through."""
+        if self.spec.wdtype != "int8" or isinstance(packed,
+                                                    QuantizedSuperpack):
+            return packed
+        return QuantizedSuperpack(*quantize_int8_rows(packed))
 
     def as_superpack(self, packed):
-        """Superpack tensors pass through.  Transposed: a legacy per-phase
-        dict ({'q0x1': buf} or {(0, 1): buf}) is concatenated onto it.
-        'conv'/'dilated': a full 4-D HWIO kernel is flattened (free), and
-        its gradient flows back 4-D."""
+        """Superpacks (dense or quantized) pass through.  Transposed: a
+        legacy per-phase dict ({'q0x1': buf} or {(0, 1): buf}) is
+        concatenated onto it.  'conv'/'dilated': a full 4-D HWIO kernel is
+        flattened (free), and its gradient flows back 4-D.  ``wdtype='int8'``
+        specs quantize any float layout they adapt."""
+        if isinstance(packed, QuantizedSuperpack):
+            return packed
         if not isinstance(packed, dict):
             if self.spec.kind != "transposed" and packed.dim() == 4:
                 return self.pack(packed)
-            return packed
+            return self._maybe_quantize(packed)
         segs = []
         for ex in self.phases:
             if ex.taps[0] * ex.taps[1] == 0:
                 continue
             sub = packed[ex.key] if ex.key in packed else packed[ex.q]
             segs.append(sub.reshape(-1, self.spec.out_c))
-        return torch.cat(segs, dim=0)
+        return self._maybe_quantize(torch.cat(segs, dim=0))
 
     def unpack(self, packed) -> torch.Tensor:
         """Superpack (or legacy dict / HWIO kernel) -> the full (R,S,C,N)
-        kernel; exact inverse of ``pack``."""
-        packed = self.as_superpack(packed)
+        kernel; exact inverse of ``pack`` for dense weights.  A
+        ``QuantizedSuperpack`` dequantizes first, so it round-trips within
+        one quantization step per element."""
+        packed = _deq(self.as_superpack(packed))
         r, s = self.spec.kernel_hw
         c, n = self.spec.in_c, self.spec.out_c
         if self.spec.kind != "transposed":
@@ -370,7 +437,12 @@ class ConvPlan:
                 f"at build time; plan_conv a spec for this shape")
         fn = (_PlannedTransposed if self.spec.kind == "transposed"
               else _PlannedSingle)
-        return fn.apply(self, x, self.as_superpack(packed))
+        packed = self.as_superpack(packed)
+        if isinstance(packed, QuantizedSuperpack):
+            # codes and scales as two inputs: autograd gives the scale its
+            # gradient, the codes none
+            return fn.apply(self, x, packed.q, packed.scale)
+        return fn.apply(self, x, packed, None)
 
     __call__ = apply
 
@@ -401,10 +473,9 @@ def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
         raise NotImplementedError(
             "plane-parallel plans are not ported yet (ROADMAP Queue 1, "
             "item 13)")
-    if spec.wdtype != "float32":
-        raise NotImplementedError(
-            f"wdtype {spec.wdtype!r} is not ported yet (ROADMAP Queue 1, "
-            f"item 8: int8 superpacks)")
+    if spec.wdtype not in _WDTYPES:
+        raise ValueError(f"unsupported wdtype {spec.wdtype!r} "
+                         f"(supported: {_WDTYPES})")
     if spec.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {spec.dtype!r}")
     plan = (_plan_transposed(spec) if spec.kind == "transposed"
@@ -497,6 +568,24 @@ def _plan_transposed(spec: ConvSpec) -> ConvPlan:
 # ---------------------------------------------------------------------------
 # torch routes: plain products on the views the JAX routes use
 # ---------------------------------------------------------------------------
+
+def _deq(packed):
+    """The f32 superpack of either layout: dense buffers as they are, a
+    ``QuantizedSuperpack`` dequantized (one multiply per weight ahead of
+    the consuming product, as JAX's ``_deq``)."""
+    if isinstance(packed, QuantizedSuperpack):
+        return packed.dequant()
+    return packed
+
+
+def _kernel_operands(packed) -> tuple[torch.Tensor, dict]:
+    """The kernel wrappers' weight operand and ``scales=`` argument: the
+    int8 codes and their scale column for a ``QuantizedSuperpack`` (the
+    kernels' int8 entries), the f32 superpack and no scales otherwise."""
+    if isinstance(packed, QuantizedSuperpack):
+        return packed.q, {"scales": packed.scale}
+    return packed, {}
+
 
 def _global_plane(plan: ConvPlan, x4: torch.Tensor) -> torch.Tensor:
     return pad_or_crop(x4, plan.gpad)
@@ -607,7 +696,7 @@ def _taps_fallback_fwd(plan: ConvPlan, xg: torch.Tensor,
     return dec.interleave_phases(outs, spec.strides, plan.out_hw)
 
 
-def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
+def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     spec = plan.spec
     lead = tuple(x.shape[:-3])
     x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
@@ -615,16 +704,18 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
     if path == "pixel_shuffle":
         # pads with the shared phase footprint (eligibility guarantees one
         # pad fits all phases), so it bypasses the global plane below
-        y = _pixel_shuffle_fwd(plan, x4, packed)
+        y = _pixel_shuffle_fwd(plan, x4, _deq(packed))
         return y.reshape(lead + tuple(y.shape[1:]))
     xg = _global_plane(plan, x4)
     if path == "cuda":
-        y = untangled_deconv2d(xg.contiguous(), packed, phases=plan.phases,
+        w, scales = _kernel_operands(packed)
+        y = untangled_deconv2d(xg.contiguous(), w, phases=plan.phases,
                                out_hw=plan.out_hw, strides=spec.strides,
-                               sum_uv=plan.sum_uv, out_dtype=x.dtype)
+                               sum_uv=plan.sum_uv, out_dtype=x.dtype,
+                               **scales)
     elif path in ("fused_tap", "fused_plane"):
         fwd = _fused_tap_fwd if path == "fused_tap" else _fused_plane_fwd
-        outs = fwd(plan, xg, packed)
+        outs = fwd(plan, xg, _deq(packed))
         if plan.uniform:
             y = dec.interleave_uniform(outs, spec.strides, plan.out_hw)
         else:
@@ -632,7 +723,7 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
                 {ex.q: o for ex, o in zip(plan.phases, outs)},
                 spec.strides, plan.out_hw)
     elif path == "taps":
-        y = _taps_fallback_fwd(plan, xg, packed)
+        y = _taps_fallback_fwd(plan, xg, _deq(packed))
     else:
         raise ValueError(f"route {path!r} is not ported (transposed routes: "
                          f"cuda, fused_tap, fused_plane, pixel_shuffle, "
@@ -660,7 +751,7 @@ def _single_tap_view(xp: torch.Tensor, m: int, nn: int, strides: Pair,
               nn * dw:nn * dw + (v - 1) * sw + 1:sw, :]
 
 
-def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
+def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     """Planned single-correlation forward on the (R·S·C, N) superpack: pad
     once, keep the plane resident, tap products on strided/dilated views."""
     spec = plan.spec
@@ -671,23 +762,25 @@ def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
     xp = pad_or_crop(x4, spec.padding)
     path = plan.route_for_batch(x4.shape[0]).path
     if path == "cuda":
+        w, scales = _kernel_operands(packed)
         y = untangled_conv2d_superpack(
-            xp.contiguous(), packed, taps_hw=(r, s), strides=strides,
-            rhs_dilation=dilation, out_dtype=x.dtype)
+            xp.contiguous(), w, taps_hw=(r, s), strides=strides,
+            rhs_dilation=dilation, out_dtype=x.dtype, **scales)
     elif path == "fused_tap":
         # ONE wide product: tap views concatenated channel-major in
         # superpack row order against the whole (R·S·C, N) buffer
         buf = torch.cat([_single_tap_view(xp, m, nn, strides, dilation,
                                           out_hw)
                          for m in range(r) for nn in range(s)], dim=-1)
-        y = torch.matmul(buf, packed)
+        y = torch.matmul(buf, _deq(packed))
     elif path == "taps":
         # per-tap products; panels are superpack rows [t·C, (t+1)·C)
+        w = _deq(packed)
         y = None
         for (m, nn, row) in plan.dx_taps:
             t = torch.matmul(
                 _single_tap_view(xp, m, nn, strides, dilation, out_hw),
-                packed[row * c:(row + 1) * c])
+                w[row * c:(row + 1) * c])
             y = t if y is None else y + t
     else:
         raise ValueError(f"route {path!r} is not ported (single routes: "
@@ -701,16 +794,24 @@ def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor):
 # The products stay plain PyTorch, as JAX leaves them to XLA.
 # ---------------------------------------------------------------------------
 
-def _weight_cotangent(packed: torch.Tensor, dk: torch.Tensor):
-    """The cotangent of a dense superpack: the f32 dK in its dtype."""
-    return dk.to(packed.dtype)
+def _weight_cotangent(packed, dk: torch.Tensor):
+    """The cotangents ``(d superpack, d scale)`` of the packed operand.  A
+    dense superpack takes the f32 dK in its dtype.  A quantized one chains
+    through ``w = q · scale``: the int8 codes get none (JAX's float0), the
+    scale column the exact ``dscale[row] = Σ_n dK[row, n] · q[row, n]``."""
+    if not isinstance(packed, QuantizedSuperpack):
+        return dk.to(packed.dtype), None
+    dscale = (dk.float() * packed.q.float()).sum(dim=-1, keepdim=True)
+    return None, dscale.to(packed.scale.dtype)
 
 
-def _pt_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
-            dy: torch.Tensor, need_dx: bool = True, need_dk: bool = True):
+def _pt_bwd(plan: ConvPlan, x: torch.Tensor, packed, dy: torch.Tensor,
+            need_dx: bool = True, need_dk: bool = True):
     """Transposed backward: dx in the strided-conv form (dy windows against
     superpack panels at ``dx_taps`` rows, contracting N), dK in the
-    dilated-kernel form, emitted directly in superpack row order."""
+    dilated-kernel form, emitted directly in superpack row order.  Returns
+    ``(dx, d superpack, d scale)`` (``_weight_cotangent``); the superpack
+    is read dequantized, once."""
     spec = plan.spec
     h, w = spec.in_hw
     r, s = spec.kernel_hw
@@ -724,10 +825,11 @@ def _pt_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
         return dy_p[:, oh0:oh0 + sh * (h - 1) + 1:sh,
                     ow0:ow0 + sw * (w - 1) + 1:sw, :]
 
-    dx = dk = None
+    wdq = _deq(packed)
+    dx = dpk = dscale = None
     if need_dx:
         for (m, nn, row) in plan.dx_taps:
-            t = torch.matmul(window(m, nn), packed[row * c:(row + 1) * c].T)
+            t = torch.matmul(window(m, nn), wdq[row * c:(row + 1) * c].T)
             dx = t if dx is None else dx + t
         dx = dx.to(x.dtype).reshape(x.shape)
     if need_dk:
@@ -742,9 +844,9 @@ def _pt_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
                 wnd = window(r - 1 - rr, s - 1 - ss)
                 segs.append(torch.matmul(m_rows, wnd.reshape(-1, spec.out_c)))
         dk = (torch.cat(segs, dim=0) if segs
-              else packed.new_zeros(packed.shape, dtype=torch.float32))
-        dk = _weight_cotangent(packed, dk)
-    return dx, dk
+              else wdq.new_zeros(wdq.shape, dtype=torch.float32))
+        dpk, dscale = _weight_cotangent(packed, dk)
+    return dx, dpk, dscale
 
 
 def _unpad_transpose(dxp: torch.Tensor, pads, in_hw: Pair) -> torch.Tensor:
@@ -762,14 +864,15 @@ def _unpad_transpose(dxp: torch.Tensor, pads, in_hw: Pair) -> torch.Tensor:
     return dx
 
 
-def _ps_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
-            dy: torch.Tensor, need_dx: bool = True, need_dk: bool = True):
+def _ps_bwd(plan: ConvPlan, x: torch.Tensor, packed, dy: torch.Tensor,
+            need_dx: bool = True, need_dk: bool = True):
     """Single-correlation backward, mirroring ``_pt_bwd``: dx in the
     transposed-tap form (dy against the superpack's (C, N) panels, each
     tap's plane scattered back through the exact transpose of its forward
     read), dK from tap views of the padded plane against dy, in superpack
     row order.  ``fused_bwd`` of the actual batch's route picks one wide
-    GEMM per half or per-tap products."""
+    GEMM per half or per-tap products.  Returns ``(dx, d superpack,
+    d scale)``, as ``_pt_bwd``."""
     spec = plan.spec
     strides, dilation, (r, s), (oh, ow) = _single_geom(plan)
     (sh, sw), (dh, dw) = strides, dilation
@@ -781,19 +884,20 @@ def _ps_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
     fused_bwd = plan.route_for_batch(b).fused_bwd
     dy2 = dy4.reshape(-1, n)                               # (B·OH·OW, N)
 
-    dx = dk = None
+    wdq = _deq(packed)
+    dx = dpk = dscale = None
     if need_dx:
         g = None
         if fused_bwd:
             # one GEMM over the (ΣT, C, N) view: (B, OH, OW, ΣT, C)
-            g = torch.matmul(dy2, packed.T).reshape(b, oh, ow, r * s, c)
+            g = torch.matmul(dy2, wdq.T).reshape(b, oh, ow, r * s, c)
         dxp = torch.zeros((b, hp, wp, c), dtype=torch.float32,
                           device=x.device)
         for (m, nn, row) in plan.dx_taps:
             if g is not None:
                 gt = g[..., row, :]
             else:
-                gt = torch.matmul(dy4, packed[row * c:(row + 1) * c].T)
+                gt = torch.matmul(dy4, wdq[row * c:(row + 1) * c].T)
             dxp[:, m * dh:m * dh + (oh - 1) * sh + 1:sh,
                 nn * dw:nn * dw + (ow - 1) * sw + 1:sw, :] += gt
         dx = _unpad_transpose(dxp, spec.padding, spec.in_hw)
@@ -807,45 +911,55 @@ def _ps_bwd(plan: ConvPlan, x: torch.Tensor, packed: torch.Tensor,
         else:
             dk = torch.cat([torch.matmul(v.reshape(-1, c).T, dy2)
                             for v in views], dim=0)
-        dk = _weight_cotangent(packed, dk)
-    return dx, dk
+        dpk, dscale = _weight_cotangent(packed, dk)
+    return dx, dpk, dscale
+
+
+def _packed_operand(w: torch.Tensor, scale):
+    """The superpack an autograd Function's ``(w, scale)`` inputs stand
+    for: ``w`` itself, or the ``QuantizedSuperpack`` of codes ``w``."""
+    return w if scale is None else QuantizedSuperpack(w, scale)
 
 
 class _PlannedTransposed(torch.autograd.Function):
     """The transposed kind's forward on any route, with ``_pt_bwd`` as its
-    backward (JAX: ``_planned_transposed``)."""
+    backward (JAX: ``_planned_transposed``).  ``w`` is the f32 superpack
+    (``scale`` None) or the int8 codes of a quantized one."""
 
     @staticmethod
-    def forward(ctx, plan, x, packed):
+    def forward(ctx, plan, x, w, scale):
         ctx.plan = plan
-        ctx.save_for_backward(x, packed)
-        return _transposed_fwd(plan, x.detach(), packed.detach())
+        ctx.save_for_backward(x, w, scale)
+        return _transposed_fwd(plan, x.detach(), _packed_operand(
+            w.detach(), None if scale is None else scale.detach()))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, packed = ctx.saved_tensors
-        dx, dk = _pt_bwd(ctx.plan, x, packed, dy,
-                         need_dx=ctx.needs_input_grad[1],
-                         need_dk=ctx.needs_input_grad[2])
-        return None, dx, dk
+        x, w, scale = ctx.saved_tensors
+        dx, dpk, dscale = _pt_bwd(ctx.plan, x, _packed_operand(w, scale),
+                                  dy, need_dx=ctx.needs_input_grad[1],
+                                  need_dk=any(ctx.needs_input_grad[2:]))
+        return None, dx, dpk, dscale
 
 
 class _PlannedSingle(torch.autograd.Function):
     """The conv/dilated kinds' forward on any route, with ``_ps_bwd`` as
-    its backward (JAX: ``_planned_single``)."""
+    its backward (JAX: ``_planned_single``); inputs as for
+    ``_PlannedTransposed``."""
 
     @staticmethod
-    def forward(ctx, plan, x, packed):
+    def forward(ctx, plan, x, w, scale):
         ctx.plan = plan
-        ctx.save_for_backward(x, packed)
-        return _single_fwd(plan, x.detach(), packed.detach())
+        ctx.save_for_backward(x, w, scale)
+        return _single_fwd(plan, x.detach(), _packed_operand(
+            w.detach(), None if scale is None else scale.detach()))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, packed = ctx.saved_tensors
-        dx, dk = _ps_bwd(ctx.plan, x, packed, dy,
-                         need_dx=ctx.needs_input_grad[1],
-                         need_dk=ctx.needs_input_grad[2])
-        return None, dx, dk
+        x, w, scale = ctx.saved_tensors
+        dx, dpk, dscale = _ps_bwd(ctx.plan, x, _packed_operand(w, scale),
+                                  dy, need_dx=ctx.needs_input_grad[1],
+                                  need_dk=any(ctx.needs_input_grad[2:]))
+        return None, dx, dpk, dscale

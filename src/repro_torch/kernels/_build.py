@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (plain C interface + ctypes).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
-``_build/lib<name>-<hash>.so``, where ``<hash>`` is the source's content
-hash, so an edited source never loads a stale library.  Builds happen at
+``_build/lib<name>-<hash>.so``, where ``<hash>`` hashes the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or header
+never loads a stale library.  Builds happen at
 first use (or eagerly through ``build``), from the checkout's sources only,
 into the gitignored ``_build/`` directory next to this file.  ``nvcc`` is
 found through ``CUDA_HOME``, else ``/usr/local/cuda/bin``.
@@ -41,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

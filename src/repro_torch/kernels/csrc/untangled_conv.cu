@@ -46,18 +46,39 @@
 // blocks (8-32) each walk all of K with one chunk in flight, so the kernel
 // is latency-bound there, far above the memory bound; splitting K across
 // blocks is the known next step.
+//
+// Kernel E, int8 weights (replaces the TPU kernel's int8 tap panel,
+// src/repro/kernels/untangled_conv.py::_tap_panel).  The int8 entry takes
+// the superpack as int8 codes q (R*S*C, N) and one f32 scale per superpack
+// row; since k IS the row, the chunk load reads the codes (char4 on the
+// vector path) and multiplies each by scale[k] with one IEEE multiply (the
+// rounding of JAX's panel.astype(f32) * scale; csrc/superpack_load.cuh),
+// then stores f32 into the same shared-memory tile the f32 kernel uses.
+// The FFMA loop, the tiles and the accumulation order are the f32
+// kernel's, so the int8 kernel on (q, scale) is bit-equal to the f32
+// kernel on dequantize(q, scale).  The scale sits on the contraction dim,
+// so it cannot move after the dot.  It cuts the weight bytes about 4x (1 B
+// per weight + 4 B per row), but neither entry is bound by them: at B = 1
+// both are latency-bound (the serial K walk above), at batch 64 both are
+// FFMA-bound, and the int8 entry runs up to ~30% slower than the f32 one
+// on the vector path (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "superpack_load.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <int BM, int BN, int BK, int TM, int TN, bool VEC>
+template <int BM, int BN, int BK, int TM, int TN, bool VEC, typename WT>
 __global__ void __launch_bounds__(kThreads)
-conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            float* __restrict__ y, int B, int Hp, int Wp, int C, int N,
-            int OH, int OW, int S, int K, int sh, int sw, int dh, int dw) {
+conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+            const float* __restrict__ scale, float* __restrict__ y, int B,
+            int Hp, int Wp, int C, int N, int OH, int OW, int S, int K,
+            int sh, int sw, int dh, int dw) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one TMxTN tile a thread");
   static_assert(TM % 4 == 0 && TN % 4 == 0 && BK % 4 == 0, "float4 groups");
   constexpr int KQ = BK / 4;                   // float4 chunks per A row
@@ -142,15 +163,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int k = k0 + b_row[i];
       const int n = n0 + b_col[i];
       if (b_ok[i] && k < K && n < N) {
-        const float* src = w + (size_t)k * N + n;
-        if (VEC) {
-          val = *reinterpret_cast<const float4*>(src);
-        } else {
-          val.x = src[0];
-          if (n + 1 < N) val.y = src[1];
-          if (n + 2 < N) val.z = src[2];
-          if (n + 3 < N) val.w = src[3];
-        }
+        val = load_superpack_chunk<VEC>(w, scale, k, n, N);
       }
       b_reg[i] = val;
     }
@@ -246,17 +259,45 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, typename WT>
 void launch(bool vec, dim3 grid, cudaStream_t stream, const float* x,
-            const float* w, float* y, int B, int Hp, int Wp, int C, int N,
-            int OH, int OW, int S, int K, int sh, int sw, int dh, int dw) {
+            const WT* w, const float* scale, float* y, int B, int Hp, int Wp,
+            int C, int N, int OH, int OW, int S, int K, int sh, int sw,
+            int dh, int dw) {
   if (vec) {
-    conv_kernel<BM, BN, BK, TM, TN, true><<<grid, kThreads, 0, stream>>>(
-        x, w, y, B, Hp, Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
+    conv_kernel<BM, BN, BK, TM, TN, true, WT><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, y, B, Hp, Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
   } else {
-    conv_kernel<BM, BN, BK, TM, TN, false><<<grid, kThreads, 0, stream>>>(
-        x, w, y, B, Hp, Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
+    conv_kernel<BM, BN, BK, TM, TN, false, WT><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, y, B, Hp, Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
   }
+}
+
+template <typename WT>
+int dispatch(const float* x, const WT* w, const float* scale, float* y,
+             int B, int Hp, int Wp, int C, int N, int OH, int OW, int R,
+             int S, int sh, int sw, int dh, int dw, int config, int vec,
+             int grid_m, int grid_n, void* stream) {
+  const dim3 grid(grid_m, grid_n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int K = R * S * C;
+  switch (config) {
+    case 0:
+      launch<128, 128, 8, 8, 8>(vec != 0, grid, st, x, w, scale, y, B, Hp,
+                                Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
+      break;
+    case 1:
+      launch<64, 64, 16, 4, 4>(vec != 0, grid, st, x, w, scale, y, B, Hp,
+                               Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
+      break;
+    case 2:
+      launch<256, 16, 8, 4, 4>(vec != 0, grid, st, x, w, scale, y, B, Hp,
+                               Wp, C, N, OH, OW, S, K, sh, sw, dh, dw);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -272,24 +313,19 @@ extern "C" int untangled_conv2d_f32(const float* x, const float* w, float* y,
                                     int sw, int dh, int dw, int config,
                                     int vec, int grid_m, int grid_n,
                                     void* stream) {
-  const dim3 grid(grid_m, grid_n);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K = R * S * C;
-  switch (config) {
-    case 0:
-      launch<128, 128, 8, 8, 8>(vec != 0, grid, s, x, w, y, B, Hp, Wp, C, N,
-                                OH, OW, S, K, sh, sw, dh, dw);
-      break;
-    case 1:
-      launch<64, 64, 16, 4, 4>(vec != 0, grid, s, x, w, y, B, Hp, Wp, C, N,
-                               OH, OW, S, K, sh, sw, dh, dw);
-      break;
-    case 2:
-      launch<256, 16, 8, 4, 4>(vec != 0, grid, s, x, w, y, B, Hp, Wp, C, N,
-                               OH, OW, S, K, sh, sw, dh, dw);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<float>(x, w, nullptr, y, B, Hp, Wp, C, N, OH, OW, R, S, sh,
+                         sw, dh, dw, config, vec, grid_m, grid_n, stream);
+}
+
+// Kernel E inside kernel B: as untangled_conv2d_f32 on int8 codes `q` with
+// one f32 scale per superpack row (`scale`, R*S*C floats); `vec` also needs
+// `q` 4-byte aligned (char4 loads).
+extern "C" int untangled_conv2d_i8(const float* x, const int8_t* q,
+                                   const float* scale, float* y, int B,
+                                   int Hp, int Wp, int C, int N, int OH,
+                                   int OW, int R, int S, int sh, int sw,
+                                   int dh, int dw, int config, int vec,
+                                   int grid_m, int grid_n, void* stream) {
+  return dispatch<int8_t>(x, q, scale, y, B, Hp, Wp, C, N, OH, OW, R, S, sh,
+                          sw, dh, dw, config, vec, grid_m, grid_n, stream);
 }

@@ -37,8 +37,25 @@
 // (the RGB head, N = 3).  At batch 1 the few blocks each walk all of K with
 // one outstanding chunk, so the kernel is latency bound there, far above
 // the memory bound; splitting K across blocks is the known next step.
+//
+// Kernel E, int8 weights (replaces the TPU kernel's int8 tap panel,
+// src/repro/kernels/untangled_conv.py::_tap_panel).  The int8 entry takes
+// the superpack as int8 codes q (sum T*C, N) and one f32 scale per
+// superpack row (tap_off + t)*C + c; the chunk load reads the codes (char4
+// on the vector path), multiplies each by its row's scale with one IEEE
+// multiply (csrc/superpack_load.cuh) and stores f32 into the same
+// shared-memory tile, so the FFMA loop, tiles and accumulation order are
+// the f32 kernel's and the int8 kernel on (q, scale) is bit-equal to the
+// f32 kernel on dequantize(q, scale).  It moves 1 B per weight (+ 4 B per
+// row) instead of 4 (DC1: 52.4 MB -> 13.2 MB), but the kernel is not bound
+// by those bytes: at batch 1 it is latency-bound as above, at batch 64
+// FFMA-bound, and it runs up to ~30% slower than the f32 entry (PERF.md).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "superpack_load.cuh"
 
 namespace {
 
@@ -46,9 +63,10 @@ constexpr int kThreads = 256;
 // per-phase record: q_h q_w tap_off T_h T_w xoff_h xoff_w U V
 constexpr int kRec = 9;
 
-template <int BM, int BN, int BK, int TM, int TN, bool VEC>
+template <int BM, int BN, int BK, int TM, int TN, bool VEC, typename WT>
 __global__ void __launch_bounds__(kThreads)
-deconv_kernel(const float* __restrict__ xg, const float* __restrict__ w,
+deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
+              const float* __restrict__ scale,
               const int* __restrict__ table, float* __restrict__ y,
               int B, int Hg, int Wg, int C, int N, int OH, int OW,
               int sh, int sw, int n_phases) {
@@ -144,15 +162,7 @@ deconv_kernel(const float* __restrict__ xg, const float* __restrict__ w,
       const int c = c0 + b_row[i];
       const int n = n0 + b_col[i];
       if (b_ok[i] && c < C && n < N) {
-        const float* src = w + (size_t)(wrow0 + b_row[i]) * N + n;
-        if (VEC) {
-          val = *reinterpret_cast<const float4*>(src);
-        } else {
-          val.x = src[0];
-          if (n + 1 < N) val.y = src[1];
-          if (n + 2 < N) val.z = src[2];
-          if (n + 3 < N) val.w = src[3];
-        }
+        val = load_superpack_chunk<VEC>(w, scale, wrow0 + b_row[i], n, N);
       }
       b_reg[i] = val;
     }
@@ -250,17 +260,46 @@ deconv_kernel(const float* __restrict__ xg, const float* __restrict__ w,
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, typename WT>
 void launch(bool vec, dim3 grid, cudaStream_t stream, const float* xg,
-            const float* w, const int* table, float* y, int B, int Hg, int Wg,
-            int C, int N, int OH, int OW, int sh, int sw, int n_phases) {
+            const WT* w, const float* scale, const int* table, float* y,
+            int B, int Hg, int Wg, int C, int N, int OH, int OW, int sh,
+            int sw, int n_phases) {
   if (vec) {
-    deconv_kernel<BM, BN, BK, TM, TN, true><<<grid, kThreads, 0, stream>>>(
-        xg, w, table, y, B, Hg, Wg, C, N, OH, OW, sh, sw, n_phases);
+    deconv_kernel<BM, BN, BK, TM, TN, true, WT>
+        <<<grid, kThreads, 0, stream>>>(xg, w, scale, table, y, B, Hg, Wg, C,
+                                        N, OH, OW, sh, sw, n_phases);
   } else {
-    deconv_kernel<BM, BN, BK, TM, TN, false><<<grid, kThreads, 0, stream>>>(
-        xg, w, table, y, B, Hg, Wg, C, N, OH, OW, sh, sw, n_phases);
+    deconv_kernel<BM, BN, BK, TM, TN, false, WT>
+        <<<grid, kThreads, 0, stream>>>(xg, w, scale, table, y, B, Hg, Wg, C,
+                                        N, OH, OW, sh, sw, n_phases);
   }
+}
+
+template <typename WT>
+int dispatch(const float* xg, const WT* w, const float* scale,
+             const int* table, float* y, int B, int Hg, int Wg, int C, int N,
+             int OH, int OW, int sh, int sw, int n_phases, int config,
+             int vec, int grid_m, int grid_n, void* stream) {
+  const dim3 grid(grid_m, grid_n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (config) {
+    case 0:
+      launch<128, 128, 8, 8, 8>(vec != 0, grid, s, xg, w, scale, table, y, B,
+                                Hg, Wg, C, N, OH, OW, sh, sw, n_phases);
+      break;
+    case 1:
+      launch<64, 64, 16, 4, 4>(vec != 0, grid, s, xg, w, scale, table, y, B,
+                               Hg, Wg, C, N, OH, OW, sh, sw, n_phases);
+      break;
+    case 2:
+      launch<256, 16, 8, 4, 4>(vec != 0, grid, s, xg, w, scale, table, y, B,
+                               Hg, Wg, C, N, OH, OW, sh, sw, n_phases);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,23 +315,21 @@ extern "C" int untangled_deconv2d_f32(const float* xg, const float* w,
                                       int OW, int sh, int sw, int n_phases,
                                       int config, int vec, int grid_m,
                                       int grid_n, void* stream) {
-  const dim3 grid(grid_m, grid_n);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (config) {
-    case 0:
-      launch<128, 128, 8, 8, 8>(vec != 0, grid, s, xg, w, table, y, B, Hg, Wg,
-                                C, N, OH, OW, sh, sw, n_phases);
-      break;
-    case 1:
-      launch<64, 64, 16, 4, 4>(vec != 0, grid, s, xg, w, table, y, B, Hg, Wg,
-                               C, N, OH, OW, sh, sw, n_phases);
-      break;
-    case 2:
-      launch<256, 16, 8, 4, 4>(vec != 0, grid, s, xg, w, table, y, B, Hg, Wg,
-                               C, N, OH, OW, sh, sw, n_phases);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<float>(xg, w, nullptr, table, y, B, Hg, Wg, C, N, OH, OW,
+                         sh, sw, n_phases, config, vec, grid_m, grid_n,
+                         stream);
+}
+
+// Kernel E inside kernel A: as untangled_deconv2d_f32 on int8 codes `q`
+// with one f32 scale per superpack row (`scale`, sum T*C floats); `vec`
+// also needs `q` 4-byte aligned (char4 loads).
+extern "C" int untangled_deconv2d_i8(const float* xg, const int8_t* q,
+                                     const float* scale, const int* table,
+                                     float* y, int B, int Hg, int Wg, int C,
+                                     int N, int OH, int OW, int sh, int sw,
+                                     int n_phases, int config, int vec,
+                                     int grid_m, int grid_n, void* stream) {
+  return dispatch<int8_t>(xg, q, scale, table, y, B, Hg, Wg, C, N, OH, OW,
+                          sh, sw, n_phases, config, vec, grid_m, grid_n,
+                          stream);
 }

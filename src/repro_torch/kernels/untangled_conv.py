@@ -13,6 +13,13 @@ The CUDA sources are ``csrc/untangled_deconv.cu`` and
 card and what the design does about it); ``_build`` compiles them with
 ``nvcc`` at first use and binds their plain C entries with ``ctypes``.
 
+Kernel E, the int8 tap panel of the TPU kernels (``_tap_panel``), is each
+kernel's int8 entry: ``scales=`` marks the superpack as int8 codes with one
+f32 scale per row (a ``QuantizedSuperpack``), and the kernel multiplies
+each code by its row's scale as it stages the weight tile, so the int8
+kernel on ``(q, scale)`` is bit-equal to the f32 kernel on
+``dequantize_int8(q, scale)``.
+
 Each wrapper launches its kernel for CUDA tensors, and raises on anything
 the kernel does not take.  It takes its plain version (``*_ref``) only for
 tensors on the CPU.  The kernels have no backward of their own: inputs that
@@ -28,6 +35,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.runtime.compress import dequantize_int8
+
 Pair = tuple[int, int]
 
 # block tiles (BM, BN) of the kernel's configs, indexed as in the source
@@ -37,17 +46,26 @@ _BIG_TILE_MIN_BLOCKS = 120
 _INT32_MAX = 2 ** 31 - 1
 
 
+def _weights_f32(superpack: torch.Tensor, scales) -> torch.Tensor:
+    """The plain versions' f32 weights: the superpack, or its int8 codes
+    dequantized with ``scales``."""
+    if scales is None:
+        return superpack.float()
+    return dequantize_int8(superpack, scales)
+
+
 def untangled_deconv2d_ref(xg: torch.Tensor, superpack: torch.Tensor, *,
                            phases, out_hw: Pair, strides: Pair, sum_uv: int,
-                           out_dtype=None) -> torch.Tensor:
+                           out_dtype=None, scales=None) -> torch.Tensor:
     """Plain PyTorch version of kernel A: per phase, the tap products of the
     plane views at ``xoff + tap`` against superpack rows ``tap_off + t``,
-    accumulated in f32 and written to ``y[:, q_h::s_h, q_w::s_w]``."""
+    accumulated in f32 and written to ``y[:, q_h::s_h, q_w::s_w]``.  With
+    ``scales`` the superpack is int8 codes, dequantized first."""
     b, _, _, c = xg.shape
     n = superpack.shape[1]
     sh, sw = strides
     y = torch.zeros((b, *out_hw, n), dtype=torch.float32, device=xg.device)
-    x32, w32 = xg.float(), superpack.float()
+    x32, w32 = xg.float(), _weights_f32(superpack, scales)
     for ex in phases:
         th, tw = ex.taps
         u, v = ex.out_hw
@@ -89,19 +107,55 @@ def _pick_config(n: int, rows: Sequence[int]) -> int:
     return 0 if blocks >= _BIG_TILE_MIN_BLOCKS else 1
 
 
-# the C entry's parameters: every pointer and the stream as c_void_p (a bare
-# Python int would be passed as a 32-bit int and cut the address)
+# the C entries' parameters: every pointer and the stream as c_void_p (a
+# bare Python int would be passed as a 32-bit int and cut the address); the
+# int8 entry takes the scale column after the codes
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
              + [ctypes.c_void_p])
+_ARGTYPES_I8 = [ctypes.c_void_p] + _ARGTYPES
+
+
+def _bind(source: str, symbol: str, argtypes):
+    from repro_torch.kernels import _build
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
-def _entry():
-    from repro_torch.kernels import _build
-    fn = _build.load("untangled_deconv").untangled_deconv2d_f32
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _entry(int8: bool = False):
+    if int8:
+        return _bind("untangled_deconv", "untangled_deconv2d_i8",
+                     _ARGTYPES_I8)
+    return _bind("untangled_deconv", "untangled_deconv2d_f32", _ARGTYPES)
+
+
+def _check_weights(name: str, superpack: torch.Tensor, scales):
+    """The weight operand a kernel takes: an f32 superpack, or int8 codes
+    with an f32 ``(rows, 1)`` scale column on the same device."""
+    if scales is None:
+        if superpack.dtype != torch.float32:
+            raise TypeError(f"{name} takes a float32 superpack, got "
+                            f"{superpack.dtype}")
+        return
+    if superpack.dtype != torch.int8:
+        raise TypeError(f"{name} with scales= takes int8 codes, got "
+                        f"{superpack.dtype}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (
+            superpack.shape[0], 1):
+        raise ValueError(f"{name} wants float32 scales of shape "
+                         f"({superpack.shape[0]}, 1), got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if scales.device != superpack.device or not scales.is_contiguous():
+        raise ValueError(f"{name} takes contiguous scales beside the codes")
+
+
+def _vec_ok(c: int, n: int, tensors) -> int:
+    """The kernels' vector path: C % 4 == N % 4 == 0 and every operand
+    aligned for its 4-element loads (16 B for f32, 4 B for int8 codes)."""
+    return int(c % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
 
 
 def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
@@ -134,32 +188,38 @@ def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
 
 def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                        phases: Sequence, out_hw: Pair, strides: Pair,
-                       sum_uv: int, out_dtype=None) -> torch.Tensor:
+                       sum_uv: int, out_dtype=None,
+                       scales: torch.Tensor | None = None) -> torch.Tensor:
     """Fused transposed conv: ONE kernel launch for all s_h·s_w phases.
 
     xg: (B, Hg, Wg, C) globally padded plane; superpack: (ΣT·C, N) tap-major
     phase sub-kernels (``ConvPlan.pack``); ``phases`` the plan's
-    ``PhaseExec`` records.  Returns (B, out_h, out_w, N), written
-    interleaved by the kernel.  CUDA tensors launch the kernel (float32,
-    contiguous, no grad) and count one in ``untangled_deconv2d.launches``;
-    CPU tensors run ``untangled_deconv2d_ref``."""
+    ``PhaseExec`` records.  ``scales`` ((ΣT·C, 1) f32) marks ``superpack``
+    as int8 codes (a ``QuantizedSuperpack``'s ``q``) and takes the int8
+    entry.  Returns (B, out_h, out_w, N), written interleaved by the
+    kernel.  CUDA tensors launch the kernel (float32 plane, contiguous, no
+    grad) and count one in ``untangled_deconv2d.launches`` (f32) or
+    ``.launches_int8``; CPU tensors run ``untangled_deconv2d_ref``."""
     phases = tuple(phases)
     out_dtype = out_dtype or xg.dtype
     _check(xg, superpack, phases, out_hw, strides, sum_uv)
     if xg.device.type == "cpu" and superpack.device.type == "cpu":
         return untangled_deconv2d_ref(xg, superpack, phases=phases,
                                       out_hw=out_hw, strides=strides,
-                                      sum_uv=sum_uv, out_dtype=out_dtype)
+                                      sum_uv=sum_uv, out_dtype=out_dtype,
+                                      scales=scales)
     if xg.device.type != "cuda" or superpack.device != xg.device:
         raise ValueError(f"kernel A needs both operands on one CUDA device, "
                          f"got {xg.device} and {superpack.device}")
-    if xg.requires_grad or superpack.requires_grad:
+    if xg.requires_grad or superpack.requires_grad or (
+            scales is not None and scales.requires_grad):
         raise NotImplementedError(
             "kernel A has no backward of its own: differentiate through "
             "ConvPlan.apply (its autograd Function runs _pt_bwd)")
+    if xg.dtype != torch.float32:
+        raise TypeError(f"kernel A takes a float32 xg, got {xg.dtype}")
+    _check_weights("kernel A", superpack, scales)
     for name, t in (("xg", xg), ("superpack", superpack)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel A takes float32 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"kernel A takes a contiguous {name}")
     if out_dtype != torch.float32:
@@ -176,22 +236,27 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                               for ex in phases])
     bm, bn = _CONFIGS[config]
     grid_m = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm) for ex in phases)
-    vec = int(c % 4 == 0 and n % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (xg, superpack, y)))
+    vec = _vec_ok(c, n, (xg, superpack, y))
     table = _phase_table(phases, xg.device)
+    weights = (superpack.data_ptr(),) if scales is None else (
+        superpack.data_ptr(), scales.data_ptr())
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
-        rc = _entry()(xg.data_ptr(), superpack.data_ptr(), table.data_ptr(),
-                      y.data_ptr(), b, hg, wg, c, n, oh, ow,
-                      strides[0], strides[1], len(phases), config, vec,
-                      grid_m, -(-n // bn), stream)
+        rc = _entry(scales is not None)(
+            xg.data_ptr(), *weights, table.data_ptr(), y.data_ptr(), b, hg,
+            wg, c, n, oh, ow, strides[0], strides[1], len(phases), config,
+            vec, grid_m, -(-n // bn), stream)
     if rc != 0:
         raise RuntimeError(f"kernel A launch failed: cudaError {rc}")
-    untangled_deconv2d.launches += 1
+    if scales is None:
+        untangled_deconv2d.launches += 1
+    else:
+        untangled_deconv2d.launches_int8 += 1
     return y
 
 
 untangled_deconv2d.launches = 0
+untangled_deconv2d.launches_int8 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -209,16 +274,18 @@ def single_out_hw(hp: int, wp: int, taps_hw: Pair, strides: Pair,
 def untangled_conv2d_superpack_ref(x: torch.Tensor, superpack: torch.Tensor,
                                    *, taps_hw: Pair, strides: Pair = (1, 1),
                                    rhs_dilation: Pair = (1, 1),
-                                   out_dtype=None) -> torch.Tensor:
+                                   out_dtype=None,
+                                   scales=None) -> torch.Tensor:
     """Plain PyTorch version of kernel B: per tap (m, n), the plane view at
     ``(oh·s_h + m·d_h, ow·s_w + n·d_w)`` times superpack rows
-    ``[(m·S + n)·C, (m·S + n + 1)·C)``, accumulated in f32."""
+    ``[(m·S + n)·C, (m·S + n + 1)·C)``, accumulated in f32.  With
+    ``scales`` the superpack is int8 codes, dequantized first."""
     c = x.shape[3]
     r, s = taps_hw
     (sh, sw), (dh, dw) = strides, rhs_dilation
     oh, ow = single_out_hw(x.shape[1], x.shape[2], taps_hw, strides,
                            rhs_dilation)
-    x32, w32 = x.float(), superpack.float()
+    x32, w32 = x.float(), _weights_f32(superpack, scales)
     acc = None
     for m in range(r):
         for n in range(s):
@@ -230,32 +297,35 @@ def untangled_conv2d_superpack_ref(x: torch.Tensor, superpack: torch.Tensor,
     return acc.to(out_dtype or x.dtype)
 
 
-# the C entry's parameters, as for kernel A
+# the C entries' parameters, as for kernel A
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
                   + [ctypes.c_void_p])
+_CONV_ARGTYPES_I8 = [ctypes.c_void_p] + _CONV_ARGTYPES
 
 
 @functools.cache
-def _conv_entry():
-    from repro_torch.kernels import _build
-    fn = _build.load("untangled_conv").untangled_conv2d_f32
-    fn.argtypes = _CONV_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def _conv_entry(int8: bool = False):
+    if int8:
+        return _bind("untangled_conv", "untangled_conv2d_i8",
+                     _CONV_ARGTYPES_I8)
+    return _bind("untangled_conv", "untangled_conv2d_f32", _CONV_ARGTYPES)
 
 
 def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
                                taps_hw: Pair, strides: Pair = (1, 1),
-                               rhs_dilation: Pair = (1, 1),
-                               out_dtype=None) -> torch.Tensor:
+                               rhs_dilation: Pair = (1, 1), out_dtype=None,
+                               scales: torch.Tensor | None = None
+                               ) -> torch.Tensor:
     """ONE launch of the valid (pre-padded) untangled correlation.
 
     x: (B, Hp, Wp, C) padded plane; superpack: (R·S·C, N) tap-major
     (``ConvPlan.pack``).  Strided and dilated kinds run the same kernel:
-    dilation only moves each tap's read origin.  Returns (B, OH, OW, N).
-    CUDA tensors launch the kernel (float32, contiguous, no grad) and count
-    one in ``untangled_conv2d_superpack.launches``; CPU tensors run
-    ``untangled_conv2d_superpack_ref``."""
+    dilation only moves each tap's read origin.  ``scales`` ((R·S·C, 1)
+    f32) marks ``superpack`` as int8 codes and takes the int8 entry.
+    Returns (B, OH, OW, N).  CUDA tensors launch the kernel (float32 plane,
+    contiguous, no grad) and count one in
+    ``untangled_conv2d_superpack.launches`` (f32) or ``.launches_int8``;
+    CPU tensors run ``untangled_conv2d_superpack_ref``."""
     if x.dim() != 4 or superpack.dim() != 2:
         raise ValueError(f"want x (B, Hp, Wp, C) and superpack (R·S·C, N), "
                          f"got {tuple(x.shape)} and {tuple(superpack.shape)}")
@@ -274,17 +344,19 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
     if x.device.type == "cpu" and superpack.device.type == "cpu":
         return untangled_conv2d_superpack_ref(
             x, superpack, taps_hw=taps_hw, strides=strides,
-            rhs_dilation=rhs_dilation, out_dtype=out_dtype)
+            rhs_dilation=rhs_dilation, out_dtype=out_dtype, scales=scales)
     if x.device.type != "cuda" or superpack.device != x.device:
         raise ValueError(f"kernel B needs both operands on one CUDA device, "
                          f"got {x.device} and {superpack.device}")
-    if x.requires_grad or superpack.requires_grad:
+    if x.requires_grad or superpack.requires_grad or (
+            scales is not None and scales.requires_grad):
         raise NotImplementedError(
             "kernel B has no backward of its own: differentiate through "
             "ConvPlan.apply (its autograd Function runs _ps_bwd)")
+    if x.dtype != torch.float32:
+        raise TypeError(f"kernel B takes a float32 x, got {x.dtype}")
+    _check_weights("kernel B", superpack, scales)
     for name, t in (("x", x), ("superpack", superpack)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel B takes float32 {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"kernel B takes a contiguous {name}")
     if out_dtype != torch.float32:
@@ -296,22 +368,26 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         return y
     config = _pick_config(n, [b * oh * ow])
     bm, bn = _CONFIGS[config]
-    vec = int(c % 4 == 0 and n % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, superpack, y)))
+    vec = _vec_ok(c, n, (x, superpack, y))
+    weights = (superpack.data_ptr(),) if scales is None else (
+        superpack.data_ptr(), scales.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _conv_entry()(x.data_ptr(), superpack.data_ptr(), y.data_ptr(),
-                           b, hp, wp, c, n, oh, ow, r, s,
-                           strides[0], strides[1], rhs_dilation[0],
-                           rhs_dilation[1], config, vec,
-                           -(-(b * oh * ow) // bm), -(-n // bn), stream)
+        rc = _conv_entry(scales is not None)(
+            x.data_ptr(), *weights, y.data_ptr(), b, hp, wp, c, n, oh, ow,
+            r, s, strides[0], strides[1], rhs_dilation[0], rhs_dilation[1],
+            config, vec, -(-(b * oh * ow) // bm), -(-n // bn), stream)
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
-    untangled_conv2d_superpack.launches += 1
+    if scales is None:
+        untangled_conv2d_superpack.launches += 1
+    else:
+        untangled_conv2d_superpack.launches_int8 += 1
     return y
 
 
 untangled_conv2d_superpack.launches = 0
+untangled_conv2d_superpack.launches_int8 = 0
 
 
 def untangled_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,

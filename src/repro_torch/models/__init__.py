@@ -1,0 +1,37 @@
+"""Models on the port's engine, and the one way JAX weights come across."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.plan import QuantizedSuperpack
+
+
+def params_from_numpy(np_params: dict, want: dict,
+                      dev: torch.device) -> dict:
+    """Copy the entries ``want`` names (name -> shape) from a dict of numpy
+    arrays onto ``dev``, checking each shape.  A quantized superpack (any
+    leaf with ``.q`` and ``.scale``, as JAX's ``QuantizedSuperpack`` holds
+    them after ``np.asarray``) comes across as a ``QuantizedSuperpack`` of
+    its int8 codes ``(rows, N)`` and f32 scale column ``(rows, 1)``."""
+    out = {}
+    for name, shape in want.items():
+        leaf = np_params[name]
+        if hasattr(leaf, "q") and hasattr(leaf, "scale"):
+            q = np.asarray(leaf.q)
+            scale = np.asarray(leaf.scale, np.float32)
+            if q.dtype != np.int8 or q.shape != shape \
+                    or scale.shape != (shape[0], 1):
+                raise ValueError(f"{name}: int8 superpack {q.dtype} "
+                                 f"{q.shape} with scales {scale.shape}, "
+                                 f"config wants {shape}")
+            out[name] = QuantizedSuperpack(
+                torch.from_numpy(q.copy()),
+                torch.from_numpy(scale.copy())).to(dev)
+            continue
+        arr = np.asarray(leaf, np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, config wants "
+                             f"{shape}")
+        out[name] = torch.from_numpy(arr.copy()).to(dev)
+    return out

@@ -6,11 +6,14 @@ conv site gets a ``ConvPlan`` once at model load (``generator_plans`` /
 ``discriminator_plans``, backed by the plan cache), and its weights are
 stored superpacked — one tap-major buffer per layer, row for row the JAX
 package's — so ``params_from_jax`` / ``dparams_from_jax`` carry JAX weights
-across as plain arrays.  Both halves train through the plans' §3.2.3
+across as plain arrays (int8 superpacks as their codes and scales).  Both halves train through the plans' §3.2.3
 backwards (``ConvPlan.apply``'s autograd Functions); ``gan_losses`` is the
 non-saturating loss pair.
 
-``GANConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto').
+``GANConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto');
+``GANConfig.wdtype='int8'`` stores every conv weight as a
+``QuantizedSuperpack`` (quantized at pack), which the 'cuda' route runs on
+the kernels' int8 entries.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import resolve_device
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
+from repro_torch.models import params_from_numpy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +63,15 @@ def deconv_padding(kernel: int, stride: int):
 
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
-    """GAN config: float32 weights and activations, one device."""
+    """GAN config: float32 activations, one device."""
 
     name: str
     layers: tuple[DeconvLayer, ...]
     z_dim: int = 100
     backend: str = "torch"          # plan policy: 'torch' | 'cuda' | 'auto'
+    # weight storage dtype for every conv site: 'float32' (dense) or 'int8'
+    # (quantized superpacks, ``ConvSpec.wdtype``); activations stay f32
+    wdtype: str = "float32"
 
 
 DCGAN = GANConfig("dcgan", DCGAN_LAYERS)
@@ -79,7 +86,8 @@ def generator_plans(cfg: GANConfig,
         out_c=l.out_c, kernel_hw=(l.kernel, l.kernel),
         strides=(l.stride, l.stride),
         padding=deconv_padding(l.kernel, l.stride),
-        dtype=dtype_name(dtype), backend=cfg.backend)) for l in cfg.layers)
+        dtype=dtype_name(dtype), backend=cfg.backend,
+        wdtype=cfg.wdtype)) for l in cfg.layers)
 
 
 def discriminator_plans(cfg: GANConfig,
@@ -93,7 +101,8 @@ def discriminator_plans(cfg: GANConfig,
             in_c=l.out_c, out_c=l.in_c, kernel_hw=(k, k),
             strides=(l.stride, l.stride),
             padding=((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2)),
-            dtype=dtype_name(dtype), backend=cfg.backend)))
+            dtype=dtype_name(dtype), backend=cfg.backend,
+            wdtype=cfg.wdtype)))
     return tuple(plans)
 
 
@@ -146,21 +155,10 @@ def _head_features(cfg: GANConfig) -> int:
     return first.in_hw * first.in_hw * first.in_c
 
 
-def _from_numpy(np_params: dict, want: dict, dev: torch.device) -> dict:
-    out = {}
-    for name, shape in want.items():
-        arr = np.asarray(np_params[name], np.float32)
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape}, config wants "
-                             f"{shape}")
-        out[name] = torch.from_numpy(arr.copy()).to(dev)
-    return out
-
-
 def params_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
     """Map JAX ``generator_init`` params (converted to numpy) onto the
     port's: ``proj``, ``dc{i}`` (the superpack, as is — the row order is
-    shared) and ``b{i}``."""
+    shared; an int8 one as its codes and scales) and ``b{i}``."""
     dev = resolve_device(device)
     plans = generator_plans(cfg)
     l0 = cfg.layers[0]
@@ -168,17 +166,18 @@ def params_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
     for i, (l, plan) in enumerate(zip(cfg.layers, plans)):
         want[f"dc{i}"] = (plan.total_taps * l.in_c, l.out_c)
         want[f"b{i}"] = (l.out_c,)
-    return _from_numpy(np_params, want, dev)
+    return params_from_numpy(np_params, want, dev)
 
 
 def dparams_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
     """Map JAX ``discriminator_init`` params (converted to numpy) onto the
-    port's: ``c{i}`` (the (R·S·C, N) superpack, as is) and ``head``."""
+    port's: ``c{i}`` (the (R·S·C, N) superpack, as is; an int8 one as its
+    codes and scales) and ``head``."""
     dev = resolve_device(device)
     want = {f"c{i}": (plan.total_taps * plan.spec.in_c, plan.spec.out_c)
             for i, plan in enumerate(discriminator_plans(cfg))}
     want["head"] = (_head_features(cfg), 1)
-    return _from_numpy(np_params, want, dev)
+    return params_from_numpy(np_params, want, dev)
 
 
 def generator_apply(p, z: torch.Tensor, cfg: GANConfig) -> torch.Tensor:

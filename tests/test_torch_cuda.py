@@ -209,3 +209,115 @@ def test_cuda_train_step_matches_torch(cuda_device):
             scale = float(gt[k].abs().max())
             assert scale > 0, k
             assert float((gc[k] - gt[k]).abs().max()) <= 1e-4 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# kernel E: the int8 entries of kernels A and B
+# ---------------------------------------------------------------------------
+
+def _int8(packed):
+    from repro_torch.runtime.compress import (dequantize_int8,
+                                              quantize_int8_rows)
+    q, scale = quantize_int8_rows(packed)
+    return q, scale, dequantize_int8(q, scale)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_int8_deconv_kernel_bit_equal_to_f32_on_dequant(case, cuda_device):
+    """Kernel A's int8 entry on (q, scale) is bit-equal to its f32 entry on
+    ``dequantize_int8(q, scale)``, and both it and its plain version sit
+    within the f64 ULP bound of the dequantized kernel."""
+    _, b, h, c, n, k, s, pads = case
+    plan, xt, kt, xg, packed, kw = case_on(case, cuda_device)
+    q, scale, wd = _int8(packed)
+    launches = tk.untangled_deconv2d.launches_int8
+    torch.full((b * plan.out_hw[0] * plan.out_hw[1] * n,), float("nan"),
+               device=cuda_device)
+    y_i8 = tk.untangled_deconv2d(xg, q, scales=scale, **kw)
+    y_f = tk.untangled_deconv2d(xg, wd, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_deconv2d.launches_int8 == launches + 1
+    assert torch.equal(y_i8, y_f)
+    y_ref = tk.untangled_deconv2d_ref(xg, q, scales=scale, **kw)
+    y64, amax = ref.conv_oracle_f64(ref.zero_insert(xt, (s, s)),
+                                    plan.unpack(wd), padding=pads)
+    terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=cuda_device)
+    for ex in plan.phases:
+        terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
+    bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+    assert bool(((y_i8.double() - y64).abs() <= bound).all())
+    assert bool(((y_ref.double() - y64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_int8_conv_kernel_bit_equal_to_f32_on_dequant(case, cuda_device):
+    """Kernel B's int8 entry, as kernel A's, with an all-zero row."""
+    _, b, h, c, n, k, s, d, pads = case
+    x, kern = (torch.from_numpy(a).to(cuda_device) for a in conv_inputs(case))
+    xp = pad_or_crop(x, pads).contiguous()
+    sp = kern.reshape(k * k * c, n).clone()
+    sp[c] = 0.0
+    q, scale, wd = _int8(sp)
+    kw = dict(taps_hw=(k, k), strides=(s, s), rhs_dilation=(d, d))
+    launches = tk.untangled_conv2d_superpack.launches_int8
+    torch.full((b * h * h * n,), float("nan"), device=cuda_device)
+    y_i8 = tk.untangled_conv2d_superpack(xp, q, scales=scale, **kw)
+    y_f = tk.untangled_conv2d_superpack(xp, wd, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_conv2d_superpack.launches_int8 == launches + 1
+    assert torch.equal(y_i8, y_f)
+    y_ref = tk.untangled_conv2d_superpack_ref(xp, q, scales=scale, **kw)
+    y64, amax = ref.conv_oracle_f64(x, wd.reshape(k, k, c, n),
+                                    strides=(s, s), dilation=(d, d),
+                                    padding=pads)
+    bound = ref.ulp_bound(y64, amax, k * k * c)
+    assert bool(((y_i8.double() - y64).abs() <= bound).all())
+    assert bool(((y_ref.double() - y64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kind", ["transposed", "conv", "dilated"])
+def test_int8_dscale_cuda_matches_torch(kind, cuda_device):
+    """dx and dscale of an int8 plan on the 'cuda' route (forward on the
+    int8 kernel) against the 'torch' route, each within 1e-4 of its own
+    scale."""
+    from repro_torch.core.plan import QuantizedSuperpack
+    rng = np.random.default_rng(3)
+    if kind == "transposed":
+        x_shape, k_shape, kw = (3, 6, 6, 16), (5, 5, 16, 12), dict(
+            strides=(2, 2), padding=((2, 3), (2, 3)))
+    else:
+        d = 2 if kind == "dilated" else 1
+        x_shape, k_shape, kw = (3, 12, 12, 16), (3, 3, 16, 12), dict(
+            strides=(1, 1) if d == 2 else (2, 2), dilation=(d, d),
+            padding=((d, d), (d, d)))
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32))
+    kern = torch.from_numpy(rng.standard_normal(k_shape).astype(np.float32))
+    out = []
+    for backend in ("cuda", "torch"):
+        plan = plan_conv(conv_spec(kind, x_shape, k_shape, backend=backend,
+                                   wdtype="int8", **kw))
+        packed = plan.pack(kern.to(cuda_device))
+        xt = x.to(cuda_device).requires_grad_()
+        scale = packed.scale.clone().requires_grad_()
+        launches = (tk.untangled_deconv2d.launches_int8
+                    + tk.untangled_conv2d_superpack.launches_int8)
+        y = plan.apply(xt, QuantizedSuperpack(packed.q, scale))
+        ct = torch.ones_like(y)
+        out.append(torch.autograd.grad(y, (xt, scale), ct))
+        torch.cuda.synchronize()
+        ran = (tk.untangled_deconv2d.launches_int8
+               + tk.untangled_conv2d_superpack.launches_int8) - launches
+        assert ran == (1 if backend == "cuda" else 0)
+    for got, want in zip(*out):
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_serve_segnet_int8_on_the_card(cuda_device):
+    from repro_torch import serve_segnet
+    launches = tk.untangled_conv2d_superpack.launches_int8
+    st = serve_segnet.main(["--requests", "12", "--wdtype", "int8"])
+    assert st["completed"] == 12
+    assert st["int8_gate"]["rel_err"] <= st["int8_gate"]["bound"]
+    assert tk.untangled_conv2d_superpack.launches_int8 > launches

@@ -2,6 +2,7 @@
 ``params_from_jax`` / ``dparams_from_jax`` carry the superpacks across as
 plain arrays; the generator, the discriminator, ``gan_losses`` and one
 ``train_step`` match under both plan policies."""
+import dataclasses
 import functools
 
 import jax
@@ -288,3 +289,55 @@ def test_train_gan_cli_on_the_cpu():
     out = train_gan.main(["--device", "cpu", "--backend", "torch",
                           "--small", "--steps", "2", "--batch", "2"])
     assert len(out["d_loss"]) == 2 and np.isfinite(out["d_loss"]).all()
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("layers,z_dim", GAN_CASES, ids=GAN_IDS)
+def test_int8_generator_and_discriminator_match_jax(layers, z_dim, backend):
+    """``GANConfig.wdtype='int8'``: JAX's int8 params (numpy codes and
+    scales) carried across, the generator and discriminator within TOL_FWD
+    of JAX's on the same dequantized weights, and the int8 generator within
+    L/127 of its f32 twin (the serving gate's bound, L = its layers)."""
+    from repro_torch.core.plan import QuantizedSuperpack
+    jcfg, tcfg = configs(layers, backend, z_dim)
+    jq, tq = (dataclasses.replace(c, wdtype="int8") for c in (jcfg, tcfg))
+    gp_np = jax.tree.map(np.asarray, jgan.generator_init(
+        jax.random.PRNGKey(0), jq)[0])
+    dp_np = jax.tree.map(np.asarray, jgan.discriminator_init(
+        jax.random.PRNGKey(1), jq)[0])
+    gp = tgan.params_from_jax(gp_np, tq, device="cpu")
+    dp = tgan.dparams_from_jax(dp_np, tq, device="cpu")
+    assert all(isinstance(gp[f"dc{i}"], QuantizedSuperpack)
+               and isinstance(dp[f"c{i}"], QuantizedSuperpack)
+               for i in range(len(layers)))
+    b = batch(tcfg, seed=6)
+    z, real = b["z"], b["real"]
+    want_g = np.asarray(jax.jit(functools.partial(
+        jgan.generator_apply, cfg=jq))(gp_np, z))
+    want_d = np.asarray(jax.jit(functools.partial(
+        jgan.discriminator_apply, cfg=jq))(dp_np, real))
+    got_g = tgan.generator_apply(gp, torch.from_numpy(z), tq)
+    got_d = tgan.discriminator_apply(dp, torch.from_numpy(real), tq)
+    assert_close(got_g.numpy(), want_g, TOL_FWD)
+    assert_close(got_d.numpy(), want_d, TOL_FWD)
+    # the f32 twin: JAX's f32 init from the same key, run by the port
+    gf = tgan.params_from_jax(jax_params(jcfg), tcfg, device="cpu")
+    y_f = tgan.generator_apply(gf, torch.from_numpy(z), tcfg)
+    rel = float((got_g - y_f).abs().max() / y_f.abs().max())
+    assert 0 < rel <= len(layers) / 127.0, rel
+
+
+def test_int8_init_quantizes_the_f32_draws():
+    """``generator_init`` / ``discriminator_init`` under int8 quantize at
+    pack the very draws the f32 config makes from the same seed."""
+    from repro_torch.runtime.compress import quantize_int8_rows
+    _, tcfg = configs(TINY, "torch", 16)
+    tq = dataclasses.replace(tcfg, wdtype="int8")
+    for init, key in ((tgan.generator_init, "dc"),
+                      (tgan.discriminator_init, "c")):
+        pf, pq = init(5, tcfg, device="cpu"), init(5, tq, device="cpu")
+        for i in range(len(TINY)):
+            q, s = quantize_int8_rows(pf[f"{key}{i}"])
+            assert torch.equal(pq[f"{key}{i}"].q, q)
+            assert torch.equal(pq[f"{key}{i}"].scale, s)
+        assert pq[f"{key}0"].nbytes() <= 0.5 * pf[f"{key}0"].numel() * 4

@@ -169,10 +169,10 @@ def test_single_routes_equal_fixture_rows(name, spec):
 
 @pytest.mark.parametrize("change,exc", [
     ({"kind": "conv", "spatial": (2, 1)}, NotImplementedError),
-    ({"kind": "dilated", "dilation": (2, 2), "wdtype": "int8"},
-     NotImplementedError),
+    ({"kind": "dilated", "dilation": (2, 2), "wdtype": "int8",
+      "spatial": (2, 1)}, NotImplementedError),
     ({"spatial": (2, 1)}, NotImplementedError),
-    ({"wdtype": "int8"}, NotImplementedError),
+    ({"wdtype": "int4"}, ValueError),
     ({"backend": "pallas"}, ValueError),
 ])
 def test_unported_specs_raise(change, exc):
