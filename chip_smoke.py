@@ -51,13 +51,37 @@ result line) if anything is off:
    DCGAN site (B = 1 and 64) against the f32 kernel, the plain version, the
    library call on the dequantized weights and the bound (1 B per weight
    plus 4 B per scale row); the SegNet forward per bucket, f32 and int8;
-5. the ``kernels`` line (A, B, A-int8, B-int8), the card line, and the
-   result line.
+2e. kernel C (``untangled_conv2d_superpack`` with ``sp_tiles=``) and its
+   int8 entry against the plain version and the f64 oracle's ULP bound on
+   NaN-poisoned outputs, at the four tiled sites of the U-Net at a 512 px
+   image (B = 1, the routes' block tiles), the 385 px 32->32 d = 2 context
+   site and a d = 4 twin, the geometries of
+   ``tests/test_tiled_kernels.py:SINGLE_CASES`` with their tiles, and C = 3
+   and N = 3 sites; the int8 entry bit-equal to the f32 entry on the
+   dequantized superpack everywhere;
+2f. kernel D (``untangled_deconv2d`` with ``sp_tiles=``) and its int8 entry
+   the same way, at the U-Net's tiled up0 (512 px, B = 1) and the
+   geometries of ``DECONV_CASES`` (DCGAN and cGAN phases, an empty phase,
+   stride 1), empty phases written as zeros;
+3e. the U-Net on the 'cuda' route, f32 and int8: ``UNET`` (32 px) at B = 1
+   and 64 and a 512 px image at B = 1 and 16, one ``unet_apply`` per bucket
+   with the launches counted per kernel (512 px: 4 C + 1 D + 4 B + 1 A; 32
+   px: 8 B + 2 A; the int8 model in the int8 counters), each forward within
+   ``2e-4·max|y_torch|`` of the 'torch' route on the same weights, the int8
+   model within ``0.15·max|y32| + 1e-3`` of its f32 twin, and an 8-step
+   ``denoise_loop`` at 512 px that stays finite;
+4d. times of kernels C and D (f32 and int8) at every tiled 512 px site at
+   B = 1 and 16 beside the plain version, ``F.conv2d`` (kernel C; none
+   expresses up0's padding in one call) and the bound; the U-Net forward per
+   bucket, and the device's busy share of one 512 px forward;
+5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8), the
+   card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -83,6 +107,38 @@ TRAIN_BATCH = 16
 PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
          "H100": (67e12, 3.35e12), "H200": (67e12, 4.8e12)}
 BURST = 24
+# forward tolerance of the U-Net's 'cuda' route against its 'torch' route,
+# relative to max|y_torch| (the CPU tests' TOL_FWD form against JAX)
+TOL_UNET = 2e-4
+UNET_512_BATCHES = (1, 16)
+UNET_32_BATCHES = (1, 64)
+DENOISE_STEPS = 8
+# kernel C cases beside the U-Net's: (name, b, hp, wp, c, n, r, s, stride,
+# dilation, tile) on a pre-padded plane; tile None takes the card's own.
+# The geometries of tests/test_tiled_kernels.py's SINGLE_CASES (ragged
+# edge, strided, big halo, ragged C, 1x1, one tile = plane), then C = 3
+# and N = 3 (the scalar paths)
+TILED_CONV_CASES = [
+    ("ctx385_d2", 1, 389, 389, 32, 32, 3, 3, 1, 2, None),
+    ("ctx385_d4", 1, 393, 393, 32, 32, 3, 3, 1, 4, None),
+    ("ragged_edge", 2, 13, 11, 5, 7, 3, 2, 1, 1, (4, 4)),
+    ("strided", 1, 17, 17, 8, 8, 3, 3, 2, 1, (3, 5)),
+    ("big_halo", 1, 21, 21, 4, 4, 3, 3, 1, 3, (8, 8)),
+    ("ragged_c", 2, 14, 14, 130, 40, 2, 2, 2, 2, (2, 7)),
+    ("one_by_one", 1, 9, 9, 3, 4, 1, 1, 1, 1, (4, 4)),
+    ("one_tile_is_plane", 1, 16, 16, 6, 5, 3, 3, 1, 1, (16, 16)),
+    ("c3_n32", 2, 34, 34, 3, 32, 3, 3, 1, 1, None),
+    ("c32_n3", 2, 34, 34, 32, 3, 3, 3, 1, 1, None),
+]
+# kernel D cases beside up0: (name, b, h, c, n, k, stride, pads, tile), the
+# geometries of DECONV_CASES (square planes)
+TILED_DECONV_CASES = [
+    ("dcgan_k5s2", 2, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), (3, 3)),
+    ("cgan_k4s2", 1, 8, 5, 4, 4, 2, ((1, 3), (1, 3)), (8, 2)),
+    ("empty_phase_k2s3", 2, 6, 5, 4, 2, 3, ((0, 0), (0, 0)), (2, 3)),
+    ("stride_1", 1, 7, 4, 3, 3, 1, ((1, 1), (1, 1)), (3, 2)),
+    ("dcgan_card_tile", 2, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), None),
+]
 
 
 def card_peaks(name: str) -> tuple[float, float]:
@@ -157,10 +213,11 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch import serve_segnet, train_gan
     from repro_torch.kernels.untangled_conv import (
-        single_out_hw, untangled_conv2d_superpack,
-        untangled_conv2d_superpack_ref, untangled_deconv2d,
-        untangled_deconv2d_ref)
-    from repro_torch.models import gan, segnet
+        pick_block_tile_single, pick_block_tile_transposed, single_out_hw,
+        untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
+        untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
+        untangled_deconv2d_ref, untangled_deconv2d_tiled_ref)
+    from repro_torch.models import gan, segnet, unet
     from repro_torch.runtime.compress import (dequantize_int8,
                                               quantize_int8_rows)
     from repro_torch.serving.image_batcher import DynamicImageBatcher
@@ -429,6 +486,138 @@ def main() -> int:
         if not (ok_k and ok_r and bit and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel A int8 disagrees on {name}")
 
+    # ---- 2e. kernel C (tiled B) f32 and int8 vs plain, f64 oracle ---------
+    unet512 = unet.UNetConfig("unet-512", image_hw=512, backend="cuda")
+    hw512 = unet512.image_hw
+    u_plans = unet.unet_plans(unet512)
+    tiled_c = [(n, p) for n, p in u_plans.items()
+               if p.routes[0].sp_tiles is not None
+               and p.spec.kind != "transposed"]
+    tiled_d = [(n, p) for n, p in u_plans.items()
+               if p.routes[0].sp_tiles is not None
+               and p.spec.kind == "transposed"]
+    if [n for n, _ in tiled_c] != ["stem", "down0", "fuse0", "head"] or \
+            [n for n, _ in tiled_d] != ["up0"]:
+        raise RuntimeError(f"U-Net 512 tiled sites {tiled_c} {tiled_d}")
+
+    def tiled_conv_call(xp, sp, r, s_, st, d, tile, plain=False, **scales):
+        fn = untangled_conv2d_superpack_tiled_ref if plain \
+            else untangled_conv2d_superpack
+        return fn(xp, sp, taps_hw=(r, s_), strides=(st, st),
+                  rhs_dilation=(d, d), sp_tiles=tile, **scales)
+
+    c_cases = []
+    for name, plan in tiled_c:
+        sp_ = plan.spec
+        c_cases.append((f"unet512_{name}_B1", 1,
+                        sp_.in_hw[0] + sum(sp_.padding[0]),
+                        sp_.in_hw[1] + sum(sp_.padding[1]), sp_.in_c,
+                        sp_.out_c,
+                        *sp_.kernel_hw, sp_.strides[0], 1,
+                        plan.routes[0].sp_tiles))
+    c_cases += TILED_CONV_CASES
+    max_err_c = max_err_ci8 = 0.0
+    for name, b, hp, wp, c, n, r, s_, st, d, tile in c_cases:
+        oh, ow = single_out_hw(hp, wp, (r, s_), (st, st), (d, d))
+        if tile is None:
+            tile = pick_block_tile_single((oh, ow), (r, s_), (st, st),
+                                          (d, d), n)
+        xp, kern = randn(b, hp, wp, c), randn(r, s_, c, n)
+        sp = kern.reshape(r * s_ * c, n)
+        q, scale, wd = int8_of(sp)
+        poison(b * oh * ow * n)
+        y_k = tiled_conv_call(xp, sp, r, s_, st, d, tile)
+        y_r = tiled_conv_call(xp, sp, r, s_, st, d, tile, plain=True)
+        poison(b * oh * ow * n)
+        y_k8 = tiled_conv_call(xp, q, r, s_, st, d, tile, scales=scale)
+        y_r8 = tiled_conv_call(xp, q, r, s_, st, d, tile, plain=True,
+                               scales=scale)
+        y_f = tiled_conv_call(xp, wd, r, s_, st, d, tile)
+        torch.cuda.synchronize()
+        oks = []
+        for yk, yr, w_ in ((y_k, y_r, kern), (y_k8, y_r8, wd)):
+            y64, amax = ref.conv_oracle_f64(xp, w_.reshape(r, s_, c, n),
+                                            strides=(st, st),
+                                            dilation=(d, d))
+            bound = ref.ulp_bound(y64, amax, r * s_ * c)
+            oks += [bool(((yk.double() - y64).abs() <= bound).all()),
+                    bool(((yr.double() - y64).abs() <= bound).all())]
+            del y64, amax, bound
+        bit = torch.equal(y_k8, y_f)
+        err, err8 = (float((y_k - y_r).abs().max()),
+                     float((y_k8 - y_r8).abs().max()))
+        max_err_c, max_err_ci8 = max(max_err_c, err), max(max_err_ci8, err8)
+        print(f"[kernel C] {name}: out {tuple(y_k.shape)} tile {tile} "
+              f"|kernel-plain| f32 {err:.3e} int8 {err8:.3e}; within "
+              f"ulp_bound (f32 kernel, plain, int8 kernel, plain) {oks}; "
+              f"int8 bit-equal to f32 on dequant {bit} "
+              f"(n_terms {r * s_ * c})")
+        if not (all(oks) and bit and torch.isfinite(y_k).all()
+                and torch.isfinite(y_k8).all()):
+            raise RuntimeError(f"kernel C disagrees on {name}")
+
+    # ---- 2f. kernel D (tiled A) f32 and int8 vs plain, f64 oracle ---------
+    def tiled_deconv_call(plan, xg, packed, tile, plain=False, **scales):
+        if plain:
+            return untangled_deconv2d_tiled_ref(
+                xg, packed, phases=plan.phases, out_hw=plan.out_hw,
+                strides=plan.spec.strides, sp_tiles=tile, **scales)
+        return untangled_deconv2d(xg, packed, phases=plan.phases,
+                                  out_hw=plan.out_hw,
+                                  strides=plan.spec.strides,
+                                  sum_uv=plan.sum_uv, sp_tiles=tile,
+                                  **scales)
+
+    d_cases = [(f"unet512_{name}_B1", 1, p.spec.in_hw[0], p.spec.in_c,
+                p.spec.out_c, p.spec.kernel_hw[0], p.spec.strides[0],
+                p.spec.padding, p.routes[0].sp_tiles) for name, p in tiled_d]
+    d_cases += TILED_DECONV_CASES
+    max_err_d = max_err_di8 = 0.0
+    for name, b, h, c, n, k, s_, pads, tile in d_cases:
+        plan = site(h, c, n, k, s_, pads)
+        if tile is None:
+            tile = pick_block_tile_transposed(plan.phases, n,
+                                              plan.total_taps)
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        packed = plan.pack(kern)
+        q, scale, wd = int8_of(packed)
+        xg = pad_or_crop(x, plan.gpad).contiguous()
+        numel = b * plan.out_hw[0] * plan.out_hw[1] * n
+        poison(numel)
+        y_k = tiled_deconv_call(plan, xg, packed, tile)
+        y_r = tiled_deconv_call(plan, xg, packed, tile, plain=True)
+        poison(numel)
+        y_k8 = tiled_deconv_call(plan, xg, q, tile, scales=scale)
+        y_r8 = tiled_deconv_call(plan, xg, q, tile, plain=True, scales=scale)
+        y_f = tiled_deconv_call(plan, xg, wd, tile)
+        torch.cuda.synchronize()
+        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
+        for ex in plan.phases:
+            terms[ex.q[0]::s_, ex.q[1]::s_] = ex.taps[0] * ex.taps[1] * c
+        oks = []
+        for yk, yr, w_ in ((y_k, y_r, kern), (y_k8, y_r8, plan.unpack(wd))):
+            y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s_, s_)),
+                                            w_, padding=pads)
+            bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+            oks += [bool(((yk.double() - y64).abs() <= bound).all()),
+                    bool(((yr.double() - y64).abs() <= bound).all())]
+            del y64, amax, bound
+        bit = torch.equal(y_k8, y_f)
+        empty_ok = all(not bool(y[:, ex.q[0]::s_, ex.q[1]::s_].ne(0).any())
+                       for ex in plan.phases if ex.taps[0] * ex.taps[1] == 0
+                       for y in (y_k, y_k8))
+        err, err8 = (float((y_k - y_r).abs().max()),
+                     float((y_k8 - y_r8).abs().max()))
+        max_err_d, max_err_di8 = max(max_err_d, err), max(max_err_di8, err8)
+        print(f"[kernel D] {name}: out {tuple(y_k.shape)} tile {tile} "
+              f"|kernel-plain| f32 {err:.3e} int8 {err8:.3e}; within "
+              f"ulp_bound (f32 kernel, plain, int8 kernel, plain) {oks}; "
+              f"int8 bit-equal to f32 on dequant {bit}; empty phases zero "
+              f"{empty_ok}")
+        if not (all(oks) and bit and empty_ok and torch.isfinite(y_k).all()
+                and torch.isfinite(y_k8).all()):
+            raise RuntimeError(f"kernel D disagrees on {name}")
+
     # ---- 3. serving at full width on the 'cuda' route ----------------------
     cfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
     plans = gan.generator_plans(cfg)
@@ -655,6 +844,98 @@ def main() -> int:
           f"L-inf vs the f32 twin {dcgan_rel:.4e} (bound "
           f"{len(qcfg.layers) / 127.0:.4f})")
 
+    # ---- 3e. the U-Net, f32 and int8, on the 'cuda' route ------------------
+    counters = {"A": (untangled_deconv2d, "launches"),
+                "B": (untangled_conv2d_superpack, "launches"),
+                "C": (untangled_conv2d_superpack, "launches_tiled"),
+                "D": (untangled_deconv2d, "launches_tiled")}
+
+    def zero_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+            setattr(fn, attr + "_int8", 0)
+
+    def read_counts(wdtype):
+        suffix = "_int8" if wdtype == "int8" else ""
+        other = "" if wdtype == "int8" else "_int8"
+        return ({k: getattr(fn, attr + suffix)
+                 for k, (fn, attr) in counters.items()},
+                sum(getattr(fn, attr + other) for fn, attr in
+                    counters.values()))
+
+    unet32 = dataclasses.replace(unet.UNET, backend="cuda")
+    unet_serve, unet_launches = {}, {}
+    u_params = {}
+    for cfg_u, batches, want in (
+            (unet32, UNET_32_BATCHES, {"A": 2, "B": 8, "C": 0, "D": 0}),
+            (unet512, UNET_512_BATCHES, {"A": 1, "B": 4, "C": 4, "D": 1})):
+        for wdtype in ("float32", "int8"):
+            ucfg = dataclasses.replace(cfg_u, wdtype=wdtype)
+            tcfg_u = dataclasses.replace(ucfg, backend="torch")
+            params_u = unet.unet_init(6, ucfg, device=dev)
+            u_params[(cfg_u.image_hw, wdtype)] = params_u
+            key = f"unet{cfg_u.image_hw}_{wdtype}"
+            unet_serve[key] = {}
+            for bb in batches:
+                gen_u = torch.Generator().manual_seed(bb)
+                xu = torch.randn((bb, ucfg.image_hw, ucfg.image_hw,
+                                  ucfg.in_c), generator=gen_u).to(dev)
+                tu = torch.rand((bb,), generator=gen_u).to(dev)
+                with torch.inference_mode():
+                    zero_counts()
+                    y_c = unet.unet_apply(params_u, xu, tu, ucfg)
+                    torch.cuda.synchronize()
+                    got, stray = read_counts(wdtype)
+                    unet_launches[f"{key}_B{bb}"] = got
+                    y_t = unet.unet_apply(params_u, xu, tu, tcfg_u)
+                    torch.cuda.synchronize()
+                if got != want or stray:
+                    raise RuntimeError(f"{key} B={bb}: launches {got} "
+                                       f"(+{stray} in the other dtype's "
+                                       f"counters), want {want}")
+                scale = float(y_t.abs().max())
+                rel = float((y_c - y_t).abs().max()) / scale
+                if not (rel <= TOL_UNET and y_c.shape == xu.shape
+                        and bool(torch.isfinite(y_c).all())):
+                    raise RuntimeError(f"{key} B={bb}: cuda vs torch "
+                                       f"max|Δ|/max|y| {rel:.3e}")
+                rec = {"cuda_vs_torch": rel, "launches": got}
+                if wdtype == "int8":
+                    with torch.inference_mode():
+                        y32 = unet.unet_apply(
+                            u_params[(cfg_u.image_hw, "float32")], xu, tu,
+                            cfg_u)
+                    dev8 = float((y_c - y32).abs().max())
+                    ref32 = float(y32.abs().max())
+                    rec["int8_vs_f32"] = (dev8, ref32)
+                    if not dev8 < 0.15 * ref32 + 1e-3:
+                        raise RuntimeError(f"{key} B={bb}: int8 twin off by "
+                                           f"{dev8:.3e} (max|y32| "
+                                           f"{ref32:.3e})")
+                unet_serve[key][bb] = rec
+                del y_c, y_t
+            print(f"[serve U-Net {cfg_u.image_hw}px {wdtype}] per bucket: "
+                  f"{json.dumps(unet_serve[key])} (tol {TOL_UNET}; int8 "
+                  f"gate max|y8-y32| < 0.15 max|y32| + 1e-3)")
+    xd = torch.randn((1, hw512, hw512, 3), generator=torch.Generator()
+                     .manual_seed(9)).to(dev)
+    denoise = {}
+    for wdtype in ("float32", "int8"):
+        ucfg = dataclasses.replace(unet512, wdtype=wdtype)
+        with torch.inference_mode():
+            unet.denoise_loop(u_params[(hw512, wdtype)], xd, ucfg, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = unet.denoise_loop(u_params[(hw512, wdtype)], xd, ucfg,
+                                    DENOISE_STEPS)
+            torch.cuda.synchronize()
+        denoise[wdtype] = (time.perf_counter() - t0) * 1e3 / DENOISE_STEPS
+        if not bool(torch.isfinite(out).all()) or out.shape != xd.shape:
+            raise RuntimeError(f"512px {wdtype} denoise loop not finite")
+    print(f"[serve U-Net] {DENOISE_STEPS}-step denoise_loop at 512px, B=1, "
+          f"finite; ms per step (host clock, synchronized) "
+          f"{json.dumps(denoise)} | {smi}")
+
     # ---- 4. times ------------------------------------------------------------
     sites = []
     for b in (1, 64):
@@ -862,27 +1143,215 @@ def main() -> int:
                 lambda: kernel_call(plan, xg, wd),
                 lambda: ref_call(plan, xg, q, scales=scale),
                 lambda: F.conv_transpose2d(xl, wl, **kw), lib_err))
+    # ---- 4d. kernels C and D (f32, int8) at the 512 px U-Net's tiled sites
+    print(f"[time tiled] kernels C and D at the tiled sites of the U-Net at "
+          f"a 512 px image, B = 1 and 16, CUDA events; card {smi}")
+    c_sites, d_sites, ci8_sites, di8_sites = [], [], [], []
+    for b in UNET_512_BATCHES:
+        for name, plan in tiled_c:
+            sp_ = plan.spec
+            (r, s_), st, tile = sp_.kernel_hw, sp_.strides[0], \
+                plan.routes[0].sp_tiles
+            x = randn(b, *sp_.in_hw, sp_.in_c)
+            xp = pad_or_crop(x, sp_.padding).contiguous()
+            kern = randn(r, s_, sp_.in_c, sp_.out_c)
+            sp = kern.reshape(-1, sp_.out_c)
+            q, scale, wd = int8_of(sp)
+            xl, wl, kw = conv_library_args(xp, kern, (st, st), (1, 1))
+            y_k = tiled_conv_call(xp, sp, r, s_, st, 1, tile)
+            lib_err = check_library(
+                f"{name} B={b}", F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
+                y_k)
+            flops = 2 * y_k.numel() * r * s_ * sp_.in_c
+            nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+            bound, by = bound_of(flops, nbytes)
+            rec = {"site": name, "batch": b, "flops": flops,
+                   "bytes": nbytes, "tile": tile,
+                   "ms": time_ms(lambda: tiled_conv_call(
+                       xp, sp, r, s_, st, 1, tile)),
+                   "plain_ms": time_ms(lambda: tiled_conv_call(
+                       xp, sp, r, s_, st, 1, tile, plain=True), iters=5),
+                   "whole_plane_ms": time_ms(lambda: conv_call(
+                       xp, sp, r, st, 1)) if r == s_ else None,
+                   "library_ms": time_ms(lambda: F.conv2d(xl, wl, **kw)),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_max_abs_err": lib_err}
+            c_sites.append(rec)
+            print(f"[time C] {name} B={b} tile {tile}: kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                  f"kernel B (whole plane) {rec['whole_plane_ms']:.4f} ms, "
+                  f"library {rec['library_ms']:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), kernel at {bound / rec['ms']:.1%}"
+                  f" of bound")
+            xl8, wl8, kw8 = conv_library_args(
+                xp, wd.reshape(r, s_, sp_.in_c, sp_.out_c), (st, st),
+                (1, 1))
+            y_k8 = tiled_conv_call(xp, q, r, s_, st, 1, tile, scales=scale)
+            lib_err8 = check_library(
+                f"{name} int8 B={b}",
+                F.conv2d(xl8, wl8, **kw8).permute(0, 2, 3, 1), y_k8)
+            ci8_sites.append(time_int8(
+                f"C {name}", b, flops,
+                4 * xp.numel() + q.numel() + 4 * scale.numel(), y_k8.numel(),
+                lambda: tiled_conv_call(xp, q, r, s_, st, 1, tile,
+                                        scales=scale),
+                lambda: tiled_conv_call(xp, wd, r, s_, st, 1, tile),
+                lambda: tiled_conv_call(xp, q, r, s_, st, 1, tile,
+                                        plain=True, scales=scale),
+                lambda: F.conv2d(xl8, wl8, **kw8), lib_err8))
+            del xp, x, y_k, y_k8, xl, xl8
+        for name, plan in tiled_d:
+            sp_ = plan.spec
+            tile = plan.routes[0].sp_tiles
+            x = randn(b, *sp_.in_hw, sp_.in_c)
+            xg = pad_or_crop(x, plan.gpad).contiguous()
+            packed = plan.pack(randn(*sp_.kernel_hw, sp_.in_c, sp_.out_c))
+            q, scale, wd = int8_of(packed)
+            y_k = tiled_deconv_call(plan, xg, packed, tile)
+            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
+                            * ex.taps[1] for ex in plan.phases) \
+                * sp_.in_c * sp_.out_c
+            nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+            bound, by = bound_of(flops, nbytes)
+            rec = {"site": name, "batch": b, "flops": flops,
+                   "bytes": nbytes, "tile": tile,
+                   "ms": time_ms(lambda: tiled_deconv_call(
+                       plan, xg, packed, tile)),
+                   "plain_ms": time_ms(lambda: tiled_deconv_call(
+                       plan, xg, packed, tile, plain=True), iters=5),
+                   "whole_plane_ms": time_ms(lambda: kernel_call(
+                       plan, xg, packed)),
+                   # deconv_padding(4, 2) has no one-call conv_transpose2d
+                   # form (output_padding would equal the stride)
+                   "library_ms": None, "bound_ms": bound, "bound_by": by}
+            d_sites.append(rec)
+            print(f"[time D] {name} B={b} tile {tile}: kernel "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                  f"kernel A (whole plane) {rec['whole_plane_ms']:.4f} ms, "
+                  f"library none (no one-call form of the pad), bound "
+                  f"{bound:.4f} ms ({by}), kernel at {bound / rec['ms']:.1%}"
+                  f" of bound")
+            b8, by8 = bound_of(flops, 4 * xg.numel() + q.numel()
+                               + 4 * scale.numel() + 4 * y_k.numel())
+            rec8 = {"site": f"D {name}", "batch": b, "flops": flops,
+                    "bytes": 4 * xg.numel() + q.numel() + 4 * scale.numel()
+                    + 4 * y_k.numel(),
+                    "ms": time_ms(lambda: tiled_deconv_call(
+                        plan, xg, q, tile, scales=scale)),
+                    "f32_ms": time_ms(lambda: tiled_deconv_call(
+                        plan, xg, wd, tile)),
+                    "plain_ms": time_ms(lambda: tiled_deconv_call(
+                        plan, xg, q, tile, plain=True, scales=scale),
+                        iters=5),
+                    "library_ms": None, "bound_ms": b8, "bound_by": by8}
+            di8_sites.append(rec8)
+            print(f"[time int8] D {name} B={b}: int8 kernel "
+                  f"{rec8['ms']:.4f} ms, f32 kernel {rec8['f32_ms']:.4f} ms,"
+                  f" plain {rec8['plain_ms']:.4f} ms, bound {b8:.4f} ms "
+                  f"({by8})")
+            del x, xg, y_k
+    unet_ms = {}
+    with torch.inference_mode():
+        for cfg_u, batches in ((unet32, BATCH_BUCKETS),
+                               (unet512, UNET_512_BATCHES)):
+            for wdtype in ("float32", "int8"):
+                ucfg = dataclasses.replace(cfg_u, wdtype=wdtype)
+                pu = u_params[(cfg_u.image_hw, wdtype)]
+                for bb in batches:
+                    xu = randn(bb, ucfg.image_hw, ucfg.image_hw, ucfg.in_c)
+                    tu = torch.rand((bb,), device=dev)
+                    unet_ms[f"unet{cfg_u.image_hw}_{wdtype}_B{bb}"] = \
+                        time_ms(lambda: unet.unet_apply(pu, xu, tu, ucfg),
+                                iters=5, warmup=2)
+    print(f"[time] U-Net forward ms per bucket (CUDA events): "
+          f"{json.dumps(unet_ms)}")
+
+    def unet_split(pu, ucfg, b, wall_ms):
+        """One U-Net forward under ``torch.profiler``: device time of
+        kernels A-D and of everything else, summed over device-side events,
+        and the busy share against ``wall_ms`` (measured without it)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        xu = randn(b, ucfg.image_hw, ucfg.image_hw, ucfg.in_c)
+        tu = torch.rand((b,), device=dev)
+        with torch.inference_mode():
+            unet.unet_apply(pu, xu, tu, ucfg)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                unet.unet_apply(pu, xu, tu, ucfg)
+                torch.cuda.synchronize()
+        out = {f"{k}_ms": 0.0 for k in ("A", "B", "C", "D", "other")}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            name = ev.name
+            part = ("D" if "deconv_tiled_kernel" in name
+                    else "C" if "conv_tiled_kernel" in name
+                    else "A" if "deconv_kernel" in name
+                    else "B" if "conv_kernel" in name else "other")
+            out[f"{part}_ms"] += ev.device_time_total / 1e3
+        busy = sum(out.values())
+        out.update(device_busy_ms=busy, wall_ms=wall_ms,
+                   busy_share=busy / wall_ms)
+        return out
+
+    unet_split_512 = {
+        f"{wdtype}_B{bb}": unet_split(
+            u_params[(hw512, wdtype)], dataclasses.replace(unet512,
+                                                           wdtype=wdtype),
+            bb, unet_ms[f"unet{hw512}_{wdtype}_B{bb}"])
+        for wdtype in ("float32", "int8") for bb in UNET_512_BATCHES}
+    print(f"[time] U-Net 512px forward, device time by kernel "
+          f"(torch.profiler, one forward after one): "
+          f"{json.dumps(unet_split_512)}")
+
     print(json.dumps({"card": smi, "sites": sites, "generator_ms": gen_ms,
                       "disc_sites": dsites, "train_step_ms": train_ms,
                       "train_step_device_split": split,
                       "int8_segnet_sites": i8_bsites,
                       "int8_dcgan_sites": i8_asites,
                       "segnet_serve": seg_serve,
-                      "dcgan_int8_rel_err": dcgan_rel}))
+                      "dcgan_int8_rel_err": dcgan_rel,
+                      "tiled_c_sites": c_sites, "tiled_d_sites": d_sites,
+                      "tiled_c_int8_sites": ci8_sites,
+                      "tiled_d_int8_sites": di8_sites,
+                      "unet_serve": unet_serve, "unet_forward_ms": unet_ms,
+                      "unet512_device_split": unet_split_512,
+                      "unet512_denoise_ms_per_step": denoise}))
 
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
         t_bytes = sum(r["bytes"] for r in recs) / peak_bw * 1e3
+        lib = [r["library_ms"] for r in recs]
         return {"ms": sum(r["ms"] for r in recs),
                 "plain_ms": sum(r["plain_ms"] for r in recs),
                 "bound_ms": sum(r["bound_ms"] for r in recs),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": sum(r["library_ms"] for r in recs)}
+                "library_ms": None if None in lib else sum(lib)}
 
-    a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"]}
+    def unet_paths_of(kern_, wdtype):
+        return {k: v[kern_] for k, v in unet_launches.items()
+                if f"_{wdtype}_" in k and v[kern_]}
+
+    a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
+               **unet_paths_of("A", "float32")}
     b_paths = {"train_dcgan": train_launches["B"],
-               "serve_segnet": seg_launches["float32"]}
+               "serve_segnet": seg_launches["float32"],
+               **unet_paths_of("B", "float32")}
+    ai8_paths, bi8_paths = (unet_paths_of("A", "int8"),
+                            unet_paths_of("B", "int8"))
+    c_paths, d_paths = (unet_paths_of("C", "float32"),
+                        unet_paths_of("D", "float32"))
+    ci8_paths, di8_paths = (unet_paths_of("C", "int8"),
+                            unet_paths_of("D", "int8"))
+    for kern_, paths_ in (("C", c_paths), ("D", d_paths),
+                          ("C int8", ci8_paths), ("D int8", di8_paths)):
+        if sum(paths_.values()) == 0:
+            raise RuntimeError(f"kernel {kern_} never launched on the "
+                               f"U-Net path")
+    big = UNET_512_BATCHES[-1]
     kernels = [{
         "name": "untangled_deconv2d", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
@@ -906,8 +1375,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/untangled_conv.py:63",
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
                       "inside _deconv_kernel",
-        "launches": q_launches["int8"],
-        "launches_by_path": {"serve_dcgan_int8": q_launches["int8"]},
+        "launches": q_launches["int8"] + sum(ai8_paths.values()),
+        "launches_by_path": {"serve_dcgan_int8": q_launches["int8"],
+                             **ai8_paths},
         "held_against_plain": True, "max_abs_err": max_err_ai8,
         "shape": "DCGAN generator int8, 4 sites, B=64 (sums)",
         **sums([r for r in i8_asites if r["batch"] == 64])}, {
@@ -916,11 +1386,49 @@ def main() -> int:
         "replaces": "src/repro/kernels/untangled_conv.py:63",
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
                       "inside _kernel",
-        "launches": seg_launches["int8"],
-        "launches_by_path": {"serve_segnet_int8": seg_launches["int8"]},
+        "launches": seg_launches["int8"] + sum(bi8_paths.values()),
+        "launches_by_path": {"serve_segnet_int8": seg_launches["int8"],
+                             **bi8_paths},
         "held_against_plain": True, "max_abs_err": max_err_bi8,
         "shape": "SegNet int8, 10 sites, B=64 (sums)",
-        **sums([r for r in i8_bsites if r["batch"] == 64])}]
+        **sums([r for r in i8_bsites if r["batch"] == 64])}, {
+        "name": "untangled_conv2d_tiled", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_conv_tiled.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:158",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tiled_kernel "
+                      "+ _halo_stream",
+        "launches": sum(c_paths.values()), "launches_by_path": c_paths,
+        "held_against_plain": True, "max_abs_err": max_err_c,
+        "shape": f"U-Net 512px tiled sites stem, down0, fuse0, head, "
+                 f"B={big} (sums)",
+        **sums([r for r in c_sites if r["batch"] == big])}, {
+        "name": "untangled_deconv2d_tiled", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_deconv_tiled.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:503",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::"
+                      "_deconv_tiled_kernel + _halo_stream",
+        "launches": sum(d_paths.values()), "launches_by_path": d_paths,
+        "held_against_plain": True, "max_abs_err": max_err_d,
+        "shape": f"U-Net 512px up0, B={big}",
+        **sums([r for r in d_sites if r["batch"] == big])}, {
+        "name": "untangled_conv2d_tiled_i8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_conv_tiled.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:63",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
+                      "inside _tiled_kernel",
+        "launches": sum(ci8_paths.values()), "launches_by_path": ci8_paths,
+        "held_against_plain": True, "max_abs_err": max_err_ci8,
+        "shape": f"U-Net 512px int8 tiled sites, B={big} (sums)",
+        **sums([r for r in ci8_sites if r["batch"] == big])}, {
+        "name": "untangled_deconv2d_tiled_i8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/untangled_deconv_tiled.cu",
+        "replaces": "src/repro/kernels/untangled_conv.py:63",
+        "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
+                      "inside _deconv_tiled_kernel",
+        "launches": sum(di8_paths.values()), "launches_by_path": di8_paths,
+        "held_against_plain": True, "max_abs_err": max_err_di8,
+        "shape": f"U-Net 512px int8 up0, B={big}",
+        **sums([r for r in di8_sites if r["batch"] == big])}]
     for k in kernels:
         print(f"[kernels] {k['name']} <- {k['tpu_kernel']}: {k['launches']} "
               f"launches on the main path, held against its plain version")

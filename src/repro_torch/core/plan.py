@@ -17,8 +17,13 @@ Backend policy (``ConvSpec.backend``), the port's reading of JAX's
 * ``'cuda'``  — every site takes the ``'cuda'`` route at every bucket: one
   launch of the hand-written kernel of its kind (transposed: the fused
   multi-phase ``untangled_deconv2d``; conv/dilated: the single-correlation
-  ``untangled_conv2d_superpack``).  The kernels tile their own output, so
-  no VMEM tile search is made.
+  ``untangled_conv2d_superpack``).  Where the reference's ``'pallas'``
+  policy takes its spatially tiled kernel, the route carries ``sp_tiles``,
+  the output tile of one thread block, and the launch is the tiled kernel
+  (C or D) instead of the whole-plane one (B or A).  That verdict is the
+  reference's own (``_single_tiled_verdict``,
+  ``_transposed_tiled_verdict``), so both packages tile the same (site,
+  bucket) cells; the tile is the card's (``pick_block_tile_*``).
 * ``'auto'``  — ``'cuda'`` when a card is present, else ``'torch'``.
 
 Every route of both kinds differentiates through the paper's §3.2.3
@@ -31,9 +36,10 @@ products on the superpack as in JAX.
 ``ConvSpec.wdtype='int8'`` stores the weights as a ``QuantizedSuperpack``
 (int8 codes in the superpack's row order and one f32 scale per row).  The
 torch routes read it dequantized (``_deq``), the 'cuda' route hands codes
-and scales to the kernels' int8 entries (kernel E inside A and B), and the
-backward gives the scale column its closed-form gradient.  Route verdicts
-do not depend on ``wdtype``.
+and scales to the kernels' int8 entries (kernel E inside A-D), and the
+backward gives the scale column its closed-form gradient.  Route paths
+do not depend on ``wdtype``; the tiled verdict counts int8 weights at one
+byte, as the reference's does.
 """
 from __future__ import annotations
 
@@ -47,8 +53,10 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.core import decompose as dec
 from repro_torch.core.untangle import pad_or_crop
-from repro_torch.kernels.untangled_conv import (untangled_conv2d_superpack,
-                                                untangled_deconv2d)
+from repro_torch.kernels.untangled_conv import (
+    deconv_tap_span, halo_extent, pick_block_tile_single,
+    pick_block_tile_transposed, untangled_conv2d_superpack,
+    untangled_deconv2d)
 from repro_torch.runtime.compress import dequantize_int8, quantize_int8_rows
 
 Pair = tuple[int, int]
@@ -71,6 +79,13 @@ _BACKENDS = ("auto", "torch", "cuda")
 _DTYPES = ("float32", "bfloat16", "float16")
 _WDTYPES = ("float32", "int8")
 
+# The budget the reference's tile searches fit against (``repro.core.plan
+# ._VMEM_BUDGET``).  It reproduces the reference's whole-plane/tiled
+# verdict, so both packages tile the same (site, bucket) cells; it is not a
+# limit of this card, whose kernels gather from device memory.  The tile a
+# tiled route carries is the card's own (``pick_block_tile_*``).
+_REF_VMEM_BUDGET = 12 * 1024 * 1024
+
 
 def norm_padding(padding, k_hw) -> tuple[Pair, Pair]:
     """Normalize 'SAME'/'VALID'/int-pair/nested paddings to ((lo,hi),(lo,hi))."""
@@ -92,6 +107,162 @@ def dtype_name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return str(dtype).removeprefix("torch.")
     return str(getattr(dtype, "name", dtype))
+
+
+# ---------------------------------------------------------------------------
+# the reference's tiled verdict: integer copies of repro.core.plan's tile
+# searches and repro.kernels.untangled_conv's working-set estimates
+# ---------------------------------------------------------------------------
+
+def _weight_tile_bytes(total_taps, c_tile, n_tile, itemsize, witemsize):
+    """Superpack-tile bytes: ``witemsize`` per weight (1 for int8, which
+    also carries its f32 scale column), or the activation itemsize."""
+    if witemsize is None:
+        witemsize = itemsize
+    bytes_ = witemsize * total_taps * c_tile * n_tile
+    if witemsize != itemsize:
+        bytes_ += 4 * total_taps * c_tile
+    return bytes_
+
+
+def vmem_bytes_estimate(hp, wp, c_tile, r, s, n_tile, oh, ow, itemsize=4,
+                        witemsize=None):
+    """The reference's whole-plane working set, (r, s) form."""
+    return vmem_bytes_estimate_superpack(hp, wp, c_tile, r * s, n_tile,
+                                         oh, ow, itemsize, witemsize)
+
+
+def vmem_bytes_estimate_fused(hg, wg, c_tile, total_taps, n_tile, sum_uv,
+                              oh, ow, itemsize=4, witemsize=None):
+    """The reference's fused multi-phase working set: plane + superpack
+    tile + interleaved output + the f32 per-phase accumulator."""
+    return itemsize * (hg * wg * c_tile + oh * ow * n_tile) \
+        + _weight_tile_bytes(total_taps, c_tile, n_tile, itemsize,
+                             witemsize) \
+        + 4 * sum_uv * n_tile
+
+
+def vmem_bytes_estimate_superpack(hp, wp, c_tile, total_taps, n_tile,
+                                  oh, ow, itemsize=4, witemsize=None):
+    """The reference's single-correlation whole-plane working set."""
+    return itemsize * (hp * wp * c_tile + oh * ow * n_tile) \
+        + _weight_tile_bytes(total_taps, c_tile, n_tile, itemsize,
+                             witemsize) \
+        + 4 * oh * ow * n_tile
+
+
+def vmem_bytes_estimate_tiled(tin_h, tin_w, c_tile, total_taps, n_tile,
+                              acc_rows, itemsize=4, witemsize=None):
+    """The reference's tiled working set: the halo tile twice (double
+    buffer), the superpack tile, the output block and its f32
+    accumulator."""
+    return itemsize * (2 * tin_h * tin_w * c_tile + acc_rows * n_tile) \
+        + _weight_tile_bytes(total_taps, c_tile, n_tile, itemsize,
+                             witemsize) \
+        + 4 * acc_rows * n_tile
+
+
+_TILE_CANDS = (256, 128, 64, 32, 16, 8)
+
+
+def _tile_pairs(c, n):
+    """The reference's (C_t, N_t) search order: N_t first, both clipped."""
+    for n_t in _TILE_CANDS:
+        for c_t in _TILE_CANDS:
+            if c_t > max(c, 8) * 2 or n_t > max(n, 8) * 2:
+                continue
+            yield min(c_t, c), min(n_t, n)
+
+
+def pick_vmem_tiles(hp, wp, c, n, r, s, oh, ow, itemsize, witemsize=None):
+    """The reference's whole-plane (C_t, N_t), or None when no tile fits."""
+    for c_t, n_t in _tile_pairs(c, n):
+        if vmem_bytes_estimate(hp, wp, c_t, r, s, n_t, oh, ow, itemsize,
+                               witemsize=witemsize) <= _REF_VMEM_BUDGET:
+            return c_t, n_t
+    return None
+
+
+def pick_fused_tiles(hg, wg, c, n, total_taps, sum_uv, oh, ow, itemsize,
+                     witemsize=None):
+    """The reference's fused multi-phase (C_t, N_t), or None."""
+    for c_t, n_t in _tile_pairs(c, n):
+        if vmem_bytes_estimate_fused(
+                hg, wg, c_t, total_taps, n_t, sum_uv, oh, ow, itemsize,
+                witemsize=witemsize) <= _REF_VMEM_BUDGET:
+            return c_t, n_t
+    return None
+
+
+def _spatial_cands(extent: int) -> tuple[int, ...]:
+    """Output-tile size candidates along one dim, descending, clipped."""
+    return tuple(dict.fromkeys(min(t, extent) for t in (128, 64, 32, 16, 8)))
+
+
+def pick_tiled_single(c, n, r, s, oh, ow, strides, dilation, itemsize,
+                      witemsize=None):
+    """The reference's tiled single-correlation (C_t, N_t, (T_oh, T_ow)),
+    or None."""
+    (sh, sw), (dh, dw) = strides, dilation
+    for c_t, n_t in _tile_pairs(c, n):
+        for toh in _spatial_cands(oh):
+            for tow in _spatial_cands(ow):
+                if vmem_bytes_estimate_tiled(
+                        halo_extent(toh, r, sh, dh),
+                        halo_extent(tow, s, sw, dw), c_t, r * s, n_t,
+                        toh * tow, itemsize,
+                        witemsize=witemsize) <= _REF_VMEM_BUDGET:
+                    return c_t, n_t, (toh, tow)
+    return None
+
+
+def pick_tiled_transposed(c, n, total_taps, phases, itemsize,
+                          witemsize=None):
+    """The reference's tiled multi-phase (C_t, N_t, (T_u, T_v)), or None.
+    Uniform-phase plans only."""
+    uu, vv = phases[0].out_hw
+    ((mh, xh_max), (mw, xw_max)) = deconv_tap_span(phases)
+    for c_t, n_t in _tile_pairs(c, n):
+        for tu in _spatial_cands(uu):
+            for tv in _spatial_cands(vv):
+                if vmem_bytes_estimate_tiled(
+                        xh_max - mh + tu, xw_max - mw + tv, c_t,
+                        total_taps, n_t, len(phases) * tu * tv, itemsize,
+                        witemsize=witemsize) <= _REF_VMEM_BUDGET:
+                    return c_t, n_t, (tu, tv)
+    return None
+
+
+def _single_tiled_verdict(spec, hp: int, wp: int, out_hw: Pair) -> bool:
+    """Whether the reference's 'pallas' policy takes its tiled kernel for
+    this single-correlation site: the whole plane does not fit, a tile
+    does.  Independent of the batch, as the reference's is."""
+    r, s = spec.kernel_hw
+    c, n = spec.in_c, spec.out_c
+    itemsize, witemsize = _itemsize(spec), _weight_itemsize(spec)
+    if pick_vmem_tiles(hp, wp, c, n, r, s, *out_hw, itemsize,
+                       witemsize=witemsize) is not None:
+        return False
+    dil = spec.dilation if spec.kind == "dilated" else (1, 1)
+    return pick_tiled_single(c, n, r, s, *out_hw, spec.strides, dil,
+                             itemsize, witemsize=witemsize) is not None
+
+
+def _transposed_tiled_verdict(spec, hg: int, wg: int, out_hw: Pair,
+                              total_taps: int, sum_uv: int, uniform: bool,
+                              phases) -> bool:
+    """The same for a transposed site: the fused kernel does not fit, the
+    phases are uniform with ``out % stride == 0``, and a tile fits."""
+    c, n = spec.in_c, spec.out_c
+    itemsize, witemsize = _itemsize(spec), _weight_itemsize(spec)
+    if pick_fused_tiles(hg, wg, c, n, total_taps, sum_uv, *out_hw, itemsize,
+                        witemsize=witemsize) is not None:
+        return False
+    if not (uniform and out_hw[0] % spec.strides[0] == 0
+            and out_hw[1] % spec.strides[1] == 0):
+        return False
+    return pick_tiled_transposed(c, n, total_taps, phases, itemsize,
+                                 witemsize=witemsize) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -139,12 +310,15 @@ def conv_spec(kind: str, x_shape: Sequence[int], kernel_shape: Sequence[int],
         wdtype=str(wdtype))
 
 
+def _itemsize(spec: ConvSpec) -> int:
+    """Bytes per activation element of the spec's dtype."""
+    return torch.empty((), dtype=getattr(torch, spec.dtype)).element_size()
+
+
 def _weight_itemsize(spec: ConvSpec) -> int:
     """Bytes per stored weight element: 1 for the int8 superpack (its f32
     scale rows are counted apart), the activation itemsize otherwise."""
-    if spec.wdtype == "int8":
-        return 1
-    return torch.empty((), dtype=getattr(torch, spec.dtype)).element_size()
+    return 1 if spec.wdtype == "int8" else _itemsize(spec)
 
 
 @dataclasses.dataclass(eq=False)
@@ -211,8 +385,12 @@ class Route:
     'fused_plane' | 'fused_tap' | 'pixel_shuffle' | 'taps'.  ``tiles`` is
     ``None``: the kernel picks its block tile from the call's shapes.
     ``fused_bwd`` picks the single kind's backward form (one wide GEMM vs
-    per-tap products); ``sp_tiles`` and ``dev_tiles`` keep JAX's route
-    schema and are never set (spatial tiling is not ported)."""
+    per-tap products).  ``sp_tiles`` is set on a 'cuda' route where the
+    reference tiles the plane: the spatial output tile one thread block of
+    the tiled kernel computes, ``(T_oh, T_ow)`` output pixels (kernel C) or
+    ``(T_u, T_v)`` phase-output pixels (kernel D); ``None`` is the
+    whole-plane kernel.  ``dev_tiles`` keeps JAX's schema and is never set
+    (device tiling is not ported)."""
 
     batch: int
     path: str
@@ -264,9 +442,15 @@ def _pixel_shuffle_route(spec: ConvSpec, phases, batch: int) -> Route | None:
 def _transposed_route_1dev(spec: ConvSpec, hg: int, wg: int, out_hw: Pair,
                            total_taps: int, sum_uv: int, sum_uvt: int,
                            uniform: bool, phases, batch: int) -> Route:
-    """Whole-conv route for the transposed kind at one batch bucket."""
+    """Whole-conv route for the transposed kind at one batch bucket: on
+    'cuda', kernel D with the card's tile where the reference tiles,
+    else kernel A."""
     if _want_cuda(spec.backend):
-        return Route(batch, "cuda", None)
+        sp = None
+        if total_taps and _transposed_tiled_verdict(
+                spec, hg, wg, out_hw, total_taps, sum_uv, uniform, phases):
+            sp = pick_block_tile_transposed(phases, spec.out_c, total_taps)
+        return Route(batch, "cuda", None, sp_tiles=sp)
     ps = _pixel_shuffle_route(spec, phases, batch)
     if ps is not None:
         return ps
@@ -279,8 +463,11 @@ def _transposed_route_1dev(spec: ConvSpec, hg: int, wg: int, out_hw: Pair,
     return Route(batch, "taps", None)
 
 
-def _single_route_1dev(spec: ConvSpec, out_hw: Pair, batch: int) -> Route:
-    """Whole-conv route for the single-correlation kinds at one bucket.
+def _single_route_1dev(spec: ConvSpec, hp: int, wp: int, out_hw: Pair,
+                       batch: int) -> Route:
+    """Whole-conv route for the single-correlation kinds at one bucket; on
+    'cuda', kernel C with the card's tile where the reference tiles the
+    ``hp x wp`` padded plane, else kernel B.
 
     ``fused_ok`` caps the f32 tap-stack buffer B·OH·OW·R·S·C that the
     ``fused_tap`` forward and the fused backward materialize; it is the
@@ -291,7 +478,12 @@ def _single_route_1dev(spec: ConvSpec, out_hw: Pair, batch: int) -> Route:
     oh, ow = out_hw
     fused_ok = 4 * batch * oh * ow * r * s * spec.in_c <= _PLANE_BYTES_MAX
     if _want_cuda(spec.backend):
-        return Route(batch, "cuda", None, fused_bwd=fused_ok)
+        sp = None
+        if _single_tiled_verdict(spec, hp, wp, out_hw):
+            dil = spec.dilation if spec.kind == "dilated" else (1, 1)
+            sp = pick_block_tile_single(out_hw, spec.kernel_hw, spec.strides,
+                                        dil, spec.out_c)
+        return Route(batch, "cuda", None, fused_bwd=fused_ok, sp_tiles=sp)
     if fused_ok:
         return Route(batch, "fused_tap", None, fused_bwd=True)
     return Route(batch, "taps", None, fused_bwd=False)
@@ -300,9 +492,11 @@ def _single_route_1dev(spec: ConvSpec, out_hw: Pair, batch: int) -> Route:
 def _route_exact(plan: "ConvPlan", batch: int) -> Route:
     """Re-run the plan-time route choice for an exact (bucket-less) batch."""
     spec = plan.spec
-    if spec.kind != "transposed":
-        return _single_route_1dev(spec, plan.out_hw, batch)
     h, w = spec.in_hw
+    if spec.kind != "transposed":
+        (ph, pw) = spec.padding
+        return _single_route_1dev(spec, h + ph[0] + ph[1], w + pw[0] + pw[1],
+                                  plan.out_hw, batch)
     (glh, ghh), (glw, ghw) = plan.gpad
     sum_uvt = sum(ex.out_hw[0] * ex.out_hw[1] * ex.taps[0] * ex.taps[1]
                   for ex in plan.phases)
@@ -461,6 +655,12 @@ def plan_conv(spec: ConvSpec, autotune=None) -> ConvPlan:
     return _plan_conv_cached(spec)
 
 
+def plan_cache_clear():
+    """Drop every cached plan (after a test swaps a routing
+    constant)."""
+    _plan_conv_cached.cache_clear()
+
+
 @functools.lru_cache(maxsize=4096)
 def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
     t0 = time.perf_counter()
@@ -495,7 +695,8 @@ def _plan_single(spec: ConvSpec) -> ConvPlan:
     ow = dec.single_out_size(w, s, sw, dw, pw)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"non-positive output {oh}x{ow}")
-    routes = tuple(_single_route_1dev(spec, (oh, ow), bb)
+    hp, wp = h + ph[0] + ph[1], w + pw[0] + pw[1]
+    routes = tuple(_single_route_1dev(spec, hp, wp, (oh, ow), bb)
                    for bb in BATCH_BUCKETS)
     ex = PhaseExec(key="k", q=(0, 0), rho=(0, 0), taps=(r, s),
                    pad=spec.padding, out_hw=(oh, ow))
@@ -700,7 +901,8 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     spec = plan.spec
     lead = tuple(x.shape[:-3])
     x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
-    path = plan.route_for_batch(x4.shape[0]).path
+    route = plan.route_for_batch(x4.shape[0])
+    path = route.path
     if path == "pixel_shuffle":
         # pads with the shared phase footprint (eligibility guarantees one
         # pad fits all phases), so it bypasses the global plane below
@@ -712,7 +914,7 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed):
         y = untangled_deconv2d(xg.contiguous(), w, phases=plan.phases,
                                out_hw=plan.out_hw, strides=spec.strides,
                                sum_uv=plan.sum_uv, out_dtype=x.dtype,
-                               **scales)
+                               sp_tiles=route.sp_tiles, **scales)
     elif path in ("fused_tap", "fused_plane"):
         fwd = _fused_tap_fwd if path == "fused_tap" else _fused_plane_fwd
         outs = fwd(plan, xg, _deq(packed))
@@ -760,12 +962,14 @@ def _single_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     lead = tuple(x.shape[:-3])
     x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
     xp = pad_or_crop(x4, spec.padding)
-    path = plan.route_for_batch(x4.shape[0]).path
+    route = plan.route_for_batch(x4.shape[0])
+    path = route.path
     if path == "cuda":
         w, scales = _kernel_operands(packed)
         y = untangled_conv2d_superpack(
             xp.contiguous(), w, taps_hw=(r, s), strides=strides,
-            rhs_dilation=dilation, out_dtype=x.dtype, **scales)
+            rhs_dilation=dilation, out_dtype=x.dtype,
+            sp_tiles=route.sp_tiles, **scales)
     elif path == "fused_tap":
         # ONE wide product: tap views concatenated channel-major in
         # superpack row order against the whole (R·S·C, N) buffer

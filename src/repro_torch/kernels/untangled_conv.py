@@ -1,4 +1,4 @@
-"""Kernels A and B: the untangled convolutions, hand-written for Hopper.
+"""Kernels A–D: the untangled convolutions, hand-written for Hopper.
 
 ``untangled_deconv2d`` (kernel A) is the port of ``repro.kernels
 .untangled_conv.untangled_deconv2d_pallas`` (TPU kernel ``_deconv_kernel``):
@@ -19,6 +19,17 @@ f32 scale per row (a ``QuantizedSuperpack``), and the kernel multiplies
 each code by its row's scale as it stages the weight tile, so the int8
 kernel on ``(q, scale)`` is bit-equal to the f32 kernel on
 ``dequantize_int8(q, scale)``.
+
+Kernels C and D are the spatially tiled forms of B and A (TPU kernels
+``_tiled_kernel`` and ``_deconv_tiled_kernel`` with ``_halo_stream``):
+``sp_tiles=`` on either wrapper names the spatial output tile one thread
+block computes, ``(T_oh, T_ow)`` output pixels for C and ``(T_u, T_v)``
+phase-output pixels for D.  The block stages its tile's halo'd input slice
+in shared memory one C chunk at a time, double-buffered with ``cp.async``
+(``csrc/untangled_conv_tiled.cu``, ``csrc/untangled_deconv_tiled.cu``), so
+every tap reads the one staged copy.  ``halo_extent`` and
+``deconv_tap_span`` are the reference's halo geometry; ``pick_block_tile_*``
+choose a tile that fits the block's shared memory.
 
 Each wrapper launches its kernel for CUDA tensors, and raises on anything
 the kernel does not take.  It takes its plain version (``*_ref``) only for
@@ -189,48 +200,74 @@ def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
 def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                        phases: Sequence, out_hw: Pair, strides: Pair,
                        sum_uv: int, out_dtype=None,
-                       scales: torch.Tensor | None = None) -> torch.Tensor:
+                       scales: torch.Tensor | None = None,
+                       sp_tiles: Pair | None = None) -> torch.Tensor:
     """Fused transposed conv: ONE kernel launch for all s_h·s_w phases.
 
     xg: (B, Hg, Wg, C) globally padded plane; superpack: (ΣT·C, N) tap-major
     phase sub-kernels (``ConvPlan.pack``); ``phases`` the plan's
     ``PhaseExec`` records.  ``scales`` ((ΣT·C, 1) f32) marks ``superpack``
     as int8 codes (a ``QuantizedSuperpack``'s ``q``) and takes the int8
-    entry.  Returns (B, out_h, out_w, N), written interleaved by the
-    kernel.  CUDA tensors launch the kernel (float32 plane, contiguous, no
-    grad) and count one in ``untangled_deconv2d.launches`` (f32) or
-    ``.launches_int8``; CPU tensors run ``untangled_deconv2d_ref``."""
+    entry.  ``sp_tiles=(T_u, T_v)`` (phase-output pixels; uniform phases
+    with ``out % stride == 0`` only, else ``ValueError``) takes the
+    spatially tiled kernel D.  Returns (B, out_h, out_w, N), written
+    interleaved by the kernel.  CUDA tensors launch the kernel (float32
+    plane, contiguous, no grad) and count one in
+    ``untangled_deconv2d.launches`` (f32), ``.launches_int8``,
+    ``.launches_tiled`` or ``.launches_tiled_int8``; CPU tensors run
+    ``untangled_deconv2d_ref`` or ``untangled_deconv2d_tiled_ref``."""
     phases = tuple(phases)
     out_dtype = out_dtype or xg.dtype
     _check(xg, superpack, phases, out_hw, strides, sum_uv)
+    if sp_tiles is not None:
+        _check_uniform(phases, out_hw, strides)
+        deconv_tap_span(phases)                 # at least one live phase
+        sp_tiles = (min(sp_tiles[0], phases[0].out_hw[0]),
+                    min(sp_tiles[1], phases[0].out_hw[1]))
+        if min(sp_tiles) < 1:
+            raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if xg.device.type == "cpu" and superpack.device.type == "cpu":
+        if sp_tiles is not None:
+            return untangled_deconv2d_tiled_ref(
+                xg, superpack, phases=phases, out_hw=out_hw,
+                strides=strides, sp_tiles=sp_tiles, out_dtype=out_dtype,
+                scales=scales)
         return untangled_deconv2d_ref(xg, superpack, phases=phases,
                                       out_hw=out_hw, strides=strides,
                                       sum_uv=sum_uv, out_dtype=out_dtype,
                                       scales=scales)
+    name = "kernel A" if sp_tiles is None else "kernel D"
     if xg.device.type != "cuda" or superpack.device != xg.device:
-        raise ValueError(f"kernel A needs both operands on one CUDA device, "
+        raise ValueError(f"{name} needs both operands on one CUDA device, "
                          f"got {xg.device} and {superpack.device}")
     if xg.requires_grad or superpack.requires_grad or (
             scales is not None and scales.requires_grad):
         raise NotImplementedError(
-            "kernel A has no backward of its own: differentiate through "
+            f"{name} has no backward of its own: differentiate through "
             "ConvPlan.apply (its autograd Function runs _pt_bwd)")
     if xg.dtype != torch.float32:
-        raise TypeError(f"kernel A takes a float32 xg, got {xg.dtype}")
-    _check_weights("kernel A", superpack, scales)
-    for name, t in (("xg", xg), ("superpack", superpack)):
+        raise TypeError(f"{name} takes a float32 xg, got {xg.dtype}")
+    _check_weights(name, superpack, scales)
+    for arg, t in (("xg", xg), ("superpack", superpack)):
         if not t.is_contiguous():
-            raise ValueError(f"kernel A takes a contiguous {name}")
+            raise ValueError(f"{name} takes a contiguous {arg}")
     if out_dtype != torch.float32:
-        raise TypeError(f"kernel A writes float32, asked for {out_dtype}")
+        raise TypeError(f"{name} writes float32, asked for {out_dtype}")
     b, hg, wg, c = xg.shape
     n = superpack.shape[1]
     oh, ow = out_hw
     y = torch.empty((b, oh, ow, n), dtype=torch.float32, device=xg.device)
     if max(xg.numel(), superpack.numel(), y.numel()) > _INT32_MAX:
-        raise ValueError("kernel A indexes with int32: tensor too large")
+        raise ValueError(f"{name} indexes with int32: tensor too large")
     if y.numel() == 0:
+        return y
+    if sp_tiles is not None:
+        _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
+                             superpack.shape[0] // c, sp_tiles)
+        if scales is None:
+            untangled_deconv2d.launches_tiled += 1
+        else:
+            untangled_deconv2d.launches_tiled_int8 += 1
         return y
     config = _pick_config(n, [b * ex.out_hw[0] * ex.out_hw[1]
                               for ex in phases])
@@ -257,6 +294,8 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
 
 untangled_deconv2d.launches = 0
 untangled_deconv2d.launches_int8 = 0
+untangled_deconv2d.launches_tiled = 0
+untangled_deconv2d.launches_tiled_int8 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +353,8 @@ def _conv_entry(int8: bool = False):
 def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
                                taps_hw: Pair, strides: Pair = (1, 1),
                                rhs_dilation: Pair = (1, 1), out_dtype=None,
-                               scales: torch.Tensor | None = None
+                               scales: torch.Tensor | None = None,
+                               sp_tiles: Pair | None = None
                                ) -> torch.Tensor:
     """ONE launch of the valid (pre-padded) untangled correlation.
 
@@ -322,10 +362,12 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
     (``ConvPlan.pack``).  Strided and dilated kinds run the same kernel:
     dilation only moves each tap's read origin.  ``scales`` ((R·S·C, 1)
     f32) marks ``superpack`` as int8 codes and takes the int8 entry.
+    ``sp_tiles=(T_oh, T_ow)`` takes the spatially tiled kernel C.
     Returns (B, OH, OW, N).  CUDA tensors launch the kernel (float32 plane,
     contiguous, no grad) and count one in
-    ``untangled_conv2d_superpack.launches`` (f32) or ``.launches_int8``;
-    CPU tensors run ``untangled_conv2d_superpack_ref``."""
+    ``untangled_conv2d_superpack.launches`` (f32), ``.launches_int8``,
+    ``.launches_tiled`` or ``.launches_tiled_int8``; CPU tensors run
+    ``untangled_conv2d_superpack_ref`` or its tiled form."""
     if x.dim() != 4 or superpack.dim() != 2:
         raise ValueError(f"want x (B, Hp, Wp, C) and superpack (R·S·C, N), "
                          f"got {tuple(x.shape)} and {tuple(superpack.shape)}")
@@ -341,30 +383,48 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
                          f"{taps_hw}, strides {strides}, dilation "
                          f"{rhs_dilation}")
     out_dtype = out_dtype or x.dtype
+    if sp_tiles is not None:
+        sp_tiles = (min(sp_tiles[0], oh), min(sp_tiles[1], ow))
+        if min(sp_tiles) < 1:
+            raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if x.device.type == "cpu" and superpack.device.type == "cpu":
+        if sp_tiles is not None:
+            return untangled_conv2d_superpack_tiled_ref(
+                x, superpack, taps_hw=taps_hw, sp_tiles=sp_tiles,
+                strides=strides, rhs_dilation=rhs_dilation,
+                out_dtype=out_dtype, scales=scales)
         return untangled_conv2d_superpack_ref(
             x, superpack, taps_hw=taps_hw, strides=strides,
             rhs_dilation=rhs_dilation, out_dtype=out_dtype, scales=scales)
+    name = "kernel B" if sp_tiles is None else "kernel C"
     if x.device.type != "cuda" or superpack.device != x.device:
-        raise ValueError(f"kernel B needs both operands on one CUDA device, "
+        raise ValueError(f"{name} needs both operands on one CUDA device, "
                          f"got {x.device} and {superpack.device}")
     if x.requires_grad or superpack.requires_grad or (
             scales is not None and scales.requires_grad):
         raise NotImplementedError(
-            "kernel B has no backward of its own: differentiate through "
+            f"{name} has no backward of its own: differentiate through "
             "ConvPlan.apply (its autograd Function runs _ps_bwd)")
     if x.dtype != torch.float32:
-        raise TypeError(f"kernel B takes a float32 x, got {x.dtype}")
-    _check_weights("kernel B", superpack, scales)
-    for name, t in (("x", x), ("superpack", superpack)):
+        raise TypeError(f"{name} takes a float32 x, got {x.dtype}")
+    _check_weights(name, superpack, scales)
+    for arg, t in (("x", x), ("superpack", superpack)):
         if not t.is_contiguous():
-            raise ValueError(f"kernel B takes a contiguous {name}")
+            raise ValueError(f"{name} takes a contiguous {arg}")
     if out_dtype != torch.float32:
-        raise TypeError(f"kernel B writes float32, asked for {out_dtype}")
+        raise TypeError(f"{name} writes float32, asked for {out_dtype}")
     y = torch.empty((b, oh, ow, n), dtype=torch.float32, device=x.device)
     if max(x.numel(), superpack.numel(), y.numel()) > _INT32_MAX:
-        raise ValueError("kernel B indexes with int32: tensor too large")
+        raise ValueError(f"{name} indexes with int32: tensor too large")
     if y.numel() == 0:
+        return y
+    if sp_tiles is not None:
+        _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides,
+                           rhs_dilation, sp_tiles)
+        if scales is None:
+            untangled_conv2d_superpack.launches_tiled += 1
+        else:
+            untangled_conv2d_superpack.launches_tiled_int8 += 1
         return y
     config = _pick_config(n, [b * oh * ow])
     bm, bn = _CONFIGS[config]
@@ -388,6 +448,8 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
 
 untangled_conv2d_superpack.launches = 0
 untangled_conv2d_superpack.launches_int8 = 0
+untangled_conv2d_superpack.launches_tiled = 0
+untangled_conv2d_superpack.launches_tiled_int8 = 0
 
 
 def untangled_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
@@ -402,3 +464,362 @@ def untangled_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
     return untangled_conv2d_superpack(
         x, kernel.reshape(r * s * c, n), taps_hw=(r, s), strides=strides,
         rhs_dilation=rhs_dilation, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels C and D: the spatially tiled forms of B and A
+# ---------------------------------------------------------------------------
+
+def halo_extent(tile: int, taps: int, stride: int, dilation: int) -> int:
+    """Input rows one halo'd output tile needs along one dim: the strided
+    tile footprint plus the dilated tap reach ``(T-1)·d``."""
+    return (tile - 1) * stride + (taps - 1) * dilation + 1
+
+
+def deconv_tap_span(phases) -> tuple[Pair, Pair]:
+    """``((min_h, max_h), (min_w, max_w))`` tap-origin span over the
+    non-empty phases: phase q's taps read the padded plane at rows
+    ``xoff_h + t_i + u``, so a halo'd tile of ``T_u`` phase-output rows
+    spans ``(max - min) + T_u`` input rows from ``min + i·T_u``."""
+    live = [ex for ex in phases if ex.taps[0] * ex.taps[1] > 0]
+    if not live:
+        raise ValueError("deconv_tap_span needs at least one non-empty "
+                         "phase")
+    return ((min(ex.xoff[0] for ex in live),
+             max(ex.xoff[0] + ex.taps[0] - 1 for ex in live)),
+            (min(ex.xoff[1] for ex in live),
+             max(ex.xoff[1] + ex.taps[1] - 1 for ex in live)))
+
+
+# block configs of kernels C and D, indexed as in the sources: (BN output
+# channels, TM pixels per thread, CK channels per staged chunk); every
+# thread holds TM pixels x 4 channels in registers, 256 threads a block, so
+# a block computes (256·4/BN)·TM pixel slots x BN channels
+_TILED_CONFIGS = ((64, 8, 8), (32, 4, 8), (4, 4, 8), (64, 8, 4))
+_TILED_THREADS = 256
+# shared memory of one H100 block (227 KB), and the most a block may take
+# for two to share an SM (228 KB less 1 KB reserved per block, halved)
+SMEM_BLOCK_MAX = 232448
+SMEM_TWO_BLOCKS = 115712
+# weight stages above this (both buffers) take the CK = 4 config
+_TILED_WEIGHT_MAX = 96 * 1024
+
+
+def tiled_config(n: int, total_taps: int) -> int:
+    """The block config of kernels C and D for N output channels and the
+    superpack's tap count: BN = 4 for N <= 4 (the RGB head), 32 for N <=
+    32, else 64, with the CK = 4 chunk when the 64-wide weight stage of
+    every tap would not leave room for the halo."""
+    if n <= 4:
+        return 2
+    if n <= 32:
+        return 1
+    bn, _, ck = _TILED_CONFIGS[0]
+    return 0 if 2 * 4 * total_taps * ck * bn <= _TILED_WEIGHT_MAX else 3
+
+
+def tiled_block_pixels(config: int) -> int:
+    """Pixel slots of one block of ``config``."""
+    bn, tm, _ = _TILED_CONFIGS[config]
+    return _TILED_THREADS * 4 // bn * tm
+
+
+def tiled_smem_bytes(config: int, tin_h: int, tin_w: int,
+                     total_taps: int) -> int:
+    """Dynamic shared memory of one block of kernel C or D: two halo slots
+    of ``tin_h·tin_w`` pixels x (CK + 1) floats (one float of padding per
+    pixel against bank conflicts, each slot rounded to 16 B) and two weight
+    stages of ``total_taps·CK·BN`` floats.  The same formula as the
+    sources' ``smem_bytes``."""
+    bn, _, ck = _TILED_CONFIGS[config]
+    halo = -(-tin_h * tin_w * (ck + 1) // 4) * 4
+    return 4 * (2 * halo + 2 * total_taps * ck * bn)
+
+
+def _pow2_tiles(p: int) -> tuple[int, ...]:
+    return tuple(1 << i for i in range(p.bit_length()) if (1 << i) <= p)
+
+
+def _best_tile(cands, out_hw: Pair):
+    """The tile of least staged halo over the plane (tiles x halo pixels):
+    two blocks per SM first, then the least halo, then the widest tile.
+    ``cands`` are ``(tile, tin_h, tin_w, smem)``."""
+    best = None
+    for tile, tin_h, tin_w, smem in cands:
+        if smem > SMEM_BLOCK_MAX:
+            continue
+        n_tiles = -(-out_hw[0] // tile[0]) * -(-out_hw[1] // tile[1])
+        key = (smem > SMEM_TWO_BLOCKS, n_tiles * tin_h * tin_w, -tile[1])
+        if best is None or key < best[0]:
+            best = (key, tile)
+    return None if best is None else best[1]
+
+
+def pick_block_tile_single(out_hw: Pair, taps_hw: Pair, strides: Pair,
+                           dilation: Pair, n: int) -> Pair | None:
+    """Kernel C's spatial output tile ``(T_oh, T_ow)`` for one block, or
+    None when no tile's halo and weight stages fit one block: the block's
+    pixel slots split as ``P/T_ow x T_ow`` (``T_ow`` a power of two),
+    clipped to the plane, scored by ``_best_tile``."""
+    (oh, ow), (r, s) = out_hw, taps_hw
+    config = tiled_config(n, r * s)
+    p = tiled_block_pixels(config)
+    cands = []
+    for tw in _pow2_tiles(p):
+        th, tw_ = min(p // tw, oh), min(tw, ow)
+        tin_h = halo_extent(th, r, strides[0], dilation[0])
+        tin_w = halo_extent(tw_, s, strides[1], dilation[1])
+        cands.append(((th, tw_), tin_h, tin_w,
+                      tiled_smem_bytes(config, tin_h, tin_w, r * s)))
+    return _best_tile(cands, out_hw)
+
+
+def _phase_slots(config: int, tile: Pair) -> int:
+    """Pixel slots per phase of a kernel-D block: ``T_u·T_v`` rounded up to
+    whole threads (TM pixels each), so no thread spans two phases."""
+    tm = _TILED_CONFIGS[config][1]
+    return -(-tile[0] * tile[1] // tm) * tm
+
+
+def pick_block_tile_transposed(phases, n: int,
+                               total_taps: int) -> Pair | None:
+    """Kernel D's spatial tile ``(T_u, T_v)`` in phase-output pixels for
+    one block (every phase of the tile in the same block, so each staged
+    halo serves all of them), or None: ``n_phases`` x the per-phase slots
+    must fit the block's pixel slots; scored by ``_best_tile``."""
+    uu, vv = phases[0].out_hw
+    config = tiled_config(n, total_taps)
+    p = tiled_block_pixels(config)
+    ((mh, xh), (mw, xw)) = deconv_tap_span(phases)
+    per_phase = p // len(phases)
+    cands = []
+    for tv in _pow2_tiles(max(1, per_phase)):
+        tile = (min(max(1, per_phase // tv), uu), min(tv, vv))
+        if len(phases) * _phase_slots(config, tile) > p:
+            continue
+        tin_h, tin_w = xh - mh + tile[0], xw - mw + tile[1]
+        cands.append((tile, tin_h, tin_w,
+                      tiled_smem_bytes(config, tin_h, tin_w, total_taps)))
+    return _best_tile(cands, (uu, vv))
+
+
+def _tile_windows(x: torch.Tensor, origin: Pair, step: Pair, n_tiles: Pair,
+                  tin: Pair) -> torch.Tensor:
+    """The halo'd input slices of every spatial tile as one strided view
+    ``(B, n_i, n_j, tin_h, tin_w, C)``: tile (i, j) starts at ``origin +
+    (i·step_h, j·step_w)``.  ``x`` must already hold every slice."""
+    b, _, _, c = x.shape
+    sb, sh, sw, sc = x.stride()
+    base = x[:, origin[0]:, origin[1]:, :]
+    return base.as_strided(
+        (b, n_tiles[0], n_tiles[1], tin[0], tin[1], c),
+        (sb, step[0] * sh, step[1] * sw, sh, sw, sc),
+        base.storage_offset())
+
+
+def _grow(x: torch.Tensor, h_need: int, w_need: int) -> torch.Tensor:
+    """Zero rows/cols at the bottom/right so every halo slice is in
+    bounds; they only feed output pixels that are sliced off."""
+    dh, dw = max(0, h_need - x.shape[1]), max(0, w_need - x.shape[2])
+    if dh or dw:
+        x = torch.nn.functional.pad(x, (0, 0, 0, dw, 0, dh))
+    return x
+
+
+def untangled_conv2d_superpack_tiled_ref(
+        x: torch.Tensor, superpack: torch.Tensor, *, taps_hw: Pair,
+        sp_tiles: Pair, strides: Pair = (1, 1), rhs_dilation: Pair = (1, 1),
+        out_dtype=None, scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel C: the output in ``(T_oh, T_ow)``
+    tiles, each computed from its own halo'd input slice (``halo_extent``
+    rows and columns from ``(i·T_oh·s_h, j·T_ow·s_w)``), one product per tap
+    across all tiles at once; ragged edge tiles read zeros past the plane
+    and their extra pixels are sliced off.  With ``scales`` the superpack
+    is int8 codes, dequantized first."""
+    b, hp, wp, c = x.shape
+    r, s = taps_hw
+    (sh, sw), (dh, dw) = strides, rhs_dilation
+    oh, ow = single_out_hw(hp, wp, taps_hw, strides, rhs_dilation)
+    toh, tow = min(sp_tiles[0], oh), min(sp_tiles[1], ow)
+    n_oi, n_oj = -(-oh // toh), -(-ow // tow)
+    tin = (halo_extent(toh, r, sh, dh), halo_extent(tow, s, sw, dw))
+    x32 = _grow(x.float(), (n_oi - 1) * toh * sh + tin[0],
+                (n_oj - 1) * tow * sw + tin[1])
+    win = _tile_windows(x32, (0, 0), (toh * sh, tow * sw), (n_oi, n_oj), tin)
+    w32 = _weights_f32(superpack, scales)
+    acc = None
+    for m in range(r):
+        for n in range(s):
+            xs = win[..., m * dh:m * dh + (toh - 1) * sh + 1:sh,
+                     n * dw:n * dw + (tow - 1) * sw + 1:sw, :]
+            row = (m * s + n) * c
+            term = torch.matmul(xs, w32[row:row + c])
+            acc = term if acc is None else acc + term
+    y = acc.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, n_oi * toh, n_oj * tow, -1)[:, :oh, :ow]
+    return y.to(out_dtype or x.dtype)
+
+
+def _check_uniform(phases, out_hw: Pair, strides: Pair) -> Pair:
+    """Kernel D's geometry: every phase of one extent (U, V) with
+    ``out = stride·(U, V)``, so the interleaved output tiles block cleanly
+    (JAX asserts the same).  Returns (U, V)."""
+    uu, vv = phases[0].out_hw
+    if any(ex.out_hw != (uu, vv) for ex in phases) \
+            or uu * strides[0] != out_hw[0] or vv * strides[1] != out_hw[1]:
+        raise ValueError(f"the tiled transposed kernel needs uniform phases "
+                         f"with out % stride == 0, got out {out_hw}, "
+                         f"strides {strides}, phase extents "
+                         f"{sorted({ex.out_hw for ex in phases})}")
+    return uu, vv
+
+
+def untangled_deconv2d_tiled_ref(xg: torch.Tensor, superpack: torch.Tensor,
+                                 *, phases, out_hw: Pair, strides: Pair,
+                                 sp_tiles: Pair, out_dtype=None,
+                                 scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel D: the output in tiles of ``(T_u,
+    T_v)`` phase-output pixels, every phase of a tile computed from one
+    halo'd input slice (origin ``min + (i·T_u, j·T_v)`` of
+    ``deconv_tap_span``, extent ``(max - min) + T``), phase q's taps at
+    ``xoff - min + (t_i, t_j)`` inside it, written interleaved to
+    ``y[q_h + s_h·u, q_w + s_w·v]``.  Uniform phases only."""
+    b, _, _, c = xg.shape
+    sh, sw = strides
+    uu, vv = _check_uniform(phases, out_hw, strides)
+    tu, tv = min(sp_tiles[0], uu), min(sp_tiles[1], vv)
+    n_oi, n_oj = -(-uu // tu), -(-vv // tv)
+    ((mh, xh_max), (mw, xw_max)) = deconv_tap_span(phases)
+    tin = (xh_max - mh + tu, xw_max - mw + tv)
+    x32 = _grow(xg.float(), mh + (n_oi - 1) * tu + tin[0],
+                mw + (n_oj - 1) * tv + tin[1])
+    win = _tile_windows(x32, (mh, mw), (tu, tv), (n_oi, n_oj), tin)
+    w32 = _weights_f32(superpack, scales)
+    n = w32.shape[1]
+    y = torch.zeros((b, n_oi * tu * sh, n_oj * tv * sw, n),
+                    dtype=torch.float32, device=xg.device)
+    for ex in phases:
+        th, tw = ex.taps
+        acc = None
+        for t in range(th * tw):
+            ti, tj = divmod(t, tw)
+            r0, c0 = ex.xoff[0] - mh + ti, ex.xoff[1] - mw + tj
+            row = (ex.tap_off + t) * c
+            term = torch.matmul(win[..., r0:r0 + tu, c0:c0 + tv, :],
+                                w32[row:row + c])
+            acc = term if acc is None else acc + term
+        if acc is not None:                # empty phase: stays zero
+            y[:, ex.q[0]::sh, ex.q[1]::sw] = acc.permute(
+                0, 1, 3, 2, 4, 5).reshape(b, n_oi * tu, n_oj * tv, n)
+    return y[:, :out_hw[0], :out_hw[1]].to(out_dtype or xg.dtype)
+
+
+def _tiled_vec_ok(n: int, tensors) -> int:
+    """Kernels C's and D's vector path: N % 4 == 0 and the weights and the
+    output aligned for 4-element loads and stores (the halo is staged one
+    element at a time, so C takes any value)."""
+    return int(n % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
+
+
+# the C entries' parameters, as for kernels A and B
+_CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
+                        + [ctypes.c_void_p])
+_DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
+                          + [ctypes.c_void_p])
+
+
+@functools.cache
+def _conv_tiled_entry(int8: bool = False):
+    if int8:
+        return _bind("untangled_conv_tiled", "untangled_conv2d_tiled_i8",
+                     [ctypes.c_void_p] + _CONV_TILED_ARGTYPES)
+    return _bind("untangled_conv_tiled", "untangled_conv2d_tiled_f32",
+                 _CONV_TILED_ARGTYPES)
+
+
+@functools.cache
+def _deconv_tiled_entry(int8: bool = False):
+    if int8:
+        return _bind("untangled_deconv_tiled", "untangled_deconv2d_tiled_i8",
+                     [ctypes.c_void_p] + _DECONV_TILED_ARGTYPES)
+    return _bind("untangled_deconv_tiled", "untangled_deconv2d_tiled_f32",
+                 _DECONV_TILED_ARGTYPES)
+
+
+# the grid's y (N tiles) and z (images) extents
+_GRID_YZ_MAX = 65535
+
+
+def _check_grid(name: str, b: int, n: int, config: int):
+    if b > _GRID_YZ_MAX or -(-n // _TILED_CONFIGS[config][0]) > _GRID_YZ_MAX:
+        raise ValueError(f"{name}: batch {b} or N {n} beyond the launch "
+                         f"grid")
+
+
+def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
+                       tile: Pair):
+    """Kernel C (or its int8 entry) on ``tile``-sized blocks; raises when
+    the tile does not fit one block."""
+    b, hp, wp, c = x.shape
+    _, oh, ow, n = y.shape
+    r, s = taps_hw
+    config = tiled_config(n, r * s)
+    if tile[0] * tile[1] > tiled_block_pixels(config):
+        config = 2                      # the most pixel slots a block has
+    if tile[0] * tile[1] > tiled_block_pixels(config):
+        raise ValueError(f"kernel C: tile {tile} has more pixels than a "
+                         f"block's {tiled_block_pixels(config)}")
+    tin_h = halo_extent(tile[0], r, strides[0], dilation[0])
+    tin_w = halo_extent(tile[1], s, strides[1], dilation[1])
+    if tiled_smem_bytes(config, tin_h, tin_w, r * s) > SMEM_BLOCK_MAX:
+        raise ValueError(f"kernel C: tile {tile} needs more shared memory "
+                         f"than a block has")
+    _check_grid("kernel C", b, n, config)
+    weights = (superpack.data_ptr(),) if scales is None else (
+        superpack.data_ptr(), scales.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _conv_tiled_entry(scales is not None)(
+            x.data_ptr(), *weights, y.data_ptr(), b, hp, wp, c, n, oh, ow,
+            r, s, strides[0], strides[1], dilation[0], dilation[1], tile[0],
+            tile[1], tin_h, tin_w, -(-oh // tile[0]), -(-ow // tile[1]),
+            config, _tiled_vec_ok(n, (superpack, y)), stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel C launch failed: cudaError {rc}")
+
+
+def _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
+                         total_taps: int, tile: Pair):
+    """Kernel D (or its int8 entry) on ``tile``-sized blocks; raises when
+    the tile does not fit one block."""
+    b, hg, wg, c = xg.shape
+    _, oh, ow, n = y.shape
+    uu, vv = phases[0].out_hw
+    config = tiled_config(n, total_taps)
+    if len(phases) * _phase_slots(config, tile) > tiled_block_pixels(config):
+        config = 2                      # the most pixel slots a block has
+    slots = _phase_slots(config, tile)
+    if len(phases) * slots > tiled_block_pixels(config):
+        raise ValueError(f"kernel D: {len(phases)} phases of tile {tile} "
+                         f"need more pixel slots than a block's "
+                         f"{tiled_block_pixels(config)}")
+    ((mh, xh_max), (mw, xw_max)) = deconv_tap_span(phases)
+    tin_h, tin_w = xh_max - mh + tile[0], xw_max - mw + tile[1]
+    if tiled_smem_bytes(config, tin_h, tin_w, total_taps) > SMEM_BLOCK_MAX:
+        raise ValueError(f"kernel D: tile {tile} needs more shared memory "
+                         f"than a block has")
+    _check_grid("kernel D", b, n, config)
+    table = _phase_table(phases, xg.device)
+    weights = (superpack.data_ptr(),) if scales is None else (
+        superpack.data_ptr(), scales.data_ptr())
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream(xg.device).cuda_stream
+        rc = _deconv_tiled_entry(scales is not None)(
+            xg.data_ptr(), *weights, table.data_ptr(), y.data_ptr(), b, hg,
+            wg, c, n, oh, ow, strides[0], strides[1], len(phases),
+            total_taps, tile[0], tile[1], slots, mh, mw, tin_h, tin_w,
+            -(-uu // tile[0]), -(-vv // tile[1]), config,
+            _tiled_vec_ok(n, (superpack, y)), stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel D launch failed: cudaError {rc}")

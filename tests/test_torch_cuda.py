@@ -321,3 +321,189 @@ def test_serve_segnet_int8_on_the_card(cuda_device):
     assert st["completed"] == 12
     assert st["int8_gate"]["rel_err"] <= st["int8_gate"]["bound"]
     assert tk.untangled_conv2d_superpack.launches_int8 > launches
+
+
+# ---------------------------------------------------------------------------
+# kernels C and D: the spatially tiled kernels, f32 and int8
+# ---------------------------------------------------------------------------
+
+# (name, b, hp, wp, c, n, r, s, strides, dilation, tile) on a pre-padded
+# plane: the geometries of tests/test_tiled_kernels.py's SINGLE_CASES with
+# their tiles, then C = 3 and N = 3 (the scalar paths), a 7x7 site (the
+# CK = 4 block) and a U-Net-like strided site; tile None takes the card's
+# own (pick_block_tile_single)
+TILED_CONV_CASES = [
+    ("ragged_edge", 2, 13, 11, 5, 7, 3, 2, (1, 1), (1, 1), (4, 4)),
+    ("strided", 1, 17, 17, 8, 8, 3, 3, (2, 2), (1, 1), (3, 5)),
+    ("big_halo", 1, 21, 21, 4, 4, 3, 3, (1, 1), (3, 3), (8, 8)),
+    ("ragged_c", 2, 14, 14, 130, 40, 2, 2, (2, 2), (2, 2), (2, 7)),
+    ("one_by_one", 1, 9, 9, 3, 4, 1, 1, (1, 1), (1, 1), (4, 4)),
+    ("one_tile_is_plane", 1, 16, 16, 6, 5, 3, 3, (1, 1), (1, 1), (16, 16)),
+    ("ragged_edge_card_tile", 2, 13, 11, 5, 7, 3, 2, (1, 1), (1, 1), None),
+    ("c3_n32", 2, 34, 34, 3, 32, 3, 3, (1, 1), (1, 1), None),
+    ("c32_n3", 2, 34, 34, 32, 3, 3, 3, (1, 1), (1, 1), None),
+    ("k7_n256", 1, 30, 29, 16, 256, 7, 7, (1, 1), (1, 1), None),
+    ("s2_c32_n64", 2, 66, 66, 32, 64, 3, 3, (2, 2), (1, 1), None),
+]
+# (name, b, h, w, c, n, k, stride, pads, tile): tests/test_tiled_kernels.py's
+# DECONV_CASES (DCGAN and cGAN phases, an empty phase, stride 1) with their
+# tiles, then the card's own tiles (pick_block_tile_transposed) and the
+# U-Net's k4 s2 up site at a small plane
+TILED_DECONV_CASES = [
+    ("dcgan", 2, 8, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), (3, 3)),
+    ("cgan", 1, 8, 8, 5, 4, 4, 2, ((1, 3), (1, 3)), (8, 2)),
+    ("empty_phase", 2, 6, 6, 5, 4, 2, 3, ((0, 0), (0, 0)), (2, 3)),
+    ("stride_1", 1, 7, 5, 4, 3, 3, 1, ((1, 1), (1, 1)), (3, 2)),
+    ("dcgan_card_tile", 2, 8, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), None),
+    ("unet_up_k4s2", 2, 20, 20, 16, 32, 4, 2, ((1, 3), (1, 3)), None),
+    ("wide_k5s2", 1, 12, 12, 24, 72, 5, 2, ((2, 3), (2, 3)), None),
+]
+
+
+def tiled_conv_case(case, device):
+    name, b, hp, wp, c, n, r, s, strides, dil, tile = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = torch.from_numpy(rng.standard_normal((b, hp, wp, c))
+                         .astype(np.float32)).to(device)
+    kern = torch.from_numpy(rng.standard_normal((r, s, c, n))
+                            .astype(np.float32)).to(device)
+    oh, ow = tk.single_out_hw(hp, wp, (r, s), strides, dil)
+    if tile is None:
+        tile = tk.pick_block_tile_single((oh, ow), (r, s), strides, dil, n)
+    kw = dict(taps_hw=(r, s), strides=strides, rhs_dilation=dil,
+              sp_tiles=tile)
+    return x, kern, kern.reshape(r * s * c, n), kw
+
+
+def tiled_deconv_case(case, device):
+    name, b, h, w, c, n, k, s, pads, tile = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c))
+                         .astype(np.float32)).to(device)
+    kern = torch.from_numpy(rng.standard_normal((k, k, c, n))
+                            .astype(np.float32)).to(device)
+    plan = plan_conv(conv_spec("transposed", x.shape, kern.shape,
+                               strides=(s, s), padding=pads, backend="cuda"))
+    packed = plan.pack(kern)
+    if tile is None:
+        tile = tk.pick_block_tile_transposed(plan.phases, n, plan.total_taps)
+    kw = dict(phases=plan.phases, out_hw=plan.out_hw, strides=(s, s),
+              sum_uv=plan.sum_uv, sp_tiles=tile)
+    return plan, x, kern, pad_or_crop(x, plan.gpad), packed, kw
+
+
+def _phase_bound(plan, x, kern, c):
+    s = plan.spec.strides[0]
+    y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)), kern,
+                                    padding=plan.spec.padding)
+    terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=x.device)
+    for ex in plan.phases:
+        terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
+    return y64, ref.ulp_bound(y64, amax, terms[None, :, :, None])
+
+
+@pytest.mark.parametrize("case", TILED_CONV_CASES,
+                         ids=[c[0] for c in TILED_CONV_CASES])
+def test_tiled_conv_kernel_within_ulp_bound_f32_and_int8(case, cuda_device):
+    """Kernel C and its plain version within the f64 ULP bound on a
+    NaN-poisoned output; its int8 entry bit-equal to the f32 entry on the
+    dequantized superpack (an all-zero row included), and within the bound
+    of the dequantized kernel."""
+    _, b, hp, wp, c, n, r, s, strides, dil, _ = case
+    x, kern, sp, kw = tiled_conv_case(case, cuda_device)
+    torch.full((b * hp * wp * n,), float("nan"), device=cuda_device)
+    launches = tk.untangled_conv2d_superpack.launches_tiled
+    y = tk.untangled_conv2d_superpack(x, sp, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_conv2d_superpack.launches_tiled == launches + 1
+    y_ref = tk.untangled_conv2d_superpack_tiled_ref(x, sp, **kw)
+    y64, amax = ref.conv_oracle_f64(x, kern, strides=strides, dilation=dil)
+    bound = ref.ulp_bound(y64, amax, r * s * c)
+    assert bool(((y.double() - y64).abs() <= bound).all())
+    assert bool(((y_ref.double() - y64).abs() <= bound).all())
+    sp0 = sp.clone()
+    sp0[c // 2] = 0.0
+    q, scale, wd = _int8(sp0)
+    launches = tk.untangled_conv2d_superpack.launches_tiled_int8
+    torch.full((b * hp * wp * n,), float("nan"), device=cuda_device)
+    y_i8 = tk.untangled_conv2d_superpack(x, q, scales=scale, **kw)
+    y_f = tk.untangled_conv2d_superpack(x, wd, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_conv2d_superpack.launches_tiled_int8 == launches + 1
+    assert torch.equal(y_i8, y_f)
+    y64, amax = ref.conv_oracle_f64(x, wd.reshape(r, s, c, n),
+                                    strides=strides, dilation=dil)
+    bound = ref.ulp_bound(y64, amax, r * s * c)
+    assert bool(((y_i8.double() - y64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", TILED_DECONV_CASES,
+                         ids=[c[0] for c in TILED_DECONV_CASES])
+def test_tiled_deconv_kernel_within_ulp_bound_f32_and_int8(case,
+                                                           cuda_device):
+    """Kernel D as kernel C above; empty phases written as zeros."""
+    _, b, h, w, c, n, k, s, pads, _ = case
+    plan, x, kern, xg, packed, kw = tiled_deconv_case(case, cuda_device)
+    numel = b * plan.out_hw[0] * plan.out_hw[1] * n
+    torch.full((numel,), float("nan"), device=cuda_device)
+    launches = tk.untangled_deconv2d.launches_tiled
+    y = tk.untangled_deconv2d(xg, packed, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_deconv2d.launches_tiled == launches + 1
+    y_ref = tk.untangled_deconv2d(xg.cpu(), packed.cpu(), **kw)
+    y64, bound = _phase_bound(plan, x, kern, c)
+    assert bool(((y.double() - y64).abs() <= bound).all())
+    assert bool(((y_ref.to(y64).double() - y64).abs() <= bound).all())
+    for ex in plan.phases:
+        if ex.taps[0] * ex.taps[1] == 0:
+            assert not bool(y[:, ex.q[0]::s, ex.q[1]::s].ne(0).any())
+    q, scale, wd = _int8(packed)
+    launches = tk.untangled_deconv2d.launches_tiled_int8
+    torch.full((numel,), float("nan"), device=cuda_device)
+    y_i8 = tk.untangled_deconv2d(xg, q, scales=scale, **kw)
+    y_f = tk.untangled_deconv2d(xg, wd, **kw)
+    torch.cuda.synchronize()
+    assert tk.untangled_deconv2d.launches_tiled_int8 == launches + 1
+    assert torch.equal(y_i8, y_f)
+    y64, bound = _phase_bound(plan, x, plan.unpack(wd), c)
+    assert bool(((y_i8.double() - y64).abs() <= bound).all())
+
+
+def test_tiled_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = torch.randn((1, 40, 40, 8), device=cuda_device)
+    sp = torch.randn((9 * 8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="pixel"):
+        tk.untangled_conv2d_superpack(x, sp, taps_hw=(3, 3),
+                                      sp_tiles=(38, 38))
+    with pytest.raises(NotImplementedError):
+        tk.untangled_conv2d_superpack(x.clone().requires_grad_(), sp,
+                                      taps_hw=(3, 3), sp_tiles=(8, 8))
+    plan, _, _, xg, packed, kw = tiled_deconv_case(TILED_DECONV_CASES[0],
+                                                   cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.untangled_deconv2d(xg, packed.cpu(), **kw)
+
+
+def test_unet_cuda_route_matches_torch_route(cuda_device):
+    """A reduced U-Net at 64 px on the 'cuda' route against the 'torch'
+    route on the same weights: every site one kernel launch."""
+    import dataclasses
+    from repro_torch.models import unet
+    cfg = unet.UNetConfig("u", image_hw=64, base=16, time_dim=16,
+                          backend="cuda")
+    params = unet.unet_init(0, cfg, device=cuda_device)
+    x = torch.randn((3, 64, 64, 3), generator=torch.Generator()
+                    .manual_seed(2)).to(cuda_device)
+    t = torch.tensor([0.1, 0.5, 0.9], device=cuda_device)
+    before = (tk.untangled_deconv2d.launches
+              + tk.untangled_conv2d_superpack.launches)
+    with torch.inference_mode():
+        y_cuda = unet.unet_apply(params, x, t, cfg)
+        y_torch = unet.unet_apply(params, x, t, dataclasses.replace(
+            cfg, backend="torch"))
+        torch.cuda.synchronize()
+    after = (tk.untangled_deconv2d.launches
+             + tk.untangled_conv2d_superpack.launches)
+    assert after - before == len(unet.unet_sites(cfg))
+    scale = float(y_torch.abs().max())
+    assert float((y_cuda - y_torch).abs().max()) <= 2e-4 * scale

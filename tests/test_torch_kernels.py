@@ -339,7 +339,9 @@ def test_conv_ctypes_binding_matches_the_c_entry():
     assert all("*" in p or p.startswith("int ") for p in params)
     assert tk._CONV_ARGTYPES == want
     from repro_torch.kernels import _build
-    assert set(_build.SOURCES) == {"untangled_deconv", "untangled_conv"}
+    assert set(_build.SOURCES) == {"untangled_deconv", "untangled_conv",
+                                   "untangled_conv_tiled",
+                                   "untangled_deconv_tiled"}
 
 
 def test_conv_library_yardstick_and_sites():

@@ -1,5 +1,6 @@
 """The port's plans against the JAX package's: geometry field by field,
-bit-equal superpacks, and route verdicts, over every transposed, conv and
+bit-equal superpacks, and route verdicts (the 'cuda' routes tiled exactly
+where the fixture's 'pallas' rows are), over every transposed, conv and
 dilated site of the golden route table (``tools/gen_route_table.py``)."""
 import dataclasses
 import json
@@ -87,10 +88,21 @@ def test_torch_routes_equal_fixture_xla_rows(name, spec):
                for r in tp.routes)
 
 
+def assert_tiled_where_the_fixture_is(routes, pallas_rows):
+    """'cuda' routes carry the card's block tile (``sp_tiles``) exactly at
+    the buckets where the fixture's 'pallas' rows take the reference's
+    tiled kernel, and never a VMEM tile or a device tiling."""
+    assert [r.sp_tiles is not None for r in routes] == \
+        [w["sp_tiles"] is not None for w in pallas_rows]
+    assert all(r.tiles is None and r.dev_tiles is None for r in routes)
+
+
 @pytest.mark.parametrize("name,spec", SITES, ids=SITE_IDS)
 def test_cuda_routes_at_every_bucket(name, spec):
     tp = tplan.plan_conv(port_spec(spec, "cuda"))
     assert [r.path for r in tp.routes] == ["cuda"] * len(tplan.BATCH_BUCKETS)
+    assert_tiled_where_the_fixture_is(tp.routes,
+                                      _fixture_rows("pallas")[name])
     # beyond the largest bucket: an exactly sized, memoized route
     assert tp.route_for_batch(100).path == "cuda"
     assert tp.route_for_batch(100) is tp.route_for_batch(100)
@@ -157,7 +169,8 @@ def test_single_routes_equal_fixture_rows(name, spec):
     assert [(r.batch, r.path, r.fused_bwd) for r in cp.routes] == \
         [(w["batch"], "cuda", w["fused_bwd"]) for w in pallas]
     assert all(r.tiles is None and r.sp_tiles is None and r.dev_tiles is None
-               for r in tp.routes + cp.routes)
+               for r in tp.routes)
+    assert_tiled_where_the_fixture_is(cp.routes, pallas)
     # beyond the largest bucket: an exactly sized, memoized route with the
     # verdict JAX gives that batch
     jp = jplan.plan_conv(dataclasses.replace(spec, backend="xla"))
@@ -165,6 +178,9 @@ def test_single_routes_equal_fixture_rows(name, spec):
         big = plan.route_for_batch(100)
         assert big is plan.route_for_batch(100) and big.batch == 100
         assert big.fused_bwd == jp.route_for_batch(100).fused_bwd
+    jpp = jplan.plan_conv(dataclasses.replace(spec, backend="pallas"))
+    assert (cp.route_for_batch(100).sp_tiles is None) == \
+        (jpp.route_for_batch(100).sp_tiles is None)
 
 
 @pytest.mark.parametrize("change,exc", [

@@ -159,8 +159,9 @@ def _fixture_rows(backend):
 
 @pytest.mark.parametrize("name,spec", W8_SITES, ids=W8_IDS)
 def test_w8_routes_equal_fixture_xla_rows(name, spec):
-    """Route verdicts do not depend on ``wdtype``: the int8 sites' 'torch'
-    routes are the fixture's 'xla' rows, their 'cuda' routes 'cuda'."""
+    """Route paths do not depend on ``wdtype``: the int8 sites' 'torch'
+    routes are the fixture's 'xla' rows, their 'cuda' routes 'cuda', tiled
+    (``sp_tiles``) exactly where the fixture's 'pallas' rows are."""
     want = _fixture_rows("xla")[name]
     tp = tplan.plan_conv(port_spec(spec, "torch"))
     assert [(r.batch, r.path, r.fused_bwd) for r in tp.routes] == \
@@ -169,6 +170,8 @@ def test_w8_routes_equal_fixture_xla_rows(name, spec):
     assert tp.routes == f32.routes
     cp = tplan.plan_conv(port_spec(spec, "cuda"))
     assert [r.path for r in cp.routes] == ["cuda"] * len(tplan.BATCH_BUCKETS)
+    assert [r.sp_tiles is not None for r in cp.routes] == \
+        [w["sp_tiles"] is not None for w in _fixture_rows("pallas")[name]]
 
 
 def test_weight_itemsize():
