@@ -74,7 +74,28 @@ result line) if anything is off:
    B = 1 and 16 beside the plain version, ``F.conv2d`` (kernel C; none
    expresses up0's padding in one call) and the bound; the U-Net forward per
    bucket, and the device's busy share of one 512 px forward;
-5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8), the
+2g. kernel F (``flash_attention``) against its plain version and the f64
+   dense oracle, f32 and bf16, on NaN-poisoned outputs: the four geometries
+   of ``tests/test_flash_attention_kernel.py``, ragged (1, 1000, 32, 8, 64)
+   causal, (2, 77, 4, 2, 128) non-causal, a decode-style row at q_offset
+   300 over 512 keys, gemma3-1b's window-512 D = 256 layer and a
+   llama3.2-1b layer at S = 4096;
+3f. the llama3.2-1b prefill step at full width in bf16 (seeded weights) at
+   B = 1, S = 4096 and B = 8, S = 512: 16 F launches per forward, finite
+   logits, the kernel route's last-position logits within 3e-2·max|logits|
+   of the plain attention route's on the same weights, the same argmax on
+   every row whose top two logits are not within twice that error;
+3g. greedy serving at full width: ``serve(reduced=False, batch=4,
+   prompt_len=8, gen_tokens=16)``, then 6 requests over 4 slots of
+   ``ContinuousBatcher``, each request's tokens equal to its lone run's, 0
+   F launches at decode (JAX decodes with a dense softmax), tok/s;
+4e. kernel F a layer at both prefill geometries (bf16) beside its plain
+   version, ``F.scaled_dot_product_attention`` as the library yardstick
+   and the bound (the unmasked pairs' FLOPs at the bf16 tensor-core peak,
+   or the bytes of q, k, v and o); the prefill step's ms; its device time
+   split into F, dense products and the rest with the idle share
+   (``torch.profiler``); ``decode_step`` ms at B = 4;
+5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F), the
    card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
@@ -103,9 +124,12 @@ TOL_GRAD = 1e-3
 TOL_LOSS = 1e-4               # relative, on the two losses
 TRAIN_STEPS = 3
 TRAIN_BATCH = 16
-# published dense peaks (fp32 on CUDA cores, HBM bytes/s) by card
-PEAKS = {"H100 PCIe": (51e12, 2.0e12), "H100 NVL": (60e12, 3.9e12),
-         "H100": (67e12, 3.35e12), "H200": (67e12, 4.8e12)}
+# published dense peaks by card: fp32 on CUDA cores, HBM bytes/s, and bf16
+# on the tensor cores (kernel F's bound)
+PEAKS = {"H100 PCIe": (51e12, 2.0e12, 756e12),
+         "H100 NVL": (60e12, 3.9e12, 835e12),
+         "H100": (67e12, 3.35e12, 989e12),
+         "H200": (67e12, 4.8e12, 989e12)}
 BURST = 24
 # forward tolerance of the U-Net's 'cuda' route against its 'torch' route,
 # relative to max|y_torch| (the CPU tests' TOL_FWD form against JAX)
@@ -141,7 +165,42 @@ TILED_DECONV_CASES = [
 ]
 
 
-def card_peaks(name: str) -> tuple[float, float]:
+# kernel F cases: (name, b, sq, sk, h, kh, d, causal, window, q_offset):
+# tests/test_flash_attention_kernel.py's four geometries, ragged lengths, a
+# non-causal D = 128 case, a decode-style row at q_offset 300, gemma3-1b's
+# local layer (window 512, D = 256) and a llama3.2-1b layer at S = 4096
+FLASH_CASES = [
+    ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
+    ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
+    ("jax_mqa_window", 1, 512, 512, 4, 1, 64, True, 128, 0),
+    ("jax_bidirectional", 1, 256, 256, 2, 2, 64, False, 0, 0),
+    ("ragged_1000", 1, 1000, 1000, 32, 8, 64, True, 0, 0),
+    ("noncausal_77_d128", 2, 77, 77, 4, 2, 128, False, 0, 0),
+    ("decode_q_offset_300", 1, 1, 512, 32, 8, 64, True, 0, 300),
+    ("gemma3_window_512", 1, 2048, 2048, 4, 1, 256, True, 512, 0),
+    ("llama_4096", 1, 4096, 4096, 32, 8, 64, True, 0, 0),
+]
+# kernel F against its plain version and the f64 oracle: f32 as
+# tests/test_flash_attention_kernel.py:34 (2e-4); bf16 adds one bf16
+# rounding of the output, a relative 2^-7
+TOL_F = 2e-4
+TOL_F_BF16_REL = 2.0 ** -7
+# SDPA (bf16 P) against kernel F (f32 P) on bf16 inputs: the bf16 tolerance
+# of tests/test_flash_attention_kernel.py:49
+TOL_F_LIBRARY = 3e-2
+# the llama3.2-1b prefill's last-position logits, kernel route against the
+# plain attention route on the same bf16 weights, relative to max|logits|
+# (the CPU tests' bf16 tolerance)
+TOL_LM = 3e-2
+LM_PREFILL = ((1, 4096), (8, 512))
+# ContinuousBatcher requests: (prompt length, new tokens), 6 over 4 slots
+LM_REQUESTS = ((8, 16), (5, 8), (7, 12), (3, 6), (6, 10), (4, 16))
+# device kernels of the dense products (cuBLAS / CUTLASS names)
+MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul", "gemv", "splitk",
+                "nvjet")
+
+
+def card_peaks(name: str) -> tuple[float, float, float]:
     for key, peaks in PEAKS.items():
         if all(part in name for part in key.split()):
             return peaks
@@ -197,6 +256,297 @@ def disc_sites():
     return sites
 
 
+def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
+    """Phases 2g, 3f, 3g and 4e: kernel F against its plain version and the
+    f64 oracle, the full-width llama3.2-1b prefill on F (launches, finite
+    logits, kernel route against the plain attention route), greedy serving
+    through ``serve`` and ``ContinuousBatcher`` (tokens equal to lone runs,
+    no F launch at decode), and the times.  Returns (records for the
+    results line, F's entry for the kernels line)."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.layers import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+
+    # ---- 2g. kernel F vs its plain version, both vs the f64 oracle --------
+    max_err_f = 0.0
+    for case in FLASH_CASES:
+        name, b, sq, sk, h, kh, d, causal, window, q_offset = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                       for shape in ((b, sq, h, d), (b, sk, kh, d),
+                                     (b, sk, kh, d)))
+            torch.full((q.numel(),), float("nan"), device=dev)
+            got = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            plain = fa.flash_attention_plain(q, k, v, **kw)
+            oracle = flash_attention_ref(q.double(), k.double(), v.double(),
+                                         **kw)
+            rel = TOL_F_BF16_REL if dtype == torch.bfloat16 else 0.0
+            errs = {}
+            for tag, want in (("plain", plain), ("f64", oracle)):
+                diff = (got.double() - want.double()).abs()
+                bound = TOL_F + rel * want.double().abs()
+                errs[tag] = float(diff.max())
+                if not bool((diff <= bound).all()) or not bool(
+                        torch.isfinite(got).all()):
+                    raise RuntimeError(
+                        f"kernel F off its {tag} reference at {name} "
+                        f"{dtype}: max|Δ| {errs[tag]:.3e}")
+            if dtype == torch.float32:
+                max_err_f = max(max_err_f, errs["plain"], errs["f64"])
+            print(f"[F] {name} {str(dtype)[6:]}: max|Δ| vs plain "
+                  f"{errs['plain']:.3e}, vs f64 oracle {errs['f64']:.3e}")
+            del q, k, v, got, plain, oracle
+    torch.cuda.empty_cache()
+    print(f"[F] kernel F within 2e-4 (f32; + 2^-7·|o| in bf16) of its plain "
+          f"version and the f64 oracle at {len(FLASH_CASES)} geometries, "
+          f"f32 and bf16; worst f32 error {max_err_f:.3e}")
+
+    @contextlib.contextmanager
+    def plain_attention():
+        """The attention core on F's plain version (the card's 'plain
+        route'): the layer's ``flash_attention`` swapped for it."""
+        core = attention.flash_attention
+
+        def plain(q, k, v, *, causal=True, window=0, q_offset=0,
+                  kv_chunk=1024, scale=None):
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset,
+                                            scale=scale, ck=kv_chunk)
+        attention.flash_attention = plain
+        try:
+            yield
+        finally:
+            attention.flash_attention = core
+
+    # ---- 3f. the llama3.2-1b prefill at full width, bf16 -------------------
+    cfg = registry.get_config("llama3.2-1b")
+    params = tfm.init(cfg, seed=0, device=dev)
+
+    def numel(tree):
+        if isinstance(tree, dict):
+            return sum(numel(t) for t in tree.values())
+        if isinstance(tree, list):
+            return sum(numel(t) for t in tree)
+        return tree.numel()
+    n_params = numel(params)
+    prefill = make_prefill_step(cfg)
+    f_paths, prefill_rec, batches = {}, {}, {}
+    for b, s in LM_PREFILL:
+        tag = f"B{b}_S{s}"
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        batches[tag] = {"inputs": toks.to(dev)}
+        fa.flash_attention.launches = 0
+        logits = prefill(params, batches[tag])
+        torch.cuda.synchronize()
+        f_paths[f"lm_prefill_{tag}"] = fa.flash_attention.launches
+        if fa.flash_attention.launches != cfg.num_layers:
+            raise RuntimeError(f"prefill {tag}: kernel F launched "
+                               f"{fa.flash_attention.launches} times, not "
+                               f"{cfg.num_layers}")
+        if logits.shape != (b, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise RuntimeError(f"prefill {tag}: logits {tuple(logits.shape)}"
+                               f" not finite")
+        with plain_attention():
+            ref_logits = prefill(params, batches[tag])
+        err = float((logits - ref_logits).abs().max())
+        scale = float(ref_logits.abs().max())
+        if err > TOL_LM * scale:
+            raise RuntimeError(f"prefill {tag}: kernel route {err:.3e} off "
+                               f"the plain route (max|logits| {scale:.3f})")
+        top2 = ref_logits.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = logits.argmax(-1) == ref_logits.argmax(-1)
+        # a row whose top two logits sit within twice the worst error of
+        # each other may flip by rounding alone; every other row must agree
+        clear = gap > 2 * err
+        if not bool(same[clear].all()):
+            raise RuntimeError(f"prefill {tag}: argmax differs from the "
+                               f"plain route on a clear row")
+        prefill_rec[tag] = {
+            "launches": f_paths[f"lm_prefill_{tag}"],
+            "max_abs_err_vs_plain": err, "max_abs_logit": scale,
+            "argmax_equal_rows": int(same.sum()), "rows": b,
+            "near_tie_rows": int((~clear).sum())}
+        print(f"[lm] prefill {tag}: {cfg.num_layers} F launches, logits "
+              f"finite, kernel vs plain route max|Δ| {err:.3e} (max|logits| "
+              f"{scale:.3f}, tol {TOL_LM}·max), argmax equal on "
+              f"{int(same.sum())}/{b} rows ({int((~clear).sum())} near "
+              f"ties)")
+        del logits, ref_logits
+
+    # ---- 3g. greedy serving: serve() and ContinuousBatcher -----------------
+    fa.flash_attention.launches = 0
+    served, serve_s = serve("llama3.2-1b", reduced=False, batch=4,
+                            prompt_len=8, gen_tokens=16, device=dev)
+    if served.shape != (4, 16) or served.min() < 0 \
+            or served.max() >= cfg.vocab_size:
+        raise RuntimeError(f"serve: tokens {served.shape} out of range")
+    f_paths["lm_serve"] = fa.flash_attention.launches
+    torch.cuda.empty_cache()
+
+    def requests():
+        g = torch.Generator().manual_seed(7)
+        return [Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (p,), generator=g).numpy(), max_new=n)
+            for i, (p, n) in enumerate(LM_REQUESTS)]
+
+    fa.flash_attention.launches = 0
+    batcher = ContinuousBatcher(cfg, params, slots=4, max_len=32, device=dev)
+    for r in requests():
+        batcher.submit(r)
+    t0 = time.perf_counter()
+    steps = batcher.run()
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    f_paths["lm_batcher"] = fa.flash_attention.launches
+    if f_paths["lm_serve"] or f_paths["lm_batcher"]:
+        raise RuntimeError(f"kernel F launched at decode: {f_paths}")
+    got = {r.rid: r.out for r in batcher.done}
+    for r in requests():
+        lone = ContinuousBatcher(cfg, params, slots=1, max_len=32,
+                                 device=dev)
+        lone.submit(r)
+        lone.run()
+        if r.out != got[r.rid] or len(r.out) != r.max_new:
+            raise RuntimeError(f"request {r.rid}: batched tokens "
+                               f"{got[r.rid]} != lone run {r.out}")
+    n_tok = sum(len(o) for o in got.values())
+    st = batcher.stats()
+    serve_rec = {"serve_tokens": int(served.size), "serve_s": serve_s,
+                 "serve_tok_per_s": served.size / serve_s,
+                 "batcher_requests": len(got), "batcher_steps": steps,
+                 "batcher_tokens": n_tok, "batcher_s": batch_s,
+                 "batcher_tok_per_s": n_tok / batch_s,
+                 "batcher_p50_ms": st["p50_ms"],
+                 "batcher_ttft_p95_ms": st["ttft_p95_ms"]}
+    print(f"[lm] serve (B=4, 8-token prompts, 16 new): "
+          f"{served.size / serve_s:.1f} tok/s (host clock, token-by-token "
+          f"prompt); ContinuousBatcher {len(got)} requests over 4 slots: "
+          f"{n_tok} tokens in {steps} steps, {n_tok / batch_s:.1f} tok/s, "
+          f"each request's tokens equal to its lone run; 0 F launches at "
+          f"decode")
+
+    # ---- 4e. times: kernel F a layer, the prefill step, decode -------------
+    f_times = []
+    for b, s in LM_PREFILL:
+        h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+        y_k = fa.flash_attention(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        lib_err = float((library().transpose(1, 2).float()
+                         - y_k.float()).abs().max())
+        if lib_err > TOL_F_LIBRARY:
+            raise RuntimeError(f"library yardstick disagrees with kernel F "
+                               f"at B={b} S={s}: {lib_err:.3e}")
+        pairs = b * h * s * (s + 1) // 2
+        flops = 4 * d * pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
+        t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+        rec = {"site": f"B{b}_S{s}", "batch": b, "seq": s, "flops": flops,
+               "bytes": nbytes,
+               "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v)),
+               "library_ms": time_ms(library),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_max_abs_err": lib_err}
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        f_times.append(rec)
+        print(f"[time] kernel F llama layer B={b} S={s}: kernel "
+              f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
+              f"{rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel "
+              f"at {rec['bound_ms'] / rec['ms']:.1%} of bound")
+        del q, k, v, y_k, qt, kt, vt
+    prefill_ms = {tag: time_ms(lambda: prefill(params, batch), iters=5,
+                               warmup=1)
+                  for tag, batch in batches.items()}
+    print(f"[time] llama3.2-1b prefill step (bf16, {cfg.num_layers} layers, "
+          f"last-position logits) ms: {json.dumps(prefill_ms)}")
+
+    def device_split(fn, wall_ms):
+        """One call of ``fn`` under ``torch.profiler``: device time of
+        kernel F, of the dense products and of everything else, the number
+        of device kernels, and the idle share against ``wall_ms`` (its time
+        measured without the profiler)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {"F_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0, "F_calls": 0,
+               "device_kernels": 0}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            name = ev.name.lower()
+            part = ("F" if "flash_fwd_kernel" in name
+                    else "matmul" if any(p in name for p in MATMUL_NAMES)
+                    else "other")
+            out[f"{part}_ms"] += ev.device_time_total / 1e3
+            out["F_calls"] += part == "F"
+            out["device_kernels"] += 1
+        busy = out["F_ms"] + out["matmul_ms"] + out["other_ms"]
+        out.update(device_busy_ms=busy, wall_ms=wall_ms,
+                   idle_share=1 - busy / wall_ms)
+        return out
+
+    split = {tag: device_split(lambda: prefill(params, batch),
+                               prefill_ms[tag])
+             for tag, batch in batches.items()}
+    print(f"[time] llama3.2-1b prefill, device time by part "
+          f"(torch.profiler, one step after the timed ones): "
+          f"{json.dumps(split)}")
+    cache = tfm.init_cache(cfg, 4, 32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen).to(dev)
+
+    def decode():
+        with torch.no_grad():
+            tfm.decode_step(params, cache, tok, 10, cfg)
+    decode_ms = time_ms(decode)
+    split["decode_B4"] = device_split(decode, decode_ms)
+    print(f"[time] llama3.2-1b decode_step at B=4 (cache 32): "
+          f"{decode_ms:.4f} ms a step, {4 / decode_ms * 1e3:.1f} tok/s; "
+          f"one step under torch.profiler: {json.dumps(split['decode_B4'])}")
+
+    big = f_times[0]
+    entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "tpu_kernel": "src/repro/kernels/flash_attention.py::_kernel",
+        "launches": sum(f_paths.values()), "launches_by_path": f_paths,
+        "held_against_plain": True, "max_abs_err": max_err_f,
+        "shape": f"llama3.2-1b attention layer, B={big['batch']} "
+                 f"S={big['seq']}, bf16, causal",
+        **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}}
+    records = {"lm_params": n_params, "lm_prefill": prefill_rec,
+               "lm_serve": serve_rec, "flash_sites": f_times,
+               "lm_prefill_ms": prefill_ms, "lm_prefill_split": split,
+               "lm_decode_ms_B4": decode_ms}
+    return records, entry
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -206,6 +556,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 throughout, as JAX's dots do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import reference as ref
     from repro_torch.core.plan import BATCH_BUCKETS, ConvSpec, plan_conv
@@ -224,16 +576,18 @@ def main() -> int:
     from repro_torch.train.data import GANPipeline
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     # ---- 1. environment + build ------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     card = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = card_peaks(card)
+    peak_flops, peak_bw, peak_bf16 = card_peaks(card)
     print(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
-          f" | peaks fp32 {peak_flops / 1e12:.0f} TFLOP/s, "
-          f"HBM {peak_bw / 1e12:.2f} TB/s")
+          f" | peaks fp32 {peak_flops / 1e12:.0f} TFLOP/s, bf16 tensor "
+          f"cores {peak_bf16 / 1e12:.0f} TFLOP/s, HBM "
+          f"{peak_bw / 1e12:.2f} TB/s")
     t0 = time.perf_counter()
     logs = _build.build(verbose=True)
     print(f"[build] {len(logs)} kernel source(s) in "
@@ -1320,6 +1674,9 @@ def main() -> int:
                       "unet512_device_split": unet_split_512,
                       "unet512_denoise_ms_per_step": denoise}))
 
+    lm_records, f_entry = lm_phases(dev, peak_bw, peak_bf16, time_ms, gen)
+    print(json.dumps({"card": smi, **lm_records}))
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -1428,10 +1785,12 @@ def main() -> int:
         "launches": sum(di8_paths.values()), "launches_by_path": di8_paths,
         "held_against_plain": True, "max_abs_err": max_err_di8,
         "shape": f"U-Net 512px int8 up0, B={big}",
-        **sums([r for r in di8_sites if r["batch"] == big])}]
+        **sums([r for r in di8_sites if r["batch"] == big])}, f_entry]
     for k in kernels:
         print(f"[kernels] {k['name']} <- {k['tpu_kernel']}: {k['launches']} "
               f"launches on the main path, held against its plain version")
+    print(f"[done] every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

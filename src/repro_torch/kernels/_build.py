@@ -21,7 +21,7 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("untangled_deconv", "untangled_conv", "untangled_conv_tiled",
-           "untangled_deconv_tiled")
+           "untangled_deconv_tiled", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,118 @@
+"""Attention: the flash attention core and the MHA/GQA layer (+ sliding
+window, qk-norm, qkv bias).
+
+Counterpart of ``repro.layers.attention``.  Layout: activations
+(B, S, D); q/k/v (B, S, H, Dh).  ``cross_*`` and ``mla_*`` wait for their
+architectures (ROADMAP Queue 1 item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.layers import common as cm
+from repro_torch.layers import rope as rp
+
+NEG_INF = -2.0 ** 30
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    kv_chunk=1024, scale=None):
+    """Online-softmax attention over KV chunks.  q: (B, Sq, H, D); k, v:
+    (B, Sk, Kh, D); ``q_offset`` is the absolute position of q[0].
+
+    CUDA tensors go through kernel F, which stages its own 64-key chunks;
+    CPU tensors through F's plain version with ``kv_chunk`` keys a chunk.
+    JAX's jnp core pads K/V with zero keys to a multiple of ``kv_chunk``
+    and masks them only through the causal test, so with ``causal=False``
+    and a ragged Sk it differs from F and from the dense oracle; the port
+    excludes keys past Sk outright, as the oracle does."""
+    if q.device.type == "cpu":
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        scale=scale, ck=kv_chunk)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, scale=scale)
+
+
+def gqa_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
+    d, h, kh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"q": cm.dense_init(gen, d, h * dh, dtype, bias=cfg.qkv_bias),
+         "k": cm.dense_init(gen, d, kh * dh, dtype, bias=cfg.qkv_bias),
+         "v": cm.dense_init(gen, d, kh * dh, dtype, bias=cfg.qkv_bias),
+         "o": cm.dense_init(gen, h * dh, d, dtype)}
+    if cfg.qk_norm:
+        p["qn"] = cm.rmsnorm_init(dh, gen.device)
+        p["kn"] = cm.rmsnorm_init(dh, gen.device)
+    return p
+
+
+def _theta(cfg, layer_kind):
+    if layer_kind == "local" and cfg.rope_theta_local:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
+def _check_rope(cfg):
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
+                                  "ROADMAP Queue 1 item 14")
+
+
+def _qkv(p, x, cfg):
+    b, sq, _ = x.shape
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = cm.dense_apply(p["q"], x).reshape(b, sq, h, dh)
+    k = cm.dense_apply(p["k"], x).reshape(b, sq, kh, dh)
+    v = cm.dense_apply(p["v"], x).reshape(b, sq, kh, dh)
+    if "qn" in p:
+        q = cm.rmsnorm_apply(p["qn"], q, cfg.norm_eps)
+        k = cm.rmsnorm_apply(p["kn"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
+              causal=True):
+    """Training / prefill self-attention.  x: (B, S, D); positions (B, S)."""
+    _check_rope(cfg)
+    b, sq, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    pos2d = positions if positions.dim() == 2 else positions[0]
+    theta = _theta(cfg, layer_kind)
+    q = rp.apply_rope(q, pos2d, theta)
+    k = rp.apply_rope(k, pos2d, theta)
+    window = cfg.window if layer_kind == "local" else 0
+    o = flash_attention(q, k, v, causal=causal, window=window,
+                        kv_chunk=kv_chunk)
+    return cm.dense_apply(p["o"], o.reshape(b, sq, -1))
+
+
+def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
+    """Single-token decode.  cache: {"k", "v"}: (B, Smax, Kh, Dh), updated
+    in place at ``cache_index`` (JAX returns a new cache; the port writes
+    the one it was given and returns it).  The attention is JAX's dense f32
+    softmax over the whole cache; kernel F is not launched here."""
+    _check_rope(cfg)
+    b, sq, _ = x.shape
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg)
+    pos = torch.full((b, sq), cache_index, dtype=torch.int64,
+                     device=x.device)
+    theta = _theta(cfg, layer_kind)
+    q = rp.apply_rope(q, pos, theta)
+    k = rp.apply_rope(k, pos, theta)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, cache_index:cache_index + sq] = k.to(ck.dtype)
+    cv[:, cache_index:cache_index + sq] = v.to(cv.dtype)
+    kpos = torch.arange(ck.shape[1], device=x.device)
+    window = cfg.window if layer_kind == "local" else 0
+    qr = q.reshape(b, sq, kh, h // kh, dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr, ck.float()) * (dh ** -0.5)
+    mask = kpos <= cache_index
+    if window:
+        mask &= kpos > cache_index - window
+    s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
+    o = o.reshape(b, sq, h * dh).to(x.dtype)
+    return cm.dense_apply(p["o"], o), cache

@@ -1,0 +1,92 @@
+"""Shared layer primitives on plain dicts of tensors.
+
+Counterpart of ``repro.layers.common``: the same parameter names and
+layouts (dense weights ``(in, out)``, embeddings ``(vocab, dim)``), without
+the sharding specs.  Initialisers draw from an explicit seeded
+``torch.Generator`` on the device the tensors are made on.
+
+``dense_apply`` and ``embed_logits`` accumulate in f32, as JAX's
+``preferred_element_type=f32`` dots do.  On the CPU (and for f32 inputs)
+both operands go up to f32 first, as JAX does on its CPU backend, so the
+CPU tests compare like with like.  On the card a bf16 product stays bf16
+in cuBLAS, which accumulates in f32 and rounds once: ``dense_apply``'s
+result is then JAX's, while ``embed_logits`` returns its f32 logits
+through that one bf16 rounding (PyTorch's bf16 product has no f32 output).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+
+def _randn(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen: torch.Generator, in_dim, out_dim, dtype=torch.bfloat16,
+               bias=False, scale=None):
+    scale = scale if scale is not None else in_dim ** -0.5
+    params = {"w": (_randn(gen, (in_dim, out_dim)) * scale).to(dtype)}
+    if bias:
+        params["b"] = torch.zeros((out_dim,), dtype=dtype, device=gen.device)
+    return params
+
+
+def _f32_product(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu" or x.dtype == torch.float32
+
+
+def dense_apply(p, x):
+    """``x @ w (+ b)``: f32 accumulation, the bias added in f32, one
+    rounding to ``x``'s dtype."""
+    w = p["w"]
+    if _f32_product(x):
+        y = torch.matmul(x.float(), w.float())
+        if "b" in p:
+            y = y + p["b"].float()
+        return y.to(x.dtype)
+    w = w.to(x.dtype)
+    if "b" in p:
+        y = torch.addmm(p["b"].to(x.dtype), x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return torch.matmul(x, w)
+
+
+def rmsnorm_init(dim, device="cpu", dtype=torch.float32):
+    return {"g": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, eps=1e-6, gemma_style=False):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    g = p["g"].float()
+    y = y * (1.0 + g) if gemma_style else y * g
+    return y.to(x.dtype)
+
+
+def embed_init(gen: torch.Generator, vocab, dim, dtype=torch.bfloat16):
+    return {"w": (_randn(gen, (vocab, dim)) * dim ** -0.5).to(dtype)}
+
+
+def embed_apply(p, ids):
+    return p["w"][ids]
+
+
+def embed_logits(p, x):
+    """Tied readout: (B, S, D) @ (V, D)^T, float32."""
+    w = p["w"]
+    if _f32_product(x):
+        return torch.matmul(x.float(), w.float().t())
+    return torch.matmul(x, w.to(x.dtype).t()).float()
+
+
+ACTS: dict[str, Callable] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    "relu": F.relu,
+}

@@ -1,8 +1,9 @@
 """Latency/throughput statistics shared by every serving surface.
 
 Counterpart of ``repro.serving.metrics``, the same math: one implementation
-of percentile reporting for the image batcher (``serving/image_batcher.py``)
-and the serve driver (``serve_dcgan.py``).
+of percentile reporting for the image batcher (``serving/image_batcher.py``),
+the LM slot scheduler (``serving/batcher.py``) and the serve driver
+(``serve_dcgan.py``).
 
 Percentiles use numpy's default linear interpolation over the *completed*
 requests only; throughput is completions over the measured wall-clock

@@ -1,7 +1,9 @@
 """Card-side tests of the port: kernels A and B on CUDA tensors against the
 float64 oracle's ULP bound and their plain versions, the wrappers'
-refusals, the generator and serve entry point on the 'cuda' route, and one
-'cuda' train step against the 'torch' one.
+refusals, the generator and serve entry point on the 'cuda' route, one
+'cuda' train step against the 'torch' one, the tiled kernels C and D, the
+U-Net's 'cuda' route, and kernel F (flash attention) against its plain
+version and the f64 oracle, with its launches in the llama3.2-1b prefill.
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
@@ -507,3 +509,111 @@ def test_unet_cuda_route_matches_torch_route(cuda_device):
     assert after - before == len(unet.unet_sites(cfg))
     scale = float(y_torch.abs().max())
     assert float((y_cuda - y_torch).abs().max()) <= 2e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# kernel F (flash attention)
+# ---------------------------------------------------------------------------
+
+# (name, b, sq, sk, h, kh, d, causal, window, q_offset): JAX's four test
+# geometries (tests/test_flash_attention_kernel.py), ragged lengths, every
+# instantiated head dim, a decode-style row past the start, a window that
+# leaves one row no visible key
+FLASH_CASES = [
+    ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
+    ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
+    ("jax_mqa_window", 1, 512, 512, 4, 1, 64, True, 128, 0),
+    ("jax_bidirectional", 1, 256, 256, 2, 2, 64, False, 0, 0),
+    ("ragged_causal", 1, 1000, 1000, 8, 2, 64, True, 0, 0),
+    ("ragged_noncausal_d128", 2, 77, 77, 4, 2, 128, False, 0, 0),
+    ("ragged_cross_d32", 2, 37, 101, 4, 4, 32, False, 0, 0),
+    ("decode_q_offset", 1, 1, 512, 8, 2, 64, True, 0, 300),
+    ("block_q_offset_window", 2, 70, 200, 4, 2, 64, True, 48, 120),
+    ("window_d256", 1, 300, 300, 4, 1, 256, True, 64, 0),
+    ("no_visible_key", 1, 3, 40, 2, 1, 64, True, 8, 60),
+]
+# the f64 oracle and the plain version in f32: the test file's 2e-4; bf16:
+# one bf16 rounding of the output (a relative 2^-7) above that
+TOL_F32 = 2e-4
+TOL_BF16_REL = 2.0 ** -7
+
+
+def flash_inputs(case, device, dtype):
+    name, b, sq, sk, h, kh, d = case[:7]
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    return [torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+            for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+
+
+def within(got, want, tol_abs, tol_rel=0.0):
+    err = (got.double() - want.double()).abs()
+    bound = tol_abs + tol_rel * want.double().abs()
+    return bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_and_f64_oracle(case, dtype, cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    _, _, _, _, _, _, _, causal, window, q_offset = case
+    q, k, v = flash_inputs(case, cuda_device, getattr(torch, dtype))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.flash_attention.launches
+    torch.full((q.numel(),), float("nan"), device=cuda_device)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    oracle = flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    rel = TOL_BF16_REL if dtype == "bfloat16" else 0.0
+    for want in (plain, oracle):
+        ok, err = within(got, want, TOL_F32, rel)
+        assert ok, err
+
+
+def test_flash_kernel_scalar_path_on_unaligned_views(cuda_device):
+    """Views whose rows are not 16-byte aligned take the scalar loads."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator().manual_seed(5)
+    big = [torch.randn((1, 90, 4, 65), generator=gen).to(cuda_device)
+           for _ in range(3)]
+    q, k, v = (t[..., 1:] for t in big)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    ok, err = within(got, want, TOL_F32)
+    assert ok, err
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((1, 8, 2, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.randn((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q.detach(), q.detach().cpu(), q.detach().cpu())
+
+
+def test_llama_prefill_launches_kernel_f_once_per_layer(cuda_device):
+    """The full-width llama3.2-1b prefill (bf16, S = 256) launches kernel F
+    16 times, once per layer, and gives finite logits."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    cfg = registry.get_config("llama3.2-1b")
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(1))
+    before = fa.flash_attention.launches
+    logits = make_prefill_step(cfg)(params, {"inputs": toks.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == cfg.num_layers
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())

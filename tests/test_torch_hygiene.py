@@ -1,6 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (checked on
-the source's AST), and no module builds or loads a kernel when imported."""
+``chip_smoke.py`` imports ``jax``, the JAX package ``repro``, ``ml_dtypes``
+or ``triton`` (checked on the source's AST), and no module builds or loads
+a kernel when imported."""
 import ast
 import os
 import pathlib
@@ -28,7 +29,8 @@ def imported_modules(path):
 def test_port_imports_neither_jax_nor_repro(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "flax"), \
+        assert top not in ("jax", "jaxlib", "repro", "flax", "ml_dtypes",
+                           "triton"), \
             f"{path.name} imports {mod}"
 
 

@@ -341,7 +341,8 @@ def test_conv_ctypes_binding_matches_the_c_entry():
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == {"untangled_deconv", "untangled_conv",
                                    "untangled_conv_tiled",
-                                   "untangled_deconv_tiled"}
+                                   "untangled_deconv_tiled",
+                                   "flash_attention"}
 
 
 def test_conv_library_yardstick_and_sites():
