@@ -6,7 +6,9 @@ result line) if anything is off:
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from this checkout's sources (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), with ``-Xptxas -v``'s
+   registers and spills (kernel F's per instantiation on lines of their
+   own);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
@@ -75,23 +77,26 @@ result line) if anything is off:
    expresses up0's padding in one call) and the bound; the U-Net forward per
    bucket, and the device's busy share of one 512 px forward;
 2g. kernel F (``flash_attention``) against its plain version and the f64
-   dense oracle, f32 and bf16, on NaN-poisoned outputs: the four geometries
-   of ``tests/test_flash_attention_kernel.py``, ragged (1, 1000, 32, 8, 64)
-   causal, (2, 77, 4, 2, 128) non-causal, a decode-style row at q_offset
-   300 over 512 keys, gemma3-1b's window-512 D = 256 layer and a
-   llama3.2-1b layer at S = 4096;
+   dense oracle, f32 (the FFMA entry) and bf16 (the tensor-core entry, its
+   worst error and share of the tolerance), on NaN-poisoned outputs: the
+   four geometries of ``tests/test_flash_attention_kernel.py``, ragged
+   (1, 1000, 32, 8, 64) causal, (2, 77, 4, 2, 128) non-causal, a
+   decode-style row at q_offset 300 over 512 keys, gemma3-1b's window-512
+   D = 256 layer and a llama3.2-1b layer at S = 4096;
 3f. the llama3.2-1b prefill step at full width in bf16 (seeded weights) at
    B = 1, S = 4096 and B = 8, S = 512: 16 F launches per forward, finite
-   logits, the kernel route's last-position logits within 3e-2·max|logits|
+   f32 logits (off the bf16 grid: the tied readout does not round them),
+   the kernel route's last-position logits within 3e-2·max|logits|
    of the plain attention route's on the same weights, the same argmax on
    every row whose top two logits are not within twice that error;
 3g. greedy serving at full width: ``serve(reduced=False, batch=4,
    prompt_len=8, gen_tokens=16)``, then 6 requests over 4 slots of
    ``ContinuousBatcher``, each request's tokens equal to its lone run's, 0
    F launches at decode (JAX decodes with a dense softmax), tok/s;
-4e. kernel F a layer at both prefill geometries (bf16) beside its plain
-   version, ``F.scaled_dot_product_attention`` as the library yardstick
-   and the bound (the unmasked pairs' FLOPs at the bf16 tensor-core peak,
+4e. kernel F a layer at both prefill geometries (bf16) beside its f32
+   FFMA entry on the same values, its plain version,
+   ``F.scaled_dot_product_attention`` as the library yardstick and the
+   bound (the unmasked pairs' FLOPs at the bf16 tensor-core peak,
    or the bytes of q, k, v and o); the prefill step's ms; its device time
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
@@ -200,6 +205,32 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul", "gemv", "splitk",
                 "nvjet")
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spills of each kernel F instantiation, from an ``nvcc
+    -Xptxas -v`` log: [{"kernel", "registers", "spill_stores",
+    "spill_loads"}], the kernel named by its symbol and template
+    arguments."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel)"
+                      r"I(\w*?)EEv", line)
+        if m:
+            args = (["float"] if m.group(2).startswith("f") else []) \
+                + re.findall(r"Li(\d+)E", m.group(2))
+            out.append({"kernel": f"{m.group(1)}<{', '.join(args)}>"})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def card_peaks(name: str) -> tuple[float, float, float]:
     for key, peaks in PEAKS.items():
         if all(part in name for part in key.split()):
@@ -278,7 +309,7 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     from repro_torch.serving.batcher import ContinuousBatcher, Request
 
     # ---- 2g. kernel F vs its plain version, both vs the f64 oracle --------
-    max_err_f = 0.0
+    max_err_f = max_err_bf16 = gate_share_bf16 = 0.0
     for case in FLASH_CASES:
         name, b, sq, sk, h, kh, d, causal, window, q_offset = case
         kw = dict(causal=causal, window=window, q_offset=q_offset)
@@ -293,11 +324,12 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
             oracle = flash_attention_ref(q.double(), k.double(), v.double(),
                                          **kw)
             rel = TOL_F_BF16_REL if dtype == torch.bfloat16 else 0.0
-            errs = {}
+            errs, share = {}, 0.0
             for tag, want in (("plain", plain), ("f64", oracle)):
                 diff = (got.double() - want.double()).abs()
                 bound = TOL_F + rel * want.double().abs()
                 errs[tag] = float(diff.max())
+                share = max(share, float((diff / bound).max()))
                 if not bool((diff <= bound).all()) or not bool(
                         torch.isfinite(got).all()):
                     raise RuntimeError(
@@ -305,13 +337,18 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
                         f"{dtype}: max|Δ| {errs[tag]:.3e}")
             if dtype == torch.float32:
                 max_err_f = max(max_err_f, errs["plain"], errs["f64"])
+            else:
+                max_err_bf16 = max(max_err_bf16, errs["plain"], errs["f64"])
+                gate_share_bf16 = max(gate_share_bf16, share)
             print(f"[F] {name} {str(dtype)[6:]}: max|Δ| vs plain "
-                  f"{errs['plain']:.3e}, vs f64 oracle {errs['f64']:.3e}")
+                  f"{errs['plain']:.3e}, vs f64 oracle {errs['f64']:.3e}, "
+                  f"{share:.3f} of the tolerance")
             del q, k, v, got, plain, oracle
     torch.cuda.empty_cache()
     print(f"[F] kernel F within 2e-4 (f32; + 2^-7·|o| in bf16) of its plain "
           f"version and the f64 oracle at {len(FLASH_CASES)} geometries, "
-          f"f32 and bf16; worst f32 error {max_err_f:.3e}")
+          f"f32 and bf16; worst f32 error {max_err_f:.3e}, worst bf16 error "
+          f"{max_err_bf16:.3e} ({gate_share_bf16:.3f} of its tolerance)")
 
     @contextlib.contextmanager
     def plain_attention():
@@ -359,6 +396,11 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
                 torch.isfinite(logits).all()):
             raise RuntimeError(f"prefill {tag}: logits {tuple(logits.shape)}"
                                f" not finite")
+        # the tied readout returns the f32 sum: most logits lie off the
+        # bf16 grid, none would after a bf16 rounding
+        off_grid = int((logits.to(torch.bfloat16).float() != logits).sum())
+        if off_grid == 0:
+            raise RuntimeError(f"prefill {tag}: every logit is a bf16 value")
         with plain_attention():
             ref_logits = prefill(params, batches[tag])
         err = float((logits - ref_logits).abs().max())
@@ -379,12 +421,14 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
             "launches": f_paths[f"lm_prefill_{tag}"],
             "max_abs_err_vs_plain": err, "max_abs_logit": scale,
             "argmax_equal_rows": int(same.sum()), "rows": b,
-            "near_tie_rows": int((~clear).sum())}
+            "near_tie_rows": int((~clear).sum()),
+            "logits_off_bf16_grid": off_grid, "logits": logits.numel()}
         print(f"[lm] prefill {tag}: {cfg.num_layers} F launches, logits "
               f"finite, kernel vs plain route max|Δ| {err:.3e} (max|logits| "
               f"{scale:.3f}, tol {TOL_LM}·max), argmax equal on "
               f"{int(same.sum())}/{b} rows ({int((~clear).sum())} near "
-              f"ties)")
+              f"ties); {off_grid}/{logits.numel()} logits off the bf16 "
+              f"grid (f32 readout)")
         del logits, ref_logits
 
     # ---- 3g. greedy serving: serve() and ContinuousBatcher -----------------
@@ -460,9 +504,11 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         flops = 4 * d * pairs
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
         t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+        q32, k32, v32 = (t.float() for t in (q, k, v))
         rec = {"site": f"B{b}_S{s}", "batch": b, "seq": s, "flops": flops,
                "bytes": nbytes,
                "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
+               "f32_ms": time_ms(lambda: fa.flash_attention(q32, k32, v32)),
                "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v)),
                "library_ms": time_ms(library),
                "bound_ms": max(t_ops, t_bytes),
@@ -471,11 +517,12 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         rec["tflops"] = flops / rec["ms"] / 1e9
         f_times.append(rec)
         print(f"[time] kernel F llama layer B={b} S={s}: kernel "
-              f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
+              f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s; the f32 "
+              f"FFMA entry on the same values {rec['f32_ms']:.4f} ms), plain "
               f"{rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel "
               f"at {rec['bound_ms'] / rec['ms']:.1%} of bound")
-        del q, k, v, y_k, qt, kt, vt
+        del q, k, v, y_k, qt, kt, vt, q32, k32, v32
     prefill_ms = {tag: time_ms(lambda: prefill(params, batch), iters=5,
                                warmup=1)
                   for tag, batch in batches.items()}
@@ -499,7 +546,7 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
             if ev.device_type != DeviceType.CUDA:
                 continue
             name = ev.name.lower()
-            part = ("F" if "flash_fwd_kernel" in name
+            part = ("F" if "flash_fwd" in name
                     else "matmul" if any(p in name for p in MATMUL_NAMES)
                     else "other")
             out[f"{part}_ms"] += ev.device_time_total / 1e3
@@ -536,10 +583,12 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         "tpu_kernel": "src/repro/kernels/flash_attention.py::_kernel",
         "launches": sum(f_paths.values()), "launches_by_path": f_paths,
         "held_against_plain": True, "max_abs_err": max_err_f,
+        "max_abs_err_bf16": max_err_bf16,
+        "tolerance_share_bf16": gate_share_bf16,
         "shape": f"llama3.2-1b attention layer, B={big['batch']} "
                  f"S={big['seq']}, bf16, causal",
         **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}}
+                               "library_ms", "f32_ms")}}
     records = {"lm_params": n_params, "lm_prefill": prefill_rec,
                "lm_serve": serve_rec, "flash_sites": f_times,
                "lm_prefill_ms": prefill_ms, "lm_prefill_split": split,
@@ -596,6 +645,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    f_ptxas = ptxas_report(logs.get("flash_attention", ""))
+    for rec in f_ptxas:
+        print(f"[build] kernel F {rec['kernel']}: {rec.get('registers')} "
+              f"registers, {rec.get('spill_stores')} bytes spill stores, "
+              f"{rec.get('spill_loads')} bytes spill loads")
 
     gen = torch.Generator().manual_seed(0)
 
@@ -1675,6 +1729,7 @@ def main() -> int:
                       "unet512_denoise_ms_per_step": denoise}))
 
     lm_records, f_entry = lm_phases(dev, peak_bw, peak_bf16, time_ms, gen)
+    f_entry["ptxas"] = f_ptxas
     print(json.dumps({"card": smi, **lm_records}))
 
     # ---- 5. the kernels line, the card line, the result line ---------------

@@ -7,7 +7,11 @@ head = h // g), the finite mask value ``NEG_INF = -2^30`` and f32 scores,
 statistics and accumulator, written in q's dtype.  The CUDA source is
 ``csrc/flash_attention.cu`` (its header says what bounds the kernel on the
 card and what the design does about it); ``_build`` compiles it with
-``nvcc`` at first use and binds its plain C entry with ``ctypes``.
+``nvcc`` at first use and binds its plain C entry with ``ctypes``.  The
+entry goes by dtype: bfloat16 runs on the tensor cores (bf16 ``mma.sync``
+with f32 accumulation, P·V on the two-term split P = hi + lo that keeps
+F's f32 P within the bf16 gate), float32 on IEEE f32 FFMA (tensor cores
+would be TF32).
 
 q (B, Sq, H, D) and k, v (B, Sk, Kh, D) keep JAX's layout and are read by
 strides.  Unlike F, any Sq and Sk are taken: keys past Sk are excluded
@@ -29,8 +33,8 @@ import torch
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_Q_TILES = 65535           # grid.y, one 64-row query tile each
-_Q_TILE = 64
+_MAX_Q_TILES = 65535           # grid.y, one query tile each
+_Q_TILE = 64                   # the smallest query tile of either entry
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,

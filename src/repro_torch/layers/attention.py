@@ -21,7 +21,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     """Online-softmax attention over KV chunks.  q: (B, Sq, H, D); k, v:
     (B, Sk, Kh, D); ``q_offset`` is the absolute position of q[0].
 
-    CUDA tensors go through kernel F, which stages its own 64-key chunks;
+    CUDA tensors go through kernel F, which stages its own key chunks;
     CPU tensors through F's plain version with ``kv_chunk`` keys a chunk.
     JAX's jnp core pads K/V with zero keys to a multiple of ``kv_chunk``
     and masks them only through the causal test, so with ``causal=False``

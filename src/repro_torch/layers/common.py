@@ -9,9 +9,10 @@ the sharding specs.  Initialisers draw from an explicit seeded
 ``preferred_element_type=f32`` dots do.  On the CPU (and for f32 inputs)
 both operands go up to f32 first, as JAX does on its CPU backend, so the
 CPU tests compare like with like.  On the card a bf16 product stays bf16
-in cuBLAS, which accumulates in f32 and rounds once: ``dense_apply``'s
-result is then JAX's, while ``embed_logits`` returns its f32 logits
-through that one bf16 rounding (PyTorch's bf16 product has no f32 output).
+in cuBLAS, which accumulates in f32: ``dense_apply`` rounds that sum once
+to bf16, as JAX's dense layers do, and ``embed_logits`` writes it as f32
+with no rounding (``torch.mm(..., out_dtype=torch.float32)``), as JAX's
+readout returns the dot's f32 result.
 """
 from __future__ import annotations
 
@@ -77,11 +78,14 @@ def embed_apply(p, ids):
 
 
 def embed_logits(p, x):
-    """Tied readout: (B, S, D) @ (V, D)^T, float32."""
+    """Tied readout: (..., D) @ (V, D)^T, float32: the f32 sum itself, with
+    no rounding to ``x``'s dtype on the way."""
     w = p["w"]
     if _f32_product(x):
         return torch.matmul(x.float(), w.float().t())
-    return torch.matmul(x, w.to(x.dtype).t()).float()
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype).t(),
+                 out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 ACTS: dict[str, Callable] = {

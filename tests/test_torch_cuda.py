@@ -3,7 +3,10 @@ float64 oracle's ULP bound and their plain versions, the wrappers'
 refusals, the generator and serve entry point on the 'cuda' route, one
 'cuda' train step against the 'torch' one, the tiled kernels C and D, the
 U-Net's 'cuda' route, and kernel F (flash attention) against its plain
-version and the f64 oracle, with its launches in the llama3.2-1b prefill.
+version and the f64 oracle (f32 on FFMA; bf16 on the tensor cores at
+every head dim, GQA group, ragged length, offset, window and unaligned
+view), with its launches in the llama3.2-1b prefill; the tied readout's
+f32 logits and ``dense_apply``'s f32 accumulation at llama's widths.
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
@@ -515,22 +518,36 @@ def test_unet_cuda_route_matches_torch_route(cuda_device):
 # kernel F (flash attention)
 # ---------------------------------------------------------------------------
 
-# (name, b, sq, sk, h, kh, d, causal, window, q_offset): JAX's four test
-# geometries (tests/test_flash_attention_kernel.py), ragged lengths, every
-# instantiated head dim, a decode-style row past the start, a window that
-# leaves one row no visible key
+# (name, b, sq, sk, h, kh, d, causal, window, q_offset, view): JAX's four
+# test geometries (tests/test_flash_attention_kernel.py), ragged lengths,
+# every instantiated head dim, a decode-style row past the start, windows
+# that leave one row or some rows no visible key; then, for the bf16
+# tensor-core entry, each head dim with GQA groups 1, 4 and 8, Sq and Sk
+# that are multiples of neither query tile (64, 128) nor key chunk (32,
+# 64), q_offset > 0, and views whose rows are not 16-byte aligned (`view`:
+# the scalar staging path)
 FLASH_CASES = [
-    ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
-    ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
-    ("jax_mqa_window", 1, 512, 512, 4, 1, 64, True, 128, 0),
-    ("jax_bidirectional", 1, 256, 256, 2, 2, 64, False, 0, 0),
-    ("ragged_causal", 1, 1000, 1000, 8, 2, 64, True, 0, 0),
-    ("ragged_noncausal_d128", 2, 77, 77, 4, 2, 128, False, 0, 0),
-    ("ragged_cross_d32", 2, 37, 101, 4, 4, 32, False, 0, 0),
-    ("decode_q_offset", 1, 1, 512, 8, 2, 64, True, 0, 300),
-    ("block_q_offset_window", 2, 70, 200, 4, 2, 64, True, 48, 120),
-    ("window_d256", 1, 300, 300, 4, 1, 256, True, 64, 0),
-    ("no_visible_key", 1, 3, 40, 2, 1, 64, True, 8, 60),
+    ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0, False),
+    ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0, False),
+    ("jax_mqa_window", 1, 512, 512, 4, 1, 64, True, 128, 0, False),
+    ("jax_bidirectional", 1, 256, 256, 2, 2, 64, False, 0, 0, False),
+    ("ragged_causal", 1, 1000, 1000, 8, 2, 64, True, 0, 0, False),
+    ("ragged_noncausal_d128", 2, 77, 77, 4, 2, 128, False, 0, 0, False),
+    ("ragged_cross_d32", 2, 37, 101, 4, 4, 32, False, 0, 0, False),
+    ("decode_q_offset", 1, 1, 512, 8, 2, 64, True, 0, 300, False),
+    ("block_q_offset_window", 2, 70, 200, 4, 2, 64, True, 48, 120, False),
+    ("window_d256", 1, 300, 300, 4, 1, 256, True, 64, 0, False),
+    ("no_visible_key", 1, 3, 40, 2, 1, 64, True, 8, 60, False),
+    ("gqa8_offset_d32", 1, 130, 203, 16, 2, 32, True, 0, 73, False),
+    ("gqa4_window_offset_d64", 2, 197, 333, 8, 2, 64, True, 40, 136, False),
+    ("gqa1_offset_d128", 1, 150, 231, 4, 4, 128, True, 0, 81, False),
+    ("gqa8_window_d256", 1, 141, 141, 8, 1, 256, True, 33, 0, False),
+    ("some_rows_no_key_d128", 1, 70, 50, 4, 1, 128, True, 16, 40, False),
+    ("some_rows_no_key_d64", 1, 300, 200, 2, 1, 64, True, 30, 60, False),
+    ("unaligned_gqa4_d64", 1, 90, 90, 8, 2, 64, True, 0, 0, True),
+    ("unaligned_window_d32", 2, 75, 120, 4, 4, 32, True, 24, 45, True),
+    ("unaligned_noncausal_d128", 1, 33, 70, 8, 1, 128, False, 0, 0, True),
+    ("unaligned_gqa8_d256", 1, 40, 40, 8, 1, 256, True, 0, 0, True),
 ]
 # the f64 oracle and the plain version in f32: the test file's 2e-4; bf16:
 # one bf16 rounding of the output (a relative 2^-7) above that
@@ -539,10 +556,15 @@ TOL_BF16_REL = 2.0 ** -7
 
 
 def flash_inputs(case, device, dtype):
+    """q, k, v from a per-case seed; with ``view``, each is the last D of a
+    (.., D + 1) tensor, so no row starts 16-byte aligned."""
     name, b, sq, sk, h, kh, d = case[:7]
+    view = case[10]
     gen = torch.Generator().manual_seed(sum(map(ord, name)))
-    return [torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
-            for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+    out = [torch.randn(shape[:3] + (shape[3] + view,), generator=gen)
+           .to(device=device, dtype=dtype)
+           for shape in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+    return [t[..., 1:] for t in out] if view else out
 
 
 def within(got, want, tol_abs, tol_rel=0.0):
@@ -556,7 +578,7 @@ def within(got, want, tol_abs, tol_rel=0.0):
 def test_flash_kernel_matches_plain_and_f64_oracle(case, dtype, cuda_device):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
-    _, _, _, _, _, _, _, causal, window, q_offset = case
+    causal, window, q_offset = case[7:10]
     q, k, v = flash_inputs(case, cuda_device, getattr(torch, dtype))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     before = fa.flash_attention.launches
@@ -617,3 +639,73 @@ def test_llama_prefill_launches_kernel_f_once_per_layer(cuda_device):
     assert fa.flash_attention.launches - before == cfg.num_layers
     assert logits.shape == (2, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the LM's dense products on the card
+# ---------------------------------------------------------------------------
+
+def f32_sum_bound(x, w):
+    """The rounding error of an f32 sum of x @ w's K products (each exact
+    in f32 for bf16 operands): gamma_K * sum |x||w|, gamma_K = K u / (1 -
+    K u), u = 2^-24, in float64."""
+    k = x.shape[-1]
+    gamma = k * 2.0 ** -24 / (1 - k * 2.0 ** -24)
+    return gamma * (x.double().abs() @ w.double().abs())
+
+
+def test_tied_readout_returns_f32_logits_on_the_card(cuda_device):
+    """llama3.2-1b's tied readout (V = 128256, D = 2048) in bf16: the
+    logits are the f32 sum itself, within f32 accumulation error of the
+    f64 product, and not rounded to bf16 on the way."""
+    from repro_torch.configs import registry
+    from repro_torch.layers import common as cm
+    cfg = registry.get_config("llama3.2-1b")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    p = cm.embed_init(gen, cfg.vocab_size, cfg.d_model)
+    x = torch.randn((2, 3, cfg.d_model), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    y = cm.embed_logits(p, x)
+    assert y.dtype == torch.float32 and y.shape == (2, 3, cfg.vocab_size)
+    w = p["w"].t()
+    want = x.double() @ w.double()
+    err = (y.double() - want).abs()
+    assert bool((err <= f32_sum_bound(x, w)).all()), float(err.max())
+    assert bool((y.to(torch.bfloat16).float() != y).any())
+
+
+# llama3.2-1b's dense products (in, out): q and o, k and v, the MLP's gate
+# and up, its down
+LLAMA_DENSE = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+
+
+@pytest.mark.parametrize("reduced", [False, True],
+                         ids=["bf16_reduction_off", "bf16_reduction_on"])
+@pytest.mark.parametrize("rows", [4, 4096])
+def test_dense_apply_accumulates_in_f32(rows, reduced, cuda_device):
+    """``dense_apply`` in bf16 at llama3.2-1b's widths, with cuBLAS allowed
+    (or not) to reduce bf16 partial sums in bf16
+    (``allow_bf16_reduced_precision_reduction``): every output is the f64
+    product within f32 accumulation error plus one bf16 rounding."""
+    from repro_torch.layers import common as cm
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+        for d_in, d_out in LLAMA_DENSE:
+            p = cm.dense_init(gen, d_in, d_out)
+            x = torch.randn((rows, d_in), generator=gen, device=cuda_device
+                            ).to(torch.bfloat16)
+            y = cm.dense_apply(p, x)
+            assert y.dtype == torch.bfloat16
+            want = x.double() @ p["w"].double()
+            e = f32_sum_bound(x, p["w"])
+            # half a bf16 step at |want| + e: 2^(floor(log2 a) - 8)
+            half = torch.exp2(torch.floor(torch.log2(want.abs() + e)) - 8)
+            err = (y.double() - want).abs()
+            assert bool((err <= e + half).all()), (d_in, d_out,
+                                                   float(err.max()))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag

@@ -3,7 +3,9 @@ port's dense oracle against the JAX package on the CPU: JAX's Pallas kernel
 in interpret mode at its four test geometries, JAX's jnp flash path in
 bf16, JAX's dense oracle at ragged, ``q_offset``, non-causal ragged and
 window cases, and the wrappers' dispatch and refusals.  The kernel itself
-runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``);
+here a replay of F's recurrence with P rounded as the card's bf16 entry
+may round it shows why that entry splits P in two for P·V."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -171,3 +173,61 @@ def test_wrapper_refuses_bad_arguments(bad):
         kw = {"q_offset": -1}
     with pytest.raises((ValueError, TypeError)):
         fa.flash_attention(q, k, v, **kw)
+
+
+def p_rounded_attention(q, k, v, *, causal, p_form, ck=64):
+    """F's recurrence (as ``flash_attention_plain``) on bf16 q, k, v, with
+    P·V taken on P rounded as a bf16 tensor-core product would take it:
+    ``"one"`` one bf16 P, ``"split"`` the two terms hi = bf16(p) and
+    lo = bf16(p - hi).  Each bf16 product is exact in f32 and summed in
+    f32; ``l`` sums the f32 P."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kh, h // kh, d)
+    acc = torch.zeros((b, kh, h // kh, sq, d))
+    m = torch.full((b, kh, h // kh, sq), fa.NEG_INF)
+    l = torch.zeros((b, kh, h // kh, sq))
+    for c0 in range(0, sk, ck):
+        kc, vc = k[:, c0:c0 + ck].float(), v[:, c0:c0 + ck].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * d ** -0.5
+        if causal:
+            seen = torch.arange(sq)[:, None] >= c0 + torch.arange(
+                kc.shape[1])[None, :]
+            s = s.masked_fill(~seen, fa.NEG_INF)
+        m2 = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m2[..., None])
+        r = torch.exp(m - m2)
+        hi = p.to(torch.bfloat16).float()
+        pv = torch.einsum("bkgqs,bskd->bkgqd", hi, vc)
+        if p_form == "split":
+            lo = (p - hi).to(torch.bfloat16).float()
+            pv = pv + torch.einsum("bkgqs,bskd->bkgqd", lo, vc)
+        acc = acc * r[..., None] + pv
+        l = l * r + p.sum(dim=-1)
+        m = m2
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [(1, 256, 2, 2, 64, False),
+                                  (1, 128, 4, 1, 32, True)],
+                         ids=["bidirectional_d64", "causal_mqa_d32"])
+def test_bf16_p_needs_two_terms_for_the_card_gate(case):
+    """The card holds bf16 F to |o - oracle| <= 2e-4 + 2^-7 |oracle| (the
+    f64 dense oracle).  With P rounded to one bf16 for P·V (SDPA's choice)
+    the result breaks that gate; with P = hi + lo in two bf16 terms it
+    stays within it, as F's f32 P does."""
+    b, s, h, kh, d, causal = case
+    q, k, v = (a.to(torch.bfloat16) for a in t(*qkv(b, s, s, h, kh, d,
+                                                     seed=s + d)))
+    oracle = flash_attention_ref(q.double(), k.double(), v.double(),
+                                 causal=causal)
+    gate = 2e-4 + 2.0 ** -7 * oracle.abs()
+
+    def share(o):
+        return float(((o.double() - oracle).abs() / gate).max())
+    assert share(p_rounded_attention(q, k, v, causal=causal,
+                                     p_form="one")) > 1
+    assert share(p_rounded_attention(q, k, v, causal=causal,
+                                     p_form="split")) <= 1
+    assert share(fa.flash_attention_plain(q, k, v, causal=causal)) <= 1
