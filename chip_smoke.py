@@ -7,13 +7,15 @@ result line) if anything is off:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from this checkout's sources (one
    ``nvcc`` per source, all started together), with ``-Xptxas -v``'s
-   registers and spills (kernel F's per instantiation on lines of their
-   own);
+   registers and spills (kernel F's and kernel A's per instantiation on
+   lines of their own; a kernel-A instantiation that spills fails);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
-   empty-phase case (stride > kernel) and ragged C/N — every output comes
-   from ``torch.empty`` on memory pre-filled with NaN;
+   empty-phase case (stride > kernel) and ragged C/N — every output, and
+   the split K's workspace, comes from ``torch.empty`` on memory pre-filled
+   with NaN; a second launch bit-equal to the first; each site's schedule
+   (tile, slices, work units);
 2b. kernel B (``untangled_conv2d_superpack``) the same way, at the four
    DCGAN discriminator sites (B = 1 and 64), both cGAN discriminator sites
    (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases;
@@ -24,7 +26,7 @@ result line) if anything is off:
    the f32 kernel on the dequantized superpack;
 2d. kernel A's int8 entry the same way, at the DCGAN (B = 1 and 64) and
    cGAN (B = 16) generator sites, the non-uniform, empty-phase and ragged
-   cases;
+   cases, two launches bit-equal;
 3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
    ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
    launches per batcher launch, each row equal to a B = 1 forward;
@@ -45,14 +47,18 @@ result line) if anything is off:
    rel L∞ of the f32 generator from the same seed;
 4. times (CUDA events): per DCGAN generator site at B = 1 and 64 kernel A,
    its plain version, ``F.conv_transpose2d`` as the library yardstick and
-   the roofline bound; one full generator forward per bucket;
+   the roofline bound, with the kernel's and the library's device time per
+   call (``torch.profiler``; at B = 1 the events time the host's Python)
+   and the site's schedule (at least 132 work units at B = 1); one full
+   generator forward per bucket;
 4b. per discriminator site at B = 1 and 64 the same for kernel B, with
    ``F.conv2d`` on the pre-padded plane as the yardstick; ms per train step
    at B = 16 and 64 on 'cuda' and on 'torch';
 4c. the int8 entries: kernel B at every SegNet site and kernel A at every
    DCGAN site (B = 1 and 64) against the f32 kernel, the plain version, the
    library call on the dequantized weights and the bound (1 B per weight
-   plus 4 B per scale row); the SegNet forward per bucket, f32 and int8;
+   plus 4 B per scale row), at the DCGAN sites with device times and the
+   schedule; the SegNet forward per bucket, f32 and int8;
 2e. kernel C (``untangled_conv2d_superpack`` with ``sp_tiles=``) and its
    int8 entry against the plain version and the f64 oracle's ULP bound on
    NaN-poisoned outputs, at the four tiled sites of the U-Net at a 512 px
@@ -100,8 +106,9 @@ result line) if anything is off:
    or the bytes of q, k, v and o); the prefill step's ms; its device time
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
-5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F), the
-   card line, and the result line.
+5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
+   A's and A-int8's B = 64 sums with their B = 1 sums beside), the card
+   line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 """
@@ -205,20 +212,42 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul", "gemv", "splitk",
                 "nvjet")
 
 
+# device kernels of one kernel-A call (the GEMM, the thin-N GEMM, the split
+# K's reduction), for the profiler splits
+A_KERNELS = ("deconv_kernel", "deconv_thin_kernel", "deconv_split_reduce")
+
+
+def kernel_part(name: str) -> str:
+    """Which of the port's conv kernels (A-D) a device kernel belongs to,
+    by its symbol, else "other"."""
+    if "deconv_tiled_kernel" in name:
+        return "D"
+    if "conv_tiled_kernel" in name:
+        return "C"
+    if any(k in name for k in A_KERNELS):
+        return "A"
+    return "B" if "conv_kernel" in name else "other"
+
+
 def ptxas_report(log: str) -> list[dict]:
-    """Registers and spills of each kernel F instantiation, from an ``nvcc
-    -Xptxas -v`` log: [{"kernel", "registers", "spill_stores",
-    "spill_loads"}], the kernel named by its symbol and template
-    arguments."""
+    """Registers and spills of each kernel instantiation (kernel F's, kernel
+    A's and its reduction), from an ``nvcc -Xptxas -v`` log: [{"kernel",
+    "registers", "spill_stores", "spill_loads"}], the kernel named by its
+    symbol and template arguments (int8_t for the int8 entries)."""
     import re
     out = []
+    names = {"i": str, "b": lambda v: "true" if v == "1" else "false"}
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel)"
-                      r"I(\w*?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel"
+                      r"|deconv_kernel|deconv_thin_kernel|deconv_split_reduce)"
+                      r"(?:I(\w*?)EEv|E)", line)
         if m:
-            args = (["float"] if m.group(2).startswith("f") else []) \
-                + re.findall(r"Li(\d+)E", m.group(2))
-            out.append({"kernel": f"{m.group(1)}<{', '.join(args)}>"})
+            args = [names[kind](v) if kind else
+                    {"f": "float", "a": "int8_t"}[typ]
+                    for kind, v, typ in re.findall(r"L([ib])(\d+)E|([fa])",
+                                                   m.group(2) or "")]
+            out.append({"kernel": f"{m.group(1)}<{', '.join(args)}>"
+                        if m.group(2) else m.group(1)})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -614,7 +643,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch import serve_segnet, train_gan
     from repro_torch.kernels.untangled_conv import (
-        pick_block_tile_single, pick_block_tile_transposed, single_out_hw,
+        SMS, deconv_schedule, pick_block_tile_single,
+        pick_block_tile_transposed, single_out_hw,
         untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
         untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
         untangled_deconv2d_ref, untangled_deconv2d_tiled_ref)
@@ -646,20 +676,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     f_ptxas = ptxas_report(logs.get("flash_attention", ""))
-    for rec in f_ptxas:
-        print(f"[build] kernel F {rec['kernel']}: {rec.get('registers')} "
-              f"registers, {rec.get('spill_stores')} bytes spill stores, "
-              f"{rec.get('spill_loads')} bytes spill loads")
+    a_ptxas = ptxas_report(logs.get("untangled_deconv", ""))
+    for tag, recs in (("F", f_ptxas), ("A", a_ptxas)):
+        for rec in recs:
+            print(f"[build] kernel {tag} {rec['kernel']}: "
+                  f"{rec.get('registers')} registers, "
+                  f"{rec.get('spill_stores')} bytes spill stores, "
+                  f"{rec.get('spill_loads')} bytes spill loads")
+    spilled = [r["kernel"] for r in a_ptxas
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if len(a_ptxas) < 2 or spilled:
+        raise RuntimeError(f"kernel A instantiations that spill: {spilled} "
+                           f"(of {len(a_ptxas)} reported)")
 
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    def poison(numel):
-        # NaN-fill a block the caching allocator will hand out next, so an
-        # output element the kernel leaves unwritten cannot pass as a value
-        torch.full((numel,), float("nan"), device=dev)
+    def poison(*numels):
+        # NaN-fill blocks the caching allocator will hand out next (the
+        # output, then kernel A's workspace), so an element the kernel
+        # leaves unwritten cannot pass as a value
+        blocks = [torch.full((n,), float("nan"), device=dev)
+                  for n in numels if n]
+        del blocks
 
     def time_ms(fn, iters=20, warmup=3):
         for _ in range(warmup):
@@ -700,7 +741,7 @@ def main() -> int:
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            part = "kernel" if "conv_kernel" in ev.name else "other"
+            part = "kernel" if kernel_part(ev.name) == "B" else "other"
             out[f"{part}_ms"] += ev.device_time_total / 1e3
             out[f"{part}_calls"] += 1
         busy = out["kernel_ms"] + out["other_ms"]
@@ -728,6 +769,30 @@ def main() -> int:
                                       out_hw=plan.out_hw,
                                       strides=plan.spec.strides,
                                       sum_uv=plan.sum_uv, **scales)
+
+    def schedule_of(plan, b):
+        """Kernel A's schedule for a call, as printed beside its checks and
+        times: tile, slice length, slices per phase, work units."""
+        sch = deconv_schedule(tuple(plan.phases), b, plan.spec.in_c,
+                              plan.spec.out_c)
+        return {"tile": list(sch.tile), "chunk_len": sch.chunk_len,
+                "slices": list(sch.slices), "units": sch.units,
+                "workspace_bytes": sch.workspace_bytes}
+
+    def call_device_ms(fn, iters=20):
+        """Device time of one call of ``fn`` (after a warm-up): its kernels'
+        time summed over ``iters`` calls under ``torch.profiler``, per call.
+        Beside the CUDA-event time, which at B = 1 is the host's pace."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(ev.device_time_total for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA) / 1e3 / iters
 
     def int8_of(sp):
         """(q, scale, dequantized) of an f32 superpack whose middle row is
@@ -757,9 +822,14 @@ def main() -> int:
         x, kern = randn(b, h, h, c), randn(k, k, c, n)
         packed = plan.pack(kern)
         xg = pad_or_crop(x, plan.gpad)
-        poison(b * plan.out_hw[0] * plan.out_hw[1] * n)
+        numels = (b * plan.out_hw[0] * plan.out_hw[1] * n,
+                  deconv_schedule(tuple(plan.phases), b, c,
+                                  n).workspace_bytes // 4)
+        poison(*numels)
         y_k = kernel_call(plan, xg, packed)
         y_r = ref_call(plan, xg, packed)
+        poison(*numels)
+        again = torch.equal(kernel_call(plan, xg, packed), y_k)
         torch.cuda.synchronize()
         y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)), kern,
                                         padding=pads)
@@ -773,8 +843,9 @@ def main() -> int:
         max_err = max(max_err, err)
         print(f"[kernel] {name}: out {tuple(y_k.shape)} |kernel-plain| "
               f"{err:.3e} kernel<=ulp_bound {ok_k} plain<=ulp_bound {ok_r} "
-              f"(max bound {float(bound.max()):.3e})")
-        if not (ok_k and ok_r and torch.isfinite(y_k).all()):
+              f"(max bound {float(bound.max()):.3e}); two launches "
+              f"bit-equal {again}; {schedule_of(plan, b)}")
+        if not (ok_k and ok_r and again and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel A disagrees on {name}")
         if name.startswith("empty_phase"):
             empty = [ex for ex in plan.phases if ex.taps[0] * ex.taps[1] == 0]
@@ -871,10 +942,15 @@ def main() -> int:
         x, kern = randn(b, h, h, c), randn(k, k, c, n)
         q, scale, wd = int8_of(plan.pack(kern))
         xg = pad_or_crop(x, plan.gpad)
-        poison(b * plan.out_hw[0] * plan.out_hw[1] * n)
+        numels = (b * plan.out_hw[0] * plan.out_hw[1] * n,
+                  deconv_schedule(tuple(plan.phases), b, c,
+                                  n).workspace_bytes // 4)
+        poison(*numels)
         y_k = kernel_call(plan, xg, q, scales=scale)
         y_r = ref_call(plan, xg, q, scales=scale)
         y_f = kernel_call(plan, xg, wd)
+        poison(*numels)
+        again = torch.equal(kernel_call(plan, xg, q, scales=scale), y_k)
         torch.cuda.synchronize()
         y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)),
                                         plan.unpack(wd), padding=pads)
@@ -890,8 +966,9 @@ def main() -> int:
         print(f"[kernel A int8] {name}: out {tuple(y_k.shape)} "
               f"|kernel-plain| {err:.3e} kernel<=ulp_bound {ok_k} "
               f"plain<=ulp_bound {ok_r} bit-equal to f32 kernel on "
-              f"dequant {bit}")
-        if not (ok_k and ok_r and bit and torch.isfinite(y_k).all()):
+              f"dequant {bit}; two launches bit-equal {again}")
+        if not (ok_k and ok_r and bit and again
+                and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel A int8 disagrees on {name}")
 
     # ---- 2e. kernel C (tiled B) f32 and int8 vs plain, f64 oracle ---------
@@ -1368,18 +1445,30 @@ def main() -> int:
                 "site": f"DC{i + 1}", "batch": b, "flops": flops,
                 "bytes": nbytes,
                 "ms": time_ms(lambda: kernel_call(plan, xg, packed)),
+                "device_ms": call_device_ms(
+                    lambda: kernel_call(plan, xg, packed)),
                 "plain_ms": time_ms(lambda: ref_call(plan, xg, packed)),
                 "library_ms": time_ms(
                     lambda: F.conv_transpose2d(xl, wl, **kw)),
+                "library_device_ms": call_device_ms(
+                    lambda: F.conv_transpose2d(xl, wl, **kw)),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_max_abs_err": lib_err}
+                "library_max_abs_err": lib_err,
+                "schedule": schedule_of(plan, b)}
             sites.append(rec)
-            print(f"[time] DC{i + 1} B={b}: kernel {rec['ms']:.4f} ms, "
-                  f"plain {rec['plain_ms']:.4f} ms, library "
-                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
-                  f" ms ({rec['bound_by']}), kernel at "
-                  f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+            if b == 1 and rec["schedule"]["units"] < SMS:
+                raise RuntimeError(f"DC{i + 1} B=1: {rec['schedule']} leaves "
+                                   f"SMs idle")
+            print(f"[time] DC{i + 1} B={b}: kernel {rec['ms']:.4f} ms "
+                  f"(device {rec['device_ms']:.4f}), plain "
+                  f"{rec['plain_ms']:.4f} ms, library "
+                  f"{rec['library_ms']:.4f} ms (device "
+                  f"{rec['library_device_ms']:.4f}), bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel at "
+                  f"{rec['bound_ms'] / rec['ms']:.1%} of bound "
+                  f"({rec['bound_ms'] / rec['device_ms']:.1%} of its device "
+                  f"time); schedule {json.dumps(rec['schedule'])}")
     gen_ms = {}
     with torch.inference_mode():
         for b in BATCH_BUCKETS:
@@ -1461,8 +1550,8 @@ def main() -> int:
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            part = ("A" if "deconv_kernel" in ev.name
-                    else "B" if "conv_kernel" in ev.name else "other")
+            part = kernel_part(ev.name)
+            part = part if part in ("A", "B") else "other"
             out[f"{part}_ms"] += ev.device_time_total / 1e3
             out[f"{part}_calls"] += 1
         busy = out["A_ms"] + out["B_ms"] + out["other_ms"]
@@ -1487,11 +1576,12 @@ def main() -> int:
                                      else "bytes")
 
     def time_int8(name, b, flops, in_bytes, out_numel, kernel, f32_kernel,
-                  plain, library, lib_err):
+                  plain, library, lib_err, schedule=None):
         """One int8 site's record: the int8 kernel against the f32 kernel
         on the dequantized weights, the plain version and the library call
         (already checked against the kernel); the bound counts the input,
-        1 B per code, 4 B per scale row and the f32 output."""
+        1 B per code, 4 B per scale row and the f32 output.  With kernel
+        A's ``schedule``, also the three calls' device times."""
         bound, by = bound_of(flops, in_bytes + 4 * out_numel)
         rec = {"site": name, "batch": b, "flops": flops,
                "bytes": in_bytes + 4 * out_numel,
@@ -1499,11 +1589,21 @@ def main() -> int:
                "plain_ms": time_ms(plain), "library_ms": time_ms(library),
                "bound_ms": bound, "bound_by": by,
                "library_max_abs_err": lib_err}
+        extra = ""
+        if schedule is not None:
+            rec.update(device_ms=call_device_ms(kernel),
+                       f32_device_ms=call_device_ms(f32_kernel),
+                       library_device_ms=call_device_ms(library),
+                       schedule=schedule)
+            extra = (f"; device ms int8 {rec['device_ms']:.4f}, f32 "
+                     f"{rec['f32_device_ms']:.4f}, library "
+                     f"{rec['library_device_ms']:.4f}; schedule "
+                     f"{json.dumps(schedule)}")
         print(f"[time int8] {name} B={b}: int8 kernel {rec['ms']:.4f} ms, "
               f"f32 kernel {rec['f32_ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
               f"ms, bound {bound:.4f} ms ({by}), int8 kernel at "
-              f"{bound / rec['ms']:.1%} of bound")
+              f"{bound / rec['ms']:.1%} of bound" + extra)
         return rec
 
     print(f"[time int8] kernel E inside B at the SegNet sites, inside A at "
@@ -1550,7 +1650,8 @@ def main() -> int:
                 lambda: kernel_call(plan, xg, q, scales=scale),
                 lambda: kernel_call(plan, xg, wd),
                 lambda: ref_call(plan, xg, q, scales=scale),
-                lambda: F.conv_transpose2d(xl, wl, **kw), lib_err))
+                lambda: F.conv_transpose2d(xl, wl, **kw), lib_err,
+                schedule=schedule_of(plan, b)))
     # ---- 4d. kernels C and D (f32, int8) at the 512 px U-Net's tiled sites
     print(f"[time tiled] kernels C and D at the tiled sites of the U-Net at "
           f"a 512 px image, B = 1 and 16, CUDA events; card {smi}")
@@ -1693,12 +1794,7 @@ def main() -> int:
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            name = ev.name
-            part = ("D" if "deconv_tiled_kernel" in name
-                    else "C" if "conv_tiled_kernel" in name
-                    else "A" if "deconv_kernel" in name
-                    else "B" if "conv_kernel" in name else "other")
-            out[f"{part}_ms"] += ev.device_time_total / 1e3
+            out[f"{kernel_part(ev.name)}_ms"] += ev.device_time_total / 1e3
         busy = sum(out.values())
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
                    busy_share=busy / wall_ms)
@@ -1737,11 +1833,16 @@ def main() -> int:
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
         t_bytes = sum(r["bytes"] for r in recs) / peak_bw * 1e3
         lib = [r["library_ms"] for r in recs]
-        return {"ms": sum(r["ms"] for r in recs),
-                "plain_ms": sum(r["plain_ms"] for r in recs),
-                "bound_ms": sum(r["bound_ms"] for r in recs),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": None if None in lib else sum(lib)}
+        out = {"ms": sum(r["ms"] for r in recs),
+               "plain_ms": sum(r["plain_ms"] for r in recs),
+               "bound_ms": sum(r["bound_ms"] for r in recs),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None if None in lib else sum(lib)}
+        if all("device_ms" in r for r in recs):
+            out.update(device_ms=sum(r["device_ms"] for r in recs),
+                       library_device_ms=sum(r["library_device_ms"]
+                                             for r in recs))
+        return out
 
     def unet_paths_of(kern_, wdtype):
         return {k: v[kern_] for k, v in unet_launches.items()
@@ -1772,7 +1873,8 @@ def main() -> int:
         "launches": sum(a_paths.values()), "launches_by_path": a_paths,
         "held_against_plain": True, "max_abs_err": max_err,
         "shape": "DCGAN generator, 4 sites, B=64 (sums)",
-        **sums([r for r in sites if r["batch"] == 64])}, {
+        **sums([r for r in sites if r["batch"] == 64]),
+        "B1": sums([r for r in sites if r["batch"] == 1])}, {
         "name": "untangled_conv2d_superpack", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_conv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:77",
@@ -1792,7 +1894,8 @@ def main() -> int:
                              **ai8_paths},
         "held_against_plain": True, "max_abs_err": max_err_ai8,
         "shape": "DCGAN generator int8, 4 sites, B=64 (sums)",
-        **sums([r for r in i8_asites if r["batch"] == 64])}, {
+        **sums([r for r in i8_asites if r["batch"] == 64]),
+        "B1": sums([r for r in i8_asites if r["batch"] == 1])}, {
         "name": "untangled_conv2d_i8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_conv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:63",

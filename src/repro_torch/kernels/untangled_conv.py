@@ -2,9 +2,12 @@
 
 ``untangled_deconv2d`` (kernel A) is the port of ``repro.kernels
 .untangled_conv.untangled_deconv2d_pallas`` (TPU kernel ``_deconv_kernel``):
-ONE launch computes every s_h·s_w output phase of a transposed conv over
+ONE call computes every s_h·s_w output phase of a transposed conv over
 the globally padded plane and stores the output interleaved, with no zero
-inserted.  ``untangled_conv2d_superpack`` (kernel B) is the port of
+inserted.  ``deconv_schedule`` splits its K range into slices where the
+unsplit grid would leave the card's SMs idle (batch 1, or phases of
+unequal tap counts); a second small kernel then sums each tile's slices
+in slice order.  ``untangled_conv2d_superpack`` (kernel B) is the port of
 ``untangled_conv2d_superpack_pallas`` (TPU kernel ``_kernel``): ONE launch
 of the strided or dilated correlation of a pre-padded plane with the
 tap-major ``(R·S·C, N)`` superpack, with no zero inserted in the kernel.
@@ -41,7 +44,9 @@ backward as plain products.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import heapq
 from typing import Sequence
 
 import torch
@@ -50,11 +55,35 @@ from repro_torch.runtime.compress import dequantize_int8
 
 Pair = tuple[int, int]
 
-# block tiles (BM, BN) of the kernel's configs, indexed as in the source
+# block tiles (BM, BN) of kernel B's configs, indexed as in its source
 _CONFIGS = ((128, 128), (64, 64), (256, 16))
 # the big tile is taken when it alone yields this many blocks (132 SMs)
 _BIG_TILE_MIN_BLOCKS = 120
 _INT32_MAX = 2 ** 31 - 1
+
+# kernel A's tiles, indexed as in csrc/untangled_deconv.cu's dispatch:
+# (BM, BN, BK channels a K chunk).  0-3 are the wide tiles, 4 the thin-N
+# tile (N <= _THIN_N)
+_DECONV_CONFIGS = ((128, 128, 16), (64, 64, 16), (32, 64, 16),
+                   (16, 64, 16), (256, 4, 8))
+_THIN = 4
+_THIN_N = 16
+# the thin tile is a spatial TU x TV block of a phase's output, TV =
+# min(V, _THIN_TV) and TU = min(BM // TV, _THIN_TU) (the kernel's kThinTV,
+# kThinTU); its halo ring has _THIN_STAGES slots
+_THIN_TV = _THIN_TU = 64
+_THIN_STAGES = 3
+# the thin tile stages its unit's weight rows whole: at most this many
+_THIN_ROWS_MAX = 3072
+SMS = 132
+# a split aims at no more than this many units, and its workspace at no
+# more than this many bytes
+_UNITS_MAX = 4 * SMS
+_WORKSPACE_MAX = 64 * 2 ** 20
+# a unit's fixed cost (fill the ring, store a partial tile), in K chunks
+_UNIT_OVERHEAD = 2
+# slices shorter than this (in K chunks) make the M tile step down
+_MIN_SLICE = 8
 
 
 def _weights_f32(superpack: torch.Tensor, scales) -> torch.Tensor:
@@ -107,10 +136,10 @@ def _phase_table(phases: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _pick_config(n: int, rows: Sequence[int]) -> int:
-    """The block tile of kernels A and B, for N output channels and the GEMM
-    rows of each phase (A: B·U·V per phase; B: its one phase's B·OH·OW):
-    256x16 for a thin N (the RGB head), 128x128 when it fills the card, else
-    64x64 (more, smaller blocks)."""
+    """The block tile of kernel B, for N output channels and the GEMM rows
+    of each phase (its one phase's B·OH·OW): 256x16 for a thin N (the RGB
+    head), 128x128 when it fills the card, else 64x64 (more, smaller
+    blocks)."""
     if n <= 16:
         return 2
     bm, bn = _CONFIGS[0]
@@ -118,10 +147,211 @@ def _pick_config(n: int, rows: Sequence[int]) -> int:
     return 0 if blocks >= _BIG_TILE_MIN_BLOCKS else 1
 
 
+def _n_slices(chunks: int, chunk_len: int) -> int:
+    """Slices of a phase of ``chunks`` K chunks under slice length L: one
+    for a phase that fits (or has no taps), else ceil(chunks / L).  The
+    kernel's ``n_slices``."""
+    return 1 if chunks <= chunk_len else -(-chunks // chunk_len)
+
+
+def _slice_begin(chunks: int, slices: int, s: int) -> int:
+    """First K chunk of slice ``s``: slice s covers ``[begin(s),
+    begin(s + 1))``, lengths differing by at most one.  The kernel's
+    ``slice_begin``."""
+    return s * chunks // slices
+
+
+@dataclasses.dataclass(frozen=True)
+class DeconvSchedule:
+    """How kernel A covers one call: the tile ``config`` (an index into
+    ``_DECONV_CONFIGS``), K chunks of ``bk`` channels, ``chunk_len`` chunks
+    a slice (at least the longest phase when no phase is split), per phase
+    its M tiles and slices, the grid (work units over (phase, M tile,
+    slice), N tiles), the longest slice in chunks, the thin tile's halo in
+    plane pixels (0 for the wide tiles) and the f32 workspace of the
+    split's partial tiles (0 bytes: no split, no second pass)."""
+    config: int
+    chunk_len: int
+    phase_chunks: tuple[int, ...]
+    m_tiles: tuple[int, ...]
+    slices: tuple[int, ...]
+    grid: tuple[int, int]
+    max_chunks: int
+    halo: int
+    workspace_bytes: int
+
+    @property
+    def tile(self) -> tuple[int, int]:
+        return _DECONV_CONFIGS[self.config][:2]
+
+    @property
+    def bk(self) -> int:
+        return _DECONV_CONFIGS[self.config][2]
+
+    @property
+    def split(self) -> bool:
+        return self.workspace_bytes > 0
+
+    @property
+    def units(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def reduce_tiles(self) -> int:
+        return sum(self.m_tiles)
+
+    def unit_chunks(self) -> list[int]:
+        """K chunks of every work unit in launch order (x fastest)."""
+        per_x = [_slice_begin(k, s, i + 1) - _slice_begin(k, s, i)
+                 for k, mt, s in zip(self.phase_chunks, self.m_tiles,
+                                     self.slices)
+                 for _ in range(mt) for i in range(s)]
+        return per_x * self.grid[1]
+
+
+def _makespan(chunks: Sequence[int]) -> int:
+    """Greedy list schedule of units (in launch order, each its chunks plus
+    the fixed ``_UNIT_OVERHEAD``) on the card's SMs, each running one unit
+    at a time at its full rate (blocks resident together share it): the
+    time the last one ends, in K chunks."""
+    ends = [0] * min(SMS, len(chunks))
+    for c in chunks:
+        heapq.heapreplace(ends, ends[0] + c + _UNIT_OVERHEAD)
+    return max(ends)
+
+
+def _deconv_config(n: int, rows: Sequence[int]) -> int:
+    """Kernel A's first tile for N output channels and the GEMM rows B·U·V
+    of each phase: the thin tile for N <= 16; 128x128 when it alone fills
+    the card; else the M tile follows the rows (64, 32 or 16)."""
+    if n <= _THIN_N:
+        return _THIN
+    if sum(-(-m // 128) for m in rows) * -(-n // 128) >= _BIG_TILE_MIN_BLOCKS:
+        return 0
+    m = max(rows)
+    return 1 if m > 32 else 2 if m > 16 else 3
+
+
+def _thin_tile(v: int) -> tuple[int, int]:
+    """The thin tile's (TU, TV) on a phase of V columns."""
+    tv = min(v, _THIN_TV)
+    return min(_DECONV_CONFIGS[_THIN][0] // tv, _THIN_TU), tv
+
+
+def thin_smem_bytes(sch: DeconvSchedule) -> int:
+    """Dynamic shared memory of the thin tile's block: the halo ring (BK +
+    4 floats a pixel) and the slice's weight rows (4 floats each); the
+    kernel's launch_thin."""
+    return 4 * _THIN_STAGES * sch.halo * (sch.bk + 4) \
+        + 16 * sch.max_chunks * sch.bk
+
+
+def _m_tiles(config: int, b: int, ex) -> int:
+    """Output tiles of one phase (the kernel's ``phase_tiles``): BM rows of
+    its B·U·V for the wide tiles, TU x TV blocks of each image's U x V for
+    the thin one."""
+    u, v = ex.out_hw
+    if config != _THIN:
+        return -(-b * u * v // _DECONV_CONFIGS[config][0])
+    if u * v == 0:
+        return 0
+    tu, tv = _thin_tile(v)
+    return b * -(-u // tu) * -(-v // tv)
+
+
+def _thin_halo(phases) -> int:
+    """The thin tile's halo, the most plane pixels any live phase's tile
+    reads: (TU + T_h - 1) x (TV + T_w - 1)."""
+    out = 0
+    for ex in phases:
+        if ex.taps[0] * ex.taps[1] and ex.out_hw[0] * ex.out_hw[1]:
+            tu, tv = _thin_tile(ex.out_hw[1])
+            out = max(out, (tu + ex.taps[0] - 1) * (tv + ex.taps[1] - 1))
+    return out
+
+
+def _phase_chunks(config: int, phases, c: int) -> list[int]:
+    """K chunks of each phase: its T_h·T_w taps times ceil(C / BK)."""
+    bk = _DECONV_CONFIGS[config][2]
+    return [ex.taps[0] * ex.taps[1] * -(-c // bk) for ex in phases]
+
+
+def _schedule(config: int, phases, b: int, c: int, n: int,
+              chunk_len: int) -> DeconvSchedule:
+    bm, bn, _ = _DECONV_CONFIGS[config]
+    phase_chunks = _phase_chunks(config, phases, c)
+    m_tiles = tuple(_m_tiles(config, b, ex) for ex in phases)
+    slices = tuple(_n_slices(k, chunk_len) for k in phase_chunks)
+    gn = -(-n // bn)
+    gx = sum(t * s for t, s in zip(m_tiles, slices))
+    split = any(s > 1 for s in slices)
+    max_chunks = max(-(-k // s) for k, s in zip(phase_chunks, slices))
+    return DeconvSchedule(
+        config=config, chunk_len=chunk_len,
+        phase_chunks=tuple(phase_chunks), m_tiles=m_tiles, slices=slices,
+        grid=(gx, gn), max_chunks=max_chunks,
+        halo=_thin_halo(phases) if config == _THIN else 0,
+        workspace_bytes=4 * gx * gn * bm * bn if split else 0)
+
+
+def _best_split(config: int, phases, b: int, c: int, n: int
+                ) -> DeconvSchedule:
+    """The schedule of one tile: unsplit when that already gives 132 units
+    (and, for the thin tile, fits its weight stage); else the slice length
+    L, among those giving at least 132 units (at most ``_UNITS_MAX`` where
+    possible), of least greedy makespan on 132 SMs."""
+    phase_chunks = _phase_chunks(config, phases, c)
+    k_max = max(max(phase_chunks), 1)
+    cap = _THIN_ROWS_MAX // _DECONV_CONFIGS[config][2] if config == _THIN \
+        else k_max
+    whole = _schedule(config, phases, b, c, n, min(k_max, cap))
+    if whole.units >= SMS and cap >= k_max:
+        return whole
+    most = _schedule(config, phases, b, c, n, 1).units
+    lengths = sorted({-(-k // j) for k in phase_chunks if k
+                      for j in range(1, k + 1)} | {1}, reverse=True)
+    best = None
+    for length in lengths:
+        if length > cap:
+            continue
+        sch = _schedule(config, phases, b, c, n, length)
+        if sch.workspace_bytes > _WORKSPACE_MAX and best is not None:
+            break
+        if sch.units < min(SMS, most) or (sch.units > _UNITS_MAX
+                                          and best is not None):
+            continue
+        cost = _makespan(sch.unit_chunks())
+        if best is None or cost < best[0]:
+            best = (cost, sch)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def deconv_schedule(phases: tuple, b: int, c: int, n: int
+                    ) -> DeconvSchedule:
+    """Kernel A's schedule for a call on ``b`` images of C input and N
+    output channels (f32 and int8 entries alike).  No phase is split when
+    the unsplit grid already has 132 units (one an SM); else K is split into
+    slices of one length L shared by every phase (``_best_split``), so a
+    9-tap and a 4-tap phase end together.  Where that leaves slices shorter
+    than ``_MIN_SLICE`` chunks, the M tile steps down (64 -> 32 -> 16) for
+    more tiles and longer slices.  The thin tile also caps a slice at
+    ``_THIN_ROWS_MAX`` weight rows (its shared-memory stage)."""
+    phases = tuple(phases)
+    rows = [b * ex.out_hw[0] * ex.out_hw[1] for ex in phases]
+    config = _deconv_config(n, rows)
+    while True:
+        sch = _best_split(config, phases, b, c, n)
+        if sch.split and sch.chunk_len < _MIN_SLICE and config in (1, 2):
+            config += 1
+            continue
+        return sch
+
+
 # the C entries' parameters: every pointer and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int and cut the address); the
 # int8 entry takes the scale column after the codes
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
              + [ctypes.c_void_p])
 _ARGTYPES_I8 = [ctypes.c_void_p] + _ARGTYPES
 
@@ -197,6 +427,29 @@ def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
                              f"{tuple(xg.shape[1:3])}")
 
 
+def deconv_launch_ints(xg: torch.Tensor, superpack: torch.Tensor,
+                       y: torch.Tensor, phases: tuple, strides: Pair):
+    """Kernel A's schedule for a call and the C entry's int arguments after
+    its pointers: the geometry, the tile, the 16-byte path (the thin tile's
+    plane copies, C % 4 == 0; the wide tiles' superpack copies and stores,
+    N % 4 == 0; every operand aligned) and the schedule's slice length,
+    longest slice, grid and reduction tiles.  The f32 and int8 entries take
+    the same ones (int8 codes need 4-byte, f32 16-byte alignment)."""
+    b, hg, wg, c = xg.shape
+    _, oh, ow, n = y.shape
+    sch = deconv_schedule(phases, b, c, n)
+    if sch.grid[1] > _GRID_YZ_MAX or sch.grid[0] > _INT32_MAX:
+        raise ValueError(f"kernel A: N {n} or batch {b} beyond the grid")
+    if sch.config == _THIN and thin_smem_bytes(sch) > SMEM_BLOCK_MAX:
+        raise ValueError(f"kernel A: the thin tile's halo ({sch.halo} "
+                         f"pixels) needs more shared memory than a block has")
+    vec = _vec_ok(c, 4, (xg,)) if sch.config == _THIN \
+        else _vec_ok(4, n, (superpack, y))
+    return sch, (b, hg, wg, c, n, oh, ow, strides[0], strides[1],
+                 len(phases), sch.config, vec, sch.chunk_len, sch.max_chunks,
+                 sch.halo, sch.grid[0], sch.grid[1], sch.reduce_tiles)
+
+
 def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                        phases: Sequence, out_hw: Pair, strides: Pair,
                        sum_uv: int, out_dtype=None,
@@ -253,10 +506,9 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
             raise ValueError(f"{name} takes a contiguous {arg}")
     if out_dtype != torch.float32:
         raise TypeError(f"{name} writes float32, asked for {out_dtype}")
-    b, hg, wg, c = xg.shape
+    b, _, _, c = xg.shape
     n = superpack.shape[1]
-    oh, ow = out_hw
-    y = torch.empty((b, oh, ow, n), dtype=torch.float32, device=xg.device)
+    y = torch.empty((b, *out_hw, n), dtype=torch.float32, device=xg.device)
     if max(xg.numel(), superpack.numel(), y.numel()) > _INT32_MAX:
         raise ValueError(f"{name} indexes with int32: tensor too large")
     if y.numel() == 0:
@@ -269,20 +521,17 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         else:
             untangled_deconv2d.launches_tiled_int8 += 1
         return y
-    config = _pick_config(n, [b * ex.out_hw[0] * ex.out_hw[1]
-                              for ex in phases])
-    bm, bn = _CONFIGS[config]
-    grid_m = sum(-(-b * ex.out_hw[0] * ex.out_hw[1] // bm) for ex in phases)
-    vec = _vec_ok(c, n, (xg, superpack, y))
+    sch, ints = deconv_launch_ints(xg, superpack, y, phases, strides)
     table = _phase_table(phases, xg.device)
+    ws = torch.empty(sch.workspace_bytes // 4, dtype=torch.float32,
+                     device=xg.device) if sch.split else None
     weights = (superpack.data_ptr(),) if scales is None else (
         superpack.data_ptr(), scales.data_ptr())
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         rc = _entry(scales is not None)(
-            xg.data_ptr(), *weights, table.data_ptr(), y.data_ptr(), b, hg,
-            wg, c, n, oh, ow, strides[0], strides[1], len(phases), config,
-            vec, grid_m, -(-n // bn), stream)
+            xg.data_ptr(), *weights, table.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"kernel A launch failed: cudaError {rc}")
     if scales is None:

@@ -1,5 +1,7 @@
 """Card-side tests of the port: kernels A and B on CUDA tensors against the
-float64 oracle's ULP bound and their plain versions, the wrappers'
+float64 oracle's ULP bound and their plain versions (kernel A also at the
+full-width generator sites, split and unsplit, f32 and int8, on
+NaN-filled memory, two launches bit-equal), the wrappers'
 refusals, the generator and serve entry point on the 'cuda' route, one
 'cuda' train step against the 'torch' one, the tiled kernels C and D, the
 U-Net's 'cuda' route, and kernel F (flash attention) against its plain
@@ -252,6 +254,69 @@ def test_int8_deconv_kernel_bit_equal_to_f32_on_dequant(case, cuda_device):
     bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
     assert bool(((y_i8.double() - y64).abs() <= bound).all())
     assert bool(((y_ref.double() - y64).abs() <= bound).all())
+
+
+# kernel A at the generator sites: (name, b, h, c, n, k, s, pads); B = 1
+# takes the split K (and its reduction), B = 64 the unsplit grid but at
+# DC1 (split to even out its phases); DC4 and the cGAN's DC2 (N = 3) the
+# thin-N tile, split at B = 1
+def _gen_sites():
+    from repro_torch.models import gan
+    out = []
+    for tag, layers, batches in (("DCGAN", gan.DCGAN_LAYERS, (1, 64)),
+                                 ("cGAN", gan.CGAN_LAYERS, (1, 16))):
+        for i, l in enumerate(layers):
+            for b in batches:
+                out.append((f"{tag}_DC{i + 1}_B{b}", b, l.in_hw, l.in_c,
+                            l.out_c, l.kernel, l.stride,
+                            gan.deconv_padding(l.kernel, l.stride)))
+    return out
+
+
+GEN_SITES = _gen_sites()
+
+
+@pytest.mark.parametrize("case", GEN_SITES, ids=[c[0] for c in GEN_SITES])
+def test_deconv_kernel_at_generator_sites(case, cuda_device):
+    """Kernel A's f32 and int8 entries at full width, split and unsplit:
+    within the f64 ULP bound (and their plain versions), the output and
+    the workspace from NaN-filled memory, a second launch bit-equal to the
+    first, int8 bit-equal to f32 on the dequantized superpack."""
+    _, b, h, c, n, k, s, pads = case
+    plan, xt, kt, xg, packed, kw = case_on(case, cuda_device)
+    q, scale, wd = _int8(packed)
+    sch = tk.deconv_schedule(tuple(plan.phases), b, c, n)
+    numels = (b * plan.out_hw[0] * plan.out_hw[1] * n,
+              sch.workspace_bytes // 4)
+
+    def poisoned(*args, **kwargs):
+        blocks = [torch.full((m,), float("nan"), device=cuda_device)
+                  for m in numels if m]
+        del blocks
+        return tk.untangled_deconv2d(*args, **kwargs)
+
+    y = poisoned(xg, packed, **kw)
+    y_again = poisoned(xg, packed, **kw)
+    y8 = poisoned(xg, q, scales=scale, **kw)
+    y8_again = poisoned(xg, q, scales=scale, **kw)
+    y_d = poisoned(xg, wd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_again) and torch.equal(y8, y8_again)
+    assert torch.equal(y8, y_d)
+    terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=cuda_device)
+    for ex in plan.phases:
+        terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
+    for got, plain, w in (
+            (y, tk.untangled_deconv2d_ref(xg, packed, **kw), kt),
+            (y8, tk.untangled_deconv2d_ref(xg, q, scales=scale, **kw),
+             plan.unpack(wd))):
+        y64, amax = ref.conv_oracle_f64(ref.zero_insert(xt, (s, s)), w,
+                                        padding=pads)
+        bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+        assert bool(((got.double() - y64).abs() <= bound).all())
+        assert bool(((plain.double() - y64).abs() <= bound).all())
+    if b == 1:
+        assert sch.split and sch.units >= tk.SMS
 
 
 @pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
