@@ -7,8 +7,9 @@ result line) if anything is off:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from this checkout's sources (one
    ``nvcc`` per source, all started together), with ``-Xptxas -v``'s
-   registers and spills (kernel F's and kernel A's per instantiation on
-   lines of their own; a kernel-A instantiation that spills fails);
+   registers and spills (kernel F's, kernel A's and kernel B's per
+   instantiation on lines of their own; a kernel-A or kernel-B
+   instantiation that spills fails);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
@@ -18,12 +19,15 @@ result line) if anything is off:
    (tile, slices, work units);
 2b. kernel B (``untangled_conv2d_superpack``) the same way, at the four
    DCGAN discriminator sites (B = 1 and 64), both cGAN discriminator sites
-   (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases;
+   (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases, the
+   output and the split K's workspace on NaN-filled memory, two launches
+   bit-equal, each site's schedule (tile, slices, work units);
 2c. kernel B's int8 entry (kernel E inside B) and its plain version against
    the f64 oracle of ``(x, dequantize_int8(q, scale))``, at the 10 SegNet
    sites (B = 1 and 64), the six discriminator sites (B = 16) and ragged
    C/N, each superpack with an all-zero row; the int8 kernel bit-equal to
-   the f32 kernel on the dequantized superpack;
+   the f32 kernel on the dequantized superpack, two launches bit-equal, on
+   NaN-filled output and workspace;
 2d. kernel A's int8 entry the same way, at the DCGAN (B = 1 and 64) and
    cGAN (B = 16) generator sites, the non-uniform, empty-phase and ragged
    cases, two launches bit-equal;
@@ -52,13 +56,16 @@ result line) if anything is off:
    and the site's schedule (at least 132 work units at B = 1); one full
    generator forward per bucket;
 4b. per discriminator site at B = 1 and 64 the same for kernel B, with
-   ``F.conv2d`` on the pre-padded plane as the yardstick; ms per train step
-   at B = 16 and 64 on 'cuda' and on 'torch';
+   ``F.conv2d`` on the pre-padded plane as the yardstick (device times and
+   the schedule too; at least 132 work units at every DCGAN site at B = 1
+   whose K the schedule splits); ms per train step at B = 16 and 64 on
+   'cuda' and on 'torch';
 4c. the int8 entries: kernel B at every SegNet site and kernel A at every
    DCGAN site (B = 1 and 64) against the f32 kernel, the plain version, the
    library call on the dequantized weights and the bound (1 B per weight
-   plus 4 B per scale row), at the DCGAN sites with device times and the
-   schedule; the SegNet forward per bucket, f32 and int8;
+   plus 4 B per scale row), with device times and the schedule (at least
+   132 work units at SegNet L1-L8 at B = 1); the SegNet forward per
+   bucket, f32 and int8;
 2e. kernel C (``untangled_conv2d_superpack`` with ``sp_tiles=``) and its
    int8 entry against the plain version and the f64 oracle's ULP bound on
    NaN-poisoned outputs, at the four tiled sites of the U-Net at a 512 px
@@ -81,7 +88,8 @@ result line) if anything is off:
 4d. times of kernels C and D (f32 and int8) at every tiled 512 px site at
    B = 1 and 16 beside the plain version, ``F.conv2d`` (kernel C; none
    expresses up0's padding in one call) and the bound; the U-Net forward per
-   bucket, and the device's busy share of one 512 px forward;
+   bucket, and one 512 px forward's device time by kernel, its busy share
+   and kernel B's share of the device time;
 2g. kernel F (``flash_attention``) against its plain version and the f64
    dense oracle, f32 (the FFMA entry) and bf16 (the tensor-core entry, its
    worst error and share of the tolerance), on NaN-poisoned outputs: the
@@ -107,8 +115,8 @@ result line) if anything is off:
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
-   A's and A-int8's B = 64 sums with their B = 1 sums beside), the card
-   line, and the result line.
+   A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
+   beside), the card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 """
@@ -212,34 +220,35 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul", "gemv", "splitk",
                 "nvjet")
 
 
-# device kernels of one kernel-A call (the GEMM, the thin-N GEMM, the split
-# K's reduction), for the profiler splits
-A_KERNELS = ("deconv_kernel", "deconv_thin_kernel", "deconv_split_reduce")
+# device kernels of the port's conv kernels A-D by symbol, for the profiler
+# splits, in match order: a symbol that holds another comes first
+# ("deconv_kernel" holds "conv_kernel", "deconv_split_reduce" holds
+# "conv_split_reduce", "deconv_tiled_kernel" holds "conv_tiled_kernel")
+CONV_KERNELS = (("deconv_tiled_kernel", "D"), ("conv_tiled_kernel", "C"),
+                ("deconv_thin_kernel", "A"), ("deconv_split_reduce", "A"),
+                ("deconv_kernel", "A"), ("conv_split_reduce", "B"),
+                ("conv_kernel", "B"))
 
 
 def kernel_part(name: str) -> str:
     """Which of the port's conv kernels (A-D) a device kernel belongs to,
     by its symbol, else "other"."""
-    if "deconv_tiled_kernel" in name:
-        return "D"
-    if "conv_tiled_kernel" in name:
-        return "C"
-    if any(k in name for k in A_KERNELS):
-        return "A"
-    return "B" if "conv_kernel" in name else "other"
+    return next((part for sym, part in CONV_KERNELS if sym in name), "other")
 
 
 def ptxas_report(log: str) -> list[dict]:
     """Registers and spills of each kernel instantiation (kernel F's, kernel
-    A's and its reduction), from an ``nvcc -Xptxas -v`` log: [{"kernel",
-    "registers", "spill_stores", "spill_loads"}], the kernel named by its
-    symbol and template arguments (int8_t for the int8 entries)."""
+    A's and B's and their reductions), from an ``nvcc -Xptxas -v`` log:
+    [{"kernel", "registers", "spill_stores", "spill_loads"}], the kernel
+    named by its symbol and template arguments (int8_t for the int8
+    entries)."""
     import re
     out = []
     names = {"i": str, "b": lambda v: "true" if v == "1" else "false"}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel"
-                      r"|deconv_kernel|deconv_thin_kernel|deconv_split_reduce)"
+                      r"|deconv_kernel|deconv_thin_kernel|deconv_split_reduce"
+                      r"|conv_kernel|conv_split_reduce)"
                       r"(?:I(\w*?)EEv|E)", line)
         if m:
             args = [names[kind](v) if kind else
@@ -643,7 +652,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch import serve_segnet, train_gan
     from repro_torch.kernels.untangled_conv import (
-        SMS, deconv_schedule, pick_block_tile_single,
+        _MIN_SLICE as MIN_SLICE, SMS, conv_schedule, deconv_schedule,
+        pick_block_tile_single,
         pick_block_tile_transposed, single_out_hw,
         untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
         untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
@@ -677,17 +687,19 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
     f_ptxas = ptxas_report(logs.get("flash_attention", ""))
     a_ptxas = ptxas_report(logs.get("untangled_deconv", ""))
-    for tag, recs in (("F", f_ptxas), ("A", a_ptxas)):
+    b_ptxas = ptxas_report(logs.get("untangled_conv", ""))
+    for tag, recs in (("F", f_ptxas), ("A", a_ptxas), ("B", b_ptxas)):
         for rec in recs:
             print(f"[build] kernel {tag} {rec['kernel']}: "
                   f"{rec.get('registers')} registers, "
                   f"{rec.get('spill_stores')} bytes spill stores, "
                   f"{rec.get('spill_loads')} bytes spill loads")
-    spilled = [r["kernel"] for r in a_ptxas
-               if r.get("spill_stores") or r.get("spill_loads")]
-    if len(a_ptxas) < 2 or spilled:
-        raise RuntimeError(f"kernel A instantiations that spill: {spilled} "
-                           f"(of {len(a_ptxas)} reported)")
+    for tag, recs in (("A", a_ptxas), ("B", b_ptxas)):
+        spilled = [r["kernel"] for r in recs
+                   if r.get("spill_stores") or r.get("spill_loads")]
+        if len(recs) < 2 or spilled:
+            raise RuntimeError(f"kernel {tag} instantiations that spill: "
+                               f"{spilled} (of {len(recs)} reported)")
 
     gen = torch.Generator().manual_seed(0)
 
@@ -778,6 +790,20 @@ def main() -> int:
         return {"tile": list(sch.tile), "chunk_len": sch.chunk_len,
                 "slices": list(sch.slices), "units": sch.units,
                 "workspace_bytes": sch.workspace_bytes}
+
+    def conv_schedule_of(b, oh, ow, k, c, n):
+        """Kernel B's schedule for a call, as printed beside its checks and
+        times: tile, slice length, slices, work units, workspace."""
+        sch = conv_schedule(b * oh * ow, k * k * c, n)
+        return {"tile": list(sch.tile), "chunks": sch.chunks,
+                "chunk_len": sch.chunk_len, "slices": sch.slices,
+                "units": sch.units, "workspace_bytes": sch.workspace_bytes}
+
+    def fills_card(sch):
+        """Kernel B's batch-1 rule: at least 132 work units, but for a K of
+        fewer than ``_MIN_SLICE`` chunks, which the schedule keeps whole
+        (a second pass costs more than it saves there)."""
+        return sch["units"] >= SMS or sch["chunks"] < MIN_SLICE
 
     def call_device_ms(fn, iters=20):
         """Device time of one call of ``fn`` (after a warm-up): its kernels'
@@ -881,9 +907,13 @@ def main() -> int:
         sp = kern.reshape(k * k * c, n)
         oh, ow = single_out_hw(xp.shape[1], xp.shape[2], (k, k), (s, s),
                                (d, d))
-        poison(b * oh * ow * n)
+        sch = conv_schedule_of(b, oh, ow, k, c, n)
+        numels = (b * oh * ow * n, sch["workspace_bytes"] // 4)
+        poison(*numels)
         y_k = conv_call(xp, sp, k, s, d)
         y_r = conv_call(xp, sp, k, s, d, plain=True)
+        poison(*numels)
+        again = torch.equal(conv_call(xp, sp, k, s, d), y_k)
         torch.cuda.synchronize()
         y64, amax = ref.conv_oracle_f64(x, kern, strides=(s, s),
                                         dilation=(d, d), padding=pads)
@@ -894,8 +924,9 @@ def main() -> int:
         max_err_b = max(max_err_b, err)
         print(f"[kernel B] {name}: out {tuple(y_k.shape)} |kernel-plain| "
               f"{err:.3e} kernel<=ulp_bound {ok_k} plain<=ulp_bound {ok_r} "
-              f"(n_terms {k * k * c}, max bound {float(bound.max()):.3e})")
-        if not (ok_k and ok_r and torch.isfinite(y_k).all()):
+              f"(n_terms {k * k * c}, max bound {float(bound.max()):.3e}); "
+              f"two launches bit-equal {again}; {sch}")
+        if not (ok_k and ok_r and again and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel B disagrees on {name}")
 
     # ---- 2c. kernel B int8 (kernel E) vs plain, f64 oracle, f32 kernel ----
@@ -914,10 +945,15 @@ def main() -> int:
         q, scale, wd = int8_of(kern.reshape(k * k * c, n))
         oh, ow = single_out_hw(xp.shape[1], xp.shape[2], (k, k), (s, s),
                                (d, d))
-        poison(b * oh * ow * n)
+        sch = conv_schedule_of(b, oh, ow, k, c, n)
+        numels = (b * oh * ow * n, sch["workspace_bytes"] // 4)
+        poison(*numels)
         y_k = conv_call(xp, q, k, s, d, scales=scale)
         y_r = conv_call(xp, q, k, s, d, plain=True, scales=scale)
+        poison(*numels)
         y_f = conv_call(xp, wd, k, s, d)
+        poison(*numels)
+        again = torch.equal(conv_call(xp, q, k, s, d, scales=scale), y_k)
         torch.cuda.synchronize()
         y64, amax = ref.conv_oracle_f64(x, wd.reshape(k, k, c, n),
                                         strides=(s, s), dilation=(d, d),
@@ -931,8 +967,10 @@ def main() -> int:
         print(f"[kernel B int8] {name}: out {tuple(y_k.shape)} "
               f"|kernel-plain| {err:.3e} kernel<=ulp_bound {ok_k} "
               f"plain<=ulp_bound {ok_r} bit-equal to f32 kernel on "
-              f"dequant {bit} (n_terms {k * k * c})")
-        if not (ok_k and ok_r and bit and torch.isfinite(y_k).all()):
+              f"dequant {bit} (n_terms {k * k * c}); two launches bit-equal "
+              f"{again}; {sch}")
+        if not (ok_k and ok_r and bit and again
+                and torch.isfinite(y_k).all()):
             raise RuntimeError(f"kernel B int8 disagrees on {name}")
 
     # ---- 2d. kernel A int8 (kernel E) vs plain, f64 oracle, f32 kernel ----
@@ -1497,18 +1535,30 @@ def main() -> int:
             rec = {
                 "site": name, "batch": b, "flops": flops, "bytes": nbytes,
                 "ms": time_ms(lambda: conv_call(xp, sp, k, s, 1)),
+                "device_ms": call_device_ms(
+                    lambda: conv_call(xp, sp, k, s, 1)),
                 "plain_ms": time_ms(
                     lambda: conv_call(xp, sp, k, s, 1, plain=True)),
                 "library_ms": time_ms(lambda: F.conv2d(xl, wl, **kw)),
+                "library_device_ms": call_device_ms(
+                    lambda: F.conv2d(xl, wl, **kw)),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_max_abs_err": lib_err}
+                "library_max_abs_err": lib_err,
+                "schedule": conv_schedule_of(b, oh, ow, k, c, n)}
             dsites.append(rec)
-            print(f"[time B] {name} B={b}: kernel {rec['ms']:.4f} ms, "
-                  f"plain {rec['plain_ms']:.4f} ms, library "
-                  f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f}"
-                  f" ms ({rec['bound_by']}), kernel at "
-                  f"{rec['bound_ms'] / rec['ms']:.1%} of bound")
+            if b == 1 and name.startswith("DCGAN") \
+                    and not fills_card(rec["schedule"]):
+                raise RuntimeError(f"{name} B=1: {rec['schedule']} leaves "
+                                   f"SMs idle")
+            print(f"[time B] {name} B={b}: kernel {rec['ms']:.4f} ms "
+                  f"(device {rec['device_ms']:.4f}), plain "
+                  f"{rec['plain_ms']:.4f} ms, library "
+                  f"{rec['library_ms']:.4f} ms (device "
+                  f"{rec['library_device_ms']:.4f}), bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel at "
+                  f"{rec['bound_ms'] / rec['device_ms']:.1%} of bound by "
+                  f"device time; schedule {json.dumps(rec['schedule'])}")
 
     def step_ms(cfg, b, iters=5):
         gp_, dp_ = gan.generator_init(4, cfg, device=dev), \
@@ -1581,7 +1631,7 @@ def main() -> int:
         on the dequantized weights, the plain version and the library call
         (already checked against the kernel); the bound counts the input,
         1 B per code, 4 B per scale row and the f32 output.  With kernel
-        A's ``schedule``, also the three calls' device times."""
+        A's or B's ``schedule``, also the three calls' device times."""
         bound, by = bound_of(flops, in_bytes + 4 * out_numel)
         rec = {"site": name, "batch": b, "flops": flops,
                "bytes": in_bytes + 4 * out_numel,
@@ -1627,7 +1677,12 @@ def main() -> int:
                 lambda: conv_call(xp, q, k, s, d, scales=scale),
                 lambda: conv_call(xp, wd, k, s, d),
                 lambda: conv_call(xp, q, k, s, d, plain=True, scales=scale),
-                lambda: F.conv2d(xl, wl, **kw), lib_err))
+                lambda: F.conv2d(xl, wl, **kw), lib_err,
+                schedule=conv_schedule_of(b, oh, ow, k, c, n)))
+            if b == 1 and name in {f"SegNet_L{i}" for i in range(1, 9)} \
+                    and not fills_card(i8_bsites[-1]["schedule"]):
+                raise RuntimeError(f"{name} B=1: {i8_bsites[-1]['schedule']}"
+                                   f" leaves SMs idle")
         for i, l in enumerate(dc):
             pads = gan.deconv_padding(l.kernel, l.stride)
             plan = site(l.in_hw, l.in_c, l.out_c, l.kernel, l.stride, pads)
@@ -1797,7 +1852,7 @@ def main() -> int:
             out[f"{kernel_part(ev.name)}_ms"] += ev.device_time_total / 1e3
         busy = sum(out.values())
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   busy_share=busy / wall_ms)
+                   busy_share=busy / wall_ms, B_share=out["B_ms"] / busy)
         return out
 
     unet_split_512 = {
@@ -1883,7 +1938,9 @@ def main() -> int:
         "held_against_plain": True, "max_abs_err": max_err_b,
         "shape": "DCGAN discriminator, 4 sites, B=64 (sums)",
         **sums([r for r in dsites if r["batch"] == 64
-                and r["site"].startswith("DCGAN")])}, {
+                and r["site"].startswith("DCGAN")]),
+        "B1": sums([r for r in dsites if r["batch"] == 1
+                    and r["site"].startswith("DCGAN")])}, {
         "name": "untangled_deconv2d_i8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_deconv.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:63",
@@ -1906,7 +1963,8 @@ def main() -> int:
                              **bi8_paths},
         "held_against_plain": True, "max_abs_err": max_err_bi8,
         "shape": "SegNet int8, 10 sites, B=64 (sums)",
-        **sums([r for r in i8_bsites if r["batch"] == 64])}, {
+        **sums([r for r in i8_bsites if r["batch"] == 64]),
+        "B1": sums([r for r in i8_bsites if r["batch"] == 1])}, {
         "name": "untangled_conv2d_tiled", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/untangled_conv_tiled.cu",
         "replaces": "src/repro/kernels/untangled_conv.py:158",

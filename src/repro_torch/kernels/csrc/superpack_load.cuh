@@ -1,4 +1,4 @@
-// The weight-chunk load shared by kernels A and B: four consecutive output
+// The weight-chunk load of kernels C and D: four consecutive output
 // channels n .. n+3 of superpack row `row`, as f32, lanes at or past N
 // zero.  The f32 overload reads the superpack; the int8 overload is kernel
 // E (replaces src/repro/kernels/untangled_conv.py::_tap_panel): it reads

@@ -8,9 +8,11 @@ inserted.  ``deconv_schedule`` splits its K range into slices where the
 unsplit grid would leave the card's SMs idle (batch 1, or phases of
 unequal tap counts); a second small kernel then sums each tile's slices
 in slice order.  ``untangled_conv2d_superpack`` (kernel B) is the port of
-``untangled_conv2d_superpack_pallas`` (TPU kernel ``_kernel``): ONE launch
+``untangled_conv2d_superpack_pallas`` (TPU kernel ``_kernel``): ONE call
 of the strided or dilated correlation of a pre-padded plane with the
-tap-major ``(R·S·C, N)`` superpack, with no zero inserted in the kernel.
+tap-major ``(R·S·C, N)`` superpack, with no zero inserted in the kernel;
+``conv_schedule`` picks its tile (BN following N, BM the rows) and splits
+K the same way where a modelled makespan says the split pays.
 The CUDA sources are ``csrc/untangled_deconv.cu`` and
 ``csrc/untangled_conv.cu`` (their headers say what bounds each kernel on the
 card and what the design does about it); ``_build`` compiles them with
@@ -19,9 +21,10 @@ card and what the design does about it); ``_build`` compiles them with
 Kernel E, the int8 tap panel of the TPU kernels (``_tap_panel``), is each
 kernel's int8 entry: ``scales=`` marks the superpack as int8 codes with one
 f32 scale per row (a ``QuantizedSuperpack``), and the kernel multiplies
-each code by its row's scale as it stages the weight tile, so the int8
-kernel on ``(q, scale)`` is bit-equal to the f32 kernel on
-``dequantize_int8(q, scale)``.
+each code by its row's scale into its f32 weight tile (A and B from the
+codes their ring brought to shared memory, C and D as they stage the
+tile), so the int8 kernel on ``(q, scale)`` is bit-equal to the f32
+kernel on ``dequantize_int8(q, scale)``.
 
 Kernels C and D are the spatially tiled forms of B and A (TPU kernels
 ``_tiled_kernel`` and ``_deconv_tiled_kernel`` with ``_halo_stream``):
@@ -55,9 +58,7 @@ from repro_torch.runtime.compress import dequantize_int8
 
 Pair = tuple[int, int]
 
-# block tiles (BM, BN) of kernel B's configs, indexed as in its source
-_CONFIGS = ((128, 128), (64, 64), (256, 16))
-# the big tile is taken when it alone yields this many blocks (132 SMs)
+# kernel A's 128x128 tile is taken when it alone yields this many blocks
 _BIG_TILE_MIN_BLOCKS = 120
 _INT32_MAX = 2 ** 31 - 1
 
@@ -135,18 +136,6 @@ def _phase_table(phases: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _pick_config(n: int, rows: Sequence[int]) -> int:
-    """The block tile of kernel B, for N output channels and the GEMM rows
-    of each phase (its one phase's B·OH·OW): 256x16 for a thin N (the RGB
-    head), 128x128 when it fills the card, else 64x64 (more, smaller
-    blocks)."""
-    if n <= 16:
-        return 2
-    bm, bn = _CONFIGS[0]
-    blocks = sum(-(-m // bm) for m in rows) * -(-n // bn)
-    return 0 if blocks >= _BIG_TILE_MIN_BLOCKS else 1
-
-
 def _n_slices(chunks: int, chunk_len: int) -> int:
     """Slices of a phase of ``chunks`` K chunks under slice length L: one
     for a phase that fits (or has no taps), else ceil(chunks / L).  The
@@ -209,12 +198,12 @@ class DeconvSchedule:
         return per_x * self.grid[1]
 
 
-def _makespan(chunks: Sequence[int]) -> int:
+def _makespan(chunks: Sequence[int], slots: int = SMS) -> int:
     """Greedy list schedule of units (in launch order, each its chunks plus
-    the fixed ``_UNIT_OVERHEAD``) on the card's SMs, each running one unit
-    at a time at its full rate (blocks resident together share it): the
+    the fixed ``_UNIT_OVERHEAD``) on ``slots`` block slots (the card's SMs
+    by default), each running one unit at a time at its full rate: the
     time the last one ends, in K chunks."""
-    ends = [0] * min(SMS, len(chunks))
+    ends = [0] * min(slots, len(chunks))
     for c in chunks:
         heapq.heapreplace(ends, ends[0] + c + _UNIT_OVERHEAD)
     return max(ends)
@@ -585,10 +574,181 @@ def untangled_conv2d_superpack_ref(x: torch.Tensor, superpack: torch.Tensor,
     return acc.to(out_dtype or x.dtype)
 
 
+# kernel B's tiles (BM, BN, blocks an SM holds: the kernel's MINB), indexed
+# as in csrc/untangled_conv.cu's dispatch; every tile walks the flat K
+# range in chunks of _CONV_BK superpack rows.  BN follows N, BM the rows
+# (``_conv_config``); the last is the thin-N tile (N <= _THIN_N)
+_CONV_CONFIGS = ((128, 128, 1), (64, 128, 2), (32, 128, 2), (16, 128, 2),
+                 (128, 64, 2), (64, 64, 2), (32, 64, 2), (16, 64, 2),
+                 (128, 32, 2), (64, 32, 2), (128, 16, 2))
+_CONV_THIN = 10
+_CONV_BK = 16
+# BM = 128 when that tile alone gives this many units (0.9 of the card)
+_CONV_BIG_TILE_UNITS = 120
+# the split's second pass (a launch and a read of the partial tiles), in
+# the K chunks of _makespan
+_SPLIT_COST = 6
+
+
+def _conv_tile(bm: int, bn: int) -> int | None:
+    """The index of kernel B's (BM, BN) tile, or None."""
+    return next((i for i, t in enumerate(_CONV_CONFIGS) if t[:2] == (bm, bn)),
+                None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSchedule:
+    """How kernel B covers one call: the tile ``config`` (an index into
+    ``_CONV_CONFIGS``), K in ``chunks`` chunks of ``_CONV_BK`` superpack
+    rows, ``chunk_len`` chunks a slice (at least ``chunks`` when K is not
+    split), the M tiles and K slices, the grid (work units over (M tile,
+    slice), N tiles) and the f32 workspace of the split's partial tiles (0
+    bytes: no split, no second pass)."""
+    config: int
+    chunks: int
+    chunk_len: int
+    m_tiles: int
+    slices: int
+    grid: tuple[int, int]
+    workspace_bytes: int
+
+    @property
+    def tile(self) -> tuple[int, int]:
+        return _CONV_CONFIGS[self.config][:2]
+
+    @property
+    def bk(self) -> int:
+        return _CONV_BK
+
+    @property
+    def split(self) -> bool:
+        return self.workspace_bytes > 0
+
+    @property
+    def units(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def cost(self) -> int:
+        """The modelled time: the greedy makespan of the units on the
+        card's block slots (132 times the blocks an SM holds of this tile),
+        plus ``_SPLIT_COST`` for a split's second pass."""
+        return _makespan(self.unit_chunks(),
+                         SMS * _CONV_CONFIGS[self.config][2]) \
+            + (_SPLIT_COST if self.split else 0)
+
+    def unit_chunks(self) -> list[int]:
+        """K chunks of every work unit in launch order (x fastest)."""
+        per_tile = [_slice_begin(self.chunks, self.slices, i + 1)
+                    - _slice_begin(self.chunks, self.slices, i)
+                    for i in range(self.slices)]
+        return per_tile * (self.m_tiles * self.grid[1])
+
+
+def _conv_config(m: int, n: int) -> int:
+    """Kernel B's first tile for M output rows and N output channels: the
+    thin tile for N <= 16; else BN is the smallest of 32, 64 and 128 that
+    holds min(N, 128), and BM is 128 when that tile alone gives
+    ``_CONV_BIG_TILE_UNITS`` units, else it follows the rows (64, 32 or 16;
+    64 the least beside BN = 32)."""
+    if n <= _THIN_N:
+        return _CONV_THIN
+    bn = 32 if n <= 32 else 64 if n <= 64 else 128
+    if -(-m // 128) * -(-n // bn) >= _CONV_BIG_TILE_UNITS:
+        return _conv_tile(128, bn)
+    bm = 64 if m > 32 or bn == 32 else 32 if m > 16 else 16
+    return _conv_tile(bm, bn)
+
+
+def _conv_schedule(config: int, m: int, chunks: int, n: int,
+                   chunk_len: int) -> ConvSchedule:
+    bm, bn, _ = _CONV_CONFIGS[config]
+    m_tiles, slices = -(-m // bm), _n_slices(chunks, chunk_len)
+    gn = -(-n // bn)
+    return ConvSchedule(
+        config=config, chunks=chunks, chunk_len=chunk_len, m_tiles=m_tiles,
+        slices=slices, grid=(m_tiles * slices, gn),
+        workspace_bytes=4 * m_tiles * slices * gn * bm * bn
+        if slices > 1 else 0)
+
+
+def _conv_splits(config: int, m: int, chunks: int, n: int):
+    """The split schedules one tile may take: every slice length L giving
+    at least 132 units (or as many as one-chunk slices give), at most
+    ``_UNITS_MAX``, within ``_WORKSPACE_MAX``."""
+    most = _conv_schedule(config, m, chunks, n, 1).units
+    for length in sorted({-(-chunks // j) for j in range(2, chunks + 1)},
+                         reverse=True):
+        sch = _conv_schedule(config, m, chunks, n, length)
+        if sch.units > _UNITS_MAX or sch.workspace_bytes > _WORKSPACE_MAX:
+            break
+        if sch.units >= min(SMS, most):
+            yield sch
+
+
+def _conv_best(config: int, m: int, chunks: int, n: int) -> ConvSchedule:
+    """The schedule of one tile: of the unsplit one and the splits
+    (``_conv_splits``), the least ``cost``; the unsplit one on a tie."""
+    whole = _conv_schedule(config, m, chunks, n, max(chunks, 1))
+    if whole.units > _UNITS_MAX:
+        return whole                    # every split has more units still
+    return min([whole, *_conv_splits(config, m, chunks, n)],
+               key=lambda sch: sch.cost)
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_schedule(m_rows: int, k: int, n: int) -> ConvSchedule:
+    """Kernel B's schedule for a call of ``m_rows`` = B·OH·OW output rows,
+    ``k`` = R·S·C superpack rows and N output channels (f32 and int8
+    entries alike).  K is split into slices of one length L only where
+    that lowers the modelled time (``ConvSchedule.cost``: the makespan on
+    the card's block slots plus the second pass), the rule that won on an
+    H100 (PERF.md): a 128x128 grid of 120-132 units, one block an SM,
+    runs unsplit in one wave, since a split's second pass costs more than
+    the last few idle SMs; the two-block tiles split until they fill both
+    slots of every SM; a K of a few chunks is not worth a second pass.
+    Where a split leaves slices shorter than ``_MIN_SLICE`` chunks, or an
+    unsplit grid leaves SMs idle, the M tile steps down (64 -> 32 -> 16)
+    for more tiles."""
+    chunks = -(-k // _CONV_BK)
+    config = _conv_config(m_rows, n)
+    while True:
+        sch = _conv_best(config, m_rows, chunks, n)
+        bm, bn = sch.tile
+        smaller = _conv_tile(bm // 2, bn) if bm in (64, 32) else None
+        if smaller is not None and (
+                sch.chunk_len < _MIN_SLICE if sch.split
+                else sch.units < SMS):
+            config = smaller
+            continue
+        return sch
+
+
 # the C entries' parameters, as for kernel A
-_CONV_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 17
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 20
                   + [ctypes.c_void_p])
 _CONV_ARGTYPES_I8 = [ctypes.c_void_p] + _CONV_ARGTYPES
+
+
+def conv_launch_ints(x: torch.Tensor, superpack: torch.Tensor,
+                     y: torch.Tensor, taps_hw: Pair, strides: Pair,
+                     rhs_dilation: Pair):
+    """Kernel B's schedule for a call and the C entry's int arguments after
+    its pointers: the geometry, the tile, the plane's 16-byte path (C % 4
+    == 0, aligned plane), the superpack's and output's (N % 4 == 0, every
+    operand aligned) and the schedule's slice length, grid and M tiles.
+    The f32 and int8 entries take the same ones (int8 codes need 4-byte,
+    f32 16-byte alignment)."""
+    b, hp, wp, c = x.shape
+    _, oh, ow, n = y.shape
+    r, s = taps_hw
+    sch = conv_schedule(b * oh * ow, r * s * c, n)
+    if sch.grid[1] > _GRID_YZ_MAX or sch.grid[0] > _INT32_MAX:
+        raise ValueError(f"kernel B: N {n} or batch {b} beyond the grid")
+    return sch, (b, hp, wp, c, n, oh, ow, r, s, strides[0], strides[1],
+                 rhs_dilation[0], rhs_dilation[1], sch.config,
+                 _vec_ok(c, 4, (x,)), _vec_ok(4, n, (superpack, y)),
+                 sch.chunk_len, sch.grid[0], sch.grid[1], sch.m_tiles)
 
 
 @functools.cache
@@ -675,17 +835,17 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         else:
             untangled_conv2d_superpack.launches_tiled_int8 += 1
         return y
-    config = _pick_config(n, [b * oh * ow])
-    bm, bn = _CONFIGS[config]
-    vec = _vec_ok(c, n, (x, superpack, y))
+    sch, ints = conv_launch_ints(x, superpack, y, taps_hw, strides,
+                                 rhs_dilation)
+    ws = torch.empty(sch.workspace_bytes // 4, dtype=torch.float32,
+                     device=x.device) if sch.split else None
     weights = (superpack.data_ptr(),) if scales is None else (
         superpack.data_ptr(), scales.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _conv_entry(scales is not None)(
-            x.data_ptr(), *weights, y.data_ptr(), b, hp, wp, c, n, oh, ow,
-            r, s, strides[0], strides[1], rhs_dilation[0], rhs_dilation[1],
-            config, vec, -(-(b * oh * ow) // bm), -(-n // bn), stream)
+            x.data_ptr(), *weights, y.data_ptr(),
+            None if ws is None else ws.data_ptr(), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
     if scales is None:

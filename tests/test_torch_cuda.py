@@ -1,7 +1,8 @@
 """Card-side tests of the port: kernels A and B on CUDA tensors against the
 float64 oracle's ULP bound and their plain versions (kernel A also at the
-full-width generator sites, split and unsplit, f32 and int8, on
-NaN-filled memory, two launches bit-equal), the wrappers'
+full-width generator sites, kernel B at the full-width discriminator and
+SegNet sites, split and unsplit, f32 and int8, on NaN-filled output and
+workspace memory, two launches bit-equal), the wrappers'
 refusals, the generator and serve entry point on the 'cuda' route, one
 'cuda' train step against the 'torch' one, the tiled kernels C and D, the
 U-Net's 'cuda' route, and kernel F (flash attention) against its plain
@@ -343,6 +344,119 @@ def test_int8_conv_kernel_bit_equal_to_f32_on_dequant(case, cuda_device):
     bound = ref.ulp_bound(y64, amax, k * k * c)
     assert bool(((y_i8.double() - y64).abs() <= bound).all())
     assert bool(((y_ref.double() - y64).abs() <= bound).all())
+
+
+# kernel B at the full-width sites: (name, b, h, c, n, k, s, d, pads) of
+# the DCGAN and cGAN discriminators and the SegNet at B = 1 (mostly split
+# K) and B = 64 (mostly the 128-row tiles, unsplit)
+def _disc_sites():
+    from repro_torch.models import gan
+    out = []
+    for tag, layers in (("DCGAN", gan.DCGAN_LAYERS),
+                        ("cGAN", gan.CGAN_LAYERS)):
+        for i, l in enumerate(reversed(layers)):
+            k = l.kernel
+            for b in (1, 64):
+                out.append((f"{tag}_D{i + 1}_B{b}", b, l.in_hw * l.stride,
+                            l.out_c, l.in_c, k, l.stride, 1,
+                            ((k // 2, (k - 1) // 2),) * 2))
+    return out
+
+
+def _seg_sites():
+    from repro_torch.models import segnet
+    return [(f"SegNet_L{i}_B{b}", b, l.in_hw, l.in_c, l.out_c, l.kernel,
+             l.stride, l.dilation, segnet.atrous_padding(l.kernel,
+                                                         l.dilation))
+            for i, l in enumerate(segnet.SEGNET.layers) for b in (1, 64)]
+
+
+DISC_SITES, SEG_SITES = _disc_sites(), _seg_sites()
+
+
+def _conv_site_runs(case, device, with_f32):
+    """Kernel B at one site on NaN-filled output and workspace memory: the
+    (f32, f32 again, int8, int8 again, f32 on the dequantized superpack)
+    outputs (the f32 pair only ``with_f32``), the inputs and the
+    schedule."""
+    _, b, h, c, n, k, s, d, pads = case
+    rng = np.random.default_rng(sum(map(ord, case[0])))
+    x = torch.from_numpy(rng.standard_normal((b, h, h, c)).astype(
+        np.float32)).to(device)
+    kern = torch.from_numpy(rng.standard_normal((k, k, c, n)).astype(
+        np.float32)).to(device)
+    xp = pad_or_crop(x, pads).contiguous()
+    sp = kern.reshape(k * k * c, n).clone()
+    sp[sp.shape[0] // 2] = 0.0                  # an all-zero row
+    q, scale, wd = _int8(sp)
+    kw = dict(taps_hw=(k, k), strides=(s, s), rhs_dilation=(d, d))
+    oh, ow = tk.single_out_hw(xp.shape[1], xp.shape[2], (k, k), (s, s),
+                              (d, d))
+    sch = tk.conv_schedule(b * oh * ow, k * k * c, n)
+    numels = (b * oh * ow * n, sch.workspace_bytes // 4)
+
+    def poisoned(w, **scales):
+        blocks = [torch.full((m,), float("nan"), device=device)
+                  for m in numels if m]
+        del blocks
+        return tk.untangled_conv2d_superpack(xp, w, **kw, **scales)
+
+    runs = {}
+    if with_f32:
+        runs["f32"], runs["f32_again"] = poisoned(sp), poisoned(sp)
+    runs["int8"] = poisoned(q, scales=scale)
+    runs["int8_again"] = poisoned(q, scales=scale)
+    runs["dequant"] = poisoned(wd)
+    torch.cuda.synchronize()
+    return runs, (x, sp, q, scale, wd, xp, kw), sch
+
+
+def _hold_to_oracle(got, plain, x, w, case):
+    _, b, h, c, n, k, s, d, pads = case
+    y64, amax = ref.conv_oracle_f64(x, w.reshape(k, k, c, n), strides=(s, s),
+                                    dilation=(d, d), padding=pads)
+    bound = ref.ulp_bound(y64, amax, k * k * c)
+    assert bool(((got.double() - y64).abs() <= bound).all())
+    assert bool(((plain.double() - y64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", DISC_SITES, ids=[c[0] for c in DISC_SITES])
+def test_conv_kernel_at_discriminator_sites(case, cuda_device):
+    """Kernel B's f32 and int8 entries at full width, split (B = 1) and
+    unsplit (B = 64): within the f64 ULP bound (and their plain versions),
+    the output and the workspace from NaN-filled memory, a second launch
+    bit-equal to the first, int8 bit-equal to f32 on the dequantized
+    superpack; at B = 1 the DCGAN sites split K into 132+ units (D1's K of
+    5 chunks stays whole)."""
+    runs, (x, sp, q, scale, wd, xp, kw), sch = _conv_site_runs(
+        case, cuda_device, with_f32=True)
+    assert torch.equal(runs["f32"], runs["f32_again"])
+    assert torch.equal(runs["int8"], runs["int8_again"])
+    assert torch.equal(runs["int8"], runs["dequant"])
+    _hold_to_oracle(runs["f32"], tk.untangled_conv2d_superpack_ref(
+        xp, sp, **kw), x, sp, case)
+    _hold_to_oracle(runs["int8"], tk.untangled_conv2d_superpack_ref(
+        xp, q, scales=scale, **kw), x, wd, case)
+    if case[1] == 1 and case[0].startswith("DCGAN") \
+            and sch.chunks >= tk._MIN_SLICE:
+        assert sch.split and sch.units >= tk.SMS
+
+
+@pytest.mark.parametrize("case", SEG_SITES, ids=[c[0] for c in SEG_SITES])
+def test_int8_conv_kernel_at_segnet_sites(case, cuda_device):
+    """Kernel B's int8 entry at the full-width SegNet sites: bit-equal to
+    the f32 entry on the dequantized superpack, two launches bit-equal on
+    NaN-filled memory, within the f64 ULP bound (and its plain version);
+    at B = 1 the sites L1-L8 fill the card."""
+    runs, (x, sp, q, scale, wd, xp, kw), sch = _conv_site_runs(
+        case, cuda_device, with_f32=False)
+    assert torch.equal(runs["int8"], runs["int8_again"])
+    assert torch.equal(runs["int8"], runs["dequant"])
+    _hold_to_oracle(runs["int8"], tk.untangled_conv2d_superpack_ref(
+        xp, q, scales=scale, **kw), x, wd, case)
+    layer = int(case[0].split("_")[1][1:])
+    if case[1] == 1 and 1 <= layer <= 8:
+        assert sch.split and sch.units >= tk.SMS
 
 
 @pytest.mark.parametrize("kind", ["transposed", "conv", "dilated"])

@@ -200,16 +200,20 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
 
 
 def test_kernel_tile_choice():
-    """Thin N takes the 256x16 tile; the 128x128 tile only when it alone
-    fills the card (the DCGAN sites at B=64), else 64x64."""
+    """Kernel B's tile: thin N takes the 128x16 tile; the 128x128 tile only
+    when it alone fills the card (DC1's rows at B=64), else the M tile
+    follows the rows; BN follows N."""
     dc1 = tplan.plan_conv(tplan.conv_spec(
         "transposed", (1, 4, 4, 1024), (5, 5, 1024, 512), strides=(2, 2),
         padding=((2, 3), (2, 3)), backend="cuda"))
     def rows(b):
-        return [b * ex.out_hw[0] * ex.out_hw[1] for ex in dc1.phases]
-    assert tk._pick_config(512, rows(64)) == 0
-    assert tk._pick_config(512, rows(1)) == 1
-    assert tk._pick_config(3, rows(64)) == 2
+        return sum(b * ex.out_hw[0] * ex.out_hw[1] for ex in dc1.phases)
+    k = 25 * 1024
+    assert tk.conv_schedule(rows(64), k, 512).tile == (128, 128)
+    small = tk.conv_schedule(rows(1), k, 512).tile
+    assert small[0] < 128 and small[1] == 128
+    assert tk.conv_schedule(rows(64), k, 3).tile == (128, 16)
+    assert tk.conv_schedule(rows(64), k, 64).tile[1] == 64
 
 
 def test_ctypes_binding_matches_the_c_entry():
@@ -321,9 +325,10 @@ def test_conv_wrapper_checks_shapes_and_devices():
     with pytest.raises(ValueError, match="no valid output"):
         tk.untangled_conv2d_superpack(x, sp, taps_hw=(5, 5),
                                       rhs_dilation=(3, 3))
-    assert tk._pick_config(256, [64 * 16 * 16]) == 0   # D2 at B=64
-    assert tk._pick_config(1024, [16]) == 1            # D4 at B=1
-    assert tk._pick_config(3, [1024]) == 2
+    assert tk.conv_schedule(64 * 16 * 16, 25 * 128,
+                            256).tile == (128, 128)      # D2 at B=64
+    assert tk.conv_schedule(16, 25 * 512, 1024).tile == (16, 128)  # D4, B=1
+    assert tk.conv_schedule(1024, 9 * 32, 3).tile == (128, 16)
 
 
 def test_conv_ctypes_binding_matches_the_c_entry():
