@@ -7,9 +7,10 @@ result line) if anything is off:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from this checkout's sources (one
    ``nvcc`` per source, all started together), with ``-Xptxas -v``'s
-   registers and spills (kernel F's, kernel A's and kernel B's per
-   instantiation on lines of their own; a kernel-A or kernel-B
-   instantiation that spills fails);
+   registers, stack frames and spills (kernels F, A, B and C per
+   instantiation on lines of their own; a kernel-A, B or C instantiation
+   that spills fails, and so does a kernel-C instantiation with a stack
+   frame);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
@@ -71,9 +72,13 @@ result line) if anything is off:
    NaN-poisoned outputs, at the four tiled sites of the U-Net at a 512 px
    image (B = 1, the routes' block tiles), the 385 px 32->32 d = 2 context
    site and a d = 4 twin, the geometries of
-   ``tests/test_tiled_kernels.py:SINGLE_CASES`` with their tiles, and C = 3
-   and N = 3 sites; the int8 entry bit-equal to the f32 entry on the
-   dequantized superpack everywhere;
+   ``tests/test_tiled_kernels.py:SINGLE_CASES`` with their tiles, C = 3
+   and N = 3 sites, a 3x3 site at every BN (4, 32, 64, 128), the stem's C
+   = 3, a stride-2 site, a ragged C not divisible by 4 and a 7x7 site; the
+   int8 entry bit-equal to the f32 entry on the dequantized superpack
+   everywhere, two launches of either bit-equal; each site's schedule
+   (``tiled_conv_schedule``: tile, BN, tap loop, halo, ring, blocks an
+   SM);
 2f. kernel D (``untangled_deconv2d`` with ``sp_tiles=``) and its int8 entry
    the same way, at the U-Net's tiled up0 (512 px, B = 1) and the
    geometries of ``DECONV_CASES`` (DCGAN and cGAN phases, an empty phase,
@@ -87,7 +92,8 @@ result line) if anything is off:
    ``denoise_loop`` at 512 px that stays finite;
 4d. times of kernels C and D (f32 and int8) at every tiled 512 px site at
    B = 1 and 16 beside the plain version, ``F.conv2d`` (kernel C; none
-   expresses up0's padding in one call) and the bound; the U-Net forward per
+   expresses up0's padding in one call) and the bound, with kernel C's
+   schedule; the U-Net forward per
    bucket, and one 512 px forward's device time by kernel, its busy share
    and kernel B's share of the device time;
 2g. kernel F (``flash_attention``) against its plain version and the f64
@@ -161,7 +167,9 @@ DENOISE_STEPS = 8
 # dilation, tile) on a pre-padded plane; tile None takes the card's own.
 # The geometries of tests/test_tiled_kernels.py's SINGLE_CASES (ragged
 # edge, strided, big halo, ragged C, 1x1, one tile = plane), then C = 3
-# and N = 3 (the scalar paths)
+# and N = 3 (the scalar paths), a 3x3 site at every BN (4, 32, 64, 128,
+# the last over two N tiles), the stem's C = 3, a stride-2 site, a ragged
+# C not divisible by 4 and a 7x7 site (the run-time tap loop)
 TILED_CONV_CASES = [
     ("ctx385_d2", 1, 389, 389, 32, 32, 3, 3, 1, 2, None),
     ("ctx385_d4", 1, 393, 393, 32, 32, 3, 3, 1, 4, None),
@@ -173,6 +181,14 @@ TILED_CONV_CASES = [
     ("one_tile_is_plane", 1, 16, 16, 6, 5, 3, 3, 1, 1, (16, 16)),
     ("c3_n32", 2, 34, 34, 3, 32, 3, 3, 1, 1, None),
     ("c32_n3", 2, 34, 34, 32, 3, 3, 3, 1, 1, None),
+    ("bn4_n4", 2, 42, 40, 8, 4, 3, 3, 1, 1, None),
+    ("bn32_n32", 2, 42, 40, 16, 32, 3, 3, 1, 1, None),
+    ("bn64_n48", 1, 42, 40, 16, 48, 3, 3, 1, 1, None),
+    ("bn128_n160", 1, 26, 24, 8, 160, 3, 3, 1, 1, None),
+    ("stem_c3_n32", 2, 66, 66, 3, 32, 3, 3, 1, 1, None),
+    ("s2_c16_n32", 2, 65, 65, 16, 32, 3, 3, 2, 1, None),
+    ("ragged_c10_n32", 1, 30, 30, 10, 32, 3, 3, 1, 1, None),
+    ("k7_n256", 1, 30, 29, 16, 256, 7, 7, 1, 1, None),
 ]
 # kernel D cases beside up0: (name, b, h, c, n, k, stride, pads, tile), the
 # geometries of DECONV_CASES (square planes)
@@ -236,10 +252,41 @@ def kernel_part(name: str) -> str:
     return next((part for sym, part in CONV_KERNELS if sym in name), "other")
 
 
+def device_events(fn, min_events, with_cpu=False, tries=3):
+    """``fn()`` under ``torch.profiler``: (profile, its device kernels'
+    events).  CUPTI now and then hands back a trace short of the kernels
+    that ran; a trace with fewer than ``min_events`` timed device events is
+    taken again, up to ``tries`` times, and after that the events are None
+    (the caller reports the device time as not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * with_cpu + [ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and ev.device_time_total > 0]
+        if len(evs) >= min_events:
+            return prof, evs
+        print(f"[profiler] trace holds {len(evs)} timed device events of "
+              f"at least {min_events}: taken again")
+    return prof, None
+
+
+def ms_text(v, fmt=".4f"):
+    """A device time (or a share of it) as printed: "not measured" where
+    the profiler caught no trace."""
+    return "not measured" if v is None else format(v, fmt)
+
+
 def ptxas_report(log: str) -> list[dict]:
-    """Registers and spills of each kernel instantiation (kernel F's, kernel
-    A's and B's and their reductions), from an ``nvcc -Xptxas -v`` log:
-    [{"kernel", "registers", "spill_stores", "spill_loads"}], the kernel
+    """Registers, stack frame and spills of each kernel instantiation
+    (kernel F's, kernel A's, B's and C's and the reductions), from an
+    ``nvcc -Xptxas -v`` log: [{"kernel", "registers", "stack_frame",
+    "spill_stores", "spill_loads"}], the kernel
     named by its symbol and template arguments (int8_t for the int8
     entries)."""
     import re
@@ -248,7 +295,7 @@ def ptxas_report(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel"
                       r"|deconv_kernel|deconv_thin_kernel|deconv_split_reduce"
-                      r"|conv_kernel|conv_split_reduce)"
+                      r"|conv_tiled_kernel|conv_kernel|conv_split_reduce)"
                       r"(?:I(\w*?)EEv|E)", line)
         if m:
             args = [names[kind](v) if kind else
@@ -258,11 +305,11 @@ def ptxas_report(log: str) -> list[dict]:
             out.append({"kernel": f"{m.group(1)}<{', '.join(args)}>"
                         if m.group(2) else m.group(1)})
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and out:
-            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(
-                int, m.groups())
+            (out[-1]["stack_frame"], out[-1]["spill_stores"],
+             out[-1]["spill_loads"]) = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and out:
             out[-1]["registers"] = int(m.group(1))
@@ -571,18 +618,12 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         """One call of ``fn`` under ``torch.profiler``: device time of
         kernel F, of the dense products and of everything else, the number
         of device kernels, and the idle share against ``wall_ms`` (its time
-        measured without the profiler)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        measured without the profiler); the shares are None where the
+        profiler caught no trace."""
+        _, evs = device_events(fn, 1, with_cpu=True)
         out = {"F_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0, "F_calls": 0,
                "device_kernels": 0}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
+        for ev in evs or ():
             name = ev.name.lower()
             part = ("F" if "flash_fwd" in name
                     else "matmul" if any(p in name for p in MATMUL_NAMES)
@@ -592,7 +633,7 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
             out["device_kernels"] += 1
         busy = out["F_ms"] + out["matmul_ms"] + out["other_ms"]
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   idle_share=1 - busy / wall_ms)
+                   idle_share=1 - busy / wall_ms if evs else None)
         return out
 
     split = {tag: device_split(lambda: prefill(params, batch),
@@ -654,7 +695,7 @@ def main() -> int:
     from repro_torch.kernels.untangled_conv import (
         _MIN_SLICE as MIN_SLICE, SMS, conv_schedule, deconv_schedule,
         pick_block_tile_single,
-        pick_block_tile_transposed, single_out_hw,
+        pick_block_tile_transposed, single_out_hw, tiled_conv_schedule,
         untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
         untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
         untangled_deconv2d_ref, untangled_deconv2d_tiled_ref)
@@ -688,18 +729,27 @@ def main() -> int:
     f_ptxas = ptxas_report(logs.get("flash_attention", ""))
     a_ptxas = ptxas_report(logs.get("untangled_deconv", ""))
     b_ptxas = ptxas_report(logs.get("untangled_conv", ""))
-    for tag, recs in (("F", f_ptxas), ("A", a_ptxas), ("B", b_ptxas)):
+    c_ptxas = ptxas_report(logs.get("untangled_conv_tiled", ""))
+    for tag, recs in (("F", f_ptxas), ("A", a_ptxas), ("B", b_ptxas),
+                      ("C", c_ptxas)):
         for rec in recs:
             print(f"[build] kernel {tag} {rec['kernel']}: "
                   f"{rec.get('registers')} registers, "
+                  f"{rec.get('stack_frame')} bytes stack frame, "
                   f"{rec.get('spill_stores')} bytes spill stores, "
                   f"{rec.get('spill_loads')} bytes spill loads")
-    for tag, recs in (("A", a_ptxas), ("B", b_ptxas)):
+    for tag, recs in (("A", a_ptxas), ("B", b_ptxas), ("C", c_ptxas)):
         spilled = [r["kernel"] for r in recs
                    if r.get("spill_stores") or r.get("spill_loads")]
         if len(recs) < 2 or spilled:
             raise RuntimeError(f"kernel {tag} instantiations that spill: "
                                f"{spilled} (of {len(recs)} reported)")
+    # kernel C keeps its ring slots as offsets, never as pointer arrays in
+    # local memory: every instantiation has no stack frame
+    framed = [r["kernel"] for r in c_ptxas if r.get("stack_frame") != 0]
+    if framed:
+        raise RuntimeError(f"kernel C instantiations with a stack frame "
+                           f"(local memory): {framed}")
 
     gen = torch.Generator().manual_seed(0)
 
@@ -741,25 +791,19 @@ def main() -> int:
         ``torch.profiler``: device time of kernel B's launches and of
         everything else, summed over device-side events only, the idle
         share against ``wall_ms`` (its time measured without the profiler)
-        and the host ops of most self CPU time (name, calls, ms)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        and the host ops of most self CPU time (name, calls, ms); the idle
+        share is None where the profiler caught no trace."""
+        prof, evs = device_events(fn, 1, with_cpu=True)
         out = {"kernel_ms": 0.0, "other_ms": 0.0, "kernel_calls": 0,
                "other_calls": 0}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
+        for ev in evs or ():
             part = "kernel" if kernel_part(ev.name) == "B" else "other"
             out[f"{part}_ms"] += ev.device_time_total / 1e3
             out[f"{part}_calls"] += 1
         busy = out["kernel_ms"] + out["other_ms"]
         top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   idle_share=1 - busy / wall_ms,
+                   idle_share=1 - busy / wall_ms if evs else None,
                    top_host_ops=[(e.key, e.count, e.self_cpu_time_total / 1e3)
                                  for e in top[:8]])
         return out
@@ -808,17 +852,19 @@ def main() -> int:
     def call_device_ms(fn, iters=20):
         """Device time of one call of ``fn`` (after a warm-up): its kernels'
         time summed over ``iters`` calls under ``torch.profiler``, per call.
-        Beside the CUDA-event time, which at B = 1 is the host's pace."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        Beside the CUDA-event time, which at B = 1 is the host's pace.
+        None (not measured) where every trace came back short of one
+        kernel a call."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+        def calls():
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
-        return sum(ev.device_time_total for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA) / 1e3 / iters
+        _, evs = device_events(calls, iters)
+        if evs is None:
+            return None
+        return sum(ev.device_time_total for ev in evs) / 1e3 / iters
 
     def int8_of(sp):
         """(q, scale, dequantized) of an f32 superpack whose middle row is
@@ -1029,6 +1075,18 @@ def main() -> int:
         return fn(xp, sp, taps_hw=(r, s_), strides=(st, st),
                   rhs_dilation=(d, d), sp_tiles=tile, **scales)
 
+    def tiled_schedule_of(out_hw, r, s_, st, d, c, n, tile):
+        """Kernel C's layout of one call: tile, BN, tap loop, pixel
+        spacing, staged halo and row pitch, ring stages, threads, blocks an
+        SM, shared memory, tiles."""
+        sch = tiled_conv_schedule(tuple(out_hw), (r, s_), (st, st), (d, d),
+                                  c, n, tuple(tile))
+        return {"tile": sch.tile, "bn": sch.bn, "path": sch.path,
+                "pd": sch.pd, "halo": sch.halo, "pitch": sch.pitch,
+                "stages": sch.stages, "threads": sch.threads,
+                "blocks_sm": sch.blocks_sm, "smem_bytes": sch.smem_bytes,
+                "tiles": sch.tiles}
+
     c_cases = []
     for name, plan in tiled_c:
         sp_ = plan.spec
@@ -1052,10 +1110,15 @@ def main() -> int:
         y_k = tiled_conv_call(xp, sp, r, s_, st, d, tile)
         y_r = tiled_conv_call(xp, sp, r, s_, st, d, tile, plain=True)
         poison(b * oh * ow * n)
+        again = torch.equal(tiled_conv_call(xp, sp, r, s_, st, d, tile), y_k)
+        poison(b * oh * ow * n)
         y_k8 = tiled_conv_call(xp, q, r, s_, st, d, tile, scales=scale)
         y_r8 = tiled_conv_call(xp, q, r, s_, st, d, tile, plain=True,
                                scales=scale)
         y_f = tiled_conv_call(xp, wd, r, s_, st, d, tile)
+        poison(b * oh * ow * n)
+        again8 = torch.equal(
+            tiled_conv_call(xp, q, r, s_, st, d, tile, scales=scale), y_k8)
         torch.cuda.synchronize()
         oks = []
         for yk, yr, w_ in ((y_k, y_r, kern), (y_k8, y_r8, wd)):
@@ -1070,12 +1133,15 @@ def main() -> int:
         err, err8 = (float((y_k - y_r).abs().max()),
                      float((y_k8 - y_r8).abs().max()))
         max_err_c, max_err_ci8 = max(max_err_c, err), max(max_err_ci8, err8)
-        print(f"[kernel C] {name}: out {tuple(y_k.shape)} tile {tile} "
+        print(f"[kernel C] {name}: out {tuple(y_k.shape)} "
               f"|kernel-plain| f32 {err:.3e} int8 {err8:.3e}; within "
               f"ulp_bound (f32 kernel, plain, int8 kernel, plain) {oks}; "
-              f"int8 bit-equal to f32 on dequant {bit} "
-              f"(n_terms {r * s_ * c})")
-        if not (all(oks) and bit and torch.isfinite(y_k).all()
+              f"int8 bit-equal to f32 on dequant {bit}; two launches "
+              f"bit-equal f32 {again} int8 {again8} (n_terms {r * s_ * c}); "
+              f"schedule "
+              f"{tiled_schedule_of((oh, ow), r, s_, st, d, c, n, tile)}")
+        if not (all(oks) and bit and again and again8
+                and torch.isfinite(y_k).all()
                 and torch.isfinite(y_k8).all()):
             raise RuntimeError(f"kernel C disagrees on {name}")
 
@@ -1498,14 +1564,16 @@ def main() -> int:
             if b == 1 and rec["schedule"]["units"] < SMS:
                 raise RuntimeError(f"DC{i + 1} B=1: {rec['schedule']} leaves "
                                    f"SMs idle")
+            dev_share = (None if rec["device_ms"] is None
+                         else rec["bound_ms"] / rec["device_ms"])
             print(f"[time] DC{i + 1} B={b}: kernel {rec['ms']:.4f} ms "
-                  f"(device {rec['device_ms']:.4f}), plain "
+                  f"(device {ms_text(rec['device_ms'])}), plain "
                   f"{rec['plain_ms']:.4f} ms, library "
                   f"{rec['library_ms']:.4f} ms (device "
-                  f"{rec['library_device_ms']:.4f}), bound "
+                  f"{ms_text(rec['library_device_ms'])}), bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel at "
                   f"{rec['bound_ms'] / rec['ms']:.1%} of bound "
-                  f"({rec['bound_ms'] / rec['device_ms']:.1%} of its device "
+                  f"({ms_text(dev_share, '.1%')} of its device "
                   f"time); schedule {json.dumps(rec['schedule'])}")
     gen_ms = {}
     with torch.inference_mode():
@@ -1551,13 +1619,15 @@ def main() -> int:
                     and not fills_card(rec["schedule"]):
                 raise RuntimeError(f"{name} B=1: {rec['schedule']} leaves "
                                    f"SMs idle")
+            dev_share = (None if rec["device_ms"] is None
+                         else rec["bound_ms"] / rec["device_ms"])
             print(f"[time B] {name} B={b}: kernel {rec['ms']:.4f} ms "
-                  f"(device {rec['device_ms']:.4f}), plain "
+                  f"(device {ms_text(rec['device_ms'])}), plain "
                   f"{rec['plain_ms']:.4f} ms, library "
                   f"{rec['library_ms']:.4f} ms (device "
-                  f"{rec['library_device_ms']:.4f}), bound "
+                  f"{ms_text(rec['library_device_ms'])}), bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel at "
-                  f"{rec['bound_ms'] / rec['device_ms']:.1%} of bound by "
+                  f"{ms_text(dev_share, '.1%')} of bound by "
                   f"device time; schedule {json.dumps(rec['schedule'])}")
 
     def step_ms(cfg, b, iters=5):
@@ -1581,9 +1651,7 @@ def main() -> int:
         pads, the elementwise ops), summed over the device-side events only
         (an op's own entry repeats its kernels' time), and the idle share
         against ``wall_ms``, the step's time measured without the profiler
-        (which slows the host)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        (which slows the host); None where the profiler caught no trace."""
         gp_ = gan.generator_init(4, tcfg, device=dev)
         dp_ = gan.discriminator_init(5, tcfg, device=dev)
         bt = GANPipeline(tcfg, b, image_hw=64).batch_at(0)
@@ -1591,22 +1659,19 @@ def main() -> int:
         for _ in range(2):
             train_gan.train_step(gp_, dp_, z_, r_, tcfg, 2e-4)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            train_gan.train_step(gp_, dp_, z_, r_, tcfg, 2e-4)
-            torch.cuda.synchronize()
+        _, evs = device_events(
+            lambda: train_gan.train_step(gp_, dp_, z_, r_, tcfg, 2e-4), 1,
+            with_cpu=True)
         out = {"A_ms": 0.0, "B_ms": 0.0, "other_ms": 0.0, "A_calls": 0,
                "B_calls": 0, "other_calls": 0}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
+        for ev in evs or ():
             part = kernel_part(ev.name)
             part = part if part in ("A", "B") else "other"
             out[f"{part}_ms"] += ev.device_time_total / 1e3
             out[f"{part}_calls"] += 1
         busy = out["A_ms"] + out["B_ms"] + out["other_ms"]
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   idle_share=1 - busy / wall_ms)
+                   idle_share=1 - busy / wall_ms if evs else None)
         return out
 
     train_ms = {f"{backend}_B{b}": step_ms(
@@ -1645,9 +1710,9 @@ def main() -> int:
                        f32_device_ms=call_device_ms(f32_kernel),
                        library_device_ms=call_device_ms(library),
                        schedule=schedule)
-            extra = (f"; device ms int8 {rec['device_ms']:.4f}, f32 "
-                     f"{rec['f32_device_ms']:.4f}, library "
-                     f"{rec['library_device_ms']:.4f}; schedule "
+            extra = (f"; device ms int8 {ms_text(rec['device_ms'])}, f32 "
+                     f"{ms_text(rec['f32_device_ms'])}, library "
+                     f"{ms_text(rec['library_device_ms'])}; schedule "
                      f"{json.dumps(schedule)}")
         print(f"[time int8] {name} B={b}: int8 kernel {rec['ms']:.4f} ms, "
               f"f32 kernel {rec['f32_ms']:.4f} ms, plain "
@@ -1731,6 +1796,9 @@ def main() -> int:
             bound, by = bound_of(flops, nbytes)
             rec = {"site": name, "batch": b, "flops": flops,
                    "bytes": nbytes, "tile": tile,
+                   "schedule": tiled_schedule_of(
+                       y_k.shape[1:3], r, s_, st, 1, sp_.in_c, sp_.out_c,
+                       tile),
                    "ms": time_ms(lambda: tiled_conv_call(
                        xp, sp, r, s_, st, 1, tile)),
                    "plain_ms": time_ms(lambda: tiled_conv_call(
@@ -1746,7 +1814,7 @@ def main() -> int:
                   f"kernel B (whole plane) {rec['whole_plane_ms']:.4f} ms, "
                   f"library {rec['library_ms']:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}), kernel at {bound / rec['ms']:.1%}"
-                  f" of bound")
+                  f" of bound; schedule {rec['schedule']}")
             xl8, wl8, kw8 = conv_library_args(
                 xp, wd.reshape(r, s_, sp_.in_c, sp_.out_c), (st, st),
                 (1, 1))
@@ -1833,26 +1901,22 @@ def main() -> int:
     def unet_split(pu, ucfg, b, wall_ms):
         """One U-Net forward under ``torch.profiler``: device time of
         kernels A-D and of everything else, summed over device-side events,
-        and the busy share against ``wall_ms`` (measured without it)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        and the busy share against ``wall_ms`` (measured without it); the
+        shares are None where the profiler caught no trace."""
         xu = randn(b, ucfg.image_hw, ucfg.image_hw, ucfg.in_c)
         tu = torch.rand((b,), device=dev)
         with torch.inference_mode():
             unet.unet_apply(pu, xu, tu, ucfg)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                unet.unet_apply(pu, xu, tu, ucfg)
-                torch.cuda.synchronize()
+            _, evs = device_events(lambda: unet.unet_apply(pu, xu, tu, ucfg),
+                                   1, with_cpu=True)
         out = {f"{k}_ms": 0.0 for k in ("A", "B", "C", "D", "other")}
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CUDA:
-                continue
+        for ev in evs or ():
             out[f"{kernel_part(ev.name)}_ms"] += ev.device_time_total / 1e3
         busy = sum(out.values())
         out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   busy_share=busy / wall_ms, B_share=out["B_ms"] / busy)
+                   busy_share=busy / wall_ms if evs else None,
+                   B_share=out["B_ms"] / busy if evs else None)
         return out
 
     unet_split_512 = {
@@ -1893,7 +1957,8 @@ def main() -> int:
                "bound_ms": sum(r["bound_ms"] for r in recs),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "library_ms": None if None in lib else sum(lib)}
-        if all("device_ms" in r for r in recs):
+        if all(r.get("device_ms") is not None
+               and r.get("library_device_ms") is not None for r in recs):
             out.update(device_ms=sum(r["device_ms"] for r in recs),
                        library_device_ms=sum(r["library_device_ms"]
                                              for r in recs))

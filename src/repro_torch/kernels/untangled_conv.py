@@ -21,21 +21,24 @@ card and what the design does about it); ``_build`` compiles them with
 Kernel E, the int8 tap panel of the TPU kernels (``_tap_panel``), is each
 kernel's int8 entry: ``scales=`` marks the superpack as int8 codes with one
 f32 scale per row (a ``QuantizedSuperpack``), and the kernel multiplies
-each code by its row's scale into its f32 weight tile (A and B from the
-codes their ring brought to shared memory, C and D as they stage the
-tile), so the int8 kernel on ``(q, scale)`` is bit-equal to the f32
-kernel on ``dequantize_int8(q, scale)``.
+each code by its row's scale into its f32 weight tile (A, B and C from
+the codes their ring brought to shared memory, D as it stages the tile),
+so the int8 kernel on ``(q, scale)`` is bit-equal to the f32 kernel on
+``dequantize_int8(q, scale)``.
 
 Kernels C and D are the spatially tiled forms of B and A (TPU kernels
 ``_tiled_kernel`` and ``_deconv_tiled_kernel`` with ``_halo_stream``):
 ``sp_tiles=`` on either wrapper names the spatial output tile one thread
 block computes, ``(T_oh, T_ow)`` output pixels for C and ``(T_u, T_v)``
 phase-output pixels for D.  The block stages its tile's halo'd input slice
-in shared memory one C chunk at a time, double-buffered with ``cp.async``
-(``csrc/untangled_conv_tiled.cu``, ``csrc/untangled_deconv_tiled.cu``), so
-every tap reads the one staged copy.  ``halo_extent`` and
-``deconv_tap_span`` are the reference's halo geometry; ``pick_block_tile_*``
-choose a tile that fits the block's shared memory.
+in shared memory one C chunk at a time with ``cp.async`` (C through a ring
+of chunks, D double-buffered; ``csrc/untangled_conv_tiled.cu``,
+``csrc/untangled_deconv_tiled.cu``), so every tap reads the one staged
+copy; C's threads each hold 8 pixels of a tile row and read each halo
+value once for all taps of a row.  ``halo_extent`` and ``deconv_tap_span``
+are the reference's halo geometry; ``tiled_conv_schedule`` lays out C's
+block (tile, BN, ring, halo pitch) and ``pick_block_tile_*`` choose a tile
+that fits the block's shared memory.
 
 Each wrapper launches its kernel for CUDA tensors, and raises on anything
 the kernel does not take.  It takes its plain version (``*_ref``) only for
@@ -900,22 +903,24 @@ def deconv_tap_span(phases) -> tuple[Pair, Pair]:
              max(ex.xoff[1] + ex.taps[1] - 1 for ex in live)))
 
 
-# block configs of kernels C and D, indexed as in the sources: (BN output
-# channels, TM pixels per thread, CK channels per staged chunk); every
-# thread holds TM pixels x 4 channels in registers, 256 threads a block, so
-# a block computes (256·4/BN)·TM pixel slots x BN channels
+# block configs of kernel D, indexed as in csrc/untangled_deconv_tiled.cu:
+# (BN output channels, TM pixels per thread, CK channels per staged chunk);
+# every thread holds TM pixels x 4 channels in registers, 256 threads a
+# block, so a block computes (256·4/BN)·TM pixel slots x BN channels
 _TILED_CONFIGS = ((64, 8, 8), (32, 4, 8), (4, 4, 8), (64, 8, 4))
 _TILED_THREADS = 256
-# shared memory of one H100 block (227 KB), and the most a block may take
-# for two to share an SM (228 KB less 1 KB reserved per block, halved)
+# shared memory of one H100 block (227 KB) and of one SM (228 KB, less 1
+# KB reserved per block); the most a block may take for two to share an SM
 SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
 SMEM_TWO_BLOCKS = 115712
 # weight stages above this (both buffers) take the CK = 4 config
 _TILED_WEIGHT_MAX = 96 * 1024
 
 
 def tiled_config(n: int, total_taps: int) -> int:
-    """The block config of kernels C and D for N output channels and the
+    """The block config of kernel D for N output channels and the
     superpack's tap count: BN = 4 for N <= 4 (the RGB head), 32 for N <=
     32, else 64, with the CK = 4 chunk when the 64-wide weight stage of
     every tap would not leave room for the halo."""
@@ -928,21 +933,223 @@ def tiled_config(n: int, total_taps: int) -> int:
 
 
 def tiled_block_pixels(config: int) -> int:
-    """Pixel slots of one block of ``config``."""
+    """Pixel slots of one kernel-D block of ``config``."""
     bn, tm, _ = _TILED_CONFIGS[config]
     return _TILED_THREADS * 4 // bn * tm
 
 
 def tiled_smem_bytes(config: int, tin_h: int, tin_w: int,
                      total_taps: int) -> int:
-    """Dynamic shared memory of one block of kernel C or D: two halo slots
-    of ``tin_h·tin_w`` pixels x (CK + 1) floats (one float of padding per
+    """Dynamic shared memory of one kernel-D block: two halo slots of
+    ``tin_h·tin_w`` pixels x (CK + 1) floats (one float of padding per
     pixel against bank conflicts, each slot rounded to 16 B) and two weight
-    stages of ``total_taps·CK·BN`` floats.  The same formula as the
-    sources' ``smem_bytes``."""
+    stages of ``total_taps·CK·BN`` floats.  The same formula as
+    ``csrc/tiled_stage.cuh``'s ``smem_bytes``."""
     bn, _, ck = _TILED_CONFIGS[config]
     halo = -(-tin_h * tin_w * (ck + 1) // 4) * 4
     return 4 * (2 * halo + 2 * total_taps * ck * bn)
+
+
+# kernel C (csrc/untangled_conv_tiled.cu): a thread holds _TC_TM output
+# pixels of one tile row x _TC_TN channels; C is walked in chunks of _TC_CK
+# channels, one 16-byte group a halo pixel.  BN follows N; per BN the
+# block's threads and the blocks an SM holds (the kernel's Block<BN>,
+# asked of ptxas as __launch_bounds__)
+_TC_TM, _TC_TN, _TC_CK = 8, 4, 4
+_TILED_CONV_BLOCKS = {4: (128, 2), 32: (256, 2), 64: (256, 2),
+                      128: (256, 2)}
+# ring slots, most first: the first whose block fits its share of the SM
+_TC_STAGES = (4, 3)
+_TC_INT8_MIN_STAGES = 3
+
+
+def tiled_conv_bn(n: int) -> int:
+    """Kernel C's BN for N output channels: 4 for N <= 4 (the RGB head),
+    else the smallest of 32, 64 and 128 that holds min(N, 128)."""
+    return 4 if n <= 4 else 32 if n <= 32 else 64 if n <= 64 else 128
+
+
+def tiled_conv_path(taps_hw: Pair, strides: Pair, dilation: Pair) -> int:
+    """Kernel C's tap loop: 1 for 3x3 taps with s_w = 1 (a thread's pixels
+    spaced d_w apart, each span value read once for all three taps of a
+    row), 2 for 3x3 with s_w = 2 and d_w = 1 (the same with span 2k + n),
+    else 0 (taps, strides and dilations at run time)."""
+    if tuple(taps_hw) != (3, 3):
+        return 0
+    if strides[1] == 1:
+        return 1
+    return 2 if strides[1] == 2 and dilation[1] == 1 else 0
+
+
+def tiled_halo_unit(col: int) -> int:
+    """The staged 16-byte unit of halo column ``col`` in its row: one pad
+    unit every 8 columns (the kernel's ``halo_unit``)."""
+    return col + col // 8
+
+
+def tiled_conv_smem_bytes(bn: int, tin_h: int, pitch: int, taps: int,
+                          stages: int, int8: bool = False) -> int:
+    """Dynamic shared memory of one kernel-C block: ``stages`` halo slots of
+    ``tin_h`` rows x ``pitch`` 16-byte units and, for f32, as many weight
+    slots of ``taps·4·BN`` floats; int8 keeps two f32 weight tiles and the
+    ring's row scales and codes instead.  The kernel's ``smem_bytes``."""
+    halo = tin_h * pitch * 16
+    wt = 4 * taps * _TC_CK * bn
+    if not int8:
+        return stages * (halo + wt)
+    return stages * (halo + 4 * taps * _TC_CK + taps * _TC_CK * bn) + 2 * wt
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledConvSchedule:
+    """How kernel C covers one call: the block's N width ``bn``, its tap
+    loop ``path`` (``tiled_conv_path``), the output tile ``(T_oh, T_ow)``,
+    the columns ``pd`` between a thread's pixels and the pixel groups
+    ``gpr`` a tile row, the staged halo ``(tin_h, tin_w)`` and its row
+    ``pitch`` in 16-byte units, the ring's ``stages``, the block's threads,
+    the blocks an SM holds, the larger of the f32 and int8 entries' shared
+    memory, the channel chunk, the tiles over the output, the taps and
+    C."""
+    bn: int
+    path: int
+    tile: Pair
+    pd: int
+    gpr: int
+    halo: Pair
+    pitch: int
+    stages: int
+    threads: int
+    blocks_sm: int
+    smem_bytes: int
+    chunk: int
+    tiles: Pair
+    taps: int
+    c: int
+
+    @property
+    def groups(self) -> int:
+        """Pixel groups (of ``_TC_TM`` pixels) a block."""
+        return self.threads // (self.bn // _TC_TN)
+
+    @property
+    def fits_sm(self) -> bool:
+        """Whether ``blocks_sm`` blocks share one SM's shared memory."""
+        return self.blocks_sm * (self.smem_bytes + SMEM_RESERVED) <= SMEM_SM
+
+    @property
+    def k_steps(self) -> int:
+        """Multiply-adds a pixel and channel: taps x the chunks' channels
+        (C rounded up to the chunk)."""
+        return self.taps * self.chunk * -(-self.c // self.chunk)
+
+    def grid(self, b: int, n: int) -> tuple[int, int, int]:
+        return (self.tiles[0] * self.tiles[1], -(-n // self.bn), b)
+
+
+def _tc_layout(tile: Pair, taps_hw: Pair, strides: Pair, dilation: Pair,
+               bn: int, path: int):
+    """(pd, gpr, (tin_h, tin_w), pitch) of one tile, or None when its rows
+    of pixel groups exceed the block's.  The staged halo covers the tile
+    widened to whole pixel groups, which idle pixels read."""
+    (r, s), (sh, sw), (dh, dw) = taps_hw, strides, dilation
+    threads, _ = _TILED_CONV_BLOCKS[bn]
+    pd = dw if path == 1 else 1
+    span = _TC_TM * pd
+    blocks = -(-tile[1] // span)
+    gpr = blocks * pd
+    if tile[0] * gpr > threads // (bn // _TC_TN):
+        return None
+    tin_h = halo_extent(tile[0], r, sh, dh)
+    tin_w = halo_extent(blocks * span, s, sw, dw)
+    return pd, gpr, (tin_h, tin_w), tiled_halo_unit(tin_w - 1) + 1
+
+
+def _tc_schedule(tile: Pair, out_hw: Pair, taps_hw: Pair, strides: Pair,
+                 dilation: Pair, c: int, bn: int, path: int):
+    """The schedule of one tile, with the most stages whose block (either
+    entry) fits its share of the SM; None when the tile does not fit a
+    block."""
+    lay = _tc_layout(tile, taps_hw, strides, dilation, bn, path)
+    if lay is None:
+        return None
+    pd, gpr, tin, pitch = lay
+    threads, blocks_sm = _TILED_CONV_BLOCKS[bn]
+    taps = taps_hw[0] * taps_hw[1]
+    share = SMEM_SM // blocks_sm - SMEM_RESERVED
+    stages = None
+    for st in _TC_STAGES:
+        smem = max(tiled_conv_smem_bytes(bn, tin[0], pitch, taps, st, i8)
+                   for i8 in (False, True))
+        if smem <= share or (st == _TC_STAGES[-1]
+                             and smem <= SMEM_BLOCK_MAX):
+            stages = st
+            break
+    if stages is None:
+        return None
+    return TiledConvSchedule(
+        bn=bn, path=path, tile=tile, pd=pd, gpr=gpr, halo=tin, pitch=pitch,
+        stages=stages, threads=threads, blocks_sm=blocks_sm, smem_bytes=smem,
+        chunk=_TC_CK, tiles=(-(-out_hw[0] // tile[0]),
+                             -(-out_hw[1] // tile[1])), taps=taps, c=c)
+
+
+def _tc_best(out_hw: Pair, taps_hw: Pair, strides: Pair, dilation: Pair,
+             c: int, bn: int, tile: Pair | None):
+    """The schedule at one BN: the caller's tile, or the card's best."""
+    threads, _ = _TILED_CONV_BLOCKS[bn]
+    groups = threads // (bn // _TC_TN)
+    path = tiled_conv_path(taps_hw, strides, dilation)
+    if path == 1 and dilation[1] > groups:
+        path = 0                # a row of d_w pixel groups would not fit
+    pd = dilation[1] if path == 1 else 1
+    args = (out_hw, taps_hw, strides, dilation, c, bn, path)
+    if tile is not None:
+        return _tc_schedule(tile, *args)
+    best = None
+    for blocks in _pow2_tiles(groups // pd):
+        gpr = blocks * pd
+        cand = (min(groups // gpr, out_hw[0]),
+                min(blocks * _TC_TM * pd, out_hw[1]))
+        sch = _tc_schedule(cand, *args)
+        if sch is None:
+            continue
+        key = (not sch.fits_sm,
+               sch.tiles[0] * sch.tiles[1] * (sch.halo[0] * sch.halo[1]
+                                              + sch.taps * bn), -cand[1])
+        if best is None or key < best[0]:
+            best = (key, sch)
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def tiled_conv_schedule(out_hw: Pair, taps_hw: Pair, strides: Pair,
+                        dilation: Pair, c: int, n: int,
+                        tile: Pair | None = None) -> TiledConvSchedule | None:
+    """Kernel C's schedule for an output of ``out_hw`` pixels, ``taps_hw``
+    taps, strides, dilation, C input and N output channels (f32 and int8
+    entries alike); ``tile`` given (a caller's ``sp_tiles``) is kept, else
+    the card's tile is picked.  BN follows N (``tiled_conv_bn``), stepping
+    down (128 -> 64 -> 32) only where the ring's weight slots of every tap
+    would not let the block share its SM (the 7x7 fixture site).  A block
+    holds ``groups`` rows of ``_TC_TM`` pixels, ``gpr`` of them a tile
+    row, so ``T_ow`` is a power-of-two number of pixel groups' columns and
+    ``T_oh`` fills the block.  Of those tiles (clipped to the output) the
+    one that stages the fewest bytes over the plane — halo pixels plus
+    weight rows of every tile, both times C — is taken, ``blocks_sm``
+    blocks an SM first, the wider tile on a tie.  Returns None when no
+    tile fits a block (a caller's tile with too many pixel rows or too
+    much halo)."""
+    out_hw, taps_hw = tuple(out_hw), tuple(taps_hw)
+    strides, dilation = tuple(strides), tuple(dilation)
+    tile = None if tile is None else tuple(tile)
+    top = tiled_conv_bn(n)
+    fallback = None
+    for bn in (top,) if top == 4 else [b for b in (128, 64, 32) if b <= top]:
+        sch = _tc_best(out_hw, taps_hw, strides, dilation, c, bn, tile)
+        if sch is not None and sch.fits_sm:
+            return sch
+        fallback = fallback or sch
+    return fallback
 
 
 def _pow2_tiles(p: int) -> tuple[int, ...]:
@@ -950,9 +1157,9 @@ def _pow2_tiles(p: int) -> tuple[int, ...]:
 
 
 def _best_tile(cands, out_hw: Pair):
-    """The tile of least staged halo over the plane (tiles x halo pixels):
-    two blocks per SM first, then the least halo, then the widest tile.
-    ``cands`` are ``(tile, tin_h, tin_w, smem)``."""
+    """Kernel D's tile of least staged halo over the plane (tiles x halo
+    pixels): two blocks per SM first, then the least halo, then the widest
+    tile.  ``cands`` are ``(tile, tin_h, tin_w, smem)``."""
     best = None
     for tile, tin_h, tin_w, smem in cands:
         if smem > SMEM_BLOCK_MAX:
@@ -966,21 +1173,12 @@ def _best_tile(cands, out_hw: Pair):
 
 def pick_block_tile_single(out_hw: Pair, taps_hw: Pair, strides: Pair,
                            dilation: Pair, n: int) -> Pair | None:
-    """Kernel C's spatial output tile ``(T_oh, T_ow)`` for one block, or
-    None when no tile's halo and weight stages fit one block: the block's
-    pixel slots split as ``P/T_ow x T_ow`` (``T_ow`` a power of two),
-    clipped to the plane, scored by ``_best_tile``."""
-    (oh, ow), (r, s) = out_hw, taps_hw
-    config = tiled_config(n, r * s)
-    p = tiled_block_pixels(config)
-    cands = []
-    for tw in _pow2_tiles(p):
-        th, tw_ = min(p // tw, oh), min(tw, ow)
-        tin_h = halo_extent(th, r, strides[0], dilation[0])
-        tin_w = halo_extent(tw_, s, strides[1], dilation[1])
-        cands.append(((th, tw_), tin_h, tin_w,
-                      tiled_smem_bytes(config, tin_h, tin_w, r * s)))
-    return _best_tile(cands, out_hw)
+    """Kernel C's spatial output tile ``(T_oh, T_ow)`` for one block: the
+    tile of ``tiled_conv_schedule``, or None when none fits a block (the
+    tile does not depend on C)."""
+    sch = tiled_conv_schedule(tuple(out_hw), tuple(taps_hw), tuple(strides),
+                              tuple(dilation), _TC_CK, n)
+    return None if sch is None else sch.tile
 
 
 def _phase_slots(config: int, tile: Pair) -> int:
@@ -1124,15 +1322,16 @@ def untangled_deconv2d_tiled_ref(xg: torch.Tensor, superpack: torch.Tensor,
 
 
 def _tiled_vec_ok(n: int, tensors) -> int:
-    """Kernels C's and D's vector path: N % 4 == 0 and the weights and the
-    output aligned for 4-element loads and stores (the halo is staged one
-    element at a time, so C takes any value)."""
+    """Kernels C's and D's weight and output vector path: N % 4 == 0 and
+    the weights and the output aligned for 4-element loads and stores (D
+    stages its halo one element at a time, so its C takes any value; C's
+    plane path is ``_vec_ok(c, 4, (x,))``)."""
     return int(n % 4 == 0 and all(
         t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
 
 
 # the C entries' parameters, as for kernels A and B
-_CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
+_CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 27
                         + [ctypes.c_void_p])
 _DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
                           + [ctypes.c_void_p])
@@ -1168,32 +1367,31 @@ def _check_grid(name: str, b: int, n: int, config: int):
 
 def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
                        tile: Pair):
-    """Kernel C (or its int8 entry) on ``tile``-sized blocks; raises when
-    the tile does not fit one block."""
+    """Kernel C (or its int8 entry) on ``tile``-sized blocks, as
+    ``tiled_conv_schedule`` lays them out; raises when the tile does not
+    fit one block."""
     b, hp, wp, c = x.shape
     _, oh, ow, n = y.shape
     r, s = taps_hw
-    config = tiled_config(n, r * s)
-    if tile[0] * tile[1] > tiled_block_pixels(config):
-        config = 2                      # the most pixel slots a block has
-    if tile[0] * tile[1] > tiled_block_pixels(config):
-        raise ValueError(f"kernel C: tile {tile} has more pixels than a "
-                         f"block's {tiled_block_pixels(config)}")
-    tin_h = halo_extent(tile[0], r, strides[0], dilation[0])
-    tin_w = halo_extent(tile[1], s, strides[1], dilation[1])
-    if tiled_smem_bytes(config, tin_h, tin_w, r * s) > SMEM_BLOCK_MAX:
-        raise ValueError(f"kernel C: tile {tile} needs more shared memory "
-                         f"than a block has")
-    _check_grid("kernel C", b, n, config)
+    sch = tiled_conv_schedule((oh, ow), tuple(taps_hw), tuple(strides),
+                              tuple(dilation), c, n, tuple(tile))
+    if sch is None:
+        raise ValueError(f"kernel C: tile {tile} does not fit one block "
+                         f"(its pixel rows or its halo)")
+    grid = sch.grid(b, n)
+    if grid[0] > _INT32_MAX or max(grid[1:]) > _GRID_YZ_MAX:
+        raise ValueError(f"kernel C: batch {b} or N {n} beyond the launch "
+                         f"grid")
     weights = (superpack.data_ptr(),) if scales is None else (
         superpack.data_ptr(), scales.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _conv_tiled_entry(scales is not None)(
             x.data_ptr(), *weights, y.data_ptr(), b, hp, wp, c, n, oh, ow,
-            r, s, strides[0], strides[1], dilation[0], dilation[1], tile[0],
-            tile[1], tin_h, tin_w, -(-oh // tile[0]), -(-ow // tile[1]),
-            config, _tiled_vec_ok(n, (superpack, y)), stream)
+            r, s, strides[0], strides[1], dilation[0], dilation[1],
+            *sch.tile, *sch.halo, sch.pitch, *sch.tiles, sch.gpr, sch.pd,
+            sch.bn, sch.path, sch.stages, _vec_ok(c, 4, (x,)),
+            _tiled_vec_ok(n, (superpack, y)), stream)
     if rc != 0:
         raise RuntimeError(f"kernel C launch failed: cudaError {rc}")
 

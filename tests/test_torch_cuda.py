@@ -514,7 +514,10 @@ def test_serve_segnet_int8_on_the_card(cuda_device):
 # (name, b, hp, wp, c, n, r, s, strides, dilation, tile) on a pre-padded
 # plane: the geometries of tests/test_tiled_kernels.py's SINGLE_CASES with
 # their tiles, then C = 3 and N = 3 (the scalar paths), a 7x7 site (the
-# CK = 4 block) and a U-Net-like strided site; tile None takes the card's
+# run-time tap loop) and a U-Net-like strided site; then a 3x3 site at
+# every BN (4, 32, 64, 128, the last over two N tiles), the stem's C = 3, a
+# stride-2 site, d = 2 and d = 4 sites (pixels spaced d apart) and a ragged
+# C not divisible by 4 (4-byte plane copies); tile None takes the card's
 # own (pick_block_tile_single)
 TILED_CONV_CASES = [
     ("ragged_edge", 2, 13, 11, 5, 7, 3, 2, (1, 1), (1, 1), (4, 4)),
@@ -528,6 +531,15 @@ TILED_CONV_CASES = [
     ("c32_n3", 2, 34, 34, 32, 3, 3, 3, (1, 1), (1, 1), None),
     ("k7_n256", 1, 30, 29, 16, 256, 7, 7, (1, 1), (1, 1), None),
     ("s2_c32_n64", 2, 66, 66, 32, 64, 3, 3, (2, 2), (1, 1), None),
+    ("bn4_n4", 2, 42, 40, 8, 4, 3, 3, (1, 1), (1, 1), None),
+    ("bn32_n32", 2, 42, 40, 16, 32, 3, 3, (1, 1), (1, 1), None),
+    ("bn64_n48", 1, 42, 40, 16, 48, 3, 3, (1, 1), (1, 1), None),
+    ("bn128_n160", 1, 26, 24, 8, 160, 3, 3, (1, 1), (1, 1), None),
+    ("stem_c3_n32", 2, 66, 66, 3, 32, 3, 3, (1, 1), (1, 1), None),
+    ("s2_c16_n32", 2, 65, 65, 16, 32, 3, 3, (2, 2), (1, 1), None),
+    ("d2_c8_n32", 1, 44, 44, 8, 32, 3, 3, (1, 1), (2, 2), None),
+    ("d4_c8_n16", 1, 52, 52, 8, 16, 3, 3, (1, 1), (4, 4), None),
+    ("ragged_c10_n32", 1, 30, 30, 10, 32, 3, 3, (1, 1), (1, 1), None),
 ]
 # (name, b, h, w, c, n, k, stride, pads, tile): tests/test_tiled_kernels.py's
 # DECONV_CASES (DCGAN and cGAN phases, an empty phase, stride 1) with their
@@ -590,9 +602,10 @@ def _phase_bound(plan, x, kern, c):
                          ids=[c[0] for c in TILED_CONV_CASES])
 def test_tiled_conv_kernel_within_ulp_bound_f32_and_int8(case, cuda_device):
     """Kernel C and its plain version within the f64 ULP bound on a
-    NaN-poisoned output; its int8 entry bit-equal to the f32 entry on the
-    dequantized superpack (an all-zero row included), and within the bound
-    of the dequantized kernel."""
+    NaN-poisoned output, two launches bit-equal; its int8 entry bit-equal
+    to the f32 entry on the dequantized superpack (an all-zero row
+    included), to its own second launch, and within the bound of the
+    dequantized kernel."""
     _, b, hp, wp, c, n, r, s, strides, dil, _ = case
     x, kern, sp, kw = tiled_conv_case(case, cuda_device)
     torch.full((b * hp * wp * n,), float("nan"), device=cuda_device)
@@ -600,6 +613,8 @@ def test_tiled_conv_kernel_within_ulp_bound_f32_and_int8(case, cuda_device):
     y = tk.untangled_conv2d_superpack(x, sp, **kw)
     torch.cuda.synchronize()
     assert tk.untangled_conv2d_superpack.launches_tiled == launches + 1
+    torch.full((b * hp * wp * n,), float("nan"), device=cuda_device)
+    assert torch.equal(tk.untangled_conv2d_superpack(x, sp, **kw), y)
     y_ref = tk.untangled_conv2d_superpack_tiled_ref(x, sp, **kw)
     y64, amax = ref.conv_oracle_f64(x, kern, strides=strides, dilation=dil)
     bound = ref.ulp_bound(y64, amax, r * s * c)
@@ -615,6 +630,9 @@ def test_tiled_conv_kernel_within_ulp_bound_f32_and_int8(case, cuda_device):
     torch.cuda.synchronize()
     assert tk.untangled_conv2d_superpack.launches_tiled_int8 == launches + 1
     assert torch.equal(y_i8, y_f)
+    torch.full((b * hp * wp * n,), float("nan"), device=cuda_device)
+    assert torch.equal(
+        tk.untangled_conv2d_superpack(x, q, scales=scale, **kw), y_i8)
     y64, amax = ref.conv_oracle_f64(x, wd.reshape(r, s, c, n),
                                     strides=strides, dilation=dil)
     bound = ref.ulp_bound(y64, amax, r * s * c)

@@ -306,7 +306,8 @@ def test_small_unet_tiled_verdict_under_shrunk_budgets(base, budget, want,
 def test_block_tiles_fit_one_block():
     """Every tiled 'cuda' route's tile fits one block: its pixels in the
     block's slots and its halo and weight stages in the block's shared
-    memory (two blocks an SM at the U-Net's sites)."""
+    memory; at the U-Net's sites, kernel D's two blocks an SM and kernel
+    C's blocks an SM as its schedule states them."""
     checked = 0
     sites = [(name, spec) for name, spec in route_specs()
              if spec.spatial == (1, 1)]
@@ -327,10 +328,18 @@ def test_block_tiles_fit_one_block():
         else:
             (r, s), st = spec.kernel_hw, spec.strides
             d = spec.dilation if spec.kind == "dilated" else (1, 1)
-            cfg = tk.tiled_config(n, r * s)
-            tin = (tk.halo_extent(tile[0], r, st[0], d[0]),
-                   tk.halo_extent(tile[1], s, st[1], d[1]))
-            pixels, taps = tile[0] * tile[1], r * s
+            hp = spec.in_hw[0] + sum(spec.padding[0])
+            wp = spec.in_hw[1] + sum(spec.padding[1])
+            out = tk.single_out_hw(hp, wp, (r, s), st, d)
+            sch = tk.tiled_conv_schedule(out, (r, s), st, d, spec.in_c, n,
+                                         tile)
+            assert sch is not None and sch.tile == tile, name
+            assert tile[0] * sch.gpr <= sch.groups, name
+            assert sch.smem_bytes <= tk.SMEM_BLOCK_MAX, name
+            if name in dict(junet.unet_sites(UNET_512)):
+                assert sch.blocks_sm * (sch.smem_bytes + tk.SMEM_RESERVED) \
+                    <= tk.SMEM_SM, name
+            continue
         assert pixels <= tk.tiled_block_pixels(cfg), name
         smem = tk.tiled_smem_bytes(cfg, *tin, taps)
         assert smem <= tk.SMEM_BLOCK_MAX, name
