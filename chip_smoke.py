@@ -7,10 +7,10 @@ result line) if anything is off:
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from this checkout's sources (one
    ``nvcc`` per source, all started together), with ``-Xptxas -v``'s
-   registers, stack frames and spills (kernels F, A, B and C per
-   instantiation on lines of their own; a kernel-A, B or C instantiation
-   that spills fails, and so does a kernel-C instantiation with a stack
-   frame);
+   registers, stack frames and spills (kernels F, A, B, C and D per
+   instantiation on lines of their own; a kernel-A, B, C or D
+   instantiation that spills fails, and so does a kernel-C or D
+   instantiation with a stack frame);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
    DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
@@ -80,9 +80,14 @@ result line) if anything is off:
    (``tiled_conv_schedule``: tile, BN, tap loop, halo, ring, blocks an
    SM);
 2f. kernel D (``untangled_deconv2d`` with ``sp_tiles=``) and its int8 entry
-   the same way, at the U-Net's tiled up0 (512 px, B = 1) and the
-   geometries of ``DECONV_CASES`` (DCGAN and cGAN phases, an empty phase,
-   stride 1), empty phases written as zeros;
+   the same way, at the U-Net's tiled up0 (512 px, B = 1; there the
+   cropped ``F.conv_transpose2d`` of phase 4d too), the geometries of
+   ``DECONV_CASES`` (DCGAN and cGAN phases, an empty phase, stride 1) and
+   each path and edge on the card's tiles (the shared-window path at k4
+   s2, the run-time path at k5 s2, nine phases, C % 4 != 0, N not a
+   multiple of BN, BN 4 and 128), empty phases written as zeros; each
+   site's schedule (``tiled_deconv_schedule``: tap loop, BN, register
+   split, tile, halo, ring);
 3e. the U-Net on the 'cuda' route, f32 and int8: ``UNET`` (32 px) at B = 1
    and 64 and a 512 px image at B = 1 and 16, one ``unet_apply`` per bucket
    with the launches counted per kernel (512 px: 4 C + 1 D + 4 B + 1 A; 32
@@ -91,9 +96,10 @@ result line) if anything is off:
    model within ``0.15·max|y32| + 1e-3`` of its f32 twin, and an 8-step
    ``denoise_loop`` at 512 px that stays finite;
 4d. times of kernels C and D (f32 and int8) at every tiled 512 px site at
-   B = 1 and 16 beside the plain version, ``F.conv2d`` (kernel C; none
-   expresses up0's padding in one call) and the bound, with kernel C's
-   schedule; the U-Net forward per
+   B = 1 and 16 beside the plain version, the library (kernel C:
+   ``F.conv2d``; kernel D: ``F.conv_transpose2d`` at ``padding=0``
+   cropped to up0's pad (1, 3), one call and a view) and the bound, with
+   the schedules and D's device times; the U-Net forward per
    bucket, and one 512 px forward's device time by kernel, its busy share
    and kernel B's share of the device time;
 2g. kernel F (``flash_attention``) against its plain version and the f64
@@ -191,13 +197,23 @@ TILED_CONV_CASES = [
     ("k7_n256", 1, 30, 29, 16, 256, 7, 7, 1, 1, None),
 ]
 # kernel D cases beside up0: (name, b, h, c, n, k, stride, pads, tile), the
-# geometries of DECONV_CASES (square planes)
+# geometries of DECONV_CASES (square planes), then on the card's tiles
+# (tile None) each path and edge: the shared-window path at k4 s2 (up0's
+# widths over ragged tiles; C % 4 != 0 with N not a multiple of BN; BN 128
+# over two N tiles; BN 4 with N = 3), the run-time path at k5 s2 with N
+# not a multiple of BN, nine phases of one shared window (run-time)
 TILED_DECONV_CASES = [
     ("dcgan_k5s2", 2, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), (3, 3)),
     ("cgan_k4s2", 1, 8, 5, 4, 4, 2, ((1, 3), (1, 3)), (8, 2)),
     ("empty_phase_k2s3", 2, 6, 5, 4, 2, 3, ((0, 0), (0, 0)), (2, 3)),
     ("stride_1", 1, 7, 4, 3, 3, 1, ((1, 1), (1, 1)), (3, 2)),
     ("dcgan_card_tile", 2, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), None),
+    ("shared_k4s2_up0_widths", 2, 37, 64, 32, 4, 2, ((1, 3), (1, 3)), None),
+    ("shared_k4s2_c10_n48", 1, 20, 10, 48, 4, 2, ((1, 3), (1, 3)), None),
+    ("shared_k4s2_n160", 1, 12, 8, 160, 4, 2, ((1, 3), (1, 3)), None),
+    ("shared_k4s2_n3", 2, 16, 8, 3, 4, 2, ((1, 3), (1, 3)), None),
+    ("runtime_k5s2_c16_n40", 1, 16, 16, 40, 5, 2, ((2, 3), (2, 3)), None),
+    ("runtime_k6s3_nine_phases", 1, 9, 8, 8, 6, 3, ((2, 5), (2, 5)), None),
 ]
 
 
@@ -284,7 +300,7 @@ def ms_text(v, fmt=".4f"):
 
 def ptxas_report(log: str) -> list[dict]:
     """Registers, stack frame and spills of each kernel instantiation
-    (kernel F's, kernel A's, B's and C's and the reductions), from an
+    (kernel F's, kernel A's, B's, C's and D's and the reductions), from an
     ``nvcc -Xptxas -v`` log: [{"kernel", "registers", "stack_frame",
     "spill_stores", "spill_loads"}], the kernel
     named by its symbol and template arguments (int8_t for the int8
@@ -295,7 +311,8 @@ def ptxas_report(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(flash_fwd\w*?_kernel"
                       r"|deconv_kernel|deconv_thin_kernel|deconv_split_reduce"
-                      r"|conv_tiled_kernel|conv_kernel|conv_split_reduce)"
+                      r"|deconv_tiled_kernel|conv_tiled_kernel|conv_kernel"
+                      r"|conv_split_reduce)"
                       r"(?:I(\w*?)EEv|E)", line)
         if m:
             args = [names[kind](v) if kind else
@@ -338,6 +355,28 @@ def library_args(x, kernel, strides, padding):
     w = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
     return (x.permute(0, 3, 1, 2).contiguous(), w,
             dict(stride=tuple(strides), padding=pad, output_padding=out_pad))
+
+
+def cropped_library_args(x, kernel, strides, padding):
+    """``F.conv_transpose2d`` arguments computing the port's transposed conv
+    where ``library_args`` finds no form (the cGAN's and the U-Net's pad
+    (1, 3), whose ``output_padding`` would equal the stride): the full
+    transposed conv (``padding=0``) cropped to the rows and columns from
+    ``R - 1 - pad_lo``, as many as the padded conv has (``pad_hi <= R -
+    1``); one call and a view.  Returns (NCHW input, (C_in, C_out, kH, kW)
+    kernel, keywords, (row slice, column slice))."""
+    r, s = kernel.shape[:2]
+    (plh, phh), (plw, phw) = padding
+    if not (0 <= plh <= r - 1 and 0 <= phh <= r - 1
+            and 0 <= plw <= s - 1 and 0 <= phw <= s - 1):
+        raise ValueError(f"padding {padding} has no cropped form")
+    oh = (x.shape[1] - 1) * strides[0] + 1 + plh + phh - r + 1
+    ow = (x.shape[2] - 1) * strides[1] + 1 + plw + phw - s + 1
+    crop = (slice(r - 1 - plh, r - 1 - plh + oh),
+            slice(s - 1 - plw, s - 1 - plw + ow))
+    w = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    return (x.permute(0, 3, 1, 2).contiguous(), w,
+            dict(stride=tuple(strides)), crop)
 
 
 def conv_library_args(xp, kernel, strides, dilation):
@@ -696,6 +735,7 @@ def main() -> int:
         _MIN_SLICE as MIN_SLICE, SMS, conv_schedule, deconv_schedule,
         pick_block_tile_single,
         pick_block_tile_transposed, single_out_hw, tiled_conv_schedule,
+        tiled_deconv_schedule,
         untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
         untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
         untangled_deconv2d_ref, untangled_deconv2d_tiled_ref)
@@ -730,26 +770,29 @@ def main() -> int:
     a_ptxas = ptxas_report(logs.get("untangled_deconv", ""))
     b_ptxas = ptxas_report(logs.get("untangled_conv", ""))
     c_ptxas = ptxas_report(logs.get("untangled_conv_tiled", ""))
+    d_ptxas = ptxas_report(logs.get("untangled_deconv_tiled", ""))
     for tag, recs in (("F", f_ptxas), ("A", a_ptxas), ("B", b_ptxas),
-                      ("C", c_ptxas)):
+                      ("C", c_ptxas), ("D", d_ptxas)):
         for rec in recs:
             print(f"[build] kernel {tag} {rec['kernel']}: "
                   f"{rec.get('registers')} registers, "
                   f"{rec.get('stack_frame')} bytes stack frame, "
                   f"{rec.get('spill_stores')} bytes spill stores, "
                   f"{rec.get('spill_loads')} bytes spill loads")
-    for tag, recs in (("A", a_ptxas), ("B", b_ptxas), ("C", c_ptxas)):
+    for tag, recs in (("A", a_ptxas), ("B", b_ptxas), ("C", c_ptxas),
+                      ("D", d_ptxas)):
         spilled = [r["kernel"] for r in recs
                    if r.get("spill_stores") or r.get("spill_loads")]
         if len(recs) < 2 or spilled:
             raise RuntimeError(f"kernel {tag} instantiations that spill: "
                                f"{spilled} (of {len(recs)} reported)")
-    # kernel C keeps its ring slots as offsets, never as pointer arrays in
-    # local memory: every instantiation has no stack frame
-    framed = [r["kernel"] for r in c_ptxas if r.get("stack_frame") != 0]
+    # kernels C and D keep their ring slots as offsets, never as pointer
+    # arrays in local memory: every instantiation has no stack frame
+    framed = [r["kernel"] for r in c_ptxas + d_ptxas
+              if r.get("stack_frame") != 0]
     if framed:
-        raise RuntimeError(f"kernel C instantiations with a stack frame "
-                           f"(local memory): {framed}")
+        raise RuntimeError(f"kernel C or D instantiations with a stack "
+                           f"frame (local memory): {framed}")
 
     gen = torch.Generator().manual_seed(0)
 
@@ -1157,6 +1200,19 @@ def main() -> int:
                                   sum_uv=plan.sum_uv, sp_tiles=tile,
                                   **scales)
 
+    def tiled_deconv_schedule_of(plan, c, n, tile):
+        """Kernel D's layout of one call: tap loop, BN, register split
+        (pixels x phases a thread, threads a block, blocks an SM), tile,
+        pixel groups a tile row and a phase, staged halo and row pitch,
+        ring stages, shared memory, tiles."""
+        sch = tiled_deconv_schedule(tuple(plan.phases), plan.out_hw, c, n,
+                                    tuple(tile))
+        return {"path": sch.path, "bn": sch.bn,
+                "split": (sch.tm, sch.tp, sch.threads, sch.blocks_sm),
+                "tile": sch.tile, "gpr": sch.gpr, "gpp": sch.gpp,
+                "halo": sch.halo, "pitch": sch.pitch, "stages": sch.stages,
+                "smem_bytes": sch.smem_bytes, "tiles": sch.tiles}
+
     d_cases = [(f"unet512_{name}_B1", 1, p.spec.in_hw[0], p.spec.in_c,
                 p.spec.out_c, p.spec.kernel_hw[0], p.spec.strides[0],
                 p.spec.padding, p.routes[0].sp_tiles) for name, p in tiled_d]
@@ -1165,8 +1221,7 @@ def main() -> int:
     for name, b, h, c, n, k, s_, pads, tile in d_cases:
         plan = site(h, c, n, k, s_, pads)
         if tile is None:
-            tile = pick_block_tile_transposed(plan.phases, n,
-                                              plan.total_taps)
+            tile = pick_block_tile_transposed(plan.phases, n)
         x, kern = randn(b, h, h, c), randn(k, k, c, n)
         packed = plan.pack(kern)
         q, scale, wd = int8_of(packed)
@@ -1176,20 +1231,35 @@ def main() -> int:
         y_k = tiled_deconv_call(plan, xg, packed, tile)
         y_r = tiled_deconv_call(plan, xg, packed, tile, plain=True)
         poison(numel)
+        again = torch.equal(tiled_deconv_call(plan, xg, packed, tile), y_k)
+        poison(numel)
         y_k8 = tiled_deconv_call(plan, xg, q, tile, scales=scale)
         y_r8 = tiled_deconv_call(plan, xg, q, tile, plain=True, scales=scale)
         y_f = tiled_deconv_call(plan, xg, wd, tile)
+        poison(numel)
+        again8 = torch.equal(
+            tiled_deconv_call(plan, xg, q, tile, scales=scale), y_k8)
+        # the library yardstick of the U-Net's up sites (phase 4d), held to
+        # the same f64 bound before it is timed there
+        y_lib = None
+        if name.startswith("unet512_"):
+            xl, wl, kw, crop = cropped_library_args(x, kern, (s_, s_), pads)
+            y_lib = F.conv_transpose2d(xl, wl, **kw)[:, :, crop[0], crop[1]]
+            y_lib = y_lib.permute(0, 2, 3, 1)
+            del xl
         torch.cuda.synchronize()
         terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
         for ex in plan.phases:
             terms[ex.q[0]::s_, ex.q[1]::s_] = ex.taps[0] * ex.taps[1] * c
-        oks = []
+        oks, lib_ok = [], None
         for yk, yr, w_ in ((y_k, y_r, kern), (y_k8, y_r8, plan.unpack(wd))):
             y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s_, s_)),
                                             w_, padding=pads)
             bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
             oks += [bool(((yk.double() - y64).abs() <= bound).all()),
                     bool(((yr.double() - y64).abs() <= bound).all())]
+            if y_lib is not None and lib_ok is None:
+                lib_ok = bool(((y_lib.double() - y64).abs() <= bound).all())
             del y64, amax, bound
         bit = torch.equal(y_k8, y_f)
         empty_ok = all(not bool(y[:, ex.q[0]::s_, ex.q[1]::s_].ne(0).any())
@@ -1201,9 +1271,14 @@ def main() -> int:
         print(f"[kernel D] {name}: out {tuple(y_k.shape)} tile {tile} "
               f"|kernel-plain| f32 {err:.3e} int8 {err8:.3e}; within "
               f"ulp_bound (f32 kernel, plain, int8 kernel, plain) {oks}; "
-              f"int8 bit-equal to f32 on dequant {bit}; empty phases zero "
-              f"{empty_ok}")
-        if not (all(oks) and bit and empty_ok and torch.isfinite(y_k).all()
+              f"int8 bit-equal to f32 on dequant {bit}; two launches "
+              f"bit-equal f32 {again} int8 {again8}; empty phases zero "
+              f"{empty_ok}"
+              + ("" if lib_ok is None else f"; the cropped "
+                 f"F.conv_transpose2d within ulp_bound {lib_ok}")
+              + f"; schedule {tiled_deconv_schedule_of(plan, c, n, tile)}")
+        if not (all(oks) and bit and again and again8 and empty_ok
+                and lib_ok is not False and torch.isfinite(y_k).all()
                 and torch.isfinite(y_k8).all()):
             raise RuntimeError(f"kernel D disagrees on {name}")
 
@@ -1696,7 +1771,7 @@ def main() -> int:
         on the dequantized weights, the plain version and the library call
         (already checked against the kernel); the bound counts the input,
         1 B per code, 4 B per scale row and the f32 output.  With kernel
-        A's or B's ``schedule``, also the three calls' device times."""
+        A's, B's or D's ``schedule``, also the three calls' device times."""
         bound, by = bound_of(flops, in_bytes + 4 * out_numel)
         rec = {"site": name, "batch": b, "flops": flops,
                "bytes": in_bytes + 4 * out_numel,
@@ -1837,51 +1912,65 @@ def main() -> int:
             tile = plan.routes[0].sp_tiles
             x = randn(b, *sp_.in_hw, sp_.in_c)
             xg = pad_or_crop(x, plan.gpad).contiguous()
-            packed = plan.pack(randn(*sp_.kernel_hw, sp_.in_c, sp_.out_c))
+            kern = randn(*sp_.kernel_hw, sp_.in_c, sp_.out_c)
+            packed = plan.pack(kern)
             q, scale, wd = int8_of(packed)
+            # the library: F.conv_transpose2d at padding 0, cropped (one
+            # call and a view; phase 2f held it to the f64 bound)
+            xl, wl, kw, crop = cropped_library_args(x, kern, sp_.strides,
+                                                    sp_.padding)
+            _, wl8, _, _ = cropped_library_args(x, plan.unpack(wd),
+                                                sp_.strides, sp_.padding)
+
+            def library(w_=wl):
+                return F.conv_transpose2d(xl, w_, **kw)[:, :, crop[0],
+                                                        crop[1]]
             y_k = tiled_deconv_call(plan, xg, packed, tile)
+            lib_err = check_library(f"{name} B={b}",
+                                    library().permute(0, 2, 3, 1), y_k)
             flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
                             * ex.taps[1] for ex in plan.phases) \
                 * sp_.in_c * sp_.out_c
             nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
             bound, by = bound_of(flops, nbytes)
+            sched = tiled_deconv_schedule_of(plan, sp_.in_c, sp_.out_c,
+                                             tile)
             rec = {"site": name, "batch": b, "flops": flops,
-                   "bytes": nbytes, "tile": tile,
+                   "bytes": nbytes, "tile": tile, "schedule": sched,
                    "ms": time_ms(lambda: tiled_deconv_call(
+                       plan, xg, packed, tile)),
+                   "device_ms": call_device_ms(lambda: tiled_deconv_call(
                        plan, xg, packed, tile)),
                    "plain_ms": time_ms(lambda: tiled_deconv_call(
                        plan, xg, packed, tile, plain=True), iters=5),
                    "whole_plane_ms": time_ms(lambda: kernel_call(
                        plan, xg, packed)),
-                   # deconv_padding(4, 2) has no one-call conv_transpose2d
-                   # form (output_padding would equal the stride)
-                   "library_ms": None, "bound_ms": bound, "bound_by": by}
+                   "library_ms": time_ms(library),
+                   "library_device_ms": call_device_ms(library),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_max_abs_err": lib_err}
             d_sites.append(rec)
             print(f"[time D] {name} B={b} tile {tile}: kernel "
-                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                  f"kernel A (whole plane) {rec['whole_plane_ms']:.4f} ms, "
-                  f"library none (no one-call form of the pad), bound "
+                  f"{rec['ms']:.4f} ms (device "
+                  f"{ms_text(rec['device_ms'])}), plain "
+                  f"{rec['plain_ms']:.4f} ms, kernel A (whole plane) "
+                  f"{rec['whole_plane_ms']:.4f} ms, library (cropped "
+                  f"F.conv_transpose2d) {rec['library_ms']:.4f} ms (device "
+                  f"{ms_text(rec['library_device_ms'])}), bound "
                   f"{bound:.4f} ms ({by}), kernel at {bound / rec['ms']:.1%}"
-                  f" of bound")
-            b8, by8 = bound_of(flops, 4 * xg.numel() + q.numel()
-                               + 4 * scale.numel() + 4 * y_k.numel())
-            rec8 = {"site": f"D {name}", "batch": b, "flops": flops,
-                    "bytes": 4 * xg.numel() + q.numel() + 4 * scale.numel()
-                    + 4 * y_k.numel(),
-                    "ms": time_ms(lambda: tiled_deconv_call(
-                        plan, xg, q, tile, scales=scale)),
-                    "f32_ms": time_ms(lambda: tiled_deconv_call(
-                        plan, xg, wd, tile)),
-                    "plain_ms": time_ms(lambda: tiled_deconv_call(
-                        plan, xg, q, tile, plain=True, scales=scale),
-                        iters=5),
-                    "library_ms": None, "bound_ms": b8, "bound_by": by8}
-            di8_sites.append(rec8)
-            print(f"[time int8] D {name} B={b}: int8 kernel "
-                  f"{rec8['ms']:.4f} ms, f32 kernel {rec8['f32_ms']:.4f} ms,"
-                  f" plain {rec8['plain_ms']:.4f} ms, bound {b8:.4f} ms "
-                  f"({by8})")
-            del x, xg, y_k
+                  f" of bound; schedule {sched}")
+            y_k8 = tiled_deconv_call(plan, xg, q, tile, scales=scale)
+            lib_err8 = check_library(f"{name} int8 B={b}",
+                                     library(wl8).permute(0, 2, 3, 1), y_k8)
+            di8_sites.append(time_int8(
+                f"D {name}", b, flops,
+                4 * xg.numel() + q.numel() + 4 * scale.numel(), y_k8.numel(),
+                lambda: tiled_deconv_call(plan, xg, q, tile, scales=scale),
+                lambda: tiled_deconv_call(plan, xg, wd, tile),
+                lambda: tiled_deconv_call(plan, xg, q, tile, plain=True,
+                                          scales=scale),
+                lambda: library(wl8), lib_err8, schedule=sched))
+            del x, xg, xl, y_k, y_k8
     unet_ms = {}
     with torch.inference_mode():
         for cfg_u, batches in ((unet32, BATCH_BUCKETS),

@@ -449,7 +449,7 @@ def _transposed_route_1dev(spec: ConvSpec, hg: int, wg: int, out_hw: Pair,
         sp = None
         if total_taps and _transposed_tiled_verdict(
                 spec, hg, wg, out_hw, total_taps, sum_uv, uniform, phases):
-            sp = pick_block_tile_transposed(phases, spec.out_c, total_taps)
+            sp = pick_block_tile_transposed(phases, spec.out_c)
         return Route(batch, "cuda", None, sp_tiles=sp)
     ps = _pixel_shuffle_route(spec, phases, batch)
     if ps is not None:

@@ -72,8 +72,8 @@
 // bytes are in flight), 1 byte a weight; once a chunk has landed, each
 // code is dequantized once from shared memory, a chunk ahead of the FFMA
 // loop, into one of two f32 operand tiles with one IEEE multiply by its
-// row's scale (__fmul_rn, the rounding of superpack_load.cuh, of
-// JAX's panel.astype(f32) * scale and of torch's q.float() * scale).  No
+// row's scale (__fmul_rn, the rounding of JAX's panel.astype(f32) *
+// scale and of torch's q.float() * scale).  No
 // arithmetic waits on a global load, and the FFMA loop, tiles, slices and
 // order are the f32 entry's, so the int8 kernel on (q, scale) is bit-equal
 // to the f32 kernel on dequantize(q, scale).  The thin tile dequantizes its

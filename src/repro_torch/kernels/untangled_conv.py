@@ -21,9 +21,9 @@ card and what the design does about it); ``_build`` compiles them with
 Kernel E, the int8 tap panel of the TPU kernels (``_tap_panel``), is each
 kernel's int8 entry: ``scales=`` marks the superpack as int8 codes with one
 f32 scale per row (a ``QuantizedSuperpack``), and the kernel multiplies
-each code by its row's scale into its f32 weight tile (A, B and C from
-the codes their ring brought to shared memory, D as it stages the tile),
-so the int8 kernel on ``(q, scale)`` is bit-equal to the f32 kernel on
+each code by its row's scale into its f32 weight tile (A–D alike, from
+the codes their ring brought to shared memory), so the int8 kernel on
+``(q, scale)`` is bit-equal to the f32 kernel on
 ``dequantize_int8(q, scale)``.
 
 Kernels C and D are the spatially tiled forms of B and A (TPU kernels
@@ -31,14 +31,16 @@ Kernels C and D are the spatially tiled forms of B and A (TPU kernels
 ``sp_tiles=`` on either wrapper names the spatial output tile one thread
 block computes, ``(T_oh, T_ow)`` output pixels for C and ``(T_u, T_v)``
 phase-output pixels for D.  The block stages its tile's halo'd input slice
-in shared memory one C chunk at a time with ``cp.async`` (C through a ring
-of chunks, D double-buffered; ``csrc/untangled_conv_tiled.cu``,
-``csrc/untangled_deconv_tiled.cu``), so every tap reads the one staged
-copy; C's threads each hold 8 pixels of a tile row and read each halo
-value once for all taps of a row.  ``halo_extent`` and ``deconv_tap_span``
-are the reference's halo geometry; ``tiled_conv_schedule`` lays out C's
-block (tile, BN, ring, halo pitch) and ``pick_block_tile_*`` choose a tile
-that fits the block's shared memory.
+in shared memory one 4-channel chunk at a time through a ``cp.async`` ring
+(``csrc/untangled_conv_tiled.cu``, ``csrc/untangled_deconv_tiled.cu``), so
+every tap (and for D every phase) reads the one staged copy; a thread holds
+8 pixels of a tile row (D: times 1–4 phases) and reads each halo value
+once for all taps of a row.  Where D's phases share one 2x2 window
+(k = 2·s), they are extra output columns of one correlation.
+``halo_extent`` and ``deconv_tap_span`` are the reference's halo geometry;
+``tiled_conv_schedule`` and ``tiled_deconv_schedule`` lay out C's and D's
+blocks (tap loop, register split, tile, BN, ring, halo pitch) and
+``pick_block_tile_*`` return their tiles.
 
 Each wrapper launches its kernel for CUDA tensors, and raises on anything
 the kernel does not take.  It takes its plain version (``*_ref``) only for
@@ -507,7 +509,7 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         return y
     if sp_tiles is not None:
         _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
-                             superpack.shape[0] // c, sp_tiles)
+                             sp_tiles)
         if scales is None:
             untangled_deconv2d.launches_tiled += 1
         else:
@@ -903,51 +905,11 @@ def deconv_tap_span(phases) -> tuple[Pair, Pair]:
              max(ex.xoff[1] + ex.taps[1] - 1 for ex in live)))
 
 
-# block configs of kernel D, indexed as in csrc/untangled_deconv_tiled.cu:
-# (BN output channels, TM pixels per thread, CK channels per staged chunk);
-# every thread holds TM pixels x 4 channels in registers, 256 threads a
-# block, so a block computes (256·4/BN)·TM pixel slots x BN channels
-_TILED_CONFIGS = ((64, 8, 8), (32, 4, 8), (4, 4, 8), (64, 8, 4))
-_TILED_THREADS = 256
 # shared memory of one H100 block (227 KB) and of one SM (228 KB, less 1
-# KB reserved per block); the most a block may take for two to share an SM
+# KB reserved per block)
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
 SMEM_RESERVED = 1024
-SMEM_TWO_BLOCKS = 115712
-# weight stages above this (both buffers) take the CK = 4 config
-_TILED_WEIGHT_MAX = 96 * 1024
-
-
-def tiled_config(n: int, total_taps: int) -> int:
-    """The block config of kernel D for N output channels and the
-    superpack's tap count: BN = 4 for N <= 4 (the RGB head), 32 for N <=
-    32, else 64, with the CK = 4 chunk when the 64-wide weight stage of
-    every tap would not leave room for the halo."""
-    if n <= 4:
-        return 2
-    if n <= 32:
-        return 1
-    bn, _, ck = _TILED_CONFIGS[0]
-    return 0 if 2 * 4 * total_taps * ck * bn <= _TILED_WEIGHT_MAX else 3
-
-
-def tiled_block_pixels(config: int) -> int:
-    """Pixel slots of one kernel-D block of ``config``."""
-    bn, tm, _ = _TILED_CONFIGS[config]
-    return _TILED_THREADS * 4 // bn * tm
-
-
-def tiled_smem_bytes(config: int, tin_h: int, tin_w: int,
-                     total_taps: int) -> int:
-    """Dynamic shared memory of one kernel-D block: two halo slots of
-    ``tin_h·tin_w`` pixels x (CK + 1) floats (one float of padding per
-    pixel against bank conflicts, each slot rounded to 16 B) and two weight
-    stages of ``total_taps·CK·BN`` floats.  The same formula as
-    ``csrc/tiled_stage.cuh``'s ``smem_bytes``."""
-    bn, _, ck = _TILED_CONFIGS[config]
-    halo = -(-tin_h * tin_w * (ck + 1) // 4) * 4
-    return 4 * (2 * halo + 2 * total_taps * ck * bn)
 
 
 # kernel C (csrc/untangled_conv_tiled.cu): a thread holds _TC_TM output
@@ -989,10 +951,11 @@ def tiled_halo_unit(col: int) -> int:
 
 def tiled_conv_smem_bytes(bn: int, tin_h: int, pitch: int, taps: int,
                           stages: int, int8: bool = False) -> int:
-    """Dynamic shared memory of one kernel-C block: ``stages`` halo slots of
-    ``tin_h`` rows x ``pitch`` 16-byte units and, for f32, as many weight
-    slots of ``taps·4·BN`` floats; int8 keeps two f32 weight tiles and the
-    ring's row scales and codes instead.  The kernel's ``smem_bytes``."""
+    """Dynamic shared memory of one kernel-C or kernel-D block: ``stages``
+    halo slots of ``tin_h`` rows x ``pitch`` 16-byte units and, for f32, as
+    many weight slots of ``taps·4·BN`` floats (D: the superpack's taps of
+    every phase); int8 keeps two f32 weight tiles and the ring's row scales
+    and codes instead.  The kernels' ``smem_bytes``."""
     halo = tin_h * pitch * 16
     wt = 4 * taps * _TC_CK * bn
     if not int8:
@@ -1156,21 +1119,6 @@ def _pow2_tiles(p: int) -> tuple[int, ...]:
     return tuple(1 << i for i in range(p.bit_length()) if (1 << i) <= p)
 
 
-def _best_tile(cands, out_hw: Pair):
-    """Kernel D's tile of least staged halo over the plane (tiles x halo
-    pixels): two blocks per SM first, then the least halo, then the widest
-    tile.  ``cands`` are ``(tile, tin_h, tin_w, smem)``."""
-    best = None
-    for tile, tin_h, tin_w, smem in cands:
-        if smem > SMEM_BLOCK_MAX:
-            continue
-        n_tiles = -(-out_hw[0] // tile[0]) * -(-out_hw[1] // tile[1])
-        key = (smem > SMEM_TWO_BLOCKS, n_tiles * tin_h * tin_w, -tile[1])
-        if best is None or key < best[0]:
-            best = (key, tile)
-    return None if best is None else best[1]
-
-
 def pick_block_tile_single(out_hw: Pair, taps_hw: Pair, strides: Pair,
                            dilation: Pair, n: int) -> Pair | None:
     """Kernel C's spatial output tile ``(T_oh, T_ow)`` for one block: the
@@ -1181,33 +1129,201 @@ def pick_block_tile_single(out_hw: Pair, taps_hw: Pair, strides: Pair,
     return None if sch is None else sch.tile
 
 
-def _phase_slots(config: int, tile: Pair) -> int:
-    """Pixel slots per phase of a kernel-D block: ``T_u·T_v`` rounded up to
-    whole threads (TM pixels each), so no thread spans two phases."""
-    tm = _TILED_CONFIGS[config][1]
-    return -(-tile[0] * tile[1] // tm) * tm
+# kernel D (csrc/untangled_deconv_tiled.cu): C in chunks of _TC_CK channels,
+# as kernel C.  Per (tap loop, BN) the instantiated register splits (TM
+# pixels of a tile row, TP phases a thread, threads a block, blocks an SM
+# asked of ptxas), the schedule's first: the kernel's D_VARIANT lines.  At
+# BN 32 (the U-Net's up0) the second is there for the sweep
+# (tools/time_kernel_d.py --sweep): 8 pixels x 4 phases at one block an SM
+# (255 registers) measured 2-3% faster in f32 than 8 x 2 at two blocks an
+# SM at B = 1 and 16 (8 x 1 and 8 x 2 at 512 threads were slower still)
+_TD_VARIANTS = {
+    (0, 4): ((8, 1, 256, 2),), (0, 32): ((8, 1, 256, 2),),
+    (0, 64): ((8, 1, 256, 2),), (0, 128): ((8, 1, 256, 2),),
+    (1, 4): ((8, 2, 256, 2),),
+    (1, 32): ((8, 4, 256, 1), (8, 2, 256, 2)),
+    (1, 64): ((8, 2, 256, 2),), (1, 128): ((8, 2, 256, 2),)}
+# ring slots, most first: the first whose block fits its share of the SM
+_TD_STAGES = (4, 3)
+_WARP = 32
 
 
-def pick_block_tile_transposed(phases, n: int,
-                               total_taps: int) -> Pair | None:
+def tiled_deconv_path(phases) -> int:
+    """Kernel D's tap loop: 1 where every phase has 2x2 taps at one xoff
+    (k = 2·s: the phases read one halo window and differ only in their
+    weights, so they are extra output columns of one correlation and a
+    thread serves its phases from one read) and phase q's taps are
+    superpack taps 4q .. 4q + 3 (as ``plan_conv`` packs them), else 0
+    (taps and offsets at run time, each phase in its own threads)."""
+    first = phases[0]
+    return int(all(ex.taps == (2, 2) and ex.xoff == first.xoff
+                   and ex.tap_off == 4 * i for i, ex in enumerate(phases)))
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledDeconvSchedule:
+    """How kernel D covers one call: the tap loop ``path``
+    (``tiled_deconv_path``), the block's N width ``bn``, the register split
+    (``tm`` pixels of a tile row x ``tp`` phases x 4 channels a thread,
+    ``threads`` a block, ``blocks_sm`` blocks an SM), the tile ``(T_u,
+    T_v)`` of phase-output pixels, the pixel groups ``gpr`` a tile row and
+    ``gpp`` a phase (path 1: the block's), the staged halo ``(tin_h,
+    tin_w)`` from ``origin`` (the tap span's minimum) and its row ``pitch``
+    in 16-byte units, the ring's ``stages``, the larger of the f32 and int8
+    entries' shared memory, the channel chunk, the tiles over (U, V), the
+    phases, the superpack's taps and C."""
+    path: int
+    bn: int
+    tm: int
+    tp: int
+    threads: int
+    blocks_sm: int
+    tile: Pair
+    gpr: int
+    gpp: int
+    halo: Pair
+    origin: Pair
+    pitch: int
+    stages: int
+    smem_bytes: int
+    chunk: int
+    tiles: Pair
+    phases: int
+    taps: int
+    c: int
+
+    @property
+    def column_groups(self) -> int:
+        """Threads that share a pixel group: its phases (path 1) and
+        channels, ``tp`` x 4 a thread."""
+        return (self.phases // self.tp if self.path == 1 else 1) \
+            * (self.bn // _TC_TN)
+
+    @property
+    def fits_sm(self) -> bool:
+        """Whether ``blocks_sm`` blocks share one SM's shared memory."""
+        return self.blocks_sm * (self.smem_bytes + SMEM_RESERVED) <= SMEM_SM
+
+    def grid(self, b: int, n: int) -> tuple[int, int, int]:
+        return (self.tiles[0] * self.tiles[1], -(-n // self.bn), b)
+
+
+def _td_schedule(tile: Pair, phases, c: int, bn: int, path: int,
+                 variant) -> TiledDeconvSchedule | None:
+    """The schedule of one tile under one register split, with the most
+    stages whose block (either entry) fits its share of the SM; None when
+    the tile does not fit the block's pixel groups or shared memory."""
+    tm, tp, threads, blocks_sm = variant
+    p = len(phases)
+    ncg = (p // tp if path == 1 else 1) * (bn // _TC_TN)
+    if p % tp or threads % ncg:
+        return None
+    gpp = threads // ncg // (1 if path == 1 else p)
+    gpr = -(-tile[1] // tm)
+    if gpp < 1 or tile[0] * gpr > gpp:
+        return None
+    ((mh, xh), (mw, xw)) = deconv_tap_span(phases)
+    tin = (xh - mh + tile[0], xw - mw + gpr * tm)
+    pitch = tiled_halo_unit(tin[1] - 1) + 1
+    taps = sum(ex.taps[0] * ex.taps[1] for ex in phases)
+    share = SMEM_SM // blocks_sm - SMEM_RESERVED
+    for stages in _TD_STAGES:
+        smem = max(tiled_conv_smem_bytes(bn, tin[0], pitch, taps, stages, i8)
+                   for i8 in (False, True))
+        if smem <= share or (stages == _TD_STAGES[-1]
+                             and smem <= SMEM_BLOCK_MAX):
+            break
+    else:
+        return None
+    uu, vv = phases[0].out_hw
+    return TiledDeconvSchedule(
+        path=path, bn=bn, tm=tm, tp=tp, threads=threads, blocks_sm=blocks_sm,
+        tile=tile, gpr=gpr, gpp=gpp, halo=tin, origin=(mh, mw), pitch=pitch,
+        stages=stages, smem_bytes=smem, chunk=_TC_CK,
+        tiles=(-(-uu // tile[0]), -(-vv // tile[1])), phases=p, taps=taps,
+        c=c)
+
+
+def _td_best(phases, c: int, bn: int, path: int, variant,
+             tile: Pair | None) -> TiledDeconvSchedule | None:
+    """The schedule at one BN and split: the caller's tile, or the card's
+    best.  The card's tiles are ``rows x gpr`` pixel groups filling the
+    block (path 0: a phase's share), a warp's groups in one tile row where
+    the plane is that wide (so its span reads fall on distinct bank
+    groups), rows following the columns a narrow plane leaves; of those the tile
+    that stages the fewest bytes over the plane — halo pixels plus weight
+    rows of every tile — is taken, ``blocks_sm`` blocks an SM first, the
+    wider tile on a tie."""
+    if tile is not None:
+        return _td_schedule(tile, phases, c, bn, path, variant)
+    tm, tp, threads, _ = variant
+    p = len(phases)
+    if p % tp:
+        return None
+    ncg = (p // tp if path == 1 else 1) * (bn // _TC_TN)
+    cap = threads // ncg // (1 if path == 1 else p)
+    warp_groups = max(1, _WARP // ncg) if path == 1 else 1
+    uu, vv = phases[0].out_hw
+    best = None
+    for gpr in _pow2_tiles(cap):
+        if gpr < min(cap, warp_groups):
+            continue
+        t_v = min(gpr * tm, vv)
+        cand = (min(cap // -(-t_v // tm), uu), t_v)
+        sch = _td_schedule(cand, phases, c, bn, path, variant)
+        if sch is None:
+            continue
+        key = (not sch.fits_sm,
+               sch.tiles[0] * sch.tiles[1] * (sch.halo[0] * sch.halo[1]
+                                              + sch.taps * bn), -cand[1])
+        if best is None or key < best[0]:
+            best = (key, sch)
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def tiled_deconv_schedule(phases: tuple, out_hw: Pair, c: int, n: int,
+                          tile: Pair | None = None
+                          ) -> TiledDeconvSchedule | None:
+    """Kernel D's schedule for the uniform ``phases`` of an ``out_hw``
+    output, C input and N output channels (f32 and int8 entries alike);
+    ``tile`` given (a caller's ``sp_tiles``) is kept, else the card's tile
+    is picked.  Path 1 (``tiled_deconv_path``) first, with the first split
+    of ``_TD_VARIANTS``, then path 0; BN follows N (``tiled_conv_bn``),
+    stepping down (128 -> 64 -> 32) only where the block would not fit its
+    share of the SM (or its pixel groups would not hold a phase each).
+    Returns None when no layout fits a block (a caller's tile with too many
+    pixel rows or too much halo)."""
+    phases, out_hw = tuple(phases), tuple(out_hw)
+    tile = None if tile is None else tuple(tile)
+    uu, vv = phases[0].out_hw
+    if any(ex.out_hw != (uu, vv) for ex in phases) \
+            or len(phases) * uu * vv != out_hw[0] * out_hw[1]:
+        raise ValueError(f"kernel D needs uniform phases covering {out_hw}")
+    top = tiled_conv_bn(n)
+    bns = (top,) if top == 4 else [b for b in (128, 64, 32) if b <= top]
+    fallback = None
+    for path in (1, 0) if tiled_deconv_path(phases) else (0,):
+        for bn in bns:
+            sch = _td_best(phases, c, bn, path, _TD_VARIANTS[(path, bn)][0],
+                           tile)
+            if sch is not None and sch.fits_sm:
+                return sch
+            fallback = fallback or sch
+    return fallback
+
+
+def pick_block_tile_transposed(phases, n: int) -> Pair | None:
     """Kernel D's spatial tile ``(T_u, T_v)`` in phase-output pixels for
     one block (every phase of the tile in the same block, so each staged
-    halo serves all of them), or None: ``n_phases`` x the per-phase slots
-    must fit the block's pixel slots; scored by ``_best_tile``."""
+    halo serves all of them): the tile of ``tiled_deconv_schedule``, or
+    None when none fits a block (the tile does not depend on C)."""
+    phases = tuple(phases)
     uu, vv = phases[0].out_hw
-    config = tiled_config(n, total_taps)
-    p = tiled_block_pixels(config)
-    ((mh, xh), (mw, xw)) = deconv_tap_span(phases)
-    per_phase = p // len(phases)
-    cands = []
-    for tv in _pow2_tiles(max(1, per_phase)):
-        tile = (min(max(1, per_phase // tv), uu), min(tv, vv))
-        if len(phases) * _phase_slots(config, tile) > p:
-            continue
-        tin_h, tin_w = xh - mh + tile[0], xw - mw + tile[1]
-        cands.append((tile, tin_h, tin_w,
-                      tiled_smem_bytes(config, tin_h, tin_w, total_taps)))
-    return _best_tile(cands, (uu, vv))
+    out_hw = ((1 + max(ex.q[0] for ex in phases)) * uu,
+              (1 + max(ex.q[1] for ex in phases)) * vv)
+    sch = tiled_deconv_schedule(phases, out_hw, _TC_CK, n)
+    return None if sch is None else sch.tile
 
 
 def _tile_windows(x: torch.Tensor, origin: Pair, step: Pair, n_tiles: Pair,
@@ -1323,9 +1439,8 @@ def untangled_deconv2d_tiled_ref(xg: torch.Tensor, superpack: torch.Tensor,
 
 def _tiled_vec_ok(n: int, tensors) -> int:
     """Kernels C's and D's weight and output vector path: N % 4 == 0 and
-    the weights and the output aligned for 4-element loads and stores (D
-    stages its halo one element at a time, so its C takes any value; C's
-    plane path is ``_vec_ok(c, 4, (x,))``)."""
+    the weights and the output aligned for 4-element loads and stores
+    (their plane path is ``_vec_ok(c, 4, (x,))``)."""
     return int(n % 4 == 0 and all(
         t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
 
@@ -1333,7 +1448,7 @@ def _tiled_vec_ok(n: int, tensors) -> int:
 # the C entries' parameters, as for kernels A and B
 _CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 27
                         + [ctypes.c_void_p])
-_DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
+_DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 32
                           + [ctypes.c_void_p])
 
 
@@ -1357,12 +1472,6 @@ def _deconv_tiled_entry(int8: bool = False):
 
 # the grid's y (N tiles) and z (images) extents
 _GRID_YZ_MAX = 65535
-
-
-def _check_grid(name: str, b: int, n: int, config: int):
-    if b > _GRID_YZ_MAX or -(-n // _TILED_CONFIGS[config][0]) > _GRID_YZ_MAX:
-        raise ValueError(f"{name}: batch {b} or N {n} beyond the launch "
-                         f"grid")
 
 
 def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
@@ -1397,26 +1506,20 @@ def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
 
 
 def _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
-                         total_taps: int, tile: Pair):
-    """Kernel D (or its int8 entry) on ``tile``-sized blocks; raises when
-    the tile does not fit one block."""
+                         tile: Pair):
+    """Kernel D (or its int8 entry) on ``tile``-sized blocks, as
+    ``tiled_deconv_schedule`` lays them out; raises when the tile does not
+    fit one block."""
     b, hg, wg, c = xg.shape
     _, oh, ow, n = y.shape
-    uu, vv = phases[0].out_hw
-    config = tiled_config(n, total_taps)
-    if len(phases) * _phase_slots(config, tile) > tiled_block_pixels(config):
-        config = 2                      # the most pixel slots a block has
-    slots = _phase_slots(config, tile)
-    if len(phases) * slots > tiled_block_pixels(config):
-        raise ValueError(f"kernel D: {len(phases)} phases of tile {tile} "
-                         f"need more pixel slots than a block's "
-                         f"{tiled_block_pixels(config)}")
-    ((mh, xh_max), (mw, xw_max)) = deconv_tap_span(phases)
-    tin_h, tin_w = xh_max - mh + tile[0], xw_max - mw + tile[1]
-    if tiled_smem_bytes(config, tin_h, tin_w, total_taps) > SMEM_BLOCK_MAX:
-        raise ValueError(f"kernel D: tile {tile} needs more shared memory "
-                         f"than a block has")
-    _check_grid("kernel D", b, n, config)
+    sch = tiled_deconv_schedule(phases, (oh, ow), c, n, tuple(tile))
+    if sch is None:
+        raise ValueError(f"kernel D: tile {tile} does not fit one block "
+                         f"(its pixel rows or its halo)")
+    grid = sch.grid(b, n)
+    if grid[0] > _INT32_MAX or max(grid[1:]) > _GRID_YZ_MAX:
+        raise ValueError(f"kernel D: batch {b} or N {n} beyond the launch "
+                         f"grid")
     table = _phase_table(phases, xg.device)
     weights = (superpack.data_ptr(),) if scales is None else (
         superpack.data_ptr(), scales.data_ptr())
@@ -1424,9 +1527,10 @@ def _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         rc = _deconv_tiled_entry(scales is not None)(
             xg.data_ptr(), *weights, table.data_ptr(), y.data_ptr(), b, hg,
-            wg, c, n, oh, ow, strides[0], strides[1], len(phases),
-            total_taps, tile[0], tile[1], slots, mh, mw, tin_h, tin_w,
-            -(-uu // tile[0]), -(-vv // tile[1]), config,
+            wg, c, n, oh, ow, strides[0], strides[1], sch.phases, sch.taps,
+            *sch.tile, *phases[0].out_hw, *sch.origin, *sch.halo, sch.pitch,
+            *sch.tiles, sch.gpr, sch.gpp, sch.bn, sch.path, sch.tm, sch.tp,
+            sch.threads, sch.stages, _vec_ok(c, 4, (xg,)),
             _tiled_vec_ok(n, (superpack, y)), stream)
     if rc != 0:
         raise RuntimeError(f"kernel D launch failed: cudaError {rc}")

@@ -543,8 +543,12 @@ TILED_CONV_CASES = [
 ]
 # (name, b, h, w, c, n, k, stride, pads, tile): tests/test_tiled_kernels.py's
 # DECONV_CASES (DCGAN and cGAN phases, an empty phase, stride 1) with their
-# tiles, then the card's own tiles (pick_block_tile_transposed) and the
-# U-Net's k4 s2 up site at a small plane
+# tiles, then the card's own tiles (pick_block_tile_transposed): the
+# U-Net's k4 s2 up site at small planes (the shared-window path; up0's
+# widths over ragged tiles), the run-time path at k5 s2, C % 4 != 0 and N
+# not a multiple of BN on either path, BN 128 over two N tiles, BN 4 with
+# N = 3, and nine phases of one shared window (run-time: 9 phases do not
+# split over the threads of the shared path)
 TILED_DECONV_CASES = [
     ("dcgan", 2, 8, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), (3, 3)),
     ("cgan", 1, 8, 8, 5, 4, 4, 2, ((1, 3), (1, 3)), (8, 2)),
@@ -553,6 +557,12 @@ TILED_DECONV_CASES = [
     ("dcgan_card_tile", 2, 8, 8, 6, 4, 5, 2, ((2, 3), (2, 3)), None),
     ("unet_up_k4s2", 2, 20, 20, 16, 32, 4, 2, ((1, 3), (1, 3)), None),
     ("wide_k5s2", 1, 12, 12, 24, 72, 5, 2, ((2, 3), (2, 3)), None),
+    ("up0_widths_k4s2", 1, 40, 36, 64, 32, 4, 2, ((1, 3), (1, 3)), None),
+    ("k4s2_c10_n48", 1, 20, 20, 10, 48, 4, 2, ((1, 3), (1, 3)), None),
+    ("k4s2_n160", 1, 12, 12, 8, 160, 4, 2, ((1, 3), (1, 3)), None),
+    ("k4s2_bn4_n3", 2, 16, 16, 8, 3, 4, 2, ((1, 3), (1, 3)), None),
+    ("k5s2_c16_n40", 1, 16, 16, 16, 40, 5, 2, ((2, 3), (2, 3)), None),
+    ("k6s3_nine_phases", 1, 9, 9, 8, 8, 6, 3, ((2, 5), (2, 5)), None),
 ]
 
 
@@ -582,7 +592,7 @@ def tiled_deconv_case(case, device):
                                strides=(s, s), padding=pads, backend="cuda"))
     packed = plan.pack(kern)
     if tile is None:
-        tile = tk.pick_block_tile_transposed(plan.phases, n, plan.total_taps)
+        tile = tk.pick_block_tile_transposed(plan.phases, n)
     kw = dict(phases=plan.phases, out_hw=plan.out_hw, strides=(s, s),
               sum_uv=plan.sum_uv, sp_tiles=tile)
     return plan, x, kern, pad_or_crop(x, plan.gpad), packed, kw
@@ -643,7 +653,8 @@ def test_tiled_conv_kernel_within_ulp_bound_f32_and_int8(case, cuda_device):
                          ids=[c[0] for c in TILED_DECONV_CASES])
 def test_tiled_deconv_kernel_within_ulp_bound_f32_and_int8(case,
                                                            cuda_device):
-    """Kernel D as kernel C above; empty phases written as zeros."""
+    """Kernel D as kernel C above (two launches bit-equal, f32 and int8);
+    empty phases written as zeros."""
     _, b, h, w, c, n, k, s, pads, _ = case
     plan, x, kern, xg, packed, kw = tiled_deconv_case(case, cuda_device)
     numel = b * plan.out_hw[0] * plan.out_hw[1] * n
@@ -652,6 +663,8 @@ def test_tiled_deconv_kernel_within_ulp_bound_f32_and_int8(case,
     y = tk.untangled_deconv2d(xg, packed, **kw)
     torch.cuda.synchronize()
     assert tk.untangled_deconv2d.launches_tiled == launches + 1
+    torch.full((numel,), float("nan"), device=cuda_device)
+    assert torch.equal(tk.untangled_deconv2d(xg, packed, **kw), y)
     y_ref = tk.untangled_deconv2d(xg.cpu(), packed.cpu(), **kw)
     y64, bound = _phase_bound(plan, x, kern, c)
     assert bool(((y.double() - y64).abs() <= bound).all())
@@ -667,6 +680,9 @@ def test_tiled_deconv_kernel_within_ulp_bound_f32_and_int8(case,
     torch.cuda.synchronize()
     assert tk.untangled_deconv2d.launches_tiled_int8 == launches + 1
     assert torch.equal(y_i8, y_f)
+    torch.full((numel,), float("nan"), device=cuda_device)
+    assert torch.equal(tk.untangled_deconv2d(xg, q, scales=scale, **kw),
+                       y_i8)
     y64, bound = _phase_bound(plan, x, plan.unpack(wd), c)
     assert bool(((y_i8.double() - y64).abs() <= bound).all())
 

@@ -304,10 +304,10 @@ def test_small_unet_tiled_verdict_under_shrunk_budgets(base, budget, want,
 # ---------------------------------------------------------------------------
 
 def test_block_tiles_fit_one_block():
-    """Every tiled 'cuda' route's tile fits one block: its pixels in the
-    block's slots and its halo and weight stages in the block's shared
-    memory; at the U-Net's sites, kernel D's two blocks an SM and kernel
-    C's blocks an SM as its schedule states them."""
+    """Every tiled 'cuda' route's tile fits one block: its pixel groups in
+    the block's threads and its ring in the block's shared memory; at the
+    U-Net's sites, the blocks an SM that kernel C's and kernel D's
+    schedules state."""
     checked = 0
     sites = [(name, spec) for name, spec in route_specs()
              if spec.spatial == (1, 1)]
@@ -320,11 +320,12 @@ def test_block_tiles_fit_one_block():
         checked += 1
         n = spec.out_c
         if spec.kind == "transposed":
-            cfg = tk.tiled_config(n, cp.total_taps)
-            ((mh, xh), (mw, xw)) = tk.deconv_tap_span(cp.phases)
-            tin = (xh - mh + tile[0], xw - mw + tile[1])
-            pixels = len(cp.phases) * tk._phase_slots(cfg, tile)
-            taps = cp.total_taps
+            sch = tk.tiled_deconv_schedule(tuple(cp.phases), cp.out_hw,
+                                           spec.in_c, n, tile)
+            assert sch is not None and sch.tile == tile, name
+            groups = sch.threads // sch.column_groups
+            assert tile[0] * sch.gpr <= sch.gpp, name
+            assert sch.gpp * (1 if sch.path == 1 else sch.phases) <= groups
         else:
             (r, s), st = spec.kernel_hw, spec.strides
             d = spec.dilation if spec.kind == "dilated" else (1, 1)
@@ -335,16 +336,10 @@ def test_block_tiles_fit_one_block():
                                          tile)
             assert sch is not None and sch.tile == tile, name
             assert tile[0] * sch.gpr <= sch.groups, name
-            assert sch.smem_bytes <= tk.SMEM_BLOCK_MAX, name
-            if name in dict(junet.unet_sites(UNET_512)):
-                assert sch.blocks_sm * (sch.smem_bytes + tk.SMEM_RESERVED) \
-                    <= tk.SMEM_SM, name
-            continue
-        assert pixels <= tk.tiled_block_pixels(cfg), name
-        smem = tk.tiled_smem_bytes(cfg, *tin, taps)
-        assert smem <= tk.SMEM_BLOCK_MAX, name
+        assert sch.smem_bytes <= tk.SMEM_BLOCK_MAX, name
         if name in dict(junet.unet_sites(UNET_512)):
-            assert smem <= tk.SMEM_TWO_BLOCKS, name
+            assert sch.blocks_sm * (sch.smem_bytes + tk.SMEM_RESERVED) \
+                <= tk.SMEM_SM, name
     assert checked == 9        # 4 fixture rows + the 5 U-Net-512 sites
 
 

@@ -8,12 +8,13 @@ is inside it, and at B = 1 it sets the pace), its device time per call
 from ``torch.profiler`` (``device_ms``: the sum of the call's kernels, the
 GEMM and, where the schedule splits K, the reduction), the same two for
 the int8 entry and for ``F.conv_transpose2d`` on the same inputs (TF32
-off; none for the cGAN's pad, which has no one-call form), the bound (the
-larger of bytes over 3.35 TB/s and FP32 operations over 67 TFLOP/s) and,
-where the tree has one, the schedule.  Kernel B at the DCGAN discriminator
-sites is the control.  Then the DCGAN generator forward per bucket (CUDA
-events) and its device busy share at B = 1 and 64.  One JSON object a
-line, the card's name and power limit last:
+off; none yet for the cGAN's pad, whose uncropped call has no form: the
+cropped one, ``chip_smoke.cropped_library_args``, serves kernel D), the
+bound (the larger of bytes over 3.35 TB/s and FP32 operations over 67
+TFLOP/s) and, where the tree has one, the schedule.  Kernel B at the DCGAN
+discriminator sites is the control.  Then the DCGAN generator forward per
+bucket (CUDA events) and its device busy share at B = 1 and 64.  One JSON
+object a line, the card's name and power limit last:
 
     python tools/time_kernel_a.py [--src DIR] [--label NAME]
 """
