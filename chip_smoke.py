@@ -13,25 +13,28 @@ result line) if anything is off:
    instantiation with a stack frame);
 2. kernel A (``untangled_deconv2d``) against its plain PyTorch version on
    the card, both held to the float64 oracle's ULP bound, at the full-width
-   DCGAN sites (B = 1 and 64), the cGAN sites, a non-uniform-phase case, an
+   DCGAN sites (B = 1 and 64), the cGAN sites, the VAE's decoder sites
+   (B = 1 and 64), a non-uniform-phase case, an
    empty-phase case (stride > kernel) and ragged C/N — every output, and
    the split K's workspace, comes from ``torch.empty`` on memory pre-filled
    with NaN; a second launch bit-equal to the first; each site's schedule
    (tile, slices, work units);
 2b. kernel B (``untangled_conv2d_superpack``) the same way, at the four
    DCGAN discriminator sites (B = 1 and 64), both cGAN discriminator sites
-   (B = 16), dilated (d = 2, 4), ragged C/N and odd-output cases, the
+   (B = 16), the VAE's encoder sites (B = 1 and 64; the stem's C = 3),
+   dilated (d = 2, 4), ragged C/N and odd-output cases, the
    output and the split K's workspace on NaN-filled memory, two launches
    bit-equal, each site's schedule (tile, slices, work units);
 2c. kernel B's int8 entry (kernel E inside B) and its plain version against
    the f64 oracle of ``(x, dequantize_int8(q, scale))``, at the 10 SegNet
-   sites (B = 1 and 64), the six discriminator sites (B = 16) and ragged
+   sites (B = 1 and 64), the six discriminator sites (B = 16), the VAE's
+   encoder sites (B = 1 and 64) and ragged
    C/N, each superpack with an all-zero row; the int8 kernel bit-equal to
    the f32 kernel on the dequantized superpack, two launches bit-equal, on
    NaN-filled output and workspace;
 2d. kernel A's int8 entry the same way, at the DCGAN (B = 1 and 64) and
-   cGAN (B = 16) generator sites, the non-uniform, empty-phase and ragged
-   cases, two launches bit-equal;
+   cGAN (B = 16) generator sites, the VAE's decoder sites (B = 1 and 64),
+   the non-uniform, empty-phase and ragged cases, two launches bit-equal;
 3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
    ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
    launches per batcher launch, each row equal to a B = 1 forward;
@@ -74,7 +77,8 @@ result line) if anything is off:
    site and a d = 4 twin, the geometries of
    ``tests/test_tiled_kernels.py:SINGLE_CASES`` with their tiles, C = 3
    and N = 3 sites, a 3x3 site at every BN (4, 32, 64, 128), the stem's C
-   = 3, a stride-2 site, a ragged C not divisible by 4 and a 7x7 site; the
+   = 3, a stride-2 site, a ragged C not divisible by 4, a 7x7 site and
+   the VAE's two k4 s2 encoder sites (autotune candidates); the
    int8 entry bit-equal to the f32 entry on the dequantized superpack
    everywhere, two launches of either bit-equal; each site's schedule
    (``tiled_conv_schedule``: tile, BN, tap loop, halo, ring, blocks an
@@ -85,7 +89,8 @@ result line) if anything is off:
    ``DECONV_CASES`` (DCGAN and cGAN phases, an empty phase, stride 1) and
    each path and edge on the card's tiles (the shared-window path at k4
    s2, the run-time path at k5 s2, nine phases, C % 4 != 0, N not a
-   multiple of BN, BN 4 and 128), empty phases written as zeros; each
+   multiple of BN, BN 4 and 128), the VAE's decoder sites and DCGAN DC1
+   and DC4 (autotune candidates), empty phases written as zeros; each
    site's schedule (``tiled_deconv_schedule``: tap loop, BN, register
    split, tile, halo, ring);
 3e. the U-Net on the 'cuda' route, f32 and int8: ``UNET`` (32 px) at B = 1
@@ -126,6 +131,34 @@ result line) if anything is off:
    or the bytes of q, k, v and o); the prefill step's ms; its device time
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
+3h. the full-width VAE (``VAE``: 32 px, widths 64/128, latent 64) on the
+   'cuda' route, f32 and int8: ``vae_apply`` at B = 1 and 64 launches 2 B
+   and 2 A (the int8 model in the int8 counters), recon, mu and logvar
+   within ``2e-4·max|y_torch|`` of the 'torch' route on the same weights
+   and noise, the int8 twin within 4/127 rel L∞ of the f32 model; three
+   SGD steps of ``elbo_loss`` at B = 64 (finite, 6 A and 6 B launches),
+   one step's gradients within ``TOL_GRAD·max|g_torch|`` per tensor and
+   the loss within ``TOL_LOSS`` of the 'torch' route's; ``sample(n=16)``
+   finite in [-1, 1];
+4f. times: per VAE site at B = 1 and 64 kernel B or A, its plain version,
+   the library call (``F.conv2d`` on the pre-padded plane; the cropped
+   ``F.conv_transpose2d`` at the decoder's pad (1, 3)), the bound, device
+   ms and the schedule; the same for kernel A at its other pad (1, 3)
+   sites (cGAN DC1-DC2 at B = 1 and 64, the U-Net's whole-plane up sites
+   at 32 px, B = 1 and 64, and at 512 px, B = 1 and 16) and at the DCGAN
+   sites; the ``per_phase`` route (a kernel-B or -C launch a live phase,
+   f32 and int8, int8 bit-equal to f32 on the dequantized superpack)
+   beside kernel A at the DCGAN, cGAN and VAE decoder sites; the VAE
+   forward per bucket with its device split and busy share; the ELBO step
+   at B = 64 on 'cuda' and on 'torch';
+4g. measured route autotuning (``AutotunePolicy(mode='measure')``, a route
+   cache in a temporary directory) at the VAE's and the DCGAN generator's
+   sites, every bucket: each candidate's min µs, the winner, whether it
+   flipped the heuristic route; every tuned plan's output within the f64
+   bound (a kernel winner) or ``2e-4·max|y_torch|`` (a plain winner); a
+   second load in 'cache' mode measures nothing and gives the same
+   routes; ``serve_dcgan --autotune cache`` re-times no bucket and
+   measures no route, every served row equal to a B = 1 forward;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -166,7 +199,15 @@ BURST = 24
 # forward tolerance of the U-Net's 'cuda' route against its 'torch' route,
 # relative to max|y_torch| (the CPU tests' TOL_FWD form against JAX)
 TOL_UNET = 2e-4
+UNET_512_HW = 512
 UNET_512_BATCHES = (1, 16)
+# the VAE's forward against its 'torch' route, relative to max|y_torch|
+# (the CPU tests' TOL_FWD form against JAX), and its buckets and SGD rate
+# (the full config's -ELBO sums 3072 squared errors an image; the JAX
+# example's 1e-3 diverges there)
+TOL_VAE = 2e-4
+VAE_BATCHES = (1, 64)
+VAE_LR = 1e-4
 UNET_32_BATCHES = (1, 64)
 DENOISE_STEPS = 8
 # kernel C cases beside the U-Net's: (name, b, hp, wp, c, n, r, s, stride,
@@ -195,6 +236,8 @@ TILED_CONV_CASES = [
     ("s2_c16_n32", 2, 65, 65, 16, 32, 3, 3, 2, 1, None),
     ("ragged_c10_n32", 1, 30, 30, 10, 32, 3, 3, 1, 1, None),
     ("k7_n256", 1, 30, 29, 16, 256, 7, 7, 1, 1, None),
+    ("vae_enc0_k4s2_c3", 2, 35, 35, 3, 64, 4, 4, 2, 1, None),
+    ("vae_enc1_k4s2", 2, 19, 19, 64, 128, 4, 4, 2, 1, None),
 ]
 # kernel D cases beside up0: (name, b, h, c, n, k, stride, pads, tile), the
 # geometries of DECONV_CASES (square planes), then on the card's tiles
@@ -214,6 +257,10 @@ TILED_DECONV_CASES = [
     ("shared_k4s2_n3", 2, 16, 8, 3, 4, 2, ((1, 3), (1, 3)), None),
     ("runtime_k5s2_c16_n40", 1, 16, 16, 40, 5, 2, ((2, 3), (2, 3)), None),
     ("runtime_k6s3_nine_phases", 1, 9, 8, 8, 6, 3, ((2, 5), (2, 5)), None),
+    ("vae_dec0_k4s2", 2, 8, 128, 64, 4, 2, ((1, 3), (1, 3)), None),
+    ("vae_dec1_k4s2_n3", 2, 16, 64, 3, 4, 2, ((1, 3), (1, 3)), None),
+    ("dcgan_dc1_k5s2", 1, 4, 1024, 512, 5, 2, ((2, 3), (2, 3)), None),
+    ("dcgan_dc4_k5s2_n3", 1, 32, 128, 3, 5, 2, ((2, 3), (2, 3)), None),
 ]
 
 
@@ -387,6 +434,211 @@ def conv_library_args(xp, kernel, strides, dilation):
             dict(stride=tuple(strides), dilation=tuple(dilation)))
 
 
+def time_ms(fn, iters=20, warmup=3):
+    """CUDA-event ms of one call of ``fn``, over ``iters`` back-to-back
+    calls after ``warmup``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def call_device_ms(fn, iters=20, tries=4):
+    """Device time of one call of ``fn`` (after a warm-up): its kernels'
+    time over ``iters`` calls under ``torch.profiler``, per call.  Beside
+    the CUDA-event time, which at B = 1 is the host's pace.  CUPTI now
+    and then drops device events from a trace, a kernel's symbol at times
+    altogether, so the time is taken per kernel symbol (the mean event
+    times the launches a call makes, its events over ``iters``, rounded,
+    summed over symbols) from a trace that holds every symbol a call
+    launches: every symbol seen in any of at least two traces, and each of
+    the port's kernels (A-D) that the warm-up call counted in its wrapper,
+    each symbol with at least ``iters - 1`` events.  Failing that after
+    ``tries`` traces the time is None (not measured).  With no event
+    missing this is the sum over ``iters``."""
+    import torch
+
+    def counts():
+        return {k: getattr(f, a) + getattr(f, a + "_int8")
+                for k, (f, a) in launch_counters().items()}
+    before = counts()
+    fn()
+    torch.cuda.synchronize()
+    parts = {k for k, v in counts().items() if v > before[k]}
+
+    def calls():
+        for _ in range(iters):
+            fn()
+    traces, seen = [], set()
+    for i in range(tries):
+        _, evs = device_events(calls, 1, tries=1)
+        if evs is not None:
+            by_symbol = {}
+            for ev in evs:
+                by_symbol.setdefault(ev.name, []).append(
+                    ev.device_time_total)
+            traces.append(by_symbol)
+            seen |= by_symbol.keys()
+        if len(traces) < 2 and i < tries - 1:
+            continue
+        for by_symbol in traces:
+            if parts <= {kernel_part(sym) for sym in by_symbol} and all(
+                    len(by_symbol.get(sym, ())) >= iters - 1
+                    for sym in seen):
+                return sum(sum(v) / len(v) * max(1, round(len(v) / iters))
+                           for v in by_symbol.values()) / 1e3
+        print(f"[profiler] no trace holds every kernel of the call "
+              f"({len(seen)} symbols seen, kernels {sorted(parts)}) with "
+              f"{iters - 1} of its {iters} calls' events: taken again")
+    return None
+
+
+def f64_bound(plan, x, kern):
+    """(y64, elementwise ULP bound) of ``plan``'s conv of ``x`` with the
+    HWIO ``kern``: the f64 oracle, and the bound's term count per output
+    element (per phase for the transposed kind)."""
+    import torch
+    from repro_torch.core import reference as ref
+    sp_ = plan.spec
+    if sp_.kind != "transposed":
+        dil = sp_.dilation if sp_.kind == "dilated" else (1, 1)
+        y64, amax = ref.conv_oracle_f64(x, kern, strides=sp_.strides,
+                                        dilation=dil, padding=sp_.padding)
+        return y64, ref.ulp_bound(y64, amax, sp_.kernel_hw[0]
+                                  * sp_.kernel_hw[1] * sp_.in_c)
+    y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, sp_.strides), kern,
+                                    padding=sp_.padding)
+    terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=x.device)
+    for ex in plan.phases:
+        terms[ex.q[0]::sp_.strides[0], ex.q[1]::sp_.strides[1]] = \
+            ex.taps[0] * ex.taps[1] * sp_.in_c
+    return y64, ref.ulp_bound(y64, amax, terms[None, :, :, None])
+
+
+def check_library(name, y_lib, y_k):
+    """The library yardstick's output against the kernel's (the library
+    call must compute the same function before it is timed)."""
+    err = float((y_lib - y_k).abs().max())
+    if err > TOL_ROW * (1 + float(y_k.abs().max())):
+        raise RuntimeError(f"library yardstick disagrees on {name}: "
+                           f"{err:.3e}")
+    return err
+
+
+def schedule_of(plan, b):
+    """Kernel A's schedule for a call, as printed beside its checks and
+    times: tile, slice length, slices per phase, work units."""
+    from repro_torch.kernels.untangled_conv import deconv_schedule
+    sch = deconv_schedule(tuple(plan.phases), b, plan.spec.in_c,
+                          plan.spec.out_c)
+    return {"tile": list(sch.tile), "chunk_len": sch.chunk_len,
+            "slices": list(sch.slices), "units": sch.units,
+            "workspace_bytes": sch.workspace_bytes}
+
+
+def conv_schedule_of(b, oh, ow, k, c, n):
+    """Kernel B's schedule for a call, as printed beside its checks and
+    times: tile, slice length, slices, work units, workspace."""
+    from repro_torch.kernels.untangled_conv import conv_schedule
+    sch = conv_schedule(b * oh * ow, k * k * c, n)
+    return {"tile": list(sch.tile), "chunks": sch.chunks,
+            "chunk_len": sch.chunk_len, "slices": sch.slices,
+            "units": sch.units, "workspace_bytes": sch.workspace_bytes}
+
+
+def launch_counters() -> dict:
+    """Kernel -> (wrapper, f32 counter); the int8 entry's counter is the
+    same name + ``_int8``."""
+    from repro_torch.kernels.untangled_conv import (
+        untangled_conv2d_superpack, untangled_deconv2d)
+    return {"A": (untangled_deconv2d, "launches"),
+            "B": (untangled_conv2d_superpack, "launches"),
+            "C": (untangled_conv2d_superpack, "launches_tiled"),
+            "D": (untangled_deconv2d, "launches_tiled")}
+
+
+def zero_counts():
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+        setattr(fn, attr + "_int8", 0)
+
+
+def read_counts(wdtype):
+    """({kernel: launches of ``wdtype``'s entry}, launches of the other
+    dtype's entries) since the last ``zero_counts``."""
+    suffix = "_int8" if wdtype == "int8" else ""
+    other = "" if wdtype == "int8" else "_int8"
+    counters = launch_counters()
+    return ({k: getattr(fn, attr + suffix)
+             for k, (fn, attr) in counters.items()},
+            sum(getattr(fn, attr + other) for fn, attr in
+                counters.values()))
+
+
+def forward_split(fn, wall_ms):
+    """One forward ``fn()`` (after one untimed) under ``torch.profiler``:
+    device time of kernels A-D and of everything else, summed over
+    device-side events, and the busy share against ``wall_ms`` (measured
+    without the profiler); the shares are None where the profiler caught
+    no trace."""
+    import torch
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        _, evs = device_events(fn, 1, with_cpu=True)
+    out = {f"{k}_ms": 0.0 for k in ("A", "B", "C", "D", "other")}
+    for ev in evs or ():
+        out[f"{kernel_part(ev.name)}_ms"] += ev.device_time_total / 1e3
+    busy = sum(out.values())
+    out.update(device_busy_ms=busy, wall_ms=wall_ms,
+               busy_share=busy / wall_ms if evs else None,
+               B_share=out["B_ms"] / busy if evs else None)
+    return out
+
+
+def site(h, c, n, k, s, pads, backend="cuda"):
+    """The plan of a square transposed site."""
+    from repro_torch.core.plan import ConvSpec, plan_conv
+    return plan_conv(ConvSpec(
+        kind="transposed", in_hw=(h, h), in_c=c, out_c=n,
+        kernel_hw=(k, k), strides=(s, s), padding=pads, backend=backend))
+
+
+def kernel_call(plan, xg, packed, **scales):
+    """Kernel A (its int8 entry with ``scales=``) on the padded plane."""
+    from repro_torch.kernels.untangled_conv import untangled_deconv2d
+    return untangled_deconv2d(xg, packed, phases=plan.phases,
+                              out_hw=plan.out_hw, strides=plan.spec.strides,
+                              sum_uv=plan.sum_uv, **scales)
+
+
+def ref_call(plan, xg, packed, **scales):
+    """Kernel A's plain version, as ``kernel_call``."""
+    from repro_torch.kernels.untangled_conv import untangled_deconv2d_ref
+    return untangled_deconv2d_ref(xg, packed, phases=plan.phases,
+                                  out_hw=plan.out_hw,
+                                  strides=plan.spec.strides,
+                                  sum_uv=plan.sum_uv, **scales)
+
+
+def conv_call(xp, sp, k, s, d, plain=False, **scales):
+    """Kernel B (or its plain version) on the pre-padded plane."""
+    from repro_torch.kernels.untangled_conv import (
+        untangled_conv2d_superpack, untangled_conv2d_superpack_ref)
+    fn = untangled_conv2d_superpack_ref if plain \
+        else untangled_conv2d_superpack
+    return fn(xp, sp, taps_hw=(k, k), strides=(s, s), rhs_dilation=(d, d),
+              **scales)
+
+
 def seg_sites():
     """(name, in_hw, C, N, k, stride, dilation, pads) of every site of the
     full-width SegNet (``SEGNET``, ``segnet_plans``' geometry)."""
@@ -408,6 +660,23 @@ def disc_sites():
             sites.append((f"{tag}_D{i + 1}", l.in_hw * l.stride, l.out_c,
                           l.in_c, k, l.stride,
                           ((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2))))
+    return sites
+
+
+def vae_sites():
+    """(name, kind, in_hw, C, N, k, stride, pads) of the four sites of the
+    full-width VAE (``vae_plans``' geometry): the encoder's strided convs
+    (kernel B) and the decoder's transposed convs (kernel A)."""
+    from repro_torch.models import gan, vae
+    sites = []
+    for i, l in enumerate(vae.VAE.encoder_layers):
+        k = l.kernel
+        sites.append((f"VAE_enc{i}", "conv", l.in_hw, l.in_c, l.out_c, k,
+                      l.stride, ((k // 2, (k - 1) // 2),) * 2))
+    for i, l in enumerate(vae.VAE.decoder_layers):
+        sites.append((f"VAE_dec{i}", "transposed", l.in_hw, l.in_c, l.out_c,
+                      l.kernel, l.stride,
+                      gan.deconv_padding(l.kernel, l.stride)))
     return sites
 
 
@@ -714,6 +983,447 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     return records, entry
 
 
+def vae_phases(dev, smi, peak_flops, peak_bw, gen):
+    """Phases 3h, 4f and 4g: the full-width VAE on the 'cuda' route (2 B
+    and 2 A launches a forward, f32 and int8, against the 'torch' route;
+    three ELBO steps, one step's gradients against the 'torch' route's; a
+    prior sample; the int8 twin's gate), the times of its sites and of
+    kernel A's other pad (1, 3) sites with the library call, the
+    per-phase route beside kernel A, the VAE forward and ELBO step, and
+    measured route autotuning with its route cache.  Returns (records for
+    the results line, {path: launch counts} for the kernels line)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import serve_dcgan, vae_train
+    from repro_torch.core import autotune as at
+    from repro_torch.core.plan import plan_cache_clear, plan_conv
+    from repro_torch.core.untangle import pad_or_crop
+    from repro_torch.models import gan, unet, vae
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def bound_of(flops, nbytes):
+        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    # ---- 3h. the VAE at full width, f32 and int8, on the 'cuda' route ------
+    vcfg = dataclasses.replace(vae.VAE, backend="cuda")
+    v_cfgs = {w: dataclasses.replace(vcfg, wdtype=w)
+              for w in ("float32", "int8")}
+    v_params, vae_serve, vae_launches, recon = {}, {}, {}, {}
+    for wdtype, c_ in v_cfgs.items():
+        bad = [(p.spec.kind, p.spec.in_hw, r.batch, r.path, r.sp_tiles)
+               for p in vae.vae_plans(c_) for r in p.routes
+               if r.path != "cuda" or r.sp_tiles is not None]
+        if bad:
+            raise RuntimeError(f"VAE {wdtype} sites off kernels A and B: "
+                               f"{bad}")
+        v_params[wdtype] = vae.vae_init(0, c_, device=dev)
+    n_sites = len(vae.vae_plans(vcfg))
+    want_v = {"A": 2, "B": 2, "C": 0, "D": 0}
+    for bb in VAE_BATCHES:
+        g_ = torch.Generator().manual_seed(30 + bb)
+        xv = torch.randn((bb, vcfg.image_hw, vcfg.image_hw, vcfg.in_c),
+                         generator=g_).to(dev)
+        ev = torch.randn((bb, vcfg.latent_dim), generator=g_).to(dev)
+        for wdtype, c_ in v_cfgs.items():
+            with torch.inference_mode():
+                zero_counts()
+                out_c = vae.vae_apply(v_params[wdtype], xv, None, c_, eps=ev)
+                torch.cuda.synchronize()
+                got, stray = read_counts(wdtype)
+                out_t = vae.vae_apply(v_params[wdtype], xv, None,
+                                      dataclasses.replace(c_,
+                                                          backend="torch"),
+                                      eps=ev)
+                torch.cuda.synchronize()
+            key = f"vae_{wdtype}_B{bb}"
+            vae_launches[key] = got
+            if got != want_v or stray:
+                raise RuntimeError(f"{key}: launches {got} (+{stray} in the "
+                                   f"other dtype's counters), want {want_v}")
+            rels = {nm: float((a - b_).abs().max() / b_.abs().max())
+                    for nm, a, b_ in zip(("recon", "mu", "logvar"), out_c,
+                                         out_t)}
+            if not (max(rels.values()) <= TOL_VAE
+                    and out_c[0].shape == xv.shape
+                    and all(bool(torch.isfinite(t).all()) for t in out_c)):
+                raise RuntimeError(f"{key}: cuda vs torch max|Δ|/max|y| "
+                                   f"{rels}")
+            vae_serve[key] = {"cuda_vs_torch": rels, "launches": got}
+            recon[wdtype] = out_c[0]
+        rel8 = float((recon["int8"] - recon["float32"]).abs().max()
+                     / recon["float32"].abs().max())
+        vae_serve[f"vae_int8_B{bb}"]["int8_vs_f32"] = rel8
+        if not rel8 <= n_sites / 127.0:
+            raise RuntimeError(f"int8 VAE B={bb} off its f32 twin: "
+                               f"{rel8:.4f}")
+    print(f"[VAE] full width on 'cuda', per forward (recon, mu, logvar vs "
+          f"the 'torch' route, tol {TOL_VAE}; int8 gate "
+          f"{n_sites}/127): {json.dumps(vae_serve)}")
+
+    # three SGD steps of the -ELBO at B = 64, one step's gradients
+    xs_v = [torch.from_numpy(vae_train.batch_at(vcfg, 64, s)).to(dev)
+            for s in range(TRAIN_STEPS)]
+    pv = v_params["float32"]
+    gen_v = torch.Generator().manual_seed(7)
+    zero_counts()
+    vae_losses = []
+    for s in range(TRAIN_STEPS):
+        pv, loss = vae_train.sgd_step(pv, xs_v[s], gen_v, vcfg, VAE_LR)
+        vae_losses.append(loss)
+    torch.cuda.synchronize()
+    vae_train_launches, stray = read_counts("float32")
+    want_t = {"A": 2 * TRAIN_STEPS, "B": 2 * TRAIN_STEPS, "C": 0, "D": 0}
+    if vae_train_launches != want_t or stray:
+        raise RuntimeError(f"VAE train launches {vae_train_launches} "
+                           f"(+{stray}), want {want_t}")
+    if not (all(np.isfinite(vae_losses))
+            and all(bool(torch.isfinite(v).all()) for v in pv.values())):
+        raise RuntimeError(f"non-finite VAE training state: {vae_losses}")
+    eps_g = torch.randn((64, vcfg.latent_dim),
+                        generator=torch.Generator().manual_seed(8)).to(dev)
+
+    def elbo_grads(cfg_):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in v_params["float32"].items()}
+        loss_ = vae.elbo_loss(leaves, xs_v[0], None, cfg_, eps=eps_g)
+        return float(loss_.detach()), dict(zip(leaves, torch.autograd.grad(
+            loss_, list(leaves.values()))))
+
+    loss_c, g_c = elbo_grads(vcfg)
+    loss_t, g_t = elbo_grads(dataclasses.replace(vcfg, backend="torch"))
+    torch.cuda.synchronize()
+    grad_rel = {k: float((g_c[k] - g_t[k]).abs().max() / g_t[k].abs().max())
+                for k in g_t}
+    loss_rel = abs(loss_c - loss_t) / abs(loss_t)
+    if not (max(grad_rel.values()) <= TOL_GRAD and loss_rel <= TOL_LOSS
+            and all(bool(torch.isfinite(g).all()) for g in g_c.values())):
+        raise RuntimeError(f"VAE gradients cuda vs torch {grad_rel}, loss "
+                           f"{loss_rel:.3e}")
+    with torch.inference_mode():
+        imgs = vae.sample(pv, torch.Generator().manual_seed(9), vcfg, n=16)
+    if imgs.shape != (16, vcfg.image_hw, vcfg.image_hw, vcfg.in_c) or not (
+            bool(torch.isfinite(imgs).all())
+            and float(imgs.abs().max()) <= 1.0):
+        raise RuntimeError(f"VAE prior samples {tuple(imgs.shape)} not "
+                           f"finite in [-1, 1]")
+    print(f"[VAE train] B=64, {TRAIN_STEPS} SGD steps on 'cuda' (lr "
+          f"{VAE_LR}): -ELBO {vae_losses}; launches {vae_train_launches} "
+          f"(= {want_t}); one step's gradients cuda vs torch max|Δ|/max|g| "
+          f"per tensor {json.dumps(grad_rel)} (tol {TOL_GRAD}), loss "
+          f"{loss_rel:.3e} (tol {TOL_LOSS}); sample(n=16) "
+          f"{tuple(imgs.shape)} finite")
+
+    # ---- 4f. times: the VAE's sites, A's pad (1, 3) sites, per_phase ------
+    print(f"[time VAE] kernels A and B at the VAE's sites, kernel A at its "
+          f"other pad (1, 3) sites with the library call, the per_phase "
+          f"route beside A; CUDA events; card {smi}")
+
+    def conv_record(name, h, c, n, k, s, pads, b):
+        x, kern = randn(b, h, h, c), randn(k, k, c, n)
+        xp = pad_or_crop(x, pads).contiguous()
+        sp = kern.reshape(k * k * c, n)
+        xl, wl, kw = conv_library_args(xp, kern, (s, s), (1, 1))
+        y_k = conv_call(xp, sp, k, s, 1)
+        lib_err = check_library(f"{name} B={b}",
+                                F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
+                                y_k)
+        oh, ow = y_k.shape[1:3]
+        flops = 2 * b * oh * ow * k * k * c * n
+        nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+        bound, by = bound_of(flops, nbytes)
+        rec = {"site": name, "batch": b, "flops": flops, "bytes": nbytes,
+               "ms": time_ms(lambda: conv_call(xp, sp, k, s, 1)),
+               "device_ms": call_device_ms(lambda: conv_call(xp, sp, k, s, 1)),
+               "plain_ms": time_ms(lambda: conv_call(xp, sp, k, s, 1,
+                                                     plain=True)),
+               "library": "F.conv2d",
+               "library_ms": time_ms(lambda: F.conv2d(xl, wl, **kw)),
+               "library_device_ms": call_device_ms(
+                   lambda: F.conv2d(xl, wl, **kw)),
+               "bound_ms": bound, "bound_by": by,
+               "library_max_abs_err": lib_err,
+               "schedule": conv_schedule_of(b, oh, ow, k, c, n)}
+        print(f"[time VAE B] {name} B={b}: kernel {rec['ms']:.4f} ms "
+              f"(device {ms_text(rec['device_ms'])}), plain "
+              f"{rec['plain_ms']:.4f} ms, F.conv2d {rec['library_ms']:.4f} "
+              f"ms (device {ms_text(rec['library_device_ms'])}), bound "
+              f"{bound:.4f} ms ({by}); schedule "
+              f"{json.dumps(rec['schedule'])}")
+        return rec
+
+    def deconv_record(name, plan, b, per_phase):
+        sp_ = plan.spec
+        x = randn(b, *sp_.in_hw, sp_.in_c)
+        kern = randn(*sp_.kernel_hw, sp_.in_c, sp_.out_c)
+        packed = plan.pack(kern)
+        xg = pad_or_crop(x, plan.gpad).contiguous()
+        try:
+            xl, wl, kw = library_args(x, kern, sp_.strides, sp_.padding)
+            crop, form = (slice(None), slice(None)), "F.conv_transpose2d"
+        except ValueError:
+            xl, wl, kw, crop = cropped_library_args(x, kern, sp_.strides,
+                                                    sp_.padding)
+            form = "cropped F.conv_transpose2d"
+
+        def library():
+            return F.conv_transpose2d(xl, wl, **kw)[:, :, crop[0], crop[1]]
+
+        y_k = kernel_call(plan, xg, packed)
+        lib_err = check_library(f"{name} B={b}",
+                                library().permute(0, 2, 3, 1), y_k)
+        flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
+                        * ex.taps[1] for ex in plan.phases) \
+            * sp_.in_c * sp_.out_c
+        nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+        bound, by = bound_of(flops, nbytes)
+        rec = {"site": name, "batch": b, "flops": flops, "bytes": nbytes,
+               "ms": time_ms(lambda: kernel_call(plan, xg, packed)),
+               "device_ms": call_device_ms(
+                   lambda: kernel_call(plan, xg, packed)),
+               "plain_ms": time_ms(lambda: ref_call(plan, xg, packed),
+                                   iters=5 if y_k.numel() > 2 ** 24 else 20),
+               "library": form, "library_ms": time_ms(library),
+               "library_device_ms": call_device_ms(library),
+               "bound_ms": bound, "bound_by": by,
+               "library_max_abs_err": lib_err,
+               "schedule": schedule_of(plan, b)}
+        extra = ""
+        if per_phase:
+            # every live phase is one launch of B (or C where the phase's
+            # plane tiles), f32 and int8; the int8 plan's per-phase output
+            # is bit-equal to the f32 one on the dequantized superpack
+            live = sum(1 for ex in plan.phases
+                       if ex.taps[0] * ex.taps[1] and ex.out_hw[0]
+                       and ex.out_hw[1])
+            plan8 = plan_conv(dataclasses.replace(sp_, wdtype="int8"))
+            packed8 = plan8.pack(kern)
+            zero_counts()
+            y_pp = plan.apply_per_phase(x, packed)
+            y_pp8 = plan8.apply_per_phase(x, packed8)
+            torch.cuda.synchronize()
+            n32, _ = read_counts("float32")
+            n8, _ = read_counts("int8")
+            launched = (n32["B"] + n32["C"], n8["B"] + n8["C"])
+            if launched != (live, live) or sum(n32.values()) + sum(
+                    n8.values()) != 2 * live:
+                raise RuntimeError(
+                    f"{name} per_phase B={b}: {live} live phases launched "
+                    f"f32 {n32}, int8 {n8}")
+            if not torch.equal(
+                    y_pp8, plan.apply_per_phase(x, packed8.dequant())):
+                raise RuntimeError(f"{name} per_phase B={b}: int8 not "
+                                   f"bit-equal to f32 on the dequantized "
+                                   f"superpack")
+            rec["per_phase_b_launches"] = n32["B"]
+            rec["per_phase_c_launches"] = n32["C"]
+            rec["per_phase_max_abs_err"] = check_library(
+                f"{name} per_phase B={b}", y_pp, y_k)
+            rec["per_phase_ms"] = time_ms(
+                lambda: plan.apply_per_phase(x, packed))
+            rec["per_phase_device_ms"] = call_device_ms(
+                lambda: plan.apply_per_phase(x, packed))
+            extra = (f", per_phase {rec['per_phase_ms']:.4f} ms (device "
+                     f"{ms_text(rec['per_phase_device_ms'])}; "
+                     f"{live} live phases: {rec['per_phase_b_launches']} "
+                     f"on kernel B, {rec['per_phase_c_launches']} on C, "
+                     f"f32 and int8; int8 bit-equal to f32 on the "
+                     f"dequantized superpack)")
+        print(f"[time VAE A] {name} B={b}: kernel {rec['ms']:.4f} ms "
+              f"(device {ms_text(rec['device_ms'])}), plain "
+              f"{rec['plain_ms']:.4f} ms, {form} {rec['library_ms']:.4f} "
+              f"ms (device {ms_text(rec['library_device_ms'])}), bound "
+              f"{bound:.4f} ms ({by}){extra}; schedule "
+              f"{json.dumps(rec['schedule'])}")
+        return rec
+
+    vae_b_sites, vae_a_sites, pad13_sites, pp_sites = [], [], [], []
+    for b in VAE_BATCHES:
+        for name, kind, h, c, n, k, s, pads in vae_sites():
+            if kind == "conv":
+                vae_b_sites.append(conv_record(name, h, c, n, k, s, pads, b))
+            else:
+                vae_a_sites.append(deconv_record(
+                    name, site(h, c, n, k, s, pads), b, True))
+        for tag, layers in (("cGAN", gan.CGAN_LAYERS),
+                            ("DCGAN", gan.DCGAN_LAYERS)):
+            for i, l in enumerate(layers):
+                rec = deconv_record(f"{tag}_DC{i + 1}", site(
+                    l.in_hw, l.in_c, l.out_c, l.kernel, l.stride,
+                    gan.deconv_padding(l.kernel, l.stride)), b, True)
+                (pad13_sites if tag == "cGAN" else pp_sites).append(rec)
+    u32 = dataclasses.replace(unet.UNET, backend="cuda")
+    u512 = unet.UNetConfig("unet-512", image_hw=UNET_512_HW, backend="cuda")
+    for ucfg, batches in ((u32, VAE_BATCHES), (u512, UNET_512_BATCHES)):
+        for name, plan in unet.unet_plans(ucfg).items():
+            if plan.spec.kind == "transposed" \
+                    and plan.routes[0].sp_tiles is None:
+                for b in batches:
+                    pad13_sites.append(deconv_record(
+                        f"unet{ucfg.image_hw}_{name}", plan, b, False))
+
+    vae_ms, vae_split = {}, {}
+    with torch.inference_mode():
+        for wdtype, c_ in v_cfgs.items():
+            for b in (1, 4, 16, 64):
+                xv, ev = randn(b, 32, 32, 3), randn(b, vcfg.latent_dim)
+
+                def fwd(p_=v_params[wdtype], x_=xv, e_=ev, c__=c_):
+                    return vae.vae_apply(p_, x_, None, c__, eps=e_)
+                key = f"{wdtype}_B{b}"
+                vae_ms[key] = time_ms(fwd, iters=10)
+                if b in VAE_BATCHES:
+                    vae_split[key] = forward_split(fwd, vae_ms[key])
+    print(f"[time] VAE forward ms per bucket (CUDA events): "
+          f"{json.dumps(vae_ms)}; device time by kernel, busy share "
+          f"(torch.profiler): {json.dumps(vae_split)}")
+
+    def elbo_step_ms(cfg_, iters=5):
+        p_, g_ = v_params["float32"], torch.Generator().manual_seed(11)
+        for _ in range(2):
+            p_, _ = vae_train.sgd_step(p_, xs_v[0], g_, cfg_, VAE_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            p_, _ = vae_train.sgd_step(p_, xs_v[0], g_, cfg_, VAE_LR)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    elbo_ms = {backend: elbo_step_ms(dataclasses.replace(vcfg,
+                                                         backend=backend))
+               for backend in ("cuda", "torch")}
+    print(f"[time] VAE ELBO step at B=64 (host clock over 5 steps after 2, "
+          f"synchronized) ms: {json.dumps(elbo_ms)} | {smi}")
+
+    # ---- 4g. measured route autotuning at the VAE and DCGAN sites ---------
+    autotune_recs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_file = os.path.join(tmp, "route_cache.json")
+        policy = at.AutotunePolicy(mode="measure", cache_path=cache_file)
+        heur = {f"VAE_{i}": p for i, p in enumerate(vae.vae_plans(vcfg))}
+        heur.update({f"DCGAN_DC{i + 1}": p for i, p in enumerate(
+            gan.generator_plans(gan.GANConfig("dcgan", gan.DCGAN_LAYERS,
+                                              backend="cuda")))})
+        before = at.measure_calls()
+        t0 = time.perf_counter()
+        tuned = {name: plan_conv(p.spec, autotune=policy)
+                 for name, p in heur.items()}
+        tune_s = time.perf_counter() - t0
+        measured = at.measure_calls() - before
+        cache = at.open_cache(cache_file)
+        for name, p in heur.items():
+            ent = cache.entries[at.spec_key(p.spec)]
+            for r in tuned[name].routes:
+                h_r = p.route_for_batch(r.batch)
+                us = ent["routes"][str(r.batch)]["measured_us"]
+                b = r.batch
+                sp_ = p.spec
+                x = randn(b, *sp_.in_hw, sp_.in_c)
+                kern = randn(*sp_.kernel_hw, sp_.in_c, sp_.out_c)
+                packed = p.pack(kern)
+                with torch.inference_mode():
+                    y = tuned[name].apply(x, packed)
+                    y_t = plan_conv(dataclasses.replace(
+                        sp_, backend="torch")).apply(x, packed)
+                if r.path == "cuda":
+                    y64, bound = f64_bound(p, x, kern)
+                    ok = bool(((y.double() - y64).abs() <= bound).all())
+                    check = "f64 bound"
+                    del y64, bound
+                else:
+                    ok = float((y - y_t).abs().max()) \
+                        <= TOL_VAE * float(y_t.abs().max())
+                    check = f"{TOL_VAE}·max|y_torch|"
+                rec = {"site": name, "batch": b, "candidates_us": us,
+                       "winner": at.route_label(r),
+                       "heuristic": at.route_label(h_r),
+                       "flipped": r != h_r, "checked": check, "ok": ok}
+                autotune_recs.append(rec)
+                print(f"[autotune] {name} B={b}: min µs "
+                      + ", ".join(f"{lab} {v:.1f}" for lab, v in
+                                  sorted(us.items(), key=lambda kv: kv[1]))
+                      + f"; winner {rec['winner']} (heuristic "
+                      f"{rec['heuristic']}, "
+                      f"{'flipped' if rec['flipped'] else 'kept'}); output "
+                      f"within {check}: {ok}")
+                if not ok:
+                    raise RuntimeError(f"tuned {name} B={b} "
+                                       f"({rec['winner']}) off its check")
+        # a second load reads the cache and measures nothing
+        plan_cache_clear()
+        before = at.measure_calls()
+        cpolicy = at.AutotunePolicy(mode="cache", cache_path=cache_file)
+        again = {name: plan_conv(p.spec, autotune=cpolicy)
+                 for name, p in heur.items()}
+        if at.measure_calls() != before or any(
+                again[n].routes != tuned[n].routes for n in heur):
+            raise RuntimeError("the warm route cache measured again or "
+                               "gave other routes")
+        # serve_dcgan on the cache: bucket costs measured once, then a
+        # restarted server re-times no bucket and measures no route
+        argv = ["--requests", str(BURST), "--route-cache", cache_file,
+                "--device", str(dev)]
+        plan_cache_clear()
+        first = serve_dcgan.main(argv + ["--autotune", "measure"])
+        plan_cache_clear()
+        before = at.measure_calls()
+        st = serve_dcgan.main(argv + ["--autotune", "cache"])
+        if st["warmup_timed"] != () or at.measure_calls() != before:
+            raise RuntimeError(f"the warm serve_dcgan timed buckets "
+                               f"{st['warmup_timed']} or measured routes")
+        cfg_s, params_s = serve_dcgan.load_model(
+            small=False, backend="cuda", device=dev, autotune=cpolicy)
+        worst = 0.0
+        with torch.inference_mode():
+            for r in st["requests"]:
+                one = gan.generator_apply(
+                    params_s, torch.from_numpy(r.payload)[None].to(dev),
+                    cfg_s)[0].cpu()
+                diff = (one - torch.from_numpy(r.out)).abs()
+                worst = max(worst, float(diff.max()))
+                if not bool((diff <= TOL_ROW * (1 + one.abs())).all()):
+                    raise RuntimeError(f"tuned serve_dcgan request {r.rid} "
+                                       f"differs from its B=1 forward by "
+                                       f"{float(diff.max()):.3e}")
+        if sorted(r.rid for r in st["requests"]) != list(range(BURST)):
+            raise RuntimeError("tuned serve_dcgan dropped or repeated a "
+                               "request")
+    flips = [(r["site"], r["batch"], r["heuristic"], r["winner"])
+             for r in autotune_recs if r["flipped"]]
+    print(f"[autotune] {len(heur)} sites x 4 buckets tuned in {tune_s:.1f} "
+          f"s ({measured} candidate measurements); flips {flips}; a second "
+          f"load in 'cache' mode measured nothing and gave the same routes; "
+          f"serve_dcgan --autotune cache: {len(st['requests'])}/{BURST} "
+          f"answered, warmup timed {st['warmup_timed']} (first run timed "
+          f"{first['warmup_timed']}), max |row - B=1 forward| {worst:.3e}")
+    records = {"vae_serve": vae_serve, "vae_train_losses": vae_losses,
+               "vae_grad_rel": grad_rel, "vae_b_sites": vae_b_sites,
+               "vae_a_sites": vae_a_sites, "pad13_sites": pad13_sites,
+               "per_phase_dcgan_sites": pp_sites, "vae_forward_ms": vae_ms,
+               "vae_device_split": vae_split, "vae_elbo_step_ms": elbo_ms,
+               "autotune": autotune_recs}
+    launches = {"A": {"vae": sum(v["A"] for k, v in vae_launches.items()
+                                 if "_float32_" in k),
+                      "train_vae": vae_train_launches["A"]},
+                "B": {"vae": sum(v["B"] for k, v in vae_launches.items()
+                                 if "_float32_" in k),
+                      "train_vae": vae_train_launches["B"]},
+                "A_int8": {"vae_int8": sum(v["A"] for k, v in
+                                           vae_launches.items()
+                                           if "_int8_" in k)},
+                "B_int8": {"vae_int8": sum(v["B"] for k, v in
+                                           vae_launches.items()
+                                           if "_int8_" in k)}}
+    return records, launches
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -727,18 +1437,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import reference as ref
-    from repro_torch.core.plan import BATCH_BUCKETS, ConvSpec, plan_conv
+    from repro_torch.core.plan import BATCH_BUCKETS
     from repro_torch.core.untangle import pad_or_crop
     from repro_torch.kernels import _build
     from repro_torch import serve_segnet, train_gan
     from repro_torch.kernels.untangled_conv import (
-        _MIN_SLICE as MIN_SLICE, SMS, conv_schedule, deconv_schedule,
+        _MIN_SLICE as MIN_SLICE, SMS, deconv_schedule,
         pick_block_tile_single,
         pick_block_tile_transposed, single_out_hw, tiled_conv_schedule,
         tiled_deconv_schedule,
-        untangled_conv2d_superpack, untangled_conv2d_superpack_ref,
-        untangled_conv2d_superpack_tiled_ref, untangled_deconv2d,
-        untangled_deconv2d_ref, untangled_deconv2d_tiled_ref)
+        untangled_conv2d_superpack, untangled_conv2d_superpack_tiled_ref,
+        untangled_deconv2d, untangled_deconv2d_tiled_ref)
     from repro_torch.models import gan, segnet, unet
     from repro_torch.runtime.compress import (dequantize_int8,
                                               quantize_int8_rows)
@@ -807,28 +1516,6 @@ def main() -> int:
                   for n in numels if n]
         del blocks
 
-    def time_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def check_library(name, y_lib, y_k):
-        """The library yardstick's output against the kernel's (the library
-        call must compute the same function before it is timed)."""
-        err = float((y_lib - y_k).abs().max())
-        if err > TOL_ROW * (1 + float(y_k.abs().max())):
-            raise RuntimeError(f"library yardstick disagrees on {name}: "
-                               f"{err:.3e}")
-        return err
-
     def device_split(fn, wall_ms):
         """One call of ``fn`` (after the warm-up ``time_ms`` gave it) under
         ``torch.profiler``: device time of kernel B's launches and of
@@ -851,63 +1538,11 @@ def main() -> int:
                                  for e in top[:8]])
         return out
 
-    def site(h, c, n, k, s, pads, backend="cuda"):
-        return plan_conv(ConvSpec(
-            kind="transposed", in_hw=(h, h), in_c=c, out_c=n,
-            kernel_hw=(k, k), strides=(s, s), padding=pads,
-            backend=backend))
-
-    def kernel_call(plan, xg, packed, **scales):
-        return untangled_deconv2d(xg, packed, phases=plan.phases,
-                                  out_hw=plan.out_hw,
-                                  strides=plan.spec.strides,
-                                  sum_uv=plan.sum_uv, **scales)
-
-    def ref_call(plan, xg, packed, **scales):
-        return untangled_deconv2d_ref(xg, packed, phases=plan.phases,
-                                      out_hw=plan.out_hw,
-                                      strides=plan.spec.strides,
-                                      sum_uv=plan.sum_uv, **scales)
-
-    def schedule_of(plan, b):
-        """Kernel A's schedule for a call, as printed beside its checks and
-        times: tile, slice length, slices per phase, work units."""
-        sch = deconv_schedule(tuple(plan.phases), b, plan.spec.in_c,
-                              plan.spec.out_c)
-        return {"tile": list(sch.tile), "chunk_len": sch.chunk_len,
-                "slices": list(sch.slices), "units": sch.units,
-                "workspace_bytes": sch.workspace_bytes}
-
-    def conv_schedule_of(b, oh, ow, k, c, n):
-        """Kernel B's schedule for a call, as printed beside its checks and
-        times: tile, slice length, slices, work units, workspace."""
-        sch = conv_schedule(b * oh * ow, k * k * c, n)
-        return {"tile": list(sch.tile), "chunks": sch.chunks,
-                "chunk_len": sch.chunk_len, "slices": sch.slices,
-                "units": sch.units, "workspace_bytes": sch.workspace_bytes}
-
     def fills_card(sch):
         """Kernel B's batch-1 rule: at least 132 work units, but for a K of
         fewer than ``_MIN_SLICE`` chunks, which the schedule keeps whole
         (a second pass costs more than it saves there)."""
         return sch["units"] >= SMS or sch["chunks"] < MIN_SLICE
-
-    def call_device_ms(fn, iters=20):
-        """Device time of one call of ``fn`` (after a warm-up): its kernels'
-        time summed over ``iters`` calls under ``torch.profiler``, per call.
-        Beside the CUDA-event time, which at B = 1 is the host's pace.
-        None (not measured) where every trace came back short of one
-        kernel a call."""
-        fn()
-        torch.cuda.synchronize()
-
-        def calls():
-            for _ in range(iters):
-                fn()
-        _, evs = device_events(calls, iters)
-        if evs is None:
-            return None
-        return sum(ev.device_time_total for ev in evs) / 1e3 / iters
 
     def int8_of(sp):
         """(q, scale, dequantized) of an f32 superpack whose middle row is
@@ -926,6 +1561,9 @@ def main() -> int:
     cases += [(f"cGAN_DC{i + 1}_B16", 16, l.in_hw, l.in_c, l.out_c,
                l.kernel, l.stride, gan.deconv_padding(l.kernel, l.stride))
               for i, l in enumerate(gan.CGAN_LAYERS)]
+    cases += [(f"{name}_B{b}", b, h, c, n, k, s, pads) for b in VAE_BATCHES
+              for name, kind, h, c, n, k, s, pads in vae_sites()
+              if kind == "transposed"]
     cases += [("nonuniform_7_k5s2", 2, 7, 16, 8, 5, 2, ((1, 1), (1, 1))),
               ("empty_phase_4_k2s3", 2, 4, 8, 8, 2, 3, ((1, 1), (1, 1))),
               ("ragged_C5_N3", 3, 5, 5, 3, 3, 2, ((1, 1), (1, 1))),
@@ -946,12 +1584,7 @@ def main() -> int:
         poison(*numels)
         again = torch.equal(kernel_call(plan, xg, packed), y_k)
         torch.cuda.synchronize()
-        y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)), kern,
-                                        padding=pads)
-        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
-        for ex in plan.phases:
-            terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
-        bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+        y64, bound = f64_bound(plan, x, kern)
         ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
         ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
         err = float((y_k - y_r).abs().max())
@@ -969,12 +1602,6 @@ def main() -> int:
                 raise RuntimeError("empty phases are not zero")
 
     # ---- 2b. kernel B vs its plain version, both vs the f64 oracle --------
-    def conv_call(xp, sp, k, s, d, plain=False, **scales):
-        fn = untangled_conv2d_superpack_ref if plain \
-            else untangled_conv2d_superpack
-        return fn(xp, sp, taps_hw=(k, k), strides=(s, s),
-                  rhs_dilation=(d, d), **scales)
-
     conv_cases = [(f"{name}_B{b}", b, h, c, n, k, s, 1, pads)
                   for b in (1, 64)
                   for name, h, c, n, k, s, pads in disc_sites()
@@ -982,6 +1609,11 @@ def main() -> int:
     conv_cases += [(f"{name}_B16", 16, h, c, n, k, s, 1, pads)
                    for name, h, c, n, k, s, pads in disc_sites()
                    if name.startswith("cGAN")]
+    vae_conv_cases = [(f"{name}_B{b}", b, h, c, n, k, s, 1, pads)
+                      for b in VAE_BATCHES
+                      for name, kind, h, c, n, k, s, pads in vae_sites()
+                      if kind == "conv"]
+    conv_cases += vae_conv_cases
     conv_cases += [("dilated_17_k3_d2", 4, 17, 16, 32, 3, 1, 2,
                     ((2, 2), (2, 2))),
                    ("dilated_17_k3_d4", 4, 17, 16, 32, 3, 1, 4,
@@ -1024,6 +1656,7 @@ def main() -> int:
                      for name, h, c, n, k, s, d, pads in seg_sites()]
     i8_conv_cases += [(f"{name}_B16", 16, h, c, n, k, s, 1, pads)
                       for name, h, c, n, k, s, pads in disc_sites()]
+    i8_conv_cases += vae_conv_cases
     i8_conv_cases += [("ragged_C5_N3", 3, 9, 5, 3, 3, 2, 1, ((1, 1), (1, 1))),
                       ("ragged_C6_N20", 2, 9, 6, 20, 5, 1, 1,
                        ((2, 2), (2, 2)))]
@@ -1079,12 +1712,7 @@ def main() -> int:
         poison(*numels)
         again = torch.equal(kernel_call(plan, xg, q, scales=scale), y_k)
         torch.cuda.synchronize()
-        y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s, s)),
-                                        plan.unpack(wd), padding=pads)
-        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
-        for ex in plan.phases:
-            terms[ex.q[0]::s, ex.q[1]::s] = ex.taps[0] * ex.taps[1] * c
-        bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+        y64, bound = f64_bound(plan, x, plan.unpack(wd))
         ok_k = bool(((y_k.double() - y64).abs() <= bound).all())
         ok_r = bool(((y_r.double() - y64).abs() <= bound).all())
         bit = torch.equal(y_k, y_f)
@@ -1099,7 +1727,8 @@ def main() -> int:
             raise RuntimeError(f"kernel A int8 disagrees on {name}")
 
     # ---- 2e. kernel C (tiled B) f32 and int8 vs plain, f64 oracle ---------
-    unet512 = unet.UNetConfig("unet-512", image_hw=512, backend="cuda")
+    unet512 = unet.UNetConfig("unet-512", image_hw=UNET_512_HW,
+                              backend="cuda")
     hw512 = unet512.image_hw
     u_plans = unet.unet_plans(unet512)
     tiled_c = [(n, p) for n, p in u_plans.items()
@@ -1248,19 +1877,14 @@ def main() -> int:
             y_lib = y_lib.permute(0, 2, 3, 1)
             del xl
         torch.cuda.synchronize()
-        terms = torch.zeros(plan.out_hw, dtype=torch.float64, device=dev)
-        for ex in plan.phases:
-            terms[ex.q[0]::s_, ex.q[1]::s_] = ex.taps[0] * ex.taps[1] * c
         oks, lib_ok = [], None
         for yk, yr, w_ in ((y_k, y_r, kern), (y_k8, y_r8, plan.unpack(wd))):
-            y64, amax = ref.conv_oracle_f64(ref.zero_insert(x, (s_, s_)),
-                                            w_, padding=pads)
-            bound = ref.ulp_bound(y64, amax, terms[None, :, :, None])
+            y64, bound = f64_bound(plan, x, w_)
             oks += [bool(((yk.double() - y64).abs() <= bound).all()),
                     bool(((yr.double() - y64).abs() <= bound).all())]
             if y_lib is not None and lib_ok is None:
                 lib_ok = bool(((y_lib.double() - y64).abs() <= bound).all())
-            del y64, amax, bound
+            del y64, bound
         bit = torch.equal(y_k8, y_f)
         empty_ok = all(not bool(y[:, ex.q[0]::s_, ex.q[1]::s_].ne(0).any())
                        for ex in plan.phases if ex.taps[0] * ex.taps[1] == 0
@@ -1509,24 +2133,6 @@ def main() -> int:
           f"{len(qcfg.layers) / 127.0:.4f})")
 
     # ---- 3e. the U-Net, f32 and int8, on the 'cuda' route ------------------
-    counters = {"A": (untangled_deconv2d, "launches"),
-                "B": (untangled_conv2d_superpack, "launches"),
-                "C": (untangled_conv2d_superpack, "launches_tiled"),
-                "D": (untangled_deconv2d, "launches_tiled")}
-
-    def zero_counts():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-            setattr(fn, attr + "_int8", 0)
-
-    def read_counts(wdtype):
-        suffix = "_int8" if wdtype == "int8" else ""
-        other = "" if wdtype == "int8" else "_int8"
-        return ({k: getattr(fn, attr + suffix)
-                 for k, (fn, attr) in counters.items()},
-                sum(getattr(fn, attr + other) for fn, attr in
-                    counters.values()))
-
     unet32 = dataclasses.replace(unet.UNET, backend="cuda")
     unet_serve, unet_launches = {}, {}
     u_params = {}
@@ -1988,25 +2594,10 @@ def main() -> int:
           f"{json.dumps(unet_ms)}")
 
     def unet_split(pu, ucfg, b, wall_ms):
-        """One U-Net forward under ``torch.profiler``: device time of
-        kernels A-D and of everything else, summed over device-side events,
-        and the busy share against ``wall_ms`` (measured without it); the
-        shares are None where the profiler caught no trace."""
         xu = randn(b, ucfg.image_hw, ucfg.image_hw, ucfg.in_c)
         tu = torch.rand((b,), device=dev)
-        with torch.inference_mode():
-            unet.unet_apply(pu, xu, tu, ucfg)
-            torch.cuda.synchronize()
-            _, evs = device_events(lambda: unet.unet_apply(pu, xu, tu, ucfg),
-                                   1, with_cpu=True)
-        out = {f"{k}_ms": 0.0 for k in ("A", "B", "C", "D", "other")}
-        for ev in evs or ():
-            out[f"{kernel_part(ev.name)}_ms"] += ev.device_time_total / 1e3
-        busy = sum(out.values())
-        out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   busy_share=busy / wall_ms if evs else None,
-                   B_share=out["B_ms"] / busy if evs else None)
-        return out
+        return forward_split(lambda: unet.unet_apply(pu, xu, tu, ucfg),
+                             wall_ms)
 
     unet_split_512 = {
         f"{wdtype}_B{bb}": unet_split(
@@ -2036,6 +2627,9 @@ def main() -> int:
     f_entry["ptxas"] = f_ptxas
     print(json.dumps({"card": smi, **lm_records}))
 
+    vae_records, vae_paths = vae_phases(dev, smi, peak_flops, peak_bw, gen)
+    print(json.dumps({"card": smi, **vae_records}))
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -2058,12 +2652,12 @@ def main() -> int:
                 if f"_{wdtype}_" in k and v[kern_]}
 
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
-               **unet_paths_of("A", "float32")}
+               **unet_paths_of("A", "float32"), **vae_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
-               **unet_paths_of("B", "float32")}
-    ai8_paths, bi8_paths = (unet_paths_of("A", "int8"),
-                            unet_paths_of("B", "int8"))
+               **unet_paths_of("B", "float32"), **vae_paths["B"]}
+    ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"]}
+    bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"]}
     c_paths, d_paths = (unet_paths_of("C", "float32"),
                         unet_paths_of("D", "float32"))
     ci8_paths, di8_paths = (unet_paths_of("C", "int8"),

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.plan import conv_spec, plan_conv
+from repro_torch.core import decompose as dec
+from repro_torch.core.plan import conv_spec, norm_padding, plan_conv
 
 
 def huge_conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor,
@@ -50,3 +51,30 @@ def huge_dilated_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
                      padding=padding, dilation=dilation, dtype=x.dtype,
                      backend=backend)
     return plan_conv(spec).apply(x, kernel)
+
+
+# ---------------------------------------------------------------------------
+# the offline-decomposition API (pre-plan era), as thin adapters
+# ---------------------------------------------------------------------------
+
+def precompute_transposed_weights(kernel: torch.Tensor, strides, padding):
+    """Offline: slice and flatten the phase sub-kernels.  Returns
+    ``{(qh, qw): (T_h*T_w*C, N) tensor}``, tap-major, GEMM-ready: the rows
+    of ``ConvPlan.pack``, keyed by phase."""
+    padding = norm_padding(padding, tuple(kernel.shape[:2]))
+    subs = dec.decompose_kernel(kernel, tuple(strides), padding)
+    return {q: sub.reshape(-1, sub.shape[-1]) for q, sub in subs.items()}
+
+
+def huge_conv_transpose2d_pre(x: torch.Tensor, pre_subs: dict, kernel_hw,
+                              strides=(2, 2),
+                              padding=((2, 2), (2, 2))) -> torch.Tensor:
+    """Transposed conv on offline-decomposed weights: ``as_superpack``
+    concatenates the per-phase buffers at the plan's row offsets, then
+    ``ConvPlan.apply`` runs as for any planned site."""
+    n = max(sub.shape[-1] for sub in pre_subs.values())
+    spec = conv_spec("transposed", x.shape,
+                     (kernel_hw[0], kernel_hw[1], x.shape[-1], n),
+                     strides=strides, padding=padding, dtype=x.dtype)
+    plan = plan_conv(spec)
+    return plan.apply(x, plan.as_superpack(pre_subs))

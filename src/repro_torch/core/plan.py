@@ -26,6 +26,13 @@ Backend policy (``ConvSpec.backend``), the port's reading of JAX's
   bucket) cells; the tile is the card's (``pick_block_tile_*``).
 * ``'auto'``  — ``'cuda'`` when a card is present, else ``'torch'``.
 
+``plan_conv(spec, autotune=AutotunePolicy(...))`` replaces these
+heuristic routes by measured winners (``core.autotune``), which may also be
+the transposed kind's ``'per_phase'`` route: the pre-fusion executor, one
+pad and product chain per phase (on 'cuda' each live phase is one launch
+of kernel B, or of kernel C where the reference tiles the phase's plane,
+on an int8 plan's codes through their int8 entries).
+
 Every route of both kinds differentiates through the paper's §3.2.3
 backward, as JAX's custom VJPs do: ``apply`` goes through the autograd
 Functions ``_PlannedTransposed`` / ``_PlannedSingle``, whose forward runs
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import time
 from typing import Sequence
 
@@ -52,7 +60,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.core import decompose as dec
-from repro_torch.core.untangle import pad_or_crop
+from repro_torch.core.untangle import pad_or_crop, untangled_conv2d
 from repro_torch.kernels.untangled_conv import (
     deconv_tap_span, halo_extent, pick_block_tile_single,
     pick_block_tile_transposed, untangled_conv2d_superpack,
@@ -382,7 +390,8 @@ class Route:
     """One batch bucket's execution decision, fixed at plan time.
 
     ``path`` is 'cuda' (the hand-written kernel) or one of the torch routes
-    'fused_plane' | 'fused_tap' | 'pixel_shuffle' | 'taps'.  ``tiles`` is
+    'fused_plane' | 'fused_tap' | 'pixel_shuffle' | 'taps', or (transposed,
+    from autotuning only) 'per_phase'.  ``tiles`` is
     ``None``: the kernel picks its block tile from the call's shapes.
     ``fused_bwd`` picks the single kind's backward form (one wide GEMM vs
     per-tap products).  ``sp_tiles`` is set on a 'cuda' route where the
@@ -524,6 +533,7 @@ class ConvPlan:
     dx_taps: tuple[tuple, ...] | None      # (m, n, superpack row) schedule
     routes: tuple[Route, ...] = ()         # one per BATCH_BUCKETS, ascending
     build_ms: float = 0.0
+    tuned: bool = False                    # routes from autotune, not heuristics
     _xl_routes: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -541,14 +551,16 @@ class ConvPlan:
             self._xl_routes[batch] = _route_exact(self, batch)
         return self._xl_routes[batch]
 
-    def with_routes(self, routes: tuple[Route, ...]) -> "ConvPlan":
+    def with_routes(self, routes: tuple[Route, ...],
+                    tuned: bool = True) -> "ConvPlan":
         """A sibling plan sharing the geometry with a replaced route table
-        (how tests force a route)."""
+        (how the autotuner installs measured winners and tests force a
+        route), with an empty oversize-batch memo."""
         return ConvPlan(
             spec=self.spec, out_hw=self.out_hw, phases=self.phases,
             gpad=self.gpad, total_taps=self.total_taps, sum_uv=self.sum_uv,
             uniform=self.uniform, bwd_pad=self.bwd_pad, dx_taps=self.dx_taps,
-            routes=tuple(routes), build_ms=self.build_ms)
+            routes=tuple(routes), build_ms=self.build_ms, tuned=tuned)
 
     # -- weight layout -----------------------------------------------------
     def pack(self, kernel: torch.Tensor):
@@ -645,20 +657,43 @@ class ConvPlan:
         gradient reaches ``kernel`` through the differentiable pack)."""
         return self.apply(x, self.pack(kernel))
 
+    def apply_per_phase(self, x: torch.Tensor, packed) -> torch.Tensor:
+        """The pre-fusion per-phase executor (one pad and product chain per
+        phase, then the interleave): the measurement baseline of the fused
+        launch and a parity oracle.  It does not go through the §3.2.3
+        autograd Function.  'conv'/'dilated' plans run ``apply``."""
+        if self.spec.kind != "transposed":
+            return self.apply(x, packed)
+        return _transposed_per_phase(self, x, self.as_superpack(packed))
+
 
 def plan_conv(spec: ConvSpec, autotune=None) -> ConvPlan:
-    """Compile ``spec`` into a ``ConvPlan`` (LRU-cached per frozen spec)."""
-    if autotune is not None:
-        raise NotImplementedError(
-            "measured autotuning is not ported yet (ROADMAP Queue 1, "
-            "item 11)")
-    return _plan_conv_cached(spec)
+    """Compile ``spec`` into a ``ConvPlan`` (LRU-cached per frozen spec).
+    ``autotune``, a ``core.autotune.AutotunePolicy``, replaces the
+    heuristic per-bucket routes by measured winners: cached ones where the
+    route cache has them, microbenchmarks on a miss under
+    ``mode='measure'``, the heuristic routes otherwise."""
+    plan = _plan_conv_cached(spec)
+    if autotune is None:
+        return plan
+    from repro_torch.core.autotune import AutotunePolicy, autotune_plan
+    if not isinstance(autotune, AutotunePolicy):
+        raise TypeError(f"autotune takes an AutotunePolicy or None, got "
+                        f"{type(autotune).__name__}")
+    return autotune_plan(plan, autotune)
+
+
+def plan_cache_info():
+    return _plan_conv_cached.cache_info()
 
 
 def plan_cache_clear():
-    """Drop every cached plan (after a test swaps a routing
-    constant)."""
+    """Drop every cached plan (after a test swaps a routing constant), and
+    with them the tuned plans and loaded route caches built on them."""
     _plan_conv_cached.cache_clear()
+    autotune = sys.modules.get("repro_torch.core.autotune")
+    if autotune is not None:
+        autotune.reset()
 
 
 @functools.lru_cache(maxsize=4096)
@@ -903,6 +938,12 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
     route = plan.route_for_batch(x4.shape[0])
     path = route.path
+    if path == "per_phase":
+        # autotune-only route: the per-phase executor measured faster than
+        # any fused launch (it pads per phase, so it bypasses the global
+        # plane below)
+        y = _transposed_per_phase(plan, x4, packed)
+        return y.reshape(lead + tuple(y.shape[1:]))
     if path == "pixel_shuffle":
         # pads with the shared phase footprint (eligibility guarantees one
         # pad fits all phases), so it bypasses the global plane below
@@ -929,8 +970,48 @@ def _transposed_fwd(plan: ConvPlan, x: torch.Tensor, packed):
     else:
         raise ValueError(f"route {path!r} is not ported (transposed routes: "
                          f"cuda, fused_tap, fused_plane, pixel_shuffle, "
-                         f"taps)")
+                         f"taps, per_phase)")
     return y.reshape(lead + tuple(y.shape[1:])).to(x.dtype)
+
+
+def _transposed_per_phase(plan: ConvPlan, x: torch.Tensor,
+                          packed) -> torch.Tensor:
+    """The pre-fusion executor: per phase, its own pad (or crop) of the
+    plane and one stride-1 correlation with its rows of the superpack, then
+    the interleave.  On the 'cuda' policy every live phase is one launch,
+    as the main routes are: kernel C with the card's tile where the
+    reference's tiled verdict takes the phase's plane, else kernel B, on the
+    int8 codes and their scale rows (the int8 entries) for an int8 plan.
+    Otherwise ``untangled_conv2d`` on the dequantized superpack (one wide
+    product for few output rows, else a product per tap, the reference's
+    heuristic)."""
+    spec = plan.spec
+    c, n = spec.in_c, spec.out_c
+    cuda = _want_cuda(spec.backend)
+    w, scales = _kernel_operands(packed) if cuda else (_deq(packed), {})
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    outs = {}
+    for ex in plan.phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0 or u == 0 or v == 0:
+            outs[ex.q] = x4.new_zeros((x4.shape[0], u, v, n))
+            continue
+        xp = pad_or_crop(x4, ex.pad)
+        rows = slice(ex.tap_off * c, (ex.tap_off + th * tw) * c)
+        if not cuda:
+            outs[ex.q] = untangled_conv2d(xp, w[rows].reshape(th, tw, c, n))
+            continue
+        phase = dataclasses.replace(spec, kind="conv", kernel_hw=ex.taps,
+                                    strides=(1, 1), dilation=(1, 1))
+        sp = None
+        if _single_tiled_verdict(phase, xp.shape[1], xp.shape[2], (u, v)):
+            sp = pick_block_tile_single((u, v), ex.taps, (1, 1), (1, 1), n)
+        outs[ex.q] = untangled_conv2d_superpack(
+            xp.contiguous(), w[rows], taps_hw=ex.taps, out_dtype=x.dtype,
+            sp_tiles=sp, **{k: t[rows] for k, t in scales.items()})
+    y = dec.interleave_phases(outs, spec.strides, plan.out_hw).to(x.dtype)
+    return y.reshape(tuple(x.shape[:-3]) + tuple(y.shape[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -90,6 +90,18 @@ def naive_conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, *,
                        padding=padding)
 
 
+def naive_conv_transpose2d_pre(x: torch.Tensor, w_flat: torch.Tensor,
+                               kernel_hw: Pair, *, strides: Pair,
+                               padding: Sequence[Pair]) -> torch.Tensor:
+    """The naive engine with the weight pre-reshaped offline to
+    (R*S*C, N): the fair baseline against the engine's precomputed path.
+    ``padding`` is non-negative, as in the reference."""
+    xp = pad_or_crop(zero_insert(x, strides), padding)
+    buf = im2col(xp, kernel_hw, (1, 1))
+    with ieee_fp32():
+        return torch.matmul(buf, w_flat).to(x.dtype)
+
+
 def oracle_conv_transpose2d(x: torch.Tensor, kernel: torch.Tensor, *,
                             strides: Pair,
                             padding: Sequence[Pair]) -> torch.Tensor:
@@ -176,3 +188,122 @@ def ulp_bound(y64, amax64, n_terms, out_dtype=torch.float32):
     gamma = n1 * u / (1 - n1 * u)
     return gamma * amax64 + eps_out * y64.abs() \
         + float(np.finfo(np.float32).tiny)
+
+
+# ---------------------------------------------------------------------------
+# Analytic memory-traffic model (paper Fig. 8), the reference's integer
+# arithmetic line for line: bytes moved to and from main memory by each
+# algorithm, with a cold cache and perfect reuse inside one GEMM tile.
+# ---------------------------------------------------------------------------
+
+def bytes_naive_transpose(b, h, w, c, r, s, n, stride, itemsize=4):
+    sh = sw = stride
+    hd, wd = (h - 1) * sh + 1, (w - 1) * sw + 1         # zero-inserted size
+    oh, ow = hd + (r - 1), wd + (s - 1)                  # 'full'-ish pad
+    read_x = b * h * w * c
+    write_xhat = b * hd * wd * c                         # materialize x_hat
+    read_xhat_patches = b * oh * ow * r * s * c          # im2col reads
+    write_im2col = b * oh * ow * r * s * c               # im2col buffer
+    read_im2col = b * oh * ow * r * s * c                # GEMM streams buffer
+    read_k = r * s * c * n
+    write_y = b * oh * ow * n
+    return itemsize * (read_x + write_xhat + read_xhat_patches + write_im2col
+                       + read_im2col + read_k + write_y)
+
+
+def bytes_huge_transpose(b, h, w, c, r, s, n, stride, itemsize=4):
+    """Each of the s² phases reads the plane once per tap of its
+    sub-kernel: R·S/s² tap reads of every input pixel in all."""
+    sh = sw = stride
+    oh, ow = (h - 1) * sh + r, (w - 1) * sw + s
+    read_x_taps = b * h * w * c * (r * s) / (sh * sw)
+    read_k = r * s * c * n
+    write_y = b * oh * ow * n
+    return itemsize * (read_x_taps + read_k + write_y + b * h * w * c)
+
+
+def memory_reduction_transpose(b, h, w, c, r, s, n, stride, itemsize=4):
+    base = bytes_naive_transpose(b, h, w, c, r, s, n, stride, itemsize)
+    huge = bytes_huge_transpose(b, h, w, c, r, s, n, stride, itemsize)
+    return dict(naive_bytes=base, huge_bytes=huge, reduction=1.0 - huge / base)
+
+
+def bytes_naive_dilated(b, h, w, c, r, s, n, out_hw, dilation, itemsize=4):
+    """Traffic of the DarkNet dilated path: the zero-inserted kernel
+    written once, then im2col at the dilated extent.  ``out_hw`` and
+    ``dilation`` come from the plan, so stride and padding are folded in."""
+    (dh, dw) = dilation
+    rd, sd = (r - 1) * dh + 1, (s - 1) * dw + 1
+    oh, ow = out_hw
+    read_k = r * s * c * n
+    write_kd = rd * sd * c * n                       # zero-inserted kernel
+    read_x = b * h * w * c
+    read_patches = b * oh * ow * rd * sd * c         # im2col reads
+    write_im2col = b * oh * ow * rd * sd * c
+    read_im2col = b * oh * ow * rd * sd * c          # GEMM streams buffer
+    read_kd = rd * sd * c * n
+    write_y = b * oh * ow * n
+    return itemsize * (read_k + write_kd + read_x + read_patches
+                       + write_im2col + read_im2col + read_kd + write_y)
+
+
+def bytes_planned_single(plan, b=1, itemsize=4):
+    """One planned 'conv'/'dilated' site from its ``ConvPlan``: ``naive``
+    the zero-inserted kernel and the dilated im2col buffer; ``untangled``
+    one padded plane written once, R·S tap reads of it, the superpack
+    streamed once and the output written once."""
+    spec = plan.spec
+    h, w = spec.in_hw
+    c, n = spec.in_c, spec.out_c
+    r, s = spec.kernel_hw
+    dil = spec.dilation if spec.kind == "dilated" else (1, 1)
+    (ph, pw) = spec.padding
+    oh, ow = plan.out_hw
+    naive = bytes_naive_dilated(b, h, w, c, r, s, n, plan.out_hw, dil,
+                                itemsize)
+    hp, wp = h + ph[0] + ph[1], w + pw[0] + pw[1]
+    untangled = b * h * w * c                        # read x
+    untangled += b * hp * wp * c                     # single padded plane
+    untangled += b * r * s * oh * ow * c             # tap reads of the plane
+    untangled += r * s * c * n                       # superpack streams once
+    untangled += b * oh * ow * n                     # output write
+    untangled *= itemsize
+    return dict(naive_bytes=naive, untangled_bytes=untangled,
+                reduction=1.0 - untangled / naive)
+
+
+def bytes_planned_transpose(plan, b=1, itemsize=4):
+    """One planned transposed site from its ``ConvPlan``: ``per_phase``
+    pads a copy of the plane per phase, reads its taps there and
+    re-reads and re-writes the output to interleave it; ``fused`` writes
+    one padded plane, reads it once, streams the superpack once and
+    writes the output interleaved."""
+    spec = plan.spec
+    h, w = spec.in_hw
+    c, n = spec.in_c, spec.out_c
+    oh, ow = plan.out_hw
+    read_x = b * h * w * c
+
+    per_phase = read_x
+    for ex in plan.phases:
+        th, tw = ex.taps
+        u, v = ex.out_hw
+        if th * tw == 0 or u * v == 0:
+            continue
+        hp = h + max(0, ex.pad[0][0]) + max(0, ex.pad[0][1])
+        wp = w + max(0, ex.pad[1][0]) + max(0, ex.pad[1][1])
+        per_phase += b * hp * wp * c                 # phase's padded copy
+        per_phase += b * th * tw * u * v * c         # tap-view reads
+        per_phase += th * tw * c * n                 # phase weights
+        per_phase += b * u * v * n                   # phase output write
+    per_phase += 2 * b * oh * ow * n                 # interleave read+write
+
+    (glh, ghh), (glw, ghw) = plan.gpad
+    hg, wg = h + glh + ghh, w + glw + ghw
+    fused = read_x
+    fused += b * hg * wg * c                         # single padded plane
+    fused += b * hg * wg * c                         # one residency, read once
+    fused += plan.total_taps * c * n                 # superpack streams once
+    fused += b * oh * ow * n                         # interleaved output write
+    return dict(per_phase_bytes=itemsize * per_phase,
+                fused_bytes=itemsize * fused)

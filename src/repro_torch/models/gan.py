@@ -11,19 +11,22 @@ backwards (``ConvPlan.apply``'s autograd Functions); ``gan_losses`` is the
 non-saturating loss pair.
 
 ``GANConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto');
-``GANConfig.wdtype='int8'`` stores every conv weight as a
+``GANConfig.autotune`` an optional ``AutotunePolicy`` (measured routes,
+resolved once at model load); ``GANConfig.wdtype='int8'`` stores every conv weight as a
 ``QuantizedSuperpack`` (quantized at pack), which the 'cuda' route runs on
 the kernels' int8 entries.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import resolve_device
+from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.models import params_from_numpy
 
@@ -69,6 +72,9 @@ class GANConfig:
     layers: tuple[DeconvLayer, ...]
     z_dim: int = 100
     backend: str = "torch"          # plan policy: 'torch' | 'cuda' | 'auto'
+    # measured-route policy (None = heuristic routes); model load pays any
+    # cache-miss microbenchmarks once, apply only sees tuned plans
+    autotune: Optional[AutotunePolicy] = None
     # weight storage dtype for every conv site: 'float32' (dense) or 'int8'
     # (quantized superpacks, ``ConvSpec.wdtype``); activations stay f32
     wdtype: str = "float32"
@@ -87,7 +93,7 @@ def generator_plans(cfg: GANConfig,
         strides=(l.stride, l.stride),
         padding=deconv_padding(l.kernel, l.stride),
         dtype=dtype_name(dtype), backend=cfg.backend,
-        wdtype=cfg.wdtype)) for l in cfg.layers)
+        wdtype=cfg.wdtype), autotune=cfg.autotune) for l in cfg.layers)
 
 
 def discriminator_plans(cfg: GANConfig,
@@ -102,7 +108,7 @@ def discriminator_plans(cfg: GANConfig,
             strides=(l.stride, l.stride),
             padding=((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2)),
             dtype=dtype_name(dtype), backend=cfg.backend,
-            wdtype=cfg.wdtype)))
+            wdtype=cfg.wdtype), autotune=cfg.autotune))
     return tuple(plans)
 
 

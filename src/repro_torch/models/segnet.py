@@ -10,18 +10,21 @@ row for row the JAX package's, so ``params_from_jax`` carries JAX weights
 across as plain arrays.  On the 'cuda' route every site is one launch of
 kernel B; with ``wdtype='int8'`` one launch of its int8 entry (kernel E).
 
-``SegNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto').
-The JAX config's measured-route and device-tiling fields (``autotune``,
-``spatial``) wait for the autotune and plane-parallel slices.
+``SegNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto'),
+``SegNetConfig.autotune`` an optional ``AutotunePolicy`` (measured
+routes).  The JAX config's device-tiling field (``spatial``) waits for the
+plane-parallel slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import resolve_device
+from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.models import params_from_numpy
 
@@ -67,6 +70,8 @@ class SegNetConfig:
     width: int = 128
     num_classes: int = 21
     backend: str = "torch"          # plan policy: 'torch' | 'cuda' | 'auto'
+    # measured-route policy (None = heuristic routes)
+    autotune: Optional[AutotunePolicy] = None
     # weight storage dtype for every conv site: 'float32' (dense) or 'int8'
     # (quantized superpacks, ``ConvSpec.wdtype``); activations stay f32
     wdtype: str = "float32"
@@ -97,7 +102,8 @@ def segnet_plans(cfg: SegNetConfig,
         kernel_hw=(l.kernel, l.kernel), strides=(l.stride, l.stride),
         padding=atrous_padding(l.kernel, l.dilation),
         dilation=(l.dilation, l.dilation), dtype=dtype_name(dtype),
-        backend=cfg.backend, wdtype=cfg.wdtype)) for l in cfg.layers)
+        backend=cfg.backend, wdtype=cfg.wdtype), autotune=cfg.autotune)
+        for l in cfg.layers)
 
 
 def segnet_init(seed_or_generator, cfg: SegNetConfig, device="cuda"):

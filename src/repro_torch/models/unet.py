@@ -19,10 +19,10 @@ corrupted image and a timestep in ``[0, 1]``; ``unet_loss`` is the
 denoising score matching MSE under a cosine ``alpha_bar``;
 ``denoise_loop`` the sequential Euler refinement.
 
-``UNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto').
-``autotune`` and ``spatial`` keep the reference's schema: anything but
-``None`` and ``(1, 1)`` is refused by ``plan_conv`` until the autotune and
-plane-parallel slices.
+``UNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto');
+``autotune`` an optional ``AutotunePolicy`` (measured routes).
+``spatial`` keeps the reference's schema: anything but ``(1, 1)`` is
+refused by ``plan_conv`` until the plane-parallel slice.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import resolve_device
+from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.models import params_from_numpy
 from repro_torch.models.gan import deconv_padding
@@ -51,7 +52,7 @@ class UNetConfig:
     up_kernel: int = 4              # transposed up kernel; % stride == 0
     time_dim: int = 64              # sinusoidal timestep embedding width
     backend: str = "torch"          # plan policy: 'torch' | 'cuda' | 'auto'
-    autotune: Optional[object] = None
+    autotune: Optional[AutotunePolicy] = None
     spatial: tuple[int, int] = (1, 1)
     wdtype: str = "float32"         # 'float32' | 'int8' superpacks
 

@@ -4,7 +4,9 @@ latency report.
 
 Counterpart of ``examples/serve_segnet.py`` without the control plane (its
 SLO admission, priority classes and fault replay come with the serving
-slice, its route autotuning with the autotune slice).  Image requests
+slice).  ``--autotune cache|measure`` and ``--route-cache PATH`` are
+``serve_dcgan``'s: measured routes and bucket costs from the per-host
+route cache.  Image requests
 arrive at ``--rate`` req/s (0 = one burst); the batcher coalesces them into
 the plan batch buckets (1/4/16/64), and each launch is one SegNet forward
 plus the per-pixel argmax.
@@ -18,6 +20,7 @@ additively).
     PYTHONPATH=src python -m repro_torch.serve_segnet [--requests 32]
         [--rate 0] [--max-wait-ms 2] [--full] [--wdtype float32|int8]
         [--backend cuda|torch] [--device cuda|cpu]
+        [--autotune off|cache|measure] [--route-cache PATH]
 
 ``--full`` serves the 64 px, width-128 edge config ``SEGNET``; the default
 is the tiny config.
@@ -31,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import autotune as at
 from repro_torch.core import resolve_device
 from repro_torch.core.plan import QuantizedSuperpack
 from repro_torch.models import segnet
@@ -39,10 +43,12 @@ from repro_torch.serving.metrics import format_stats
 
 
 def load_model(*, full: bool, backend: str, wdtype: str, device,
-               seed: int = 0):
-    """Build every conv plan and pack the weights once: (cfg, params)."""
+               seed: int = 0, autotune=None):
+    """Build every conv plan (under the ``autotune`` policy, if any) and
+    pack the weights once: (cfg, params)."""
     base = segnet.SEGNET if full else segnet.SEGNET_TINY
-    cfg = dataclasses.replace(base, backend=backend, wdtype=wdtype)
+    cfg = dataclasses.replace(base, backend=backend, wdtype=wdtype,
+                              autotune=autotune)
     segnet.segnet_plans(cfg)
     return cfg, segnet.segnet_init(seed, cfg, device=device)
 
@@ -93,11 +99,24 @@ def main(argv=None):
                          "twin first")
     ap.add_argument("--backend", choices=("torch", "cuda"), default="cuda")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--autotune", choices=("off", "cache", "measure"),
+                    default="off",
+                    help="measured routes: 'cache' = cached winners only, "
+                         "'measure' = microbenchmark on a cache miss")
+    ap.add_argument("--route-cache", default=None,
+                    help="route/bucket-cost cache path (default "
+                         "$HUGE2_ROUTE_CACHE or ~/.cache/huge2)")
     args = ap.parse_args(argv)
 
+    policy = cache = None
+    if args.autotune != "off":
+        policy = at.AutotunePolicy(mode=args.autotune,
+                                   cache_path=args.route_cache)
+        cache = at.open_cache(args.route_cache)
     t_load = time.perf_counter()
     cfg, params = load_model(full=args.full, backend=args.backend,
-                             wdtype=args.wdtype, device=args.device)
+                             wdtype=args.wdtype, device=args.device,
+                             autotune=policy)
     plans = segnet.segnet_plans(cfg)
     t_load = time.perf_counter() - t_load
     print(f"model load: {cfg.name} (wdtype={cfg.wdtype}), {len(plans)} "
@@ -116,13 +135,15 @@ def main(argv=None):
         # logits -> per-pixel class ids
         return torch.argmax(segnet.segnet_apply(params, x, cfg), dim=-1)
 
-    batcher = DynamicImageBatcher(serve_fn, max_wait_ms=args.max_wait_ms,
-                                  device=args.device)
+    batcher = DynamicImageBatcher(
+        serve_fn, max_wait_ms=args.max_wait_ms, device=args.device,
+        cache=cache, cache_key=f"serve_segnet/{cfg.name}/{cfg.wdtype}")
     proto = np.zeros((cfg.in_hw, cfg.in_hw, cfg.in_c), np.float32)
     t0 = time.perf_counter()
-    batcher.warmup(proto)
-    print(f"warmup: buckets {batcher.buckets} run and timed in "
-          f"{time.perf_counter() - t0:.2f} s (ms "
+    timed = batcher.warmup(proto)
+    print(f"warmup: buckets {batcher.buckets} run in "
+          f"{time.perf_counter() - t0:.2f} s, {len(timed)} timed / "
+          f"{len(batcher.buckets) - len(timed)} from the cache (ms "
           f"{[round(batcher.bucket_cost_s[b] * 1e3, 3) for b in batcher.buckets]})")
 
     rng = np.random.default_rng(0)
@@ -148,6 +169,7 @@ def main(argv=None):
               f"{np.unique(seg).size}/{cfg.num_classes} (device "
               f"{torch.device(args.device)})")
     st["int8_gate"] = gate
+    st["warmup_timed"] = timed
     return st
 
 

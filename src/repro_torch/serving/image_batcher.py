@@ -17,12 +17,14 @@ Scheduling policy (as in the JAX package):
 ``warmup`` runs every bucket once (kernel build, library handles) and then
 measures each bucket's launch wall time; the scheduler covers the queue with
 the bucket multiset of least measured cost (a coin-change DP).  Until costs
-are measured it rounds up to the nearest bucket.
+are measured it rounds up to the nearest bucket.  With a route cache
+(``core.autotune.RouteCache``) and a ``cache_key`` naming the served model,
+the measured costs persist: a restarted server preloads them, and its
+warmup runs every bucket but re-times none unless asked.
 
 The serve function runs eagerly under ``torch.inference_mode()``; one CUDA
-graph per bucket is later work.  Route-cache persistence (``cache``) and
-data-parallel serving (``dist``) come with the autotune and data-parallel
-slices.
+graph per bucket is later work, and so is data-parallel serving
+(``dist``), which comes with the data-parallel slice.
 """
 from __future__ import annotations
 
@@ -62,12 +64,14 @@ class DynamicImageBatcher:
     ``serve_fn(batch) -> batch`` is the model forward on a device tensor
     with parameters already bound (e.g. ``lambda z: generator_apply(params,
     z, cfg)``); ``device`` is where batches are placed (``"cuda"`` unless the
-    caller asks for the CPU).
+    caller asks for the CPU).  ``cache`` (a ``RouteCache``) and ``cache_key``
+    persist the measured bucket costs per model and host.
     """
 
     def __init__(self, serve_fn: Callable, *,
                  buckets: Sequence[int] = BATCH_BUCKETS,
                  max_wait_ms: float = 2.0,
+                 cache=None, cache_key: Optional[str] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device="cuda"):
         self.buckets = tuple(sorted(int(b) for b in buckets))
@@ -80,10 +84,16 @@ class DynamicImageBatcher:
         # time.perf_counter — they measure the device, not the schedule
         self.clock = clock
         self._serve_fn = serve_fn
+        self.cache = cache
+        self.cache_key = cache_key
         self.queue: deque[ImageRequest] = deque()
         self.done: list[ImageRequest] = []
         self.launches: list[tuple[int, int]] = []   # (bucket, live) per call
         self.bucket_cost_s: dict[int, float] = {}   # measured by warmup
+        if cache is not None and cache_key is not None:
+            self.bucket_cost_s = {
+                b: c for b, c in cache.get_bucket_costs(cache_key).items()
+                if b in self.buckets}
         self._sched_memo: dict[int, tuple[float, int]] = {0: (0.0, 0)}
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
@@ -112,22 +122,27 @@ class DynamicImageBatcher:
         return self.buckets[-1]
 
     def warmup(self, proto: Optional[np.ndarray] = None, *,
-               iters: int = 2) -> tuple[int, ...]:
+               iters: int = 2, force: bool = False) -> tuple[int, ...]:
         """Run every bucket once on a zeros payload (first-use set-up never
         lands in a request's latency), then measure each bucket's launch
         cost (min of ``iters``, synchronized) for the cost-aware scheduler.
-        ``proto`` is one request payload; defaults to the oldest queued
-        request's.  Returns the buckets timed."""
+        A bucket whose cost came from the route cache is run but not
+        re-timed unless ``force=True``; newly measured costs are written
+        back to the cache.  ``proto`` is one request payload; defaults to
+        the oldest queued request's.  Returns the buckets timed."""
         if proto is None:
             if not self.queue:
                 raise ValueError("warmup needs a proto payload or a queued "
                                  "request for the shape")
             proto = self.queue[0].payload
+        timed = []
         for b in self.buckets:
             x = torch.from_numpy(
                 np.zeros((b,) + proto.shape, proto.dtype)).to(self.device)
             self._serve(x)
             self._sync()
+            if b in self.bucket_cost_s and not force:
+                continue                                # cost from the cache
             ts = []
             for _ in range(iters):
                 t0 = time.perf_counter()
@@ -135,8 +150,12 @@ class DynamicImageBatcher:
                 self._sync()
                 ts.append(time.perf_counter() - t0)
             self.bucket_cost_s[b] = min(ts)
+            timed.append(b)
         self._sched_memo = {0: (0.0, 0)}                # rebuild on new costs
-        return self.buckets
+        if timed and self.cache is not None and self.cache_key is not None:
+            self.cache.put_bucket_costs(self.cache_key, self.bucket_cost_s)
+            self.cache.save()
+        return tuple(timed)
 
     def _first_launch_size(self, n: int) -> int:
         """Bucket of the next launch for a queue of ``n``: head of the

@@ -12,6 +12,7 @@ import torch
 
 from repro.core import plan as jplan
 from repro_torch.core import plan as tplan
+from repro_torch.core.autotune import AutotunePolicy
 
 from tools.gen_route_table import route_specs
 
@@ -198,8 +199,14 @@ def test_unported_specs_raise(change, exc):
 
 
 def test_autotune_argument_raises():
-    with pytest.raises(NotImplementedError):
-        tplan.plan_conv(port_spec(SITES[0][1], "torch"), autotune=object())
+    """Anything but an ``AutotunePolicy`` (or None) is refused; a policy
+    gives the tuned sibling plan."""
+    spec = port_spec(SITES[0][1], "torch")
+    with pytest.raises(TypeError, match="AutotunePolicy"):
+        tplan.plan_conv(spec, autotune=object())
+    tuned = tplan.plan_conv(spec, autotune=AutotunePolicy(
+        mode="cache", cache_path=""))
+    assert tuned.tuned and tuned.routes == tplan.plan_conv(spec).routes
 
 
 def test_apply_checks_input_shape():

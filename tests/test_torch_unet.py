@@ -111,8 +111,10 @@ def test_sites_and_route_summary_match_jax(base_name, wdtype):
 
 
 def test_schema_fields_refuse_what_is_not_ported():
+    """``spatial`` waits for the plane-parallel slice; ``autotune`` takes
+    an ``AutotunePolicy`` and refuses anything else."""
     cfg = dataclasses.replace(tunet.UNET_TINY, autotune=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AutotunePolicy"):
         tunet.unet_plans(cfg)
     cfg = dataclasses.replace(tunet.UNET_TINY, name="sp", spatial=(2, 1))
     with pytest.raises(NotImplementedError):
