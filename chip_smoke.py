@@ -36,22 +36,29 @@ result line) if anything is off:
    cGAN (B = 16) generator sites, the VAE's decoder sites (B = 1 and 64),
    the non-uniform, empty-phase and ragged cases, two launches bit-equal;
 3. serving at full width: the Table-1 DCGAN on the 'cuda' route behind
-   ``DynamicImageBatcher``, a burst answered once per request, 4 kernel
-   launches per batcher launch, each row equal to a B = 1 forward;
+   ``DynamicImageBatcher``, one CUDA graph per bucket: every bucket's
+   capture records 4 kernel-A launches and its replay is bit-equal to the
+   eager forward (one replay's device kernels of A from ``torch.profiler``
+   beside, "not measured" where the trace holds none), a burst answered
+   once per request, 4 kernel launches per batcher launch (captured count
+   x replays; no eager launch while serving), each row equal to a B = 1
+   forward;
 3b. training at full width: the Table-1 DCGAN generator and discriminator
    on the 'cuda' route through ``train_step`` (3 SGD steps at B = 16), with
    finite losses and params, A and B launched exactly once per planned
    forward, and every gradient of one step equal to the 'torch' route's
    within ``max|Δ| ≤ TOL_GRAD·max|g_torch|`` per tensor (TF32 off);
 3c. SegNet serving at full width (``SEGNET``, 64 px, width 128) on the
-   'cuda' route, f32 and int8: a burst answered once per request, kernel B
-   (f32 or int8 entry) launched exactly 10 times per batcher launch, every
+   'cuda' route, f32 and int8, on the bucket graphs (checked as in 3): a
+   burst answered once per request, kernel B (f32 or int8 entry) launched
+   exactly 10 times per batcher launch (captured x replays), every
    served argmax map equal to a B = 1 forward's, the int8 logits within
    10/127 rel L∞ of the f32 twin's and the int8 weights at most half the
    f32 bytes; the forward's time per bucket, and at B = 1 and 64 its device
    time by kernel and idle share (``torch.profiler``);
 3d. the int8 DCGAN generator served the same way: 4 int8 kernel-A launches
-   per batcher launch, rows equal to B = 1 forwards, output within 4/127
+   per batcher launch (captured x replays, every bucket's replay bit-equal
+   to its eager forward), rows equal to B = 1 forwards, output within 4/127
    rel L∞ of the f32 generator from the same seed;
 4. times (CUDA events): per DCGAN generator site at B = 1 and 64 kernel A,
    its plain version, ``F.conv_transpose2d`` as the library yardstick and
@@ -159,6 +166,19 @@ result line) if anything is off:
    second load in 'cache' mode measures nothing and gives the same
    routes; ``serve_dcgan --autotune cache`` re-times no bucket and
    measures no route, every served row equal to a B = 1 forward;
+3i. the control plane at full width: the Table-1 DCGAN generator,
+   ``SEGNET`` (f32) and llama3.2-1b (4 slots) behind one ``ControlPlane``,
+   a seeded burst of both priority classes (some with SLOs: two rejected
+   at admission, one shed before launch), a ``FailureInjector`` killing an
+   image launch and a decode step: every request answered once, submitted
+   = served + rejected + shed, every answer bit-equal to the same burst
+   run fault-free, the decode graphs' tokens equal to the eager
+   ``ContinuousBatcher``'s, 4 A and 10 B launches per bucket launch;
+   per-class p50/p99, goodput under SLO, the fault records;
+4h. times: the DCGAN generator and SegNet (f32, int8) forward per bucket
+   eager against its CUDA graph's replay (CUDA events and host wall, the
+   device time and busy share from ``torch.profiler``); the llama3.2-1b
+   decode step at 4 slots, eager against the slot graphs;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -294,6 +314,23 @@ TOL_LM = 3e-2
 LM_PREFILL = ((1, 4096), (8, 512))
 # ContinuousBatcher requests: (prompt length, new tokens), 6 over 4 slots
 LM_REQUESTS = ((8, 16), (5, 8), (7, 12), (3, 6), (6, 10), (4, 16))
+# phase 3i: images a model, prompt lengths, new tokens, the LM's cache
+# length, the launches the injector kills (2: an image launch, 5: a decode
+# step; the plane steps the LM and then launches one image bucket a pump),
+# and 4h's timed decode steps
+CP_IMAGES = 20
+CP_PROMPTS = (5, 8, 3, 6, 4, 7)
+CP_MAX_NEW = 8
+CP_MAX_LEN = 32
+CP_FAULTS = (2, 5)
+# the starvation bound reads the host's clock; at 60 s it never flips a
+# class pick inside the burst, so the faulted and the fault-free pass (its
+# graphs captured at first launch, hundreds of ms later) group the same
+# launches, and only the same launches give the same bits (cuBLAS and the
+# kernels' K split follow the bucket)
+CP_STARVATION_MS = 60_000.0
+PRIORITY_OF = ("interactive", "batch")
+DECODE_STEPS = 16
 # device kernels of the dense products (cuBLAS / CUTLASS names)
 MATMUL_NAMES = ("gemm", "xmma", "cutlass", "matmul", "gemv", "splitk",
                 "nvjet")
@@ -604,6 +641,42 @@ def forward_split(fn, wall_ms):
     return out
 
 
+def graph_checks(batcher, fn, kernel, per_forward, gen):
+    """The bucket graphs ``batcher.warmup`` captured, one by one: each
+    recorded ``per_forward`` launches of ``kernel`` ("A", "B" or "B_int8")
+    and nothing else, and its replay on random rows is bit-equal to
+    ``fn`` run eagerly on the same static input (the replays here are not
+    serving launches: the graph's count does not move).  Then one replay
+    of the largest bucket under ``torch.profiler``: the device kernels of
+    ``kernel``'s symbols (split-K reductions apart), or None (printed "not
+    measured") where the trace does not show the graph's kernels; the
+    capture count is the gate.  Returns that count."""
+    import torch
+    part = kernel[0]
+    for b, g in sorted(batcher.graphs.items()):
+        if g.kernels != {kernel: per_forward}:
+            raise RuntimeError(f"bucket {b}: the capture recorded "
+                               f"{g.kernels}, want {{{kernel!r}: "
+                               f"{per_forward}}}")
+        x, = g.inputs
+        with torch.no_grad():
+            x.copy_((torch.rand(x.shape, generator=gen) * 2 - 1).to(x))
+        g.graph.replay()
+        got = g.out.clone()
+        with torch.inference_mode():
+            want = fn(x)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"bucket {b}: the graph's replay differs "
+                               f"from the eager forward by "
+                               f"{float((got - want).abs().max()):.3e}")
+    g = batcher.graphs[max(batcher.graphs)]
+    _, evs = device_events(g.graph.replay, 1)
+    ran = None if evs is None else sum(
+        1 for ev in evs if kernel_part(ev.name) == part
+        and "split_reduce" not in ev.name)
+    return ran if ran == per_forward else None
+
+
 def site(h, c, n, k, s, pads, backend="cuda"):
     """The plan of a square transposed site."""
     from repro_torch.core.plan import ConvSpec, plan_conv
@@ -842,6 +915,7 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
 
     fa.flash_attention.launches = 0
     batcher = ContinuousBatcher(cfg, params, slots=4, max_len=32, device=dev)
+    batcher.warmup()                    # the slot graphs, outside the time
     for r in requests():
         batcher.submit(r)
     t0 = time.perf_counter()
@@ -1424,6 +1498,259 @@ def vae_phases(dev, smi, peak_flops, peak_bw, gen):
     return records, launches
 
 
+def host_ms(fn, iters=20, warmup=3):
+    """Host wall ms of one synchronized call of ``fn``: the mean over
+    ``iters`` calls after ``warmup``, each ended by a synchronize."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / iters * 1e3
+
+
+def control_plane_phases(dev, smi, gen):
+    """Phases 3i and 4h: the control plane on the card at full width (the
+    Table-1 DCGAN generator, ``SEGNET`` f32 and llama3.2-1b behind one
+    ``ControlPlane``, a seeded burst of both priority classes with SLOs,
+    a fault at an image launch and one at a decode step, checked against
+    a fault-free pass and the eager ``ContinuousBatcher``), then each
+    image model's forward per bucket eager against its CUDA graph and the
+    decode step at 4 slots eager against the slot graphs.  Returns
+    (records for the results line, {kernel: {path: launches}})."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve_segnet
+    from repro_torch.configs import registry
+    from repro_torch.models import gan, segnet
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.fault import FailureInjector
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    from repro_torch.serving.control_plane import ControlPlane, ServeRequest
+    from repro_torch.serving.image_batcher import DynamicImageBatcher
+
+    # ---- 3i. three models behind one control plane, two faults -----------
+    gcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
+    gparams = gan.generator_init(0, gcfg, device=dev)
+
+    def gen_fn(z):
+        return gan.generator_apply(gparams, z, gcfg)
+    seg = {}
+    for wdtype in ("float32", "int8"):
+        scfg, sparams = serve_segnet.load_model(
+            full=True, backend="cuda", wdtype=wdtype, device=dev)
+
+        def seg_fn(x, p=sparams, c=scfg):
+            return torch.argmax(segnet.segnet_apply(p, x, c), dim=-1)
+        seg[wdtype] = (scfg, seg_fn)
+    scfg = seg["float32"][0]
+    lcfg = registry.get_config("llama3.2-1b")
+    lparams = tfm.init(lcfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(22)
+    z_proto = torch.zeros(gcfg.z_dim).numpy()
+    x_proto = torch.zeros((scfg.in_hw, scfg.in_hw, scfg.in_c)).numpy()
+    lats = torch.randn((CP_IMAGES, gcfg.z_dim), generator=g).numpy()
+    imgs = (torch.rand((CP_IMAGES, scfg.in_hw, scfg.in_hw, scfg.in_c),
+                       generator=g) * 2 - 1).numpy()
+    prompts = [torch.randint(0, lcfg.vocab_size, (p,), generator=g).numpy()
+               for p in CP_PROMPTS]
+    classes = torch.randint(0, 2, (2 * CP_IMAGES + len(CP_PROMPTS),),
+                            generator=g).tolist()
+
+    def trace(mod):
+        """The burst as ``ServeRequest``s: images 0.. (DCGAN) and 100..
+        (SegNet), prompts 200..; every fourth image with a 60 s SLO, one
+        image of each model with a 1 us SLO (rejected at admission: a
+        launch costs more), one prompt arrived 10 s ago with a 1 s SLO
+        (admitted: the LM has no cost yet; shed at launch)."""
+        reqs = []
+        for i in range(CP_IMAGES):
+            for base, model, payload in ((0, "dcgan", lats[i]),
+                                         (100, "segnet", imgs[i])):
+                slo = 1e-3 if i == 5 else 60_000.0 if i % 4 == 0 else None
+                reqs.append(mod(rid=base + i, model=model, payload=payload,
+                                priority=PRIORITY_OF[classes[base // 100
+                                                             * CP_IMAGES
+                                                             + i]],
+                                slo_ms=slo))
+        for j, p in enumerate(prompts):
+            reqs.append(mod(rid=200 + j, model="llama", payload=p,
+                            max_new=CP_MAX_NEW, priority=PRIORITY_OF[
+                                classes[2 * CP_IMAGES + j]],
+                            slo_ms=60_000.0 if j % 2 else None))
+        reqs.append(mod(rid=200 + len(prompts), model="llama",
+                        payload=prompts[0], max_new=CP_MAX_NEW,
+                        slo_ms=1_000.0,
+                        t_arrival=time.perf_counter() - 10.0))
+        return reqs
+
+    def plane(injector=None, costs=None):
+        cp = ControlPlane(injector=injector, starvation_ms=CP_STARVATION_MS)
+        bes = {"dcgan": cp.register_image_model("dcgan", gen_fn, z_proto,
+                                                device=dev),
+               "segnet": cp.register_image_model(
+                   "segnet", seg["float32"][1], x_proto, device=dev)}
+        cp.register_lm_model("llama", lcfg, lparams, slots=4,
+                             max_len=CP_MAX_LEN, device=dev)
+        if costs is None:
+            cp.warmup()
+        else:
+            for name, be in bes.items():
+                be.batcher.bucket_cost_s = dict(costs[name])
+        return cp, bes
+
+    zero_counts()
+    cp, bes = plane(FailureInjector(CP_FAULTS))
+    t0 = time.perf_counter()
+    cp.run(trace(ServeRequest))
+    torch.cuda.synchronize()
+    cp_s = time.perf_counter() - t0
+    st = cp.stats()
+    n_sub = 2 * CP_IMAGES + len(CP_PROMPTS) + 1
+    answered = [r.rid for r in cp.done + cp.rejected + cp.shed]
+    if st["submitted"] != n_sub or sorted(answered) != sorted(
+            set(answered)) or len(answered) != n_sub \
+            or st["submitted"] != st["served"] + st["rejected"] + st["shed"]:
+        raise RuntimeError(f"control plane: a request was lost or answered "
+                           f"twice: {st}")
+    faulted = {rec["model"] for rec in st["faults"]["records"]}
+    if st["faults"]["events"] != 2 or "llama" not in faulted or not \
+            faulted & {"dcgan", "segnet"} or not st["replayed_requests"]:
+        raise RuntimeError(f"control plane faults {st['faults']}, "
+                           f"{st['replayed_requests']} replayed")
+    want_rej = {5, 105}
+    if {r.rid for r in cp.rejected} != want_rej or \
+            [r.rid for r in cp.shed] != [200 + len(prompts)]:
+        raise RuntimeError(f"rejected {[r.rid for r in cp.rejected]}, shed "
+                           f"{[r.rid for r in cp.shed]}")
+    # the fault-free pass on the same measured costs: the same launches,
+    # so the same bits
+    ref, _ = plane(costs={n: be.batcher.bucket_cost_s
+                          for n, be in bes.items()})
+    ref.run(trace(ServeRequest))
+    got, want = cp.results(), ref.results()
+    differ = sorted(rid for rid in got if rid not in want
+                    or not np.array_equal(got[rid], want[rid]))
+    if sorted(got) != sorted(want) or differ:
+        raise RuntimeError(f"control plane: answers differ from the "
+                           f"fault-free pass: rids {differ}; launches "
+                           f"{ {n: b.batcher.launches for n, b in bes.items()} }")
+    # the eager batcher on the same prompts gives the graphs' tokens
+    eager = ContinuousBatcher(lcfg, lparams, slots=4, max_len=CP_MAX_LEN,
+                              device=dev, graphs=False)
+    for j, p in enumerate(prompts):
+        eager.submit(Request(rid=200 + j, prompt=p, max_new=CP_MAX_NEW))
+    eager.run()
+    if any(list(got[r.rid]) != r.out for r in eager.done):
+        raise RuntimeError("control plane: graph decode tokens differ from "
+                           "the eager ContinuousBatcher's")
+    launches = {name: be.batcher.graph_launches()
+                for name, be in bes.items()}
+    want_l = {"dcgan": {"A": 4 * len(bes["dcgan"].batcher.launches)},
+              "segnet": {"B": 10 * len(bes["segnet"].batcher.launches)}}
+    eager_l, _ = read_counts("float32")
+    if launches != want_l or not all(v for d in want_l.values()
+                                     for v in d.values()):
+        raise RuntimeError(f"control plane graph launches {launches}, want "
+                           f"{want_l}")
+    per_class = {c: {k: v[k] for k in ("completed", "p50_ms", "p99_ms",
+                                       "goodput_under_slo", "rejected",
+                                       "shed", "slo_miss")}
+                 for c, v in st["per_class"].items()}
+    cp_rec = {"submitted": st["submitted"], "served": st["served"],
+              "rejected": st["rejected"], "shed": st["shed"],
+              "replayed_requests": st["replayed_requests"],
+              "goodput_under_slo": st["goodput_under_slo"],
+              "per_class": per_class, "faults": st["faults"]["records"],
+              "per_model": st["per_model"], "wall_s": cp_s,
+              "graph_launches": launches,
+              "wrapper_launches_warmup_and_eager": eager_l}
+    print(f"[control plane] DCGAN, SegNet and llama3.2-1b (full width) "
+          f"behind one plane: {st['submitted']} submitted = "
+          f"{st['served']} served + {st['rejected']} rejected + "
+          f"{st['shed']} shed, each answered once; faults "
+          f"{json.dumps(st['faults']['records'])}; "
+          f"{st['replayed_requests']} replayed; answers bit-equal to the "
+          f"fault-free pass, decode tokens equal to the eager batcher's; "
+          f"graph launches {launches}; per class "
+          f"{json.dumps(per_class)}; goodput under SLO "
+          f"{st['goodput_under_slo']:.3f}; {cp_s:.2f} s | {smi}")
+
+    # ---- 4h. times: eager forward against its CUDA graph, decode --------
+    graph_times = []
+    for name, fn, proto in (("dcgan", gen_fn, z_proto),
+                            ("segnet_float32", seg["float32"][1], x_proto),
+                            ("segnet_int8", seg["int8"][1], x_proto)):
+        b = DynamicImageBatcher(fn, device=dev)
+        b.warmup(proto, iters=1)
+        for bucket, gr in sorted(b.graphs.items()):
+            x, = gr.inputs
+            with torch.no_grad():
+                x.copy_((torch.rand(x.shape, generator=gen) * 2 - 1).to(x))
+
+            def eager_call():
+                with torch.inference_mode():
+                    fn(x)
+            rec = {"model": name, "batch": bucket,
+                   "eager_ms": time_ms(eager_call),
+                   "eager_wall_ms": host_ms(eager_call),
+                   "graph_ms": time_ms(gr.graph.replay),
+                   "graph_wall_ms": host_ms(gr.graph.replay)}
+            for tag, call in (("eager", eager_call),
+                              ("graph", gr.graph.replay)):
+                _, evs = device_events(call, 1)
+                busy = None if evs is None else sum(
+                    ev.device_time_total for ev in evs) / 1e3
+                rec[f"{tag}_device_ms"] = busy
+                rec[f"{tag}_busy_share"] = (
+                    None if busy is None else busy / rec[f"{tag}_wall_ms"])
+            graph_times.append(rec)
+            print(f"[time] {name} B={bucket}: eager {rec['eager_ms']:.4f} "
+                  f"ms (events) / {rec['eager_wall_ms']:.4f} ms (host wall),"
+                  f" device {ms_text(rec['eager_device_ms'])} ms, busy "
+                  f"{ms_text(rec['eager_busy_share'], '.3f')}; graph "
+                  f"{rec['graph_ms']:.4f} / {rec['graph_wall_ms']:.4f} ms, "
+                  f"device {ms_text(rec['graph_device_ms'])} ms, busy "
+                  f"{ms_text(rec['graph_busy_share'], '.3f')} | {smi}")
+        del b
+    decode = {}
+    for graphs in (False, True):
+        cb = ContinuousBatcher(lcfg, lparams, slots=4, max_len=CP_MAX_LEN,
+                               device=dev, graphs=graphs)
+        for j in range(4):
+            cb.submit(Request(rid=j, prompt=prompts[j][:2],
+                              max_new=CP_MAX_LEN))
+        for _ in range(4):
+            cb.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_STEPS):
+            cb.step()
+        ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+        _, evs = device_events(cb.step, 1)
+        busy = None if evs is None else sum(
+            ev.device_time_total for ev in evs) / 1e3
+        decode["graph" if graphs else "eager"] = {
+            "ms_per_step": ms, "device_ms": busy,
+            "busy_share": None if busy is None else busy / ms}
+    print(f"[time] llama3.2-1b decode, 4 slots, a step (host wall over "
+          f"{DECODE_STEPS} steps, one argmax read-back a step under "
+          f"graphs): eager {decode['eager']['ms_per_step']:.3f} ms "
+          f"(device {ms_text(decode['eager']['device_ms'])}), graph "
+          f"{decode['graph']['ms_per_step']:.3f} ms (device "
+          f"{ms_text(decode['graph']['device_ms'])}) | {smi}")
+    records = {"control_plane": cp_rec, "graph_forward_ms": graph_times,
+               "decode_4_slots": decode}
+    return records, {"A": {"control_plane_dcgan": launches["dcgan"]["A"]},
+                     "B": {"control_plane_segnet": launches["segnet"]["B"]}}
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1914,21 +2241,32 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"sites off the cuda route: {bad}")
     params = gan.generator_init(0, cfg, device=dev)
-    batcher = DynamicImageBatcher(
-        lambda z: gan.generator_apply(params, z, cfg), device=dev)
+
+    def gen_fn(z):
+        return gan.generator_apply(params, z, cfg)
+    batcher = DynamicImageBatcher(gen_fn, device=dev)
     proto = torch.zeros(cfg.z_dim).numpy()
+    # the wrapper counts the warmup's eager runs and captures; serving
+    # replays the captured launches (4 a bucket), counted by the graphs
+    untangled_deconv2d.launches = 0
     batcher.warmup(proto)
+    capture_launches = untangled_deconv2d.launches
+    gen_graph_ran = graph_checks(batcher, gen_fn, "A", 4, gen)
     rng = torch.Generator().manual_seed(1)
     lat = torch.randn((BURST, cfg.z_dim), generator=rng).numpy()
     untangled_deconv2d.launches = 0
     done = batcher.drive_open_loop(lambda i: lat[i], BURST)
-    launches = untangled_deconv2d.launches
+    eager = untangled_deconv2d.launches
+    launches = batcher.graph_launches().get("A", 0)
     st = batcher.stats()
     if sorted(r.rid for r in done) != list(range(BURST)):
         raise RuntimeError("a request was dropped or answered twice")
-    if launches != 4 * len(batcher.launches) or launches == 0:
-        raise RuntimeError(f"{launches} kernel launches for "
-                           f"{len(batcher.launches)} batcher launches")
+    if launches != 4 * len(batcher.launches) or launches == 0 or eager \
+            or capture_launches != 2 * 4 * len(batcher.buckets):
+        raise RuntimeError(f"{launches} kernel launches replayed for "
+                           f"{len(batcher.launches)} batcher launches, "
+                           f"{eager} eager ones, {capture_launches} at "
+                           f"warmup")
     worst = 0.0
     with torch.inference_mode():
         for r in done:
@@ -1944,9 +2282,13 @@ def main() -> int:
                                    f"forward by {float(diff.max()):.3e}")
     print(f"[serve] {st['completed']}/{BURST} answered once, batcher "
           f"launches {batcher.launches}, kernel launches {launches} "
-          f"(= 4 x {len(batcher.launches)}), max |row - B=1 forward| "
-          f"{worst:.3e} (tol {TOL_ROW}), p50 {st['p50_ms']:.3f} ms, "
-          f"p99 {st['p99_ms']:.3f} ms")
+          f"(= 4 captured x {len(batcher.launches)} graph replays; 0 "
+          f"eager; warmup {capture_launches} = an eager run and a capture "
+          f"a bucket), every bucket's replay bit-equal to its eager "
+          f"forward, a B={max(batcher.graphs)} replay's device kernels of "
+          f"A (profiler) {ms_text(gen_graph_ran, 'd')}, max |row - B=1 "
+          f"forward| {worst:.3e} (tol {TOL_ROW}), p50 {st['p50_ms']:.3f} "
+          f"ms, p99 {st['p99_ms']:.3f} ms")
 
     # ---- 3b. training at full width on the 'cuda' route --------------------
     tcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
@@ -2040,23 +2382,29 @@ def main() -> int:
 
         sb = DynamicImageBatcher(seg_fn, device=dev)
         sb.warmup(torch.zeros((scfg.in_hw, scfg.in_hw, scfg.in_c)).numpy())
+        key = "B" if wdtype == "float32" else "B_int8"
+        seg_graph_ran = graph_checks(sb, seg_fn, key, 10, gen)
         imgs = (torch.rand((BURST, scfg.in_hw, scfg.in_hw, scfg.in_c),
                            generator=torch.Generator().manual_seed(4))
                 * 2 - 1).numpy()
         untangled_conv2d_superpack.launches = 0
         untangled_conv2d_superpack.launches_int8 = 0
         done = sb.drive_open_loop(lambda i: imgs[i], BURST)
-        got = {"float32": untangled_conv2d_superpack.launches,
-               "int8": untangled_conv2d_superpack.launches_int8}
+        eager = (untangled_conv2d_superpack.launches
+                 + untangled_conv2d_superpack.launches_int8)
+        replayed = sb.graph_launches()
+        got = {"float32": replayed.get("B", 0),
+               "int8": replayed.get("B_int8", 0)}
         st = sb.stats()
         want = {w: (10 * len(sb.launches) if w == wdtype else 0)
                 for w in got}
         if sorted(r.rid for r in done) != list(range(BURST)):
             raise RuntimeError("a SegNet request was dropped or answered "
                                "twice")
-        if got != want or not sb.launches:
-            raise RuntimeError(f"SegNet {wdtype}: kernel B launches {got}, "
-                               f"want {want} (10 per batcher launch)")
+        if got != want or not sb.launches or eager:
+            raise RuntimeError(f"SegNet {wdtype}: kernel B launches {got} "
+                               f"replayed, {eager} eager, want {want} (10 "
+                               f"per batcher launch, all replayed)")
         seg_launches[wdtype] = got[wdtype]
         with torch.inference_mode():
             for r in done:
@@ -2087,8 +2435,11 @@ def main() -> int:
                         seg_serve[wdtype]["forward_ms"][bb])
         print(f"[serve SegNet {wdtype}] {st['completed']}/{BURST} answered "
               f"once, batcher launches {sb.launches}, kernel B launches "
-              f"{got} (= 10 x {len(sb.launches)}), every map == its B=1 "
-              f"forward's; {st['throughput_rps']:.1f} img/s, p50 "
+              f"{got} (= 10 captured x {len(sb.launches)} graph replays, 0 "
+              f"eager), every bucket's replay bit-equal to its eager "
+              f"forward, a B={max(sb.graphs)} replay's device kernels of B "
+              f"(profiler) {ms_text(seg_graph_ran, 'd')}, every map == its "
+              f"B=1 forward's; {st['throughput_rps']:.1f} img/s, p50 "
               f"{st['p50_ms']:.3f} ms; forward ms per bucket "
               f"{json.dumps(seg_serve[wdtype]['forward_ms'])}"
               + (f"; int8 gate {json.dumps(gate)}" if gate else "")
@@ -2098,20 +2449,25 @@ def main() -> int:
     qcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda",
                          wdtype="int8")
     qparams = gan.generator_init(0, qcfg, device=dev)
-    qb = DynamicImageBatcher(
-        lambda z: gan.generator_apply(qparams, z, qcfg), device=dev)
+    def qgen_fn(z):
+        return gan.generator_apply(qparams, z, qcfg)
+    qb = DynamicImageBatcher(qgen_fn, device=dev)
     qb.warmup(proto)
+    graph_checks(qb, qgen_fn, "A_int8", 4, gen)
     untangled_deconv2d.launches = 0
     untangled_deconv2d.launches_int8 = 0
     done = qb.drive_open_loop(lambda i: lat[i], BURST)
-    q_launches = {"float32": untangled_deconv2d.launches,
-                  "int8": untangled_deconv2d.launches_int8}
+    eager = untangled_deconv2d.launches + untangled_deconv2d.launches_int8
+    replayed = qb.graph_launches()
+    q_launches = {"float32": replayed.get("A", 0),
+                  "int8": replayed.get("A_int8", 0)}
     if sorted(r.rid for r in done) != list(range(BURST)):
         raise RuntimeError("an int8 DCGAN request was dropped or answered "
                            "twice")
     if q_launches != {"float32": 0, "int8": 4 * len(qb.launches)} \
-            or not qb.launches:
-        raise RuntimeError(f"int8 DCGAN kernel A launches {q_launches}")
+            or not qb.launches or eager:
+        raise RuntimeError(f"int8 DCGAN kernel A launches {q_launches} "
+                           f"replayed, {eager} eager")
     with torch.inference_mode():
         for r in done:
             one = gan.generator_apply(
@@ -2128,7 +2484,9 @@ def main() -> int:
         raise RuntimeError(f"int8 DCGAN off its f32 twin: {dcgan_rel:.4f}")
     print(f"[serve DCGAN int8] {len(done)}/{BURST} answered once, batcher "
           f"launches {qb.launches}, kernel A launches {q_launches} "
-          f"(= 4 x {len(qb.launches)}), rows == B=1 forwards; output rel "
+          f"(= 4 captured x {len(qb.launches)} graph replays), every "
+          f"bucket's replay bit-equal to its eager forward, rows == B=1 "
+          f"forwards; output rel "
           f"L-inf vs the f32 twin {dcgan_rel:.4e} (bound "
           f"{len(qcfg.layers) / 127.0:.4f})")
 
@@ -2630,6 +2988,9 @@ def main() -> int:
     vae_records, vae_paths = vae_phases(dev, smi, peak_flops, peak_bw, gen)
     print(json.dumps({"card": smi, **vae_records}))
 
+    cp_records, cp_paths = control_plane_phases(dev, smi, gen)
+    print(json.dumps({"card": smi, **cp_records}))
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -2652,10 +3013,12 @@ def main() -> int:
                 if f"_{wdtype}_" in k and v[kern_]}
 
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
-               **unet_paths_of("A", "float32"), **vae_paths["A"]}
+               **unet_paths_of("A", "float32"), **vae_paths["A"],
+               **cp_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
-               **unet_paths_of("B", "float32"), **vae_paths["B"]}
+               **unet_paths_of("B", "float32"), **vae_paths["B"],
+               **cp_paths["B"]}
     ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"]}
     bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"]}
     c_paths, d_paths = (unet_paths_of("C", "float32"),

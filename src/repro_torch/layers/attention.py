@@ -90,27 +90,31 @@ def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
 def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
     """Single-token decode.  cache: {"k", "v"}: (B, Smax, Kh, Dh), updated
     in place at ``cache_index`` (JAX returns a new cache; the port writes
-    the one it was given and returns it).  The attention is JAX's dense f32
-    softmax over the whole cache; kernel F is not launched here."""
+    the one it was given and returns it).  ``cache_index`` is a Python int
+    or a 0-d int64 tensor on ``x``'s device (what a captured CUDA graph
+    needs, as JAX traces it); both give the same bits.  The attention is
+    JAX's dense f32 softmax over the whole cache; kernel F is not launched
+    here."""
     _check_rope(cfg)
     b, sq, _ = x.shape
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, x, cfg)
-    pos = torch.full((b, sq), cache_index, dtype=torch.int64,
-                     device=x.device)
+    pos = idx.expand(b, sq)
     theta = _theta(cfg, layer_kind)
     q = rp.apply_rope(q, pos, theta)
     k = rp.apply_rope(k, pos, theta)
     ck, cv = cache["k"], cache["v"]
-    ck[:, cache_index:cache_index + sq] = k.to(ck.dtype)
-    cv[:, cache_index:cache_index + sq] = v.to(cv.dtype)
+    rows = idx + torch.arange(sq, device=x.device)
+    ck.index_copy_(1, rows, k.to(ck.dtype))
+    cv.index_copy_(1, rows, v.to(cv.dtype))
     kpos = torch.arange(ck.shape[1], device=x.device)
     window = cfg.window if layer_kind == "local" else 0
     qr = q.reshape(b, sq, kh, h // kh, dh).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, ck.float()) * (dh ** -0.5)
-    mask = kpos <= cache_index
+    mask = kpos <= idx
     if window:
-        mask &= kpos > cache_index - window
+        mask &= kpos > idx - window
     s = s.masked_fill(~mask, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())

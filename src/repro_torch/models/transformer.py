@@ -215,10 +215,13 @@ def decode_layer(p, x, kind, cfg, cache, idx):
 
 
 def decode_step(params, cache, tokens, idx, cfg):
-    """One decode step.  tokens: (B, 1) int.  Returns (logits (B, 1, V),
-    cache), the cache written in place at ``idx``."""
+    """One decode step.  tokens: (B, 1) int; ``idx`` a Python int or a 0-d
+    int64 tensor on the tokens' device (a captured graph's position).
+    Returns (logits (B, 1, V), cache), the cache written in place at
+    ``idx``."""
     check_supported(cfg)
     x = cm.embed_apply(params["embed"], tokens)
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=x.device)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):
         x, nc = decode_layer(p, x, kind, cfg, c, idx)

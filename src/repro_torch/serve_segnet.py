@@ -1,15 +1,18 @@
-"""Serve semantic segmentation on the port: model load, the int8 gate,
-bucket warmup, an open-loop drive through ``DynamicImageBatcher`` and the
-latency report.
+"""Serve semantic segmentation on the port through the SLO-aware control
+plane: model load, the int8 gate, bucket warmup, an open-loop drive and
+the latency report.
 
-Counterpart of ``examples/serve_segnet.py`` without the control plane (its
-SLO admission, priority classes and fault replay come with the serving
-slice).  ``--autotune cache|measure`` and ``--route-cache PATH`` are
+Counterpart of ``examples/serve_segnet.py``, on ``serve_dcgan``'s control
+plane helpers: image requests arrive at ``--rate`` req/s (0 = one burst)
+with a priority class (``--priority``) and an optional deadline
+(``--slo-ms``); the control plane admits, coalesces them into the plan
+batch buckets (1/4/16/64; on the card one CUDA graph per bucket) and sheds
+the expired, and each launch is one SegNet forward plus the per-pixel
+argmax.  ``--inject-fault-at N`` kills the N-th launch and checks the
+replay (for a burst, answers bit-equal to a fault-free pass).
+``--autotune cache|measure`` and ``--route-cache PATH`` are
 ``serve_dcgan``'s: measured routes and bucket costs from the per-host
-route cache.  Image requests
-arrive at ``--rate`` req/s (0 = one burst); the batcher coalesces them into
-the plan batch buckets (1/4/16/64), and each launch is one SegNet forward
-plus the per-pixel argmax.
+route cache.
 
 ``--wdtype int8`` serves quantized superpacks and, before serving, holds
 the logits to those of an f32 twin from the same init seed: rel L∞ ≤ L/127
@@ -20,6 +23,7 @@ additively).
     PYTHONPATH=src python -m repro_torch.serve_segnet [--requests 32]
         [--rate 0] [--max-wait-ms 2] [--full] [--wdtype float32|int8]
         [--backend cuda|torch] [--device cuda|cpu]
+        [--slo-ms 0] [--priority interactive|batch] [--inject-fault-at 0]
         [--autotune off|cache|measure] [--route-cache PATH]
 
 ``--full`` serves the 64 px, width-128 edge config ``SEGNET``; the default
@@ -38,8 +42,8 @@ from repro_torch.core import autotune as at
 from repro_torch.core import resolve_device
 from repro_torch.core.plan import QuantizedSuperpack
 from repro_torch.models import segnet
-from repro_torch.serving.image_batcher import DynamicImageBatcher
-from repro_torch.serving.metrics import format_stats
+from repro_torch.serve_dcgan import (build_control_plane, check_replay,
+                                     drive, report)
 
 
 def load_model(*, full: bool, backend: str, wdtype: str, device,
@@ -106,6 +110,15 @@ def main(argv=None):
     ap.add_argument("--route-cache", default=None,
                     help="route/bucket-cost cache path (default "
                          "$HUGE2_ROUTE_CACHE or ~/.cache/huge2)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="per-request SLO in ms (0 = no deadline); blown "
+                         "backlogs reject at admission, expired requests "
+                         "shed before launch")
+    ap.add_argument("--priority", choices=("interactive", "batch"),
+                    default="interactive")
+    ap.add_argument("--inject-fault-at", type=int, default=0,
+                    help="kill the N-th launch mid-batch with a "
+                         "NodeFailure (0 = off) and check the replay")
     args = ap.parse_args(argv)
 
     policy = cache = None
@@ -135,13 +148,18 @@ def main(argv=None):
         # logits -> per-pixel class ids
         return torch.argmax(segnet.segnet_apply(params, x, cfg), dim=-1)
 
-    batcher = DynamicImageBatcher(
-        serve_fn, max_wait_ms=args.max_wait_ms, device=args.device,
-        cache=cache, cache_key=f"serve_segnet/{cfg.name}/{cfg.wdtype}")
     proto = np.zeros((cfg.in_hw, cfg.in_hw, cfg.in_c), np.float32)
+    cache_key = f"serve_segnet/{cfg.name}/{cfg.wdtype}"
+    cp, be = build_control_plane(serve_fn, proto,
+                                 max_wait_ms=args.max_wait_ms, cache=cache,
+                                 cache_key=cache_key, device=args.device,
+                                 fault_at=args.inject_fault_at,
+                                 model="segnet")
+    batcher = be.batcher
     t0 = time.perf_counter()
-    timed = batcher.warmup(proto)
-    print(f"warmup: buckets {batcher.buckets} run in "
+    timed = be.warmup()
+    print(f"warmup: buckets {batcher.buckets} "
+          f"{'captured as CUDA graphs' if batcher.graphed else 'run'} in "
           f"{time.perf_counter() - t0:.2f} s, {len(timed)} timed / "
           f"{len(batcher.buckets) - len(timed)} from the cache (ms "
           f"{[round(batcher.bucket_cost_s[b] * 1e3, 3) for b in batcher.buckets]})")
@@ -149,22 +167,20 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     payloads = [rng.uniform(-1, 1, (cfg.in_hw, cfg.in_hw, cfg.in_c))
                 .astype(np.float32) for _ in range(args.requests)]
-    done = batcher.drive_open_loop(lambda i: payloads[i], args.requests,
-                                   rate=args.rate)
-    st = batcher.stats()
-    print(f"served {st['completed']} of {args.requests} "
-          f"({st['launches']} launches, pad fraction "
-          f"{st['pad_fraction']:.2f}, buckets {st['bucket_histogram']})")
-    print(format_stats(st, unit="img"))
-    if sorted(r.rid for r in done) != list(range(args.requests)):
-        raise RuntimeError("a request was dropped or answered twice")
-    for r in done:
+    drive(cp, payloads, rate=args.rate, priority=args.priority,
+          slo_ms=args.slo_ms, model="segnet")
+    st = report(cp, args, "segnet")
+    for r in cp.done:
         if r.out.shape != (cfg.out_hw, cfg.out_hw) or r.out.min() < 0 \
                 or r.out.max() >= cfg.num_classes:
             raise RuntimeError(f"request {r.rid}: bad segmentation map "
                                f"{r.out.shape}")
-    if done:
-        seg = done[-1].out
+    if args.inject_fault_at > 0:
+        print(check_replay(cp, be, payloads, args, serve_fn=serve_fn,
+                           proto=proto, cache=cache, cache_key=cache_key,
+                           model="segnet"))
+    if cp.done:
+        seg = cp.done[-1].out
         print(f"segmentation map: {seg.shape} {seg.dtype}, classes used "
               f"{np.unique(seg).size}/{cfg.num_classes} (device "
               f"{torch.device(args.device)})")

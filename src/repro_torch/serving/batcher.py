@@ -6,8 +6,19 @@ join whenever a slot frees, and a joining prompt is fed token by token
 into its slot's cache while the other slots keep decoding.  Each slot owns
 a B = 1 cache (``decode_step`` takes one cache index, and slots sit at
 different positions), so a request's tokens do not depend on its
-neighbours.  The port runs eagerly: a step is one ``decode_step`` per
-occupied slot.
+neighbours.
+
+On a CUDA device each slot decodes through one CUDA graph
+(``serving.graphs``), the counterpart of JAX's one jitted B = 1
+``_step1``: ``decode_step`` captured on the slot's own cache from a static
+(1, 1) token and a static 0-d position to static logits and their argmax.
+A step writes each occupied slot's token and position with ``fill_``,
+replays the slots' graphs in turn and reads their argmaxes back in one
+copy.  The graphs are captured by ``warmup``, else at the first step (one
+eager step on each slot's zeroed cache first, which the zeroing then
+undoes); a capture or replay that fails raises.  On the CPU, or with
+``graphs=False`` (the eager reference the card's graphs are held to and
+timed against), a step is one eager ``decode_step`` per occupied slot.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tfm
+from repro_torch.serving.graphs import CapturedGraph
 from repro_torch.serving.metrics import latency_stats
 
 
@@ -45,20 +57,26 @@ class ContinuousBatcher:
     """Fixed-slot continuous batching over ``decode_step``.
 
     Each step advances every occupied slot by one token (prefill or
-    decode); a finished request's slot cache is zeroed for the next."""
+    decode); a finished request's slot cache is zeroed for the next.
+    ``device`` is where the caches live (``"cuda"``: one graph a slot,
+    unless ``graphs=False``)."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         self.cfg, self.params = cfg, params
         self.n = slots
         self.max_len = max_len
         self.device = torch.device(device)
+        self.graphed = graphs and self.device.type == "cuda"
         self.slots = [_Slot() for _ in range(slots)]
         self.queue: deque[Request] = deque()
         self.done: list[Request] = []
         self.slot_caches = [tfm.init_cache(cfg, 1, max_len,
                                            device=self.device)
                             for _ in range(slots)]
+        # on the card: per slot a graph, its inputs a static token and
+        # position
+        self.graphs: list[CapturedGraph] = []
 
     # -- client API ----------------------------------------------------------
     def submit(self, req: Request):
@@ -71,9 +89,66 @@ class ContinuousBatcher:
                 s.pos = 0
                 s.prompt_left = len(s.req.prompt)
 
+    def reset_slot(self, si: int):
+        """Zero slot ``si``'s cache in place (its graph holds the
+        buffers)."""
+        for c in self.slot_caches[si]:
+            for t in c.values():
+                t.zero_()
+
+    def _capture(self):
+        """One graph per slot: an eager ``decode_step`` on the slot's
+        zeroed cache (kernel and table set-up), then the capture of the
+        same step from the static token and position, then the cache
+        zeroed again (the eager step wrote its row 0)."""
+        for si in range(self.n):
+            tok = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
+            pos = torch.zeros((), dtype=torch.int64, device=self.device)
+
+            def fn(si=si, tok=tok, pos=pos):
+                logits, _ = tfm.decode_step(self.params, self.slot_caches[si],
+                                            tok, pos, self.cfg)
+                return logits, torch.argmax(logits[0, -1])
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize(self.device)
+            self.graphs.append(CapturedGraph(fn, (tok, pos),
+                                             grad_mode=torch.no_grad))
+            self.reset_slot(si)
+
+    def warmup(self):
+        """Capture the slot graphs now (on the card; nothing to do on the
+        CPU or with ``graphs=False``), so no request's latency holds a
+        capture."""
+        if self.graphed and not self.graphs:
+            self._capture()
+
+    def _next_tokens(self, live) -> list[int]:
+        """One decode step of each slot in ``live`` [(slot index, input
+        token)]: the greedy next tokens, in order."""
+        if self.graphed:
+            self.warmup()
+            for si, tok in live:
+                tok_in, pos_in = self.graphs[si].inputs
+                tok_in.fill_(tok)
+                pos_in.fill_(self.slots[si].pos)
+                self.graphs[si].replay()
+            return torch.stack([self.graphs[si].out[1]
+                                for si, _ in live]).tolist()
+        nxt = []
+        for si, tok in live:
+            with torch.no_grad():
+                logits, self.slot_caches[si] = tfm.decode_step(
+                    self.params, self.slot_caches[si],
+                    torch.tensor([[tok]], device=self.device),
+                    self.slots[si].pos, self.cfg)
+            nxt.append(int(torch.argmax(logits[0, -1])))
+        return nxt
+
     def step(self):
         """Advance every occupied slot by one token (prefill or decode)."""
         self._admit()
+        live = []
         for si, s in enumerate(self.slots):
             if s.req is None:
                 continue
@@ -82,26 +157,25 @@ class ContinuousBatcher:
                 tok = int(r.prompt[len(r.prompt) - s.prompt_left])
             else:
                 tok = r.out[-1]
-            with torch.no_grad():
-                logits, self.slot_caches[si] = tfm.decode_step(
-                    self.params, self.slot_caches[si],
-                    torch.tensor([[tok]], device=self.device), s.pos,
-                    self.cfg)
+            live.append((si, tok))
+        if not live:
+            return
+        for (si, _), nxt in zip(live, self._next_tokens(live)):
+            s = self.slots[si]
+            r = s.req
             s.pos += 1
             if s.prompt_left > 0:
                 s.prompt_left -= 1
                 if s.prompt_left == 0:      # prompt consumed: first token
-                    r.out.append(int(torch.argmax(logits[0, -1])))
+                    r.out.append(nxt)
                     r.t_first = time.perf_counter()
             else:
-                r.out.append(int(torch.argmax(logits[0, -1])))
+                r.out.append(nxt)
             if len(r.out) >= r.max_new or s.pos >= self.max_len - 1:
                 r.t_done = time.perf_counter()
                 self.done.append(r)
                 s.req = None
-                for c in self.slot_caches[si]:   # recycle: zeros
-                    for t in c.values():
-                        t.zero_()
+                self.reset_slot(si)          # recycle: zeros
 
     def run(self, max_steps: int = 10_000):
         steps = 0

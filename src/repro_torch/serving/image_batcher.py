@@ -22,9 +22,20 @@ are measured it rounds up to the nearest bucket.  With a route cache
 the measured costs persist: a restarted server preloads them, and its
 warmup runs every bucket but re-times none unless asked.
 
-The serve function runs eagerly under ``torch.inference_mode()``; one CUDA
-graph per bucket is later work, and so is data-parallel serving
-(``dist``), which comes with the data-parallel slice.
+On a CUDA device every bucket runs as one CUDA graph (``serving.graphs``),
+the counterpart of JAX's one jit per bucket: ``warmup`` runs each bucket
+eagerly (kernel builds, cached phase tables, workspaces) and right after
+captures it, from a static input to a static output under
+``torch.inference_mode()``, largest bucket first, into one memory pool
+the batcher's graphs share (they never run concurrently, and each
+replay's rows are copied out before the next).  ``execute`` writes the
+padded batch into the bucket's static input (the tail rows zeroed, as JAX
+pads zeros), replays, and copies the live rows out.  A bucket that
+``warmup`` did not capture is captured at its first launch.  Nothing
+falls back to eager execution on the card.  Bucket costs are measured on
+the replay and kept in the route cache under ``<cache_key>/cuda-graph``,
+apart from eager costs.  On the CPU the serve function runs eagerly.
+Data-parallel serving (``dist``) comes with the data-parallel slice.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 
 from repro_torch.core import resolve_device
 from repro_torch.core.plan import BATCH_BUCKETS
+from repro_torch.serving.graphs import CapturedGraph
 from repro_torch.serving.metrics import latency_stats
 
 
@@ -64,8 +76,9 @@ class DynamicImageBatcher:
     ``serve_fn(batch) -> batch`` is the model forward on a device tensor
     with parameters already bound (e.g. ``lambda z: generator_apply(params,
     z, cfg)``); ``device`` is where batches are placed (``"cuda"`` unless the
-    caller asks for the CPU).  ``cache`` (a ``RouteCache``) and ``cache_key``
-    persist the measured bucket costs per model and host.
+    caller asks for the CPU; there each bucket is a CUDA graph).  ``cache``
+    (a ``RouteCache``) and ``cache_key`` persist the measured bucket costs
+    per model and host.
     """
 
     def __init__(self, serve_fn: Callable, *,
@@ -85,18 +98,27 @@ class DynamicImageBatcher:
         self.clock = clock
         self._serve_fn = serve_fn
         self.cache = cache
-        self.cache_key = cache_key
+        # graph-measured costs are kept apart from eager ones
+        self.cache_key = cache_key if cache_key is None or not self.graphed \
+            else f"{cache_key}/cuda-graph"
         self.queue: deque[ImageRequest] = deque()
         self.done: list[ImageRequest] = []
         self.launches: list[tuple[int, int]] = []   # (bucket, live) per call
         self.bucket_cost_s: dict[int, float] = {}   # measured by warmup
-        if cache is not None and cache_key is not None:
+        self.graphs: dict[int, CapturedGraph] = {}  # on the card: per bucket
+        self._pool = None
+        if cache is not None and self.cache_key is not None:
             self.bucket_cost_s = {
-                b: c for b, c in cache.get_bucket_costs(cache_key).items()
-                if b in self.buckets}
+                b: c for b, c in cache.get_bucket_costs(
+                    self.cache_key).items() if b in self.buckets}
         self._sched_memo: dict[int, tuple[float, int]] = {0: (0.0, 0)}
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+
+    @property
+    def graphed(self) -> bool:
+        """Buckets run as CUDA graphs (on a CUDA device)."""
+        return self.device.type == "cuda"
 
     def _serve(self, batch: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -105,6 +127,33 @@ class DynamicImageBatcher:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _graph(self, bucket: int, row_shape: tuple,
+               dtype: np.dtype) -> CapturedGraph:
+        """The bucket's graph, captured on first use: one eager run on the
+        zeroed static input right before the capture, which then records
+        the same launches from that input to a static output."""
+        g = self.graphs.get(bucket)
+        if g is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            x = torch.from_numpy(np.zeros((bucket,) + tuple(row_shape),
+                                          dtype)).to(self.device)
+            self._serve(x)
+            self._sync()
+            g = CapturedGraph(lambda: self._serve_fn(x), (x,),
+                              pool=self._pool)
+            self.graphs[bucket] = g
+        return g
+
+    def graph_launches(self) -> dict[str, int]:
+        """Kernel launches the bucket graphs' serving replays made, by
+        kernel (captured count × replays); empty on the CPU."""
+        out: dict[str, int] = {}
+        for g in self.graphs.values():
+            for k, n in g.launches().items():
+                out[k] = out.get(k, 0) + n
+        return out
 
     # -- client API ----------------------------------------------------------
     def submit(self, req: ImageRequest):
@@ -124,29 +173,38 @@ class DynamicImageBatcher:
     def warmup(self, proto: Optional[np.ndarray] = None, *,
                iters: int = 2, force: bool = False) -> tuple[int, ...]:
         """Run every bucket once on a zeros payload (first-use set-up never
-        lands in a request's latency), then measure each bucket's launch
-        cost (min of ``iters``, synchronized) for the cost-aware scheduler.
-        A bucket whose cost came from the route cache is run but not
-        re-timed unless ``force=True``; newly measured costs are written
-        back to the cache.  ``proto`` is one request payload; defaults to
-        the oldest queued request's.  Returns the buckets timed."""
+        lands in a request's latency; on the card each bucket is then
+        captured, largest first), then measure each bucket's launch cost
+        (min of ``iters``, synchronized; on the card a replay) for the
+        cost-aware scheduler.  A bucket whose cost came from the route
+        cache is run but not re-timed unless ``force=True``; newly measured
+        costs are written back to the cache.  ``proto`` is one request
+        payload; defaults to the oldest queued request's.  Returns the
+        buckets timed."""
         if proto is None:
             if not self.queue:
                 raise ValueError("warmup needs a proto payload or a queued "
                                  "request for the shape")
             proto = self.queue[0].payload
+        proto = np.asarray(proto)
+        runs = {}
+        for b in sorted(self.buckets, reverse=True):
+            if self.graphed:
+                # timing replays are not serving launches: not counted
+                runs[b] = self._graph(b, proto.shape, proto.dtype).graph.replay
+            else:
+                x = torch.from_numpy(
+                    np.zeros((b,) + proto.shape, proto.dtype))
+                runs[b] = lambda x=x: self._serve(x)
+                runs[b]()
         timed = []
         for b in self.buckets:
-            x = torch.from_numpy(
-                np.zeros((b,) + proto.shape, proto.dtype)).to(self.device)
-            self._serve(x)
-            self._sync()
             if b in self.bucket_cost_s and not force:
                 continue                                # cost from the cache
             ts = []
             for _ in range(iters):
                 t0 = time.perf_counter()
-                self._serve(x)
+                runs[b]()
                 self._sync()
                 ts.append(time.perf_counter() - t0)
             self.bucket_cost_s[b] = min(ts)
@@ -212,17 +270,27 @@ class DynamicImageBatcher:
 
     def execute(self, rows: Sequence[np.ndarray],
                 bucket: Optional[int] = None) -> np.ndarray:
-        """Pad ``rows`` up to ``bucket`` and run ONE launch on the device,
-        returning the live output rows (copied back to the host)."""
+        """Pad ``rows`` up to ``bucket`` and run ONE launch on the device
+        (on the card: the bucket's graph replay), returning the live output
+        rows (copied back to the host)."""
         bucket = self.bucket_for(len(rows)) if bucket is None else bucket
         batch = np.stack([np.asarray(r) for r in rows])
-        if len(rows) < bucket:                       # pad the tail
-            pad = np.zeros((bucket - len(rows),) + batch.shape[1:],
-                           batch.dtype)
-            batch = np.concatenate([batch, pad])
-        out = self._serve(torch.from_numpy(batch).to(self.device))
-        self.launches.append((bucket, len(rows)))
-        return out[:len(rows)].cpu().numpy()
+        n = len(rows)
+        if self.graphed:
+            g = self._graph(bucket, batch.shape[1:], batch.dtype)
+            x, = g.inputs
+            with torch.no_grad():
+                x[:n].copy_(torch.from_numpy(batch))
+                x[n:].zero_()                        # pad the tail
+            g.replay()
+            out = g.out
+        else:
+            if n < bucket:                           # pad the tail
+                pad = np.zeros((bucket - n,) + batch.shape[1:], batch.dtype)
+                batch = np.concatenate([batch, pad])
+            out = self._serve(torch.from_numpy(batch))
+        self.launches.append((bucket, n))
+        return out[:n].cpu().numpy()
 
     def _launch(self, reqs: list[ImageRequest],
                 bucket: Optional[int] = None) -> list[ImageRequest]:
@@ -236,11 +304,14 @@ class DynamicImageBatcher:
         return reqs
 
     def reset_stats(self):
-        """Drop request/launch history for a fresh measurement window; the
-        measured bucket costs are kept."""
+        """Drop request/launch history (and the graphs' replay counts) for
+        a fresh measurement window; the measured bucket costs and the
+        captured graphs are kept."""
         self.queue.clear()
         self.done = []
         self.launches = []
+        for g in self.graphs.values():
+            g.replays = 0
         self._t_first = self._t_last = None
 
     # -- open-loop driver ----------------------------------------------------

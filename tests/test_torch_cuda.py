@@ -9,7 +9,10 @@ U-Net's 'cuda' route, and kernel F (flash attention) against its plain
 version and the f64 oracle (f32 on FFMA; bf16 on the tensor cores at
 every head dim, GQA group, ragged length, offset, window and unaligned
 view), with its launches in the llama3.2-1b prefill; the tied readout's
-f32 logits and ``dense_apply``'s f32 accumulation at llama's widths.
+f32 logits and ``dense_apply``'s f32 accumulation at llama's widths; the
+serving CUDA graphs (a bucket's replay bit-equal to its eager forward with
+its captured launches, the decode graphs' tokens equal to eager decode's,
+a capture that fails raising).
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
@@ -922,3 +925,108 @@ def test_dense_apply_accumulates_in_f32(rows, reduced, cuda_device):
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             flag
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: one per image bucket (DynamicImageBatcher) and per decode
+# slot (ContinuousBatcher)
+# ---------------------------------------------------------------------------
+
+def image_models(device):
+    """(name, serve fn, proto row, kernel counter, launches a forward) of
+    the Table-1 DCGAN generator and SEGNET_TINY in f32 and int8, all on
+    the 'cuda' route."""
+    import dataclasses
+    from repro_torch.models import gan, segnet
+    gcfg = gan.GANConfig("dcgan", gan.DCGAN_LAYERS, backend="cuda")
+    gp = gan.generator_init(0, gcfg, device=device)
+    out = [("dcgan", lambda z: gan.generator_apply(gp, z, gcfg),
+            np.zeros((gcfg.z_dim,), np.float32), "A", 4)]
+    for wdtype in ("float32", "int8"):
+        scfg = dataclasses.replace(segnet.SEGNET_TINY, backend="cuda",
+                                   wdtype=wdtype)
+        sp = segnet.segnet_init(0, scfg, device=device)
+        out.append((f"segnet_{wdtype}",
+                    lambda x, p=sp, c=scfg: torch.argmax(
+                        segnet.segnet_apply(p, x, c), dim=-1),
+                    np.zeros((scfg.in_hw, scfg.in_hw, scfg.in_c), np.float32),
+                    "B" if wdtype == "float32" else "B_int8", 10))
+    return out
+
+
+def test_bucket_graphs_bit_equal_to_eager_and_count_their_launches(
+        cuda_device):
+    """Every bucket's graph replay is bit-equal to the eager forward on the
+    same padded batch; a capture records 4 kernel-A (10 kernel-B or B-int8)
+    launches; a replay after the static input is overwritten answers the
+    new rows; the launches of the replays are captured count x replays;
+    the route cache keeps graph costs under their own key."""
+    from repro_torch.serving.image_batcher import DynamicImageBatcher
+    rng = np.random.default_rng(0)
+    for name, fn, proto, kernel, per_forward in image_models(cuda_device):
+        b = DynamicImageBatcher(fn, device=cuda_device)
+        assert b.cache_key is None and b.graphed
+        # graph-measured bucket costs never mix with eager ones
+        assert DynamicImageBatcher(fn, device=cuda_device, cache_key=name
+                                   ).cache_key == f"{name}/cuda-graph"
+        b.warmup(proto, iters=1)
+        assert sorted(b.graphs) == list(b.buckets)
+        for bucket, g in b.graphs.items():
+            assert g.kernels == {kernel: per_forward}, (name, bucket)
+            for n in sorted({1, max(1, bucket // 2), bucket}):
+                rows = rng.uniform(-1, 1, (n,) + proto.shape).astype(
+                    np.float32)
+                got = b.execute(list(rows), bucket)
+                pad = np.zeros((bucket,) + proto.shape, np.float32)
+                pad[:n] = rows
+                with torch.inference_mode():
+                    want = fn(torch.from_numpy(pad).to(cuda_device))
+                np.testing.assert_array_equal(got, want[:n].cpu().numpy())
+        assert b.graph_launches() == {
+            kernel: per_forward * len(b.launches)}
+
+
+def test_decode_graphs_give_the_eager_tokens(cuda_device):
+    """One graph a slot: the greedy tokens of 6 requests over 4 slots
+    equal the eager batcher's (``graphs=False``) on the same prompts; a
+    capture records no kernel-F launch (decode attends densely)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = registry.get_reduced("llama3.2-1b")
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 5, 2, 4, 6, 3)]
+    outs = {}
+    for graphs in (True, False):
+        cb = ContinuousBatcher(cfg, params, slots=4, max_len=16,
+                               device=cuda_device, graphs=graphs)
+        for i, p in enumerate(prompts):
+            cb.submit(Request(rid=i, prompt=p, max_new=5))
+        cb.run()
+        outs[graphs] = {r.rid: r.out for r in cb.done}
+        if graphs:
+            assert len(cb.graphs) == 4
+            assert all(g.kernels == {} for g in cb.graphs)
+        else:
+            assert cb.graphs == []
+    assert outs[True] == outs[False]
+    assert all(len(o) == 5 for o in outs[True].values())
+
+
+def test_bucket_graph_capture_error_raises_without_fallback(cuda_device):
+    """A serve function that syncs with the host cannot be captured: the
+    batcher raises and never answers from an eager run.  (Last in the
+    file: a failed capture is the one test that leaves the stream's
+    capture state to the driver's recovery.)"""
+    from repro_torch.serving.image_batcher import DynamicImageBatcher
+
+    def syncing(x):
+        return x * float(x.sum().item() * 0 + 2)   # a host sync
+
+    b = DynamicImageBatcher(syncing, buckets=(1, 4), device=cuda_device)
+    with pytest.raises(RuntimeError):
+        b.warmup(np.zeros((3,), np.float32))
+    with pytest.raises(RuntimeError):
+        b.execute([np.ones((3,), np.float32)], 1)
+    assert not b.launches and not b.graphs
