@@ -120,7 +120,10 @@ result line) if anything is off:
    four geometries of ``tests/test_flash_attention_kernel.py``, ragged
    (1, 1000, 32, 8, 64) causal, (2, 77, 4, 2, 128) non-causal, a
    decode-style row at q_offset 300 over 512 keys, gemma3-1b's window-512
-   D = 256 layer and a llama3.2-1b layer at S = 4096;
+   D = 256 layer, a llama3.2-1b layer at S = 4096, the GQA groups of
+   qwen2-7b (7), glm4-9b (16) and qwen2-vl-2b (6) at D = 128,
+   recurrentgemma-2b's window-2048 D = 256 layer and gemma3-1b's global
+   D = 256 layer at S = 4096;
 3f. the llama3.2-1b prefill step at full width in bf16 (seeded weights) at
    B = 1, S = 4096 and B = 8, S = 512: 16 F launches per forward, finite
    f32 logits (off the bf16 grid: the tied readout does not round them),
@@ -138,6 +141,23 @@ result line) if anything is off:
    or the bytes of q, k, v and o); the prefill step's ms; its device time
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
+3j. the LM families at full width and depth in bf16 (seeded weights), one
+   at a time: gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
+   recurrentgemma-2b and mamba2-130m. A prefill step at B = 1, S = 4096
+   launches F once an attention layer (26, 28, 40, 28, 8, 0), its logits
+   finite and within 3e-2·max|logits| of the plain attention route's
+   (the 3f argmax rule); ``serve`` gives 16 greedy tokens at B = 4; for
+   gemma3-1b, recurrentgemma-2b and mamba2-130m (local KV, RG-LRU and
+   SSD state caches, written in place) 5 requests over 4 slot graphs of
+   ``ContinuousBatcher`` (one slot recycled), each request's tokens equal
+   to an eager ``graphs=False`` run's and to its lone run's; 0 F
+   launches at decode;
+4i. times of 3j: each prefill's ms with its device split (F, dense
+   products, the rest) and idle share, a B = 4 ``decode_step``; kernel F
+   at gemma3-1b's local (window 512) and global layers, B = 1, S = 4096,
+   beside its plain version, SDPA with ``enable_gqa`` (an explicit
+   boolean ``attn_mask`` for the window) and the bound over the pairs
+   the mask leaves;
 3h. the full-width VAE (``VAE``: 32 px, widths 64/128, latent 64) on the
    'cuda' route, f32 and int8: ``vae_apply`` at B = 1 and 64 launches 2 B
    and 2 A (the int8 model in the int8 counters), recon, mu and logvar
@@ -187,6 +207,7 @@ result line) if anything is off:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -287,7 +308,10 @@ TILED_DECONV_CASES = [
 # kernel F cases: (name, b, sq, sk, h, kh, d, causal, window, q_offset):
 # tests/test_flash_attention_kernel.py's four geometries, ragged lengths, a
 # non-causal D = 128 case, a decode-style row at q_offset 300, gemma3-1b's
-# local layer (window 512, D = 256) and a llama3.2-1b layer at S = 4096
+# local layer (window 512, D = 256), a llama3.2-1b layer at S = 4096, the
+# GQA groups of qwen2-7b (28/4), glm4-9b (32/2) and qwen2-vl-2b (12/2),
+# recurrentgemma-2b's local layer (10/1, D = 256, window 2048) and
+# gemma3-1b's global layer (4/1, D = 256, no window)
 FLASH_CASES = [
     ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
     ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
@@ -298,6 +322,12 @@ FLASH_CASES = [
     ("decode_q_offset_300", 1, 1, 512, 32, 8, 64, True, 0, 300),
     ("gemma3_window_512", 1, 2048, 2048, 4, 1, 256, True, 512, 0),
     ("llama_4096", 1, 4096, 4096, 32, 8, 64, True, 0, 0),
+    ("qwen2_7b_gqa7", 2, 1024, 1024, 28, 4, 128, True, 0, 0),
+    ("glm4_9b_gqa16", 2, 1024, 1024, 32, 2, 128, True, 0, 0),
+    ("qwen2_vl_2b_gqa6", 2, 1024, 1024, 12, 2, 128, True, 0, 0),
+    ("recurrentgemma_window_2048", 1, 4096, 4096, 10, 1, 256, True, 2048,
+     0),
+    ("gemma3_global_d256", 1, 4096, 4096, 4, 1, 256, True, 0, 0),
 ]
 # kernel F against its plain version and the f64 oracle: f32 as
 # tests/test_flash_attention_kernel.py:34 (2e-4); bf16 adds one bf16
@@ -311,9 +341,33 @@ TOL_F_LIBRARY = 3e-2
 # plain attention route on the same bf16 weights, relative to max|logits|
 # (the CPU tests' bf16 tolerance)
 TOL_LM = 3e-2
+# the LM families' prefill on f32 copies of the same weights (F's f32
+# entry against the plain route): the CPU tests' f32 logits tolerance
+TOL_LM_F32 = 1e-4
+# recurrentgemma-2b's bf16 model sits 5-7% of max|logits| off its f32 twin
+# on either attention route, its two bf16 routes up to 3.4% apart; F's
+# output scaled by F_FAULT moves its logits 4.9% (PERF.md section 6): its
+# own limit between the two.  F's bf16 entry is held there, as in every
+# family, layer by layer (check_f_layers)
+TOL_LM_ARCH = {"recurrentgemma-2b": 4e-2}
+# the planted fault the bf16 gates must see: F's output 2^-5 off (four
+# bf16 steps)
+F_FAULT = 1 + 2.0 ** -5
 LM_PREFILL = ((1, 4096), (8, 512))
 # ContinuousBatcher requests: (prompt length, new tokens), 6 over 4 slots
 LM_REQUESTS = ((8, 16), (5, 8), (7, 12), (3, 6), (6, 10), (4, 16))
+# phases 3j/4i: the LM families at full width and depth, bf16, one at a
+# time, with the F launches a prefill must make (one an attention layer);
+# the prefill geometry; the architectures whose slot graphs are held to
+# eager and lone runs (the new cache kinds: local KV, RG-LRU and SSD
+# states) and their requests, 5 over 4 slots so one slot is recycled
+LM_FAMILIES = (("gemma3-1b", 26), ("qwen2-7b", 28), ("glm4-9b", 40),
+               ("qwen2-vl-2b", 28), ("recurrentgemma-2b", 8),
+               ("mamba2-130m", 0))
+FAMILY_PREFILL = (1, 4096)
+FAMILY_GRAPHS = ("gemma3-1b", "recurrentgemma-2b", "mamba2-130m")
+FAMILY_REQUESTS = ((6, 8), (3, 6), (5, 4), (4, 8), (7, 5))
+FAMILY_MAX_LEN = 24
 # phase 3i: images a model, prompt lengths, new tokens, the LM's cache
 # length, the launches the injector kills (2: an image launch, 5: a decode
 # step; the plane steps the LM and then launches one image bucket a pump),
@@ -753,6 +807,155 @@ def vae_sites():
     return sites
 
 
+def attention_layers(cfg) -> int:
+    """The attention layers of ``cfg``: kernel F's launches a prefill."""
+    from repro_torch.models import transformer as tfm
+    return sum(kind in tfm.ATTN_KINDS for kind in tfm.layer_kinds(cfg))
+
+
+def check_prefill_logits(name, logits, ref_logits, cfg, b, tol=TOL_LM):
+    """The kernel route's last-position logits against the plain route's:
+    shape, finite, the vocab's padding columns at -1e30 on both routes,
+    within ``tol·max|logits|`` over the vocab, the same argmax on every row whose top two logits sit more
+    than twice the worst error apart.  Returns the record."""
+    import torch
+    if logits.shape != (b, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill {name}: logits {tuple(logits.shape)}"
+                           f" not finite")
+    v = cfg.vocab_size
+    if not (bool((logits[:, v:] == -1e30).all())
+            and bool((ref_logits[:, v:] == -1e30).all())):
+        raise RuntimeError(f"prefill {name}: a padding column of the vocab "
+                           f"is not masked")
+    logits, ref_logits = logits[:, :v], ref_logits[:, :v]
+    # a tied readout returns the f32 sum: most logits lie off the bf16
+    # grid, none would after a bf16 rounding (an untied head rounds to
+    # bf16 first, as JAX's dense_apply does)
+    off_grid = int((logits.to(torch.bfloat16).float() != logits).sum())
+    if cfg.tie_embeddings and off_grid == 0:
+        raise RuntimeError(f"prefill {name}: every logit is a bf16 value")
+    err = float((logits - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    if err > tol * scale:
+        raise RuntimeError(f"prefill {name}: kernel route {err:.3e} off "
+                           f"the plain route (max|logits| {scale:.3f}, tol "
+                           f"{tol}·max)")
+    top2 = ref_logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = logits.argmax(-1) == ref_logits.argmax(-1)
+    # a row whose top two logits sit within twice the worst error of each
+    # other may flip by rounding alone; every other row must agree
+    clear = gap > 2 * err
+    if not bool(same[clear].all()):
+        raise RuntimeError(f"prefill {name}: argmax differs from the plain "
+                           f"route on a clear row")
+    return {"max_abs_err_vs_plain": err, "max_abs_logit": scale,
+            "argmax_equal_rows": int(same.sum()), "rows": b,
+            "near_tie_rows": int((~clear).sum()),
+            "logits_off_bf16_grid": off_grid, "logits": logits.numel(),
+            "tol": tol}
+
+
+def plain_core(q, k, v, *, causal=True, window=0, q_offset=0,
+               kv_chunk=1024, scale=None):
+    """F's plain version with the attention layer's core signature."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, scale=scale,
+                                    ck=kv_chunk)
+
+
+@contextlib.contextmanager
+def attention_core(wrap):
+    """The attention layer's core (kernel F on the card) swapped for
+    ``wrap(core, q, k, v, **kw)``."""
+    from repro_torch.layers import attention
+    core = attention.flash_attention
+    attention.flash_attention = lambda q, k, v, **kw: wrap(core, q, k, v,
+                                                           **kw)
+    try:
+        yield
+    finally:
+        attention.flash_attention = core
+
+
+def plain_attention():
+    """The attention core on F's plain version (the card's 'plain route')."""
+    return attention_core(lambda core, q, k, v, **kw: plain_core(q, k, v,
+                                                                 **kw))
+
+
+def captured_attention(calls):
+    """Kernel F as it is, each call's (q, k, v, keywords, output) appended
+    to ``calls``."""
+    def capture(core, q, k, v, **kw):
+        out = core(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    return attention_core(capture)
+
+
+def faulty_attention(factor):
+    """Kernel F with its output scaled by ``factor``: a planted fault."""
+    return attention_core(lambda core, q, k, v, **kw: (
+        core(q, k, v, **kw).float() * factor).to(q.dtype))
+
+
+def check_f_layers(name, calls, fault):
+    """Kernel F's bf16 output at each captured layer of a prefill against
+    F's plain version on the same q, k, v, element by element under
+    ``TOL_F + TOL_F_BF16_REL·|plain|`` (the rule of the bf16
+    ``FLASH_CASES``); and the same rule's reading of that output scaled by
+    ``fault``, which must fail it at every layer.  Returns the worst share
+    of the bound, the planted fault's least share and the worst |Δ|."""
+    import torch
+    worst, fault_least, err = 0.0, float("inf"), 0.0
+    for i, (q, k, v, kw, got) in enumerate(calls):
+        want = plain_core(q, k, v, **kw).float()
+        bound = TOL_F + TOL_F_BF16_REL * want.abs()
+        share = float(((got.float() - want).abs() / bound).max())
+        planted = (got.float() * fault).to(got.dtype).float()
+        fault_share = float(((planted - want).abs() / bound).max())
+        err = max(err, float((got.float() - want).abs().max()))
+        if not (share <= 1.0 and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"{name} attention layer {i}: kernel F at "
+                               f"{share:.3f} of its bf16 bound against its "
+                               f"plain version on the layer's q, k, v")
+        if not fault_share > 1.0:
+            raise RuntimeError(f"{name} attention layer {i}: F's output "
+                               f"scaled by {fault} reads {fault_share:.3f} "
+                               f"of the bound: the gate cannot see it")
+        worst, fault_least = max(worst, share), min(fault_least, fault_share)
+        del want, bound, planted
+    return {"layers": len(calls), "worst_share": worst,
+            "planted_fault": fault, "planted_least_share": fault_least,
+            "max_abs_err": err}
+
+
+def device_split(fn, wall_ms):
+    """One call of ``fn`` under ``torch.profiler``: device time of kernel
+    F, of the dense products and of everything else, the number of device
+    kernels, and the idle share against ``wall_ms`` (its time measured
+    without the profiler); the shares are None where the profiler caught
+    no trace."""
+    _, evs = device_events(fn, 1, with_cpu=True)
+    out = {"F_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0, "F_calls": 0,
+           "device_kernels": 0}
+    for ev in evs or ():
+        name = ev.name.lower()
+        part = ("F" if "flash_fwd" in name
+                else "matmul" if any(p in name for p in MATMUL_NAMES)
+                else "other")
+        out[f"{part}_ms"] += ev.device_time_total / 1e3
+        out["F_calls"] += part == "F"
+        out["device_kernels"] += 1
+    busy = out["F_ms"] + out["matmul_ms"] + out["other_ms"]
+    out.update(device_busy_ms=busy, wall_ms=wall_ms,
+               idle_share=1 - busy / wall_ms if evs else None)
+    return out
+
+
 def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     """Phases 2g, 3f, 3g and 4e: kernel F against its plain version and the
     f64 oracle, the full-width llama3.2-1b prefill on F (launches, finite
@@ -760,8 +963,6 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     through ``serve`` and ``ContinuousBatcher`` (tokens equal to lone runs,
     no F launch at decode), and the times.  Returns (records for the
     results line, F's entry for the kernels line)."""
-    import contextlib
-
     import torch
     import torch.nn.functional as F
 
@@ -770,7 +971,6 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.layers import attention
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.batcher import ContinuousBatcher, Request
 
@@ -816,34 +1016,11 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
           f"f32 and bf16; worst f32 error {max_err_f:.3e}, worst bf16 error "
           f"{max_err_bf16:.3e} ({gate_share_bf16:.3f} of its tolerance)")
 
-    @contextlib.contextmanager
-    def plain_attention():
-        """The attention core on F's plain version (the card's 'plain
-        route'): the layer's ``flash_attention`` swapped for it."""
-        core = attention.flash_attention
-
-        def plain(q, k, v, *, causal=True, window=0, q_offset=0,
-                  kv_chunk=1024, scale=None):
-            return fa.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window, q_offset=q_offset,
-                                            scale=scale, ck=kv_chunk)
-        attention.flash_attention = plain
-        try:
-            yield
-        finally:
-            attention.flash_attention = core
-
     # ---- 3f. the llama3.2-1b prefill at full width, bf16 -------------------
     cfg = registry.get_config("llama3.2-1b")
     params = tfm.init(cfg, seed=0, device=dev)
 
-    def numel(tree):
-        if isinstance(tree, dict):
-            return sum(numel(t) for t in tree.values())
-        if isinstance(tree, list):
-            return sum(numel(t) for t in tree)
-        return tree.numel()
-    n_params = numel(params)
+    n_params = sum(t.numel() for t in _tensors(params))
     prefill = make_prefill_step(cfg)
     f_paths, prefill_rec, batches = {}, {}, {}
     for b, s in LM_PREFILL:
@@ -854,47 +1031,24 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         logits = prefill(params, batches[tag])
         torch.cuda.synchronize()
         f_paths[f"lm_prefill_{tag}"] = fa.flash_attention.launches
-        if fa.flash_attention.launches != cfg.num_layers:
+        if fa.flash_attention.launches != attention_layers(cfg):
             raise RuntimeError(f"prefill {tag}: kernel F launched "
                                f"{fa.flash_attention.launches} times, not "
-                               f"{cfg.num_layers}")
-        if logits.shape != (b, cfg.padded_vocab) or not bool(
-                torch.isfinite(logits).all()):
-            raise RuntimeError(f"prefill {tag}: logits {tuple(logits.shape)}"
-                               f" not finite")
-        # the tied readout returns the f32 sum: most logits lie off the
-        # bf16 grid, none would after a bf16 rounding
-        off_grid = int((logits.to(torch.bfloat16).float() != logits).sum())
-        if off_grid == 0:
-            raise RuntimeError(f"prefill {tag}: every logit is a bf16 value")
+                               f"once for each of {attention_layers(cfg)} "
+                               f"attention layers")
         with plain_attention():
             ref_logits = prefill(params, batches[tag])
-        err = float((logits - ref_logits).abs().max())
-        scale = float(ref_logits.abs().max())
-        if err > TOL_LM * scale:
-            raise RuntimeError(f"prefill {tag}: kernel route {err:.3e} off "
-                               f"the plain route (max|logits| {scale:.3f})")
-        top2 = ref_logits.topk(2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        same = logits.argmax(-1) == ref_logits.argmax(-1)
-        # a row whose top two logits sit within twice the worst error of
-        # each other may flip by rounding alone; every other row must agree
-        clear = gap > 2 * err
-        if not bool(same[clear].all()):
-            raise RuntimeError(f"prefill {tag}: argmax differs from the "
-                               f"plain route on a clear row")
-        prefill_rec[tag] = {
-            "launches": f_paths[f"lm_prefill_{tag}"],
-            "max_abs_err_vs_plain": err, "max_abs_logit": scale,
-            "argmax_equal_rows": int(same.sum()), "rows": b,
-            "near_tie_rows": int((~clear).sum()),
-            "logits_off_bf16_grid": off_grid, "logits": logits.numel()}
-        print(f"[lm] prefill {tag}: {cfg.num_layers} F launches, logits "
-              f"finite, kernel vs plain route max|Δ| {err:.3e} (max|logits| "
-              f"{scale:.3f}, tol {TOL_LM}·max), argmax equal on "
-              f"{int(same.sum())}/{b} rows ({int((~clear).sum())} near "
-              f"ties); {off_grid}/{logits.numel()} logits off the bf16 "
-              f"grid (f32 readout)")
+        rec = check_prefill_logits(tag, logits, ref_logits, cfg, b)
+        prefill_rec[tag] = {"launches": f_paths[f"lm_prefill_{tag}"], **rec}
+        print(f"[lm] prefill {tag}: {prefill_rec[tag]['launches']} F "
+              f"launches, logits "
+              f"finite, kernel vs plain route max|Δ| "
+              f"{rec['max_abs_err_vs_plain']:.3e} (max|logits| "
+              f"{rec['max_abs_logit']:.3f}, tol {TOL_LM}·max), argmax equal "
+              f"on {rec['argmax_equal_rows']}/{b} rows "
+              f"({rec['near_tie_rows']} near ties); "
+              f"{rec['logits_off_bf16_grid']}/{logits.numel()} logits off "
+              f"the bf16 grid (f32 readout)")
         del logits, ref_logits
 
     # ---- 3g. greedy serving: serve() and ContinuousBatcher -----------------
@@ -956,32 +1110,10 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
         h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
                    for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
-        y_k = fa.flash_attention(q, k, v)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        lib_err = float((library().transpose(1, 2).float()
-                         - y_k.float()).abs().max())
-        if lib_err > TOL_F_LIBRARY:
-            raise RuntimeError(f"library yardstick disagrees with kernel F "
-                               f"at B={b} S={s}: {lib_err:.3e}")
-        pairs = b * h * s * (s + 1) // 2
-        flops = 4 * d * pairs
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
-        t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+        rec = f_layer_time(fa, F, q, k, v, 0, peak_bw, peak_bf16, time_ms)
         q32, k32, v32 = (t.float() for t in (q, k, v))
-        rec = {"site": f"B{b}_S{s}", "batch": b, "seq": s, "flops": flops,
-               "bytes": nbytes,
-               "ms": time_ms(lambda: fa.flash_attention(q, k, v)),
-               "f32_ms": time_ms(lambda: fa.flash_attention(q32, k32, v32)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v)),
-               "library_ms": time_ms(library),
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_max_abs_err": lib_err}
-        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec.update(site=f"B{b}_S{s}", f32_ms=time_ms(
+            lambda: fa.flash_attention(q32, k32, v32)))
         f_times.append(rec)
         print(f"[time] kernel F llama layer B={b} S={s}: kernel "
               f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s; the f32 "
@@ -989,34 +1121,12 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
               f"{rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), kernel "
               f"at {rec['bound_ms'] / rec['ms']:.1%} of bound")
-        del q, k, v, y_k, qt, kt, vt, q32, k32, v32
+        del q, k, v, q32, k32, v32
     prefill_ms = {tag: time_ms(lambda: prefill(params, batch), iters=5,
                                warmup=1)
                   for tag, batch in batches.items()}
     print(f"[time] llama3.2-1b prefill step (bf16, {cfg.num_layers} layers, "
           f"last-position logits) ms: {json.dumps(prefill_ms)}")
-
-    def device_split(fn, wall_ms):
-        """One call of ``fn`` under ``torch.profiler``: device time of
-        kernel F, of the dense products and of everything else, the number
-        of device kernels, and the idle share against ``wall_ms`` (its time
-        measured without the profiler); the shares are None where the
-        profiler caught no trace."""
-        _, evs = device_events(fn, 1, with_cpu=True)
-        out = {"F_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0, "F_calls": 0,
-               "device_kernels": 0}
-        for ev in evs or ():
-            name = ev.name.lower()
-            part = ("F" if "flash_fwd" in name
-                    else "matmul" if any(p in name for p in MATMUL_NAMES)
-                    else "other")
-            out[f"{part}_ms"] += ev.device_time_total / 1e3
-            out["F_calls"] += part == "F"
-            out["device_kernels"] += 1
-        busy = out["F_ms"] + out["matmul_ms"] + out["other_ms"]
-        out.update(device_busy_ms=busy, wall_ms=wall_ms,
-                   idle_share=1 - busy / wall_ms if evs else None)
-        return out
 
     split = {tag: device_split(lambda: prefill(params, batch),
                                prefill_ms[tag])
@@ -1055,6 +1165,307 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
                "lm_prefill_ms": prefill_ms, "lm_prefill_split": split,
                "lm_decode_ms_B4": decode_ms}
     return records, entry
+
+
+def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms):
+    """Kernel F at one bf16 layer beside its plain version, the library
+    call (SDPA with ``enable_gqa``; a window as an explicit boolean
+    ``attn_mask``, checked against F first) and the bound, whose FLOPs
+    count the pairs the window and causality leave: Σ_q min(q + 1, w)
+    a head, S(S + 1)/2 with no window."""
+    import torch
+    b, s, h, d = q.shape
+    y_k = fa.flash_attention(q, k, v, window=window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window:
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < window)
+
+    def library():
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float()
+                     - y_k.float()).abs().max())
+    if lib_err > TOL_F_LIBRARY:
+        raise RuntimeError(f"library yardstick disagrees with kernel F at "
+                           f"S={s} window={window}: {lib_err:.3e}")
+    w = window or s
+    pairs = b * h * sum(min(i + 1, w) for i in range(s))
+    flops = 4 * d * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
+    t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
+    rec = {"batch": b, "seq": s, "heads": h, "kv_heads": k.shape[2],
+           "head_dim": d, "window": window, "pairs": pairs, "flops": flops,
+           "bytes": nbytes,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=window)),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+               q, k, v, window=window)),
+           "library_ms": time_ms(library),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_max_abs_err": lib_err}
+    rec["tflops"] = flops / rec["ms"] / 1e9
+    return rec
+
+
+def lm_family_phases(dev, peak_bw, peak_bf16, time_ms, gen):
+    """Phases 3j and 4i: gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
+    recurrentgemma-2b and mamba2-130m at full width and depth in bf16,
+    one at a time (each freed before the next): a prefill step at
+    ``FAMILY_PREFILL`` launching F once an attention layer, its logits
+    finite and within ``TOL_LM`` (``TOL_LM_ARCH``) of the plain attention
+    route, F's bf16 output at every attention layer within its bf16 bound
+    of the plain version on that layer's q, k, v, and a planted fault
+    (``F_FAULT``) caught by that gate; qwen2-vl-2b's prefill also on
+    (B, S, D) embeddings (the ``vlm_stub`` frontend); ``serve``
+    (16 greedy tokens at B = 4); for ``FAMILY_GRAPHS`` a
+    ``ContinuousBatcher`` on slot graphs whose tokens equal an eager
+    (``graphs=False``) run's and each request's lone run's, with no F
+    launch at decode; the times (prefill ms and device split, a B = 4
+    ``decode_step``) and F at gemma3-1b's local and global layers.
+    Returns (records for the results line, F's launches by path, F's
+    gemma3 layer times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    b, s = FAMILY_PREFILL
+    f_paths, records = {}, {}
+    for arch, n_attn in LM_FAMILIES:
+        t_arch = time.perf_counter()
+        cfg = registry.get_config(arch)
+        if attention_layers(cfg) != n_attn:
+            raise RuntimeError(f"{arch}: {attention_layers(cfg)} attention "
+                               f"layers, not {n_attn}")
+        params = tfm.init(cfg, seed=0, device=dev)
+        n_params = sum(t.numel() for t in _tensors(params))
+        prefill = make_prefill_step(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        batch = {"inputs": toks.to(dev)}
+        # ---- 3j. the prefill: F once an attention layer, vs plain -------
+        calls = []
+        fa.flash_attention.launches = 0
+        with captured_attention(calls):
+            logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        f_paths[f"{arch}_prefill_B{b}_S{s}"] = launches
+        if launches != n_attn:
+            raise RuntimeError(f"{arch} prefill: kernel F launched "
+                               f"{launches} times, not once for each of "
+                               f"{n_attn} attention layers")
+        # F's bf16 entry layer by layer, on the activations of this run
+        layers_f = check_f_layers(arch, calls, F_FAULT)
+        del calls
+        with plain_attention():
+            ref_logits = prefill(params, batch)
+        # the same weights in f32: F's f32 entry against the plain route
+        # under TOL_LM_F32, and the plain route's f32 logits as the truth
+        # the two bf16 routes are measured from
+        p32 = _tree_map(lambda t: t.float(), params)
+        logits32 = prefill(p32, batch)
+        with plain_attention():
+            truth = prefill(p32, batch)
+        del p32
+        rec32 = check_prefill_logits(f"{arch} f32", logits32, truth, cfg, b,
+                                     tol=TOL_LM_F32)
+        v = cfg.vocab_size
+        scale = float(truth[:, :v].abs().max())
+        noise = {route: float((x[:, :v] - truth[:, :v]).abs().max()) / scale
+                 for route, x in (("kernel", logits), ("plain", ref_logits))}
+        # the kernel's bf16 route no further from the f32 logits than the
+        # plain bf16 route, within TOL_LM
+        if noise["kernel"] > noise["plain"] + TOL_LM:
+            raise RuntimeError(f"{arch} prefill: the bf16 kernel route sits "
+                               f"{noise['kernel']:.4f}·max off the f32 "
+                               f"logits, the plain route {noise['plain']:.4f}")
+        # what the bf16 logit gate reads of the planted fault
+        with faulty_attention(F_FAULT):
+            planted = prefill(params, batch)
+        planted_rel = float((planted[:, :v] - ref_logits[:, :v]).abs().max()
+                            / ref_logits[:, :v].abs().max())
+        tol = TOL_LM_ARCH.get(arch, TOL_LM)
+        rec = {"params": n_params, "layers": cfg.num_layers,
+               "attention_layers": n_attn, "prefill_launches": launches,
+               **check_prefill_logits(arch, logits, ref_logits, cfg, b,
+                                      tol=tol),
+               "f32": rec32, "bf16_rel_err_vs_f32": noise,
+               "f_layers_bf16": layers_f,
+               "planted_fault_rel_err_vs_plain": planted_rel}
+        del logits, ref_logits, logits32, truth, planted
+        print(f"[lm3j] {arch} ({n_params / 1e9:.2f} B params, "
+              f"{cfg.num_layers} layers) prefill B={b} S={s}: {launches} F "
+              f"launches ({n_attn} attention layers), logits finite; bf16 "
+              f"kernel vs plain route max|Δ| "
+              f"{rec['max_abs_err_vs_plain']:.3e} (max|logits| "
+              f"{rec['max_abs_logit']:.3f}, tol {tol}·max; F's output "
+              f"{F_FAULT} times reads {planted_rel:.4f}·max); F's bf16 "
+              f"entry at each of {layers_f['layers']} layers vs its plain "
+              f"version on the layer's q, k, v: worst "
+              f"{layers_f['worst_share']:.3f} of its bound (the planted "
+              f"fault at least {layers_f['planted_least_share']:.3f}); "
+              f"bf16 kernel / plain route off the f32 logits "
+              f"{noise['kernel']:.4f} / {noise['plain']:.4f}·max; f32 "
+              f"kernel vs plain route {rec32['max_abs_err_vs_plain']:.3e} "
+              f"(tol {TOL_LM_F32}·max)")
+        if arch == "qwen2-vl-2b":
+            # the vlm_stub frontend: (B, S, D) embeddings for the tokens
+            emb_batch = {"embeds": torch.randn(
+                (b, s, cfg.d_model), generator=gen).to(dev, torch.bfloat16)}
+            fa.flash_attention.launches = 0
+            emb_logits = prefill(params, emb_batch)
+            torch.cuda.synchronize()
+            emb_launches = fa.flash_attention.launches
+            f_paths[f"{arch}_prefill_embeds_B{b}_S{s}"] = emb_launches
+            if emb_launches != n_attn:
+                raise RuntimeError(f"{arch} prefill on embeddings: kernel F "
+                                   f"launched {emb_launches} times, not "
+                                   f"{n_attn}")
+            with plain_attention():
+                emb_ref = prefill(params, emb_batch)
+            rec["embeds"] = check_prefill_logits(f"{arch} embeds",
+                                                 emb_logits, emb_ref, cfg, b)
+            del emb_batch, emb_logits, emb_ref
+            print(f"[lm3j] {arch} prefill on (B, S, D) embeddings "
+                  f"(vlm_stub): {emb_launches} F launches, logits finite; "
+                  f"bf16 kernel vs plain route max|Δ| "
+                  f"{rec['embeds']['max_abs_err_vs_plain']:.3e} (max|logits| "
+                  f"{rec['embeds']['max_abs_logit']:.3f}, tol {TOL_LM}·max)")
+        # ---- 3j. serve(): 16 greedy tokens at B = 4 -----------------------
+        fa.flash_attention.launches = 0
+        served, serve_s = serve(arch, reduced=False, batch=4, prompt_len=8,
+                                gen_tokens=16, device=dev, params=params)
+        f_paths[f"{arch}_serve"] = fa.flash_attention.launches
+        if served.shape != (4, 16) or served.min() < 0 \
+                or served.max() >= cfg.vocab_size:
+            raise RuntimeError(f"{arch} serve: tokens {served.shape} out of "
+                               f"range")
+        rec.update(serve_tokens=int(served.size), serve_s=serve_s,
+                   serve_tok_per_s=served.size / serve_s)
+        # ---- 3j. slot graphs against eager and lone runs -----------------
+        if arch in FAMILY_GRAPHS:
+            def requests():
+                g = torch.Generator().manual_seed(11)
+                return [Request(rid=i, prompt=torch.randint(
+                    0, cfg.vocab_size, (p,), generator=g).numpy(),
+                    max_new=n) for i, (p, n) in enumerate(FAMILY_REQUESTS)]
+
+            def run(slots, graphs, reqs):
+                cb = ContinuousBatcher(cfg, params, slots=slots,
+                                       max_len=FAMILY_MAX_LEN, device=dev,
+                                       graphs=graphs)
+                cb.warmup()
+                for r in reqs:
+                    cb.submit(r)
+                t0 = time.perf_counter()
+                steps = cb.run()
+                torch.cuda.synchronize()
+                return ({r.rid: r.out for r in cb.done}, steps,
+                        time.perf_counter() - t0)
+            fa.flash_attention.launches = 0
+            got, steps, graph_s = run(4, True, requests())
+            f_paths[f"{arch}_batcher"] = fa.flash_attention.launches
+            eager, _, eager_s = run(4, False, requests())
+            for r in requests():
+                lone, _, _ = run(1, True, [r])
+                if got[r.rid] != eager[r.rid] or got[r.rid] != lone[r.rid] \
+                        or len(got[r.rid]) != r.max_new:
+                    raise RuntimeError(
+                        f"{arch} request {r.rid}: slot-graph tokens "
+                        f"{got[r.rid]}, eager {eager[r.rid]}, lone run "
+                        f"{lone[r.rid]}")
+            n_tok = sum(len(o) for o in got.values())
+            rec.update(batcher_requests=len(got), batcher_steps=steps,
+                       batcher_tokens=n_tok, batcher_graph_s=graph_s,
+                       batcher_eager_s=eager_s)
+            print(f"[lm3j] {arch} ContinuousBatcher {len(got)} requests "
+                  f"over 4 slots on slot graphs: {n_tok} tokens in {steps} "
+                  f"steps ({graph_s:.3f} s; eager {eager_s:.3f} s), every "
+                  f"request's tokens equal to the eager run's and to its "
+                  f"lone run's")
+        decode_launches = {k: v for k, v in f_paths.items()
+                           if k.startswith(arch) and "prefill" not in k}
+        if any(decode_launches.values()):
+            raise RuntimeError(f"{arch}: kernel F launched at decode: "
+                               f"{decode_launches}")
+        # ---- 4i. times: the prefill with its split, a B = 4 decode step --
+        rec["prefill_ms"] = time_ms(lambda: prefill(params, batch), iters=3,
+                                    warmup=1)
+        rec["prefill_split"] = device_split(lambda: prefill(params, batch),
+                                            rec["prefill_ms"])
+        cache = tfm.init_cache(cfg, 4, 32, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen).to(dev)
+
+        def decode():
+            with torch.no_grad():
+                tfm.decode_step(params, cache, tok, 10, cfg)
+        rec["decode_ms_B4"] = time_ms(decode, iters=10, warmup=2)
+        sp = rec["prefill_split"]
+        rec["arch_s"] = time.perf_counter() - t_arch
+        print(f"[lm4i] {arch} prefill B={b} S={s}: {rec['prefill_ms']:.3f} "
+              f"ms; device F {sp['F_ms']:.3f}, products "
+              f"{sp['matmul_ms']:.3f}, other {sp['other_ms']:.3f} ms, idle "
+              f"share {ms_text(sp['idle_share'], '.3f')}; decode_step B=4 "
+              f"{rec['decode_ms_B4']:.3f} ms; serve "
+              f"{rec['serve_tok_per_s']:.1f} tok/s; {rec['arch_s']:.1f} s "
+              f"for this architecture")
+        records[arch] = rec
+        del params, cache, batch, prefill
+        torch.cuda.empty_cache()
+    # ---- 4i. F at gemma3-1b's local (window 512) and global layers -------
+    cfg = registry.get_config("gemma3-1b")
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    f_times = []
+    for kind, window in (("local", cfg.window), ("global", 0)):
+        t = f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16,
+                         time_ms)
+        t["site"] = f"gemma3-1b {kind} B={b} S={s}"
+        f_times.append(t)
+        print(f"[time] kernel F gemma3-1b {kind} layer (B={b} S={s} H={h}/"
+              f"{kh} D={d} window {window}): kernel {t['ms']:.4f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
+              f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {t['pairs']} pairs), kernel at "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    del q, k, v
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lm3j] the six LM families' phases took {phase_s:.1f} s")
+    return ({"lm_families": records, "lm_families_s": phase_s,
+             "flash_gemma3_sites": f_times}, f_paths, f_times)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, t) for k, t in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, t) for t in tree]
+    return fn(tree)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for t in tree.values():
+            yield from _tensors(t)
+    elif isinstance(tree, list):
+        for t in tree:
+            yield from _tensors(t)
+    else:
+        yield tree
 
 
 def vae_phases(dev, smi, peak_flops, peak_bw, gen):
@@ -2984,6 +3395,13 @@ def main() -> int:
     lm_records, f_entry = lm_phases(dev, peak_bw, peak_bf16, time_ms, gen)
     f_entry["ptxas"] = f_ptxas
     print(json.dumps({"card": smi, **lm_records}))
+
+    fam_records, fam_paths, fam_times = lm_family_phases(
+        dev, peak_bw, peak_bf16, time_ms, gen)
+    f_entry["launches_by_path"].update(fam_paths)
+    f_entry["launches"] = sum(f_entry["launches_by_path"].values())
+    f_entry["gemma3_layers"] = fam_times
+    print(json.dumps({"card": smi, **fam_records}))
 
     vae_records, vae_paths = vae_phases(dev, smi, peak_flops, peak_bw, gen)
     print(json.dumps({"card": smi, **vae_records}))

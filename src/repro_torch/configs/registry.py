@@ -2,15 +2,24 @@
 launchers.
 
 Counterpart of ``repro.configs.registry`` over the architectures the port
-runs.  Only llama3.2-1b so far: the other nine of the JAX registry need
-layer kinds or features the port has not taken over yet (ROADMAP Queue 1
-item 14)."""
+runs: the dense decoders (llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b), the
+M-RoPE VLM backbone (qwen2-vl-2b), the RG-LRU hybrid (recurrentgemma-2b)
+and the SSD model (mamba2-130m).  The JAX registry's other three need
+what the port has not taken over yet (ROADMAP Queue 1 item 14): MoE and
+MLA (dbrx-132b, deepseek-v3-671b) and the encoder-decoder with the
+``audio_stub`` frontend (seamless-m4t-large-v2)."""
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -22,3 +31,11 @@ def get_config(name: str):
 
 def get_reduced(name: str):
     return importlib.import_module(_MODULES[name]).reduced()
+
+
+def shape_applicable(cfg, shape) -> tuple[bool, str]:
+    """Which (arch x shape) cells run: ``long_500k`` only for the
+    subquadratic architectures."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "full-attention arch: 512k dense-KV decode skipped per brief"
+    return True, ""

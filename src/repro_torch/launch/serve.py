@@ -1,11 +1,11 @@
-"""LM serving driver: batched greedy decode with a persistent KV cache.
+"""LM serving: batched greedy decode with a persistent KV/state cache.
 
 Counterpart of ``repro.launch.serve``: the prompt is fed token by token
 through ``decode_step`` (as JAX's driver does; the prefill step covers
 bulk prompts), then each step's argmax is fed back.  The reduced config by
 default; ``reduced=False`` serves the full width.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --tokens 16 [--batch 4] [--device cpu]
 """
 from __future__ import annotations

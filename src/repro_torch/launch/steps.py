@@ -1,8 +1,10 @@
 """Step builders: the prefill and greedy serve steps.
 
 Counterpart of ``repro.launch.steps``' ``make_prefill_step`` and
-``make_serve_step``, without a ``DistContext`` (one card, no sharding).
-Training steps come with LM training (ROADMAP Queue 1 item 14)."""
+``make_serve_step``, without a ``DistContext`` (one card, no sharding),
+for every layer kind the port runs (attention, ``rec``, ``ssd``).  LM
+training (``make_train_step``, the loss, the optimiser) is not ported
+yet: ROADMAP Queue 1 item 14."""
 from __future__ import annotations
 
 import torch

@@ -1,9 +1,9 @@
 """Attention: the flash attention core and the MHA/GQA layer (+ sliding
-window, qk-norm, qkv bias).
+window, qk-norm, qkv bias, M-RoPE).
 
 Counterpart of ``repro.layers.attention``.  Layout: activations
-(B, S, D); q/k/v (B, S, H, Dh).  ``cross_*`` and ``mla_*`` wait for their
-architectures (ROADMAP Queue 1 item 14).
+(B, S, D); q/k/v (B, S, H, Dh).  ``cross_*`` (the encoder-decoder) and
+``mla_*`` (deepseek's MLA) are not ported yet: ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
@@ -53,10 +53,13 @@ def _theta(cfg, layer_kind):
     return cfg.rope_theta
 
 
-def _check_rope(cfg):
+def _rope(x, positions, cfg, theta):
+    """M-RoPE over (3, B, S) positions where the config has sections, else
+    RoPE over (B, S) positions (the first axis of (3, B, S) ones)."""
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                  "ROADMAP Queue 1 item 14")
+        return rp.apply_mrope(x, positions, cfg.mrope_sections, theta)
+    pos2d = positions if positions.dim() == 2 else positions[0]
+    return rp.apply_rope(x, pos2d, theta)
 
 
 def _qkv(p, x, cfg):
@@ -73,14 +76,13 @@ def _qkv(p, x, cfg):
 
 def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
               causal=True):
-    """Training / prefill self-attention.  x: (B, S, D); positions (B, S)."""
-    _check_rope(cfg)
+    """Training / prefill self-attention.  x: (B, S, D); positions (B, S),
+    or (3, B, S) under M-RoPE."""
     b, sq, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    pos2d = positions if positions.dim() == 2 else positions[0]
     theta = _theta(cfg, layer_kind)
-    q = rp.apply_rope(q, pos2d, theta)
-    k = rp.apply_rope(k, pos2d, theta)
+    q = _rope(q, positions, cfg, theta)
+    k = _rope(k, positions, cfg, theta)
     window = cfg.window if layer_kind == "local" else 0
     o = flash_attention(q, k, v, causal=causal, window=window,
                         kv_chunk=kv_chunk)
@@ -95,15 +97,16 @@ def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
     needs, as JAX traces it); both give the same bits.  The attention is
     JAX's dense f32 softmax over the whole cache; kernel F is not launched
     here."""
-    _check_rope(cfg)
     b, sq, _ = x.shape
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, x, cfg)
     pos = idx.expand(b, sq)
+    if cfg.mrope_sections:
+        pos = pos.expand(3, b, sq)
     theta = _theta(cfg, layer_kind)
-    q = rp.apply_rope(q, pos, theta)
-    k = rp.apply_rope(k, pos, theta)
+    q = _rope(q, pos, cfg, theta)
+    k = _rope(k, pos, cfg, theta)
     ck, cv = cache["k"], cache["v"]
     rows = idx + torch.arange(sq, device=x.device)
     ck.index_copy_(1, rows, k.to(ck.dtype))

@@ -1,16 +1,21 @@
-"""Decoder-only transformer over the layer kinds ``attn``/``global``.
+"""Decoder-only transformer over the layer kinds ``attn``/``local``/
+``global`` (GQA attention), ``rec`` (RG-LRU) and ``ssd`` (Mamba-2).
 
-Counterpart of ``repro.models.transformer`` for dense-attention decoders
-(llama3.2-1b): ``init``, ``forward`` (teacher-forced logits), the decode
-cache and ``decode_step``.  JAX stacks a stage's parameters along a
-leading repeat dim and scans it; the port keeps one dict per layer in
-execution order (``params["layers"]``, kinds from ``layer_kinds``), and
-``params_from_jax`` unstacks JAX's stages into that list.  Params are plain
-dicts of tensors with JAX's names.
+Counterpart of ``repro.models.transformer`` for decoder-only models
+(llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
+recurrentgemma-2b, mamba2-130m): ``init``, ``forward`` (teacher-forced
+logits), the decode cache and ``decode_step``, with the gemma norm (the
+``(1 + g)`` RMSNorm and the sqrt(d) embedding scale), sandwich norms,
+M-RoPE and the ``vlm_stub`` frontend's embeddings.  JAX stacks a stage's
+parameters along a leading repeat dim and scans it; the port keeps one
+dict per layer in execution order (``params["layers"]``, kinds from
+``layer_kinds``), and ``params_from_jax`` unstacks JAX's stages into that
+list.  Params are plain dicts of tensors with JAX's names.
 
-Any other layer kind, and the features only other architectures use
-(sandwich and gemma norms, M-RoPE, stub frontends, encoder-decoder),
-raise ``NotImplementedError``: they are ROADMAP Queue 1 item 14.
+What is not ported yet raises ``NotImplementedError`` (ROADMAP Queue 1
+item 14): the ``moe``, ``mla`` and ``mla_moe`` kinds, the encoder-decoder
+(``enc``/``dec``, ``is_encoder_decoder``) and the ``audio_stub``
+frontend.
 """
 from __future__ import annotations
 
@@ -20,8 +25,12 @@ import torch
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import rglru as rglru_lib
+from repro_torch.layers import ssm as ssm_lib
 
-KINDS = ("attn", "global")
+ATTN_KINDS = ("attn", "local", "global")
+KINDS = ATTN_KINDS + ("rec", "ssd")
+FRONTENDS = ("none", "vlm_stub")
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -31,24 +40,24 @@ def layer_kinds(cfg) -> list[str]:
 
 
 def check_supported(cfg):
-    kinds = set(layer_kinds(cfg))
-    missing = sorted(kinds - set(KINDS))
-    for flag in ("sandwich_norm", "gemma_norm", "mrope_sections",
-                 "is_encoder_decoder"):
-        if getattr(cfg, flag):
-            missing.append(flag)
-    if cfg.frontend != "none":
+    missing = sorted(set(layer_kinds(cfg)) - set(KINDS))
+    if cfg.is_encoder_decoder:
+        missing.append("is_encoder_decoder")
+    if cfg.frontend not in FRONTENDS:
         missing.append(f"frontend={cfg.frontend}")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"runs layer kinds {KINDS}): ROADMAP Queue 1 item 14")
+            f"runs layer kinds {KINDS} and frontends {FRONTENDS}; moe, mla, "
+            f"mla_moe, the encoder-decoder and audio_stub are ROADMAP Queue "
+            f"1 item 14)")
 
 
 def _check_kind(kind):
     if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: "
-                                  f"ROADMAP Queue 1 item 14")
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
+                                  f"(moe, mla, mla_moe, enc, dec): ROADMAP "
+                                  f"Queue 1 item 14")
 
 
 def _rms(p, x, cfg):
@@ -61,12 +70,26 @@ def _rms(p, x, cfg):
 
 
 def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
+    """One layer's params, JAX's ``init_layer`` tree: an ``ssd`` layer is
+    mixer-only (no ``ln2``/FFN)."""
     _check_kind(kind)
     dev = gen.device
-    return {"ln1": cm.rmsnorm_init(cfg.d_model, dev),
-            "attn": attn.gqa_init(gen, cfg, dtype),
-            "ln2": cm.rmsnorm_init(cfg.d_model, dev),
-            "mlp": mlp_lib.glu_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+    p = {"ln1": cm.rmsnorm_init(cfg.d_model, dev)}
+    if kind == "ssd":
+        p["ssd"] = ssm_lib.ssd_init(gen, cfg, dtype)
+        if cfg.sandwich_norm:
+            p["pn1"] = cm.rmsnorm_init(cfg.d_model, dev)
+        return p
+    if kind == "rec":
+        p["rec"] = rglru_lib.rglru_init(gen, cfg, dtype)
+    else:
+        p["attn"] = attn.gqa_init(gen, cfg, dtype)
+    p["ln2"] = cm.rmsnorm_init(cfg.d_model, dev)
+    p["mlp"] = mlp_lib.glu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.sandwich_norm:
+        p["pn1"] = cm.rmsnorm_init(cfg.d_model, dev)
+        p["pn2"] = cm.rmsnorm_init(cfg.d_model, dev)
+    return p
 
 
 def init_block(gen: torch.Generator, kinds, cfg, dtype=torch.bfloat16):
@@ -137,27 +160,62 @@ def params_from_jax(np_params, cfg, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
+def _sandwich(p, key, h, cfg):
+    """The sandwich norm ``key`` (``pn1`` after the mixer, ``pn2`` after
+    the FFN) where the config has them."""
+    return _rms(p[key], h, cfg) if cfg.sandwich_norm else h
+
+
 def apply_layer(p, x, kind, cfg, *, positions, kv_chunk=1024):
     _check_kind(kind)
-    h = attn.gqa_apply(p["attn"], _rms(p["ln1"], x, cfg), cfg,
-                       positions=positions, layer_kind="global",
-                       kv_chunk=kv_chunk)
-    x = x + h
+    h = _rms(p["ln1"], x, cfg)
+    if kind == "ssd":
+        h = ssm_lib.ssd_apply(p["ssd"], h, cfg)
+        return x + _sandwich(p, "pn1", h, cfg)
+    if kind == "rec":
+        h = rglru_lib.rglru_apply(p["rec"], h, cfg)
+    else:
+        h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
+                           layer_kind=_attn_kind(kind), kv_chunk=kv_chunk)
+    x = x + _sandwich(p, "pn1", h, cfg)
     h = mlp_lib.glu_apply(p["mlp"], _rms(p["ln2"], x, cfg), cfg.act)
-    return x + h
+    return x + _sandwich(p, "pn2", h, cfg)
 
 
-def _positions_for(b, s, device):
-    return torch.arange(s, device=device)[None].expand(b, s)
+def _attn_kind(kind):
+    return "local" if kind == "local" else "global"
+
+
+def _positions_for(cfg, b, s, device):
+    pos = torch.arange(s, device=device)[None].expand(b, s)
+    return pos[None].expand(3, b, s) if cfg.mrope_sections else pos
+
+
+def _embed_scale(x, cfg):
+    """The gemma norm's sqrt(d_model) embedding scale: an f32 product, one
+    rounding to ``x``'s dtype."""
+    if cfg.gemma_norm:
+        return (x.float() * cfg.d_model ** 0.5).to(x.dtype)
+    return x
+
+
+def _embed_in(params, batch, cfg):
+    if cfg.frontend != "none" and "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = cm.embed_apply(params["embed"], batch["inputs"])
+    return _embed_scale(x, cfg)
 
 
 def hidden(params, batch, cfg, *, kv_chunk=1024):
     """The residual stream after the last layer, before the final norm:
-    (B, S, D) in the params' dtype."""
+    (B, S, D) in the params' dtype.  ``batch["embeds"]`` (B, S, D), where
+    the frontend is a stub and the batch has them, takes the place of the
+    token embeddings."""
     check_supported(cfg)
-    x = cm.embed_apply(params["embed"], batch["inputs"])
+    x = _embed_in(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
-    positions = _positions_for(b, s, x.device)
+    positions = _positions_for(cfg, b, s, x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
         x = apply_layer(p, x, kind, cfg, positions=positions,
                         kv_chunk=kv_chunk)
@@ -191,15 +249,28 @@ def _readout(params, x, cfg):
 
 def init_cache_layer(kind, cfg, batch, max_len, dtype=torch.bfloat16,
                      device="cuda"):
+    """JAX's cache for one layer: {"k", "v"} (B, max_len, Kh, Dh) for
+    attention; the recurrent state {"h" f32, "conv" (B, K-1, width)} for
+    ``rec`` and ``ssd``."""
     _check_kind(kind)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    if kind == "ssd":
+        di, h, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+        return {"h": zeros((batch, h, n, di // h), torch.float32),
+                "conv": zeros((batch, cfg.ssm_conv - 1,
+                               di + 2 * cfg.ssm_groups * n))}
+    if kind == "rec":
+        return {"h": zeros((batch, cfg.lru_width), torch.float32),
+                "conv": zeros((batch, cfg.conv_width - 1, cfg.lru_width))}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(shape), "v": zeros(shape)}
 
 
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
-    """One {"k", "v"} cache per layer, in execution order (bf16 by default,
-    as JAX's)."""
+    """One cache per layer, in execution order (bf16 by default, as JAX's;
+    the recurrent states ``h`` in f32)."""
     check_supported(cfg)
     return [init_cache_layer(kind, cfg, batch, max_len, dtype, device)
             for kind in layer_kinds(cfg)]
@@ -207,20 +278,32 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
 
 def decode_layer(p, x, kind, cfg, cache, idx):
     _check_kind(kind)
-    h, nc = attn.gqa_decode(p["attn"], _rms(p["ln1"], x, cfg), cache, idx,
-                            cfg, layer_kind="global")
-    x = x + h
+    h = _rms(p["ln1"], x, cfg)
+    if kind == "ssd":
+        h, nc = ssm_lib.ssd_decode(p["ssd"], h, cache, cfg)
+        return x + _sandwich(p, "pn1", h, cfg), nc
+    if kind == "rec":
+        h, nc = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
+    else:
+        h, nc = attn.gqa_decode(p["attn"], h, cache, idx, cfg,
+                                layer_kind=_attn_kind(kind))
+    x = x + _sandwich(p, "pn1", h, cfg)
     h = mlp_lib.glu_apply(p["mlp"], _rms(p["ln2"], x, cfg), cfg.act)
-    return x + h, nc
+    return x + _sandwich(p, "pn2", h, cfg), nc
 
 
 def decode_step(params, cache, tokens, idx, cfg):
-    """One decode step.  tokens: (B, 1) int; ``idx`` a Python int or a 0-d
-    int64 tensor on the tokens' device (a captured graph's position).
-    Returns (logits (B, 1, V), cache), the cache written in place at
-    ``idx``."""
+    """One decode step.  tokens: (B, 1) int, or (B, 1, D) embeddings for
+    a stub frontend; ``idx`` a Python int or a 0-d int64 tensor on the
+    tokens' device (a captured graph's position).  Returns (logits
+    (B, 1, V), cache), the cache written in place: the KV rows at ``idx``,
+    the recurrent states whole."""
     check_supported(cfg)
-    x = cm.embed_apply(params["embed"], tokens)
+    if cfg.frontend != "none" and tokens.dim() == 3:
+        x = tokens
+    else:
+        x = cm.embed_apply(params["embed"], tokens)
+    x = _embed_scale(x, cfg)
     idx = torch.as_tensor(idx, dtype=torch.int64, device=x.device)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):

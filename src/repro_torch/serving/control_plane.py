@@ -33,7 +33,8 @@ admission → schedule → launch → replay
 
 ``degrade`` (elastic serving on a shrunk mesh), ``ImageBackend(dist=)``
 and ``rebind`` need a device mesh, which comes with ROADMAP Queue 1 item
-13; ``LMBackend(memory=)`` (the encoder-decoder) with item 14.
+13; ``LMBackend(memory=)`` (the encoder-decoder, not ported yet) with
+item 14.
 
 ``stats()`` reports per-class p50/p95/p99, **goodput under SLO** (served
 within deadline / submitted), the fault and replay records, and the
@@ -180,8 +181,9 @@ class LMBackend:
                  max_len: int = 128, memory=None, device="cuda"):
         if memory is not None:
             raise NotImplementedError(
-                "LMBackend(memory=...): the encoder-decoder is not ported "
-                "yet: ROADMAP Queue 1 item 14")
+                "LMBackend(memory=...): the encoder-decoder (enc/dec "
+                "kinds, cross attention) is not ported yet: ROADMAP Queue 1 "
+                "item 14")
         self.name = name
         self.cb = ContinuousBatcher(cfg, params, slots=slots,
                                     max_len=max_len, device=device)

@@ -470,7 +470,9 @@ def test_degrade_then_serve():
                          dist=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         cp.backends["echo"].rebind(object())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError,
+                       match="encoder-decoder .* not ported yet: ROADMAP "
+                             "Queue 1 item 14"):
         tcp.LMBackend("lm", None, None, memory=object(), device="cpu")
     # the plane still serves, undegraded
     zs = payloads(4)

@@ -8,11 +8,14 @@ refusals, the generator and serve entry point on the 'cuda' route, one
 U-Net's 'cuda' route, and kernel F (flash attention) against its plain
 version and the f64 oracle (f32 on FFMA; bf16 on the tensor cores at
 every head dim, GQA group, ragged length, offset, window and unaligned
-view), with its launches in the llama3.2-1b prefill; the tied readout's
+view), with its launches in the llama3.2-1b prefill and in the reduced LM
+families' (one an attention layer, against the plain route); the tied
+readout's
 f32 logits and ``dense_apply``'s f32 accumulation at llama's widths; the
 serving CUDA graphs (a bucket's replay bit-equal to its eager forward with
 its captured launches, the decode graphs' tokens equal to eager decode's,
-a capture that fails raising).
+also over the local-KV, RG-LRU and SSD state caches, a capture that fails
+raising).
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
@@ -764,6 +767,12 @@ FLASH_CASES = [
     ("unaligned_window_d32", 2, 75, 120, 4, 4, 32, True, 24, 45, True),
     ("unaligned_noncausal_d128", 1, 33, 70, 8, 1, 128, False, 0, 0, True),
     ("unaligned_gqa8_d256", 1, 40, 40, 8, 1, 256, True, 0, 0, True),
+    ("qwen2_7b_gqa7_d128", 1, 300, 300, 28, 4, 128, True, 0, 0, False),
+    ("glm4_9b_gqa16_d128", 1, 200, 200, 32, 2, 128, True, 0, 0, False),
+    ("qwen2_vl_gqa6_d128", 2, 150, 150, 12, 2, 128, True, 0, 0, False),
+    ("recurrentgemma_gqa10_window_d256", 1, 600, 600, 10, 1, 256, True,
+     256, 0, False),
+    ("gemma3_global_d256", 1, 500, 500, 4, 1, 256, True, 0, 0, False),
 ]
 # the f64 oracle and the plain version in f32: the test file's 2e-4; bf16:
 # one bf16 rounding of the output (a relative 2^-7) above that
@@ -855,6 +864,90 @@ def test_llama_prefill_launches_kernel_f_once_per_layer(cuda_device):
     assert fa.flash_attention.launches - before == cfg.num_layers
     assert logits.shape == (2, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+# the LM families (reduced widths): F launches a prefill, one an attention
+# layer of each kind (attn, local, global; none for rec and ssd)
+FAMILY_ATTENTION_LAYERS = (("gemma3-1b", 3), ("qwen2-7b", 2), ("glm4-9b", 2),
+                           ("qwen2-vl-2b", 2), ("recurrentgemma-2b", 1),
+                           ("mamba2-130m", 0))
+
+
+@pytest.mark.parametrize("arch,n_attn", FAMILY_ATTENTION_LAYERS,
+                         ids=[a for a, _ in FAMILY_ATTENTION_LAYERS])
+def test_family_prefill_launches_kernel_f_once_per_attention_layer(
+        arch, n_attn, cuda_device):
+    """The reduced config's bf16 prefill at S = 100 (past the reduced
+    window of 8) launches F once an attention layer, and its logits are
+    finite and within 3e-2·max|logits| of the plain attention route's.
+    A reduced head dim of 16 (below F's smallest, 32) is doubled, with
+    the M-RoPE sections."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.layers import attention
+    from repro_torch.models import transformer as tfm
+    cfg = registry.get_reduced(arch)
+    if n_attn and cfg.head_dim not in fa.HEAD_DIMS:
+        cfg = dataclasses.replace(
+            cfg, head_dim=2 * cfg.head_dim, mrope_sections=cfg.mrope_sections
+            and tuple(2 * n for n in cfg.mrope_sections))
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"inputs": toks.to(cuda_device)}
+    prefill = make_prefill_step(cfg)
+    before = fa.flash_attention.launches
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == n_attn
+    assert bool(torch.isfinite(logits).all())
+    core = attention.flash_attention
+    attention.flash_attention = (
+        lambda q, k, v, *, kv_chunk=1024, **kw: fa.flash_attention_plain(
+            q, k, v, ck=kv_chunk, **kw))
+    try:
+        plain = prefill(params, batch)
+    finally:
+        attention.flash_attention = core
+    v = cfg.vocab_size
+    err = float((logits[:, :v] - plain[:, :v]).abs().max())
+    assert err <= 3e-2 * float(plain[:, :v].abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b",
+                                  "mamba2-130m"])
+def test_decode_graphs_give_the_eager_tokens_on_state_caches(arch,
+                                                             cuda_device):
+    """The slot graphs over the local-KV, RG-LRU and SSD caches, whose
+    decode writes the recurrent state in place: 6 requests over 4 slots
+    (two slots recycled) give the eager batcher's tokens and each
+    request's lone run's; a replayed graph that left its state unchanged
+    would repeat the first step's state."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = registry.get_reduced(arch)
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, p)
+               for p in (3, 5, 2, 12, 6, 3)]
+
+    def run(slots, graphs, ids):
+        cb = ContinuousBatcher(cfg, params, slots=slots, max_len=24,
+                               device=cuda_device, graphs=graphs)
+        for i in ids:
+            cb.submit(Request(rid=i, prompt=prompts[i], max_new=8))
+        cb.run()
+        return {r.rid: r.out for r in cb.done}
+    ids = range(len(prompts))
+    graphed = run(4, True, ids)
+    assert graphed == run(4, False, ids)
+    for i in ids:
+        assert run(1, True, [i])[i] == graphed[i]
+    assert all(len(o) == 8 for o in graphed.values())
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,7 @@ def test_unported_kinds_raise(cfgs):
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         ttfm.init(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttfm.init(dataclasses.replace(cfgs[1], gemma_norm=True),
+        ttfm.init(dataclasses.replace(cfgs[1], is_encoder_decoder=True),
                   device="cpu")
 
 
