@@ -122,8 +122,9 @@ result line) if anything is off:
    decode-style row at q_offset 300 over 512 keys, gemma3-1b's window-512
    D = 256 layer, a llama3.2-1b layer at S = 4096, the GQA groups of
    qwen2-7b (7), glm4-9b (16) and qwen2-vl-2b (6) at D = 128,
-   recurrentgemma-2b's window-2048 D = 256 layer and gemma3-1b's global
-   D = 256 layer at S = 4096;
+   recurrentgemma-2b's window-2048 D = 256 layer, gemma3-1b's global
+   D = 256 layer at S = 4096, deepseek-v3-671b's MLA geometry (128/128
+   heads, D = 192) at S = 1024 and a ragged D = 192 case;
 3f. the llama3.2-1b prefill step at full width in bf16 (seeded weights) at
    B = 1, S = 4096 and B = 8, S = 512: 16 F launches per forward, finite
    f32 logits (off the bf16 grid: the tied readout does not round them),
@@ -158,6 +159,29 @@ result line) if anything is off:
    beside its plain version, SDPA with ``enable_gqa`` (an explicit
    boolean ``attn_mask`` for the window) and the bound over the pairs
    the mask leaves;
+3k. dbrx-132b (8 of its 40 ``moe`` layers) and deepseek-v3-671b (its 3
+   dense ``mla`` layers and 2 of its 58 ``mla_moe`` layers) at full width
+   in bf16 (seeded weights), one at a time with every earlier allocation
+   freed: a prefill at B = 1, S = 4096 launches F once an attention layer
+   (8, 5; deepseek's MLA at D = 192); F's bf16 output at every attention
+   layer within its bf16 bound of the plain version on that layer's q, k,
+   v, and each MoE layer's output on its own input, over its first 64
+   positions, within the same rule of the f32 all-experts combine
+   (``moe_apply_dense``), each gate failing a planted fault at every
+   layer; the routing flips between the kernel and the plain attention
+   route counted (a flipped expert is a whole-token difference, so the
+   logits of the two bf16 routes are reported, not gated); an f32 copy at
+   the depth that fits (dbrx 1 layer, deepseek 1 ``mla`` + 1 ``mla_moe``):
+   F's f32 entry against the plain route within 1e-4·max|logits|;
+   ``serve`` 16 greedy tokens at B = 4; 5 requests over 4 slot graphs of
+   ``ContinuousBatcher`` (MoE decode, MLA's compressed cache) equal to an
+   eager run's and to each lone run's; 0 F launches at decode;
+4j. times of 3k: each prefill's ms with its device split (F, dense
+   products, the MoE's dispatch, the rest) and idle share, a B = 4
+   ``decode_step``, one MoE layer's B = 1 decode beside the selected
+   experts' weight bytes; kernel F at deepseek's MLA layer (128/128
+   heads, D = 192) and dbrx's (48/8, D = 128), B = 1, S = 4096, beside
+   its plain version, SDPA and the bound;
 3h. the full-width VAE (``VAE``: 32 px, widths 64/128, latent 64) on the
    'cuda' route, f32 and int8: ``vae_apply`` at B = 1 and 64 launches 2 B
    and 2 A (the int8 model in the int8 counters), recon, mu and logvar
@@ -310,8 +334,10 @@ TILED_DECONV_CASES = [
 # non-causal D = 128 case, a decode-style row at q_offset 300, gemma3-1b's
 # local layer (window 512, D = 256), a llama3.2-1b layer at S = 4096, the
 # GQA groups of qwen2-7b (28/4), glm4-9b (32/2) and qwen2-vl-2b (12/2),
-# recurrentgemma-2b's local layer (10/1, D = 256, window 2048) and
-# gemma3-1b's global layer (4/1, D = 256, no window)
+# recurrentgemma-2b's local layer (10/1, D = 256, window 2048),
+# gemma3-1b's global layer (4/1, D = 256, no window), deepseek-v3-671b's
+# MLA geometry (128/128, D = 192; S = 1024 keeps the f64 oracle's scores
+# at 1 GB) and a ragged D = 192 case with GQA and a q_offset
 FLASH_CASES = [
     ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
     ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
@@ -328,6 +354,8 @@ FLASH_CASES = [
     ("recurrentgemma_window_2048", 1, 4096, 4096, 10, 1, 256, True, 2048,
      0),
     ("gemma3_global_d256", 1, 4096, 4096, 4, 1, 256, True, 0, 0),
+    ("deepseek_mla_d192", 1, 1024, 1024, 128, 128, 192, True, 0, 0),
+    ("ragged_gqa_offset_d192", 2, 777, 901, 16, 4, 192, True, 0, 124),
 ]
 # kernel F against its plain version and the f64 oracle: f32 as
 # tests/test_flash_attention_kernel.py:34 (2e-4); bf16 adds one bf16
@@ -368,6 +396,20 @@ FAMILY_PREFILL = (1, 4096)
 FAMILY_GRAPHS = ("gemma3-1b", "recurrentgemma-2b", "mamba2-130m")
 FAMILY_REQUESTS = ((6, 8), (3, 6), (5, 4), (4, 8), (7, 5))
 FAMILY_MAX_LEN = 24
+# phases 3k/4j: the MoE families at full width in bf16, one at a time,
+# their depth cut to fit one card's 80 GB (deepseek keeps its published
+# first three dense layers): (arch, stages, F launches a prefill); the f32
+# copy's stages (one layer of each kind that fits in f32); the positions
+# each MoE layer is held to the f32 all-experts combine on
+MOE_FAMILIES = (("dbrx-132b", ((("moe",), 8),), 8),
+                ("deepseek-v3-671b", ((("mla",), 3), (("mla_moe",), 2)), 5))
+MOE_F32_STAGES = {"dbrx-132b": ((("moe",), 1),),
+                  "deepseek-v3-671b": ((("mla",), 1), (("mla_moe",), 1))}
+MOE_SLICE = 64
+# device kernels of the MoE's dispatch (the router's top-k, the sort by
+# expert, the gathers and the scatter-add), for the prefill's split
+DISPATCH_NAMES = ("index", "gather", "scatter", "sort", "topk", "radix",
+                  "histogram", "bincount")
 # phase 3i: images a model, prompt lengths, new tokens, the LM's cache
 # length, the launches the injector kills (2: an image launch, 5: a decode
 # step; the plane steps the LM and then launches one image bucket a pump),
@@ -933,24 +975,28 @@ def check_f_layers(name, calls, fault):
             "max_abs_err": err}
 
 
-def device_split(fn, wall_ms):
+def device_split(fn, wall_ms, dispatch=False):
     """One call of ``fn`` under ``torch.profiler``: device time of kernel
-    F, of the dense products and of everything else, the number of device
-    kernels, and the idle share against ``wall_ms`` (its time measured
-    without the profiler); the shares are None where the profiler caught
-    no trace."""
+    F, of the dense products (with ``dispatch``: of the MoE's dispatch
+    kernels, ``DISPATCH_NAMES``) and of everything else, the number of
+    device kernels, and the idle share against ``wall_ms`` (its time
+    measured without the profiler); the shares are None where the
+    profiler caught no trace."""
     _, evs = device_events(fn, 1, with_cpu=True)
     out = {"F_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0, "F_calls": 0,
-           "device_kernels": 0}
+           "device_kernels": 0, **({"dispatch_ms": 0.0} if dispatch else {})}
     for ev in evs or ():
         name = ev.name.lower()
         part = ("F" if "flash_fwd" in name
                 else "matmul" if any(p in name for p in MATMUL_NAMES)
+                else "dispatch" if dispatch and any(p in name for p in
+                                                    DISPATCH_NAMES)
                 else "other")
         out[f"{part}_ms"] += ev.device_time_total / 1e3
         out["F_calls"] += part == "F"
         out["device_kernels"] += 1
-    busy = out["F_ms"] + out["matmul_ms"] + out["other_ms"]
+    busy = sum(out[k] for k in ("F_ms", "matmul_ms", "other_ms",
+                                "dispatch_ms") if k in out)
     out.update(device_busy_ms=busy, wall_ms=wall_ms,
                idle_share=1 - busy / wall_ms if evs else None)
     return out
@@ -1447,6 +1493,365 @@ def lm_family_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     print(f"[lm3j] the six LM families' phases took {phase_s:.1f} s")
     return ({"lm_families": records, "lm_families_s": phase_s,
              "flash_gemma3_sites": f_times}, f_paths, f_times)
+
+
+@contextlib.contextmanager
+def captured_moe(records):
+    """The MoE (``layers.moe.moe_apply``) as it is, each call's params,
+    first ``MOE_SLICE`` positions of input and output and its routing
+    indices over every position appended to ``records``."""
+    from repro_torch.layers import moe
+    core = moe.moe_apply
+
+    def capture(p, x, cfg):
+        out = core(p, x, cfg)
+        _, idx = moe._route(x.reshape(-1, x.shape[-1]), p, cfg)
+        records.append((p, x[:, :MOE_SLICE].clone(), idx,
+                        out[:, :MOE_SLICE].clone()))
+        return out
+    moe.moe_apply = capture
+    try:
+        yield
+    finally:
+        moe.moe_apply = core
+
+
+def check_moe_layers(name, records, cfg, fault):
+    """Each captured MoE layer's output (bf16) on its first ``MOE_SLICE``
+    positions against ``moe_apply_dense`` (every expert on every token in
+    f32, combined by the gate matrix) on the same input, element by
+    element under the bf16 ``FLASH_CASES`` rule ``TOL_F +
+    TOL_F_BF16_REL·|want|``; rows whose routing on the slice differs from
+    the whole sequence's (a near tie read through another product shape)
+    are counted and left out; the output scaled by ``fault`` must fail
+    the rule at every layer.  Returns the worst share, the planted fault's
+    least share, the worst |Δ| and the rows left out."""
+    import torch
+
+    from repro_torch.layers import moe
+    worst, fault_least, err, skipped = 0.0, float("inf"), 0.0, 0
+    for i, (p, x, idx, got) in enumerate(records):
+        x2 = x.reshape(-1, x.shape[-1])
+        _, idx_s = moe._route(x2, p, cfg)
+        same = (idx_s.sort(-1).values
+                == idx[:x2.shape[0]].sort(-1).values).all(-1)
+        skipped += int((~same).sum())
+        want = moe.moe_apply_dense(p, x.float(), cfg).reshape(x2.shape)
+        got = got.reshape(x2.shape).float()
+        bound = TOL_F + TOL_F_BF16_REL * want.abs()
+        share = float(((got - want).abs() / bound)[same].max())
+        planted = (got * fault).to(torch.bfloat16).float()
+        fault_share = float(((planted - want).abs() / bound)[same].max())
+        err = max(err, float((got - want)[same].abs().max()))
+        if not (share <= 1.0 and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"{name} MoE layer {i}: {share:.3f} of its "
+                               f"bf16 bound against the f32 all-experts "
+                               f"combine on the layer's input")
+        if not fault_share > 1.0:
+            raise RuntimeError(f"{name} MoE layer {i}: the output scaled by "
+                               f"{fault} reads {fault_share:.3f} of the "
+                               f"bound: the gate cannot see it")
+        worst, fault_least = max(worst, share), min(fault_least, fault_share)
+    return {"layers": len(records), "positions": MOE_SLICE,
+            "worst_share": worst, "planted_fault": fault,
+            "planted_least_share": fault_least, "max_abs_err": err,
+            "rows_route_differs_on_slice": skipped}
+
+
+def routing_flips(a, b):
+    """Tokens whose selected expert set differs, layer by layer, between
+    two runs' captured MoE layers."""
+    return [int((ra[2].sort(-1).values != rb[2].sort(-1).values).any(-1)
+                .sum()) for ra, rb in zip(a, b)]
+
+
+def logits_record(name, logits, ref_logits, cfg, b):
+    """The kernel route's last-position logits beside the plain route's:
+    shape, finite, the vocab's padding columns at -1e30 on both (failing
+    otherwise); their max|Δ| and argmax agreement, reported."""
+    import torch
+    v = cfg.vocab_size
+    if logits.shape != (b, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill {name}: logits {tuple(logits.shape)}"
+                           f" not finite")
+    if not (bool((logits[:, v:] == -1e30).all())
+            and bool((ref_logits[:, v:] == -1e30).all())):
+        raise RuntimeError(f"prefill {name}: a padding column of the vocab "
+                           f"is not masked")
+    return {"max_abs_err_vs_plain": float((logits[:, :v] - ref_logits[:, :v])
+                                          .abs().max()),
+            "max_abs_logit": float(ref_logits[:, :v].abs().max()),
+            "argmax_equal_rows": int((logits[:, :v].argmax(-1)
+                                      == ref_logits[:, :v].argmax(-1)).sum()),
+            "rows": b}
+
+
+def lm_moe_phases(dev, peak_bw, peak_bf16, time_ms, gen):
+    """Phases 3k and 4j: dbrx-132b and deepseek-v3-671b at full width in
+    bf16 with the depth of ``MOE_FAMILIES``, one at a time (every earlier
+    allocation freed first): the prefill at ``FAMILY_PREFILL`` launching F
+    once an attention layer, F's bf16 output at every attention layer
+    against its plain version (``check_f_layers``) and each MoE layer
+    against the f32 all-experts combine (``check_moe_layers``), each with
+    its planted fault caught; the routing flips between the kernel and the
+    plain attention route; an f32 copy at ``MOE_F32_STAGES`` (F's f32
+    entry against the plain route, ``TOL_LM_F32``); ``serve`` (16 greedy
+    tokens at B = 4); a ``ContinuousBatcher`` on slot graphs whose tokens
+    equal an eager run's and each request's lone run's, with no F launch
+    at decode; the times (prefill ms and device split, a B = 4
+    ``decode_step``, one MoE layer's B = 1 decode) and F at deepseek's MLA
+    layer and dbrx's attention layer.  Returns (records for the results
+    line, F's launches by path, F's layer times)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.layers import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    b, s = FAMILY_PREFILL
+    f_paths, records = {}, {}
+    for arch, stages, n_attn in MOE_FAMILIES:
+        t_arch = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(
+            full, stages=stages, num_layers=sum(len(k) * r for k, r in
+                                                stages))
+        if attention_layers(cfg) != n_attn:
+            raise RuntimeError(f"{arch}: {attention_layers(cfg)} attention "
+                               f"layers, not {n_attn}")
+        params = tfm.init(cfg, seed=0, device=dev)
+        n_params = sum(t.numel() for t in _tensors(params))
+        print(f"[lm3k] {arch}: full width, depth cut to {cfg.num_layers} of "
+              f"{full.num_layers} layers ({tfm.layer_kinds(cfg)}), "
+              f"{n_params / 1e9:.2f} B params in bf16, "
+              f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.1f} GiB on the "
+              f"card ({resident / 2 ** 30:.2f} GiB of it from earlier "
+              f"phases)")
+        prefill = make_prefill_step(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+        batch = {"inputs": toks.to(dev)}
+        # ---- 3k. the prefill: F once an attention layer, F and the MoE
+        # held layer by layer ----------------------------------------------
+        calls, moe_k, moe_p = [], [], []
+        fa.flash_attention.launches = 0
+        with captured_attention(calls), captured_moe(moe_k):
+            logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        f_paths[f"{arch}_prefill_B{b}_S{s}"] = launches
+        if launches != n_attn:
+            raise RuntimeError(f"{arch} prefill: kernel F launched "
+                               f"{launches} times, not once for each of "
+                               f"{n_attn} attention layers")
+        layers_f = check_f_layers(arch, calls, F_FAULT)
+        del calls
+        layers_moe = check_moe_layers(arch, moe_k, cfg, F_FAULT)
+        with plain_attention(), captured_moe(moe_p):
+            ref_logits = prefill(params, batch)
+        flips = routing_flips(moe_k, moe_p)
+        del moe_k, moe_p
+        rec = {"params": n_params, "layers": cfg.num_layers,
+               "published_layers": full.num_layers,
+               "layer_kinds": tfm.layer_kinds(cfg),
+               "attention_layers": n_attn, "prefill_launches": launches,
+               **logits_record(arch, logits, ref_logits, cfg, b),
+               "f_layers_bf16": layers_f, "moe_layers_bf16": layers_moe,
+               "routing_flips_kernel_vs_plain": flips,
+               "routed_tokens_a_layer": b * s}
+        del logits, ref_logits
+        print(f"[lm3k] {arch} prefill B={b} S={s}: {launches} F launches "
+              f"({n_attn} attention layers), logits finite; F's bf16 entry "
+              f"at each of {layers_f['layers']} layers vs its plain version "
+              f"on the layer's q, k, v: worst {layers_f['worst_share']:.3f} "
+              f"of its bound (the planted fault at least "
+              f"{layers_f['planted_least_share']:.3f}); each of "
+              f"{layers_moe['layers']} MoE layers on its first {MOE_SLICE} "
+              f"positions vs the f32 all-experts combine: worst "
+              f"{layers_moe['worst_share']:.3f} of the bound (the planted "
+              f"fault at least {layers_moe['planted_least_share']:.3f}; "
+              f"{layers_moe['rows_route_differs_on_slice']} rows routed "
+              f"otherwise on the slice, left out); routing flips kernel vs "
+              f"plain attention route by MoE layer {flips} of {b * s} "
+              f"tokens; last-position logits kernel vs plain route max|Δ| "
+              f"{rec['max_abs_err_vs_plain']:.3e} (max|logits| "
+              f"{rec['max_abs_logit']:.3f}; reported, not gated), argmax "
+              f"equal on {rec['argmax_equal_rows']}/{b} rows")
+        # ---- 3k. serve(): 16 greedy tokens at B = 4 -----------------------
+        fa.flash_attention.launches = 0
+        served, serve_s = serve(arch, batch=4, prompt_len=8, gen_tokens=16,
+                                device=dev, params=params, cfg=cfg)
+        f_paths[f"{arch}_serve"] = fa.flash_attention.launches
+        if served.shape != (4, 16) or served.min() < 0 \
+                or served.max() >= cfg.vocab_size:
+            raise RuntimeError(f"{arch} serve: tokens {served.shape} out of "
+                               f"range")
+        rec.update(serve_tokens=int(served.size), serve_s=serve_s,
+                   serve_tok_per_s=served.size / serve_s)
+        torch.cuda.empty_cache()
+
+        # ---- 3k. slot graphs against eager and lone runs -----------------
+        def requests():
+            g = torch.Generator().manual_seed(13)
+            return [Request(rid=i, prompt=torch.randint(
+                0, cfg.vocab_size, (p,), generator=g).numpy(), max_new=n)
+                for i, (p, n) in enumerate(FAMILY_REQUESTS)]
+
+        def run(slots, graphs, reqs):
+            cb = ContinuousBatcher(cfg, params, slots=slots,
+                                   max_len=FAMILY_MAX_LEN, device=dev,
+                                   graphs=graphs)
+            cb.warmup()
+            for r in reqs:
+                cb.submit(r)
+            t0 = time.perf_counter()
+            steps = cb.run()
+            torch.cuda.synchronize()
+            return ({r.rid: r.out for r in cb.done}, steps,
+                    time.perf_counter() - t0)
+        fa.flash_attention.launches = 0
+        got, steps, graph_s = run(4, True, requests())
+        f_paths[f"{arch}_batcher"] = fa.flash_attention.launches
+        torch.cuda.empty_cache()
+        eager, _, eager_s = run(4, False, requests())
+        for r in requests():
+            lone, _, _ = run(1, True, [r])
+            if got[r.rid] != eager[r.rid] or got[r.rid] != lone[r.rid] \
+                    or len(got[r.rid]) != r.max_new:
+                raise RuntimeError(
+                    f"{arch} request {r.rid}: slot-graph tokens "
+                    f"{got[r.rid]}, eager {eager[r.rid]}, lone run "
+                    f"{lone[r.rid]}")
+        torch.cuda.empty_cache()
+        n_tok = sum(len(o) for o in got.values())
+        rec.update(batcher_requests=len(got), batcher_steps=steps,
+                   batcher_tokens=n_tok, batcher_graph_s=graph_s,
+                   batcher_eager_s=eager_s)
+        decode_launches = {k: v for k, v in f_paths.items()
+                           if k.startswith(arch) and "prefill" not in k}
+        if any(decode_launches.values()):
+            raise RuntimeError(f"{arch}: kernel F launched at decode: "
+                               f"{decode_launches}")
+        print(f"[lm3k] {arch} serve (B=4, 16 new): "
+              f"{rec['serve_tok_per_s']:.1f} tok/s; ContinuousBatcher "
+              f"{len(got)} requests over 4 slots on slot graphs: {n_tok} "
+              f"tokens in {steps} steps ({graph_s:.3f} s; eager "
+              f"{eager_s:.3f} s), every request's tokens equal to the eager "
+              f"run's and to its lone run's; 0 F launches at decode")
+        # ---- 4j. times: the prefill with its split, decode ----------------
+        rec["prefill_ms"] = time_ms(lambda: prefill(params, batch), iters=3,
+                                    warmup=1)
+        rec["prefill_split"] = device_split(lambda: prefill(params, batch),
+                                            rec["prefill_ms"], dispatch=True)
+        cache = tfm.init_cache(cfg, 4, 32, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen).to(dev)
+
+        def decode():
+            with torch.no_grad():
+                tfm.decode_step(params, cache, tok, 10, cfg)
+        rec["decode_ms_B4"] = time_ms(decode, iters=5, warmup=1)
+        # one MoE layer's B = 1 decode: the gathered form's bytes against
+        # the selected experts' weight read
+        layer = next(p for p, kind in zip(params["layers"],
+                                          tfm.layer_kinds(cfg))
+                     if kind in tfm.MOE_KINDS)
+        x1 = torch.randn((1, 1, cfg.d_model), generator=gen).to(
+            dev, torch.bfloat16)
+        elems = cfg.top_k * cfg.d_model * cfg.d_expert
+        moe_ms = time_ms(lambda: moe.moe_decode(layer["moe"], x1, cfg))
+        # wi, wg: read, gathered copy written and read (2 B each); wo the
+        # same, then its f32 copy written and read (4 B each)
+        moved = elems * (2 * 3 * 2 + 3 * 2 + 2 * 4)
+        rec["moe_decode_B1"] = {
+            "ms": moe_ms, "selected_weight_bytes": 3 * elems * 2,
+            "moved_bytes_estimate": moved,
+            "selected_read_bound_ms": 3 * elems * 2 / peak_bw * 1e3,
+            "moved_bound_ms": moved / peak_bw * 1e3}
+        sp = rec["prefill_split"]
+        md = rec["moe_decode_B1"]
+        rec["arch_s"] = time.perf_counter() - t_arch
+        print(f"[lm4j] {arch} prefill B={b} S={s}: {rec['prefill_ms']:.3f} "
+              f"ms; device F {sp['F_ms']:.3f}, products "
+              f"{sp['matmul_ms']:.3f}, MoE dispatch {sp['dispatch_ms']:.3f}, "
+              f"other {sp['other_ms']:.3f} ms, idle share "
+              f"{ms_text(sp['idle_share'], '.3f')}; decode_step B=4 "
+              f"{rec['decode_ms_B4']:.3f} ms; one MoE layer's B=1 decode "
+              f"{md['ms']:.3f} ms (the {cfg.top_k} selected experts' "
+              f"{md['selected_weight_bytes'] / 1e9:.3f} GB read alone "
+              f"{md['selected_read_bound_ms']:.3f} ms; the gathered form "
+              f"moves ~{md['moved_bytes_estimate'] / 1e9:.3f} GB, "
+              f"{md['moved_bound_ms']:.3f} ms); {rec['arch_s']:.1f} s for "
+              f"this architecture")
+        del params, cache, batch, prefill, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- 3k. the f32 copy: F's f32 entry against the plain route ------
+        f32_stages = MOE_F32_STAGES[arch]
+        cfg32 = dataclasses.replace(
+            full, stages=f32_stages,
+            num_layers=sum(len(k) * r for k, r in f32_stages))
+        p32 = tfm.init(cfg32, seed=1, device=dev, dtype=torch.float32)
+        prefill32 = make_prefill_step(cfg32)
+        batch = {"inputs": toks.to(dev)}
+        r32_k, r32_p = [], []
+        fa.flash_attention.launches = 0
+        with captured_moe(r32_k):
+            logits32 = prefill32(p32, batch)
+        torch.cuda.synchronize()
+        f_paths[f"{arch}_f32_prefill_B{b}_S{s}"] = fa.flash_attention.launches
+        with plain_attention(), captured_moe(r32_p):
+            truth = prefill32(p32, batch)
+        rec["f32"] = {"layers": cfg32.num_layers,
+                      "layer_kinds": tfm.layer_kinds(cfg32),
+                      "routing_flips_kernel_vs_plain":
+                          routing_flips(r32_k, r32_p),
+                      **check_prefill_logits(f"{arch} f32", logits32, truth,
+                                             cfg32, b, tol=TOL_LM_F32)}
+        print(f"[lm3k] {arch} f32 copy at {cfg32.num_layers} layers "
+              f"({tfm.layer_kinds(cfg32)}): F's f32 entry vs the plain route "
+              f"max|Δ| {rec['f32']['max_abs_err_vs_plain']:.3e} (max|logits| "
+              f"{rec['f32']['max_abs_logit']:.3f}, tol {TOL_LM_F32}·max); "
+              f"routing flips {rec['f32']['routing_flips_kernel_vs_plain']}")
+        del p32, r32_k, r32_p, logits32, truth, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        records[arch] = rec
+    # ---- 4j. F at deepseek's MLA layer and dbrx's attention layer --------
+    f_times = []
+    for arch in ("deepseek-v3-671b", "dbrx-132b"):
+        cfg = registry.get_config(arch)
+        h, kh = cfg.num_heads, cfg.num_kv_heads
+        d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla
+             else cfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+        if cfg.use_mla:
+            v[..., cfg.v_head_dim:] = 0     # MLA pads v to the q.k dim
+        t = f_layer_time(fa, F, q, k, v, 0, peak_bw, peak_bf16, time_ms)
+        t["site"] = f"{arch} B={b} S={s}"
+        f_times.append(t)
+        print(f"[time] kernel F {arch} layer (B={b} S={s} H={h}/{kh} D={d}"
+              f"): kernel {t['ms']:.4f} ms ({t['tflops']:.1f} TFLOP/s), "
+              f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), kernel at "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+        del q, k, v
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lm3k] the MoE families' phases took {phase_s:.1f} s")
+    return ({"lm_moe_families": records, "lm_moe_families_s": phase_s,
+             "flash_moe_sites": f_times}, f_paths, f_times)
 
 
 def _tree_map(fn, tree):
@@ -3402,6 +3807,13 @@ def main() -> int:
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
     f_entry["gemma3_layers"] = fam_times
     print(json.dumps({"card": smi, **fam_records}))
+
+    moe_records, moe_paths, moe_times = lm_moe_phases(
+        dev, peak_bw, peak_bf16, time_ms, gen)
+    f_entry["launches_by_path"].update(moe_paths)
+    f_entry["launches"] = sum(f_entry["launches_by_path"].values())
+    f_entry["moe_family_layers"] = moe_times
+    print(json.dumps({"card": smi, **moe_records}))
 
     vae_records, vae_paths = vae_phases(dev, smi, peak_flops, peak_bw, gen)
     print(json.dumps({"card": smi, **vae_records}))

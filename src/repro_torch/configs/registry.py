@@ -3,10 +3,10 @@ launchers.
 
 Counterpart of ``repro.configs.registry`` over the architectures the port
 runs: the dense decoders (llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b), the
-M-RoPE VLM backbone (qwen2-vl-2b), the RG-LRU hybrid (recurrentgemma-2b)
-and the SSD model (mamba2-130m).  The JAX registry's other three need
-what the port has not taken over yet (ROADMAP Queue 1 item 14): MoE and
-MLA (dbrx-132b, deepseek-v3-671b) and the encoder-decoder with the
+M-RoPE VLM backbone (qwen2-vl-2b), the RG-LRU hybrid (recurrentgemma-2b),
+the SSD model (mamba2-130m) and the MoE models (dbrx-132b; deepseek-v3-671b
+with MLA).  The JAX registry's last one needs what the port has not taken
+over yet (ROADMAP Queue 1 item 14.4): the encoder-decoder with the
 ``audio_stub`` frontend (seamless-m4t-large-v2)."""
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import importlib
 
 _MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "glm4-9b": "repro_torch.configs.glm4_9b",

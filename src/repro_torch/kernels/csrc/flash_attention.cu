@@ -27,14 +27,18 @@
 // D <= 64, else 1); each warp owns 16 * MT rows.  Q, K and V stay bf16 in
 // shared memory, rows padded to D + 8 elements so that the 8 row
 // addresses of an ldmatrix fall in distinct banks.  K and V chunks of BK
-// keys (64; 32 for D = 256, whose output fragments alone take 128
-// registers a thread) come through a two-stage cp.async ring, 16 bytes a
-// thread, the next chunk's copy issued before the current chunk's
-// products (views that are not 16-byte aligned are staged by scalar loads
-// instead).  Q.K^T is mma.sync m16n8k16 bf16
+// keys come through a two-stage cp.async ring, 16 bytes a thread, the next
+// chunk's copy issued before the current chunk's products (views that are
+// not 16-byte aligned are staged by scalar loads instead).  BK is 64, and
+// 32 where the output fragments are large: D = 256 (128 registers a thread
+// for them) and D = 192, MLA's q.k dim (96: 184 registers and no spill at
+// BK = 32, where BK = 64 spills 20 bytes at 255 registers, takes 125 KB of
+// shared memory, one block an SM, and ran 5.83 against 4.83 ms at
+// deepseek-v3-671b's MLA layer: tools/sweep_kernel_f.py, H100 80GB HBM3,
+// 700 W).  Q.K^T is mma.sync m16n8k16 bf16
 // with f32 accumulation (bf16 products are exact in f32), Q's A fragments
-// held in registers for the whole key loop (D <= 128; D = 256 reloads
-// them from shared memory).  The online softmax runs on the accumulator
+// held in registers for the whole key loop (D <= 128; D = 192 and 256
+// reload them from shared memory).  The online softmax runs on the accumulator
 // fragments in registers: the scale is folded in as scale * log2(e) (one
 // FFMA before the exponent where no key of the chunk is masked for the
 // warp), the exponentials are the SFU's ex2.approx, the masked value
@@ -323,6 +327,9 @@ int dispatch_f32(int D, const void* q, const void* k, const void* v,
                            window, q_offset, scale, vec, stream);
     case 128:
       return launch<128, 16>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs,
+                             causal, window, q_offset, scale, vec, stream);
+    case 192:
+      return launch<192, 16>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs,
                              causal, window, q_offset, scale, vec, stream);
     case 256:
       return launch<256, 16>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs,
@@ -760,6 +767,9 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
                         window, q_offset, scale, vec, stream);
     case 128:
       return launch<128>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs, causal,
+                         window, q_offset, scale, vec, stream);
+    case 192:
+      return launch<192>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs, causal,
                          window, q_offset, scale, vec, stream);
     case 256:
       return launch<256>(q, k, v, o, B, H, Kh, Sq, Sk, qs, ks, vs, causal,

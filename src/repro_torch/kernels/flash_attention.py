@@ -31,7 +31,7 @@ import functools
 import torch
 
 NEG_INF = -2.0 ** 30
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_Q_TILES = 65535           # grid.y, one query tile each
 _Q_TILE = 64                   # the smallest query tile of either entry

@@ -25,13 +25,17 @@ SEED = 0                    # JAX's driver draws from PRNGKey(0)
 
 
 def serve(arch: str, *, batch=4, prompt_len=8, gen_tokens=16, reduced=True,
-          device="cuda", params=None, prompt=None):
+          device="cuda", params=None, prompt=None, cfg=None):
     """Greedy-decode ``gen_tokens`` tokens after a ``prompt_len`` prompt for
     ``batch`` rows.  Params come from ``tfm.init`` and the prompt from a
     ``torch.Generator``, both seeded with ``SEED``, unless given
-    (``prompt``: (batch, prompt_len) ints).  Returns (tokens (batch,
-    gen_tokens) int64 numpy, seconds)."""
-    cfg = registry.get_reduced(arch) if reduced else registry.get_config(arch)
+    (``prompt``: (batch, prompt_len) ints).  ``cfg`` (default: ``arch``'s
+    reduced or published config) is the config served, e.g. one with its
+    depth cut to fit a card.  Returns (tokens (batch, gen_tokens) int64
+    numpy, seconds)."""
+    if cfg is None:
+        cfg = (registry.get_reduced(arch) if reduced
+               else registry.get_config(arch))
     dev = resolve_device(device)
     if params is None:
         params = tfm.init(cfg, seed=SEED, device=dev)

@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.launch.steps``' ``make_prefill_step`` and
 ``make_serve_step``, without a ``DistContext`` (one card, no sharding),
-for every layer kind the port runs (attention, ``rec``, ``ssd``).  LM
-training (``make_train_step``, the loss, the optimiser) is not ported
-yet: ROADMAP Queue 1 item 14."""
+for every layer kind the port runs (GQA and MLA attention, the MoE FFN,
+``rec``, ``ssd``).  LM training (``make_train_step``, the loss, the
+optimiser) is not ported yet: ROADMAP Queue 1 item 14.5."""
 from __future__ import annotations
 
 import torch

@@ -1,9 +1,10 @@
-"""Attention: the flash attention core and the MHA/GQA layer (+ sliding
-window, qk-norm, qkv bias, M-RoPE).
+"""Attention: the flash attention core, the MHA/GQA layer (+ sliding
+window, qk-norm, qkv bias, M-RoPE) and DeepSeek's MLA (multi-head latent
+attention with its compressed decode cache).
 
 Counterpart of ``repro.layers.attention``.  Layout: activations
-(B, S, D); q/k/v (B, S, H, Dh).  ``cross_*`` (the encoder-decoder) and
-``mla_*`` (deepseek's MLA) are not ported yet: ROADMAP Queue 1 item 14.
+(B, S, D); q/k/v (B, S, H, Dh).  Only ``cross_*`` (the encoder-decoder's
+cross attention) is not ported yet: ROADMAP Queue 1 item 14.4.
 """
 from __future__ import annotations
 
@@ -122,4 +123,105 @@ def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
     o = o.reshape(b, sq, h * dh).to(x.dtype)
+    return cm.dense_apply(p["o"], o), cache
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention, compressed KV cache)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = gen.device
+    return {"dq": cm.dense_init(gen, d, qr, dtype),
+            "dq_n": cm.rmsnorm_init(qr, dev),
+            "uq": cm.dense_init(gen, qr, h * (dn + dr), dtype),
+            "dkv": cm.dense_init(gen, d, kvr + dr, dtype),
+            "dkv_n": cm.rmsnorm_init(kvr, dev),
+            "uk": cm.dense_init(gen, kvr, h * dn, dtype),
+            "uv": cm.dense_init(gen, kvr, h * dv, dtype),
+            "o": cm.dense_init(gen, h * dv, d, dtype)}
+
+
+def _mla_q(p, x, cfg):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation."""
+    b, sq, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = cm.rmsnorm_apply(p["dq_n"], cm.dense_apply(p["dq"], x),
+                          cfg.norm_eps)
+    q = cm.dense_apply(p["uq"], cq).reshape(b, sq, cfg.num_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_kv(p, x, cfg):
+    """(c_kv (B, S, kv_lora_rank) normed, k_rope (B, S, 1, dr) before the
+    rotation)."""
+    b, sq, _ = x.shape
+    kvr = cfg.kv_lora_rank
+    ckv_full = cm.dense_apply(p["dkv"], x)
+    ckv = cm.rmsnorm_apply(p["dkv_n"], ckv_full[..., :kvr], cfg.norm_eps)
+    return ckv, ckv_full[..., kvr:].reshape(b, sq, 1, cfg.qk_rope_dim)
+
+
+def mla_apply(p, x, cfg, *, positions, kv_chunk=1024):
+    """Training / prefill MLA (the decompressed form): q and k at head dim
+    ``qk_nope + qk_rope`` (192 at deepseek-v3-671b), v zero-padded to it
+    for the shared flash core (kernel F on the card: one launch) and the
+    output sliced back to ``v_head_dim``, as JAX does."""
+    b, sq, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    ckv, k_rope = _mla_kv(p, x, cfg)
+    pos2d = positions if positions.dim() == 2 else positions[0]
+    q_rope = rp.apply_rope(q_rope, pos2d, cfg.rope_theta)
+    k_rope = rp.apply_rope(k_rope, pos2d, cfg.rope_theta)
+    k_nope = cm.dense_apply(p["uk"], ckv).reshape(b, sq, h, dn)
+    v = cm.dense_apply(p["uv"], ckv).reshape(b, sq, h, dv)
+    q_full = torch.cat([q_nope, q_rope], -1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, sq, h, dr)], -1)
+    if dv < dn + dr:
+        v = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    o = flash_attention(q_full, k_full, v, causal=True, kv_chunk=kv_chunk,
+                        scale=(dn + dr) ** -0.5)[..., :dv]
+    return cm.dense_apply(p["o"], o.reshape(b, sq, h * dv))
+
+
+def mla_decode(p, x, cache, cache_index, cfg):
+    """Absorbed-form MLA decode: attention runs in the compressed space,
+    the cache holds (c_kv, k_rope) only.  cache: {"ckv": (B, Smax,
+    kv_lora_rank), "kr": (B, Smax, qk_rope_dim)}, written in place at
+    ``cache_index`` (a Python int or a 0-d int64 tensor, as
+    ``gqa_decode``).  JAX's f32 einsums: ``W_uk`` folded into q, ``W_uv``
+    applied after; kernel F is not launched here."""
+    b, sq, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    pos = idx.expand(b, sq)
+    q_rope = rp.apply_rope(q_rope, pos, cfg.rope_theta)
+    ckv, k_rope = _mla_kv(p, x, cfg)
+    k_rope = rp.apply_rope(k_rope, pos, cfg.rope_theta)
+    cc, cr = cache["ckv"], cache["kr"]
+    rows = idx + torch.arange(sq, device=x.device)
+    cc.index_copy_(1, rows, ckv.to(cc.dtype))
+    cr.index_copy_(1, rows, k_rope[:, :, 0].to(cr.dtype))
+    wuk = p["uk"]["w"].reshape(kvr, h, dn).float()
+    q_c = torch.einsum("bqhd,khd->bqhk", q_nope.float(), wuk)
+    ccf = cc.float()
+    s = (torch.einsum("bqhk,bsk->bhqs", q_c, ccf)
+         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), cr.float())) \
+        * ((dn + dr) ** -0.5)
+    kpos = torch.arange(cc.shape[1], device=x.device)
+    s = s.masked_fill(~(kpos <= idx), NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhqs,bsk->bqhk", w, ccf)
+    wuv = p["uv"]["w"].reshape(kvr, h, dv).float()
+    o = torch.einsum("bqhk,khd->bqhd", o_c, wuv)
+    o = o.reshape(b, sq, h * dv).to(x.dtype)
     return cm.dense_apply(p["o"], o), cache

@@ -1,21 +1,24 @@
 """Decoder-only transformer over the layer kinds ``attn``/``local``/
-``global`` (GQA attention), ``rec`` (RG-LRU) and ``ssd`` (Mamba-2).
+``global`` (GQA attention), ``moe`` (GQA + MoE FFN), ``mla``/``mla_moe``
+(DeepSeek's MLA, with a dense or MoE FFN), ``rec`` (RG-LRU) and ``ssd``
+(Mamba-2).
 
 Counterpart of ``repro.models.transformer`` for decoder-only models
 (llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
-recurrentgemma-2b, mamba2-130m): ``init``, ``forward`` (teacher-forced
-logits), the decode cache and ``decode_step``, with the gemma norm (the
-``(1 + g)`` RMSNorm and the sqrt(d) embedding scale), sandwich norms,
-M-RoPE and the ``vlm_stub`` frontend's embeddings.  JAX stacks a stage's
-parameters along a leading repeat dim and scans it; the port keeps one
-dict per layer in execution order (``params["layers"]``, kinds from
-``layer_kinds``), and ``params_from_jax`` unstacks JAX's stages into that
-list.  Params are plain dicts of tensors with JAX's names.
+recurrentgemma-2b, mamba2-130m, dbrx-132b, deepseek-v3-671b): ``init``,
+``forward`` (teacher-forced logits), the decode cache and
+``decode_step``, with the gemma norm (the ``(1 + g)`` RMSNorm and the
+sqrt(d) embedding scale), sandwich norms, M-RoPE, the ``vlm_stub``
+frontend's embeddings, MLA's compressed cache and the MoE FFN (with
+DeepSeek's shared expert).  JAX stacks a stage's parameters along a
+leading repeat dim and scans it; the port keeps one dict per layer in
+execution order (``params["layers"]``, kinds from ``layer_kinds``), and
+``params_from_jax`` unstacks JAX's stages into that list.  Params are
+plain dicts of tensors with JAX's names.
 
 What is not ported yet raises ``NotImplementedError`` (ROADMAP Queue 1
-item 14): the ``moe``, ``mla`` and ``mla_moe`` kinds, the encoder-decoder
-(``enc``/``dec``, ``is_encoder_decoder``) and the ``audio_stub``
-frontend.
+item 14.4): the encoder-decoder (``enc``/``dec``, ``is_encoder_decoder``)
+and the ``audio_stub`` frontend.
 """
 from __future__ import annotations
 
@@ -25,10 +28,14 @@ import torch
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rglru as rglru_lib
 from repro_torch.layers import ssm as ssm_lib
 
-ATTN_KINDS = ("attn", "local", "global")
+MLA_KINDS = ("mla", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
+# one attention core (kernel F on the card) a layer: GQA or MLA
+ATTN_KINDS = ("attn", "local", "global", "moe") + MLA_KINDS
 KINDS = ATTN_KINDS + ("rec", "ssd")
 FRONTENDS = ("none", "vlm_stub")
 
@@ -48,16 +55,14 @@ def check_supported(cfg):
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"runs layer kinds {KINDS} and frontends {FRONTENDS}; moe, mla, "
-            f"mla_moe, the encoder-decoder and audio_stub are ROADMAP Queue "
-            f"1 item 14)")
+            f"runs layer kinds {KINDS} and frontends {FRONTENDS}; the "
+            f"encoder-decoder and audio_stub are ROADMAP Queue 1 item 14.4)")
 
 
 def _check_kind(kind):
     if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  f"(moe, mla, mla_moe, enc, dec): ROADMAP "
-                                  f"Queue 1 item 14")
+                                  f"(enc, dec): ROADMAP Queue 1 item 14.4")
 
 
 def _rms(p, x, cfg):
@@ -71,7 +76,9 @@ def _rms(p, x, cfg):
 
 def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
     """One layer's params, JAX's ``init_layer`` tree: an ``ssd`` layer is
-    mixer-only (no ``ln2``/FFN)."""
+    mixer-only (no ``ln2``/FFN); a MoE kind has ``moe`` (and ``shared``, a
+    GLU of width ``d_expert · n_shared``, where the config has shared
+    experts) in place of ``mlp``."""
     _check_kind(kind)
     dev = gen.device
     p = {"ln1": cm.rmsnorm_init(cfg.d_model, dev)}
@@ -82,10 +89,19 @@ def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
         return p
     if kind == "rec":
         p["rec"] = rglru_lib.rglru_init(gen, cfg, dtype)
+    elif kind in MLA_KINDS:
+        p["attn"] = attn.mla_init(gen, cfg, dtype)
     else:
         p["attn"] = attn.gqa_init(gen, cfg, dtype)
     p["ln2"] = cm.rmsnorm_init(cfg.d_model, dev)
-    p["mlp"] = mlp_lib.glu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    if kind in MOE_KINDS:
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype)
+        if cfg.n_shared:
+            p["shared"] = mlp_lib.glu_init(gen, cfg.d_model,
+                                           cfg.d_expert * cfg.n_shared,
+                                           dtype)
+    else:
+        p["mlp"] = mlp_lib.glu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     if cfg.sandwich_norm:
         p["pn1"] = cm.rmsnorm_init(cfg.d_model, dev)
         p["pn2"] = cm.rmsnorm_init(cfg.d_model, dev)
@@ -174,12 +190,27 @@ def apply_layer(p, x, kind, cfg, *, positions, kv_chunk=1024):
         return x + _sandwich(p, "pn1", h, cfg)
     if kind == "rec":
         h = rglru_lib.rglru_apply(p["rec"], h, cfg)
+    elif kind in MLA_KINDS:
+        h = attn.mla_apply(p["attn"], h, cfg, positions=positions,
+                           kv_chunk=kv_chunk)
     else:
         h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
                            layer_kind=_attn_kind(kind), kv_chunk=kv_chunk)
     x = x + _sandwich(p, "pn1", h, cfg)
-    h = mlp_lib.glu_apply(p["mlp"], _rms(p["ln2"], x, cfg), cfg.act)
+    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply)
     return x + _sandwich(p, "pn2", h, cfg)
+
+
+def _ffn(p, h, kind, cfg, moe_fn):
+    """The FFN sublayer on the normed ``h``: the dense GLU, or the MoE
+    (``moe_fn``: the prefill's or the decode's form) plus the shared
+    expert."""
+    if kind not in MOE_KINDS:
+        return mlp_lib.glu_apply(p["mlp"], h, cfg.act)
+    y = moe_fn(p["moe"], h, cfg)
+    if cfg.n_shared:
+        y = y + mlp_lib.glu_apply(p["shared"], h, cfg.act)
+    return y
 
 
 def _attn_kind(kind):
@@ -249,9 +280,10 @@ def _readout(params, x, cfg):
 
 def init_cache_layer(kind, cfg, batch, max_len, dtype=torch.bfloat16,
                      device="cuda"):
-    """JAX's cache for one layer: {"k", "v"} (B, max_len, Kh, Dh) for
-    attention; the recurrent state {"h" f32, "conv" (B, K-1, width)} for
-    ``rec`` and ``ssd``."""
+    """JAX's cache for one layer: {"k", "v"} (B, max_len, Kh, Dh) for GQA
+    attention; MLA's compressed {"ckv": (B, max_len, kv_lora_rank), "kr":
+    (B, max_len, qk_rope_dim)}; the recurrent state {"h" f32, "conv" (B,
+    K-1, width)} for ``rec`` and ``ssd``."""
     _check_kind(kind)
 
     def zeros(shape, dt=dtype):
@@ -264,6 +296,9 @@ def init_cache_layer(kind, cfg, batch, max_len, dtype=torch.bfloat16,
     if kind == "rec":
         return {"h": zeros((batch, cfg.lru_width), torch.float32),
                 "conv": zeros((batch, cfg.conv_width - 1, cfg.lru_width))}
+    if kind in MLA_KINDS:
+        return {"ckv": zeros((batch, max_len, cfg.kv_lora_rank)),
+                "kr": zeros((batch, max_len, cfg.qk_rope_dim))}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": zeros(shape), "v": zeros(shape)}
 
@@ -284,11 +319,13 @@ def decode_layer(p, x, kind, cfg, cache, idx):
         return x + _sandwich(p, "pn1", h, cfg), nc
     if kind == "rec":
         h, nc = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
+    elif kind in MLA_KINDS:
+        h, nc = attn.mla_decode(p["attn"], h, cache, idx, cfg)
     else:
         h, nc = attn.gqa_decode(p["attn"], h, cache, idx, cfg,
                                 layer_kind=_attn_kind(kind))
     x = x + _sandwich(p, "pn1", h, cfg)
-    h = mlp_lib.glu_apply(p["mlp"], _rms(p["ln2"], x, cfg), cfg.act)
+    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_decode)
     return x + _sandwich(p, "pn2", h, cfg), nc
 
 
@@ -296,8 +333,9 @@ def decode_step(params, cache, tokens, idx, cfg):
     """One decode step.  tokens: (B, 1) int, or (B, 1, D) embeddings for
     a stub frontend; ``idx`` a Python int or a 0-d int64 tensor on the
     tokens' device (a captured graph's position).  Returns (logits
-    (B, 1, V), cache), the cache written in place: the KV rows at ``idx``,
-    the recurrent states whole."""
+    (B, 1, V), cache), the cache written in place: the KV (or MLA's
+    compressed) rows at ``idx``, the recurrent states whole.  The MoE
+    kinds run ``moe_decode``, whose static shapes a CUDA graph captures."""
     check_supported(cfg)
     if cfg.frontend != "none" and tokens.dim() == 3:
         x = tokens

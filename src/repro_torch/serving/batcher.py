@@ -19,6 +19,10 @@ eager step on each slot's zeroed cache first, which the zeroing then
 undoes); a capture or replay that fails raises.  On the CPU, or with
 ``graphs=False`` (the eager reference the card's graphs are held to and
 timed against), a step is one eager ``decode_step`` per occupied slot.
+Every cache kind (GQA's KV, MLA's compressed ``ckv``/``kr``, the RG-LRU
+and SSD states) is written in place and the MoE decodes in static shapes
+(``layers.moe.moe_decode``), so one graph a slot serves every ported
+architecture.
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ admission → schedule → launch → replay
 ``degrade`` (elastic serving on a shrunk mesh), ``ImageBackend(dist=)``
 and ``rebind`` need a device mesh, which comes with ROADMAP Queue 1 item
 13; ``LMBackend(memory=)`` (the encoder-decoder, not ported yet) with
-item 14.
+item 14.4.
 
 ``stats()`` reports per-class p50/p95/p99, **goodput under SLO** (served
 within deadline / submitted), the fault and replay records, and the
@@ -183,7 +183,7 @@ class LMBackend:
             raise NotImplementedError(
                 "LMBackend(memory=...): the encoder-decoder (enc/dec "
                 "kinds, cross attention) is not ported yet: ROADMAP Queue 1 "
-                "item 14")
+                "item 14.4")
         self.name = name
         self.cb = ContinuousBatcher(cfg, params, slots=slots,
                                     max_len=max_len, device=device)

@@ -773,6 +773,10 @@ FLASH_CASES = [
     ("recurrentgemma_gqa10_window_d256", 1, 600, 600, 10, 1, 256, True,
      256, 0, False),
     ("gemma3_global_d256", 1, 500, 500, 4, 1, 256, True, 0, 0, False),
+    ("mla_d192", 1, 300, 300, 16, 16, 192, True, 0, 0, False),
+    ("ragged_gqa4_offset_d192", 2, 99, 170, 8, 2, 192, True, 0, 71, False),
+    ("window_noncausal_d192", 1, 70, 70, 4, 1, 192, False, 0, 0, False),
+    ("unaligned_window_d192", 1, 85, 85, 4, 4, 192, True, 24, 0, True),
 ]
 # the f64 oracle and the plain version in f32: the test file's 2e-4; bf16:
 # one bf16 rounding of the output (a relative 2^-7) above that
@@ -867,10 +871,12 @@ def test_llama_prefill_launches_kernel_f_once_per_layer(cuda_device):
 
 
 # the LM families (reduced widths): F launches a prefill, one an attention
-# layer of each kind (attn, local, global; none for rec and ssd)
+# layer of each kind (attn, local, global, moe, mla, mla_moe; none for rec
+# and ssd)
 FAMILY_ATTENTION_LAYERS = (("gemma3-1b", 3), ("qwen2-7b", 2), ("glm4-9b", 2),
                            ("qwen2-vl-2b", 2), ("recurrentgemma-2b", 1),
-                           ("mamba2-130m", 0))
+                           ("mamba2-130m", 0), ("dbrx-132b", 2),
+                           ("deepseek-v3-671b", 3))
 
 
 @pytest.mark.parametrize("arch,n_attn", FAMILY_ATTENTION_LAYERS,
@@ -881,7 +887,8 @@ def test_family_prefill_launches_kernel_f_once_per_attention_layer(
     window of 8) launches F once an attention layer, and its logits are
     finite and within 3e-2·max|logits| of the plain attention route's.
     A reduced head dim of 16 (below F's smallest, 32) is doubled, with
-    the M-RoPE sections."""
+    the M-RoPE sections; MLA's q·k dim of 16 + 8 takes deepseek's 128 +
+    64 (F's D = 192)."""
     import dataclasses
 
     from repro_torch.configs import registry
@@ -890,7 +897,10 @@ def test_family_prefill_launches_kernel_f_once_per_attention_layer(
     from repro_torch.layers import attention
     from repro_torch.models import transformer as tfm
     cfg = registry.get_reduced(arch)
-    if n_attn and cfg.head_dim not in fa.HEAD_DIMS:
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, qk_nope_dim=128, qk_rope_dim=64,
+                                  v_head_dim=32)
+    elif n_attn and cfg.head_dim not in fa.HEAD_DIMS:
         cfg = dataclasses.replace(
             cfg, head_dim=2 * cfg.head_dim, mrope_sections=cfg.mrope_sections
             and tuple(2 * n for n in cfg.mrope_sections))
@@ -948,6 +958,113 @@ def test_decode_graphs_give_the_eager_tokens_on_state_caches(arch,
     for i in ids:
         assert run(1, True, [i])[i] == graphed[i]
     assert all(len(o) == 8 for o in graphed.values())
+
+
+def _mla_cfg():
+    """The reduced deepseek-v3-671b at MLA's published q·k dims (128 + 64:
+    F's D = 192) and v dim 128, 8 heads."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_reduced("deepseek-v3-671b"),
+                               num_heads=8, num_kv_heads=8, qk_nope_dim=128,
+                               qk_rope_dim=64, v_head_dim=128,
+                               kv_lora_rank=64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_layer_on_kernel_f(dtype, cuda_device):
+    """One MLA prefill layer (S = 300) launches F once at D = 192 (bf16
+    on the tensor cores, f32 on FFMA) and agrees with the plain attention
+    core on the same weights: f32 within 1e-4·max|y|, bf16 within
+    3e-2·max|y|."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.layers import attention
+    cfg = _mla_cfg()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    p = attention.mla_init(gen, cfg, dt)
+    x = torch.randn((2, 300, cfg.d_model), generator=gen,
+                    device=cuda_device).to(dt)
+    pos = torch.arange(300, device=cuda_device)[None].expand(2, 300)
+    before = fa.flash_attention.launches
+    got = attention.mla_apply(p, x, cfg, positions=pos)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    core = attention.flash_attention
+    attention.flash_attention = (
+        lambda q, k, v, *, kv_chunk=1024, **kw: fa.flash_attention_plain(
+            q, k, v, ck=kv_chunk, **kw))
+    try:
+        want = attention.mla_apply(p, x, cfg, positions=pos)
+    finally:
+        attention.flash_attention = core
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert err <= tol * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_forms_on_the_card(arch, cuda_device):
+    """bf16 experts on the card: ``moe_apply`` (sorted by expert) and
+    ``moe_decode`` (gathered, the form a graph captures) each within one
+    bf16 step (2^-7 of max|y|) of the f32 all-experts combine
+    ``moe_apply_dense``; ``moe_decode`` captured in a CUDA graph gives its
+    eager bits, on new tokens after each replay."""
+    from repro_torch.configs import registry
+    from repro_torch.layers import moe
+    cfg = registry.get_reduced(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    p = moe.moe_init(gen, cfg)
+    x = torch.randn((3, 40, cfg.d_model), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    want = moe.moe_apply_dense(p, x.float(), cfg)
+    for fn in (moe.moe_apply, moe.moe_decode):
+        got = fn(p, x, cfg)
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - want).abs().max())
+        assert err <= 2.0 ** -7 * float(want.abs().max()), (fn, err)
+    static = x[:, :1].clone()
+    with torch.no_grad():
+        moe.moe_decode(p, static, cfg)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = moe.moe_decode(p, static, cfg)
+    for t in range(3):
+        static.copy_(x[:, t:t + 1])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, moe.moe_decode(p, x[:, t:t + 1], cfg))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_decode_graphs_give_the_eager_tokens(arch, cuda_device):
+    """The slot graphs over MoE decode (and MLA's compressed cache at
+    deepseek): 6 requests over 4 slots give the eager batcher's tokens and
+    each request's lone run's, with no kernel-F launch captured."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = registry.get_reduced(arch)
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, p)
+               for p in (3, 5, 2, 9, 6, 3)]
+
+    def run(slots, graphs, ids):
+        cb = ContinuousBatcher(cfg, params, slots=slots, max_len=20,
+                               device=cuda_device, graphs=graphs)
+        for i in ids:
+            cb.submit(Request(rid=i, prompt=prompts[i], max_new=6))
+        cb.run()
+        assert all("F" not in g.kernels for g in cb.graphs)
+        return {r.rid: r.out for r in cb.done}
+    ids = range(len(prompts))
+    graphed = run(4, True, ids)
+    assert graphed == run(4, False, ids)
+    for i in ids:
+        assert run(1, True, [i])[i] == graphed[i]
 
 
 # ---------------------------------------------------------------------------

@@ -107,9 +107,9 @@ def test_schema_helpers_match_jax():
 
 
 def test_unported_kinds_raise(cfgs):
-    moe = dataclasses.replace(cfgs[1], stages=tbase.uniform_stages("moe", 2))
+    dec = dataclasses.replace(cfgs[1], stages=tbase.uniform_stages("dec", 2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttfm.init(moe, device="cpu")
+        ttfm.init(dec, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         ttfm.init(dataclasses.replace(cfgs[1], is_encoder_decoder=True),
                   device="cpu")
