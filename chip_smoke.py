@@ -142,10 +142,11 @@ result line) if anything is off:
    or the bytes of q, k, v and o); the prefill step's ms; its device time
    split into F, dense products and the rest with the idle share
    (``torch.profiler``); ``decode_step`` ms at B = 4;
-3j. the LM families at full width and depth in bf16 (seeded weights), one
-   at a time: gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
+3j. the LM families at full width in bf16 (seeded weights), one at a
+   time, each cut to its first layers (``FAMILY_DEPTH``: 12, 10, 10, 10,
+   9, 8): gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
    recurrentgemma-2b and mamba2-130m. A prefill step at B = 1, S = 4096
-   launches F once an attention layer (26, 28, 40, 28, 8, 0), its logits
+   launches F once an attention layer (12, 10, 10, 10, 3, 0), its logits
    finite and within 3e-2·max|logits| of the plain attention route's
    (the 3f argmax rule); ``serve`` gives 16 greedy tokens at B = 4; for
    gemma3-1b, recurrentgemma-2b and mamba2-130m (local KV, RG-LRU and
@@ -159,11 +160,11 @@ result line) if anything is off:
    beside its plain version, SDPA with ``enable_gqa`` (an explicit
    boolean ``attn_mask`` for the window) and the bound over the pairs
    the mask leaves;
-3k. dbrx-132b (8 of its 40 ``moe`` layers) and deepseek-v3-671b (its 3
+3k. dbrx-132b (4 of its 40 ``moe`` layers) and deepseek-v3-671b (its 3
    dense ``mla`` layers and 2 of its 58 ``mla_moe`` layers) at full width
    in bf16 (seeded weights), one at a time with every earlier allocation
    freed: a prefill at B = 1, S = 4096 launches F once an attention layer
-   (8, 5; deepseek's MLA at D = 192); F's bf16 output at every attention
+   (4, 5; deepseek's MLA at D = 192); F's bf16 output at every attention
    layer within its bf16 bound of the plain version on that layer's q, k,
    v, and each MoE layer's output on its own input, over its first 64
    positions, within the same rule of the f32 all-experts combine
@@ -182,6 +183,41 @@ result line) if anything is off:
    experts' weight bytes; kernel F at deepseek's MLA layer (128/128
    heads, D = 192) and dbrx's (48/8, D = 128), B = 1, S = 4096, beside
    its plain version, SDPA and the bound;
+3l. seamless-m4t-large-v2 at full width and depth in bf16 (seeded
+   weights, 2.04 B params): the encoder over 3072 stub frames and a
+   512-token decoder prefill through the prefill step launch F 72 times
+   (once an encoder layer, non-causal; twice a decoder layer, causal
+   self-attention and cross attention over the 3072 memory rows); F's
+   bf16 output at every one of those layers within its bound of the
+   plain version on the layer's own q, k, v, the planted fault failing
+   at each; the logits within 3e-2·max|logits| of the plain route's;
+   ``serve`` at B = 4 over the encoded memory (16 greedy tokens, 24 F
+   launches a decode step: the cross attention); 5 requests over 4 slot
+   graphs of ``ContinuousBatcher`` over one memory (each graph's capture
+   records 24 F launches) equal to an eager run's and each lone run's;
+   the same requests through ``LMBackend(memory=)`` behind the control
+   plane, answered with the same tokens;
+4k. times of 3l: the prefill's ms with its device split (F, products,
+   the rest) and idle share, an eager B = 4 ``decode_step`` over the
+   memory; kernel F at the encoder layer (B = 1, S = 3072, 16/16 heads,
+   D = 64, non-causal) and at a cross layer (Sq = 512, Sk = 3072) beside
+   its plain version, SDPA and the bound;
+3m. llama3.2-1b training at full width and depth in bf16 (seeded
+   weights), B = 2, S = 4096, AdamW from ``opt_config_for``, remat on:
+   the loss and its gradients launch F 32 times (16 forward, 16
+   recomputed in the backward), F's bf16 output held at each call
+   inside the training forward with its planted fault caught; the loss
+   and every gradient tensor within ``TOL_TRAIN_LOSS`` /
+   ``TOL_TRAIN_GRAD`` of the plain attention route's (F's plain version
+   forward through the same backward); 3 steps of ``make_train_step``
+   on one batch: the loss falls, 32 F launches a step; ``train()`` at
+   full width cut to one layer, killed by ``fail_at`` and resumed from
+   its checkpoint to the last step, every loss bit-equal to an
+   uninterrupted run's (``torch.use_deterministic_algorithms`` on);
+4l. times of 3m: the train step's ms, tokens/s and peak memory
+   (``max_memory_allocated``), its device time split into F forward,
+   the attention core's backward (plain PyTorch products), the other
+   dense products, the optimiser and the rest, with the idle share;
 3h. the full-width VAE (``VAE``: 32 px, widths 64/128, latent 64) on the
    'cuda' route, f32 and int8: ``vae_apply`` at B = 1 and 64 launches 2 B
    and 2 A (the int8 model in the int8 counters), recon, mu and logvar
@@ -234,6 +270,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -337,7 +374,9 @@ TILED_DECONV_CASES = [
 # recurrentgemma-2b's local layer (10/1, D = 256, window 2048),
 # gemma3-1b's global layer (4/1, D = 256, no window), deepseek-v3-671b's
 # MLA geometry (128/128, D = 192; S = 1024 keeps the f64 oracle's scores
-# at 1 GB) and a ragged D = 192 case with GQA and a q_offset
+# at 1 GB), a ragged D = 192 case with GQA and a q_offset, and
+# seamless-m4t-large-v2's cross attention at decode (one query row over
+# the 3072 memory rows, non-causal, 16/16 heads) at B = 4 and B = 1
 FLASH_CASES = [
     ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0),
     ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0),
@@ -356,6 +395,8 @@ FLASH_CASES = [
     ("gemma3_global_d256", 1, 4096, 4096, 4, 1, 256, True, 0, 0),
     ("deepseek_mla_d192", 1, 1024, 1024, 128, 128, 192, True, 0, 0),
     ("ragged_gqa_offset_d192", 2, 777, 901, 16, 4, 192, True, 0, 124),
+    ("s2t_cross_decode_B4", 4, 1, 3072, 16, 16, 64, False, 0, 0),
+    ("s2t_cross_decode_B1", 1, 1, 3072, 16, 16, 64, False, 0, 0),
 ]
 # kernel F against its plain version and the f64 oracle: f32 as
 # tests/test_flash_attention_kernel.py:34 (2e-4); bf16 adds one bf16
@@ -384,28 +425,67 @@ F_FAULT = 1 + 2.0 ** -5
 LM_PREFILL = ((1, 4096), (8, 512))
 # ContinuousBatcher requests: (prompt length, new tokens), 6 over 4 slots
 LM_REQUESTS = ((8, 16), (5, 8), (7, 12), (3, 6), (6, 10), (4, 16))
-# phases 3j/4i: the LM families at full width and depth, bf16, one at a
-# time, with the F launches a prefill must make (one an attention layer);
+# phases 3j/4i: the LM families at full width, bf16, one at a time, with
+# the F launches a prefill must make (one an attention layer);
 # the prefill geometry; the architectures whose slot graphs are held to
 # eager and lone runs (the new cache kinds: local KV, RG-LRU and SSD
 # states) and their requests, 5 over 4 slots so one slot is recycled
-LM_FAMILIES = (("gemma3-1b", 26), ("qwen2-7b", 28), ("glm4-9b", 40),
-               ("qwen2-vl-2b", 28), ("recurrentgemma-2b", 8),
+LM_FAMILIES = (("gemma3-1b", 12), ("qwen2-7b", 10), ("glm4-9b", 10),
+               ("qwen2-vl-2b", 10), ("recurrentgemma-2b", 3),
                ("mamba2-130m", 0))
+# the families' depth: each published model's first layers (the smoke
+# ran the published depth until its training and encoder-decoder phases
+# came; the cut holds its time): gemma3-1b two of its five-local-one-
+# global blocks, recurrentgemma-2b three of its rec-rec-local blocks
+# (PERF.md §5 keeps the full-depth rows)
+FAMILY_DEPTH = {"gemma3-1b": 12, "qwen2-7b": 10, "glm4-9b": 10,
+                "qwen2-vl-2b": 10, "recurrentgemma-2b": 9,
+                "mamba2-130m": 8}
 FAMILY_PREFILL = (1, 4096)
 FAMILY_GRAPHS = ("gemma3-1b", "recurrentgemma-2b", "mamba2-130m")
 FAMILY_REQUESTS = ((6, 8), (3, 6), (5, 4), (4, 8), (7, 5))
 FAMILY_MAX_LEN = 24
 # phases 3k/4j: the MoE families at full width in bf16, one at a time,
 # their depth cut to fit one card's 80 GB (deepseek keeps its published
-# first three dense layers): (arch, stages, F launches a prefill); the f32
+# first three dense layers; dbrx runs 4 of its 40, once 8, to hold the
+# smoke's time): (arch, stages, F launches a prefill); the f32
 # copy's stages (one layer of each kind that fits in f32); the positions
 # each MoE layer is held to the f32 all-experts combine on
-MOE_FAMILIES = (("dbrx-132b", ((("moe",), 8),), 8),
+MOE_FAMILIES = (("dbrx-132b", ((("moe",), 4),), 4),
                 ("deepseek-v3-671b", ((("mla",), 3), (("mla_moe",), 2)), 5))
 MOE_F32_STAGES = {"dbrx-132b": ((("moe",), 1),),
                   "deepseek-v3-671b": ((("mla",), 1), (("mla_moe",), 1))}
 MOE_SLICE = 64
+# phases 3l/4k: seamless-m4t-large-v2 at full width and depth, bf16: the
+# stub source frames (the config's SRC_FRAMES) and the decoder prefill
+S2T_SRC = 3072
+S2T_PREFILL = (1, 512)
+# phases 3m/4l: llama3.2-1b training at full width and depth, bf16, AdamW:
+# (B, S) (train_4k's sequence length), the key chunk of the attention
+# core's backward (S / 4, as JAX's launch/train.py), the steps on one
+# batch; the
+# resumed train() run: (layers, steps, B, S, checkpoint every, fail at)
+TRAIN_SHAPE = (2, 4096)
+TRAIN_KV_CHUNK = 1024
+TRAIN_SMOKE_STEPS = 3
+TRAIN_RESUME = (1, 4, 2, 256, 2, 3)
+# the first train step's loss and each gradient tensor, kernel route
+# against the plain attention route (F's plain version forward, the same
+# backward), bf16: relative to the plain route's loss and to each
+# gradient's own max|g|.  Both routes share the backward, so each limit
+# sits between the sound reading and a planted fault's (chip runs of
+# these phases, NVIDIA H100 80GB HBM3, 700 W): gradients worst 3.22e-2
+# (layers/0/ln1/g; median 1.68e-2 over the 147 tensors: F's last-bit
+# differences from its plain version, carried through 16 bf16 layers and
+# back), with the backward's dV scaled by F_FAULT 0.168 (layers/0/attn/
+# v/w); the loss 5.98e-6, with F's output scaled by F_FAULT (forward
+# only) 5.62e-5
+TOL_TRAIN_LOSS = 2e-5
+TOL_TRAIN_GRAD = 6e-2
+# the attention backward on one training call against autograd through
+# the dense f64 oracle, max|Δ| / max|oracle| of dQ, dK and dV: readings
+# 1.92e-3-2.44e-3, each scaled by F_FAULT 2.66e-2-3.06e-2 (same card)
+TOL_TRAIN_BWD = 1e-2
 # device kernels of the MoE's dispatch (the router's top-k, the sort by
 # expert, the gathers and the scatter-add), for the prefill's split
 DISPATCH_NAMES = ("index", "gather", "scatter", "sort", "topk", "radix",
@@ -849,6 +929,18 @@ def vae_sites():
     return sites
 
 
+def cut_depth(cfg, n):
+    """``cfg`` with its first ``n`` layers only (its stages unrolled, one
+    stage a layer); ``cfg`` itself where it has no more."""
+    from repro_torch.models import transformer as tfm
+    kinds = tfm.layer_kinds(cfg)
+    if n >= len(kinds):
+        return cfg
+    return dataclasses.replace(cfg, stages=tuple(((k,), 1)
+                                                 for k in kinds[:n]),
+                               num_layers=n)
+
+
 def attention_layers(cfg) -> int:
     """The attention layers of ``cfg``: kernel F's launches a prefill."""
     from repro_torch.models import transformer as tfm
@@ -1213,15 +1305,18 @@ def lm_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     return records, entry
 
 
-def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms):
+def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms,
+                 causal=True):
     """Kernel F at one bf16 layer beside its plain version, the library
     call (SDPA with ``enable_gqa``; a window as an explicit boolean
     ``attn_mask``, checked against F first) and the bound, whose FLOPs
-    count the pairs the window and causality leave: Σ_q min(q + 1, w)
-    a head, S(S + 1)/2 with no window."""
+    count the pairs the mask leaves: Σ_q min(q + 1, w) a head, S(S + 1)/2
+    with no window; Sq·Sk with ``causal=False`` (q and k may then differ
+    in length: a cross attention)."""
     import torch
     b, s, h, d = q.shape
-    y_k = fa.flash_attention(q, k, v, window=window)
+    sk = k.shape[1]
+    y_k = fa.flash_attention(q, k, v, window=window, causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None
     if window:
@@ -1231,7 +1326,8 @@ def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms):
 
     def library():
         if mask is None:
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
                                                   enable_gqa=True)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
@@ -1241,16 +1337,19 @@ def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms):
         raise RuntimeError(f"library yardstick disagrees with kernel F at "
                            f"S={s} window={window}: {lib_err:.3e}")
     w = window or s
-    pairs = b * h * sum(min(i + 1, w) for i in range(s))
+    pairs = (b * h * sum(min(i + 1, w) for i in range(s)) if causal
+             else b * h * s * sk)
     flops = 4 * d * pairs
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
     t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
-    rec = {"batch": b, "seq": s, "heads": h, "kv_heads": k.shape[2],
-           "head_dim": d, "window": window, "pairs": pairs, "flops": flops,
+    rec = {"batch": b, "seq": s, "keys": sk, "heads": h,
+           "kv_heads": k.shape[2], "head_dim": d, "window": window,
+           "causal": causal, "pairs": pairs, "flops": flops,
            "bytes": nbytes,
-           "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=window)),
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v, window=window,
+                                                    causal=causal)),
            "plain_ms": time_ms(lambda: fa.flash_attention_plain(
-               q, k, v, window=window)),
+               q, k, v, window=window, causal=causal)),
            "library_ms": time_ms(library),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1261,8 +1360,9 @@ def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms):
 
 def lm_family_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     """Phases 3j and 4i: gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
-    recurrentgemma-2b and mamba2-130m at full width and depth in bf16,
-    one at a time (each freed before the next): a prefill step at
+    recurrentgemma-2b and mamba2-130m at full width in bf16, each cut to
+    its first ``FAMILY_DEPTH`` layers, one at a time (each freed before
+    the next): a prefill step at
     ``FAMILY_PREFILL`` launching F once an attention layer, its logits
     finite and within ``TOL_LM`` (``TOL_LM_ARCH``) of the plain attention
     route, F's bf16 output at every attention layer within its bf16 bound
@@ -1291,7 +1391,7 @@ def lm_family_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     f_paths, records = {}, {}
     for arch, n_attn in LM_FAMILIES:
         t_arch = time.perf_counter()
-        cfg = registry.get_config(arch)
+        cfg = cut_depth(registry.get_config(arch), FAMILY_DEPTH[arch])
         if attention_layers(cfg) != n_attn:
             raise RuntimeError(f"{arch}: {attention_layers(cfg)} attention "
                                f"layers, not {n_attn}")
@@ -1852,6 +1952,578 @@ def lm_moe_phases(dev, peak_bw, peak_bf16, time_ms, gen):
     print(f"[lm3k] the MoE families' phases took {phase_s:.1f} s")
     return ({"lm_moe_families": records, "lm_moe_families_s": phase_s,
              "flash_moe_sites": f_times}, f_paths, f_times)
+
+
+def f_launches(cfg) -> int:
+    """Kernel F's launches a prefill of ``cfg``: one a self-attention
+    layer, encoder and decoder, and one more a ``dec`` layer (its cross
+    attention)."""
+    from repro_torch.models import transformer as tfm
+    return (attention_layers(cfg)
+            + sum(kind in tfm.ATTN_KINDS for kind in tfm.enc_layer_kinds(cfg))
+            + tfm.layer_kinds(cfg).count("dec"))
+
+
+def seamless_phases(dev, peak_bw, peak_bf16, time_ms, gen):
+    """Phases 3l and 4k: seamless-m4t-large-v2 at full width and depth in
+    bf16 (seeded weights): the encoder over ``S2T_SRC`` stub frames and a
+    decoder prefill of ``S2T_PREFILL`` tokens through the prefill step,
+    F launched once at each encoder layer and twice at each decoder layer
+    (72), F held layer by layer (``check_f_layers``: the encoder's
+    non-causal layers, the decoder's causal and cross layers, and the 24
+    cross layers of one eager B = 4 decode step at Sq = 1) with its
+    planted fault caught at each, the logits against the plain attention
+    route (``TOL_LM``); ``serve`` at B = 4 over the encoded memory (16
+    greedy tokens, F once a decoder layer a step); 5 requests over 4 slot
+    graphs of ``ContinuousBatcher`` over one memory (24 F launches a step
+    captured in each graph) equal to an eager run's and each lone run's;
+    the same requests behind the control plane through
+    ``LMBackend(memory=)``; the times (prefill ms with its device split,
+    an eager B = 4 decode step, F at the encoder layer and at a cross
+    layer beside SDPA and the bound).  Returns (records, F's launches by
+    path, F's layer times)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    from repro_torch.serving.control_plane import ControlPlane, ServeRequest
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = "seamless-m4t-large-v2"
+    cfg = registry.get_config(arch)
+    params = tfm.init(cfg, seed=0, device=dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    n_f = f_launches(cfg)
+    b, s = S2T_PREFILL
+    src = torch.randn((b, S2T_SRC, cfg.d_model), generator=gen).to(
+        dev, torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    batch = {"inputs": toks.to(dev), "src_embeds": src}
+    prefill = make_prefill_step(cfg)
+    tag = f"B{b}_S{s}_src{S2T_SRC}"
+    # ---- 3l. the prefill: F at every attention, held layer by layer ------
+    calls = []
+    fa.flash_attention.launches = 0
+    with captured_attention(calls):
+        logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    f_paths = {f"seamless_prefill_{tag}": fa.flash_attention.launches}
+    if fa.flash_attention.launches != n_f:
+        raise RuntimeError(f"seamless prefill: kernel F launched "
+                           f"{fa.flash_attention.launches} times, not "
+                           f"{n_f} (once an encoder layer, twice a decoder "
+                           f"layer)")
+    kinds = (["enc"] * len(tfm.enc_layer_kinds(cfg))
+             + ["dec_self", "dec_cross"] * len(tfm.layer_kinds(cfg)))
+    layers_f = {kind: check_f_layers(f"seamless {kind}",
+                                     [c for c, k in zip(calls, kinds)
+                                      if k == kind], F_FAULT)
+                for kind in ("enc", "dec_self", "dec_cross")}
+    del calls
+    with torch.no_grad():
+        memory = tfm.encode(params, src, cfg)
+    # ---- 3l. F at decode: one eager decode step's cross attention --------
+    # (Sq = 1 over the memory's rows), held layer by layer as above
+    n_dec = len(tfm.layer_kinds(cfg))
+    cache = tfm.init_cache(cfg, 4, 32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen).to(dev)
+    mem4 = memory.expand(4, -1, -1)
+    calls = []
+    fa.flash_attention.launches = 0
+    with captured_attention(calls), torch.no_grad():
+        tfm.decode_step(params, cache, tok, 10, cfg, memory=mem4)
+    torch.cuda.synchronize()
+    f_paths["seamless_decode_step_B4"] = fa.flash_attention.launches
+    if fa.flash_attention.launches != n_dec or len(calls) != n_dec:
+        raise RuntimeError(f"seamless decode step: kernel F launched "
+                           f"{fa.flash_attention.launches} times, not "
+                           f"{n_dec} (once a decoder layer's cross "
+                           f"attention)")
+    layers_f["dec_cross_decode"] = check_f_layers("seamless decode cross",
+                                                  calls, F_FAULT)
+    del calls
+    with plain_attention():
+        ref_logits = prefill(params, batch)
+    rec = {"params": n_params, "enc_layers": len(tfm.enc_layer_kinds(cfg)),
+           "dec_layers": len(tfm.layer_kinds(cfg)),
+           "prefill_launches": n_f, "f_layers_bf16": layers_f,
+           **check_prefill_logits(f"seamless {tag}", logits, ref_logits,
+                                  cfg, b)}
+    del logits, ref_logits
+    print(f"[s2t3l] seamless-m4t-large-v2 at full width and depth "
+          f"({n_params / 1e9:.2f} B params, bf16): prefill {tag}: {n_f} F "
+          f"launches; F's bf16 entry vs its plain version on each layer's "
+          f"q, k, v: " + ", ".join(
+              f"{k} {v['layers']} layers worst {v['worst_share']:.3f} of the "
+              f"bound (planted fault >= {v['planted_least_share']:.3f})"
+              for k, v in layers_f.items())
+          + f"; logits kernel vs plain route max|Δ| "
+          f"{rec['max_abs_err_vs_plain']:.3e} (max|logits| "
+          f"{rec['max_abs_logit']:.3f}, tol {TOL_LM}·max)")
+    # ---- 3l. serve(): 16 greedy tokens at B = 4 over the memory ----------
+    fa.flash_attention.launches = 0
+    served, serve_s = serve(arch, batch=4, prompt_len=8, gen_tokens=16,
+                            device=dev, params=params, cfg=cfg, memory=mem4)
+    f_paths["seamless_serve"] = fa.flash_attention.launches
+    if served.shape != (4, 16) or served.min() < 0 \
+            or served.max() >= cfg.vocab_size \
+            or f_paths["seamless_serve"] != n_dec * (8 + 16 - 1):
+        raise RuntimeError(f"seamless serve: tokens {served.shape}, "
+                           f"{f_paths['seamless_serve']} F launches (not "
+                           f"{n_dec} a step)")
+    rec.update(serve_tokens=int(served.size), serve_s=serve_s,
+               serve_tok_per_s=served.size / serve_s)
+    torch.cuda.empty_cache()
+
+    # ---- 3l. slot graphs over one memory, the control plane --------------
+    def requests():
+        g = torch.Generator().manual_seed(17)
+        return [(i, torch.randint(0, cfg.vocab_size, (p,), generator=g)
+                 .numpy(), n) for i, (p, n) in enumerate(FAMILY_REQUESTS)]
+
+    def run(slots, graphs, reqs):
+        cb = ContinuousBatcher(cfg, params, slots=slots,
+                               max_len=FAMILY_MAX_LEN, memory=memory,
+                               device=dev, graphs=graphs)
+        cb.warmup()
+        for i, p, n in reqs:
+            cb.submit(Request(rid=i, prompt=p, max_new=n))
+        t0 = time.perf_counter()
+        steps = cb.run()
+        torch.cuda.synchronize()
+        return ({r.rid: r.out for r in cb.done}, steps,
+                time.perf_counter() - t0, cb)
+    fa.flash_attention.launches = 0
+    got, steps, graph_s, cb = run(4, True, requests())
+    captured = {k: v for g in cb.graphs for k, v in g.kernels.items()}
+    if any(g.kernels != {"F": n_dec} for g in cb.graphs):
+        raise RuntimeError(f"seamless slot graphs captured "
+                           f"{[g.kernels for g in cb.graphs]}, not {n_dec} "
+                           f"F launches each")
+    f_paths["seamless_batcher_graphs"] = sum(
+        g.launches().get("F", 0) for g in cb.graphs)
+    del cb
+    eager, _, eager_s, _ = run(4, False, requests())
+    for i, p, n in requests():
+        lone, _, _, _ = run(1, True, [(i, p, n)])
+        if got[i] != eager[i] or got[i] != lone[i] or len(got[i]) != n:
+            raise RuntimeError(f"seamless request {i}: slot-graph tokens "
+                               f"{got[i]}, eager {eager[i]}, lone run "
+                               f"{lone[i]}")
+    torch.cuda.empty_cache()
+    cp = ControlPlane()
+    cp.register_lm_model("s2t", cfg, params, slots=4, max_len=FAMILY_MAX_LEN,
+                         memory=memory, device=dev)
+    cp.warmup()
+    fa.flash_attention.launches = 0
+    cp.run([ServeRequest(rid=i, model="s2t", payload=p, max_new=n)
+            for i, p, n in requests()])
+    be = cp.backends["s2t"]
+    f_paths["seamless_lm_backend"] = fa.flash_attention.launches + sum(
+        g.launches().get("F", 0) for g in be.cb.graphs)
+    plane = {r.rid: [int(t) for t in r.out] for r in cp.done}
+    if plane != got:
+        raise RuntimeError(f"LMBackend(memory=) answers {plane} differ from "
+                           f"the batcher's {got}")
+    n_tok = sum(len(o) for o in got.values())
+    rec.update(batcher_requests=len(got), batcher_steps=steps,
+               batcher_tokens=n_tok, batcher_graph_s=graph_s,
+               batcher_eager_s=eager_s, graph_kernels=captured,
+               lm_backend_served=len(plane))
+    del cp, be
+    print(f"[s2t3l] seamless serve (B=4 over the encoded memory, 16 new): "
+          f"{rec['serve_tok_per_s']:.1f} tok/s, {n_dec} F launches a step; "
+          f"ContinuousBatcher {len(got)} requests over 4 slot graphs "
+          f"({captured} captured a graph): {n_tok} tokens in {steps} steps "
+          f"({graph_s:.3f} s; eager {eager_s:.3f} s), equal to the eager "
+          f"run's and each lone run's; LMBackend(memory=) behind the control "
+          f"plane served {len(plane)} requests with the same tokens")
+    # ---- 4k. times: the prefill with its split, decode, F -----------------
+    rec["prefill_ms"] = time_ms(lambda: prefill(params, batch), iters=3,
+                                warmup=1)
+    rec["prefill_split"] = device_split(lambda: prefill(params, batch),
+                                        rec["prefill_ms"])
+
+    def decode():
+        with torch.no_grad():
+            tfm.decode_step(params, cache, tok, 10, cfg, memory=mem4)
+    rec["decode_ms_B4"] = time_ms(decode, iters=5, warmup=1)
+    sp = rec["prefill_split"]
+    print(f"[s2t4k] seamless prefill {tag}: {rec['prefill_ms']:.3f} ms; "
+          f"device F {sp['F_ms']:.3f}, products {sp['matmul_ms']:.3f}, "
+          f"other {sp['other_ms']:.3f} ms, idle share "
+          f"{ms_text(sp['idle_share'], '.3f')}; eager decode_step B=4 over "
+          f"{S2T_SRC} memory rows {rec['decode_ms_B4']:.3f} ms")
+    del params, cache, batch, prefill, memory, mem4, src
+    gc.collect()
+    torch.cuda.empty_cache()
+    f_times = []
+    h, d = cfg.num_heads, cfg.head_dim
+    for site, sq in (("seamless encoder layer", S2T_SRC),
+                     ("seamless cross layer", s)):
+        q = torch.randn((b, sq, h, d), generator=gen).to(dev, torch.bfloat16)
+        k, v = (torch.randn((b, S2T_SRC, h, d), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2))
+        t = f_layer_time(fa, F, q, k, v, 0, peak_bw, peak_bf16, time_ms,
+                         causal=False)
+        t["site"] = f"{site} B={b} Sq={sq} Sk={S2T_SRC}"
+        f_times.append(t)
+        print(f"[time] kernel F {t['site']} (H={h}, D={d}, non-causal): "
+              f"kernel {t['ms']:.4f} ms ({t['tflops']:.1f} TFLOP/s), plain "
+              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), kernel at "
+              f"{t['bound_ms'] / t['ms']:.1%} of bound")
+        del q, k, v
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[s2t3l] seamless phases took {rec['phase_s']:.1f} s")
+    return {"seamless": rec, "flash_seamless_sites": f_times}, f_paths, \
+        f_times
+
+
+def _kernels_under(ev):
+    """The device kernels (name, µs) launched under a CPU profiler event
+    and its descendants."""
+    out = [(k.name, k.duration) for k in getattr(ev, "kernels", ())]
+    for c in ev.cpu_children:
+        out += _kernels_under(c)
+    return out
+
+
+def train_split(fn, wall_ms):
+    """One train step under ``torch.profiler``: device ms of kernel F's
+    forward, of the attention core's backward (the kernels under the
+    autograd engine's ``FlashAttentionBackward``: plain PyTorch products
+    and elementwise work), of the optimiser (under the "optimizer"
+    range), of the remaining dense products and of everything else, with
+    the idle share against ``wall_ms``; None where the profiler caught no
+    trace or no backward event."""
+    prof, evs = device_events(fn, 1, with_cpu=True)
+    if evs is None:
+        return {"F_fwd_ms": None, "attn_bwd_ms": None, "optimizer_ms": None,
+                "matmul_ms": None, "other_ms": None, "idle_share": None,
+                "wall_ms": wall_ms}
+    total = {"F": 0.0, "matmul": 0.0, "other": 0.0}
+    for ev in evs:
+        name = ev.name.lower()
+        part = ("F" if "flash_fwd" in name
+                else "matmul" if any(p in name for p in MATMUL_NAMES)
+                else "other")
+        total[part] += ev.device_time_total / 1e3
+    under = {"attn_bwd": [], "optimizer": []}
+    for ev in prof.events():
+        if ev.name.startswith("autograd::engine::evaluate_function: "
+                              "FlashAttentionBackward"):
+            under["attn_bwd"] += _kernels_under(ev)
+        elif ev.name == "optimizer":
+            under["optimizer"] += _kernels_under(ev)
+    out = {"wall_ms": wall_ms, "device_kernels": len(evs)}
+    if not under["attn_bwd"] or not under["optimizer"]:
+        out.update(F_fwd_ms=total["F"], attn_bwd_ms=None,
+                   optimizer_ms=None, matmul_ms=total["matmul"],
+                   other_ms=total["other"])
+    else:
+        parts = {}
+        for key, ks in under.items():
+            mm = sum(d for n, d in ks if any(p in n.lower()
+                                             for p in MATMUL_NAMES)) / 1e3
+            parts[key] = (mm, sum(d for _, d in ks) / 1e3 - mm)
+        out.update(F_fwd_ms=total["F"],
+                   attn_bwd_ms=sum(parts["attn_bwd"]),
+                   attn_bwd_matmul_ms=parts["attn_bwd"][0],
+                   optimizer_ms=sum(parts["optimizer"]),
+                   matmul_ms=total["matmul"] - parts["attn_bwd"][0]
+                   - parts["optimizer"][0],
+                   other_ms=total["other"] - parts["attn_bwd"][1]
+                   - parts["optimizer"][1])
+    busy = sum(total.values())
+    out.update(device_busy_ms=busy, idle_share=1 - busy / wall_ms)
+    return out
+
+
+def rel_grad_errors(got, want):
+    """Per-tensor max|Δ| / max|want| of two gradient trees (paths as
+    ``tree_paths`` gives them)."""
+    from repro_torch.train.tree import tree_paths
+    out = {}
+    for (k, a), (_, b) in zip(tree_paths(got), tree_paths(want)):
+        scale = float(b.float().abs().max())
+        out[k] = float((a.float() - b.float()).abs().max()) / max(scale,
+                                                                  1e-30)
+    return out
+
+
+def worst_and_median(errs):
+    """(the tensor of the worst reading, that reading, the median)."""
+    k = max(errs, key=errs.get)
+    return k, errs[k], sorted(errs.values())[len(errs) // 2]
+
+
+def check_f_backward(name, call, fault, gen):
+    """The attention core's backward (``flash_attention_bwd``, plain
+    PyTorch products) on one captured training call at its full length:
+    one kv head and its group of query heads, F's own output O, the call's
+    key chunk and masks, and a seeded bf16 cotangent.  dQ, dK and dV
+    against autograd through the dense f64 oracle (``flash_attention_ref``)
+    on the same q, k, v and cotangent, each as max|Δ| / max|oracle| under
+    ``TOL_TRAIN_BWD``; each output scaled by ``fault`` must fail that
+    limit.  Returns the readings."""
+    import torch
+
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.layers.attention import flash_attention_bwd
+    q, k, v, kw, o = call
+    g = q.shape[2] // k.shape[2]
+    q, o, k, v = q[:, :, :g], o[:, :, :g], k[:, :, :1], v[:, :, :1]
+    opts = dict(causal=kw.get("causal", True), window=kw.get("window", 0),
+                q_offset=kw.get("q_offset", 0), scale=kw.get("scale"))
+    do = torch.randn(q.shape, generator=gen).to(q.device, q.dtype)
+    got = flash_attention_bwd(q, k, v, o, do, ck=kw.get("kv_chunk", 1024),
+                              **opts)
+    with torch.enable_grad():
+        ref = [t.double().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_ref(*ref, **opts), ref,
+                                   do.double())
+    out = {"shape": list(q.shape), "kv_heads": 1, **opts,
+           "kv_chunk": kw.get("kv_chunk", 1024), "tol": TOL_TRAIN_BWD,
+           "planted_fault": fault}
+    for tag, a, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.abs().max())
+        planted = (a.double() * fault).to(a.dtype)
+        out[tag] = float((a.double() - w).abs().max()) / scale
+        out[f"{tag}_planted"] = float((planted.double() - w).abs().max()) \
+            / scale
+    del ref, want, got
+    print(f"[train3m] {name}: the attention backward (plain PyTorch) on "
+          f"layer 0's call, {out['shape']} query rows and heads over one kv "
+          f"head, vs autograd through the dense f64 oracle: max|Δ|/max "
+          f"dQ {out['dq']:.3e}, dK {out['dk']:.3e}, dV {out['dv']:.3e} "
+          f"(tol {TOL_TRAIN_BWD}); each scaled by {fault}: "
+          f"{out['dq_planted']:.3e}, {out['dk_planted']:.3e}, "
+          f"{out['dv_planted']:.3e}")
+    for tag in ("dq", "dk", "dv"):
+        if not out[tag] <= TOL_TRAIN_BWD < out[f"{tag}_planted"]:
+            raise RuntimeError(f"{name}: the attention backward's {tag} "
+                               f"reads {out[tag]:.3e} against the f64 "
+                               f"oracle, its planted fault "
+                               f"{out[f'{tag}_planted']:.3e}, limit "
+                               f"{TOL_TRAIN_BWD}")
+    return out
+
+
+def lm_train_phases(dev, peak_bw, peak_bf16, time_ms, gen):
+    """Phases 3m and 4l: llama3.2-1b training at full width and depth in
+    bf16 (seeded weights), B, S = ``TRAIN_SHAPE``, AdamW from
+    ``opt_config_for``, remat on: the first step's loss and every
+    gradient on the kernel route against the plain attention route (F's
+    plain version forward, the same backward) within ``TOL_TRAIN_GRAD``
+    of each gradient's own scale, F held layer by layer inside that
+    training forward with its planted fault caught; ``TRAIN_SMOKE_STEPS``
+    steps of ``make_train_step`` on one batch (the loss falls; F twice an
+    attention layer a step: forward and its recomputation); ``train()``
+    at full width with its depth cut (``TRAIN_RESUME``), killed by
+    ``fail_at``, resumed from its checkpoint to the last step with the
+    uninterrupted run's losses bit for bit (deterministic algorithms on);
+    the times (step ms, tokens/s, peak memory, the device split).
+    Returns (records, F's launches by path)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import build_state, train
+    from repro_torch.layers import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.data import TokenPipeline
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("llama3.2-1b")
+    b, s = TRAIN_SHAPE
+    state, opt_cfg = build_state(cfg, device=dev)
+    n_params = sum(t.numel() for t in _tensors(state["params"]))
+    batch = steps_lib.batch_to(TokenPipeline(cfg, b, s, seed=3).batch_at(0),
+                               dev)
+    kv_chunk = TRAIN_KV_CHUNK
+    n_attn = attention_layers(cfg)
+    # ---- 3m. one step's gradients: kernel route vs plain route -----------
+    calls = []
+    fa.flash_attention.launches = 0
+    with captured_attention(calls):
+        loss_k, grads_k = steps_lib.loss_and_grads(
+            cfg, state["params"], batch, kv_chunk=kv_chunk)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    f_paths = {f"lm_train_grads_B{b}_S{s}": launches}
+    if launches != 2 * n_attn or len(calls) != 2 * n_attn:
+        raise RuntimeError(f"train forward and backward: kernel F launched "
+                           f"{launches} times ({len(calls)} core calls), not "
+                           f"2 x {n_attn} (forward and its recomputation "
+                           f"under remat)")
+    calls = [(q.detach(), k.detach(), v.detach(), kw, o.detach())
+             for q, k, v, kw, o in calls]
+    with torch.no_grad():
+        layers_f = check_f_layers("llama3.2-1b train", calls, F_FAULT)
+        bwd_f64 = check_f_backward("llama3.2-1b train", calls[0], F_FAULT,
+                                   gen)
+    del calls
+
+    def plain_function(core, q, k, v, *, kv_chunk=1024, **kw):
+        return attention.FlashAttention.apply(
+            q, k, v, kw.get("causal", True), kw.get("window", 0),
+            kw.get("q_offset", 0), kw.get("scale"), kv_chunk,
+            lambda q, k, v, causal, window, q_offset, scale, ck:
+            plain_core(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, scale=scale, kv_chunk=ck))
+    with attention_core(plain_function):
+        loss_p, grads_p = steps_lib.loss_and_grads(
+            cfg, state["params"], batch, kv_chunk=kv_chunk)
+    readings = rel_grad_errors(grads_k, grads_p)
+    del grads_k
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    # the same gate's reading of a planted backward fault: the kernel
+    # route with the attention backward's dV scaled by F_FAULT
+    bwd = attention.flash_attention_bwd
+
+    def faulty_bwd(*args, **kw):
+        dq, dk, dv = bwd(*args, **kw)
+        return dq, dk, (dv.float() * F_FAULT).to(dv.dtype)
+    attention.flash_attention_bwd = faulty_bwd
+    try:
+        _, grads_f = steps_lib.loss_and_grads(
+            cfg, state["params"], batch, kv_chunk=kv_chunk)
+    finally:
+        attention.flash_attention_bwd = bwd
+    planted = rel_grad_errors(grads_f, grads_p)
+    del grads_f, grads_p
+    # ... and the loss gate's reading of a planted forward fault
+    with torch.no_grad(), faulty_attention(F_FAULT):
+        loss_ff = tfm.loss_fn(state["params"], batch, cfg,
+                              kv_chunk=kv_chunk)
+    worst_k, worst, median = worst_and_median(readings)
+    planted_k, planted_worst, planted_median = worst_and_median(planted)
+    rec = {"params": n_params, "batch": b, "seq": s, "kv_chunk": kv_chunk,
+           "optimizer": opt_cfg.name, "f_layers_bf16": layers_f,
+           "bwd_vs_f64": bwd_f64,
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": loss_rel, "grad_rel_err_worst": worst,
+           "grad_rel_err_worst_tensor": worst_k,
+           "grad_rel_err_median": median, "planted_fault": F_FAULT,
+           "planted_bwd_grad_rel_err_worst": planted_worst,
+           "planted_bwd_grad_rel_err_worst_tensor": planted_k,
+           "planted_bwd_grad_rel_err_median": planted_median, "planted_fwd_loss_rel_err":
+           abs(float(loss_ff) - float(loss_p)) / abs(float(loss_p)),
+           "tol_grad": TOL_TRAIN_GRAD, "tol_loss": TOL_TRAIN_LOSS}
+    print(f"[train3m] llama3.2-1b train step B={b} S={s} ({n_params / 1e9:.2f}"
+          f" B params, bf16, AdamW, remat): {launches} F launches for the "
+          f"loss and its gradients ({n_attn} forward + {n_attn} recomputed); "
+          f"F's bf16 entry inside the training forward vs its plain version "
+          f"on each call's q, k, v: worst {layers_f['worst_share']:.3f} of "
+          f"the bound (planted fault >= "
+          f"{layers_f['planted_least_share']:.3f}); kernel vs plain route: "
+          f"loss {float(loss_k):.6f} vs {float(loss_p):.6f} (rel "
+          f"{loss_rel:.3e}; F's output scaled by {F_FAULT}: "
+          f"{rec['planted_fwd_loss_rel_err']:.3e}; tol {TOL_TRAIN_LOSS}), "
+          f"gradients worst {worst:.3e} of their scale at {worst_k}, median "
+          f"{median:.3e} (tol {TOL_TRAIN_GRAD}; with the backward's dV "
+          f"scaled by {F_FAULT}: worst {planted_worst:.3e} at {planted_k}, "
+          f"median {planted_median:.3e})")
+    if loss_rel > TOL_TRAIN_LOSS or worst > TOL_TRAIN_GRAD:
+        raise RuntimeError(f"train step: kernel route off the plain route "
+                           f"(loss rel {loss_rel:.3e}, {worst_k} "
+                           f"{worst:.3e})")
+    if not (planted_worst > TOL_TRAIN_GRAD
+            and rec["planted_fwd_loss_rel_err"] > TOL_TRAIN_LOSS):
+        raise RuntimeError(f"train step: a planted fault unseen: the "
+                           f"backward's gradients {planted_worst:.3e}, the "
+                           f"forward's loss "
+                           f"{rec['planted_fwd_loss_rel_err']:.3e}")
+    # ---- 3m. steps on one batch: the loss falls ---------------------------
+    step = steps_lib.make_train_step(cfg, opt_cfg, kv_chunk=kv_chunk)
+    losses, per_step = [], []
+    for _ in range(TRAIN_SMOKE_STEPS):
+        fa.flash_attention.launches = 0
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        per_step.append(fa.flash_attention.launches)
+    f_paths[f"lm_train_step_B{b}_S{s}"] = sum(per_step)
+    if not all(n == 2 * n_attn for n in per_step) \
+            or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train steps: losses {losses}, F launches a "
+                           f"step {per_step}")
+    rec.update(steps_losses=losses, f_launches_a_step=per_step[0])
+    print(f"[train3m] {TRAIN_SMOKE_STEPS} train steps on one batch: losses "
+          f"{[round(x, 4) for x in losses]}, {per_step[0]} F launches a step")
+    # ---- 4l. times: the step, tokens/s, peak memory, the device split -----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec["step_ms"] = time_ms(lambda: step(state, batch), iters=3, warmup=1)
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rec["tokens_per_s"] = b * s / rec["step_ms"] * 1e3
+    rec["step_split"] = train_split(lambda: step(state, batch),
+                                    rec["step_ms"])
+    sp = rec["step_split"]
+    print(f"[train4l] train step B={b} S={s}: {rec['step_ms']:.3f} ms, "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{rec['peak_memory_gib']:.2f} GiB; device F forward "
+          f"{ms_text(sp['F_fwd_ms'], '.3f')}, attention backward (plain "
+          f"PyTorch) {ms_text(sp['attn_bwd_ms'], '.3f')}, dense products "
+          f"{ms_text(sp['matmul_ms'], '.3f')}, optimizer "
+          f"{ms_text(sp['optimizer_ms'], '.3f')}, other "
+          f"{ms_text(sp['other_ms'], '.3f')} ms, idle share "
+          f"{ms_text(sp['idle_share'], '.3f')}")
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- 3m. train() with a checkpoint and a failure, resumed -------------
+    layers, steps, tb, ts, every, fail = TRAIN_RESUME
+    cut = cut_depth(cfg, layers)
+    kw = dict(steps=steps, batch=tb, seq=ts, ckpt_every=every, device=dev,
+              cfg=cut, log_every=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fa.flash_attention.launches = 0
+        want, final_w = train("llama3.2-1b", **kw)
+        f_paths["lm_train_uninterrupted"] = fa.flash_attention.launches
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            fa.flash_attention.launches = 0
+            got, final = train("llama3.2-1b", ckpt_dir=os.path.join(d, "c"),
+                               fail_at=(fail,), **kw)
+            f_paths["lm_train_resumed"] = fa.flash_attention.launches
+            resumed_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    replay = want[:fail] + want[fail // every * every:]
+    if final != steps or final_w != steps or got != replay:
+        raise RuntimeError(f"train() with fail_at={fail}: final step {final}"
+                           f", losses {got}, want {replay}")
+    rec["resume"] = {"layers": layers, "steps": steps, "batch": tb,
+                     "seq": ts, "ckpt_every": every, "fail_at": fail,
+                     "losses": got, "bit_equal_to_uninterrupted": True,
+                     "resumed_run_s": resumed_s}
+    print(f"[train3m] train() at full width, {layers} layer(s), {steps} steps"
+          f" B={tb} S={ts}, a checkpoint every {every}, killed at step "
+          f"{fail}: resumed from step {fail // every * every} to step "
+          f"{final}, every loss bit-equal to the uninterrupted run's "
+          f"(deterministic algorithms on; {resumed_s:.1f} s with the "
+          f"checkpoints)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train3m] the training phases took {rec['phase_s']:.1f} s")
+    return {"lm_train": rec}, f_paths
 
 
 def _tree_map(fn, tree):
@@ -3814,6 +4486,15 @@ def main() -> int:
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
     f_entry["moe_family_layers"] = moe_times
     print(json.dumps({"card": smi, **moe_records}))
+
+    s2t_records, s2t_paths, s2t_times = seamless_phases(
+        dev, peak_bw, peak_bf16, time_ms, gen)
+    train_records, train_paths = lm_train_phases(dev, peak_bw, peak_bf16,
+                                                 time_ms, gen)
+    f_entry["launches_by_path"].update({**s2t_paths, **train_paths})
+    f_entry["launches"] = sum(f_entry["launches_by_path"].values())
+    f_entry["seamless_layers"] = s2t_times
+    print(json.dumps({"card": smi, **s2t_records, **train_records}))
 
     vae_records, vae_paths = vae_phases(dev, smi, peak_flops, peak_bw, gen)
     print(json.dumps({"card": smi, **vae_records}))

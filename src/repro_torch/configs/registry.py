@@ -4,10 +4,9 @@ launchers.
 Counterpart of ``repro.configs.registry`` over the architectures the port
 runs: the dense decoders (llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b), the
 M-RoPE VLM backbone (qwen2-vl-2b), the RG-LRU hybrid (recurrentgemma-2b),
-the SSD model (mamba2-130m) and the MoE models (dbrx-132b; deepseek-v3-671b
-with MLA).  The JAX registry's last one needs what the port has not taken
-over yet (ROADMAP Queue 1 item 14.4): the encoder-decoder with the
-``audio_stub`` frontend (seamless-m4t-large-v2)."""
+the SSD model (mamba2-130m), the MoE models (dbrx-132b; deepseek-v3-671b
+with MLA) and the encoder-decoder with the ``audio_stub`` frontend
+(seamless-m4t-large-v2): every architecture of JAX's registry."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +21,7 @@ _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama32_1b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 ARCH_IDS = tuple(_MODULES)

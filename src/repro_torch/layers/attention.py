@@ -1,10 +1,10 @@
-"""Attention: the flash attention core, the MHA/GQA layer (+ sliding
-window, qk-norm, qkv bias, M-RoPE) and DeepSeek's MLA (multi-head latent
-attention with its compressed decode cache).
+"""Attention: the flash attention core (with its backward), the MHA/GQA
+layer (+ sliding window, qk-norm, qkv bias, M-RoPE), the encoder-decoder's
+cross attention and DeepSeek's MLA (multi-head latent attention with its
+compressed decode cache).
 
 Counterpart of ``repro.layers.attention``.  Layout: activations
-(B, S, D); q/k/v (B, S, H, Dh).  Only ``cross_*`` (the encoder-decoder's
-cross attention) is not ported yet: ROADMAP Queue 1 item 14.4.
+(B, S, D); q/k/v (B, S, H, Dh).
 """
 from __future__ import annotations
 
@@ -17,6 +17,114 @@ from repro_torch.layers import rope as rp
 NEG_INF = -2.0 ** 30
 
 
+def _core(q, k, v, causal, window, q_offset, scale, ck):
+    """The forward core: kernel F for CUDA tensors, F's plain version with
+    ``ck`` keys a chunk for CPU tensors."""
+    if q.device.type == "cpu":
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        scale=scale, ck=ck)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, scale=scale)
+
+
+def _mask(qpos, kpos, causal, window):
+    mask = torch.ones((qpos.numel(), kpos.numel()), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0,
+                        q_offset=0, scale=None, ck=1024):
+    """(dq, dk, dv) of ``o = flash_attention(q, k, v)`` for the cotangent
+    ``do``: the flash backward as plain PyTorch products in f32, a loop
+    over chunks of ``ck`` keys, twice.  The first pass recomputes each
+    row's log-sum-exp of the masked scores (the forward's masks and
+    ``NEG_INF``, keys past Sk never entering); the second recomputes
+    P = exp(S - lse) chunk by chunk and accumulates dV += Pᵀ dO,
+    dS = P ⊙ (dO Vᵀ - delta) on the unmasked pairs, dQ += dS K and
+    dK += dSᵀ Q, with delta = rowsum(dO ⊙ O) read from the forward's
+    output ``o`` (kernel F's, in its dtype).  Under a causal mask a chunk
+    skips the query rows that lie before all its keys.  dK and dV are
+    summed over each kv head's group of query heads.  Memory: a few
+    (B, H, Sq, ck) f32 tensors at a time, never the (Sq, Sk) matrix."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    qf = q.float().reshape(b, sq, kh, g, d)
+    dof = do.float().reshape(b, sq, kh, g, d)
+    delta = (dof * o.float().reshape(b, sq, kh, g, d)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)                       # (b, kh, g, sq)
+    qpos = q_offset + torch.arange(sq, device=dev)
+    chunks = []
+    for c0 in range(0, sk, ck):
+        # rows before the chunk's first key see none of it under causality
+        r0 = min(sq, max(0, c0 - q_offset)) if causal else 0
+        chunks.append((c0, min(sk, c0 + ck), r0))
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=dev)
+
+    def scores(c0, c1, r0):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf[:, r0:],
+                         k[:, c0:c1].float()) * scale
+        mask = _mask(qpos[r0:], torch.arange(c0, c1, device=dev), causal,
+                     window)
+        return s.masked_fill(~mask, NEG_INF), mask
+
+    for c0, c1, r0 in chunks:
+        s, _ = scores(c0, c1, r0)
+        m2 = torch.maximum(m[..., r0:], s.amax(dim=-1))
+        l[..., r0:] = l[..., r0:] * torch.exp(m[..., r0:] - m2) \
+            + torch.exp(s - m2[..., None]).sum(-1)
+        m[..., r0:] = m2
+    lse = m + torch.log(l)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, sk, kh, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, sk, kh, d), dtype=torch.float32, device=dev)
+    for c0, c1, r0 in chunks:
+        s, mask = scores(c0, c1, r0)
+        p = torch.exp(s - lse[..., r0:, None])
+        dor = dof[:, r0:]
+        dv[:, c0:c1] = torch.einsum("bkgqs,bqkgd->bskd", p, dor)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dor, v[:, c0:c1].float())
+        ds = (p * (dp - delta[..., r0:, None])).masked_fill(~mask, 0.0)
+        dq[:, r0:] += torch.einsum("bkgqs,bskd->bqkgd", ds,
+                                   k[:, c0:c1].float())
+        dk[:, c0:c1] = torch.einsum("bkgqs,bqkgd->bskd", ds, qf[:, r0:])
+    dq = (dq * scale).reshape(b, sq, h, d)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The attention core under autograd.  Forward: ``core`` (``_core``:
+    kernel F on the card) on detached q, k, v, so the kernel's wrapper,
+    which refuses tensors that require grad, sees none.  Backward:
+    ``flash_attention_bwd`` on the saved q, k, v and the forward's own
+    output O (what delta reads)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, ck,
+                core=_core):
+        o = core(q.detach(), k.detach(), v.detach(), causal, window,
+                 q_offset, scale, ck)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      scale=scale, ck=ck)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     kv_chunk=1024, scale=None):
     """Online-softmax attention over KV chunks.  q: (B, Sq, H, D); k, v:
@@ -24,16 +132,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
     CUDA tensors go through kernel F, which stages its own key chunks;
     CPU tensors through F's plain version with ``kv_chunk`` keys a chunk.
-    JAX's jnp core pads K/V with zero keys to a multiple of ``kv_chunk``
-    and masks them only through the causal test, so with ``causal=False``
-    and a ragged Sk it differs from F and from the dense oracle; the port
-    excludes keys past Sk outright, as the oracle does."""
-    if q.device.type == "cpu":
-        return fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, q_offset=q_offset,
-                                        scale=scale, ck=kv_chunk)
-    return fa.flash_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset, scale=scale)
+    Where grad is on and an input requires it, the core runs inside
+    ``FlashAttention``, whose backward loops over ``kv_chunk`` keys a
+    chunk.  JAX's jnp core pads K/V with zero keys to a multiple of
+    ``kv_chunk`` and masks them only through the causal test, so with
+    ``causal=False`` and a ragged Sk it differs from F and from the dense
+    oracle; the port excludes keys past Sk outright, as the oracle does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    scale, kv_chunk)
+    return _core(q, k, v, causal, window, q_offset, scale, kv_chunk)
 
 
 def gqa_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
@@ -124,6 +232,35 @@ def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
     o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
     o = o.reshape(b, sq, h * dh).to(x.dtype)
     return cm.dense_apply(p["o"], o), cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
+    d, h, kh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {"q": cm.dense_init(gen, d, h * dh, dtype),
+            "k": cm.dense_init(gen, d, kh * dh, dtype),
+            "v": cm.dense_init(gen, d, kh * dh, dtype),
+            "o": cm.dense_init(gen, h * dh, d, dtype)}
+
+
+def cross_apply(p, x, memory, cfg, kv_chunk=1024):
+    """x: (B, Sq, D) decoder states; memory: (B, Sk, D) encoder output.  q
+    from the decoder, k and v from the memory, no RoPE, the shared core
+    with ``causal=False`` (kernel F on the card: one launch, at prefill
+    and at every decode step, where JAX recomputes k and v from the
+    memory too)."""
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = cm.dense_apply(p["q"], x).reshape(b, sq, h, dh)
+    k = cm.dense_apply(p["k"], memory).reshape(b, sk, kh, dh)
+    v = cm.dense_apply(p["v"], memory).reshape(b, sk, kh, dh)
+    o = flash_attention(q, k, v, causal=False, kv_chunk=kv_chunk)
+    return cm.dense_apply(p["o"], o.reshape(b, sq, h * dh))
 
 
 # ---------------------------------------------------------------------------

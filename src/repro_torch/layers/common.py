@@ -11,8 +11,10 @@ both operands go up to f32 first, as JAX does on its CPU backend, so the
 CPU tests compare like with like.  On the card a bf16 product stays bf16
 in cuBLAS, which accumulates in f32: ``dense_apply`` rounds that sum once
 to bf16, as JAX's dense layers do, and ``embed_logits`` writes it as f32
-with no rounding (``torch.mm(..., out_dtype=torch.float32)``), as JAX's
-readout returns the dot's f32 result.
+with no rounding (``mm_f32``: ``torch.mm(..., out_dtype=torch.float32)``),
+as JAX's readout returns the dot's f32 result.  That overload has no
+derivative, so ``mm_f32`` carries its own backward: the two products in
+f32, as JAX's transpose of an f32-preferring dot computes them.
 """
 from __future__ import annotations
 
@@ -77,14 +79,46 @@ def embed_apply(p, ids):
     return p["w"][ids]
 
 
+class _MmF32(torch.autograd.Function):
+    """``a @ b`` (2-D or batched 3-D, one dtype) with its f32 sum as the
+    result (``out_dtype=torch.float32``, no rounding to the inputs'
+    dtype).  Backward: ``da = g @ bᵀ`` and ``db = aᵀ @ g`` as f32 products
+    of the f32 cotangent and the operands cast up, each rounded once to
+    its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return da, db
+
+
+def mm_f32(a, b):
+    """``a @ b`` for 2-D or 3-D ``a``, ``b`` of one dtype on the card: the
+    f32 sum of the products (bf16 inputs on the tensor cores), with a
+    backward (``_MmF32``)."""
+    return _MmF32.apply(a, b)
+
+
 def embed_logits(p, x):
     """Tied readout: (..., D) @ (V, D)^T, float32: the f32 sum itself, with
     no rounding to ``x``'s dtype on the way."""
     w = p["w"]
     if _f32_product(x):
         return torch.matmul(x.float(), w.float().t())
-    y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype).t(),
-                 out_dtype=torch.float32)
+    y = mm_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype).t())
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 

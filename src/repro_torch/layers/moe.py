@@ -92,16 +92,14 @@ def _route(x2d, p, cfg):
 
 def _mm_f32(a, b):
     """a @ b (batched or not) as f32: bf16 operands' products summed in
-    f32 with an f32 result on the card; f32 operands on the CPU and for
-    f32 tensors, in IEEE f32."""
+    f32 with an f32 result on the card (``common.mm_f32``, which has a
+    backward); f32 operands on the CPU and for f32 tensors, in IEEE
+    f32."""
     if a.device.type == "cpu" or a.dtype == torch.float32 \
             or b.dtype == torch.float32:
         with _ieee_f32():
             return torch.matmul(a.float(), b.float())
-    b = b.to(a.dtype)
-    if a.dim() == 3:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.mm(a, b, out_dtype=torch.float32)
+    return cm.mm_f32(a, b.to(a.dtype))
 
 
 def _expert_ffn_f32(wi, wg, wo, x, act):

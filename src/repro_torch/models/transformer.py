@@ -1,29 +1,29 @@
-"""Decoder-only transformer over the layer kinds ``attn``/``local``/
-``global`` (GQA attention), ``moe`` (GQA + MoE FFN), ``mla``/``mla_moe``
-(DeepSeek's MLA, with a dense or MoE FFN), ``rec`` (RG-LRU) and ``ssd``
-(Mamba-2).
+"""Decoder-only and encoder-decoder transformer over the layer kinds
+``attn``/``local``/``global`` (GQA attention), ``moe`` (GQA + MoE FFN),
+``mla``/``mla_moe`` (DeepSeek's MLA, with a dense or MoE FFN), ``rec``
+(RG-LRU), ``ssd`` (Mamba-2), ``enc`` (non-causal GQA) and ``dec`` (causal
+GQA, then cross attention over the encoder's output).
 
-Counterpart of ``repro.models.transformer`` for decoder-only models
-(llama3.2-1b, gemma3-1b, qwen2-7b, glm4-9b, qwen2-vl-2b,
-recurrentgemma-2b, mamba2-130m, dbrx-132b, deepseek-v3-671b): ``init``,
-``forward`` (teacher-forced logits), the decode cache and
-``decode_step``, with the gemma norm (the ``(1 + g)`` RMSNorm and the
-sqrt(d) embedding scale), sandwich norms, M-RoPE, the ``vlm_stub``
-frontend's embeddings, MLA's compressed cache and the MoE FFN (with
-DeepSeek's shared expert).  JAX stacks a stage's parameters along a
-leading repeat dim and scans it; the port keeps one dict per layer in
-execution order (``params["layers"]``, kinds from ``layer_kinds``), and
-``params_from_jax`` unstacks JAX's stages into that list.  Params are
-plain dicts of tensors with JAX's names.
-
-What is not ported yet raises ``NotImplementedError`` (ROADMAP Queue 1
-item 14.4): the encoder-decoder (``enc``/``dec``, ``is_encoder_decoder``)
-and the ``audio_stub`` frontend.
+Counterpart of ``repro.models.transformer`` for every architecture of its
+registry: ``init``, ``encode``, ``forward`` (teacher-forced logits),
+``loss_fn``, the decode cache and ``decode_step``, with the gemma norm
+(the ``(1 + g)`` RMSNorm and the sqrt(d) embedding scale), sandwich
+norms, M-RoPE, the stub frontends' embeddings, MLA's compressed cache and
+the MoE FFN (with DeepSeek's shared expert).  JAX stacks a stage's
+parameters along a leading repeat dim and scans it; the port keeps one
+dict per layer in execution order (``params["layers"]``, kinds from
+``layer_kinds``; the encoder's in ``params["enc_layers"]``, kinds from
+``enc_layer_kinds``), and ``params_from_jax`` unstacks JAX's stages
+(``stages``, ``enc_stages``) into those lists.  Params are plain dicts
+of tensors with JAX's names.  ``remat=True`` recomputes each layer in
+the backward (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``
+of each stage's scan body.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
@@ -31,38 +31,49 @@ from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
 from repro_torch.layers import rglru as rglru_lib
 from repro_torch.layers import ssm as ssm_lib
+from repro_torch.train.tree import tree_paths
 
 MLA_KINDS = ("mla", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
-# one attention core (kernel F on the card) a layer: GQA or MLA
-ATTN_KINDS = ("attn", "local", "global", "moe") + MLA_KINDS
+# a self-attention core (kernel F on the card) a layer: GQA or MLA; a
+# ``dec`` layer adds a second, its cross attention
+ATTN_KINDS = ("attn", "local", "global", "moe", "enc", "dec") + MLA_KINDS
 KINDS = ATTN_KINDS + ("rec", "ssd")
-FRONTENDS = ("none", "vlm_stub")
+FRONTENDS = ("none", "vlm_stub", "audio_stub")
 
 
 def layer_kinds(cfg) -> list[str]:
-    """The layer kinds in execution order (the stages unrolled)."""
-    return [kind for kinds, reps in cfg.stages for _ in range(reps)
+    """The decoder's layer kinds in execution order (the stages
+    unrolled)."""
+    return _unrolled(cfg.stages)
+
+
+def enc_layer_kinds(cfg) -> list[str]:
+    """The encoder's layer kinds in execution order (none unless the
+    config is an encoder-decoder)."""
+    return _unrolled(cfg.encoder_stages) if cfg.is_encoder_decoder else []
+
+
+def _unrolled(stages):
+    return [kind for kinds, reps in stages for _ in range(reps)
             for kind in kinds]
 
 
 def check_supported(cfg):
-    missing = sorted(set(layer_kinds(cfg)) - set(KINDS))
-    if cfg.is_encoder_decoder:
-        missing.append("is_encoder_decoder")
+    kinds = layer_kinds(cfg) + enc_layer_kinds(cfg)
+    missing = sorted(set(kinds) - set(KINDS))
     if cfg.frontend not in FRONTENDS:
         missing.append(f"frontend={cfg.frontend}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            f"runs layer kinds {KINDS} and frontends {FRONTENDS}; the "
-            f"encoder-decoder and audio_stub are ROADMAP Queue 1 item 14.4)")
+            f"{cfg.name}: {', '.join(missing)} not known (the port runs "
+            f"layer kinds {KINDS} and frontends {FRONTENDS})")
 
 
 def _check_kind(kind):
     if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  f"(enc, dec): ROADMAP Queue 1 item 14.4")
+        raise NotImplementedError(f"layer kind {kind!r} is not known "
+                                  f"(the port runs {KINDS})")
 
 
 def _rms(p, x, cfg):
@@ -78,7 +89,8 @@ def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
     """One layer's params, JAX's ``init_layer`` tree: an ``ssd`` layer is
     mixer-only (no ``ln2``/FFN); a MoE kind has ``moe`` (and ``shared``, a
     GLU of width ``d_expert · n_shared``, where the config has shared
-    experts) in place of ``mlp``."""
+    experts) in place of ``mlp``; a ``dec`` layer adds ``lnx`` and
+    ``cross``."""
     _check_kind(kind)
     dev = gen.device
     p = {"ln1": cm.rmsnorm_init(cfg.d_model, dev)}
@@ -93,6 +105,9 @@ def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
         p["attn"] = attn.mla_init(gen, cfg, dtype)
     else:
         p["attn"] = attn.gqa_init(gen, cfg, dtype)
+    if kind == "dec":
+        p["lnx"] = cm.rmsnorm_init(cfg.d_model, dev)
+        p["cross"] = attn.cross_init(gen, cfg, dtype)
     p["ln2"] = cm.rmsnorm_init(cfg.d_model, dev)
     if kind in MOE_KINDS:
         p["moe"] = moe_lib.moe_init(gen, cfg, dtype)
@@ -126,11 +141,35 @@ def init(cfg, *, seed=0, device="cuda", dtype=torch.bfloat16):
             block = init_block(gen, kinds, cfg, dtype)
             layers += [block[f"l{i}"] for i in range(len(kinds))]
     params["layers"] = layers
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = [init_layer(gen, kind, cfg, dtype)
+                                for kind in enc_layer_kinds(cfg)]
+        params["enc_norm"] = cm.rmsnorm_init(cfg.d_model, gen.device)
     params["final_norm"] = cm.rmsnorm_init(cfg.d_model, gen.device)
     if not cfg.tie_embeddings:
         params["head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                        dtype)
     return params
+
+
+def param_stacks(cfg, params) -> list[list[str]]:
+    """The leaf paths (``train.tree.tree_paths`` of ``params``) that JAX
+    stacks into one leaf: for each stage and each layer of its block, the
+    same leaf of every repeat, in repeat order (``stages`` into
+    ``layers``, ``enc_stages`` into ``enc_layers``).  What the optimisers
+    read as JAX's stacked shapes."""
+    out = []
+    for key, stages in (("layers", cfg.stages),
+                        ("enc_layers", cfg.encoder_stages
+                         if cfg.is_encoder_decoder else ())):
+        base = 0
+        for kinds, reps in stages:
+            for i in range(len(kinds)):
+                rows = [base + r * len(kinds) + i for r in range(reps)]
+                subs = [k for k, _ in tree_paths(params[key][rows[0]])]
+                out += [[f"{key}/{j}/{sub}" for j in rows] for sub in subs]
+            base += len(kinds) * reps
+    return out
 
 
 def _tensor(arr, device):
@@ -151,23 +190,30 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(np_params, cfg, device="cuda"):
-    """JAX's params (``jax.tree.map(np.asarray, params)``) as the port's:
-    each stage's stacked blocks unstacked into ``params["layers"]``."""
-    check_supported(cfg)
-    out = {"embed": _map(lambda a: _tensor(a, device), np_params["embed"])}
+def _unstacked(stage_defs, stages, device):
     layers = []
-    for (kinds, reps), stage in zip(cfg.stages, np_params["stages"]):
+    for (kinds, reps), stage in zip(stage_defs, stages):
         for r in range(reps):
             for i in range(len(kinds)):
                 layers.append(_map(lambda a, r=r: _tensor(np.asarray(a)[r],
                                                           device),
                                    stage[f"l{i}"]))
-    out["layers"] = layers
-    out["final_norm"] = _map(lambda a: _tensor(a, device),
-                             np_params["final_norm"])
-    if "head" in np_params:
-        out["head"] = _map(lambda a: _tensor(a, device), np_params["head"])
+    return layers
+
+
+def params_from_jax(np_params, cfg, device="cuda"):
+    """JAX's params (``jax.tree.map(np.asarray, params)``) as the port's:
+    each stage's stacked blocks unstacked into ``params["layers"]`` (the
+    encoder's ``enc_stages`` into ``params["enc_layers"]``)."""
+    check_supported(cfg)
+    out = {"embed": _map(lambda a: _tensor(a, device), np_params["embed"])}
+    out["layers"] = _unstacked(cfg.stages, np_params["stages"], device)
+    if cfg.is_encoder_decoder:
+        out["enc_layers"] = _unstacked(cfg.encoder_stages,
+                                       np_params["enc_stages"], device)
+    for name in ("enc_norm", "final_norm", "head"):
+        if name in np_params:
+            out[name] = _map(lambda a: _tensor(a, device), np_params[name])
     return out
 
 
@@ -182,7 +228,7 @@ def _sandwich(p, key, h, cfg):
     return _rms(p[key], h, cfg) if cfg.sandwich_norm else h
 
 
-def apply_layer(p, x, kind, cfg, *, positions, kv_chunk=1024):
+def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024):
     _check_kind(kind)
     h = _rms(p["ln1"], x, cfg)
     if kind == "ssd":
@@ -195,8 +241,12 @@ def apply_layer(p, x, kind, cfg, *, positions, kv_chunk=1024):
                            kv_chunk=kv_chunk)
     else:
         h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
-                           layer_kind=_attn_kind(kind), kv_chunk=kv_chunk)
+                           layer_kind=_attn_kind(kind), kv_chunk=kv_chunk,
+                           causal=kind != "enc")
     x = x + _sandwich(p, "pn1", h, cfg)
+    if kind == "dec":
+        x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
+                                 cfg, kv_chunk=kv_chunk)
     h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply)
     return x + _sandwich(p, "pn2", h, cfg)
 
@@ -238,27 +288,68 @@ def _embed_in(params, batch, cfg):
     return _embed_scale(x, cfg)
 
 
-def hidden(params, batch, cfg, *, kv_chunk=1024):
+def _run_layers(layers, kinds, x, cfg, *, positions, memory=None,
+                kv_chunk=1024, remat=False):
+    """The layers in order over ``x``; with ``remat`` (and grad on) each
+    layer under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward, not kept."""
+    remat = remat and torch.is_grad_enabled()
+    for p, kind in zip(layers, kinds):
+        def layer(x, p=p, kind=kind):
+            return apply_layer(p, x, kind, cfg, positions=positions,
+                               memory=memory, kv_chunk=kv_chunk)
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+    return x
+
+
+def encode(params, src_embeds, cfg, *, kv_chunk=1024, remat=True):
+    """The encoder over the stub frontend's source frames ``src_embeds``
+    (B, S_src, D), cast to the params' dtype: the ``enc`` layers
+    (non-causal self-attention) and ``enc_norm``.  Returns the memory the
+    ``dec`` layers attend to, (B, S_src, D)."""
+    x = _embed_scale(src_embeds.to(params["embed"]["w"].dtype), cfg)
+    positions = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
+    x = _run_layers(params["enc_layers"], enc_layer_kinds(cfg), x, cfg,
+                    positions=positions, kv_chunk=kv_chunk, remat=remat)
+    return cm.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+
+def hidden(params, batch, cfg, *, kv_chunk=1024, remat=True):
     """The residual stream after the last layer, before the final norm:
     (B, S, D) in the params' dtype.  ``batch["embeds"]`` (B, S, D), where
     the frontend is a stub and the batch has them, takes the place of the
-    token embeddings."""
+    token embeddings; an encoder-decoder encodes ``batch["src_embeds"]``
+    first."""
     check_supported(cfg)
     x = _embed_in(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
     positions = _positions_for(cfg, b, s, x.device)
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        x = apply_layer(p, x, kind, cfg, positions=positions,
-                        kv_chunk=kv_chunk)
-    return x
+    memory = None
+    if cfg.is_encoder_decoder:
+        memory = encode(params, batch["src_embeds"], cfg, kv_chunk=kv_chunk,
+                        remat=remat)
+    return _run_layers(params["layers"], layer_kinds(cfg), x, cfg,
+                       positions=positions, memory=memory,
+                       kv_chunk=kv_chunk, remat=remat)
 
 
-def forward(params, batch, cfg, *, kv_chunk=1024):
+def forward(params, batch, cfg, *, kv_chunk=1024, remat=True):
     """Teacher-forced logits: (B, S, V) float32."""
-    x = hidden(params, batch, cfg, kv_chunk=kv_chunk)
+    x = hidden(params, batch, cfg, kv_chunk=kv_chunk, remat=remat)
     x = cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                          gemma_style=cfg.gemma_norm)
     return _readout(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg, *, kv_chunk=1024, remat=True):
+    """The mean next-token cross entropy over the positions whose target
+    is ``>= 0``: ``logsumexp(logits) - logits[target]`` in f32."""
+    logits = forward(params, batch, cfg, kv_chunk=kv_chunk, remat=remat)
+    tgt = batch["targets"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt.clamp_min(0)[..., None])[..., 0]
+    mask = (tgt >= 0).float()
+    return ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _readout(params, x, cfg):
@@ -311,7 +402,7 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
             for kind in layer_kinds(cfg)]
 
 
-def decode_layer(p, x, kind, cfg, cache, idx):
+def decode_layer(p, x, kind, cfg, cache, idx, memory=None):
     _check_kind(kind)
     h = _rms(p["ln1"], x, cfg)
     if kind == "ssd":
@@ -325,17 +416,23 @@ def decode_layer(p, x, kind, cfg, cache, idx):
         h, nc = attn.gqa_decode(p["attn"], h, cache, idx, cfg,
                                 layer_kind=_attn_kind(kind))
     x = x + _sandwich(p, "pn1", h, cfg)
+    if kind == "dec":
+        x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
+                                 cfg)
     h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_decode)
     return x + _sandwich(p, "pn2", h, cfg), nc
 
 
-def decode_step(params, cache, tokens, idx, cfg):
+def decode_step(params, cache, tokens, idx, cfg, memory=None):
     """One decode step.  tokens: (B, 1) int, or (B, 1, D) embeddings for
     a stub frontend; ``idx`` a Python int or a 0-d int64 tensor on the
-    tokens' device (a captured graph's position).  Returns (logits
-    (B, 1, V), cache), the cache written in place: the KV (or MLA's
-    compressed) rows at ``idx``, the recurrent states whole.  The MoE
-    kinds run ``moe_decode``, whose static shapes a CUDA graph captures."""
+    tokens' device (a captured graph's position); ``memory`` (B, S_src, D)
+    the encoder's output for an encoder-decoder, whose ``dec`` layers
+    attend to it anew every step (no cross K/V cache, as JAX).  Returns
+    (logits (B, 1, V), cache), the cache written in place: the KV (or
+    MLA's compressed) rows at ``idx``, the recurrent states whole.  The
+    MoE kinds run ``moe_decode``, whose static shapes a CUDA graph
+    captures."""
     check_supported(cfg)
     if cfg.frontend != "none" and tokens.dim() == 3:
         x = tokens
@@ -345,7 +442,7 @@ def decode_step(params, cache, tokens, idx, cfg):
     idx = torch.as_tensor(idx, dtype=torch.int64, device=x.device)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):
-        x, nc = decode_layer(p, x, kind, cfg, c, idx)
+        x, nc = decode_layer(p, x, kind, cfg, c, idx, memory)
         new_cache.append(nc)
     x = cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                          gemma_style=cfg.gemma_norm)

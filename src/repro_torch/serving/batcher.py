@@ -14,7 +14,10 @@ On a CUDA device each slot decodes through one CUDA graph
 (1, 1) token and a static 0-d position to static logits and their argmax.
 A step writes each occupied slot's token and position with ``fill_``,
 replays the slots' graphs in turn and reads their argmaxes back in one
-copy.  The graphs are captured by ``warmup``, else at the first step (one
+copy.  An encoder-decoder's ``memory`` (1, S_src, D), one for every
+request as in JAX's batcher, is a static input of every slot graph: the
+graphs read it where it lies.  The graphs are captured by ``warmup``,
+else at the first step (one
 eager step on each slot's zeroed cache first, which the zeroing then
 undoes); a capture or replay that fails raises.  On the CPU, or with
 ``graphs=False`` (the eager reference the card's graphs are held to and
@@ -66,8 +69,9 @@ class ContinuousBatcher:
     unless ``graphs=False``)."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 128,
-                 device="cuda", graphs: bool = True):
+                 memory=None, device="cuda", graphs: bool = True):
         self.cfg, self.params = cfg, params
+        self.memory = memory
         self.n = slots
         self.max_len = max_len
         self.device = torch.device(device)
@@ -111,12 +115,12 @@ class ContinuousBatcher:
 
             def fn(si=si, tok=tok, pos=pos):
                 logits, _ = tfm.decode_step(self.params, self.slot_caches[si],
-                                            tok, pos, self.cfg)
+                                            tok, pos, self.cfg, self.memory)
                 return logits, torch.argmax(logits[0, -1])
             with torch.no_grad():
                 fn()
             torch.cuda.synchronize(self.device)
-            self.graphs.append(CapturedGraph(fn, (tok, pos),
+            self.graphs.append(CapturedGraph(fn, (tok, pos, self.memory),
                                              grad_mode=torch.no_grad))
             self.reset_slot(si)
 
@@ -133,7 +137,7 @@ class ContinuousBatcher:
         if self.graphed:
             self.warmup()
             for si, tok in live:
-                tok_in, pos_in = self.graphs[si].inputs
+                tok_in, pos_in, _ = self.graphs[si].inputs
                 tok_in.fill_(tok)
                 pos_in.fill_(self.slots[si].pos)
                 self.graphs[si].replay()
@@ -145,7 +149,7 @@ class ContinuousBatcher:
                 logits, self.slot_caches[si] = tfm.decode_step(
                     self.params, self.slot_caches[si],
                     torch.tensor([[tok]], device=self.device),
-                    self.slots[si].pos, self.cfg)
+                    self.slots[si].pos, self.cfg, self.memory)
             nxt.append(int(torch.argmax(logits[0, -1])))
         return nxt
 

@@ -33,8 +33,8 @@ admission → schedule → launch → replay
 
 ``degrade`` (elastic serving on a shrunk mesh), ``ImageBackend(dist=)``
 and ``rebind`` need a device mesh, which comes with ROADMAP Queue 1 item
-13; ``LMBackend(memory=)`` (the encoder-decoder, not ported yet) with
-item 14.4.
+13.  ``LMBackend(memory=)`` serves an encoder-decoder over one encoder
+output for every request, as JAX's.
 
 ``stats()`` reports per-class p50/p95/p99, **goodput under SLO** (served
 within deadline / submitted), the fault and replay records, and the
@@ -172,21 +172,18 @@ class LMBackend:
     device loss every in-flight slot is evicted, its cache zeroed and its
     partial output discarded, and the requests go back to the control
     plane for replay (greedy decode is deterministic, so the replayed
-    tokens equal a fault-free run's)."""
+    tokens equal a fault-free run's).  ``memory`` (1, S_src, D): the
+    encoder's output an encoder-decoder's every request decodes over."""
 
     kind = "lm"
     max_wait_s = 0.0                        # LM decodes continuously
 
     def __init__(self, name: str, cfg, params, *, slots: int = 4,
                  max_len: int = 128, memory=None, device="cuda"):
-        if memory is not None:
-            raise NotImplementedError(
-                "LMBackend(memory=...): the encoder-decoder (enc/dec "
-                "kinds, cross attention) is not ported yet: ROADMAP Queue 1 "
-                "item 14.4")
         self.name = name
         self.cb = ContinuousBatcher(cfg, params, slots=slots,
-                                    max_len=max_len, device=device)
+                                    max_len=max_len, memory=memory,
+                                    device=device)
         self._wrapped: dict[int, ServeRequest] = {}
         self._consumed = 0                  # cb.done prefix already reported
         self.steps = 0

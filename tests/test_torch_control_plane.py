@@ -470,10 +470,18 @@ def test_degrade_then_serve():
                          dist=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         cp.backends["echo"].rebind(object())
-    with pytest.raises(NotImplementedError,
-                       match="encoder-decoder .* not ported yet: ROADMAP "
-                             "Queue 1 item 14"):
-        tcp.LMBackend("lm", None, None, memory=object(), device="cpu")
+    # an encoder-decoder's memory is taken, and the backend serves
+    s2t = tregistry.get_reduced("seamless-m4t-large-v2")
+    mem = torch.zeros((1, 4, s2t.d_model))
+    be = tcp.LMBackend("s2t", s2t, ttfm.init(s2t, device="cpu",
+                                              dtype=torch.float32),
+                       memory=mem, device="cpu", slots=1, max_len=8)
+    assert be.cb.memory is mem
+    be.feed(tcp.ServeRequest(rid=0, model="s2t",
+                             payload=np.array([1, 2], np.int32), max_new=2))
+    while be.active():
+        done = be.step()
+    assert len(done) == 1 and len(done[0].out) == 2
     # the plane still serves, undegraded
     zs = payloads(4)
     cp.run([tcp.ServeRequest(rid=i, model="echo", payload=z)

@@ -15,7 +15,10 @@ f32 logits and ``dense_apply``'s f32 accumulation at llama's widths; the
 serving CUDA graphs (a bucket's replay bit-equal to its eager forward with
 its captured launches, the decode graphs' tokens equal to eager decode's,
 also over the local-KV, RG-LRU and SSD state caches, a capture that fails
-raising).
+raising); training: the tied readout's gradients against the f32
+products, the attention core's backward (kernel F forward) against the
+f64 oracle's gradients, the encoder-decoder's prefill and slot graphs on
+F, and train steps launching F under remat.
 
 Every test here skips without a CUDA device (decided inside the fixture).
 The file imports no JAX, so it runs on the GPU machine, which has none:
@@ -743,8 +746,9 @@ def test_unet_cuda_route_matches_torch_route(cuda_device):
 # that leave one row or some rows no visible key; then, for the bf16
 # tensor-core entry, each head dim with GQA groups 1, 4 and 8, Sq and Sk
 # that are multiples of neither query tile (64, 128) nor key chunk (32,
-# 64), q_offset > 0, and views whose rows are not 16-byte aligned (`view`:
-# the scalar staging path)
+# 64), q_offset > 0, views whose rows are not 16-byte aligned (`view`:
+# the scalar staging path), and the encoder-decoder's cross attention at
+# decode (one query row over 3072 memory rows, non-causal)
 FLASH_CASES = [
     ("jax_mha_d64", 1, 256, 256, 4, 4, 64, True, 0, 0, False),
     ("jax_gqa_d32", 2, 256, 256, 8, 2, 32, True, 0, 0, False),
@@ -777,6 +781,7 @@ FLASH_CASES = [
     ("ragged_gqa4_offset_d192", 2, 99, 170, 8, 2, 192, True, 0, 71, False),
     ("window_noncausal_d192", 1, 70, 70, 4, 1, 192, False, 0, 0, False),
     ("unaligned_window_d192", 1, 85, 85, 4, 4, 192, True, 24, 0, True),
+    ("s2t_cross_decode", 4, 1, 3072, 16, 16, 64, False, 0, 0, False),
 ]
 # the f64 oracle and the plain version in f32: the test file's 2e-4; bf16:
 # one bf16 rounding of the output (a relative 2^-7) above that
@@ -1240,3 +1245,169 @@ def test_bucket_graph_capture_error_raises_without_fallback(cuda_device):
     with pytest.raises(RuntimeError):
         b.execute([np.ones((3,), np.float32)], 1)
     assert not b.launches and not b.graphs
+
+
+# ---------------------------------------------------------------------------
+# training: the tied readout's and the attention core's backward, the
+# encoder-decoder on kernel F, the train step
+# ---------------------------------------------------------------------------
+
+def test_tied_readout_gradients_against_f32_products(cuda_device):
+    """``embed_logits`` under autograd on the card (``mm_f32``): the
+    forward bits of the no-grad path, and the gradients of x and w equal
+    to the f32 products of the f32 cotangent with the operands cast up,
+    each rounded once to bf16."""
+    from repro_torch.layers import common as cm
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    w = (torch.randn((3000, 256), generator=gen, device=cuda_device)
+         * 0.06).to(torch.bfloat16)
+    x = torch.randn((2, 7, 256), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    g = torch.randn((2, 7, 3000), generator=gen, device=cuda_device)
+    with torch.no_grad():
+        y0 = cm.embed_logits({"w": w}, x)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = cm.embed_logits({"w": wr}, xr)
+    assert y.dtype == torch.float32 and torch.equal(y.detach(), y0)
+    dx, dw = torch.autograd.grad(y, (xr, wr), g)
+    g2 = g.reshape(-1, 3000)
+    want_dx = (g2 @ w.float()).to(torch.bfloat16).reshape(x.shape)
+    want_dw = (g2.t() @ x.reshape(-1, 256).float()).to(torch.bfloat16)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -8 * float(want.float().abs().max()), err
+
+
+# (name, b, sq, sk, h, kh, d, causal, window, q_offset, kv_chunk)
+FLASH_GRAD_CASES = [
+    ("causal", 2, 200, 200, 4, 4, 64, True, 0, 0, 64),
+    ("window", 1, 300, 300, 4, 2, 64, True, 48, 0, 128),
+    ("ragged_noncausal", 2, 77, 150, 4, 4, 128, False, 0, 0, 64),
+    ("gqa_offset", 1, 64, 256, 8, 2, 32, True, 0, 192, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES,
+                         ids=[c[0] for c in FLASH_GRAD_CASES])
+def test_flash_function_gradients_against_f64_oracle(case, dtype,
+                                                     cuda_device):
+    """The attention core under autograd on the card: kernel F forward
+    (one launch), the chunked backward's dQ, dK and dV against
+    ``torch.autograd`` through the dense f64 oracle on f64 copies of the
+    same inputs, each within 1e-4 (f32) or 2^-6 (bf16: the output O that
+    delta reads and the gradients are rounded to bf16) of the oracle
+    gradient's largest magnitude."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.layers import attention
+    name, b, sq, sk, h, kh, d, causal, window, q_offset, ck = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    q, k, v = (torch.randn(s, generator=gen).to(cuda_device, dt)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    do = torch.randn((b, sq, h, d), generator=gen).to(cuda_device, dt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.flash_attention.launches
+    o = attention.flash_attention(*ins, kv_chunk=ck, **kw)
+    assert fa.flash_attention.launches - before == 1
+    got = torch.autograd.grad(o, ins, do)
+    ref = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref, **kw), ref,
+                               do.double())
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -6
+    for n, g, w in zip("qkv", got, want):
+        assert g.dtype == dt
+        err = float((g.double() - w).abs().max())
+        assert err <= tol * float(w.abs().max()), (n, err)
+
+
+def _encdec_cfg():
+    """The reduced seamless-m4t-large-v2 at head dim 32 (F's smallest)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(
+        registry.get_reduced("seamless-m4t-large-v2"), head_dim=32)
+
+
+def test_encdec_prefill_and_slot_graphs_on_kernel_f(cuda_device):
+    """The encoder-decoder in bf16: a prefill over 40 source frames
+    launches F once at each encoder layer and twice at each decoder layer
+    (self and cross attention), its logits within 3e-2·max|logits| of the
+    plain attention route's; the slot graphs over one encoded memory
+    record one F launch a decoder layer and give the eager batcher's
+    tokens."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.layers import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = _encdec_cfg()
+    params = tfm.init(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=gen).to(cuda_device),
+             "src_embeds": torch.randn((2, 40, cfg.d_model), generator=gen
+                                       ).to(cuda_device, torch.bfloat16)}
+    prefill = make_prefill_step(cfg)
+    before = fa.flash_attention.launches
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == 2 + 2 * 2
+    core = attention.flash_attention
+    attention.flash_attention = (
+        lambda q, k, v, *, kv_chunk=1024, **kw: fa.flash_attention_plain(
+            q, k, v, ck=kv_chunk, **kw))
+    try:
+        plain = prefill(params, batch)
+    finally:
+        attention.flash_attention = core
+    v = cfg.vocab_size
+    assert bool(torch.isfinite(logits).all())
+    err = float((logits[:, :v] - plain[:, :v]).abs().max())
+    assert err <= 3e-2 * float(plain[:, :v].abs().max())
+    with torch.no_grad():
+        memory = tfm.encode(params, batch["src_embeds"][:1], cfg)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, p) for p in (3, 5, 2, 4, 6)]
+    outs = {}
+    for graphs in (True, False):
+        cb = ContinuousBatcher(cfg, params, slots=4, max_len=16,
+                               memory=memory, device=cuda_device,
+                               graphs=graphs)
+        for i, p in enumerate(prompts):
+            cb.submit(Request(rid=i, prompt=p, max_new=5))
+        cb.run()
+        outs[graphs] = {r.rid: r.out for r in cb.done}
+        if graphs:
+            assert all(g.kernels == {"F": 2} for g in cb.graphs)
+    assert outs[True] == outs[False]
+
+
+def test_train_step_on_kernel_f_under_remat(cuda_device):
+    """Three AdamW steps of the reduced llama3.2-1b (head dim 32) in bf16
+    on one batch: F launches twice an attention layer a step (the forward
+    and its recomputation under remat), the loss is finite and falls."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_state
+    from repro_torch.train.data import TokenPipeline
+    cfg = dataclasses.replace(registry.get_reduced("llama3.2-1b"),
+                              head_dim=32)
+    state, opt_cfg = build_state(cfg, device=cuda_device)
+    step = steps.make_train_step(cfg, opt_cfg, kv_chunk=32)
+    batch = TokenPipeline(cfg, 4, 64).batch_at(0)
+    losses = []
+    for _ in range(3):
+        before = fa.flash_attention.launches
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches - before == 2 * cfg.num_layers
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

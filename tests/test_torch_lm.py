@@ -107,11 +107,22 @@ def test_schema_helpers_match_jax():
 
 
 def test_unported_kinds_raise(cfgs):
-    dec = dataclasses.replace(cfgs[1], stages=tbase.uniform_stages("dec", 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttfm.init(dec, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttfm.init(dataclasses.replace(cfgs[1], is_encoder_decoder=True),
+    """The encoder-decoder's kinds initialise (``enc`` layers in
+    ``enc_layers``, a ``dec`` layer with ``lnx`` and ``cross``); a kind
+    or a frontend the port does not know still raises."""
+    encdec = dataclasses.replace(
+        cfgs[1], stages=tbase.uniform_stages("dec", 2),
+        encoder_stages=tbase.uniform_stages("enc", 1),
+        is_encoder_decoder=True)
+    p = ttfm.init(encdec, device="cpu")
+    assert [sorted(layer) for layer in p["layers"]] == \
+        [["attn", "cross", "ln1", "ln2", "lnx", "mlp"]] * 2
+    assert len(p["enc_layers"]) == 1 and "cross" not in p["enc_layers"][0]
+    with pytest.raises(NotImplementedError, match="swin not known"):
+        ttfm.init(dataclasses.replace(
+            cfgs[1], stages=tbase.uniform_stages("swin", 2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="frontend=video"):
+        ttfm.init(dataclasses.replace(cfgs[1], frontend="video"),
                   device="cpu")
 
 

@@ -280,8 +280,7 @@ def test_config_fields_match_jax(arch, which):
 
 
 def test_registry_and_shape_applicable_match_jax():
-    assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS) - {
-        "seamless-m4t-large-v2"}
+    assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS)
     for arch in tregistry.ARCH_IDS:
         for shape in jbase.SHAPES:
             assert tregistry.shape_applicable(
@@ -289,14 +288,6 @@ def test_registry_and_shape_applicable_match_jax():
                 jregistry.shape_applicable(jregistry.get_config(arch),
                                            jbase.SHAPES[shape])
 
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_unported_archs_raise(arch):
-    """JAX's last architecture (enc/dec with the audio_stub frontend) is
-    refused by name, in JAX's reduced config."""
-    cfg = tbase.ModelConfig(**dataclasses.asdict(jregistry.get_reduced(arch)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttfm.init(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
