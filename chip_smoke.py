@@ -259,11 +259,38 @@ result line) if anything is off:
    eager against its CUDA graph's replay (CUDA events and host wall, the
    device time and busy share from ``torch.profiler``); the llama3.2-1b
    decode step at 4 slots, eager against the slot graphs;
+3n. plane-parallel execution (``core.spatial``) over 4 ranks that share
+   the card on a gloo group (``launch.mesh.run_spmd``; halos staged
+   through host memory): JAX's three ``CONVPLANE_SITES`` at their widths
+   and batch (the 385 px dilated context at (4, 1) and (2, 2), decoder_96
+   at (2, 2) and (4, 1), encoder_512 at (2, 1) with data = 2), each rank's
+   local route, kernel and launches and the halo widths, the assembled
+   output within the f64 bound and ``TOL_PP`` of the single-device 'cuda'
+   plan, the x and superpack gradients of sum(y²) within ``TOL_PP`` of the
+   single-device plan's, each gate failing two planted faults (an inner
+   halo delivered as zeros; the superpack gradient unsummed on rank 1);
+   the 512 px U-Net at full width split (2, 1) on 2 ranks and (2, 2) on 4
+   against its single-device forward (the zero-halo fault through the same
+   gate), every site's verdict, per rank forward ms, device ms and peak
+   memory beside the single-device forward's (the planes stay split
+   between sites: each rank's activation memory within ``PP_MEM_LIMIT``
+   of the single-device forward's, where gathering every site's output
+   exceeds it), halo bytes a forward and the exchange's ms; the control
+   plane serving the 385 px site, degraded onto (2, 2) and onto (2, 1)
+   with data = 2, every answer within its f64 bound and the degraded
+   rounds' planes really split; autotune under a (4, 1) mesh, every rank
+   picking the same winner;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
+
+``--plane-parallel`` builds the kernels and runs phase 3n alone.  On a
+machine with a card for each of its 4 ranks they meet on an NCCL group
+and exchange device tensors (no host staging):
+
+    python3 chip_smoke.py --plane-parallel     # 4 GPUs: the NCCL branch
 """
 from __future__ import annotations
 
@@ -488,6 +515,38 @@ TOL_TRAIN_GRAD = 6e-2
 TOL_TRAIN_BWD = 1e-2
 # device kernels of the MoE's dispatch (the router's top-k, the sort by
 # expert, the gathers and the scatter-add), for the prefill's split
+# phase 3n: JAX's plane-parallel geometries (CONVPLANE_SITES of
+# src/repro/launch/dryrun.py:172-184) at their widths and batch, per tiling:
+# (name, kind, H, C, N, k, stride, padding, dilation, (D_h, D_w), data)
+PP_CASES = (
+    ("dilated_context_385", "dilated", 385, 32, 32, 3, 1, ((2, 2), (2, 2)),
+     2, (4, 1), 1),
+    ("dilated_context_385", "dilated", 385, 32, 32, 3, 1, ((2, 2), (2, 2)),
+     2, (2, 2), 1),
+    ("decoder_96", "transposed", 96, 64, 32, 4, 2, ((1, 3), (1, 3)), 1,
+     (2, 2), 1),
+    ("decoder_96", "transposed", 96, 64, 32, 4, 2, ((1, 3), (1, 3)), 1,
+     (4, 1), 1),
+    ("encoder_512", "conv", 512, 16, 32, 3, 1, ((1, 1), (1, 1)), 1, (2, 1),
+     2),
+)
+PP_BATCH = 4
+PP_WORLD = 4
+PP_UNET_BATCH = 1
+PP_UNET_TILINGS = ((2, 1), (2, 2))     # on D_h·D_w of the PP_WORLD ranks
+PP_CP_REQUESTS = 3
+# a split U-Net forward's activation memory on one rank, (peak - before)
+# over the single-device forward's, limit per tiling: the planes stay split
+# between sites, so it falls towards 1/(D_h·D_w); the planted fault
+# gathers every split site's output (the planes whole on every rank) and
+# is read through the same gate
+PP_MEM_LIMIT = {(2, 1): 0.75, (2, 2): 0.6}
+# split against single-device, relative to max|single|, on the forward and
+# both gradients: set between the sound reading (the local plans' other
+# tiles and split K, and a superpack gradient summed over ranks, ~1e-6
+# expected) and the planted faults' (a zeroed halo, an unsummed gradient:
+# ~1e-1 expected); both are printed beside it
+TOL_PP = 1e-4
 DISPATCH_NAMES = ("index", "gather", "scatter", "sort", "topk", "radix",
                   "histogram", "bincount")
 # phase 3i: images a model, prompt lengths, new tokens, the LM's cache
@@ -3239,9 +3298,514 @@ def control_plane_phases(dev, smi, gen):
                      "B": {"control_plane_segnet": launches["segnet"]["B"]}}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# 3n. plane-parallel execution over ranks that share the card
+# ---------------------------------------------------------------------------
+
+def _pp_rel(ref, got) -> float:
+    """max|got - ref| / max|ref| (float64)."""
+    ref, got = ref.detach().double(), got.detach().double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _pp_patch(obj, name, wrap):
+    """Swap ``obj.name`` for ``wrap(original)``; returns the undo."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def _pp_zero_halo(rank):
+    """Planted fault: the first halo rank 1 receives arrives as zeros."""
+    state = {"done": False}
+
+    def wrap(orig):
+        def send_recv(sends, recvs, group):
+            orig(sends, recvs, group)
+            if rank == 1 and recvs and not state["done"]:
+                state["done"] = True
+                recvs[0][0].zero_()
+        return send_recv
+    return wrap
+
+
+def _pp_unsummed(rank):
+    """Planted fault: rank 1 keeps its own piece of the superpack
+    gradient (the all-reduce still runs, so no rank waits)."""
+    def wrap(orig):
+        def all_reduce(t, group):
+            summed = orig(t.clone(), group)
+            return t if rank == 1 else summed
+        return all_reduce
+    return wrap
+
+
+def _pp_ms(fn, dev, iters=3, warmup=1):
+    """CUDA-event ms of one call on the card (the host clock around a
+    synchronised call on the CPU, where the phase rehearses)."""
+    if dev.type == "cuda":
+        return time_ms(fn, iters=iters, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _pp_device_ms(fn, dev):
+    """Device ms of one call from one trace (no retake: a rank that ran
+    the call again alone would leave its peers waiting)."""
+    if dev.type != "cuda":
+        return None
+    _, evs = device_events(fn, 1, tries=1)
+    return None if evs is None else sum(e.device_time_total
+                                        for e in evs) / 1e3
+
+
+def _pp_peak(fn, dev):
+    """(peak bytes allocated during ``fn()``, bytes allocated before)."""
+    import torch
+    if dev.type != "cuda":
+        return None, None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), base
+
+
+def _pp_gather_sites(orig):
+    """Planted fault for the memory gate: each split site's output is
+    gathered into the whole plane (what keeping planes whole between
+    sites costs)."""
+    def try_spatial(plan, x, packed):
+        y = orig(plan, x, packed)
+        return None if y is None else y.full()
+    return try_spatial
+
+
+def _pp_kernel(spec, route) -> str:
+    if spec.kind == "transposed":
+        return "D" if route.sp_tiles else "A"
+    return "C" if route.sp_tiles else "B"
+
+
+def _pp_case(rank, dev, case, batch, index):
+    """One (a) case on this rank: the split plan's forward and gradients
+    of sum(y²) against the single-device 'cuda' plan and the f64 bound,
+    then the two planted faults through the same gates."""
+    import torch
+    from repro_torch.core import spatial
+    from repro_torch.core.plan import ConvSpec, plan_conv
+    from repro_torch.launch.mesh import make_spatial_mesh
+    name, kind, hw, c, n, k, s, pad, dil, tiles, data = case
+    spec = ConvSpec(kind=kind, in_hw=(hw, hw), in_c=c, out_c=n,
+                    kernel_hw=(k, k), strides=(s, s), padding=pad,
+                    dilation=(dil, dil), backend="cuda", spatial=tiles)
+    plan = plan_conv(spec)
+    one = plan_conv(dataclasses.replace(spec, spatial=(1, 1)))
+    if plan.route_for_batch(batch).dev_tiles != tuple(tiles):
+        raise RuntimeError(f"{name} {tiles}: no dev_tiles verdict at B = "
+                           f"{batch}")
+    sp = spatial.spatial_plan(spec)
+    local = plan_conv(sp.local_spec)
+    b_local = batch // data if batch % data == 0 else batch
+    lroute = local.route_for_batch(b_local)
+    g = torch.Generator().manual_seed(100 + index)
+    x = torch.randn((batch, hw, hw, c), generator=g).to(dev)
+    kern = (torch.randn((k, k, c, n), generator=g)
+            * (2.0 / (k * k * c)) ** 0.5).to(dev)
+    pk = one.pack(kern)
+    mesh = make_spatial_mesh(*tiles, data=data)
+
+    def run(split):
+        xg = x.clone().requires_grad_(True)
+        w = pk.clone().requires_grad_(True)
+        with spatial.use_spatial_mesh(mesh if split else None):
+            y = (plan if split else one).apply(xg, w)
+            (y ** 2).sum().backward()
+        return y.detach(), xg.grad, w.grad
+
+    zero_counts()
+    y, gx, gk = run(True)
+    launches = read_counts("float32")[0]
+    y1, gx1, gk1 = run(False)
+    with torch.no_grad():
+        y64, bound = f64_bound(one, x, kern)
+
+    def ulp(yv):
+        return float(((yv.double() - y64).abs() / bound).max())
+    rec = {"case": f"{name}_{tiles[0]}x{tiles[1]}"
+                   + (f"_data{data}" if data > 1 else ""),
+           "rank": rank, "local_in_hw": list(sp.local_spec.in_hw),
+           "local_route": lroute.path,
+           "local_sp_tiles": lroute.sp_tiles, "kernel":
+           _pp_kernel(spec, lroute), "launches": launches,
+           "halos": [[d.halo_lo, d.halo_hi] for d in sp.dims],
+           "blocks": [d.block for d in sp.dims],
+           "sound": {"ulp": ulp(y), "ulp_single": ulp(y1),
+                     "fwd": _pp_rel(y1, y), "gx": _pp_rel(gx1, gx),
+                     "gk": _pp_rel(gk1, gk)}}
+    undo = _pp_patch(spatial, "_send_recv", _pp_zero_halo(rank))
+    try:
+        yf, gxf, _ = run(True)
+    finally:
+        undo()
+    undo = _pp_patch(spatial, "_all_reduce", _pp_unsummed(rank))
+    try:
+        _, _, gkf = run(True)
+    finally:
+        undo()
+    rec["planted"] = {"ulp": ulp(yf), "fwd": _pp_rel(y1, yf),
+                      "gx": _pp_rel(gx1, gxf), "gk": _pp_rel(gk1, gkf)}
+    return rec
+
+
+def _pp_unet(rank, dev, hw, batch, tilings):
+    """(b): the 512 px U-Net at full width, its single-device forward on
+    rank 0, then split at each tiling over the first D_h·D_w ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import spatial
+    from repro_torch.launch.mesh import make_spatial_mesh
+    from repro_torch.models import unet
+    cfg = unet.UNetConfig("unet-512", image_hw=hw, backend="cuda")
+    params = unet.unet_init(6, cfg, device=dev)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((batch, hw, hw, cfg.in_c), generator=g).to(dev)
+    t = torch.rand((batch,), generator=g).to(dev)
+    out = {"single": None, "split": []}
+    y1 = None
+    if rank == 0:
+        def single():
+            with torch.inference_mode():
+                return unet.unet_apply(params, x, t, cfg)
+        y1 = single()
+        peak, base = _pp_peak(single, dev)
+        out["single"] = {"ms": _pp_ms(single, dev),
+                         "device_ms": _pp_device_ms(single, dev),
+                         "peak_bytes": peak, "base_bytes": base}
+    dist.barrier()
+    for tiles in tilings:
+        n_ranks = tiles[0] * tiles[1]
+        mesh = make_spatial_mesh(*tiles)
+        scfg = dataclasses.replace(cfg, spatial=tuple(tiles))
+        plans = unet.unet_plans(scfg)
+        verdicts = {name: p.route_for_batch(batch).dev_tiles
+                    for name, p in plans.items()}
+        rec = {"tiles": list(tiles), "rank": rank, "verdicts": verdicts}
+        if rank < n_ranks:
+            def split():
+                with torch.inference_mode(), spatial.use_spatial_mesh(mesh):
+                    return unet.unet_apply(params, x, t, scfg)
+            clock = {"exchange": 0.0, "gather": 0.0}
+
+            def timed(key):
+                def wrap(orig):
+                    def f(*a):
+                        t0 = time.perf_counter()
+                        r = orig(*a)
+                        clock[key] += time.perf_counter() - t0
+                        return r
+                    return f
+                return wrap
+            zero_counts()
+            y = split()
+            rec["launches"] = read_counts("float32")[0]
+            undos = [_pp_patch(spatial, "_send_recv", timed("exchange")),
+                     _pp_patch(spatial, "_all_gather", timed("gather"))]
+            try:
+                split()
+            finally:
+                for u in undos:
+                    u()
+            rec["exchange_ms"] = clock["exchange"] * 1e3
+            rec["gather_ms"] = clock["gather"] * 1e3
+            rec["ms"] = _pp_ms(split, dev)
+            rec["device_ms"] = _pp_device_ms(split, dev)
+            rec["peak_bytes"], rec["base_bytes"] = _pp_peak(split, dev)
+            # planted: every split site's output gathered (whole planes)
+            undo = _pp_patch(spatial, "try_spatial", _pp_gather_sites)
+            try:
+                rec["planted_peak_bytes"], rec["planted_base_bytes"] = \
+                    _pp_peak(split, dev)
+            finally:
+                undo()
+            rec["halo_bytes"] = sum(
+                spatial.halo_bytes(spatial.spatial_plan(p.spec), batch, 4)
+                for name, p in plans.items() if verdicts[name])
+            undo = _pp_patch(spatial, "_send_recv", _pp_zero_halo(rank))
+            try:
+                yf = split()
+            finally:
+                undo()
+            if rank == 0:
+                rec["sound"] = _pp_rel(y1, y)
+                rec["planted"] = _pp_rel(y1, yf)
+        dist.barrier()
+        out["split"].append(rec)
+    return out
+
+
+def _pp_control_plane(rank, dev, n_req):
+    """(c): the 385 px dilated site served at (1, 1), then after
+    ``degrade(4, spatial_tiles=(2, 2))`` and ``degrade(4,
+    spatial_tiles=(2, 1))`` (data = 2); every answer against its f64 bound
+    and the answers served before.  All ranks drive their own plane on one
+    fake clock, so they take the same decisions."""
+    import numpy as np
+    import torch
+    from repro_torch.core import spatial
+    from repro_torch.core.plan import ConvSpec, plan_conv
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.serving.control_plane import ControlPlane, ServeRequest
+    spec = ConvSpec(kind="dilated", in_hw=(385, 385), in_c=32, out_c=32,
+                    kernel_hw=(3, 3), padding=((2, 2), (2, 2)),
+                    dilation=(2, 2), backend="cuda")
+    g = torch.Generator().manual_seed(23)
+    kern = (torch.randn((3, 3, 32, 32), generator=g) * (2 / 288) ** 0.5)
+    payloads = [torch.randn((385, 385, 32), generator=g).numpy()
+                for _ in range(n_req)]
+    kern = kern.to(dev)
+
+    def serve_for(tiles):
+        plan = plan_conv(dataclasses.replace(spec, spatial=tiles))
+        pk = plan.pack(kern)
+        return lambda x: plan.apply(x, pk)
+    one = plan_conv(spec)
+    bounds = []
+    for z in payloads:
+        with torch.no_grad():
+            bounds.append(f64_bound(one, torch.from_numpy(z[None]).to(dev),
+                                    kern))
+    ticks = iter(range(10 ** 6))
+    cp = ControlPlane(clock=lambda: next(ticks) * 1e-3)
+    cp.register_image_model("ctx385", serve_for((1, 1)),
+                            np.zeros((385, 385, 32), np.float32),
+                            buckets=(1, 2, 4), device=dev)
+    rounds = []
+    for step, tiles in enumerate((None, (2, 2), (2, 1))):
+        deg = None
+        if tiles is not None:
+            mesh = cp.degrade(4, spatial_tiles=tiles,
+                              serve_fns={"ctx385": serve_for(tiles)})
+            deg = {"mesh": mesh_shape(mesh), **{
+                k: v for k, v in cp.degraded.items() if k != "mesh_shape"}}
+            if spatial.active_spatial_mesh()[0] is not mesh:
+                raise RuntimeError("degrade bound no spatial mesh")
+        base = 100 * step
+        zero_counts()
+        split0 = spatial.SPLIT_SITES[0]
+        cp.run([ServeRequest(rid=base + i, model="ctx385", payload=z)
+                for i, z in enumerate(payloads)])
+        launches = read_counts("float32")[0]
+        split = spatial.SPLIT_SITES[0] - split0
+        got = {r.rid - base: r.out for r in cp.done if r.rid >= base}
+        ulps = []
+        for i, (y64, bound) in enumerate(bounds):
+            yv = torch.from_numpy(got[i]).to(dev).double()
+            ulps.append(float(((yv - y64[0]).abs() / bound[0]).max()))
+        rounds.append({"tiles": tiles, "degraded": deg, "ulp": ulps,
+                       "launches": launches, "split_sites": split,
+                       "answers": got})
+    first = rounds[0]["answers"]
+    for rnd in rounds:
+        rnd["vs_first"] = max(_pp_rel(torch.from_numpy(first[i]),
+                                      torch.from_numpy(rnd["answers"][i]))
+                              for i in first)
+        del rnd["answers"]
+    return rounds
+
+
+def _pp_autotune(rank, dev):
+    """(e): the 385 px dilated site measured under a bound (4, 1) mesh:
+    its device-tiled candidates timed beside the single-device ones, every
+    rank taking the slowest rank's times (``autotune._slowest_rank``, a
+    MAX all-reduce over each mesh axis), so all pick one winner."""
+    from repro_torch.core import spatial
+    from repro_torch.core.autotune import (AutotunePolicy, measure_bucket,
+                                           route_label)
+    from repro_torch.core.plan import ConvSpec, plan_conv
+    from repro_torch.launch.mesh import make_spatial_mesh
+    plan = plan_conv(ConvSpec(kind="dilated", in_hw=(385, 385), in_c=32,
+                              out_c=32, kernel_hw=(3, 3),
+                              padding=((2, 2), (2, 2)), dilation=(2, 2),
+                              backend="cuda", spatial=(4, 1)))
+    with spatial.use_spatial_mesh(make_spatial_mesh(4, 1)):
+        best, timings = measure_bucket(plan, PP_BATCH, AutotunePolicy(
+            iters=2, warmup=1, min_gain=1.0))
+    return {"rank": rank, "best": route_label(best),
+            "timings": timings}
+
+
+def _pp_rank(rank, world, dev, conf):
+    """One rank of phase 3n (all ranks share the card)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases, batch, unet_hw, unet_batch, unet_tilings, n_req = conf
+    out = {"cases": [_pp_case(rank, dev, case, batch, i)
+                     for i, case in enumerate(cases)]}
+    out["unet"] = _pp_unet(rank, dev, unet_hw, unet_batch, unet_tilings)
+    out["control_plane"] = _pp_control_plane(rank, dev, n_req)
+    out["autotune"] = _pp_autotune(rank, dev)
+    return out
+
+
+def plane_parallel_phases(dev, smi):
+    """Phase 3n: plane-parallel execution (``core.spatial``) over
+    ``PP_WORLD`` ranks that share the card on a gloo group, the halos
+    staged through host memory.  (a) JAX's three ``CONVPLANE_SITES`` at
+    their widths and batch, per tiling: each rank's local route, kernel and
+    launches, the halo widths, the assembled output against the f64
+    bound and the single-device 'cuda' plan, the x and superpack
+    gradients of sum(y²) against the single-device plan's, each gate read
+    sound and with a planted fault (an inner halo delivered as zeros; the
+    superpack gradient unsummed on rank 1).  (b) the 512 px U-Net at full
+    width split (2, 1) on 2 ranks and (2, 2) on 4: every site's verdict,
+    the output against the single-device forward (with the zero-halo
+    fault read through the same gate), per rank its forward ms, device ms
+    and peak memory beside the single-device forward's, the halo bytes a
+    forward and the exchange's and the site gathers' ms.  (c) the control
+    plane serving the 385 px site, then degraded onto (2, 2) and onto
+    (2, 1) with data = 2, every answer within its f64 bound.  Returns
+    (records, {kernel: {path: launches summed over ranks}})."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    conf = (PP_CASES, PP_BATCH, UNET_512_HW, PP_UNET_BATCH, PP_UNET_TILINGS,
+            PP_CP_REQUESTS)
+    ranks = run_spmd(_pp_rank, PP_WORLD, conf, device=dev.type, timeout=900)
+    wall = time.perf_counter() - t0
+    paths = {k: {} for k in "ABCD"}
+
+    def add(path, launches):
+        for k, v in launches.items():
+            if v:
+                paths[k][path] = paths[k].get(path, 0) + v
+
+    failed = []
+    # ---- (a) ----------------------------------------------------------------
+    for i, case in enumerate(PP_CASES):
+        recs = [r["cases"][i] for r in ranks]
+        name = recs[0]["case"]
+        for rec in recs:
+            add(f"plane_parallel_{name}", rec["launches"])
+            s, p = rec["sound"], rec["planted"]
+            print(f"[3n] {name} rank {rec['rank']}: local {rec['local_in_hw']}"
+                  f" on {rec['local_route']} sp_tiles "
+                  f"{rec['local_sp_tiles']} = kernel {rec['kernel']}, "
+                  f"launches {rec['launches']}, halos (lo, hi) per dim "
+                  f"{rec['halos']}, blocks {rec['blocks']}")
+            print(f"[3n] {name} rank {rec['rank']}: f64 ULP ratio (limit 1) "
+                  f"sound {s['ulp']:.3f} (single-device {s['ulp_single']:.3f})"
+                  f", zero halo {p['ulp']:.3e}; vs single-device, limit "
+                  f"{TOL_PP:.0e}: y sound {s['fwd']:.2e} / zero halo "
+                  f"{p['fwd']:.2e}, dx sound {s['gx']:.2e} / zero halo "
+                  f"{p['gx']:.2e}, dsuperpack sound {s['gk']:.2e} / unsummed"
+                  f" on rank 1 {p['gk']:.2e}")
+            ok = (s["ulp"] <= 1 and s["ulp_single"] <= 1
+                  and max(s["fwd"], s["gx"], s["gk"]) <= TOL_PP
+                  and p["ulp"] > 1 and p["fwd"] > TOL_PP
+                  and p["gx"] > TOL_PP
+                  and (rec["rank"] != 1 or p["gk"] > TOL_PP))
+            if not ok:
+                failed.append(f"{name} rank {rec['rank']}")
+        if sum(sum(r["launches"].values()) for r in recs) == 0 \
+                and dev.type == "cuda":
+            failed.append(f"{name}: no kernel launch")
+    # ---- (b) ----------------------------------------------------------------
+    single = ranks[0]["unet"]["single"]
+    print(f"[3n] unet512 B={PP_UNET_BATCH} single-device: "
+          f"{single['ms']:.3f} ms (events), device "
+          f"{ms_text(single['device_ms'])} ms, peak {single['peak_bytes']}"
+          f" bytes ({single['base_bytes']} before) | {smi}")
+    for j, tiles in enumerate(PP_UNET_TILINGS):
+        recs = [r["unet"]["split"][j] for r in ranks]
+        tag = f"unet512_{tiles[0]}x{tiles[1]}"
+        print(f"[3n] {tag} verdicts: {recs[0]['verdicts']}")
+        for rec in recs:
+            if "ms" not in rec:
+                continue
+            add(f"plane_parallel_{tag}", rec["launches"])
+            print(f"[3n] {tag} rank {rec['rank']}: {rec['ms']:.3f} ms "
+                  f"(events), device {ms_text(rec['device_ms'])} ms, peak "
+                  f"{rec['peak_bytes']} bytes ({rec['base_bytes']} before), "
+                  f"launches {rec['launches']}, halo bytes a forward "
+                  f"{rec['halo_bytes']} (geometry), exchange "
+                  f"{rec['exchange_ms']:.3f} ms, output gather "
+                  f"{rec['gather_ms']:.3f} ms (host clock) | {smi}")
+            if dev.type == "cuda":
+                act = single["peak_bytes"] - single["base_bytes"]
+                sound = (rec["peak_bytes"] - rec["base_bytes"]) / act
+                planted = (rec["planted_peak_bytes"]
+                           - rec["planted_base_bytes"]) / act
+                lim = PP_MEM_LIMIT[tuple(tiles)]
+                print(f"[3n] {tag} rank {rec['rank']}: activation memory "
+                      f"over the single-device forward's, limit {lim}: "
+                      f"sound {sound:.3f} (1/(D_h·D_w) = "
+                      f"{1 / (tiles[0] * tiles[1]):.3f}), every site "
+                      f"gathered {planted:.3f}")
+                if not sound <= lim < planted:
+                    failed.append(f"{tag} rank {rec['rank']} memory")
+        r0 = recs[0]
+        print(f"[3n] {tag} output vs single-device, limit {TOL_UNET:.0e}: "
+              f"sound {r0['sound']:.2e}, zero halo {r0['planted']:.2e}")
+        if not (r0["sound"] <= TOL_UNET < r0["planted"]):
+            failed.append(tag)
+    # ---- (c) ----------------------------------------------------------------
+    for rnd in ranks[0]["control_plane"]:
+        print(f"[3n] control plane at {rnd['tiles'] or '(1, 1)'}: "
+              f"{rnd['degraded']}, f64 ULP ratios (limit 1) "
+              f"{[round(u, 3) for u in rnd['ulp']]}, vs the first answers "
+              f"{rnd['vs_first']:.2e}, split site runs "
+              f"{rnd['split_sites']}")
+    for r in ranks:
+        for rnd in r["control_plane"]:
+            if rnd["tiles"] is not None:
+                add(f"plane_parallel_degrade_{rnd['tiles'][0]}x"
+                    f"{rnd['tiles'][1]}", rnd["launches"])
+            if max(rnd["ulp"]) > 1:
+                failed.append(f"control plane at {rnd['tiles']}")
+            # the degraded rounds split their planes, the first does not
+            if (rnd["split_sites"] > 0) != (rnd["tiles"] is not None):
+                failed.append(f"control plane at {rnd['tiles']}: "
+                              f"{rnd['split_sites']} split site runs")
+    # ---- (e) ----------------------------------------------------------------
+    tuned = [(r["autotune"]["best"], r["autotune"]["timings"])
+             for r in ranks]
+    agree = all(t == tuned[0] for t in tuned)
+    print(f"[3n] autotune under a (4, 1) mesh, B={PP_BATCH}: winner "
+          f"{tuned[0][0]}, the same winner and times on every rank: "
+          f"{agree}; candidates (s, slowest rank's) {tuned[0][1]}")
+    split_timed = any("@dev4x1" in k for k in tuned[0][1])
+    if dev.type == "cuda" and not (agree and split_timed):
+        failed.append("autotune under the mesh")
+    print(f"[3n] plane-parallel phase: {wall:.1f} s over {PP_WORLD} ranks, "
+          f"launches {json.dumps(paths)}")
+    if failed:
+        raise RuntimeError(f"plane-parallel gates failed: {failed}")
+    return {"plane_parallel": {"cases": [r["cases"] for r in ranks],
+                               "unet": [r["unet"] for r in ranks],
+                               "control_plane": ranks[0]["control_plane"],
+                               "seconds": wall}}, paths
+
+
+def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
+
+    unknown = [a for a in argv if a != "--plane-parallel"]
+    if unknown:
+        print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3317,6 +3881,19 @@ def main() -> int:
     if framed:
         raise RuntimeError(f"kernel C or D instantiations with a stack "
                            f"frame (local memory): {framed}")
+
+    if "--plane-parallel" in argv:
+        # phase 3n alone: with a card per rank its ranks meet on NCCL
+        pp_records, pp_paths = plane_parallel_phases(dev, smi)
+        print(json.dumps({"card": smi, **pp_records,
+                          "launches_by_path": pp_paths}))
+        print(f"[done] phase 3n passed in "
+              f"{time.perf_counter() - t_start:.1f} s, the build included")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": card,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     gen = torch.Generator().manual_seed(0)
 
@@ -4502,6 +5079,9 @@ def main() -> int:
     cp_records, cp_paths = control_plane_phases(dev, smi, gen)
     print(json.dumps({"card": smi, **cp_records}))
 
+    pp_records, pp_paths = plane_parallel_phases(dev, smi)
+    print(json.dumps({"card": smi, **pp_records}))
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -4525,18 +5105,19 @@ def main() -> int:
 
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
                **unet_paths_of("A", "float32"), **vae_paths["A"],
-               **cp_paths["A"]}
+               **cp_paths["A"], **pp_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
                **unet_paths_of("B", "float32"), **vae_paths["B"],
-               **cp_paths["B"]}
+               **cp_paths["B"], **pp_paths["B"]}
     ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"]}
     bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"]}
-    c_paths, d_paths = (unet_paths_of("C", "float32"),
-                        unet_paths_of("D", "float32"))
+    c_paths = {**unet_paths_of("C", "float32"), **pp_paths["C"]}
+    d_paths = {**unet_paths_of("D", "float32"), **pp_paths["D"]}
     ci8_paths, di8_paths = (unet_paths_of("C", "int8"),
                             unet_paths_of("D", "int8"))
-    for kern_, paths_ in (("C", c_paths), ("D", d_paths),
+    for kern_, paths_ in (("C", unet_paths_of("C", "float32")),
+                          ("D", unet_paths_of("D", "float32")),
                           ("C int8", ci8_paths), ("D int8", di8_paths)):
         if sum(paths_.values()) == 0:
             raise RuntimeError(f"kernel {kern_} never launched on the "
@@ -4638,4 +5219,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

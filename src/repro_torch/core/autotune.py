@@ -398,13 +398,21 @@ def _dedupe(routes: Sequence[Route]) -> tuple[Route, ...]:
 
 def _with_dev_candidates(plan: ConvPlan, batch: int,
                          cands: Sequence[Route]) -> tuple[Route, ...]:
-    """The reference pairs each candidate of a plane-parallel spec with
-    its device-tiled twin; plane-parallel plans are not ported."""
-    if plan.spec.spatial != (1, 1):
-        raise NotImplementedError(
-            "plane-parallel plans are not ported yet (ROADMAP Queue 1, "
-            "item 13)")
-    return _dedupe(cands)
+    """Device-tiled candidates for a spatial spec: each single-device
+    candidate paired with its plane-parallel twin (the same per-block
+    path, ``dev_tiles`` attached), so ``measure_bucket`` ranks split
+    against single-device execution on the bound mesh like any other
+    route."""
+    if plan.spec.spatial == (1, 1):
+        return _dedupe(cands)
+    from repro_torch.core import spatial as spatialmod
+    if spatialmod.spatial_plan(plan.spec) is None:
+        return _dedupe(cands)
+    both = []
+    for r in cands:
+        both.append(dataclasses.replace(r, dev_tiles=None))
+        both.append(dataclasses.replace(r, dev_tiles=plan.spec.spatial))
+    return _dedupe(both)
 
 
 def candidate_routes(plan: ConvPlan, batch: int) -> tuple[Route, ...]:
@@ -467,11 +475,18 @@ def candidate_routes(plan: ConvPlan, batch: int) -> tuple[Route, ...]:
 
 def _measurable(route: Route) -> bool:
     """A 'cuda' route is timed only on a CUDA device (on CPU tensors its
-    wrapper runs the plain version); a device-tiled route never (not
-    ported)."""
+    wrapper runs the plain version); a device-tiled route only under a
+    bound spatial mesh that matches it (without one the forced plan would
+    time the single-device run)."""
     if route.path == "cuda" and _bench_device().type != "cuda":
         return False
-    return route.dev_tiles is None
+    if route.dev_tiles is not None:
+        from repro_torch.core import spatial as spatialmod
+        active = spatialmod.active_spatial_mesh()
+        if active is None or not spatialmod.mesh_matches(
+                *active, route.dev_tiles):
+            return False
+    return True
 
 
 def route_label(route: Route) -> str:
@@ -519,6 +534,27 @@ def measure_route(plan: ConvPlan, route: Route, x, packed, *,
     return measure_fn(fwd, x, packed, iters=iters, warmup=warmup)
 
 
+def _slowest_rank(measured: dict) -> dict:
+    """Under a bound spatial mesh every rank takes the slowest rank's
+    times (the split run's time is its slowest rank's), so all ranks pick
+    the same winner; without one, the times as they are."""
+    from repro_torch.core import spatial as spatialmod
+    active = spatialmod.active_spatial_mesh()
+    if active is None or not measured:
+        return measured
+    dist = torch.distributed
+    mesh = active[0]
+    t = torch.tensor([[m.min_s, m.median_s] for m in measured.values()],
+                     dtype=torch.float64)
+    for name in mesh.mesh_dim_names:
+        group = mesh.get_group(name)
+        # gloo reduces host tensors, NCCL device ones
+        t = t.to("cpu" if dist.get_backend(group) == "gloo" else "cuda")
+        dist.all_reduce(t, dist.ReduceOp.MAX, group=group)
+    return {cand: Timing(float(a), float(b), m.iters) for (cand, m), (a, b)
+            in zip(measured.items(), t.tolist())}
+
+
 def measure_bucket(plan: ConvPlan, batch: int,
                    policy: Optional[AutotunePolicy] = None
                    ) -> tuple[Route, dict[str, float]]:
@@ -542,9 +578,9 @@ def measure_bucket(plan: ConvPlan, batch: int,
     if len(cands) < 2:
         return heuristic, {}
     x, packed = _bench_inputs(plan, batch)
-    measured = {cand: measure_route(plan, cand, x, packed,
-                                    iters=policy.iters, warmup=policy.warmup)
-                for cand in cands}
+    measured = _slowest_rank({
+        cand: measure_route(plan, cand, x, packed, iters=policy.iters,
+                            warmup=policy.warmup) for cand in cands})
     h_t = measured[heuristic].min_s
     best_route, best_t = heuristic, None
     for cand, t in measured.items():

@@ -47,6 +47,12 @@ and scales to the kernels' int8 entries (kernel E inside A-D), and the
 backward gives the scale column its closed-form gradient.  Route paths
 do not depend on ``wdtype``; the tiled verdict counts int8 weights at one
 byte, as the reference's does.
+
+``ConvSpec.spatial=(D_h, D_w)`` requests plane-parallel execution: a
+bucket whose planes clear ``_SPATIAL_MIN_BYTES`` and whose geometry admits
+one-hop halo exchange carries ``Route.dev_tiles``, and under a bound
+spatial mesh of those extents ``apply`` splits the plane over its ranks
+(``core.spatial``), each rank running a local plan on its block.
 """
 from __future__ import annotations
 
@@ -93,6 +99,12 @@ _WDTYPES = ("float32", "int8")
 # limit of this card, whose kernels gather from device memory.  The tile a
 # tiled route carries is the card's own (``pick_block_tile_*``).
 _REF_VMEM_BUDGET = 12 * 1024 * 1024
+
+# plane-parallel verdict floor: a spec that requests device tiling
+# (``ConvSpec.spatial != (1, 1)``) still routes single-device at buckets
+# whose resident input + output planes stay under this; splitting a small
+# plane buys halo traffic and relieves no memory
+_SPATIAL_MIN_BYTES = 4 * 1024 * 1024
 
 
 def norm_padding(padding, k_hw) -> tuple[Pair, Pair]:
@@ -292,7 +304,9 @@ class ConvSpec:
     dilation: Pair = (1, 1)
     dtype: str = "float32"
     backend: str = "auto"         # 'auto' | 'torch' | 'cuda'
-    spatial: Pair = (1, 1)        # device tiling: only (1, 1) is ported
+    # requested device tiling (D_h, D_w) of the plane over a spatial mesh
+    # (``core.spatial``); (1, 1) = single-device
+    spatial: Pair = (1, 1)
     # weight *storage* dtype: 'float32' (dense superpack) or 'int8' (the
     # quantized superpack: ``pack`` emits a ``QuantizedSuperpack``).
     # Activations and accumulation stay ``dtype``/f32 regardless
@@ -398,8 +412,12 @@ class Route:
     reference tiles the plane: the spatial output tile one thread block of
     the tiled kernel computes, ``(T_oh, T_ow)`` output pixels (kernel C) or
     ``(T_u, T_v)`` phase-output pixels (kernel D); ``None`` is the
-    whole-plane kernel.  ``dev_tiles`` keeps JAX's schema and is never set
-    (device tiling is not ported)."""
+    whole-plane kernel.  ``dev_tiles`` is the device-tiling verdict one
+    level above: ``(D_h, D_w)`` ranks the plane splits over when the spec
+    requests tiling, the geometry admits one-hop halo exchange and the
+    bucket's planes clear ``_SPATIAL_MIN_BYTES`` (``core.spatial``);
+    ``path``/``sp_tiles`` stay the single-device verdict, which each
+    rank's local plan and any mesh-less run take."""
 
     batch: int
     path: str
@@ -407,6 +425,27 @@ class Route:
     fused_bwd: bool = True
     sp_tiles: Pair | None = None
     dev_tiles: Pair | None = None
+
+
+def _dev_verdict(spec: ConvSpec, out_hw: Pair, batch: int) -> Pair | None:
+    """The per-bucket device-tiling verdict: the spec requests tiling,
+    the geometry admits one-hop halo exchange (``spatial.spatial_plan``,
+    pure arithmetic) and the bucket's resident planes outgrow the
+    single-device floor."""
+    if spec.spatial == (1, 1):
+        return None
+    from repro_torch.core import spatial
+    if spatial.spatial_plan(spec) is None:
+        return None
+    if spatial.plane_parallel_bytes(spec, out_hw, batch, _itemsize(spec)) \
+            <= _SPATIAL_MIN_BYTES:
+        return None
+    return spec.spatial
+
+
+def _with_dev(route: Route, spec: ConvSpec, out_hw: Pair) -> Route:
+    dev = _dev_verdict(spec, out_hw, route.batch)
+    return dataclasses.replace(route, dev_tiles=dev) if dev else route
 
 
 def _want_cuda(backend: str) -> bool:
@@ -504,14 +543,16 @@ def _route_exact(plan: "ConvPlan", batch: int) -> Route:
     h, w = spec.in_hw
     if spec.kind != "transposed":
         (ph, pw) = spec.padding
-        return _single_route_1dev(spec, h + ph[0] + ph[1], w + pw[0] + pw[1],
-                                  plan.out_hw, batch)
+        return _with_dev(_single_route_1dev(
+            spec, h + ph[0] + ph[1], w + pw[0] + pw[1], plan.out_hw, batch),
+            spec, plan.out_hw)
     (glh, ghh), (glw, ghw) = plan.gpad
     sum_uvt = sum(ex.out_hw[0] * ex.out_hw[1] * ex.taps[0] * ex.taps[1]
                   for ex in plan.phases)
-    return _transposed_route_1dev(
+    return _with_dev(_transposed_route_1dev(
         spec, h + glh + ghh, w + glw + ghw, plan.out_hw, plan.total_taps,
-        plan.sum_uv, sum_uvt, plan.uniform, plan.phases, batch)
+        plan.sum_uv, sum_uvt, plan.uniform, plan.phases, batch),
+        spec, plan.out_hw)
 
 
 # ---------------------------------------------------------------------------
@@ -634,13 +675,25 @@ class ConvPlan:
     # -- execution ---------------------------------------------------------
     def apply(self, x: torch.Tensor, packed) -> torch.Tensor:
         """Planned forward of NHWC ``x`` on the superpack, differentiable
-        through the §3.2.3 backward of the plan's kind."""
+        through the §3.2.3 backward of the plan's kind.  Under a bound
+        spatial mesh matching the route's ``dev_tiles`` the conv runs
+        plane-parallel across the mesh's ranks (``spatial.try_spatial``)
+        and returns the output held as blocks (``spatial.PlaneBlocks``,
+        which the next split site takes as it is); otherwise it runs on
+        this rank, on the gathered plane when ``x`` is held as blocks."""
         if (tuple(x.shape[-3:-1]) != self.spec.in_hw
                 or x.shape[-1] != self.spec.in_c):
             raise ValueError(
                 f"input {tuple(x.shape[-3:])} does not match plan spec "
                 f"{self.spec.in_hw + (self.spec.in_c,)} — plans bake geometry "
                 f"at build time; plan_conv a spec for this shape")
+        if self.spec.spatial != (1, 1):
+            from repro_torch.core import spatial
+            y = spatial.try_spatial(self, x, packed)
+            if y is not None:
+                return y
+        if not isinstance(x, torch.Tensor):     # a plane held as blocks
+            x = x.full()
         fn = (_PlannedTransposed if self.spec.kind == "transposed"
               else _PlannedSingle)
         packed = self.as_superpack(packed)
@@ -689,11 +742,13 @@ def plan_cache_info():
 
 def plan_cache_clear():
     """Drop every cached plan (after a test swaps a routing constant), and
-    with them the tuned plans and loaded route caches built on them."""
+    with them the tuned plans, loaded route caches and spatial geometry
+    built on them."""
     _plan_conv_cached.cache_clear()
-    autotune = sys.modules.get("repro_torch.core.autotune")
-    if autotune is not None:
-        autotune.reset()
+    for name in ("repro_torch.core.autotune", "repro_torch.core.spatial"):
+        mod = sys.modules.get(name)
+        if mod is not None:
+            mod.reset()
 
 
 @functools.lru_cache(maxsize=4096)
@@ -704,10 +759,6 @@ def _plan_conv_cached(spec: ConvSpec) -> ConvPlan:
     if spec.backend not in _BACKENDS:
         raise ValueError(f"unknown backend {spec.backend!r} "
                          f"(supported: {_BACKENDS})")
-    if spec.spatial != (1, 1):
-        raise NotImplementedError(
-            "plane-parallel plans are not ported yet (ROADMAP Queue 1, "
-            "item 13)")
     if spec.wdtype not in _WDTYPES:
         raise ValueError(f"unsupported wdtype {spec.wdtype!r} "
                          f"(supported: {_WDTYPES})")
@@ -731,8 +782,8 @@ def _plan_single(spec: ConvSpec) -> ConvPlan:
     if oh <= 0 or ow <= 0:
         raise ValueError(f"non-positive output {oh}x{ow}")
     hp, wp = h + ph[0] + ph[1], w + pw[0] + pw[1]
-    routes = tuple(_single_route_1dev(spec, hp, wp, (oh, ow), bb)
-                   for bb in BATCH_BUCKETS)
+    routes = tuple(_with_dev(_single_route_1dev(spec, hp, wp, (oh, ow), bb),
+                             spec, (oh, ow)) for bb in BATCH_BUCKETS)
     ex = PhaseExec(key="k", q=(0, 0), rho=(0, 0), taps=(r, s),
                    pad=spec.padding, out_hw=(oh, ow))
     # superpack row of tap (m, n) is m*S + n, recorded like the transposed
@@ -780,9 +831,9 @@ def _plan_transposed(spec: ConvSpec) -> ConvPlan:
             sum_uvt += out_hw[0] * out_hw[1] * taps[0] * taps[1]
     total_taps, sum_uv = tap_off, acc_off
     uniform = len({ex.out_hw for ex in phases}) == 1
-    routes = tuple(_transposed_route_1dev(
+    routes = tuple(_with_dev(_transposed_route_1dev(
         spec, hg, wg, (oh, ow), total_taps, sum_uv, sum_uvt, uniform,
-        tuple(phases), bb) for bb in BATCH_BUCKETS)
+        tuple(phases), bb), spec, (oh, ow)) for bb in BATCH_BUCKETS)
     # dx schedule (strided-conv form): tap (m, n) of the flipped/swapped
     # kernel reads full-kernel tap (r-1-m, s-1-n), which lives in phase
     # ((pl-r') % s) at superpack row tap_off + r'//s (tap units)

@@ -127,8 +127,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kernel F needs q, k, v on one CUDA device, got "
                          f"{sorted(map(str, devs))}")
     if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("kernel F has no backward (training is a "
-                                  "later slice)")
+        raise NotImplementedError(
+            "kernel F has no backward of its own: differentiate through "
+            "layers.attention.FlashAttention (F forward, its chunked "
+            "backward)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"kernel F takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:

@@ -4,7 +4,7 @@ Counterpart of ``repro.launch.steps``' ``make_train_step``,
 ``make_prefill_step``, ``make_serve_step``, ``opt_config_for`` and
 ``default_grad_accum``, without a ``DistContext`` (one card, no sharding:
 ``make_dist`` and ``train_state_specs`` wait for the mesh, ROADMAP Queue
-1 item 13), for every layer kind the port runs."""
+1 item 13b), for every layer kind the port runs."""
 from __future__ import annotations
 
 import numpy as np

@@ -29,14 +29,13 @@ Routers: 'softmax' (DBRX: top-k softmax renormalized) and 'sigmoid_bias'
 (DeepSeek-V3 aux-loss-free: sigmoid affinity + selection-only bias, the
 weights scaled by ``routed_scaling``).  JAX's expert-parallel paths
 (``moe_apply_ep``, ``moe_apply_ep_a2a``: shard_map over a mesh, with
-expert capacity) are ROADMAP Queue 1 item 13.
+expert capacity) are ROADMAP Queue 1 item 13b.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from repro_torch.core.reference import ieee_fp32
 from repro_torch.layers import common as cm
 
 
@@ -62,20 +61,9 @@ def moe_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
             "wo": _expert_init(gen, (e, de, d), de ** -0.5, dtype)}
 
 
-@contextlib.contextmanager
-def _ieee_f32():
-    """f32 products in IEEE f32 (no TF32) on the card."""
-    flag = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
-
-
 def _route(x2d, p, cfg):
     """x2d: (T, D) -> (weights (T, k) f32, idx (T, k) int64)."""
-    with _ieee_f32():
+    with ieee_fp32():
         logits = x2d.float() @ p["router"].float()
     if cfg.router_type == "sigmoid_bias":
         scores = torch.sigmoid(logits)
@@ -97,7 +85,7 @@ def _mm_f32(a, b):
     f32."""
     if a.device.type == "cpu" or a.dtype == torch.float32 \
             or b.dtype == torch.float32:
-        with _ieee_f32():
+        with ieee_fp32():
             return torch.matmul(a.float(), b.float())
     return cm.mm_f32(a, b.to(a.dtype))
 
@@ -106,7 +94,7 @@ def _expert_ffn_f32(wi, wg, wo, x, act):
     """One expert (or a batch of gathered experts) on ``x``, in f32:
     ``act(x·wg) * (x·wi)`` kept f32 through ``· wo``."""
     h = cm.ACTS[act](_mm_f32(x, wg)) * _mm_f32(x, wi)
-    with _ieee_f32():
+    with ieee_fp32():
         return torch.matmul(h, wo.float())
 
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
+from repro_torch.core.spatial import gather_plane
 from repro_torch.models import params_from_numpy
 
 
@@ -75,6 +76,13 @@ class GANConfig:
     # measured-route policy (None = heuristic routes); model load pays any
     # cache-miss microbenchmarks once, apply only sees tuned plans
     autotune: Optional[AutotunePolicy] = None
+    # plane-parallel policy: (D_h, D_w) device tiling requested for every
+    # conv site (``ConvSpec.spatial``); plans keep their single-device
+    # routes, so (2, 1) with no spatial mesh bound runs on one device.  Set
+    # from ``DistContext.spatial_tiles()`` when serving over a spatial mesh;
+    # the activations stay split between split sites and the generator
+    # gathers its output
+    spatial: tuple[int, int] = (1, 1)
     # weight storage dtype for every conv site: 'float32' (dense) or 'int8'
     # (quantized superpacks, ``ConvSpec.wdtype``); activations stay f32
     wdtype: str = "float32"
@@ -92,7 +100,7 @@ def generator_plans(cfg: GANConfig,
         out_c=l.out_c, kernel_hw=(l.kernel, l.kernel),
         strides=(l.stride, l.stride),
         padding=deconv_padding(l.kernel, l.stride),
-        dtype=dtype_name(dtype), backend=cfg.backend,
+        dtype=dtype_name(dtype), backend=cfg.backend, spatial=cfg.spatial,
         wdtype=cfg.wdtype), autotune=cfg.autotune) for l in cfg.layers)
 
 
@@ -108,7 +116,8 @@ def discriminator_plans(cfg: GANConfig,
             strides=(l.stride, l.stride),
             padding=((k // 2, (k - 1) // 2), (k // 2, (k - 1) // 2)),
             dtype=dtype_name(dtype), backend=cfg.backend,
-            wdtype=cfg.wdtype), autotune=cfg.autotune))
+            spatial=cfg.spatial, wdtype=cfg.wdtype),
+            autotune=cfg.autotune))
     return tuple(plans)
 
 
@@ -195,7 +204,7 @@ def generator_apply(p, z: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
     for i, plan in enumerate(plans):
         x = plan.apply(x, p[f"dc{i}"]) + p[f"b{i}"]
         x = torch.tanh(x) if i == len(plans) - 1 else torch.relu(x)
-    return x
+    return gather_plane(x)
 
 
 def generator_unpack(p, cfg: GANConfig):

@@ -12,8 +12,9 @@ kernel B; with ``wdtype='int8'`` one launch of its int8 entry (kernel E).
 
 ``SegNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto'),
 ``SegNetConfig.autotune`` an optional ``AutotunePolicy`` (measured
-routes).  The JAX config's device-tiling field (``spatial``) waits for the
-plane-parallel slice.
+routes), ``SegNetConfig.spatial`` the device tiling every site requests
+(``core.spatial``): under a bound spatial mesh the activations stay
+split between split sites, and ``segnet_apply`` gathers its output.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
+from repro_torch.core.spatial import gather_plane
 from repro_torch.models import params_from_numpy
 
 
@@ -72,6 +74,9 @@ class SegNetConfig:
     backend: str = "torch"          # plan policy: 'torch' | 'cuda' | 'auto'
     # measured-route policy (None = heuristic routes)
     autotune: Optional[AutotunePolicy] = None
+    # plane-parallel policy (see ``GANConfig.spatial``); the single-device
+    # routes are always kept
+    spatial: tuple[int, int] = (1, 1)
     # weight storage dtype for every conv site: 'float32' (dense) or 'int8'
     # (quantized superpacks, ``ConvSpec.wdtype``); activations stay f32
     wdtype: str = "float32"
@@ -102,7 +107,8 @@ def segnet_plans(cfg: SegNetConfig,
         kernel_hw=(l.kernel, l.kernel), strides=(l.stride, l.stride),
         padding=atrous_padding(l.kernel, l.dilation),
         dilation=(l.dilation, l.dilation), dtype=dtype_name(dtype),
-        backend=cfg.backend, wdtype=cfg.wdtype), autotune=cfg.autotune)
+        backend=cfg.backend, spatial=cfg.spatial, wdtype=cfg.wdtype),
+        autotune=cfg.autotune)
         for l in cfg.layers)
 
 
@@ -150,7 +156,7 @@ def segnet_apply(p, x: torch.Tensor, cfg: SegNetConfig) -> torch.Tensor:
         x = plan.apply(x, p[f"w{i}"]) + p[f"b{i}"]
         if i < len(plans) - 1:
             x = torch.relu(x)
-    return x
+    return gather_plane(x)
 
 
 def segnet_unpack(p, cfg: SegNetConfig):

@@ -20,9 +20,12 @@ denoising score matching MSE under a cosine ``alpha_bar``;
 ``denoise_loop`` the sequential Euler refinement.
 
 ``UNetConfig.backend`` is the plan policy ('torch' | 'cuda' | 'auto');
-``autotune`` an optional ``AutotunePolicy`` (measured routes).
-``spatial`` keeps the reference's schema: anything but ``(1, 1)`` is
-refused by ``plan_conv`` until the plane-parallel slice.
+``autotune`` an optional ``AutotunePolicy`` (measured routes); ``spatial``
+the device tiling every site requests (``core.spatial``): under a bound
+spatial mesh each site whose bucket carries a ``dev_tiles`` verdict runs
+split over the mesh's ranks, the rest on one rank; between split sites
+the activations and skips stay split (``spatial.PlaneBlocks``), and
+``unet_apply`` gathers its output.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
+from repro_torch.core.spatial import gather_plane
 from repro_torch.models import params_from_numpy
 from repro_torch.models.gan import deconv_padding
 from repro_torch.models.segnet import atrous_padding
@@ -222,7 +226,7 @@ def unet_apply(p, x: torch.Tensor, t: torch.Tensor,
         h = torch.relu(conv(f"up{i}", h))
         h = torch.cat([h, skips[i]], dim=-1)
         h = torch.relu(conv(f"fuse{i}", h))
-    return conv("head", h)
+    return gather_plane(conv("head", h))
 
 
 # ---------------------------------------------------------------------------

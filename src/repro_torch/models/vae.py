@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
+from repro_torch.core.spatial import gather_plane
 from repro_torch.models import params_from_numpy
 from repro_torch.models.gan import DeconvLayer, _cpu_generator, deconv_padding
 
@@ -210,7 +211,7 @@ def decode(p, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
     for i, plan in enumerate(plans):
         x = plan.apply(x, p[f"dec{i}"]) + p[f"decb{i}"]
         x = torch.tanh(x) if i == len(plans) - 1 else torch.relu(x)
-    return x
+    return gather_plane(x)
 
 
 def reparameterize(gen: Optional[torch.Generator], mu: torch.Tensor,

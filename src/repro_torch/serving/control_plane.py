@@ -31,10 +31,15 @@ admission → schedule → launch → replay
   bit-equal to a fault-free run (the replay hits the same executables on
   the same payloads).
 
-``degrade`` (elastic serving on a shrunk mesh), ``ImageBackend(dist=)``
-and ``rebind`` need a device mesh, which comes with ROADMAP Queue 1 item
-13.  ``LMBackend(memory=)`` serves an encoder-decoder over one encoder
-output for every request, as JAX's.
+``degrade`` serves on a shrunk mesh: data-parallel through
+``runtime.elastic.shrink_mesh`` (each rank serves its rows of a batch),
+or plane-parallel (``spatial_tiles=``)
+on a ``make_spatial_mesh`` bound as the active spatial mesh; every image
+backend is rebound (``ImageBackend.rebind``).  Run under SPMD, every rank
+drives its own plane with the same requests and the same clock readings
+(a fake clock, or rank 0's), so all ranks take the same decisions and
+meet in the same launches.  ``LMBackend(memory=)`` serves an
+encoder-decoder over one encoder output for every request, as JAX's.
 
 ``stats()`` reports per-class p50/p95/p99, **goodput under SLO** (served
 within deadline / submitted), the fault and replay records, and the
@@ -56,9 +61,6 @@ from repro_torch.serving.image_batcher import DynamicImageBatcher
 from repro_torch.serving.metrics import latency_stats
 
 PRIORITIES = ("interactive", "batch")
-
-_MESH = ("needs a device mesh, which the port does not have yet: ROADMAP "
-         "Queue 1 item 13")
 
 
 @dataclasses.dataclass
@@ -125,14 +127,12 @@ class ImageBackend:
                  cache=None, cache_key: Optional[str] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device="cuda"):
-        if dist is not None:
-            raise NotImplementedError(f"ImageBackend(dist=...) {_MESH}")
         self.name = name
         self.proto = np.asarray(proto)
         self.batcher = DynamicImageBatcher(
             serve_fn, buckets=buckets, max_wait_ms=max_wait_ms,
             cache=cache, cache_key=cache_key or name, clock=clock,
-            device=device)
+            device=device, dist=dist)
 
     @property
     def max_wait_s(self) -> float:
@@ -162,7 +162,7 @@ class ImageBackend:
         return self.batcher.execute(payloads, bucket)
 
     def rebind(self, dist, serve_fn: Optional[Callable] = None):
-        raise NotImplementedError(f"ImageBackend.rebind {_MESH}")
+        self.batcher.rebind_dist(dist, serve_fn)
 
 
 class LMBackend:
@@ -497,11 +497,51 @@ class ControlPlane:
             self.on_fault(self, err)
 
     def degrade(self, devices_left: int, *, model_parallel: int = 1,
-                pod: int = 0, serve_fns: Optional[dict] = None,
+                serve_fns: Optional[dict] = None,
                 spatial_tiles: Optional[tuple] = None):
-        """Degraded serving after replica loss (shrink the mesh, rebind
-        every image backend): not ported yet."""
-        raise NotImplementedError(f"ControlPlane.degrade {_MESH}")
+        """Degraded serving after replica loss: shrink the mesh to the
+        surviving ranks and rebind every image backend to it.
+        ``serve_fns`` optionally maps model name -> a rebuilt closure
+        (e.g. over configs re-planned for the new tiling); without it the
+        existing closures serve on the shrunk mesh.
+
+        Data-parallel (default): ``runtime.elastic.shrink_mesh``, the
+        model-parallel extent kept, whole data-parallel replicas dropped;
+        each rank serves its rows of every batch the 'data' extent
+        divides (``DistContext.split_batch``).
+
+        Plane-parallel (``spatial_tiles=(D_h, D_w)``): the survivors form a
+        spatial mesh (``launch.mesh.make_spatial_mesh``, the leftover
+        extent on 'data') bound as the active spatial mesh, so plans built
+        for that tiling carry matching ``dev_tiles`` verdicts; the
+        ``serve_fns`` should close over configs whose ``spatial`` is
+        ``spatial_tiles``.  Returns the new mesh."""
+        from repro_torch.sharding import DistContext
+        from repro_torch.launch.mesh import mesh_shape
+        if spatial_tiles is not None:
+            from repro_torch.core import spatial as spatialmod
+            from repro_torch.launch.mesh import make_spatial_mesh
+            sp_h, sp_w = (int(v) for v in spatial_tiles)
+            if devices_left % (sp_h * sp_w):
+                raise ValueError(
+                    f"degrade: spatial_tiles {sp_h}x{sp_w} does not divide "
+                    f"{devices_left} surviving devices")
+            mesh = make_spatial_mesh(
+                sp_h, sp_w, data=devices_left // (sp_h * sp_w))
+            spatialmod.set_spatial_mesh(mesh)
+        else:
+            from repro_torch.runtime.elastic import shrink_mesh
+            mesh = shrink_mesh(devices_left, model_parallel)
+        dist = DistContext(mesh=mesh)
+        for name, be in self.backends.items():
+            if isinstance(be, ImageBackend):
+                be.rebind(dist, (serve_fns or {}).get(name))
+        self.degraded = {"devices_left": devices_left,
+                         "mesh_shape": mesh_shape(mesh),
+                         "at_launch": self.launch_seq}
+        if spatial_tiles is not None:
+            self.degraded["spatial_tiles"] = (sp_h, sp_w)
+        return mesh
 
     def _observe(self, model: str, bucket, dt: float):
         key = (model, bucket)

@@ -14,8 +14,11 @@ keeps the counters' deltas over its capture (``kernels``) and its
 ``replays``, and ``launches()`` gives the kernel launches the replays
 made: captured count × replays.
 
-Nothing here falls back to eager execution: a capture or a replay that
-fails raises.
+A graph holds one rank's work only.  A bucket whose plans split a plane
+across ranks (a spatial mesh, ``core.spatial``) moves halos between
+processes, which no capture records: the image batcher runs such buckets
+eagerly and captures none.  Nothing here falls back to eager execution:
+a capture or a replay that fails raises.
 """
 from __future__ import annotations
 

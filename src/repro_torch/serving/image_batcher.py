@@ -35,7 +35,20 @@ pads zeros), replays, and copies the live rows out.  A bucket that
 falls back to eager execution on the card.  Bucket costs are measured on
 the replay and kept in the route cache under ``<cache_key>/cuda-graph``,
 apart from eager costs.  On the CPU the serve function runs eagerly.
-Data-parallel serving (``dist``) comes with the data-parallel slice.
+
+``dist`` (a ``sharding.DistContext``) serves over a mesh; every rank of
+the mesh calls ``execute`` with the same rows.  Where the mesh offers a
+spatial tiling (``dist.spatial_tiles() != (1, 1)``) the serve function
+runs under it as the active spatial mesh, so plans whose routes carry a
+matching ``dev_tiles`` split their planes over its ranks
+(``core.spatial``; a batch that divides over 'data' is split there too),
+and the output is gathered.  Otherwise the batch is split over the image
+spec's axis ('data'): each rank serves its rows and the rows are joined
+(``DistContext.split_batch``/``join_batch``); a bucket the extent does
+not divide is served whole on every rank.  A CUDA graph captures one
+rank's work only: on a mesh that splits the batch or the plane, every
+bucket runs eagerly.  ``rebind_dist`` is the control plane's
+elastic-degrade hook.
 """
 from __future__ import annotations
 
@@ -78,7 +91,7 @@ class DynamicImageBatcher:
     z, cfg)``); ``device`` is where batches are placed (``"cuda"`` unless the
     caller asks for the CPU; there each bucket is a CUDA graph).  ``cache``
     (a ``RouteCache``) and ``cache_key`` persist the measured bucket costs
-    per model and host.
+    per model and host.  ``dist`` serves over a mesh (module docstring).
     """
 
     def __init__(self, serve_fn: Callable, *,
@@ -86,7 +99,7 @@ class DynamicImageBatcher:
                  max_wait_ms: float = 2.0,
                  cache=None, cache_key: Optional[str] = None,
                  clock: Callable[[], float] = time.perf_counter,
-                 device="cuda"):
+                 device="cuda", dist=None):
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad buckets {buckets}")
@@ -96,16 +109,15 @@ class DynamicImageBatcher:
         # expiry, completion); compute-cost durations (``warmup``) stay on
         # time.perf_counter — they measure the device, not the schedule
         self.clock = clock
-        self._serve_fn = serve_fn
         self.cache = cache
-        # graph-measured costs are kept apart from eager ones
-        self.cache_key = cache_key if cache_key is None or not self.graphed \
-            else f"{cache_key}/cuda-graph"
+        self._cache_key = cache_key
+        self.graphs: dict[int, CapturedGraph] = {}  # on the card: per bucket
+        self.dist = None
+        self.rebind_dist(dist, serve_fn)
         self.queue: deque[ImageRequest] = deque()
         self.done: list[ImageRequest] = []
         self.launches: list[tuple[int, int]] = []   # (bucket, live) per call
         self.bucket_cost_s: dict[int, float] = {}   # measured by warmup
-        self.graphs: dict[int, CapturedGraph] = {}  # on the card: per bucket
         self._pool = None
         if cache is not None and self.cache_key is not None:
             self.bucket_cost_s = {
@@ -117,12 +129,41 @@ class DynamicImageBatcher:
 
     @property
     def graphed(self) -> bool:
-        """Buckets run as CUDA graphs (on a CUDA device)."""
-        return self.device.type == "cuda"
+        """Buckets run as CUDA graphs: on a CUDA device, unless the mesh
+        splits batches or planes across ranks."""
+        return self.device.type == "cuda" and (
+            self.dist is None or (self.dist.spatial_tiles() == (1, 1)
+                                  and self.dist.batch_ranks()[1] == 1))
+
+    def rebind_dist(self, dist, serve_fn: Optional[Callable] = None):
+        """(Re)bind the serve closure to ``dist``, the elastic-degrade path:
+        after replica loss the control plane shrinks the mesh and rebinds
+        every backend.  Captured graphs are dropped (they hold the old
+        closure) and recaptured on the next launch where the new binding
+        graphs; measured costs are kept (``warmup(force=True)``
+        re-measures).  ``serve_fn`` defaults to the current one."""
+        self.dist = dist
+        if serve_fn is not None:
+            self._serve_fn = serve_fn
+        self.graphs = {}
+        # graph-measured costs are kept apart from eager ones
+        self.cache_key = self._cache_key if self._cache_key is None \
+            or not self.graphed else f"{self._cache_key}/cuda-graph"
+
+    def _call(self, batch: torch.Tensor) -> torch.Tensor:
+        dist = self.dist
+        if dist is None:
+            return self._serve_fn(batch)
+        if dist.spatial_tiles() == (1, 1):
+            rows, group = dist.split_batch(batch)
+            return dist.join_batch(self._serve_fn(rows), group)
+        from repro_torch.core import spatial
+        with spatial.use_spatial_mesh(dist.mesh):
+            return spatial.gather_plane(self._serve_fn(batch))
 
     def _serve(self, batch: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self._serve_fn(batch)
+            return self._call(batch)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -141,7 +182,7 @@ class DynamicImageBatcher:
                                           dtype)).to(self.device)
             self._serve(x)
             self._sync()
-            g = CapturedGraph(lambda: self._serve_fn(x), (x,),
+            g = CapturedGraph(lambda: self._call(x), (x,),
                               pool=self._pool)
             self.graphs[bucket] = g
         return g
@@ -194,7 +235,7 @@ class DynamicImageBatcher:
                 runs[b] = self._graph(b, proto.shape, proto.dtype).graph.replay
             else:
                 x = torch.from_numpy(
-                    np.zeros((b,) + proto.shape, proto.dtype))
+                    np.zeros((b,) + proto.shape, proto.dtype)).to(self.device)
                 runs[b] = lambda x=x: self._serve(x)
                 runs[b]()
         timed = []
@@ -288,7 +329,7 @@ class DynamicImageBatcher:
             if n < bucket:                           # pad the tail
                 pad = np.zeros((bucket - n,) + batch.shape[1:], batch.dtype)
                 batch = np.concatenate([batch, pad])
-            out = self._serve(torch.from_numpy(batch))
+            out = self._serve(torch.from_numpy(batch).to(self.device))
         self.launches.append((bucket, n))
         return out[:n].cpu().numpy()
 

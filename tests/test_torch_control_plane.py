@@ -4,8 +4,9 @@ against the JAX package's, on the CPU: each case of
 starvation, backfill, multi-model routing and EDF, fault replay of image
 launches and LM decode, the duplicate guard, stragglers, accounting and
 the one injected clock) runs the same numpy inputs through both planes
-and compares what they decided; the two ``degrade`` cases become the
-port's refusal (ROADMAP item 13) with the ``on_fault`` hook still called.
+and compares what they decided (the two ``degrade`` cases on a one-rank
+mesh; the plane-parallel degrade across ranks is
+``tests/test_torch_spatial_dist.py``).
 Then one seeded trace on one fake clock through both planes over
 ``SEGNET_TINY`` on JAX's weights, and one over the reduced llama3.2-1b,
 each with an injected fault: the same statuses, replays, launches, fault
@@ -444,7 +445,7 @@ def test_duplicate_commit_guard():
 
 
 # ---------------------------------------------------------------------------
-# stragglers + elastic degrade (the port refuses: ROADMAP item 13)
+# stragglers + elastic degrade
 # ---------------------------------------------------------------------------
 
 def test_straggler_alert_surfaces_in_stats():
@@ -461,15 +462,44 @@ def test_straggler_alert_surfaces_in_stats():
     assert got == want == {"events": 1, "slow_buckets": ["echo/b16"]}
 
 
-def test_degrade_then_serve():
-    cp, _ = echo_plane(tcp)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cp.degrade(1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcp.ImageBackend("m", lambda x: x, np.zeros((4,), np.float32),
-                         dist=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cp.backends["echo"].rebind(object())
+@pytest.fixture
+def one_rank_world():
+    """``degrade`` in a process that joined no group starts a one-rank
+    group; end it, so later tests in this process run in no group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import one_rank_world_end
+    yield
+    one_rank_world_end()
+    assert not dist.is_initialized()
+
+
+def test_degrade_then_serve(one_rank_world):
+    """All but one replica lost: ``degrade(1)`` gives JAX's one-rank
+    (data, model) mesh, rebinds the backend and serves as JAX's does;
+    ``ImageBackend(dist=)`` serves over a mesh."""
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.sharding import DistContext
+
+    def scenario(mod, _):
+        cp, _ = echo_plane(mod)
+        mesh = cp.degrade(1)
+        zs = payloads(4)
+        cp.run([mod.ServeRequest(rid=i, model="echo", payload=z)
+                for i, z in enumerate(zs)])
+        assert len(cp.done) == 4
+        for r in cp.done:
+            np.testing.assert_array_equal(r.out, zs[r.rid] * 2.0)
+        return mesh, cp.stats()["faults"]["degraded"], cp.backends["echo"]
+
+    (mesh, deg, be), (jmesh, jdeg, _) = on_both(scenario)
+    assert mesh_shape(mesh) == dict(jmesh.shape) == {"data": 1, "model": 1}
+    assert deg == jdeg and deg["devices_left"] == 1
+    assert be.batcher.dist.mesh is mesh
+    be2 = tcp.ImageBackend("m", lambda x: x + 1.0,
+                           np.zeros((4,), np.float32),
+                           dist=DistContext(mesh), device="cpu")
+    z = payloads(1)[0]
+    np.testing.assert_array_equal(be2.launch([z], 1)[0], z + 1.0)
     # an encoder-decoder's memory is taken, and the backend serves
     s2t = tregistry.get_reduced("seamless-m4t-large-v2")
     mem = torch.zeros((1, 4, s2t.d_model))
@@ -482,33 +512,24 @@ def test_degrade_then_serve():
     while be.active():
         done = be.step()
     assert len(done) == 1 and len(done[0].out) == 2
-    # the plane still serves, undegraded
-    zs = payloads(4)
-    cp.run([tcp.ServeRequest(rid=i, model="echo", payload=z)
-            for i, z in enumerate(zs)])
-    assert len(cp.done) == 4
-    for r in cp.done:
-        np.testing.assert_array_equal(r.out, zs[r.rid] * 2.0)
-    assert cp.stats()["faults"]["degraded"] is None
 
 
-def test_on_fault_hook_can_degrade():
+def test_on_fault_hook_can_degrade(one_rank_world):
     calls = []
 
     def hook(plane, err):
-        calls.append(str(err))
+        calls.append((str(err), plane.pending()))
         plane.degrade(1)
 
     cp, _ = echo_plane(tcp, injector=tfault.FailureInjector((1,)),
                        on_fault=hook)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cp.run([tcp.ServeRequest(rid=i, model="echo", payload=z)
-                for i, z in enumerate(payloads(4))])
-    # the hook ran once, after the dead launch's requests were re-queued
-    assert calls == ["injected node failure at step 1"]
-    assert cp.pending() == 4 and not cp.done
-    cp.run()                                      # the replay still serves
+    cp.run([tcp.ServeRequest(rid=i, model="echo", payload=z)
+            for i, z in enumerate(payloads(4))])
+    # the hook ran once, after the dead launch's requests were re-queued,
+    # and the replay served on the shrunk mesh
+    assert calls == [("injected node failure at step 1", 4)]
     assert sorted(r.rid for r in cp.done) == [0, 1, 2, 3]
+    assert cp.stats()["faults"]["degraded"]["devices_left"] == 1
 
 
 # ---------------------------------------------------------------------------

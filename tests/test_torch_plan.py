@@ -5,6 +5,7 @@ dilated site of the golden route table (``tools/gen_route_table.py``)."""
 import dataclasses
 import json
 import pathlib
+import warnings
 
 import numpy as np
 import pytest
@@ -185,17 +186,28 @@ def test_single_routes_equal_fixture_rows(name, spec):
 
 
 @pytest.mark.parametrize("change,exc", [
-    ({"kind": "conv", "spatial": (2, 1)}, NotImplementedError),
+    ({"kind": "conv", "spatial": (2, 1)}, None),
     ({"kind": "dilated", "dilation": (2, 2), "wdtype": "int8",
-      "spatial": (2, 1)}, NotImplementedError),
-    ({"spatial": (2, 1)}, NotImplementedError),
+      "spatial": (2, 1)}, None),
+    ({"spatial": (2, 1)}, None),
     ({"wdtype": "int4"}, ValueError),
     ({"backend": "pallas"}, ValueError),
 ])
 def test_unported_specs_raise(change, exc):
+    """Unknown wdtypes and backends are refused; device tiling is ported
+    (``core.spatial``): such a spec plans, its routes those of its (1, 1)
+    twin but for the ``dev_tiles`` verdict."""
     spec = dataclasses.replace(port_spec(SITES[0][1], "torch"), **change)
-    with pytest.raises(exc):
-        tplan.plan_conv(spec)
+    if exc is not None:
+        with pytest.raises(exc):
+            tplan.plan_conv(spec)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # infeasible tiling
+        plan = tplan.plan_conv(spec)
+    twin = tplan.plan_conv(dataclasses.replace(spec, spatial=(1, 1)))
+    assert [dataclasses.replace(r, dev_tiles=None) for r in plan.routes] \
+        == list(twin.routes)
 
 
 def test_autotune_argument_raises():

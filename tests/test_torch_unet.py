@@ -111,14 +111,18 @@ def test_sites_and_route_summary_match_jax(base_name, wdtype):
 
 
 def test_schema_fields_refuse_what_is_not_ported():
-    """``spatial`` waits for the plane-parallel slice; ``autotune`` takes
-    an ``AutotunePolicy`` and refuses anything else."""
+    """``autotune`` takes an ``AutotunePolicy`` and refuses anything else;
+    ``spatial`` reaches every site's spec (the plane-parallel slice), whose
+    routes stay the (1, 1) twin's but for the ``dev_tiles`` verdict."""
     cfg = dataclasses.replace(tunet.UNET_TINY, autotune=object())
     with pytest.raises(TypeError, match="AutotunePolicy"):
         tunet.unet_plans(cfg)
     cfg = dataclasses.replace(tunet.UNET_TINY, name="sp", spatial=(2, 1))
-    with pytest.raises(NotImplementedError):
-        tunet.unet_plans(cfg)
+    twins = tunet.unet_plans(tunet.UNET_TINY)
+    for name, plan in tunet.unet_plans(cfg).items():
+        assert plan.spec.spatial == (2, 1)
+        assert [dataclasses.replace(r, dev_tiles=None)
+                for r in plan.routes] == list(twins[name].routes)
 
 
 APPLY_CASES = [(base, w, b) for base in ("tiny", "full")

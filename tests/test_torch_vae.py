@@ -93,9 +93,9 @@ def test_config_and_layers_mirror_jax():
     enc, dec = tvae.VAE_TINY.encoder_layers, tvae.VAE_TINY.decoder_layers
     assert [(l.in_c, l.out_c) for l in dec] == \
         [(l.out_c, l.in_c) for l in reversed(enc)]
-    # device tiling waits for the plane-parallel slice
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tvae.vae_plans(dataclasses.replace(tvae.VAE_TINY, spatial=(2, 1)))
+    # device tiling reaches every site's spec
+    assert all(p.spec.spatial == (2, 1) for p in tvae.vae_plans(
+        dataclasses.replace(tvae.VAE_TINY, spatial=(2, 1))))
 
 
 @pytest.mark.parametrize("base_name", ["tiny", "full"])
