@@ -280,17 +280,37 @@ result line) if anything is off:
    with data = 2, every answer within its f64 bound and the degraded
    rounds' planes really split; autotune under a (4, 1) mesh, every rank
    picking the same winner;
+3o. the forward on a (data 2, model 2) mesh over 4 ranks that share the
+   card on a gloo group (``mesh_phases``): the DCGAN generator (B = 64
+   and 1), the cGAN and SegNet, f32 and int8, served DP x TP through the
+   image batcher against the single-rank 'cuda' forward, each rank's
+   local route and kernel a site, A/B/E launches; llama3.2-1b (every
+   layer, B = 2, S = 4096), dbrx-132b (2 layers) and deepseek-v3-671b (1
+   + 1 layers) at full width through ``make_prefill_step(cfg,
+   make_dist(...))``: F on each rank's local heads against its plain
+   version, each attention and GLU sublayer against the single-rank one
+   on its own input, each MoE layer without a drop against the one-card
+   MoE and at the config's capacity against JAX's EP semantics written
+   out plainly in one process, dbrx's psum path, the last position's
+   logits (the reference's MoE layers routed on the mesh's inputs); every
+   gate read with a planted fault (a reversed channel gather, a skipped
+   row-parallel all-reduce, the all-to-all's return to the rotated rank,
+   the psum unsummed on rank 1);
+4m. times of 3o: per rank the forward's ms and device ms beside the
+   single-rank forward's, weight bytes over the single-rank model's,
+   every collective kind's calls, bytes and host ms, peak memory;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
 
     python3 chip_smoke.py        # from the repository root, one GPU
 
-``--plane-parallel`` builds the kernels and runs phase 3n alone.  On a
-machine with a card for each of its 4 ranks they meet on an NCCL group
-and exchange device tensors (no host staging):
+``--plane-parallel`` builds the kernels and runs phase 3n alone,
+``--mesh`` phases 3o/4m alone (both flags: both).  On a machine with a
+card for each of its 4 ranks they meet on an NCCL group and exchange
+device tensors (no host staging):
 
-    python3 chip_smoke.py --plane-parallel     # 4 GPUs: the NCCL branch
+    python3 chip_smoke.py --plane-parallel --mesh   # 4 GPUs: NCCL
 """
 from __future__ import annotations
 
@@ -302,6 +322,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3798,11 +3819,643 @@ def plane_parallel_phases(dev, smi):
                                "seconds": wall}}, paths
 
 
+# ---------------------------------------------------------------------------
+# 3o / 4m. the forward on a (data, model) mesh over ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (a) image serving on (data=2, model=2): (model, batch, wdtype)
+MESH_IMAGES = (("dcgan", 64, "float32"), ("dcgan", 1, "float32"),
+               ("dcgan", 64, "int8"), ("cgan", 16, "float32"),
+               ("segnet", 16, "float32"), ("segnet", 16, "int8"))
+# (b) LM prefill through make_prefill_step(cfg, make_dist(mesh, cfg, shape))
+# at full width: (arch, stages (None = every layer), (B, S))
+MESH_LM = (("deepseek-v3-671b", ((("mla",), 1), (("mla_moe",), 1)),
+            (2, 1024)),
+           ("dbrx-132b", ((("moe",), 2),), (2, 1024)),
+           ("llama3.2-1b", None, (2, 4096)))
+MESH_WORLD = 4
+MESH_MOE_SLICE = 64           # positions the no-drop MoE gate runs on
+# limits (each read sound and with a planted fault; PERF.md's 3o rows
+# give both readings): relative to max|ref|
+TOL_MESH_IMG = 2e-4           # f32/int8 rows vs the single-rank forward
+TOL_MESH_LAYER = 3e-2         # a bf16 sublayer vs the single-rank sublayer
+TOL_MESH_MOE = 3e-2           # a bf16 EP layer vs its reference
+TOL_MESH_LOGITS = 3e-2        # bf16 last-position logits vs single-rank
+
+
+def _mesh_rel(ref, got) -> float:
+    ref, got = ref.detach().double(), got.detach().double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _mesh_world_gather(t):
+    """Every rank's ``t`` (same shape), in rank order, on every rank."""
+    from repro_torch.core import comm
+    return comm._all_gather(t.contiguous(), None)
+
+
+def _mesh_reversed_gather(n):
+    """Planted fault: the channel gather's parts in reversed rank order."""
+    import torch
+
+    def wrap(orig):
+        def gather(x, group, dim=-1, kind="all_gather"):
+            y = orig(x, group, dim, kind)
+            if kind != "channel_gather":
+                return y
+            return torch.cat(list(reversed(torch.chunk(y, n, dim))), dim)
+        return gather
+    return wrap
+
+
+def _mesh_unsummed(rank, planted):
+    """Planted fault: rank 1 keeps its own partial of the ``planted``
+    all-reduce (the collective still runs, so no rank waits)."""
+    def wrap(orig):
+        def reduce_from(x, group, kind="all_reduce"):
+            y = orig(x, group, kind)
+            return x if rank == 1 and kind == planted else y
+        return reduce_from
+    return wrap
+
+
+def _mesh_rotated_return():
+    """Planted fault: every second all-to-all (the experts' results going
+    back) sends each block to the next rank's slot."""
+    import torch
+    import torch.distributed as tdist
+    calls = [0]
+
+    def wrap(orig):
+        def a2a(x, group, kind="all_to_all"):
+            calls[0] += 1
+            if calls[0] % 2 == 0:
+                x = torch.roll(x, x.shape[0] // tdist.get_world_size(group),
+                               dims=0)
+            return orig(x, group, kind)
+        return a2a
+    return wrap
+
+
+def _mesh_images(rank, dev, cases):
+    """(a): each image model served through ``DynamicImageBatcher(dist=)``
+    on (2, 2): the batch over 'data', the superpacks over 'model'."""
+    import numpy as np
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core.plan import TPSuperpack, plan_conv
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gan, segnet
+    from repro_torch.serving.image_batcher import (DynamicImageBatcher,
+                                                   ImageRequest)
+    from repro_torch.sharding import DistContext
+    dist = DistContext(make_host_mesh(2, 2))
+    out = []
+    for i, (model, batch, wd) in enumerate(cases):
+        if model == "segnet":
+            cfg = dataclasses.replace(segnet.SEGNET, backend="cuda",
+                                      wdtype=wd)
+            init, plans = segnet.segnet_init, segnet.segnet_plans(cfg)
+
+            def fwd(p, x, cfg=cfg, d=None):
+                return segnet.segnet_apply(p, x, cfg)
+            shape = (cfg.in_hw, cfg.in_hw, cfg.in_c)
+        else:
+            base = gan.DCGAN if model == "dcgan" else gan.CGAN
+            cfg = dataclasses.replace(base, backend="cuda", wdtype=wd)
+            init, plans = gan.generator_init, gan.generator_plans(cfg)
+
+            def fwd(p, x, cfg=cfg, d=None):
+                return gan.generator_apply(p, x, cfg, dist=d)
+            shape = (cfg.z_dim,)
+        whole = init(40 + i, cfg, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            params = init(40 + i, cfg, device=dev, dist=dist)
+        rows = np.random.RandomState(50 + i).randn(batch, *shape) \
+            .astype(np.float32)
+
+        def serve():
+            b = DynamicImageBatcher(lambda x: fwd(params, x, d=dist),
+                                    dist=dist, device=dev)
+            done = b.run([ImageRequest(rid=j, payload=rows[j])
+                          for j in range(batch)])
+            return torch.from_numpy(np.stack(
+                [r.out for r in sorted(done, key=lambda r: r.rid)])), b
+        zero_counts()
+        comm.traffic_reset()
+        got, b = serve()
+        counts, other = read_counts(wd)
+        traffic = comm.traffic()
+        with torch.no_grad():
+            ref = fwd(whole, torch.from_numpy(rows).to(dev)).cpu()
+        undo = _pp_patch(comm, "gather_from", _mesh_reversed_gather(2))
+        try:
+            bad, _ = serve()
+        finally:
+            undo()
+        bucket = b.bucket_for(batch)
+        b_local = bucket // 2 if bucket % 2 == 0 else bucket
+        sites = []
+        for j, plan in enumerate(plans):
+            key = (f"w{j}" if model == "segnet" else f"dc{j}")
+            leaf = params[key]
+            if isinstance(leaf, TPSuperpack):
+                local = plan_conv(dataclasses.replace(
+                    plan.spec, out_c=plan.spec.out_c // leaf.n))
+                route = local.route_for_batch(b_local)
+                sites.append((key, local.spec.out_c, route.path,
+                              _pp_kernel(local.spec, route)))
+            else:
+                route = plan.route_for_batch(b_local)
+                sites.append((key, plan.spec.out_c, route.path + " (whole)",
+                              _pp_kernel(plan.spec, route)))
+        out.append({"model": model, "batch": batch, "wdtype": wd,
+                    "rank": rank, "sound": _mesh_rel(ref, got),
+                    "planted": _mesh_rel(ref, bad), "launches": counts,
+                    "other_dtype_launches": other, "sites": sites,
+                    "graphed": b.graphed, "traffic": traffic})
+        del whole, params
+    return out
+
+
+def _mesh_capture(records):
+    """The sublayers the transformer calls (attention, GLU, MoE) swapped
+    for wrappers that keep each call's input and output."""
+    from repro_torch.layers import attention, mlp, moe
+    undos = []
+    for mod, name in ((attention, "gqa_apply"), (attention, "mla_apply"),
+                      (mlp, "glu_apply"), (moe, "moe_apply")):
+        def wrap(orig, name=name):
+            def f(p, x, *args, **kw):
+                y = orig(p, x, *args, **kw)
+                records.append((name, x, args, kw, y))
+                return y
+            return f
+        undos.append(_pp_patch(mod, name, wrap))
+    return undos
+
+
+def _mesh_ep_ref(p, x, cfg, n_blocks):
+    """JAX's EP semantics written out plainly, sharing no code with the
+    port's EP functions: the (B, S) tokens padded to a multiple of
+    ``n_blocks`` and cut into that many blocks in rank order (the
+    all-to-all path's token split; one block is the psum path's, a data
+    rank's rows), each block routed on its own with the capacity of its
+    token count, every expert on its top-``cap`` tokens by gate (ties to
+    the lower index, gate > 0) in JAX's ``_expert_ffn`` arithmetic, the
+    gated outputs summed in f32 in expert order and cast once."""
+    import torch
+    from repro_torch.layers import common as cm
+    from repro_torch.layers import moe
+    b, s, d = x.shape
+    t = b * s
+    padded = -(-t // n_blocks) * n_blocks
+    x2 = torch.nn.functional.pad(x.reshape(t, d), (0, 0, 0, padded - t))
+    t_l = padded // n_blocks
+    cap = moe._capacity(t_l, cfg)
+    out = torch.zeros((padded, d), dtype=torch.float32, device=x.device)
+    for j in range(n_blocks):
+        xb = x2[j * t_l:(j + 1) * t_l]
+        w, idx = moe._route(xb, p, cfg)
+        rows = torch.arange(j * t_l, (j + 1) * t_l, device=x.device)
+        w = torch.where(rows[:, None] < t, w, 0.0)
+        for e in range(cfg.n_experts):
+            gate = torch.where(idx == e, w, 0.0).sum(-1)
+            tok = torch.sort(gate, descending=True, stable=True).indices[:cap]
+            tok = tok[gate[tok] > 0]
+            xe = xb[tok]
+            h = cm.ACTS[cfg.act]((xe @ p["wg"][e]).float()) \
+                * (xe @ p["wi"][e]).float()
+            ye = (h.to(x.dtype) @ p["wo"][e]).float() * gate[tok, None]
+            out.index_add_(0, j * t_l + tok, ye)
+    return out[:t].to(x.dtype).reshape(b, s, d)
+
+
+def _mesh_lm(rank, dev, case, psum_case):
+    """``_mesh_lm_run``, then the card's cache emptied: the run's locals
+    (the whole model on rank 0, every rank's blocks, the kept sublayer
+    inputs) are gone once it returns."""
+    import gc
+
+    import torch
+    rec = _mesh_lm_run(rank, dev, case, psum_case)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_lm_run(rank, dev, case, psum_case):
+    """(b) one architecture: the sharded prefill with every sublayer's
+    input and output kept, F's calls against its plain version, the
+    sublayers against the single-rank ones on rank 0 (which holds the
+    whole model), the MoE layers against their references, the logits
+    against the single-rank prefill, the planted faults; then 4m."""
+    import gc
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_dist, make_prefill_step
+    from repro_torch.layers import attention, mlp, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    arch, stages, (b, s) = case
+    full = registry.get_config(arch)
+    cfg = full if stages is None else dataclasses.replace(
+        full, stages=stages, num_layers=sum(len(k) * r for k, r in stages))
+    dist = make_dist(make_host_mesh(2, 2), cfg,
+                     ShapeConfig("prefill", "prefill", s, b))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if rank == 0:
+            whole = tfm.init(cfg, seed=0, device=dev)
+            # the rank's blocks cut from the whole tree: the expert and
+            # vocab blocks are views of it, so rank 0 holds the model once
+            params = dist.shard_params(whole, tfm.specs(cfg))
+        else:
+            whole = None
+            params = tfm.init(cfg, seed=0, device=dev, dist=dist)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()          # the draws' f32 temporaries
+    local_bytes = sum(t.numel() * t.element_size()
+                      for t in _tensors(params))
+    whole_bytes = (sum(t.numel() * t.element_size()
+                       for t in _tensors(whole)) if whole is not None
+                   else None)
+    g = torch.Generator().manual_seed(60)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=g).to(dev)}
+    prefill = make_prefill_step(cfg, dist)
+    rec = {"arch": arch, "rank": rank, "layers": cfg.num_layers,
+           "kinds": tfm.layer_kinds(cfg), "rules": {
+               k: dist.rules[k] for k in ("batch", "heads", "ffn", "vocab",
+                                          "expert", "expert_ffn")},
+           "local_bytes": local_bytes, "whole_bytes": whole_bytes}
+    # ---- the sound run: F's calls and every sublayer kept ----------------
+    calls, subs = [], []
+    undos = _mesh_capture(subs)
+    try:
+        with captured_attention(calls):
+            fa.flash_attention.launches = 0
+            logits = prefill(params, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec["f_launches"] = fa.flash_attention.launches
+    finally:
+        for u in reversed(undos):
+            u()
+    rec["f_gate"] = check_f_layers(f"{arch} on the mesh, rank {rank}",
+                                   calls, F_FAULT)
+    rec["f_heads"] = sorted({tuple(c[0].shape[2:]) for c in calls})
+    del calls
+    # ---- the sublayers against the single-rank ones (rank 0) -------------
+    layer_errs = {"attention": 0.0, "glu": 0.0}
+    moe_subs = [r for r in subs if r[0] == "moe_apply"]
+    attn_subs = [r for r in subs if r[0] in ("gqa_apply", "mla_apply")]
+    glu_subs = [r for r in subs if r[0] == "glu_apply"]
+    if rank == 0:
+        with torch.no_grad():
+            for i, (name, x, args, kw, y) in enumerate(attn_subs):
+                kw = dict(kw, dist=None)
+                fn = getattr(attention, name)
+                ref = fn(whole["layers"][i]["attn"], x, *args, **kw)
+                layer_errs["attention"] = max(layer_errs["attention"],
+                                              _mesh_rel(ref, y))
+            glu_layers = [(i, k) for i, lp in enumerate(whole["layers"])
+                          for k in ("mlp", "shared") if k in lp]
+            for (i, k), (name, x, args, kw, y) in zip(glu_layers, glu_subs):
+                ref = mlp.glu_apply(whole["layers"][i][k], x, args[0])
+                layer_errs["glu"] = max(layer_errs["glu"], _mesh_rel(ref, y))
+    rec["layer_rel"] = layer_errs
+    # ---- the MoE layers ---------------------------------------------------
+    moe_layers = [i for i, k in enumerate(tfm.layer_kinds(cfg))
+                  if k in tfm.MOE_KINDS]
+    n_ep = dist.extent(dist.rules["expert"])
+    rec["moe"] = []
+    moe_inputs = []
+    for i, (name, x, args, kw, y) in zip(moe_layers, moe_subs):
+        xs = _mesh_world_gather(x)
+        if rank == 0:
+            moe_inputs.append(torch.cat([xs[0], xs[2]]))
+        ys = _mesh_world_gather(y)
+        pm = params["layers"][i]["moe"]
+        nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                     / cfg.top_k)
+        xsl = x[:, :MESH_MOE_SLICE].contiguous()
+        with torch.no_grad():
+            y_nd = moe.moe_apply(pm, xsl, nodrop, dist)
+            undo = _pp_patch(comm, "all_to_all_fn", _mesh_rotated_return())
+            try:
+                y_bad = moe.moe_apply(pm, x, cfg, dist)
+            finally:
+                undo()
+        ys_bad = _mesh_world_gather(y_bad)
+        m = {"layer": i, "path": "a2a" if isinstance(
+            dist.rules["expert"], tuple) else "psum", "n_ep": n_ep}
+        if rank == 0:
+            with torch.no_grad():
+                wm = whole["layers"][i]["moe"]
+                m["nodrop_rel"] = _mesh_rel(moe.moe_apply(wm, xsl, cfg),
+                                            y_nd)
+                # the global batch: data rank 0's rows (rank 0), then data
+                # rank 1's (rank 2)
+                xg = torch.cat([xs[0], xs[2]])
+                sim = _mesh_ep_ref(wm, xg, cfg, n_ep)
+                rows = [sim[:b // 2], sim[:b // 2], sim[b // 2:],
+                        sim[b // 2:]]
+                m["ep_rel"] = max(_mesh_rel(r, yy) for r, yy in
+                                  zip(rows, ys))
+                m["planted_rel"] = min(_mesh_rel(r, yy) for r, yy in
+                                       zip(rows, ys_bad))
+                t_l = -(-b * s // n_ep)
+                m["capacity"] = min(t_l, max(1, int(
+                    t_l * cfg.top_k * cfg.capacity_factor)
+                    // cfg.n_experts))
+                m["tokens_a_rank"] = t_l
+        rec["moe"].append(m)
+        del xs, ys, ys_bad
+    # ---- the psum path: one MoE layer under DEFAULT_RULES ----------------
+    if psum_case and moe_subs:
+        pdist = DistContext(dist.mesh, rules=dict(DEFAULT_RULES,
+                                                  batch="data"))
+        x = moe_subs[0][1]
+        j, n = pdist.shard_of(pdist.rules["expert"], cfg.n_experts)
+        keep = (j * cfg.n_experts // n, (j + 1) * cfg.n_experts // n)
+        pp = moe.moe_init(torch.Generator(device=dev).manual_seed(7), cfg,
+                          keep=keep)
+        with torch.no_grad():
+            y = moe.moe_apply(pp, x, cfg, pdist)
+            undo = _pp_patch(comm, "reduce_from",
+                             _mesh_unsummed(rank, "ep_psum"))
+            try:
+                y_bad = moe.moe_apply(pp, x, cfg, pdist)
+            finally:
+                undo()
+        del pp
+        xs = _mesh_world_gather(x)
+        ys, ys_bad = _mesh_world_gather(y), _mesh_world_gather(y_bad)
+        psum = {"experts_a_rank": keep[1] - keep[0]}
+        if rank == 0:
+            pw = moe.moe_init(torch.Generator(device=dev).manual_seed(7),
+                              cfg)
+            with torch.no_grad():
+                sims = [_mesh_ep_ref(pw, xs[2 * d], cfg, 1)
+                        for d in range(2)]
+            del pw
+            rows = [sims[r // 2] for r in range(MESH_WORLD)]
+            psum["rel"] = max(_mesh_rel(r, yy) for r, yy in zip(rows, ys))
+            psum["planted_rank1"] = _mesh_rel(rows[1], ys_bad[1])
+            psum["planted_others"] = max(
+                _mesh_rel(rows[r], ys_bad[r]) for r in (0, 2, 3))
+        rec["psum"] = psum
+        del xs, ys, ys_bad
+    del subs, moe_subs, attn_subs, glu_subs
+    # ---- the logits against the single-rank prefill ----------------------
+    undo = _pp_patch(comm, "reduce_from",
+                     _mesh_unsummed(rank, "row_parallel_all_reduce"))
+    try:
+        bad_logits = prefill(params, batch)
+    finally:
+        undo()
+    if rank == 0:
+        # the single-rank prefill with JAX's all-to-all EP semantics at each
+        # MoE layer (the capacity drop over the whole batch's tokens), each
+        # MoE layer routed on the mesh run's input there (the same routes and
+        # capacity cuts as the mesh's: the gate) and on its own (a reading:
+        # a last-bit difference moves tokens across the capacity cut)
+        def reference(inputs):
+            seen = []
+
+            def sim(orig):
+                def f(p, x, cfg_, dist_=None):
+                    src = x if inputs is None else inputs[len(seen)]
+                    seen.append(x)
+                    return _mesh_ep_ref(p, src, cfg_, n_ep)
+                return f
+            undo = (_pp_patch(moe, "moe_apply", sim)
+                    if moe_layers and isinstance(dist.rules["expert"], tuple)
+                    else (lambda: None))
+            try:
+                with torch.no_grad():
+                    return make_prefill_step(cfg)(whole, batch), seen
+            finally:
+                undo()
+        ref_logits, _ = reference(moe_inputs)
+        rec["logits_rel"] = _mesh_rel(ref_logits, logits)
+        rec["logits_planted_rel"] = _mesh_rel(ref_logits, bad_logits)
+        rec["argmax_equal"] = bool(torch.equal(ref_logits.argmax(-1),
+                                               logits.argmax(-1)))
+        if moe_layers:
+            self_logits, ref_in = reference(None)
+            rec["logits_self_routed_rel"] = _mesh_rel(self_logits, logits)
+            # tokens whose expert set differs between the self-routed run's
+            # MoE inputs and the mesh run's, layer by layer
+            with torch.no_grad():
+                rec["routing_flips"] = [int((
+                    moe._route(a.reshape(-1, a.shape[-1]), whole["layers"][
+                        i]["moe"], cfg)[1].sort(-1).values
+                    != moe._route(g.reshape(-1, g.shape[-1]), whole[
+                        "layers"][i]["moe"], cfg)[1].sort(-1).values)
+                    .any(-1).sum())
+                    for i, a, g in zip(moe_layers, ref_in, moe_inputs)]
+            del self_logits, ref_in
+    # ---- 4m: times, bytes, memory ----------------------------------------
+    rec["ms"] = _pp_ms(lambda: prefill(params, batch), dev, iters=2)
+    rec["device_ms"] = _pp_device_ms(lambda: prefill(params, batch), dev)
+    comm.traffic_reset()
+    with comm.timed(True):
+        peak, base = _pp_peak(lambda: prefill(params, batch), dev)
+    rec["collectives"] = comm.traffic()
+    rec["peak_bytes"], rec["base_bytes"] = peak, base
+    if rank == 0:
+        rec["single_ms"] = _pp_ms(lambda: make_prefill_step(cfg)(
+            whole, batch), dev, iters=2)
+        rec["single_device_ms"] = _pp_device_ms(
+            lambda: make_prefill_step(cfg)(whole, batch), dev)
+    return rec
+
+
+def _mesh_rank(rank, world, dev, conf):
+    """One rank of phases 3o/4m (all ranks share the card)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = {"images": _mesh_images(rank, dev, conf["images"])}
+    out["lm"] = [_mesh_lm(rank, dev, case, psum_case=case[0] == "dbrx-132b")
+                 for case in conf["lm"]]
+    return out
+
+
+def mesh_phases(dev, smi):
+    """Phases 3o and 4m: the forward on a (data=2, model=2) mesh over
+    ``MESH_WORLD`` ranks that share the card on a gloo group (CUDA tensors
+    staged through host memory).  (a) the DCGAN generator (B = 64 and 1),
+    the cGAN and SegNet, f32 and int8, served through
+    ``DynamicImageBatcher(dist=)``: every row against the single-rank
+    'cuda' forward on the same weights, each rank's local route and kernel
+    at each site, the A/B/E launches, a reversed channel gather read
+    through the same gate.  (b) llama3.2-1b, dbrx-132b and
+    deepseek-v3-671b at full width through ``make_prefill_step(cfg,
+    make_dist(mesh, cfg, shape))``: F on each rank's local heads against
+    its plain version, every attention and GLU sublayer against the
+    single-rank one on the same input, every MoE layer without a drop
+    against the one-card ``moe_apply`` and at the config's capacity
+    against JAX's EP semantics written out plainly in one process
+    (``_mesh_ep_ref``), dbrx's first MoE layer on the psum path under
+    ``DEFAULT_RULES``, the last position's logits against the single-rank
+    prefill whose MoE layers take the mesh run's inputs (and, as a
+    reading, against the one routed on its own); planted: one rank skips the
+    row-parallel all-reduce, the all-to-all's return goes to the rotated
+    rank, the psum is left unsummed on rank 1.  4m: per rank the
+    forward's ms and device ms beside the single-rank forward's, the
+    weight bytes held, every collective kind's calls, bytes and ms, and
+    the peak memory.  Returns (records, {kernel: {path: launches}})."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the ranks' allocators grow segments in place: rank 0 holds the whole
+    # deepseek slice (27.5 GB) beside three ranks' blocks on one card
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_spmd(_mesh_rank, MESH_WORLD,
+                         {"images": MESH_IMAGES, "lm": MESH_LM},
+                         device=dev.type, timeout=900)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    wall = time.perf_counter() - t0
+    paths = {k: {} for k in ("A", "B", "A_int8", "B_int8", "F")}
+    failed = []
+    # ---- (a) ----------------------------------------------------------------
+    for i, (model, batch, wd) in enumerate(MESH_IMAGES):
+        tag = f"mesh_{model}_B{batch}" + ("_int8" if wd == "int8" else "")
+        for r in ranks:
+            rec = r["images"][i]
+            kern = "B" if model == "segnet" else "A"
+            key = kern + ("_int8" if wd == "int8" else "")
+            n = rec["launches"][kern]
+            paths[key][tag] = paths[key].get(tag, 0) + n
+            print(f"[3o] {tag} rank {rec['rank']}: sites (site, local N, "
+                  f"route, kernel) {rec['sites']}; launches {rec['launches']}"
+                  f" (other dtype {rec['other_dtype_launches']}), graphed "
+                  f"{rec['graphed']}; vs the single-rank 'cuda' forward, "
+                  f"limit {TOL_MESH_IMG:.0e}: sound {rec['sound']:.2e}, "
+                  f"reversed channel gather {rec['planted']:.2e}")
+            if not (rec["sound"] <= TOL_MESH_IMG < rec["planted"]) \
+                    or (dev.type == "cuda" and (n == 0 or
+                                                rec["other_dtype_launches"])):
+                failed.append(f"{tag} rank {rec['rank']}")
+        tr = ranks[0]["images"][i]["traffic"]
+        print(f"[4m] {tag} rank 0 collectives a serve: "
+              f"{json.dumps(tr)} | {smi}")
+    # ---- (b) and 4m ---------------------------------------------------------
+    for j, (arch, _, (b, s)) in enumerate(MESH_LM):
+        recs = [r["lm"][j] for r in ranks]
+        r0 = recs[0]
+        paths["F"][f"mesh_{arch}"] = sum(r["f_launches"] for r in recs)
+        n_attn = sum(k in ("attn", "local", "global", "moe", "mla",
+                           "mla_moe") for k in r0["kinds"])
+        print(f"[3o] {arch} B={b} S={s}, {r0['layers']} layers "
+              f"{r0['kinds']}, rules {r0['rules']}")
+        for rec in recs:
+            fg = rec["f_gate"]
+            print(f"[3o] {arch} rank {rec['rank']}: F launches "
+                  f"{rec['f_launches']} (heads, head dim) {rec['f_heads']}, "
+                  f"F vs plain worst share {fg['worst_share']:.3f} (planted "
+                  f"x{fg['planted_fault']}: least "
+                  f"{fg['planted_least_share']:.2f})"
+                  f"; weights {rec['local_bytes']} bytes")
+            if dev.type == "cuda" and rec["f_launches"] != n_attn:
+                failed.append(f"{arch} rank {rec['rank']}: F launches")
+        le = r0["layer_rel"]
+        print(f"[3o] {arch} sublayers vs single-rank on the same input, "
+              f"limit {TOL_MESH_LAYER:.0e}: attention {le['attention']:.2e},"
+              f" GLU {le['glu']:.2e}")
+        if max(le.values()) > TOL_MESH_LAYER:
+            failed.append(f"{arch} sublayers")
+        for m in r0["moe"]:
+            print(f"[3o] {arch} MoE layer {m['layer']} ({m['path']}, "
+                  f"{m['n_ep']} expert ranks, {m['tokens_a_rank']} tokens and "
+                  f"capacity {m['capacity']} a rank), limit "
+                  f"{TOL_MESH_MOE:.0e}: no drop vs one-card moe_apply "
+                  f"{m['nodrop_rel']:.2e}; vs JAX's EP semantics written out "
+                  f"{m['ep_rel']:.2e}, return to the rotated rank "
+                  f"{m['planted_rel']:.2e}")
+            if not (max(m["nodrop_rel"], m["ep_rel"]) <= TOL_MESH_MOE
+                    < m["planted_rel"]):
+                failed.append(f"{arch} MoE layer {m['layer']}")
+        if "psum" in r0:
+            ps = r0["psum"]
+            print(f"[3o] {arch} psum path ({ps['experts_a_rank']} experts a "
+                  f"rank) vs JAX's psum EP written out, limit "
+                  f"{TOL_MESH_MOE:.0e}: {ps['rel']:.2e}; unsummed on rank 1:"
+                  f" rank 1 {ps['planted_rank1']:.2e}, others "
+                  f"{ps['planted_others']:.2e}")
+            if not (ps["rel"] <= TOL_MESH_MOE < ps["planted_rank1"]):
+                failed.append(f"{arch} psum path")
+        routed = (" (MoE layers routed on the mesh run's inputs)"
+                  if "routing_flips" in r0 else "")
+        print(f"[3o] {arch} last-position logits vs the single-rank prefill"
+              f"{routed}, limit {TOL_MESH_LOGITS:.0e}: sound "
+              f"{r0['logits_rel']:.2e} (argmax equal: {r0['argmax_equal']})"
+              f", rank 1 skips the row-parallel all-reduce "
+              f"{r0['logits_planted_rel']:.2e}")
+        if "routing_flips" in r0:
+            print(f"[3o] {arch} logits vs the single-rank prefill routed on "
+                  f"its own MoE inputs (a reading, not gated): "
+                  f"{r0['logits_self_routed_rel']:.2e}; tokens routed to "
+                  f"another expert set, a MoE layer, of {b * s}: "
+                  f"{r0['routing_flips']}")
+        if not (r0["logits_rel"] <= TOL_MESH_LOGITS
+                < r0["logits_planted_rel"]):
+            failed.append(f"{arch} logits")
+        for rec in recs:
+            single = (f", single-rank {r0['single_ms']:.3f} ms, device "
+                      f"{ms_text(r0['single_device_ms'])} ms"
+                      if rec["rank"] == 0 else "")
+            print(f"[4m] {arch} rank {rec['rank']}: forward {rec['ms']:.3f} "
+                  f"ms (events), device {ms_text(rec['device_ms'])} ms"
+                  f"{single}; weights {rec['local_bytes']} bytes = "
+                  f"{rec['local_bytes'] / r0['whole_bytes']:.3f} of the "
+                  f"single-rank model's {r0['whole_bytes']}; peak "
+                  f"{rec['peak_bytes']} bytes ({rec['base_bytes']} before) "
+                  f"| {smi}")
+            print(f"[4m] {arch} rank {rec['rank']} collectives a forward "
+                  f"(calls, bytes, host ms with the device synchronised): "
+                  + ", ".join(f"{k} {v['calls']} / {v['bytes']} / "
+                              f"{v['seconds'] * 1e3:.2f}"
+                              for k, v in rec["collectives"].items()))
+    print(f"[3o] mesh phase: {wall:.1f} s over {MESH_WORLD} ranks, launches "
+          f"{json.dumps(paths)}")
+    if failed:
+        raise RuntimeError(f"mesh gates failed: {failed}")
+    return {"mesh": {"images": [r["images"] for r in ranks],
+                     "lm": [r["lm"] for r in ranks], "seconds": wall}}, paths
+
+
 def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
 
-    unknown = [a for a in argv if a != "--plane-parallel"]
+    unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -3882,12 +4535,18 @@ def main(argv=()) -> int:
         raise RuntimeError(f"kernel C or D instantiations with a stack "
                            f"frame (local memory): {framed}")
 
-    if "--plane-parallel" in argv:
-        # phase 3n alone: with a card per rank its ranks meet on NCCL
-        pp_records, pp_paths = plane_parallel_phases(dev, smi)
-        print(json.dumps({"card": smi, **pp_records,
-                          "launches_by_path": pp_paths}))
-        print(f"[done] phase 3n passed in "
+    if "--plane-parallel" in argv or "--mesh" in argv:
+        # phase 3n and/or phases 3o/4m alone: with a card per rank their
+        # ranks meet on NCCL
+        if "--plane-parallel" in argv:
+            pp_records, pp_paths = plane_parallel_phases(dev, smi)
+            print(json.dumps({"card": smi, **pp_records,
+                              "launches_by_path": pp_paths}))
+        if "--mesh" in argv:
+            mesh_records, mesh_paths = mesh_phases(dev, smi)
+            print(json.dumps({"card": smi, **mesh_records,
+                              "launches_by_path": mesh_paths}))
+        print(f"[done] phase(s) {' '.join(argv)} passed in "
               f"{time.perf_counter() - t_start:.1f} s, the build included")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -5082,6 +5741,11 @@ def main(argv=()) -> int:
     pp_records, pp_paths = plane_parallel_phases(dev, smi)
     print(json.dumps({"card": smi, **pp_records}))
 
+    mesh_records, mesh_paths = mesh_phases(dev, smi)
+    print(json.dumps({"card": smi, **mesh_records}))
+    f_entry["launches_by_path"].update(mesh_paths["F"])
+    f_entry["launches"] = sum(f_entry["launches_by_path"].values())
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -5105,13 +5769,15 @@ def main(argv=()) -> int:
 
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
                **unet_paths_of("A", "float32"), **vae_paths["A"],
-               **cp_paths["A"], **pp_paths["A"]}
+               **cp_paths["A"], **pp_paths["A"], **mesh_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
                **unet_paths_of("B", "float32"), **vae_paths["B"],
-               **cp_paths["B"], **pp_paths["B"]}
-    ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"]}
-    bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"]}
+               **cp_paths["B"], **pp_paths["B"], **mesh_paths["B"]}
+    ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"],
+                 **mesh_paths["A_int8"]}
+    bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"],
+                 **mesh_paths["B_int8"]}
     c_paths = {**unet_paths_of("C", "float32"), **pp_paths["C"]}
     d_paths = {**unet_paths_of("D", "float32"), **pp_paths["D"]}
     ci8_paths, di8_paths = (unet_paths_of("C", "int8"),

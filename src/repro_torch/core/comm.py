@@ -1,0 +1,261 @@
+"""Collectives over ``torch.distributed`` groups for the mesh code.
+
+Two layers:
+
+- The transport helpers ``_send_recv``, ``_all_gather``, ``_all_reduce``
+  and ``_all_to_all`` move tensors over one group.  On a gloo group (the
+  one-card group: NCCL refuses two ranks on one device) a CUDA tensor goes
+  through pinned host buffers, since gloo moves host tensors; the group's
+  backend chooses this, not a caught failure.  On an NCCL group the same
+  code runs on the device tensors.  The plane-parallel executor
+  (``core.spatial``) and the layers below share them.
+- The autograd Functions the tensor- and expert-parallel layers call,
+  each with its conjugate backward, as in Megatron: ``copy_to`` (copy
+  forward, all-reduce backward), ``reduce_from`` (all-reduce forward,
+  copy backward), ``gather_from`` (all-gather along a dim forward, this
+  rank's slice backward), ``split_to`` (this rank's slice forward,
+  all-gather backward) and ``all_to_all`` (its own transpose).  A group
+  of ``None`` is a one-rank group: every Function is then the identity.
+
+Every Function call adds to ``traffic()``: per kind, the calls, the bytes
+this rank hands to the collective (its input tensor's bytes; for a
+backward, the cotangent's) and, under ``timed(True)``, the host seconds
+of the transfer with the device synchronised before and after it.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+import torch.distributed as dist
+
+# ---------------------------------------------------------------------------
+# transport
+# ---------------------------------------------------------------------------
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group goes through host memory."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t)
+
+
+def _send_recv(sends, recvs, group) -> None:
+    """Post every send ``(tensor, peer)`` and every receive ``(buffer,
+    peer)`` of one exchange step as one batch and wait for all; peers are
+    global ranks, receives land in their buffers."""
+    if not sends and not recvs:
+        return
+    probe = (sends or recvs)[0][0]
+    staged = _staged(probe, group)
+    hs = [(_host(t) if staged else t, p) for t, p in sends]
+    hr = [(torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+           if staged else b, p) for b, p in recvs]
+    ops = ([dist.P2POp(dist.isend, t, p, group) for t, p in hs]
+           + [dist.P2POp(dist.irecv, b, p, group) for b, p in hr])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for (b, _), (h, _) in zip(recvs, hr):
+            b.copy_(h)
+
+
+def _all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return [p.to(t.device) for p in parts] if staged else parts
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    if _staged(t, group):
+        h = _host(t)
+        dist.all_reduce(h, group=group)
+        return h.to(t.device)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Dim 0 of ``t`` cut into one equal block a rank of ``group``: block
+    j goes to rank j, and the block rank j sent here lands at j."""
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    out = (torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+           if staged else torch.empty_like(src))
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(t.device) if staged else out
+
+
+# ---------------------------------------------------------------------------
+# traffic accounting
+# ---------------------------------------------------------------------------
+
+_TRAFFIC: dict[str, list] = {}
+_TIMED = [False]
+
+
+def traffic() -> dict[str, dict]:
+    """{kind: {"calls", "bytes", "seconds"}} since ``traffic_reset``."""
+    return {k: {"calls": v[0], "bytes": v[1], "seconds": v[2]}
+            for k, v in _TRAFFIC.items()}
+
+
+def traffic_reset() -> None:
+    _TRAFFIC.clear()
+
+
+@contextlib.contextmanager
+def timed(on: bool = True):
+    """Time every collective on the host clock, the device synchronised
+    around it (what 4m reads; off, nothing synchronises)."""
+    prev, _TIMED[0] = _TIMED[0], on
+    try:
+        yield
+    finally:
+        _TIMED[0] = prev
+
+
+def _run(kind: str, t: torch.Tensor, fn):
+    rec = _TRAFFIC.setdefault(kind, [0, 0, 0.0])
+    rec[0] += 1
+    rec[1] += t.numel() * t.element_size()
+    if not _TIMED[0]:
+        return fn()
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    rec[2] += time.perf_counter() - t0
+    return out
+
+
+def all_reduce(t: torch.Tensor, group, kind: str = "all_reduce"):
+    """The sum of ``t`` over ``group`` (a new tensor; ``t`` is left as it
+    is), counted under ``kind``."""
+    return _run(kind, t, lambda: _all_reduce(t.contiguous().clone(), group))
+
+
+def all_gather(t: torch.Tensor, group, dim: int,
+               kind: str = "all_gather") -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in group rank order."""
+    return _run(kind, t, lambda: torch.cat(
+        _all_gather(t.contiguous(), group), dim=dim))
+
+
+def all_to_all(t: torch.Tensor, group, kind: str = "all_to_all"):
+    return _run(kind, t, lambda: _all_to_all(t, group))
+
+
+def _slice(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    i = dist.get_rank(group)
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    """Forward: ``x`` as it is; backward: the cotangent summed over the
+    group (a replicated input read by every rank's block)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, ctx.kind + "_bwd"), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Forward: ``x`` summed over the group; backward: the cotangent as it
+    is (every rank's partial gets the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        return all_reduce(x, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """Forward: every rank's ``x`` concatenated along ``dim`` in rank
+    order; backward: this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.group, ctx.dim), None, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    """Forward: this rank's equal slice of ``x`` along ``dim``; backward:
+    every rank's cotangent slice gathered back along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return _slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.group, ctx.dim, ctx.kind + "_bwd"),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward and backward: the equal-block all-to-all along dim 0 (its
+    own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_to_all(x, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group, ctx.kind + "_bwd"), None, None
+
+
+def copy_to(x, group, kind: str = "copy_to"):
+    return x if group is None else _CopyTo.apply(x, group, kind)
+
+
+def reduce_from(x, group, kind: str = "all_reduce"):
+    return x if group is None else _ReduceFrom.apply(x, group, kind)
+
+
+def gather_from(x, group, dim: int = -1, kind: str = "all_gather"):
+    if group is None:
+        return x
+    return _GatherFrom.apply(x, group, dim % x.dim(), kind)
+
+
+def split_to(x, group, dim: int = 0, kind: str = "split_to"):
+    if group is None:
+        return x
+    return _SplitTo.apply(x, group, dim % x.dim(), kind)
+
+
+def all_to_all_fn(x, group, kind: str = "all_to_all"):
+    return x if group is None else _AllToAll.apply(x, group, kind)

@@ -53,6 +53,14 @@ bucket whose planes clear ``_SPATIAL_MIN_BYTES`` and whose geometry admits
 one-hop halo exchange carries ``Route.dev_tiles``, and under a bound
 spatial mesh of those extents ``apply`` splits the plane over its ranks
 (``core.spatial``), each rank running a local plan on its block.
+
+A superpack sharded on its out-channels over a (data, model) mesh
+(``sharding.DistContext.shard_params``) arrives as a ``TPSuperpack``: the
+rank's ``N/TP`` columns, still a valid superpack of the same spec at
+``out_c = N/TP`` (the row order does not change).  ``apply`` runs the
+*local plan* of that spec on it (kernel A, B, C or D as its route picks,
+the int8 entry on a quantized block), adds the rank's bias block and
+gathers the output channels over the group in rank order.
 """
 from __future__ import annotations
 
@@ -374,6 +382,43 @@ class QuantizedSuperpack:
         return QuantizedSuperpack(self.q.to(device), self.scale.to(device))
 
 
+@dataclasses.dataclass(eq=False)
+class TPSuperpack:
+    """This rank's column block of a superpack whose out-channels are
+    split over ``n`` ranks of ``group`` (block ``index``): a dense
+    ``(rows, N/n)`` buffer or a ``QuantizedSuperpack`` of the same
+    columns (its scale column is the whole row's)."""
+
+    block: object                 # torch.Tensor | QuantizedSuperpack
+    group: object                 # the 'conv_out' axes' process group
+    index: int
+    n: int
+
+    @property
+    def shape(self):
+        rows, cols = self.block.shape
+        return (rows, cols * self.n)
+
+
+def _tp_apply(plan: "ConvPlan", x, packed: TPSuperpack, bias):
+    """The tensor-parallel site: the local plan at ``out_c = N/n`` on the
+    rank's block, its bias block added, the channels gathered over the
+    group in rank order."""
+    from repro_torch.core import comm
+    if plan.spec.spatial != (1, 1):
+        raise NotImplementedError(
+            "a superpack split on both its plane and its out-channels: "
+            "ROADMAP Queue 1 item 13c")
+    if not isinstance(x, torch.Tensor):         # a plane held as blocks
+        x = x.full()
+    n_local = plan.spec.out_c // packed.n
+    local = plan_conv(dataclasses.replace(plan.spec, out_c=n_local))
+    y = local.apply(x, packed.block)
+    if bias is not None:
+        y = y + bias
+    return comm.gather_from(y, packed.group, dim=-1, kind="channel_gather")
+
+
 # ---------------------------------------------------------------------------
 # per-phase execution record + routes
 # ---------------------------------------------------------------------------
@@ -673,9 +718,11 @@ class ConvPlan:
         return kernel
 
     # -- execution ---------------------------------------------------------
-    def apply(self, x: torch.Tensor, packed) -> torch.Tensor:
-        """Planned forward of NHWC ``x`` on the superpack, differentiable
-        through the §3.2.3 backward of the plan's kind.  Under a bound
+    def apply(self, x: torch.Tensor, packed, bias=None) -> torch.Tensor:
+        """Planned forward of NHWC ``x`` on the superpack (plus ``bias``,
+        the out-channels' bias, where given), differentiable
+        through the §3.2.3 backward of the plan's kind.  A ``TPSuperpack``
+        runs as a tensor-parallel site (``_tp_apply``).  Under a bound
         spatial mesh matching the route's ``dev_tiles`` the conv runs
         plane-parallel across the mesh's ranks (``spatial.try_spatial``)
         and returns the output held as blocks (``spatial.PlaneBlocks``,
@@ -687,6 +734,10 @@ class ConvPlan:
                 f"input {tuple(x.shape[-3:])} does not match plan spec "
                 f"{self.spec.in_hw + (self.spec.in_c,)} — plans bake geometry "
                 f"at build time; plan_conv a spec for this shape")
+        if isinstance(packed, TPSuperpack):
+            return _tp_apply(self, x, packed, bias)
+        if bias is not None:
+            return self.apply(x, packed) + bias
         if self.spec.spatial != (1, 1):
             from repro_torch.core import spatial
             y = spatial.try_spatial(self, x, packed)

@@ -48,13 +48,11 @@ The executor, in the steps that ``try_spatial`` chains:
   verdict or a mesh of other extents, at any other op, and at the model's
   output.
 
-Transport: ``_send_recv`` posts a step's sends and receives as one
-``batch_isend_irecv``; ``_all_gather`` and ``_all_reduce`` are
-``gather_plane``'s and the weight gradient's collectives.  On a gloo group (the
-one-card group: NCCL refuses two ranks on one device) a CUDA tensor goes
-through pinned host buffers, since gloo moves host tensors; the group's
-backend chooses this, not a caught failure.  On an NCCL group the same
-code runs on the device tensors.
+Transport (``core.comm``): ``_send_recv`` posts a step's sends and
+receives as one ``batch_isend_irecv``; ``_all_gather`` and ``_all_reduce``
+are ``gather_plane``'s and the weight gradient's collectives.  On a gloo
+group a CUDA tensor goes through pinned host buffers (``comm``'s
+docstring).
 """
 from __future__ import annotations
 
@@ -68,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import decompose as dec
+from repro_torch.core.comm import _all_gather, _all_reduce, _send_recv
 from repro_torch.core.plan import (ConvSpec, QuantizedSuperpack, Route,
                                    plan_conv)
 
@@ -293,51 +292,9 @@ def mesh_matches(mesh, axes, dev_tiles: Pair) -> bool:
 # transport
 # ---------------------------------------------------------------------------
 
-def _staged(t: torch.Tensor, group) -> bool:
-    """A CUDA tensor on a gloo group goes through host memory."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
-def _host(t: torch.Tensor) -> torch.Tensor:
-    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    return h.copy_(t)
-
-
-def _send_recv(sends, recvs, group) -> None:
-    """Post every send ``(tensor, peer)`` and every receive ``(buffer,
-    peer)`` of one exchange step as one batch and wait for all; peers are
-    global ranks, receives land in their buffers."""
-    if not sends and not recvs:
-        return
-    probe = (sends or recvs)[0][0]
-    staged = _staged(probe, group)
-    hs = [(_host(t) if staged else t, p) for t, p in sends]
-    hr = [(torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
-           if staged else b, p) for b, p in recvs]
-    ops = ([dist.P2POp(dist.isend, t, p, group) for t, p in hs]
-           + [dist.P2POp(dist.irecv, b, p, group) for b, p in hr])
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    if staged:
-        for (b, _), (h, _) in zip(recvs, hr):
-            b.copy_(h)
-
-
-def _all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
-    staged = _staged(t, group)
-    src = _host(t) if staged else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return [p.to(t.device) for p in parts] if staged else parts
-
-
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    if _staged(t, group):
-        h = _host(t)
-        dist.all_reduce(h, group=group)
-        return h.to(t.device)
-    dist.all_reduce(t, group=group)
-    return t
+# ``_send_recv``, ``_all_gather`` and ``_all_reduce`` come from
+# ``core.comm`` by name, so a patch of ``spatial._send_recv`` (the planted
+# faults of the tests and the smoke) reaches this module's calls.
 
 
 # ---------------------------------------------------------------------------

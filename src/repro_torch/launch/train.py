@@ -8,7 +8,7 @@ chunk (a quarter of the sequence, at least 16), an atomic checkpoint
 every ``ckpt_every`` steps, and ``run_with_restarts``: an injected
 ``NodeFailure`` (``fail_at``) restores the latest checkpoint and replays
 from its step, with the same batches (a batch is keyed by its step).
-The mesh (``data * model > 1``) waits for ROADMAP Queue 1 item 13b.
+The mesh (``data * model > 1``) waits for ROADMAP Queue 1 item 13c.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 20 --batch 8 --seq 64 --ckpt-dir "$TMPDIR/ckpt" \\
@@ -60,7 +60,7 @@ def train(arch: str, *, reduced=True, steps=20, batch=8, seq=64,
     if data * model > 1:
         raise NotImplementedError(
             f"train(data={data}, model={model}): the mesh is ROADMAP Queue 1 "
-            f"item 13b; the port trains on one device")
+            f"item 13c; the port trains on one device")
     if cfg is None:
         cfg = (registry.get_reduced(arch) if reduced
                else registry.get_config(arch))

@@ -4,12 +4,25 @@ cross attention and DeepSeek's MLA (multi-head latent attention with its
 compressed decode cache).
 
 Counterpart of ``repro.layers.attention``.  Layout: activations
-(B, S, D); q/k/v (B, S, H, Dh).
+(B, S, D); q/k/v (B, S, H, Dh).  ``gqa_specs``, ``cross_specs`` and
+``mla_specs`` are JAX's logical specs (q, k, v columns and the o rows on
+"heads"; MLA's ``uq``, ``uk``, ``uv`` on "heads", ``dq`` and ``dkv``
+replicated).
+
+Tensor parallelism (``dist`` with 'heads' split over TP ranks): each
+rank runs the attention core (kernel F on the card) on its local heads,
+q heads ``[r·H/TP, (r+1)·H/TP)`` and the kv heads they read (the GQA
+grouping stays contiguous); where k and v are not split at whole kv heads
+(replicated, or a block that cuts a head) the rank takes the kv heads its
+q heads read from the whole projection.  The output projection is
+row-parallel: the partial products are summed over the group in f32 and
+rounded once.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.layers import common as cm
 from repro_torch.layers import rope as rp
@@ -156,6 +169,52 @@ def gqa_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
     return p
 
 
+def gqa_specs(cfg) -> dict:
+    s = {"q": cm.dense_specs(None, "heads", cfg.qkv_bias),
+         "k": cm.dense_specs(None, "heads", cfg.qkv_bias),
+         "v": cm.dense_specs(None, "heads", cfg.qkv_bias),
+         "o": cm.dense_specs("heads", None)}
+    if cfg.qk_norm:
+        s["qn"] = cm.rmsnorm_specs()
+        s["kn"] = cm.rmsnorm_specs()
+    return s
+
+
+def _local_heads(dist, h, kh, dh):
+    """(group, the kv heads [k0, k1) this rank's q heads [q0, q1) read)
+    under ``dist``'s 'heads' split; (None, all) off a mesh or where the q
+    projection stays whole."""
+    group, i, n = cm.tp(dist, "heads", h * dh)
+    if n == 1:
+        return None, (0, kh)
+    if h % n:
+        raise NotImplementedError(
+            f"{h} heads over {n} ranks: a block that cuts a head "
+            f"(ROADMAP Queue 1 item 13c)")
+    g = h // kh
+    q0, q1 = i * h // n, (i + 1) * h // n
+    k0, k1 = q0 // g, (q1 - 1) // g + 1
+    if (q1 - q0) % max(1, k1 - k0) or (q1 - q0 < g and g % (q1 - q0)):
+        raise NotImplementedError(
+            f"local q heads [{q0}, {q1}) do not group onto kv heads "
+            f"[{k0}, {k1}) (ROADMAP Queue 1 item 13c)")
+    return group, (k0, k1)
+
+
+def _kv_local(p, x, kh, dh, dist, kv, group):
+    """The k (or v) projection's kv heads ``[k0, k1)`` on this rank: from
+    the rank's own columns where they hold those heads whole, else from
+    the whole projection (gathered over ``group`` where it is split)."""
+    k0, k1 = kv
+    y = cm.dense_apply(p, x)
+    _, i, n = cm.tp(dist, "heads", kh * dh)
+    c0 = i * (kh * dh // n)
+    if n > 1 and not (c0 <= k0 * dh and k1 * dh <= c0 + y.shape[-1]):
+        y = comm.gather_from(y, group, dim=-1, kind="kv_gather")
+        c0 = 0
+    return y[..., k0 * dh - c0:k1 * dh - c0]
+
+
 def _theta(cfg, layer_kind):
     if layer_kind == "local" and cfg.rope_theta_local:
         return cfg.rope_theta_local
@@ -171,12 +230,20 @@ def _rope(x, positions, cfg, theta):
     return rp.apply_rope(x, pos2d, theta)
 
 
-def _qkv(p, x, cfg):
+def _qkv(p, x, cfg, tp=None):
+    """(q, k, v) heads of ``x``; with ``tp`` = (dist, kv heads, group) on
+    this rank's columns of q and the kv heads they read (``_kv_local``)."""
     b, sq, _ = x.shape
-    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = cm.dense_apply(p["q"], x).reshape(b, sq, h, dh)
-    k = cm.dense_apply(p["k"], x).reshape(b, sq, kh, dh)
-    v = cm.dense_apply(p["v"], x).reshape(b, sq, kh, dh)
+    kh, dh = cfg.num_kv_heads, cfg.head_dim
+    q = cm.dense_apply(p["q"], x).reshape(b, sq, -1, dh)
+    if tp is None:
+        k = cm.dense_apply(p["k"], x)
+        v = cm.dense_apply(p["v"], x)
+    else:
+        k = _kv_local(p["k"], x, kh, dh, *tp)
+        v = _kv_local(p["v"], x, kh, dh, *tp)
+    k = k.reshape(b, sq, -1, dh)
+    v = v.reshape(b, sq, -1, dh)
     if "qn" in p:
         q = cm.rmsnorm_apply(p["qn"], q, cfg.norm_eps)
         k = cm.rmsnorm_apply(p["kn"], k, cfg.norm_eps)
@@ -184,18 +251,24 @@ def _qkv(p, x, cfg):
 
 
 def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
-              causal=True):
+              causal=True, dist=None):
     """Training / prefill self-attention.  x: (B, S, D); positions (B, S),
-    or (3, B, S) under M-RoPE."""
+    or (3, B, S) under M-RoPE.  ``dist``: tensor-parallel over 'heads'
+    (module docstring)."""
     b, sq, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    group, kv = _local_heads(dist, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim)
+    if group is None:
+        q, k, v = _qkv(p, x, cfg)
+    else:
+        q, k, v = _qkv(p, comm.copy_to(x, group), cfg, (dist, kv, group))
     theta = _theta(cfg, layer_kind)
     q = _rope(q, positions, cfg, theta)
     k = _rope(k, positions, cfg, theta)
     window = cfg.window if layer_kind == "local" else 0
     o = flash_attention(q, k, v, causal=causal, window=window,
                         kv_chunk=kv_chunk)
-    return cm.dense_apply(p["o"], o.reshape(b, sq, -1))
+    return cm.row_parallel(p["o"], o.reshape(b, sq, -1), group)
 
 
 def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
@@ -247,6 +320,13 @@ def cross_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
             "o": cm.dense_init(gen, h * dh, d, dtype)}
 
 
+def cross_specs(cfg) -> dict:
+    return {"q": cm.dense_specs(None, "heads"),
+            "k": cm.dense_specs(None, "heads"),
+            "v": cm.dense_specs(None, "heads"),
+            "o": cm.dense_specs("heads", None)}
+
+
 def cross_apply(p, x, memory, cfg, kv_chunk=1024):
     """x: (B, Sq, D) decoder states; memory: (B, Sk, D) encoder output.  q
     from the decoder, k and v from the memory, no RoPE, the shared core
@@ -283,13 +363,42 @@ def mla_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
             "o": cm.dense_init(gen, h * dv, d, dtype)}
 
 
-def _mla_q(p, x, cfg):
+def mla_specs(cfg) -> dict:
+    return {"dq": cm.dense_specs(None, None),
+            "dq_n": cm.rmsnorm_specs(),
+            "uq": cm.dense_specs(None, "heads"),
+            "dkv": cm.dense_specs(None, None),
+            "dkv_n": cm.rmsnorm_specs(),
+            "uk": cm.dense_specs(None, "heads"),
+            "uv": cm.dense_specs(None, "heads"),
+            "o": cm.dense_specs("heads", None)}
+
+
+def _mla_heads(dist, cfg):
+    """(group, local heads) of MLA under ``dist``: ``uq``, ``uk``, ``uv``
+    and ``o`` split at the same head boundaries, or all whole."""
+    h = cfg.num_heads
+    widths = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim,
+              cfg.v_head_dim)
+    splits = {cm.tp(dist, "heads", h * w)[2] for w in widths}
+    if splits == {1}:
+        return None, h
+    n = splits.pop()
+    if splits or h % n:
+        raise NotImplementedError(
+            f"MLA's {h} heads over {n} ranks cut a head or split "
+            f"uq/uk/uv unevenly (ROADMAP Queue 1 item 13c)")
+    return cm.tp(dist, "heads", h * widths[0])[0], h // n
+
+
+def _mla_q(p, x, cfg, h=None):
     """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation."""
     b, sq, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = cm.rmsnorm_apply(p["dq_n"], cm.dense_apply(p["dq"], x),
                           cfg.norm_eps)
-    q = cm.dense_apply(p["uq"], cq).reshape(b, sq, cfg.num_heads, dn + dr)
+    q = cm.dense_apply(p["uq"], cq).reshape(b, sq, h or cfg.num_heads,
+                                            dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -303,15 +412,18 @@ def _mla_kv(p, x, cfg):
     return ckv, ckv_full[..., kvr:].reshape(b, sq, 1, cfg.qk_rope_dim)
 
 
-def mla_apply(p, x, cfg, *, positions, kv_chunk=1024):
+def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
     """Training / prefill MLA (the decompressed form): q and k at head dim
     ``qk_nope + qk_rope`` (192 at deepseek-v3-671b), v zero-padded to it
     for the shared flash core (kernel F on the card: one launch) and the
-    output sliced back to ``v_head_dim``, as JAX does."""
+    output sliced back to ``v_head_dim``, as JAX does.  ``dist``: each
+    rank runs its ``H/TP`` heads (``uq``/``uk``/``uv`` columns, ``o``
+    rows, summed in f32 over the group)."""
     b, sq, _ = x.shape
-    h = cfg.num_heads
+    group, h = _mla_heads(dist, cfg)
+    x = comm.copy_to(x, group)
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, h)
     ckv, k_rope = _mla_kv(p, x, cfg)
     pos2d = positions if positions.dim() == 2 else positions[0]
     q_rope = rp.apply_rope(q_rope, pos2d, cfg.rope_theta)
@@ -324,7 +436,7 @@ def mla_apply(p, x, cfg, *, positions, kv_chunk=1024):
         v = torch.nn.functional.pad(v, (0, dn + dr - dv))
     o = flash_attention(q_full, k_full, v, causal=True, kv_chunk=kv_chunk,
                         scale=(dn + dr) ** -0.5)[..., :dv]
-    return cm.dense_apply(p["o"], o.reshape(b, sq, h * dv))
+    return cm.row_parallel(p["o"], o.reshape(b, sq, h * dv), group)
 
 
 def mla_decode(p, x, cache, cache_index, cfg):

@@ -1,9 +1,18 @@
 """Shared layer primitives on plain dicts of tensors.
 
 Counterpart of ``repro.layers.common``: the same parameter names and
-layouts (dense weights ``(in, out)``, embeddings ``(vocab, dim)``), without
-the sharding specs.  Initialisers draw from an explicit seeded
-``torch.Generator`` on the device the tensors are made on.
+layouts (dense weights ``(in, out)``, embeddings ``(vocab, dim)``).
+Initialisers draw from an explicit seeded ``torch.Generator`` on the
+device the tensors are made on; the logical sharding specs JAX's
+initialisers return beside the params come from the ``*_specs``
+functions (``dense_specs``, ``embed_specs``, ``rmsnorm_specs``), with
+JAX's axis names.
+
+On a mesh (``sharding.DistContext``) a dense layer is column-parallel
+(its out dim split: ``dense_apply`` on the rank's columns gives the
+rank's columns of the output) or row-parallel (its in dim split:
+``row_parallel`` sums the ranks' f32 partial products over the group and
+rounds once, as the single-rank product rounds once).
 
 ``dense_apply`` and ``embed_logits`` accumulate in f32, as JAX's
 ``preferred_element_type=f32`` dots do.  On the CPU (and for f32 inputs)
@@ -22,6 +31,43 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import comm
+from repro_torch.sharding import Spec
+
+
+def spec(*axes) -> Spec:
+    """Logical partition spec (axis names resolved later)."""
+    return Spec(*axes)
+
+
+def dense_specs(in_axis, out_axis, bias=False) -> dict:
+    """JAX's ``dense_init`` specs: ``w`` (in_axis, out_axis), ``b``
+    (out_axis,)."""
+    s = {"w": spec(in_axis, out_axis)}
+    if bias:
+        s["b"] = spec(out_axis)
+    return s
+
+
+def rmsnorm_specs() -> dict:
+    return {"g": spec(None)}
+
+
+def embed_specs() -> dict:
+    return {"w": spec("vocab", None)}
+
+
+def tp(dist, logical, size: int):
+    """(group, block index, block count) of a dim of ``size`` on the
+    logical axis ``logical`` (or a mesh axis named as such) under ``dist``
+    (``shard_params``' rule: (None, 0, 1) where it stays whole, and off a
+    mesh)."""
+    if dist is None or dist.mesh is None:
+        return None, 0, 1
+    entry = dist.resolve((logical,))[0]
+    i, n = dist.shard_of(entry, size)
+    return (dist.group(entry) if n > 1 else None), i, n
 
 
 def _randn(gen: torch.Generator, shape) -> torch.Tensor:
@@ -56,6 +102,29 @@ def dense_apply(p, x):
         y = torch.addmm(p["b"].to(x.dtype), x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[1])
     return torch.matmul(x, w)
+
+
+def dense_partial(p, x):
+    """``x @ w`` as its f32 sum (no bias, no rounding): the partial
+    product of a row-parallel layer."""
+    w = p["w"]
+    if _f32_product(x):
+        return torch.matmul(x.float(), w.float())
+    y = mm_f32(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def row_parallel(p, x, group, kind="row_parallel_all_reduce"):
+    """A row-parallel dense layer: the rank's rows of ``w`` on its
+    columns of ``x``, the f32 partial products summed over ``group``, the
+    bias added in f32, one rounding to ``x``'s dtype (``dense_apply``
+    itself where ``group`` is None)."""
+    if group is None:
+        return dense_apply(p, x)
+    y = comm.reduce_from(dense_partial(p, x), group, kind)
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)
 
 
 def rmsnorm_init(dim, device="cpu", dtype=torch.float32):

@@ -27,38 +27,77 @@ whatever the global setting: TF32 would change the top-k selection.
 
 Routers: 'softmax' (DBRX: top-k softmax renormalized) and 'sigmoid_bias'
 (DeepSeek-V3 aux-loss-free: sigmoid affinity + selection-only bias, the
-weights scaled by ``routed_scaling``).  JAX's expert-parallel paths
-(``moe_apply_ep``, ``moe_apply_ep_a2a``: shard_map over a mesh, with
-expert capacity) are ROADMAP Queue 1 item 13b.
+weights scaled by ``routed_scaling``).
+
+On a mesh (``moe_apply(p, x, cfg, dist)``, JAX's dispatch) a
+``moe_impl="ep"`` config takes JAX's expert-parallel semantics, with the
+expert-capacity drop (``capacity_factor``):
+
+* ``moe_apply_ep`` (one expert axis, 'model'): each model rank runs its
+  ``E/TP`` local experts over its data rank's tokens, each expert on its
+  top-``cap`` tokens by gate (``cap = min(T_l, max(1, int(T_l·k·cf) //
+  E))``, a ``gv > 0`` mask), and the f32 outputs are summed over 'model'.
+* ``moe_apply_ep_a2a`` (experts over several axes, e.g. ('data',
+  'model')): tokens padded to a multiple of the EP extent (``valid``
+  masks the pad) and split over the batch and expert axes; each rank
+  builds the ``(E, cap, D)`` dispatch of its tokens, ``all_to_all`` sends
+  each expert's block to its rank, the local experts run, ``all_to_all``
+  brings the results back and they are scatter-added in f32.
+
+Their arithmetic is JAX's EP arithmetic, not the dense path's:
+``_expert_ffn_ep`` takes its products in the input dtype and casts ``h``
+to it before ``@ wo``.  ``jax.lax.top_k`` breaks ties by the lower
+index; the capacity selection here is a stable descending sort, which
+does the same.  A ``moe_impl="dense"`` config on a mesh keeps the dense
+semantics (no capacity), its experts split as the rules say: each rank's
+experts over the tokens of its expert group, summed in f32 over the group.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.reference import ieee_fp32
 from repro_torch.layers import common as cm
+from repro_torch.sharding import _axes
 
 
-def _expert_init(gen: torch.Generator, shape, scale, dtype):
+def _expert_init(gen: torch.Generator, shape, scale, dtype, keep=None):
     """(E, ...) normal weights times ``scale`` in ``dtype``, drawn one
-    expert at a time (no f32 copy of the whole stack)."""
-    w = torch.empty(shape, dtype=dtype, device=gen.device)
+    expert at a time (no f32 copy of the whole stack).  ``keep`` = (e0,
+    e1) keeps experts ``[e0, e1)`` only, every expert still drawn (the
+    same numbers as the whole stack's)."""
+    e0, e1 = keep or (0, shape[0])
+    w = torch.empty((e1 - e0,) + tuple(shape[1:]), dtype=dtype,
+                    device=gen.device)
     for e in range(shape[0]):
-        w[e] = (cm._randn(gen, shape[1:]) * scale).to(dtype)
+        x = cm._randn(gen, shape[1:])
+        if e0 <= e < e1:
+            w[e - e0] = (x * scale).to(dtype)
     return w
 
 
-def moe_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
+def moe_init(gen: torch.Generator, cfg, dtype=torch.bfloat16, keep=None):
     """JAX's tree: ``router`` f32 (d, E), ``bias`` f32 (E,), ``wi``/``wg``
-    (E, d, de), ``wo`` (E, de, d)."""
+    (E, d, de), ``wo`` (E, de, d); ``keep`` = (e0, e1) keeps those experts
+    of the three stacks (a rank's block, drawn in the whole stack's
+    order)."""
     d, de, e = cfg.d_model, cfg.d_expert, cfg.n_experts
     scale = d ** -0.5
     return {"router": cm._randn(gen, (d, e)) * scale,
             "bias": torch.zeros((e,), dtype=torch.float32,
                                 device=gen.device),
-            "wi": _expert_init(gen, (e, d, de), scale, dtype),
-            "wg": _expert_init(gen, (e, d, de), scale, dtype),
-            "wo": _expert_init(gen, (e, de, d), de ** -0.5, dtype)}
+            "wi": _expert_init(gen, (e, d, de), scale, dtype, keep),
+            "wg": _expert_init(gen, (e, d, de), scale, dtype, keep),
+            "wo": _expert_init(gen, (e, de, d), de ** -0.5, dtype, keep)}
+
+
+def moe_specs() -> dict:
+    """JAX's ``moe_init`` specs."""
+    return {"router": cm.spec(None, None), "bias": cm.spec(None),
+            "wi": cm.spec("expert", None, "expert_ffn"),
+            "wg": cm.spec("expert", None, "expert_ffn"),
+            "wo": cm.spec("expert", "expert_ffn", None)}
 
 
 def _route(x2d, p, cfg):
@@ -116,24 +155,20 @@ def moe_apply_dense(p, x, cfg):
     return out.to(x.dtype).reshape(b, s, d)
 
 
-def moe_apply(p, x, cfg):
-    """The one-card MoE (prefill, forward): ``moe_apply_dense``'s result,
-    computed as one product per expert over the tokens routed to it
-    (sorted by expert), the gated outputs scatter-added in f32 (each
-    expert's call adds once to a token, in expert order: deterministic on
-    the card), cast once.  Eager only: the expert counts go to the
-    host."""
-    b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
-    w, idx = _route(x2, p, cfg)
+def _moe_sorted(p, x2, w, idx, cfg, e0=0):
+    """The f32 sum over tokens' selected experts among the ``p`` experts
+    ``[e0, e0 + E_l)``: the tokens sorted by expert, one product per
+    expert that has any, ``gate · y`` scatter-added in expert order."""
+    e_l = p["wi"].shape[0]
     flat = idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
     tok = order // cfg.top_k                  # token of each sorted slot
     gate = w.reshape(-1)[order]
     counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
-    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
-    start = 0
-    for e, n in enumerate(counts):
+    out = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
+    start = sum(counts[:e0])
+    for e in range(e_l):
+        n = counts[e0 + e]
         if n == 0:
             continue
         t = tok[start:start + n]
@@ -141,7 +176,227 @@ def moe_apply(p, x, cfg):
                             x2.index_select(0, t), cfg.act)
         out.index_add_(0, t, y * gate[start:start + n, None])
         start += n
+    return out
+
+
+def moe_apply(p, x, cfg, dist=None):
+    """The MoE FFN (prefill, forward).  Off a mesh: ``moe_apply_dense``'s
+    result, computed as one product per expert over the tokens routed to
+    it (sorted by expert), the gated outputs scatter-added in f32 (each
+    expert's call adds once to a token, in expert order: deterministic on
+    the card), cast once.  Eager only: the expert counts go to the
+    host.  On a mesh JAX's dispatch: ``moe_impl="ep"`` takes
+    ``moe_apply_ep_a2a`` where ``rules["expert"]`` is a tuple,
+    ``moe_apply_ep`` where it is one axis; a dense config keeps the dense
+    semantics on its split experts (``_moe_dense_split``)."""
+    if dist is not None and dist.mesh is not None:
+        if cfg.moe_impl == "ep":
+            if isinstance(dist.rules.get("expert"), tuple):
+                return moe_apply_ep_a2a(p, x, cfg, dist)
+            return moe_apply_ep(p, x, cfg, dist)
+        return _moe_dense_split(p, x, cfg, dist)
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    w, idx = _route(x2, p, cfg)
+    return _moe_sorted(p, x2, w, idx, cfg).to(x.dtype).reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _expert_split(dist, cfg):
+    """(mesh axes the experts split over, their group, this rank's first
+    expert, local count); refuses a split expert hidden dim."""
+    if dist.extent(dist.rules.get("expert_ffn")) > 1:
+        raise NotImplementedError(
+            "experts split on their hidden dim ('expert_ffn'): ROADMAP "
+            "Queue 1 item 13c")
+    entry = dist.rules.get("expert")
+    i, n = dist.shard_of(entry, cfg.n_experts)
+    axes = tuple(a for a in _axes(entry) if dist.extent(a) > 1) if n > 1 \
+        else ()
+    return axes, dist.group(axes), i * (cfg.n_experts // n), \
+        cfg.n_experts // n
+
+
+def _batch_axes(dist) -> tuple:
+    return tuple(a for a in _axes(dist.rules.get("batch"))
+                 if dist.extent(a) > 1)
+
+
+def _moe_dense_split(p, x, cfg, dist):
+    """Dense semantics on split experts: the tokens of every rank that
+    holds other experts gathered (over the batch axes the expert group
+    spans), each rank's experts over them in f32, the sum over the
+    expert group, this rank's rows, cast once."""
+    b, s, d = x.shape
+    axes, group, e0, _ = _expert_split(dist, cfg)
+    x2 = x.reshape(b * s, d)
+    shared = tuple(a for a in _batch_axes(dist) if a in axes)
+    tgroup = dist.group(shared)
+    xa = comm.gather_from(x2, tgroup, dim=0, kind="moe_token_gather")
+    w, idx = _route(xa, p, cfg)
+    out = comm.reduce_from(_moe_sorted(p, xa, w, idx, cfg, e0), group,
+                           kind="moe_all_reduce")
+    out = comm.split_to(out, tgroup, dim=0)
     return out.to(x.dtype).reshape(b, s, d)
+
+
+def _top_k(v, k: int):
+    """``jax.lax.top_k`` along the last dim: values descending, ties by
+    the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _mm_in(a, b):
+    """``a @ b`` in JAX's promoted dtype of the two (f32 sum, one
+    rounding): IEEE f32 products on the CPU and for f32 operands."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if a.device.type == "cpu" or dt == torch.float32:
+        with ieee_fp32():
+            return torch.matmul(a.float(), b.float()).to(dt)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _expert_ffn_ep(wi, wg, wo, x, act):
+    """JAX's ``_expert_ffn``: ``act(x·wg) * (x·wi)`` in f32 from products
+    in the input dtype, cast to it before ``· wo``."""
+    h = cm.ACTS[act](_mm_in(x, wg).float()) * _mm_in(x, wi).float()
+    return _mm_in(h.to(x.dtype), wo)
+
+
+def _capacity(t_l: int, cfg) -> int:
+    return min(t_l, max(1, int(t_l * cfg.top_k * cfg.capacity_factor)
+                        // cfg.n_experts))
+
+
+def ep_local_body(x2, p, cfg, e0: int):
+    """JAX's ``_ep_local_body`` on one rank before its psum: the f32 sum
+    of this rank's experts ``[e0, e0 + E_l)`` over its tokens ``x2``
+    (T_l, D), each expert on its top-``cap`` tokens by gate."""
+    t_l, d = x2.shape
+    w, idx = _route(x2, p, cfg)
+    cap = _capacity(t_l, cfg)
+    out = torch.zeros((t_l, d), dtype=torch.float32, device=x2.device)
+    for e in range(p["wi"].shape[0]):
+        gate_e = torch.where(idx == e0 + e, w, 0.0).sum(-1)
+        gv, tok = _top_k(gate_e, cap)
+        ye = _expert_ffn_ep(p["wi"][e], p["wg"][e], p["wo"][e],
+                            x2.index_select(0, tok), cfg.act)
+        ye = ye.float() * gv[:, None]
+        out.index_add_(0, tok, torch.where((gv > 0)[:, None], ye, 0.0))
+    return out
+
+
+def moe_apply_ep(p, x, cfg, dist):
+    """JAX's ``moe_apply_ep``: this rank's tokens (its batch rows, as
+    ``x`` holds them) through its ``E/TP`` experts with the capacity
+    drop, the f32 outputs summed over the expert axis, cast once."""
+    b, s, d = x.shape
+    axes, group, e0, _ = _expert_split(dist, cfg)
+    if len(axes) > 1:
+        raise ValueError(f"moe_apply_ep takes one expert axis, got {axes}")
+    x2 = comm.copy_to(x.reshape(b * s, d), group)
+    out = comm.reduce_from(ep_local_body(x2, p, cfg, e0), group,
+                           kind="ep_psum")
+    return out.to(x.dtype).reshape(b, s, d)
+
+
+def ep_dispatch(x2, valid, p, cfg):
+    """One rank's side of JAX's ``_ep_a2a_body`` up to the first
+    all-to-all: (the (E, cap, D) dispatch buffer, the gates (E, cap),
+    their tokens (E, cap))."""
+    t_l, d = x2.shape
+    e = cfg.n_experts
+    w, idx = _route(x2, p, cfg)
+    w = w * valid[:, None].to(w.dtype)
+    cap = _capacity(t_l, cfg)
+    gates = torch.zeros((t_l, e), dtype=torch.float32,
+                        device=x2.device).scatter_add_(1, idx, w)
+    gv, tok = _top_k(gates.t(), cap)                           # (E, cap)
+    buf = x2.index_select(0, tok.reshape(-1)).reshape(e, cap, d)
+    buf = torch.where((gv > 0)[..., None], buf, torch.zeros((), dtype=buf.dtype,
+                                                             device=buf.device))
+    return buf, gv, tok
+
+
+def ep_experts(recv, p, cfg, n_dev: int):
+    """The local experts on what the first all-to-all delivered: recv
+    (E, cap, D) in (source rank, local expert) order -> the results in
+    the same order."""
+    e_l = p["wi"].shape[0]
+    _, cap, d = recv.shape
+    recv = recv.reshape(n_dev, e_l, cap, d)
+    outs = [_expert_ffn_ep(p["wi"][el], p["wg"][el], p["wo"][el],
+                           recv[:, el].reshape(n_dev * cap, d),
+                           cfg.act).reshape(n_dev, cap, d)
+            for el in range(e_l)]
+    return torch.stack(outs, 1).reshape(n_dev * e_l, cap, d)
+
+
+def ep_combine(ret, gv, tok, t_l: int, dtype):
+    """The scatter-add of the returned expert outputs times their gates,
+    in f32, cast once."""
+    d = ret.shape[-1]
+    flat = (ret.float() * gv[..., None]).reshape(-1, d)
+    flat = torch.where((gv > 0).reshape(-1, 1), flat, 0.0)
+    y = torch.zeros((t_l, d), dtype=torch.float32, device=ret.device)
+    y.index_add_(0, tok.reshape(-1), flat)
+    return y.to(dtype)
+
+
+def moe_apply_ep_a2a(p, x, cfg, dist):
+    """JAX's ``moe_apply_ep_a2a``: the (B·S) tokens padded to a multiple
+    of the EP extent and split over the batch and expert axes (in mesh
+    order, the first axis major); each rank dispatches its block to the
+    experts' ranks (``all_to_all``), runs its local experts, takes the
+    results back (``all_to_all``) and scatter-adds them; the blocks are
+    gathered back into this rank's batch rows."""
+    b, s, d = x.shape
+    axes, group, _, _ = _expert_split(dist, cfg)
+    n_ep = dist.extent(axes)
+    names = list(dist.mesh.mesh_dim_names)
+    tok_axes = tuple(sorted(set(_batch_axes(dist)) | set(axes),
+                            key=names.index))
+    ba = _batch_axes(dist)
+    t_loc = b * s
+    n_tok = dist.extent(tok_axes)
+    n_b = dist.extent(ba)
+    x2 = x.reshape(t_loc, d)
+    if tok_axes[:len(ba)] == ba and t_loc % (n_tok // n_b) == 0:
+        # this rank's batch rows are its tok group's blocks: split them
+        inner = dist.group(tok_axes[len(ba):])
+        xt = comm.split_to(x2, inner, dim=0, kind="moe_token_split")
+        valid = torch.ones((xt.shape[0],), dtype=torch.bool, device=x.device)
+        t_l = xt.shape[0]
+        pad = 0
+    else:
+        # the general case: every token of the batch, padded, split
+        bgroup = dist.group(ba)
+        inner = dist.group(tok_axes)
+        xa = comm.gather_from(x2, bgroup, dim=0, kind="moe_token_gather")
+        tokens = xa.shape[0]
+        padded = -(-tokens // n_tok) * n_tok
+        pad = padded - tokens
+        valid = torch.arange(padded, device=x.device) < tokens
+        xa = torch.nn.functional.pad(xa, (0, 0, 0, pad))
+        xt = comm.split_to(xa, inner, dim=0, kind="moe_token_split")
+        i, _ = dist.shard_of(tok_axes, padded)
+        t_l = xt.shape[0]
+        valid = valid[i * t_l:(i + 1) * t_l]
+    buf, gv, tok = ep_dispatch(xt, valid, p, cfg)
+    recv = comm.all_to_all_fn(buf, group, kind="ep_all_to_all")
+    back = ep_experts(recv, p, cfg, n_ep)
+    ret = comm.all_to_all_fn(back, group, kind="ep_all_to_all")
+    y = ep_combine(ret, gv, tok, t_l, x.dtype)
+    y = comm.gather_from(y, inner, dim=0, kind="moe_token_gather")
+    if pad or y.shape[0] != t_loc:
+        y = y[:y.shape[0] - pad]
+        y = comm.split_to(y, dist.group(ba), dim=0)
+    return y.reshape(b, s, d)
 
 
 def moe_decode(p, x, cfg):

@@ -36,6 +36,14 @@ def rglru_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
     }
 
 
+def rglru_specs() -> dict:
+    """JAX's ``rglru_init`` specs (the width on "heads")."""
+    return {"in_x": cm.spec(None, "heads"), "in_g": cm.spec(None, "heads"),
+            "conv": cm.spec(None, "heads"),
+            "wa": cm.spec(None, "heads"), "wx": cm.spec(None, "heads"),
+            "lam": cm.spec("heads"), "out": cm.spec("heads", None)}
+
+
 def _rglru_gates(p, x):
     """x: (..., dr) post-conv branch -> (a, gated_x) in f32."""
     rg = torch.sigmoid(cm.dense_apply({"w": p["wa"]}, x).float())

@@ -40,6 +40,15 @@ def ssd_init(gen: torch.Generator, cfg, dtype=torch.bfloat16):
     }
 
 
+
+def ssd_specs() -> dict:
+    """JAX's ``ssd_init`` specs (the fused in-proj and the width on
+    "heads")."""
+    return {"in": cm.spec(None, "heads"), "conv": cm.spec(None, "heads"),
+            "A_log": cm.spec(None), "D": cm.spec(None),
+            "dt_bias": cm.spec(None), "norm": cm.spec("heads"),
+            "out": cm.spec("heads", None)}
+
 def _split_in(y, cfg):
     di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     return torch.split(y, [di, di, g * n, g * n, cfg.ssm_heads], dim=-1)

@@ -3,7 +3,7 @@ failure at step 12: atomic checkpoints every 5 steps, the restart from the
 latest one, and the data pipeline resumed exactly by step.
 
 Counterpart of ``examples/lm_train.py`` on one device (the JAX example's
-2x2 mesh waits for ROADMAP Queue 1 item 13b).  The checkpoints go to a
+2x2 mesh waits for ROADMAP Queue 1 item 13c).  The checkpoints go to a
 temporary directory.
 
     PYTHONPATH=src python -m repro_torch.lm_train [--steps 30] [--batch 8]

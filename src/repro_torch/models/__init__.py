@@ -4,7 +4,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import comm
 from repro_torch.core.plan import QuantizedSuperpack
+from repro_torch.layers import common as cm
+
+
+def shard(p: dict, specs: dict, dist) -> dict:
+    """``p`` placed per ``specs`` on ``dist``'s mesh (each rank's blocks;
+    superpacks split on their out-channels as ``TPSuperpack``s); ``p``
+    itself for ``dist=None``."""
+    return p if dist is None else dist.shard_params(p, specs)
+
+
+def gather_cols(y: torch.Tensor, dist, full: int) -> torch.Tensor:
+    """``y``, the product of a (None, 'conv_out') weight's column block,
+    gathered whole over the 'conv_out' axes in rank order (``y`` itself
+    where the weight stays whole)."""
+    group, _, _ = cm.tp(dist, "conv_out", full)
+    if group is None:
+        return y
+    return comm.gather_from(y, group, dim=-1, kind="feature_gather")
 
 
 def params_from_numpy(np_params: dict, want: dict,

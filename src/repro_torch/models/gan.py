@@ -15,6 +15,17 @@ non-saturating loss pair.
 resolved once at model load); ``GANConfig.wdtype='int8'`` stores every conv weight as a
 ``QuantizedSuperpack`` (quantized at pack), which the 'cuda' route runs on
 the kernels' int8 entries.
+
+``generator_specs``/``discriminator_specs`` are JAX's logical specs
+(superpacks ``("conv_taps", "conv_out")``, biases ``("conv_out",)``, the
+generator's ``proj`` ``(None, "conv_out")``, the discriminator's ``head``
+``("model", None)``); ``*_init(dist=)`` gives each rank its blocks
+(``DistContext.shard_params``) and ``*_apply(dist=)`` runs them: every
+superpack site whose out-channels split is a tensor-parallel site
+(``core.plan.TPSuperpack``: the local plan on the rank's columns, its bias
+block, the channels gathered), ``proj``'s column block (a block of the
+flattened (h, w, c) features) is gathered before ``dc0``, and the
+``head``'s partial logits are summed in f32.
 """
 from __future__ import annotations
 
@@ -29,7 +40,9 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import params_from_numpy
+from repro_torch.layers import common as cm
+from repro_torch.models import gather_cols, params_from_numpy, shard
+from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +140,30 @@ def _cpu_generator(seed_or_generator) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed_or_generator))
 
 
-def generator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
+def generator_specs(cfg: GANConfig) -> dict:
+    """JAX's ``generator_init`` specs."""
+    s = {"proj": Spec(None, "conv_out")}
+    for i in range(len(cfg.layers)):
+        s[f"dc{i}"] = SUPERPACK_SPEC
+        s[f"b{i}"] = Spec("conv_out")
+    return s
+
+
+def discriminator_specs(cfg: GANConfig) -> dict:
+    """JAX's ``discriminator_init`` specs."""
+    s = {f"c{i}": SUPERPACK_SPEC for i in range(len(cfg.layers))}
+    s["head"] = Spec("model", None)
+    return s
+
+
+def generator_init(seed_or_generator, cfg: GANConfig, device="cuda",
+                   dist=None):
     """Random generator params with the deconv weights already packed.
 
     ``seed_or_generator`` is an int seed or a CPU ``torch.Generator``; the
     draws are made on the CPU (so a seed gives the same weights on every
-    device) and moved to ``device``.  Returns ``{'proj', 'dc{i}', 'b{i}'}``.
+    device) and moved to ``device``.  Returns ``{'proj', 'dc{i}', 'b{i}'}``
+    (this rank's blocks of them under ``dist``, ``generator_specs``).
     """
     dev = resolve_device(device)
     gen = _cpu_generator(seed_or_generator)
@@ -145,13 +176,16 @@ def generator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
                              generator=gen) * 0.02
         p[f"dc{i}"] = plans[i].pack(kernel)
         p[f"b{i}"] = torch.zeros((l.out_c,))
-    return {k: v.to(dev) for k, v in p.items()}
+    return shard({k: v.to(dev) for k, v in p.items()},
+                 generator_specs(cfg), dist)
 
 
-def discriminator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
+def discriminator_init(seed_or_generator, cfg: GANConfig, device="cuda",
+                       dist=None):
     """Random discriminator params: ``c{i}`` the mirrored strided convs'
-    (R·S·C, N) superpacks, ``head`` the (features, 1) logit projection.
-    Draws are made on the CPU, as in ``generator_init``."""
+    (R·S·C, N) superpacks, ``head`` the (features, 1) logit projection
+    (this rank's blocks under ``dist``, ``discriminator_specs``).  Draws
+    are made on the CPU, as in ``generator_init``."""
     dev = resolve_device(device)
     gen = _cpu_generator(seed_or_generator)
     plans = discriminator_plans(cfg)
@@ -162,7 +196,8 @@ def discriminator_init(seed_or_generator, cfg: GANConfig, device="cuda"):
                              generator=gen) * 0.02
         p[f"c{i}"] = plans[i].pack(kernel)
     p["head"] = torch.randn((_head_features(cfg), 1), generator=gen) * 0.02
-    return {k: v.to(dev) for k, v in p.items()}
+    return shard({k: v.to(dev) for k, v in p.items()},
+                 discriminator_specs(cfg), dist)
 
 
 def _head_features(cfg: GANConfig) -> int:
@@ -195,14 +230,17 @@ def dparams_from_jax(np_params: dict, cfg: GANConfig, device="cuda"):
     return params_from_numpy(np_params, want, dev)
 
 
-def generator_apply(p, z: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
-    """Latents (B, z_dim) -> images (B, H, W, 3) in [-1, 1], NHWC."""
+def generator_apply(p, z: torch.Tensor, cfg: GANConfig,
+                    dist=None) -> torch.Tensor:
+    """Latents (B, z_dim) -> images (B, H, W, 3) in [-1, 1], NHWC
+    (``dist``: the params are each rank's blocks, module docstring)."""
     plans = generator_plans(cfg, z.dtype)      # cache hits after model load
     l0 = cfg.layers[0]
-    x = torch.relu(torch.matmul(z, p["proj"]))
-    x = x.reshape(z.shape[0], l0.in_hw, l0.in_hw, l0.in_c)
+    x = gather_cols(torch.matmul(z, p["proj"]), dist,
+                    l0.in_hw * l0.in_hw * l0.in_c)
+    x = torch.relu(x).reshape(z.shape[0], l0.in_hw, l0.in_hw, l0.in_c)
     for i, plan in enumerate(plans):
-        x = plan.apply(x, p[f"dc{i}"]) + p[f"b{i}"]
+        x = plan.apply(x, p[f"dc{i}"], bias=p[f"b{i}"])
         x = torch.tanh(x) if i == len(plans) - 1 else torch.relu(x)
     return gather_plane(x)
 
@@ -216,12 +254,17 @@ def generator_unpack(p, cfg: GANConfig):
     return out
 
 
-def discriminator_apply(p, x: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
+def discriminator_apply(p, x: torch.Tensor, cfg: GANConfig,
+                        dist=None) -> torch.Tensor:
     """Images (B, H, W, 3) NHWC -> logits (B, 1)."""
     plans = discriminator_plans(cfg, x.dtype)
     for i, plan in enumerate(plans):
         x = F.leaky_relu(plan.apply(x, p[f"c{i}"]), 0.2)
-    return torch.matmul(x.reshape(x.shape[0], -1), p["head"])
+    x = x.reshape(x.shape[0], -1)
+    group, i, n = cm.tp(dist, "model", x.shape[-1])
+    blk = x.shape[-1] // n
+    return cm.row_parallel({"w": p["head"]}, x.narrow(-1, i * blk, blk),
+                           group, kind="head_all_reduce")
 
 
 def discriminator_unpack(p, cfg: GANConfig):

@@ -28,7 +28,8 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import params_from_numpy
+from repro_torch.models import params_from_numpy, shard
+from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,14 +113,25 @@ def segnet_plans(cfg: SegNetConfig,
         for l in cfg.layers)
 
 
-def segnet_init(seed_or_generator, cfg: SegNetConfig, device="cuda"):
+def segnet_specs(cfg: SegNetConfig) -> dict:
+    """JAX's ``segnet_init`` specs: ``w{i}`` ``SUPERPACK_SPEC``, ``b{i}``
+    ``("conv_out",)``."""
+    s = {}
+    for i in range(len(cfg.layers)):
+        s[f"w{i}"] = SUPERPACK_SPEC
+        s[f"b{i}"] = Spec("conv_out")
+    return s
+
+
+def segnet_init(seed_or_generator, cfg: SegNetConfig, device="cuda",
+                dist=None):
     """Random params with every conv weight superpacked: ``w{i}`` the
     (R·S·C, N) superpack (a ``QuantizedSuperpack`` under ``wdtype='int8'``)
     drawn He-normal, ``b{i}`` zeros.  ``seed_or_generator`` is an int seed
     or a CPU ``torch.Generator``; the draws are made on the CPU, so a seed
-    gives the same weights on every device.  Returns the params only: the
-    logical sharding specs JAX returns beside them wait for the
-    data-parallel slice."""
+    gives the same weights on every device.  Returns the params (this
+    rank's blocks under ``dist``; their specs are ``segnet_specs``: a
+    split site runs tensor-parallel, ``core.plan.TPSuperpack``)."""
     dev = resolve_device(device)
     gen = seed_or_generator if isinstance(seed_or_generator,
                                           torch.Generator) \
@@ -131,7 +143,8 @@ def segnet_init(seed_or_generator, cfg: SegNetConfig, device="cuda"):
                              generator=gen) * (2.0 / fan_in) ** 0.5
         p[f"w{i}"] = plan.pack(kernel)
         p[f"b{i}"] = torch.zeros((l.out_c,))
-    return {k: v.to(dev) for k, v in p.items()}
+    return shard({k: v.to(dev) for k, v in p.items()}, segnet_specs(cfg),
+                 dist)
 
 
 def params_from_jax(np_params: dict, cfg: SegNetConfig, device="cuda"):
@@ -153,7 +166,7 @@ def segnet_apply(p, x: torch.Tensor, cfg: SegNetConfig) -> torch.Tensor:
     wide product) per site, differentiable through the §3.2.3 backward."""
     plans = segnet_plans(cfg, x.dtype)          # cache hits after model load
     for i, plan in enumerate(plans):
-        x = plan.apply(x, p[f"w{i}"]) + p[f"b{i}"]
+        x = plan.apply(x, p[f"w{i}"], bias=p[f"b{i}"])
         if i < len(plans) - 1:
             x = torch.relu(x)
     return gather_plane(x)

@@ -18,6 +18,21 @@ dict per layer in execution order (``params["layers"]``, kinds from
 of tensors with JAX's names.  ``remat=True`` recomputes each layer in
 the backward (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint``
 of each stage's scan body.
+
+On a (data, model) mesh (``dist``, a ``sharding.DistContext``): ``specs``
+(``layer_specs``, ``block_specs``) gives JAX's logical spec tree in the
+port's unstacked layout (JAX's ``init`` specs with ``stack_specs``'
+leading None taken off), ``init(..., dist=)`` each rank's blocks of the
+seeded params (``shard_params``; a MoE layer's experts drawn in the whole
+stack's order and only the rank's kept).  ``hidden``, ``forward`` and
+``encode`` take ``dist``: the batch (whole on every rank, as JAX's jit
+takes a global array) is split over the batch axes, attention and the
+dense FFN run tensor-parallel, the MoE on its mesh path
+(``moe.moe_apply``), the embedding vocab-parallel (each rank looks up the
+ids in its vocab block, zeros the rest, and the ranks' rows are summed)
+and the readout gives each rank its rows and its vocab block of the
+logits, JAX's ``P(batch, None, "vocab")``.  The ``rec``, ``ssd`` and
+``dec`` kinds refuse a mesh whose rules split their weights.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import comm
 from repro_torch.layers import attention as attn
 from repro_torch.layers import common as cm
 from repro_torch.layers import mlp as mlp_lib
@@ -85,7 +101,8 @@ def _rms(p, x, cfg):
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
+def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16,
+               experts=None):
     """One layer's params, JAX's ``init_layer`` tree: an ``ssd`` layer is
     mixer-only (no ``ln2``/FFN); a MoE kind has ``moe`` (and ``shared``, a
     GLU of width ``d_expert · n_shared``, where the config has shared
@@ -110,7 +127,7 @@ def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
         p["cross"] = attn.cross_init(gen, cfg, dtype)
     p["ln2"] = cm.rmsnorm_init(cfg.d_model, dev)
     if kind in MOE_KINDS:
-        p["moe"] = moe_lib.moe_init(gen, cfg, dtype)
+        p["moe"] = moe_lib.moe_init(gen, cfg, dtype, keep=experts)
         if cfg.n_shared:
             p["shared"] = mlp_lib.glu_init(gen, cfg.d_model,
                                            cfg.d_expert * cfg.n_shared,
@@ -123,33 +140,96 @@ def init_layer(gen: torch.Generator, kind: str, cfg, dtype=torch.bfloat16):
     return p
 
 
-def init_block(gen: torch.Generator, kinds, cfg, dtype=torch.bfloat16):
-    return {f"l{i}": init_layer(gen, kind, cfg, dtype)
-            for i, kind in enumerate(kinds)}
-
-
-def init(cfg, *, seed=0, device="cuda", dtype=torch.bfloat16):
+def init(cfg, *, seed=0, device="cuda", dtype=torch.bfloat16, dist=None):
     """Random params from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (JAX's shapes and scales, not its numbers)."""
+    ``device`` (JAX's shapes and scales, not its numbers).  With ``dist``
+    on a mesh: this rank's blocks of the same params (``specs``), each
+    leaf cut as it is drawn."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = {"embed": cm.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                     dtype)}
-    layers = []
-    for kinds, reps in cfg.stages:
-        for _ in range(reps):
-            block = init_block(gen, kinds, cfg, dtype)
-            layers += [block[f"l{i}"] for i in range(len(kinds))]
-    params["layers"] = layers
+    mesh = dist is not None and dist.mesh is not None
+
+    def put(p, sp):
+        if not mesh:
+            return p
+        # a block that is a view of the whole draw is copied out, so the
+        # whole storage goes
+        return _map(lambda t: t.clone() if t.untyped_storage().nbytes()
+                    > t.numel() * t.element_size() else t,
+                    dist.shard_params(p, sp))
+
+    def layer(kind):
+        keep, sp = None, layer_specs(kind, cfg)
+        if mesh and kind in MOE_KINDS:
+            i, n = dist.shard_of(dist.rules["expert"], cfg.n_experts)
+            keep = (i * cfg.n_experts // n, (i + 1) * cfg.n_experts // n)
+            for k in ("wi", "wg", "wo"):        # already the rank's block
+                sp["moe"][k] = cm.spec(None, None, None)
+        return put(init_layer(gen, kind, cfg, dtype, experts=keep), sp)
+
+    params = {"embed": put(cm.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype), cm.embed_specs())}
+    params["layers"] = [layer(kind) for kind in layer_kinds(cfg)]
     if cfg.is_encoder_decoder:
-        params["enc_layers"] = [init_layer(gen, kind, cfg, dtype)
+        params["enc_layers"] = [layer(kind)
                                 for kind in enc_layer_kinds(cfg)]
         params["enc_norm"] = cm.rmsnorm_init(cfg.d_model, gen.device)
     params["final_norm"] = cm.rmsnorm_init(cfg.d_model, gen.device)
     if not cfg.tie_embeddings:
-        params["head"] = cm.dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                       dtype)
+        params["head"] = put(cm.dense_init(gen, cfg.d_model,
+                                           cfg.padded_vocab, dtype),
+                             cm.dense_specs(None, "vocab"))
     return params
+
+
+def layer_specs(kind: str, cfg) -> dict:
+    """JAX's ``init_layer`` specs for one layer."""
+    _check_kind(kind)
+    s = {"ln1": cm.rmsnorm_specs()}
+    if kind == "ssd":
+        s["ssd"] = ssm_lib.ssd_specs()
+        if cfg.sandwich_norm:
+            s["pn1"] = cm.rmsnorm_specs()
+        return s
+    if kind == "rec":
+        s["rec"] = rglru_lib.rglru_specs()
+    elif kind in MLA_KINDS:
+        s["attn"] = attn.mla_specs(cfg)
+    else:
+        s["attn"] = attn.gqa_specs(cfg)
+    if kind == "dec":
+        s["lnx"] = cm.rmsnorm_specs()
+        s["cross"] = attn.cross_specs(cfg)
+    s["ln2"] = cm.rmsnorm_specs()
+    if kind in MOE_KINDS:
+        s["moe"] = moe_lib.moe_specs()
+        if cfg.n_shared:
+            s["shared"] = mlp_lib.glu_specs()
+    else:
+        s["mlp"] = mlp_lib.glu_specs()
+    if cfg.sandwich_norm:
+        s["pn1"] = cm.rmsnorm_specs()
+        s["pn2"] = cm.rmsnorm_specs()
+    return s
+
+
+def block_specs(kinds, cfg) -> dict:
+    """Specs for one block (JAX's ``block_specs``, no leading dim)."""
+    return {f"l{i}": layer_specs(kind, cfg) for i, kind in enumerate(kinds)}
+
+
+def specs(cfg) -> dict:
+    """The logical spec tree of ``init``'s params, layer by layer."""
+    check_supported(cfg)
+    s = {"embed": cm.embed_specs(),
+         "layers": [layer_specs(k, cfg) for k in layer_kinds(cfg)]}
+    if cfg.is_encoder_decoder:
+        s["enc_layers"] = [layer_specs(k, cfg) for k in enc_layer_kinds(cfg)]
+        s["enc_norm"] = cm.rmsnorm_specs()
+    s["final_norm"] = cm.rmsnorm_specs()
+    if not cfg.tie_embeddings:
+        s["head"] = cm.dense_specs(None, "vocab")
+    return s
 
 
 def param_stacks(cfg, params) -> list[list[str]]:
@@ -228,8 +308,31 @@ def _sandwich(p, key, h, cfg):
     return _rms(p[key], h, cfg) if cfg.sandwich_norm else h
 
 
-def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024):
+def _check_mesh(kind, cfg, dist):
+    """Refuse a layer kind this port does not shard on a mesh whose rules
+    would split its weights."""
+    if dist is None or dist.mesh is None or kind not in ("rec", "ssd",
+                                                         "dec"):
+        return
+    if kind == "rec":
+        sizes = (cfg.lru_width,)
+    elif kind == "ssd":
+        di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+        sizes = (di, 2 * di + 2 * gn + cfg.ssm_heads, di + 2 * gn)
+    else:
+        sizes = (cfg.num_heads * cfg.head_dim,
+                 cfg.num_kv_heads * cfg.head_dim)
+    if any(cm.tp(dist, "heads", n)[2] > 1 for n in sizes):
+        raise NotImplementedError(
+            f"layer kind {kind!r} on a mesh that splits its weights over "
+            f"'heads': tensor parallelism for the rec, ssd and cross-"
+            f"attention kinds is ROADMAP Queue 1 item 13c")
+
+
+def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024,
+                dist=None):
     _check_kind(kind)
+    _check_mesh(kind, cfg, dist)
     h = _rms(p["ln1"], x, cfg)
     if kind == "ssd":
         h = ssm_lib.ssd_apply(p["ssd"], h, cfg)
@@ -238,28 +341,30 @@ def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024):
         h = rglru_lib.rglru_apply(p["rec"], h, cfg)
     elif kind in MLA_KINDS:
         h = attn.mla_apply(p["attn"], h, cfg, positions=positions,
-                           kv_chunk=kv_chunk)
+                           kv_chunk=kv_chunk, dist=dist)
     else:
         h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
                            layer_kind=_attn_kind(kind), kv_chunk=kv_chunk,
-                           causal=kind != "enc")
+                           causal=kind != "enc", dist=dist)
     x = x + _sandwich(p, "pn1", h, cfg)
     if kind == "dec":
         x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
                                  cfg, kv_chunk=kv_chunk)
-    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply)
+    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply, dist)
     return x + _sandwich(p, "pn2", h, cfg)
 
 
-def _ffn(p, h, kind, cfg, moe_fn):
+def _ffn(p, h, kind, cfg, moe_fn, dist=None):
     """The FFN sublayer on the normed ``h``: the dense GLU, or the MoE
     (``moe_fn``: the prefill's or the decode's form) plus the shared
     expert."""
     if kind not in MOE_KINDS:
-        return mlp_lib.glu_apply(p["mlp"], h, cfg.act)
-    y = moe_fn(p["moe"], h, cfg)
+        return mlp_lib.glu_apply(p["mlp"], h, cfg.act, dist, cfg.d_ff)
+    y = moe_fn(p["moe"], h, cfg) if dist is None else \
+        moe_fn(p["moe"], h, cfg, dist)
     if cfg.n_shared:
-        y = y + mlp_lib.glu_apply(p["shared"], h, cfg.act)
+        y = y + mlp_lib.glu_apply(p["shared"], h, cfg.act, dist,
+                                  cfg.d_expert * cfg.n_shared)
     return y
 
 
@@ -280,16 +385,48 @@ def _embed_scale(x, cfg):
     return x
 
 
-def _embed_in(params, batch, cfg):
+def _embed_lookup(p, ids, cfg, dist=None):
+    """The embedding rows of ``ids``; vocab-parallel where ``dist``
+    splits 'vocab': the rank's rows of the ids in its block, zeros
+    elsewhere, summed over the group (in f32: one nonzero term a row,
+    exact)."""
+    group, i, n = cm.tp(dist, "vocab", cfg.padded_vocab)
+    if group is None:
+        return cm.embed_apply(p, ids)
+    v = cfg.padded_vocab // n
+    local = ids - i * v
+    hit = (local >= 0) & (local < v)
+    x = p["w"][local.clamp(0, v - 1)].float().masked_fill(~hit[..., None],
+                                                          0.0)
+    return comm.reduce_from(x, group, kind="vocab_all_reduce") \
+        .to(p["w"].dtype)
+
+
+def _embed_in(params, batch, cfg, dist=None):
     if cfg.frontend != "none" and "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = cm.embed_apply(params["embed"], batch["inputs"])
+        x = _embed_lookup(params["embed"], batch["inputs"], cfg, dist)
     return _embed_scale(x, cfg)
 
 
+def local_batch(batch, dist):
+    """This rank's rows of every entry of ``batch`` (whole on every rank)
+    over the batch axes; ``batch`` itself off a mesh."""
+    if dist is None or dist.mesh is None:
+        return batch
+    _, n = dist.batch_ranks()
+    out = {}
+    for k, v in batch.items():
+        if n > 1 and v.shape[0] % n:
+            raise ValueError(f"batch {k} of {v.shape[0]} rows over {n} "
+                             f"ranks (make_dist replicates such a batch)")
+        out[k] = dist.split_batch(v)[0]
+    return out
+
+
 def _run_layers(layers, kinds, x, cfg, *, positions, memory=None,
-                kv_chunk=1024, remat=False):
+                kv_chunk=1024, remat=False, dist=None):
     """The layers in order over ``x``; with ``remat`` (and grad on) each
     layer under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward, not kept."""
@@ -297,48 +434,66 @@ def _run_layers(layers, kinds, x, cfg, *, positions, memory=None,
     for p, kind in zip(layers, kinds):
         def layer(x, p=p, kind=kind):
             return apply_layer(p, x, kind, cfg, positions=positions,
-                               memory=memory, kv_chunk=kv_chunk)
+                               memory=memory, kv_chunk=kv_chunk, dist=dist)
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return x
 
 
-def encode(params, src_embeds, cfg, *, kv_chunk=1024, remat=True):
+def encode(params, src_embeds, cfg, *, kv_chunk=1024, remat=True,
+           dist=None):
     """The encoder over the stub frontend's source frames ``src_embeds``
     (B, S_src, D), cast to the params' dtype: the ``enc`` layers
     (non-causal self-attention) and ``enc_norm``.  Returns the memory the
-    ``dec`` layers attend to, (B, S_src, D)."""
+    ``dec`` layers attend to, (B, S_src, D) (this rank's rows on a
+    mesh, whose batch split ``hidden`` made)."""
     x = _embed_scale(src_embeds.to(params["embed"]["w"].dtype), cfg)
     positions = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
     x = _run_layers(params["enc_layers"], enc_layer_kinds(cfg), x, cfg,
-                    positions=positions, kv_chunk=kv_chunk, remat=remat)
+                    positions=positions, kv_chunk=kv_chunk, remat=remat,
+                    dist=dist)
     return cm.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
-def hidden(params, batch, cfg, *, kv_chunk=1024, remat=True):
+def hidden(params, batch, cfg, dist=None, *, kv_chunk=1024, remat=True):
     """The residual stream after the last layer, before the final norm:
     (B, S, D) in the params' dtype.  ``batch["embeds"]`` (B, S, D), where
     the frontend is a stub and the batch has them, takes the place of the
     token embeddings; an encoder-decoder encodes ``batch["src_embeds"]``
-    first."""
+    first.  On a mesh (``dist``) the batch is whole on every rank and the
+    result is this rank's rows."""
     check_supported(cfg)
-    x = _embed_in(params, batch, cfg)
+    batch = local_batch(batch, dist)
+    x = _embed_in(params, batch, cfg, dist)
     b, s = x.shape[0], x.shape[1]
     positions = _positions_for(cfg, b, s, x.device)
     memory = None
     if cfg.is_encoder_decoder:
         memory = encode(params, batch["src_embeds"], cfg, kv_chunk=kv_chunk,
-                        remat=remat)
+                        remat=remat, dist=dist)
     return _run_layers(params["layers"], layer_kinds(cfg), x, cfg,
                        positions=positions, memory=memory,
-                       kv_chunk=kv_chunk, remat=remat)
+                       kv_chunk=kv_chunk, remat=remat, dist=dist)
 
 
-def forward(params, batch, cfg, *, kv_chunk=1024, remat=True):
-    """Teacher-forced logits: (B, S, V) float32."""
-    x = hidden(params, batch, cfg, kv_chunk=kv_chunk, remat=remat)
+def forward(params, batch, cfg, dist=None, *, kv_chunk=1024, remat=True):
+    """Teacher-forced logits: (B, S, V) float32; on a mesh this rank's
+    rows and vocab block (``gather_logits`` makes them whole)."""
+    x = hidden(params, batch, cfg, dist, kv_chunk=kv_chunk, remat=remat)
     x = cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                          gemma_style=cfg.gemma_norm)
-    return _readout(params, x, cfg)
+    return _readout(params, x, cfg, dist)
+
+
+def gather_logits(logits, cfg, dist):
+    """A rank's block of the logits (rows over the batch axes, vocab over
+    'vocab') gathered whole on every rank."""
+    if dist is None or dist.mesh is None:
+        return logits
+    group, _, _ = cm.tp(dist, "vocab", cfg.padded_vocab)
+    logits = comm.gather_from(logits, group, dim=-1, kind="logits_gather")
+    axes, _ = dist.batch_ranks()
+    return comm.gather_from(logits, dist.group(axes), dim=0,
+                            kind="logits_gather")
 
 
 def loss_fn(params, batch, cfg, *, kv_chunk=1024, remat=True):
@@ -352,14 +507,18 @@ def loss_fn(params, batch, cfg, *, kv_chunk=1024, remat=True):
     return ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
-def _readout(params, x, cfg):
-    """LM head over the padded vocab; padding columns masked to -1e30."""
+def _readout(params, x, cfg, dist=None):
+    """LM head over the padded vocab; padding columns masked to -1e30.  On
+    a mesh that splits 'vocab', the rank's block of the columns."""
+    group, i, n = cm.tp(dist, "vocab", cfg.padded_vocab)
+    x = comm.copy_to(x, group)
     if cfg.tie_embeddings:
         logits = cm.embed_logits(params["embed"], x)
     else:
         logits = cm.dense_apply(params["head"], x).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        col = torch.arange(logits.shape[-1], device=logits.device)
+        col = torch.arange(logits.shape[-1], device=logits.device) \
+            + i * (cfg.padded_vocab // n)
         logits = logits.masked_fill(col >= cfg.vocab_size, -1e30)
     return logits
 

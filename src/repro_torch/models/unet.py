@@ -39,9 +39,10 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import params_from_numpy
+from repro_torch.models import gather_cols, params_from_numpy, shard
 from repro_torch.models.gan import deconv_padding
 from repro_torch.models.segnet import atrous_padding
+from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,15 +136,30 @@ def _tproj_width(cfg: UNetConfig, i: int) -> int:
     return cfg.width(min(i + 1, cfg.depth))
 
 
-def unet_init(seed_or_generator, cfg: UNetConfig, device="cuda"):
+def unet_specs(cfg: UNetConfig) -> dict:
+    """JAX's ``unet_init`` specs: every superpack ``SUPERPACK_SPEC``, its
+    bias ``("conv_out",)``, ``tproj{i}`` ``(None, "conv_out")``, the
+    timestep MLP replicated."""
+    s = {}
+    for name, _ in unet_sites(cfg):
+        s[name] = SUPERPACK_SPEC
+        s[f"{name}_b"] = Spec("conv_out")
+    s["temb_w"] = Spec(None, None)
+    s["temb_b"] = Spec(None)
+    for i in range(cfg.depth + 1):
+        s[f"tproj{i}"] = Spec(None, "conv_out")
+    return s
+
+
+def unet_init(seed_or_generator, cfg: UNetConfig, device="cuda", dist=None):
     """Random params with every conv weight superpacked: He-normal for the
     correlation sites, the zoo's 0.02 normal for the transposed ups, zero
     biases, the timestep MLP ``temb_w``/``temb_b`` and one projection
     ``tproj{i}`` per encoder level.  ``seed_or_generator`` is an int seed
     or a CPU ``torch.Generator``; the draws are made on the CPU in site
     order, so a seed gives the same weights on every device and the f32 and
-    int8 twins of one seed quantize the same draw.  Returns the params only
-    (the logical sharding specs wait for the data-parallel slice)."""
+    int8 twins of one seed quantize the same draw.  Returns the params
+    (this rank's blocks under ``dist``; their specs are ``unet_specs``)."""
     dev = resolve_device(device)
     gen = seed_or_generator if isinstance(seed_or_generator,
                                           torch.Generator) \
@@ -163,7 +179,7 @@ def unet_init(seed_or_generator, cfg: UNetConfig, device="cuda"):
     for i in range(cfg.depth + 1):
         p[f"tproj{i}"] = torch.randn((cfg.time_dim, _tproj_width(cfg, i)),
                                      generator=gen) * cfg.time_dim ** -0.5
-    return {k: v.to(dev) for k, v in p.items()}
+    return shard({k: v.to(dev) for k, v in p.items()}, unet_specs(cfg), dist)
 
 
 def params_from_jax(np_params: dict, cfg: UNetConfig, device="cuda"):
@@ -197,17 +213,23 @@ def time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def unet_apply(p, x: torch.Tensor, t: torch.Tensor,
-               cfg: UNetConfig) -> torch.Tensor:
+               cfg: UNetConfig, dist=None) -> torch.Tensor:
     """(x_t (B,H,W,C), t (B,) in [0,1]) -> predicted noise eps (B,H,W,C).
 
     Encoder activations are kept as skips and concatenated after each
     transposed up; the fuse conv contracts the doubled channels, so the
     concat's cotangent splits into both halves through the planned
-    backwards."""
+    backwards.  ``dist``: the params are each rank's blocks (split
+    superpacks run as tensor-parallel sites, the ``tproj`` column blocks
+    are gathered)."""
     plans = unet_plans(cfg, x.dtype)           # cache hits after model load
 
     def conv(name, h):
-        return plans[name].apply(h, p[name]) + p[f"{name}_b"]
+        return plans[name].apply(h, p[name], bias=p[f"{name}_b"])
+
+    def tproj(i):
+        y = gather_cols(emb @ p[f"tproj{i}"], dist, _tproj_width(cfg, i))
+        return y[:, None, None, :]
 
     emb = torch.nn.functional.silu(
         time_embedding(t.to(x.dtype), cfg.time_dim) @ p["temb_w"]
@@ -217,9 +239,8 @@ def unet_apply(p, x: torch.Tensor, t: torch.Tensor,
     skips = []
     for i in range(cfg.depth):
         skips.append(h)
-        h = conv(f"down{i}", h) + (emb @ p[f"tproj{i}"])[:, None, None, :]
-        h = torch.relu(h)
-    h = h + (emb @ p[f"tproj{cfg.depth}"])[:, None, None, :]
+        h = torch.relu(conv(f"down{i}", h) + tproj(i))
+    h = h + tproj(cfg.depth)
     for j in range(len(cfg.mid_dilations)):
         h = torch.relu(conv(f"mid{j}", h))
     for i in reversed(range(cfg.depth)):

@@ -34,8 +34,9 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import params_from_numpy
+from repro_torch.models import gather_cols, params_from_numpy, shard
 from repro_torch.models.gan import DeconvLayer, _cpu_generator, deconv_padding
+from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,15 +138,33 @@ def _dense_shapes(cfg: VAEConfig) -> dict:
             "proj": (cfg.latent_dim, fdim), "projb": (fdim,)}
 
 
-def vae_init(seed_or_generator, cfg: VAEConfig, device="cuda"):
+def vae_specs(cfg: VAEConfig) -> dict:
+    """JAX's ``vae_init`` specs: superpacks ``SUPERPACK_SPEC``, their
+    biases ``("conv_out",)``, the latent heads replicated, ``proj``
+    ``(None, "conv_out")`` and ``projb`` ``("conv_out",)``."""
+    s = {}
+    for i in range(len(cfg.encoder_layers)):
+        s[f"enc{i}"] = SUPERPACK_SPEC
+        s[f"encb{i}"] = Spec("conv_out")
+    for head in ("mu", "lv"):
+        s[f"{head}_w"] = Spec(None, None)
+        s[f"{head}_b"] = Spec(None)
+    s["proj"] = Spec(None, "conv_out")
+    s["projb"] = Spec("conv_out")
+    for i in range(len(cfg.decoder_layers)):
+        s[f"dec{i}"] = SUPERPACK_SPEC
+        s[f"decb{i}"] = Spec("conv_out")
+    return s
+
+
+def vae_init(seed_or_generator, cfg: VAEConfig, device="cuda", dist=None):
     """Random params with every conv weight superpacked: ``enc{i}`` /
     ``dec{i}`` the superpacks (``QuantizedSuperpack`` under
     ``wdtype='int8'``), ``encb{i}`` / ``decb{i}`` zeros, the dense heads
     ``mu_w``/``lv_w`` (features, latent) and ``proj`` (latent, features)
     with zero biases.  Draws in JAX's order, on the CPU from an int seed or
-    a CPU ``torch.Generator``, then moved to ``device``.  The logical
-    sharding specs JAX returns beside the params wait for the
-    data-parallel slice."""
+    a CPU ``torch.Generator``, then moved to ``device`` (this rank's
+    blocks under ``dist``; the specs are ``vae_specs``)."""
     dev = resolve_device(device)
     gen = _cpu_generator(seed_or_generator)
     enc, dec = encoder_plans(cfg), decoder_plans(cfg)
@@ -169,7 +188,7 @@ def vae_init(seed_or_generator, cfg: VAEConfig, device="cuda"):
                              generator=gen) * 0.02
         p[f"dec{i}"] = plan.pack(kernel)
         p[f"decb{i}"] = torch.zeros((l.out_c,))
-    return {k: v.to(dev) for k, v in p.items()}
+    return shard({k: v.to(dev) for k, v in p.items()}, vae_specs(cfg), dist)
 
 
 def params_from_jax(np_params: dict, cfg: VAEConfig, device="cuda"):
@@ -196,20 +215,22 @@ def params_from_jax(np_params: dict, cfg: VAEConfig, device="cuda"):
 def encode(p, x: torch.Tensor, cfg: VAEConfig):
     """x (B, H, W, C) -> (mu, logvar), each (B, latent_dim)."""
     for i, plan in enumerate(encoder_plans(cfg, x.dtype)):
-        x = torch.relu(plan.apply(x, p[f"enc{i}"]) + p[f"encb{i}"])
+        x = torch.relu(plan.apply(x, p[f"enc{i}"], bias=p[f"encb{i}"]))
     h = x.reshape(x.shape[0], -1)
     return (torch.matmul(h, p["mu_w"]) + p["mu_b"],
             torch.matmul(h, p["lv_w"]) + p["lv_b"])
 
 
-def decode(p, z: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+def decode(p, z: torch.Tensor, cfg: VAEConfig, dist=None) -> torch.Tensor:
     """z (B, latent_dim) -> recon (B, H, W, C) in [-1, 1]: every transposed
-    conv one planned launch on its superpack."""
+    conv one planned launch on its superpack (``dist``: the params are each
+    rank's blocks; ``proj``'s column block is gathered before ``dec0``)."""
     plans = decoder_plans(cfg, z.dtype)
     h = torch.relu(torch.matmul(z, p["proj"]) + p["projb"])
+    h = gather_cols(h, dist, cfg.feat_hw * cfg.feat_hw * cfg.feat_c)
     x = h.reshape(z.shape[0], cfg.feat_hw, cfg.feat_hw, cfg.feat_c)
     for i, plan in enumerate(plans):
-        x = plan.apply(x, p[f"dec{i}"]) + p[f"decb{i}"]
+        x = plan.apply(x, p[f"dec{i}"], bias=p[f"decb{i}"])
         x = torch.tanh(x) if i == len(plans) - 1 else torch.relu(x)
     return gather_plane(x)
 

@@ -7,7 +7,7 @@ of two the surviving ranks support, keeping the model-parallel extent
 dropped).  The survivors are the first ranks of the default group; every
 rank of the group builds the mesh (a rank left out gets no coordinate).
 Restoring a checkpoint onto the new mesh places sharded parameters, which
-is ROADMAP Queue 1 item 13b.
+is ROADMAP Queue 1 item 13c.
 """
 from __future__ import annotations
 

@@ -45,9 +45,11 @@ matching ``dev_tiles`` split their planes over its ranks
 and the output is gathered.  Otherwise the batch is split over the image
 spec's axis ('data'): each rank serves its rows and the rows are joined
 (``DistContext.split_batch``/``join_batch``); a bucket the extent does
-not divide is served whole on every rank.  A CUDA graph captures one
-rank's work only: on a mesh that splits the batch or the plane, every
-bucket runs eagerly.  ``rebind_dist`` is the control plane's
+not divide is served whole on every rank.  Where the serve function's
+params are sharded over 'model' (``*_init(dist=)``: tensor-parallel
+superpacks), every rank of a data group runs its model-sharded forward
+on the group's rows.  A CUDA graph captures one rank's work only: on a
+mesh of more than one rank every bucket runs eagerly.  ``rebind_dist`` is the control plane's
 elastic-degrade hook.
 """
 from __future__ import annotations
@@ -129,11 +131,11 @@ class DynamicImageBatcher:
 
     @property
     def graphed(self) -> bool:
-        """Buckets run as CUDA graphs: on a CUDA device, unless the mesh
-        splits batches or planes across ranks."""
+        """Buckets run as CUDA graphs: on a CUDA device, off a mesh of
+        more than one rank (whose collectives a graph cannot hold)."""
+        mesh = None if self.dist is None else self.dist.mesh
         return self.device.type == "cuda" and (
-            self.dist is None or (self.dist.spatial_tiles() == (1, 1)
-                                  and self.dist.batch_ranks()[1] == 1))
+            mesh is None or mesh.mesh.numel() == 1)
 
     def rebind_dist(self, dist, serve_fn: Optional[Callable] = None):
         """(Re)bind the serve closure to ``dist``, the elastic-degrade path:

@@ -1,21 +1,34 @@
 """Sharding rules: logical axes -> mesh axes, on ``torch.distributed``.
 
-Counterpart of ``repro.sharding``, as far as serving images over a mesh
-needs it.  ``DistContext`` maps the logical axes the serving path names
-("batch", "plane_h", "plane_w") onto the axes of a ``DeviceMesh``
-(``launch.mesh``), so a parallelism strategy is an edit of ``rules``.
-``Spec`` is the port's logical-spec type, JAX's ``PartitionSpec``: a tuple
-of axis names (or tuples of them, or None) per tensor dim.
+Counterpart of ``repro.sharding``.  The model code names the *logical*
+axes of its parameters ("heads", "ffn", "vocab", "expert", "conv_out",
+...) in spec trees beside the params; ``DistContext`` maps them onto the
+axes of a ``DeviceMesh`` (``launch.mesh``), so a parallelism strategy is
+an edit of ``rules``.  ``Spec`` is the port's logical-spec type, JAX's
+``PartitionSpec``: a tuple of axis names (or tuples of them, or None) per
+tensor dim.
 
-Placement: a batch over 'data' is split by ``split_batch`` (each rank runs
-its rows) and joined by ``join_batch``; a plane over 'sp_h'/'sp_w' is
-split by the plane-parallel executor (``core.spatial``), which holds it as
-blocks between conv sites.  Tensor-parallel superpacks and the models'
-parameter specs are ROADMAP Queue 1 item 13b.
+JAX places whole arrays with ``NamedSharding`` and lets XLA's SPMD
+partitioner insert the collectives.  The port has no partitioner: its mesh
+code is explicit SPMD.  ``shard_params`` gives every rank its own block of
+each sharded leaf, the block its mesh coordinate selects, as
+``NamedSharding`` lays it out (several mesh axes on one dim split it major
+to minor in the order listed); every rank runs the same code, and the
+layers call the collectives of ``core.comm`` on the groups of the mesh
+axes (``DistContext.group``).  A superpack whose out-channels are split
+comes back as a ``core.plan.TPSuperpack``, which ``ConvPlan.apply`` runs
+as a tensor-parallel site.
+
+Placement of activations: a batch over the batch axes is split by
+``split_batch`` (each rank runs its rows; several axes split it major to
+minor, in mesh order) and joined by ``join_batch``; a plane over
+'sp_h'/'sp_w' is split by the plane-parallel executor (``core.spatial``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Any, Optional
 
 # default logical -> mesh translation (megatron TP on 'model', experts EP'd)
@@ -54,10 +67,73 @@ class Spec(tuple):
         return f"Spec{tuple.__repr__(self)}"
 
 
+# logical spec of every superpacked conv weight buffer
+SUPERPACK_SPEC = Spec("conv_taps", "conv_out")
+
+# logical spec of a plane-parallel (B, H, W, C) activation
+PLANE_SPEC = Spec("batch", "plane_h", "plane_w")
+
+# (param path, dim, axis) triples ``shard_params`` has warned about: the
+# replication fallback is silent by design at each call site, but the
+# first hit for a given param deserves a visible trace
+_REPLICATION_WARNED: set = set()
+
+# process groups over several mesh axes, per (mesh ranks, axis names,
+# axes): a content key, so every rank finds the same groups built
+_GROUPS: dict = {}
+
+
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, Spec)
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys and list indices."""
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def _tree_map_with_path(fn, tree, specs, path=(), leaf=None):
+    """``fn(path, leaf, spec)`` over a params tree of dicts, lists and
+    tuples and its spec tree of the same structure."""
+    if leaf is not None and leaf(tree):
+        return fn(path, tree, specs)
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, tree[k], specs[k], path + (k,),
+                                       leaf) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_with_path(fn, t, s, path + (i,), leaf)
+                          for i, (t, s) in enumerate(zip(tree, specs)))
+    return fn(path, tree, specs)
+
+
+def _spec_map(fn, specs):
+    if _is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _spec_map(fn, v) for k, v in specs.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(_spec_map(fn, v) for v in specs)
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A resolved spec on a mesh (JAX's ``NamedSharding``): ``block``
+    cuts this rank's block from a whole tensor, a dim its mesh axes do not
+    divide staying whole (``shard_params``' rule)."""
+
+    dist: "DistContext"
+    spec: Spec
+
+    def block(self, t):
+        return self.dist._block(t, self.spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,52 +141,234 @@ class DistContext:
     mesh: Any                       # a DeviceMesh, or None
     rules: dict = dataclasses.field(default_factory=lambda: dict(DEFAULT_RULES))
 
+    # ---- the mesh ----------------------------------------------------------
     def _sizes(self) -> dict[str, int]:
         return dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+
+    def _coord(self) -> dict[str, int]:
+        return dict(zip(self.mesh.mesh_dim_names,
+                        self.mesh.get_coordinate()))
+
+    @property
+    def batch_axes(self):
+        return self.rules["batch"]
+
+    @property
+    def model_axis(self):
+        return "model"
+
+    def extent(self, entry) -> int:
+        """Ranks along a resolved spec entry (1 off the mesh)."""
+        if self.mesh is None:
+            return 1
+        sizes = self._sizes()
+        return math.prod(sizes.get(a, 1) for a in _axes(entry))
+
+    def shard_of(self, entry, size: int) -> tuple[int, int]:
+        """(this rank's block index, block count) of a dim of ``size``
+        over the resolved entry: the axes' coordinates major to minor in
+        the order listed; (0, 1) where the extent does not divide
+        ``size`` (the dim stays whole)."""
+        n = self.extent(entry)
+        if n == 1 or size % n:
+            return 0, 1
+        sizes, coord = self._sizes(), self._coord()
+        i = 0
+        for a in _axes(entry):
+            i = i * sizes.get(a, 1) + coord.get(a, 0)
+        return i, n
+
+    def group(self, entry):
+        """The process group of the ranks that share this rank's
+        coordinates off ``entry``'s axes (a resolved entry: one mesh axis
+        or several), in the order its block index counts them; None for
+        a one-rank group.  Several axes make a group of their own (every
+        rank builds each such group once, in the same order)."""
+        axes = tuple(a for a in _axes(entry) if self.extent(a) > 1)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        key = (tuple(self.mesh.mesh.flatten().tolist()),
+               tuple(self.mesh.mesh_dim_names), axes)
+        if key not in _GROUPS:
+            _GROUPS[key] = self._new_group(axes)
+        return _GROUPS[key]
+
+    def _new_group(self, axes):
+        import itertools
+
+        import numpy as np
+        import torch.distributed as dist
+        names = list(self.mesh.mesh_dim_names)
+        ranks = np.asarray(self.mesh.mesh.cpu().numpy())
+        # the group's axes last, in the listed order; the rest index groups
+        others = [i for i, a in enumerate(names) if a not in axes]
+        order = others + [names.index(a) for a in axes]
+        ranks = ranks.transpose(order)
+        ranks = ranks.reshape(ranks.shape[:len(others)] + (-1,))
+        mine = None
+        me = dist.get_rank()
+        for idx in itertools.product(*(range(s) for s in
+                                       ranks.shape[:-1])):
+            members = [int(r) for r in ranks[idx]]
+            if members != sorted(members):
+                raise NotImplementedError(
+                    f"a group over axes {axes} whose ranks are not in "
+                    f"mesh order: {members}")
+            g = dist.new_group(members)
+            if me in members:
+                mine = g
+        return mine
+
+    # ---- specs -------------------------------------------------------------
+    def resolve(self, spec) -> Spec:
+        """Translate a logical spec into a mesh spec."""
+        out = []
+        for ax in spec:
+            if ax is None:
+                out.append(None)
+            elif isinstance(ax, str) and ax in self.rules:
+                out.append(self.rules[ax])
+            else:
+                out.append(ax)
+        return Spec(*out)
+
+    def sharding(self, spec) -> Placement:
+        return Placement(self, self.resolve(spec))
+
+    def param_shardings(self, specs_tree):
+        return _spec_map(self.sharding, specs_tree)
+
+    def act_spec(self, *, seq_dim: bool = True) -> Spec:
+        """(B, S, D) residual-stream spec: batch over DP axes, optional SP."""
+        if seq_dim:
+            return Spec(self.rules["batch"], self.rules["seq"], None)
+        return Spec(self.rules["batch"], None)
 
     def image_spec(self) -> Spec:
         """(B, H, W, C) image batch spec: batch over the DP axes."""
         return Spec(self.rules["batch"])
 
+    def plane_spec(self) -> Spec:
+        """(B, H, W, C) plane-parallel spec: batch over the DP axes, the
+        plane's rows/cols over the spatial axes."""
+        return self.resolve(PLANE_SPEC)
+
     def spatial_tiles(self) -> tuple[int, int]:
         """(D_h, D_w): the extents of the mesh axes 'plane_h' / 'plane_w'
         resolve to (1 where unmapped or absent), what model configs feed
         into ``ConvSpec.spatial``."""
-        if self.mesh is None:
-            return (1, 1)
-        sizes = self._sizes()
-        out = []
-        for logical in ("plane_h", "plane_w"):
-            n = 1
-            for a in _axes(self.rules.get(logical)):
-                n *= sizes.get(a, 1)
-            out.append(n)
-        return tuple(out)
+        return tuple(self.extent(self.rules.get(logical))
+                     for logical in ("plane_h", "plane_w"))
 
-    def batch_ranks(self) -> tuple[Optional[str], int]:
-        """(mesh axis, extent) the image batch splits over; (None, 1)
-        when no axis of the image spec has more than one rank."""
+    # ---- parameters --------------------------------------------------------
+    def _dims(self, shape, resolved, name=None):
+        """(start, stop) of this rank's block along every dim of
+        ``shape`` under the resolved spec; a dim its axes do not divide
+        stays whole (warned once per (param, dim, axis) when ``name``)."""
+        resolved = tuple(resolved) + (None,) * (len(shape) - len(resolved))
+        out = []
+        for i, (dim, ax) in enumerate(zip(shape, resolved)):
+            n = self.extent(ax)
+            if ax is not None and n > 1 and dim % n:
+                if name is not None and (name, i, ax) not in \
+                        _REPLICATION_WARNED:
+                    _REPLICATION_WARNED.add((name, i, ax))
+                    warnings.warn(
+                        f"shard_params: param {name} dim {i} (size {dim}) "
+                        f"does not divide mesh axis {ax!r} (extent {n}) — "
+                        f"replicating that dim instead", RuntimeWarning,
+                        stacklevel=3)
+            j, m = self.shard_of(ax, dim)
+            out.append((j * (dim // m), (j + 1) * (dim // m)))
+        return out
+
+    def _block(self, t, resolved, name=None):
+        for d, (a, b) in enumerate(self._dims(t.shape, resolved, name)):
+            if b - a != t.shape[d]:
+                t = t.narrow(d, a, b - a)
+        return t.contiguous()
+
+    def shard_params(self, params, specs):
+        """Each rank's blocks of a tree of whole tensors, per its logical
+        spec tree (a mesh-less context returns ``params``).  A dim whose
+        size its mesh axes do not divide stays whole on every rank, with
+        one ``RuntimeWarning`` per (param, dim, axis), as JAX's.  A
+        ``QuantizedSuperpack`` shards its int8 codes like the dense buffer
+        and its (rows, 1) scales along the row axis only.  A superpack
+        (spec ``SUPERPACK_SPEC``) whose out-channels split comes back as a
+        ``TPSuperpack`` (``ConvPlan.apply``'s tensor-parallel site)."""
+        if self.mesh is None:
+            return params
+        from repro_torch.core.plan import QuantizedSuperpack, TPSuperpack
+
+        def put(path, p, sp):
+            name = keystr(path)
+            resolved = self.resolve(sp)
+            if isinstance(p, QuantizedSuperpack):
+                blk = QuantizedSuperpack(
+                    self._block(p.q, resolved, name),
+                    self._block(p.scale, resolved[:1], name))
+                shape = p.q.shape
+            else:
+                blk = self._block(p, resolved, name)
+                shape = p.shape
+            if tuple(sp) != tuple(SUPERPACK_SPEC):
+                return blk
+            (rows, n) = shape
+            if blk.shape[0] != rows:
+                raise NotImplementedError(
+                    f"{name}: a row-parallel superpack ('conv_taps' -> "
+                    f"{resolved[0]!r}): ROADMAP Queue 1 item 13c")
+            if blk.shape[1] == n:
+                return blk                      # replicated: runs whole
+            j, m = self.shard_of(resolved[1], n)
+            return TPSuperpack(blk, self.group(resolved[1]), j, m)
+
+        return _tree_map_with_path(
+            put, params, specs,
+            leaf=lambda x: isinstance(x, QuantizedSuperpack))
+
+    def constrain(self, x, spec=None, shape=None):
+        """JAX's sharding constraint: the identity.  On a mesh, with the
+        whole ``shape`` given, it checks that ``x`` is this rank's block
+        under ``spec`` (``act_spec()`` by default); nothing moves."""
+        if self.mesh is None or shape is None:
+            return x
+        spec = spec if spec is not None else self.act_spec()
+        want = tuple(b - a for a, b in self._dims(shape, self.resolve(spec)))
+        if tuple(x.shape) != want:
+            raise ValueError(f"constrain: local shape {tuple(x.shape)} is "
+                             f"not the block {want} of {tuple(shape)} under "
+                             f"{spec}")
+        return x
+
+    # ---- the batch ---------------------------------------------------------
+    def batch_ranks(self) -> tuple[Any, int]:
+        """(mesh axis, extent) the image batch splits over: one axis name,
+        a tuple of names where several axes of the batch spec have more
+        than one rank (split major to minor in the order listed); (None,
+        1) when none has."""
         if self.mesh is None:
             return None, 1
-        sizes = self._sizes()
-        axes = [a for a in _axes(self.image_spec()[0]) if sizes.get(a, 1) > 1]
-        if len(axes) > 1:
-            raise NotImplementedError(
-                f"a batch over several mesh axes {axes}: ROADMAP Queue 1 "
-                f"item 13b")
-        return (axes[0], sizes[axes[0]]) if axes else (None, 1)
+        axes = tuple(a for a in _axes(self.image_spec()[0])
+                     if self.extent(a) > 1)
+        if not axes:
+            return None, 1
+        return (axes[0] if len(axes) == 1 else axes), self.extent(axes)
 
     def split_batch(self, x):
         """(this rank's rows of ``x``, the group to join them over), as
         JAX's constraint to ``image_spec()`` splits the batch; ``(x,
         None)`` when the batch is whole on every rank (no batch axis, or a
         batch its extent does not divide: every rank runs all rows)."""
-        axis, n = self.batch_ranks()
+        axes, n = self.batch_ranks()
         if n == 1 or x.shape[0] % n:
             return x, None
-        i = self.mesh.get_coordinate()[self.mesh.mesh_dim_names.index(axis)]
+        i, _ = self.shard_of(axes, x.shape[0])
         rows = x.shape[0] // n
-        return x.narrow(0, i * rows, rows), self.mesh.get_group(axis)
+        return x.narrow(0, i * rows, rows), self.group(axes)
 
     def join_batch(self, y, group):
         """Every rank's rows of ``y`` (``split_batch``'s group), in rank
@@ -118,5 +376,16 @@ class DistContext:
         if group is None:
             return y
         import torch
-        from repro_torch.core.spatial import _all_gather
+        from repro_torch.core.comm import _all_gather
         return torch.cat(_all_gather(y.contiguous(), group))
+
+
+def single_device_dist() -> Optional[DistContext]:
+    """None-context for smoke tests (no mesh, constraints are no-ops)."""
+    return None
+
+
+def stack_specs(specs_tree, n_lead: int = 1):
+    """Prepend ``n_lead`` None axes to every spec (JAX's stacked stages)."""
+    return _spec_map(lambda sp: Spec(*((None,) * n_lead + tuple(sp))),
+                     specs_tree)

@@ -6,7 +6,7 @@ Counterpart of ``repro.train.optim`` with JAX's arithmetic: gradients
 clipped by their global norm in f32, each param updated in f32 from its
 own dtype and rounded back to it (bf16 params keep no f32 master copy).
 One card: the ZeRO-1 state specs (``_zero1_spec``) wait for the mesh,
-ROADMAP Queue 1 item 13b.  Each optimiser exposes::
+ROADMAP Queue 1 item 13c.  Each optimiser exposes::
 
     init(params, cfg, stacks=None) -> state
     update(grads, state, params, cfg, stacks=None)

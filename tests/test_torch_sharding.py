@@ -8,6 +8,7 @@ import dataclasses
 import math
 import types
 
+import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
@@ -19,6 +20,9 @@ RULES = [
     dict(jsh.DEFAULT_RULES),
     {**jsh.DEFAULT_RULES, "batch": ("pod", "data"), "seq": "model"},
     {**jsh.DEFAULT_RULES, "plane_h": ("data", "sp_h"), "plane_w": None},
+    # make_dist's dp_only rules: the batch over every axis
+    {**jsh.DEFAULT_RULES, "batch": ("data", "model"), "heads": None,
+     "ffn": None, "vocab": None, "kv_heads": None},
 ]
 # (constructor, args) of the meshes the launcher's ranks build
 MESHES = [("make_spatial_mesh", (2, 2)), ("make_spatial_mesh", (4, 1)),
@@ -76,11 +80,11 @@ def _mesh_rank(rank, world, dev):
         per_rules = []
         for rules in RULES:
             d = tsh.DistContext(mesh, rules=dict(rules))
-            try:
-                ranks = d.batch_ranks()
-            except NotImplementedError as e:
-                ranks = str(e)
-            per_rules.append((d.spatial_tiles(), ranks))
+            x = torch.arange(16.0).reshape(8, 2)
+            part, group = d.split_batch(x)
+            back = d.join_batch(part, group)
+            per_rules.append((d.spatial_tiles(), d.batch_ranks(),
+                              part[:, 0].tolist(), bool(torch.equal(back, x))))
         # each rank's rows of a batch of 8 (and of 3, which no extent of 2
         # or 4 divides), joined back in rank order
         d = tsh.DistContext(mesh)
@@ -104,23 +108,36 @@ def _failing_rank(rank, world, dev):
 def test_spatial_tiles_on_the_launchers_meshes():
     """Four CPU ranks build each mesh: its axis extents, and
     ``spatial_tiles`` under every rule set equal to JAX's reading of the
-    same extents; the batch axis and its extent, refused where the batch
-    spans two split axes."""
+    same extents; the batch axes and their extent, and each rank's rows
+    of a batch over several axes (split major to minor in the order
+    listed, as JAX's ``P(('data', 'model'))``), joined back in order."""
     results = run_spmd(_mesh_rank, 4, device="cpu", timeout=120)
-    for (make, args), (shape, per_rules, _) in zip(MESHES, results[0]):
-        assert math.prod(shape.values()) == math.prod(args)
-        fake = types.SimpleNamespace(shape=shape)
-        for rules, (tiles, ranks) in zip(RULES, per_rules):
-            jd = jsh.DistContext(mesh=fake, rules=dict(rules))
-            assert tiles == jd.spatial_tiles(), (make, args, rules)
-            axes = jd.image_spec()[0]
-            axes = axes if isinstance(axes, tuple) else (axes,)
-            split = [a for a in axes if shape.get(a, 1) > 1]
-            if len(split) > 1:
-                assert "item 13b" in ranks
-            else:
-                assert ranks == ((split[0], shape[split[0]]) if split
-                                 else (None, 1))
+    for r, res in enumerate(results):
+        for (make, args), (shape, per_rules, _) in zip(MESHES, res):
+            assert math.prod(shape.values()) == math.prod(args)
+            fake = types.SimpleNamespace(shape=shape)
+            coord = dict(zip(shape, np.unravel_index(
+                r, tuple(shape.values())))) if r < math.prod(
+                    shape.values()) else None
+            for rules, (tiles, ranks, part, joined) in zip(RULES,
+                                                           per_rules):
+                jd = jsh.DistContext(mesh=fake, rules=dict(rules))
+                assert tiles == jd.spatial_tiles(), (make, args, rules)
+                axes = jd.image_spec()[0]
+                axes = axes if isinstance(axes, tuple) else (axes,)
+                split = [a for a in axes if shape.get(a, 1) > 1]
+                n = math.prod(shape[a] for a in split)
+                if len(split) > 1:
+                    assert ranks == (tuple(split), n)
+                else:
+                    assert ranks == ((split[0], n) if split else (None, 1))
+                i = 0
+                for a in split:
+                    i = i * shape[a] + int(coord[a])
+                rows = 8 // n
+                assert part == [2.0 * k for k in range(i * rows,
+                                                       (i + 1) * rows)]
+                assert joined
     assert results[0][0][0] == {"data": 1, "sp_h": 2, "sp_w": 2}
     assert results[0][2][0] == {"data": 2, "sp_h": 2, "sp_w": 1}
     assert results[0][5][0] == {"data": 4, "model": 1}
