@@ -299,6 +299,21 @@ result line) if anything is off:
 4m. times of 3o: per rank the forward's ms and device ms beside the
    single-rank forward's, weight bytes over the single-rank model's,
    every collective kind's calls, bytes and host ms, peak memory;
+3p. LM training on a (data 2, model 2) mesh over 4 ranks that share the
+   card (``mesh_train_phases``): the one-rank references first, in this
+   process; llama3.2-1b at full width and depth (B = 2, S = 4096, AdamW
+   with ZeRO-1, remat, 3 steps of ``make_train_step(..., dist=)``): every
+   step's loss and gnorm and the first step's update of every leaf
+   against the one-rank steps, F twice an attention layer a step on each
+   rank's local heads, three planted faults (a rank skipping the gradient
+   sum over 'data', a rank-local norm, an unreduced log-sum-exp);
+   dbrx-132b (1 layer) on the all-to-all path, one Adafactor step held the
+   same way (planted: local row means); ``train()`` killed and resumed on
+   (2, 2) against the one-rank run, its checkpoint restored on
+   ``shrink_mesh(2, model=2)`` bit for bit;
+4n. times of 3p: per rank the step's ms and device ms, F launches a
+   step, peak memory, the optimiser state's bytes over the unsharded
+   state's, every collective kind's calls, bytes and host ms;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -306,11 +321,12 @@ result line) if anything is off:
     python3 chip_smoke.py        # from the repository root, one GPU
 
 ``--plane-parallel`` builds the kernels and runs phase 3n alone,
-``--mesh`` phases 3o/4m alone (both flags: both).  On a machine with a
+``--mesh`` phases 3o/4m alone, ``--mesh-train`` phases 3p/4n alone (several
+flags: each).  On a machine with a
 card for each of its 4 ranks they meet on an NCCL group and exchange
 device tensors (no host staging):
 
-    python3 chip_smoke.py --plane-parallel --mesh   # 4 GPUs: NCCL
+    python3 chip_smoke.py --plane-parallel --mesh --mesh-train  # 4 GPUs
 """
 from __future__ import annotations
 
@@ -4451,11 +4467,640 @@ def mesh_phases(dev, smi):
                      "lm": [r["lm"] for r in ranks], "seconds": wall}}, paths
 
 
+# ---------------------------------------------------------------------------
+# 3p / 4n. LM training on a (data, model) mesh over ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (a) llama3.2-1b at full width and depth, (B, S): train_4k's sequence, one
+# row a rank; steps of make_train_step(..., dist=)
+MT_LLAMA = (2, 4096)
+MT_STEPS = 3
+MT_KV_CHUNK = 1024
+# AdamW with ZeRO-1; eps 1e-3 keeps the first step's update proportional to
+# the gradient (at 1e-8 it is lr·sign(g), whose signs a last-bit difference
+# flips where g is tiny), as the CPU tests hold it
+MT_ADAMW = dict(name="adamw", lr=3e-4, eps=1e-3)
+# (b) dbrx-132b at full width on the all-to-all EP path, (layers, (B, S));
+# one layer: the one-rank Adafactor reference of two (15.5 GB of weights,
+# their bf16 gradients and all of them clipped in f32) does not fit the card
+MT_DBRX = (1, (2, 1024))
+# (c) train() at llama3.2-1b cut to (layers, steps, B, S, ckpt every,
+# fail at)
+MT_RESUME = (1, 3, 2, 256, 2, 2)
+MT_WORLD = 4
+MT_CONFIGS = "full"           # "reduced": the CPU rehearsal's configs
+# limits (each read sound and with a planted fault; PERF.md's 3p rows give
+# both): relative to the one-rank step's value
+TOL_MT_LOSS = 2e-3            # the loss (bf16 forward in another order)
+TOL_MT_GNORM = 2e-2           # the global norm
+TOL_MT_UPDATE = 1e-1          # a leaf's first-step update (AdamW) or second
+                              # moment (Adafactor), L2 over the whole leaf
+
+
+def _mt_cfg(conf, which):
+    """(a), (b) or (c)'s config: full width, the depth ``conf`` says."""
+    from repro_torch.configs import registry
+    get = (registry.get_reduced if conf["configs"] == "reduced"
+           else registry.get_config)
+    if which == "llama":
+        return get("llama3.2-1b")
+    if which == "resume":
+        return cut_depth(get("llama3.2-1b"), conf["resume"][0])
+    cfg = get("dbrx-132b")
+    cfg = dataclasses.replace(cfg, moe_impl="ep", capacity_factor=(
+        cfg.n_experts / cfg.top_k))
+    return cut_depth(cfg, conf["dbrx"][0])
+
+
+def _mt_state(cfg, dev, opt_kw, dist=None):
+    """Seeded params (seed 0; each rank's blocks of the same draws on a
+    mesh) and a fresh optimiser state of ``opt_kw``."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optim
+    params = tfm.init(cfg, seed=0, device=dev, dist=dist)
+    ocfg = optim.OptConfig(**opt_kw)
+    init, _ = optim.OPTIMIZERS[ocfg.name]
+    kw = ({} if dist is None else dict(specs=tfm.specs(cfg), dist=dist,
+                                        shapes=tfm.param_shapes(cfg)))
+    opt = init(params, ocfg, stacks=tfm.param_stacks(cfg, params), **kw)
+    return {"params": params, "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}, ocfg
+
+
+def _mt_batch(cfg, b, s, dev):
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.train.data import TokenPipeline
+    return batch_to(TokenPipeline(cfg, b, s, seed=3).batch_at(0), dev)
+
+
+def _mt_reference(dev, conf, tmp):
+    """The one-rank references, run here before the ranks spawn: (a)'s
+    ``MT_STEPS`` steps (losses, gnorms) and its first step's new params;
+    (b)'s step; (c)'s ``train()``.  New params go to ``tmp`` (each rank
+    reads its blocks), the card is freed."""
+    import gc
+
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import train
+    ref = {}
+    for which, opt_kw, (b, s), n in (
+            ("llama", MT_ADAMW, conf["llama"], conf["steps"]),
+            ("dbrx", None, conf["dbrx"][1], 1)):
+        cfg = _mt_cfg(conf, which)
+        if opt_kw is None:
+            opt_kw = dataclasses.asdict(steps_lib.opt_config_for(cfg))
+        state, ocfg = _mt_state(cfg, dev, opt_kw)
+        batch = _mt_batch(cfg, b, s, dev)
+        step = steps_lib.make_train_step(cfg, ocfg, kv_chunk=conf["kv_chunk"])
+        losses, gnorms = [], []
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+            if i == 0:
+                path = os.path.join(tmp, f"{which}.pt")
+                # bf16 on disk: 2.5 GB at llama, a 2^-9 rounding
+                torch.save({k: t.to(torch.bfloat16).cpu() for k, t in
+                            _mt_gated(state["opt"], ocfg).items()}, path)
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev.type == "cuda" else None)
+        ref[which] = {"losses": losses, "gnorms": gnorms, "path": path,
+                      "opt": opt_kw, "seconds": time.perf_counter() - t0,
+                      "peak_gib": peak}
+        del state, batch, step
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    layers, steps, tb, ts, every, fail = conf["resume"]
+    losses, final = train("llama3.2-1b", cfg=_mt_cfg(conf, "resume"),
+                          steps=steps, batch=tb, seq=ts, log_every=100,
+                          device=dev)
+    # the mesh run replays from its last checkpoint before the failure
+    ref["resume"] = {"losses": losses[:fail] + losses[fail // every * every:],
+                     "final": final}
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _mt_skip(kinds, ranks):
+    """Planted fault: the ranks in ``ranks`` leave the collectives of
+    ``kinds`` unreduced (the collective still runs, so no rank waits)."""
+    import torch.distributed as tdist
+    from repro_torch.core import comm
+    orig = comm.all_reduce
+
+    def all_reduce(t, group, kind="all_reduce", op="sum"):
+        y = orig(t, group, kind, op)
+        return t if kind in kinds and tdist.get_rank() in ranks else y
+    comm.all_reduce = all_reduce
+    return lambda: setattr(comm, "all_reduce", orig)
+
+
+def _mt_gated(opt, ocfg) -> dict:
+    """What the gates read of a step's optimiser state, by leaf path:
+    AdamW's first-step update m^/(sqrt(v^) + eps) before the learning
+    rate, the weight decay and the bf16 rounding of the params (the
+    rounded update new - old is 0 or one bf16 step for most elements at
+    lr 3e-4: ill-posed); Adafactor's second moments (vr, vc or v)."""
+    import torch
+    from repro_torch.train.tree import tree_paths
+    if ocfg.name == "adamw":
+        bc1, bc2 = 1.0 - ocfg.b1, 1.0 - ocfg.b2
+        return {k: (m / bc1) / (torch.sqrt(v / bc2) + ocfg.eps)
+                for (k, m), (_, v) in zip(tree_paths(opt["m"]),
+                                          tree_paths(opt["v"]))}
+    return dict(tree_paths(opt["f"]))
+
+
+def _mt_split_axes(dist, pl) -> tuple:
+    """The mesh axes that split a placement's leaf (the stack dim's where
+    a rank holds whole layers of a stack), in mesh order."""
+    from repro_torch.sharding import _axes
+    spec, shape = pl._leaf()
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    entries = [e for e, n in zip(spec, shape) if dist.shard_of(e, n)[1] > 1]
+    if pl._owner() is not None:
+        entries.append(pl.spec[0])
+    axes = {a for e in entries for a in _axes(e) if dist.extent(a) > 1}
+    return tuple(a for a in dist.mesh.mesh_dim_names if a in axes)
+
+
+def _mt_state_errors(dist, pls, opt, ocfg, ref_path, dev):
+    """``_mt_gated`` of a rank's optimiser state against the one-rank
+    step's, rel L2 over each whole leaf: each rank's part sums, summed
+    over the axes that split the leaf (replicated: counted once)."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.train.checkpoint import _placement_leaves
+    ref = torch.load(ref_path, mmap=True)
+    got = _mt_gated(opt, ocfg)
+    sub = pls["m"] if ocfg.name == "adamw" else pls["f"]
+    keyed: dict = {}
+    for (key, g), pl in zip(got.items(), _placement_leaves(sub)):
+        r = pl.block(ref[key]).to(dev).float()
+        g = g.to(dev).float()
+        sums = torch.stack([torch.sum((g - r) ** 2), torch.sum(r ** 2)])
+        keyed.setdefault(_mt_split_axes(dist, pl), []).append((key, sums))
+    out = {}
+    for axes in sorted(keyed):
+        vals = comm.all_reduce(torch.stack([s for _, s in keyed[axes]]),
+                               dist.group(axes), kind="gate_all_reduce")
+        for (key, _), (a, b) in zip(keyed[axes], vals.tolist()):
+            out[key] = (a / max(b, 1e-60)) ** 0.5
+    return out
+
+
+def _mt_collectives(rec):
+    return {k: v for k, v in rec.items()}
+
+
+def _mt_llama(rank, dev, conf, ref):
+    """(a): ``MT_STEPS`` steps on (2, 2), gated against the one-rank steps;
+    the planted faults; 4n's times, memory, state bytes, collectives."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optim
+    from repro_torch.train.tree import tree_leaves
+    cfg = _mt_cfg(conf, "llama")
+    b, s = conf["llama"]
+    dist = steps_lib.make_dist(make_host_mesh(2, 2), cfg,
+                               ShapeConfig("train", "train", s, b))
+    state0, ocfg = _mt_state(cfg, dev, MT_ADAMW, dist)
+    _, pls, _ = steps_lib.train_state_specs(cfg, dist, ocfg)
+    batch = _mt_batch(cfg, b, s, dev)
+    step = steps_lib.make_train_step(cfg, ocfg, kv_chunk=conf["kv_chunk"],
+                                     dist=dist)
+    n_whole = sum(t.numel() for t in tree_leaves(tfm.param_shapes(cfg)))
+    rec = {"rank": rank, "rules": {k: dist.rules[k] for k in (
+        "batch", "heads", "vocab")}, "f_launches": [], "losses": [],
+        "gnorms": [], "opt_bytes": sum(
+            t.numel() * t.element_size() for k in ("m", "v")
+            for t in tree_leaves(state0["opt"][k])),
+        "opt_bytes_whole": 2 * 4 * n_whole}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["base_bytes"] = torch.cuda.memory_allocated()
+    state = state0
+    for i in range(conf["steps"]):
+        fa.flash_attention.launches = 0
+        comm.traffic_reset()
+        if i == 1 and dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            new, m = step(state, batch)
+            end.record()
+            end.synchronize()
+            rec["ms"] = start.elapsed_time(end)
+        elif i == 2:
+            with comm.timed(True):
+                out = {}
+
+                def run():
+                    out["r"] = step(state, batch)
+                rec["device_ms"] = _pp_device_ms(run, dev)
+                if "r" not in out:
+                    run()
+            new, m = out["r"]
+            rec["collectives"] = comm.traffic()
+        else:
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec.setdefault("ms", (time.perf_counter() - t0) * 1e3)
+        rec["f_launches"].append(fa.flash_attention.launches)
+        rec["losses"].append(float(m["loss"]))
+        rec["gnorms"].append(float(m["gnorm"]))
+        if i == 0:
+            rec["update_rel"] = _mt_state_errors(dist, pls["opt"],
+                                                 new["opt"], ocfg,
+                                                 ref["path"], dev)
+        if state is not state0:
+            del state
+        state = new
+    if dev.type == "cuda":
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, new
+    gc.collect()
+    # ---- planted faults, from the first step's state -------------------
+    undo = _mt_skip(("lse_all_reduce",), range(MT_WORLD))
+    try:
+        with torch.no_grad():
+            rec["planted_lse_loss"] = float(tfm.loss_fn(
+                state0["params"], batch, cfg, dist,
+                kv_chunk=conf["kv_chunk"]))
+    finally:
+        undo()
+    loss, g = steps_lib.loss_and_grads(cfg, state0["params"], batch,
+                                       kv_chunk=conf["kv_chunk"], dist=dist,
+                                       reduce=False)
+    specs = steps_lib._leaf_specs(cfg, dist)
+    stacks = tfm.param_stacks(cfg, state0["params"])
+    groups = optim.mesh_groups(state0["params"], ocfg, stacks,
+                               tfm.specs(cfg), dist, tfm.param_shapes(cfg))
+    sound = steps_lib.sum_over_batch(tree_leaves(g), specs, dist)
+    undo = _mt_skip(("norm_all_reduce",), range(MT_WORLD))
+    try:
+        rec["planted_norm_gnorm"] = float(optim.global_norm_mesh(
+            sound, groups, dist))
+    finally:
+        undo()
+    del sound
+    undo = _mt_skip(("grad_all_reduce",), (1,))
+    try:
+        faulty = steps_lib.sum_over_batch(tree_leaves(g), specs, dist)
+    finally:
+        undo()
+    del g
+    from repro_torch.train.tree import tree_unflatten
+    with torch.no_grad():
+        _, nopt, _ = optim.adamw_update(
+            tree_unflatten(state0["params"], faulty), state0["opt"],
+            state0["params"], ocfg, stacks=stacks, specs=tfm.specs(cfg),
+            dist=dist, shapes=tfm.param_shapes(cfg))
+    del faulty
+    rec["planted_mean_update"] = max(_mt_state_errors(
+        dist, pls["opt"], nopt, ocfg, ref["path"], dev).values())
+    return rec
+
+
+def _mt_dbrx(rank, dev, conf, ref):
+    """(b): one Adafactor step of dbrx on the all-to-all path, gated
+    against the one-rank step; Adafactor's row means left local as the
+    planted fault."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optim
+    from repro_torch.train.tree import tree_leaves
+    cfg = _mt_cfg(conf, "dbrx")
+    b, s = conf["dbrx"][1]
+    dist = steps_lib.make_dist(make_host_mesh(2, 2), cfg,
+                               ShapeConfig("train", "train", s, b))
+    state0, ocfg = _mt_state(cfg, dev, ref["opt"], dist)
+    _, pls, _ = steps_lib.train_state_specs(cfg, dist, ocfg)
+    batch = _mt_batch(cfg, b, s, dev)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    new, m = steps_lib.make_train_step(cfg, ocfg, kv_chunk=conf["kv_chunk"],
+                                       dist=dist)(state0, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    rec = {"rank": rank, "expert": dist.rules["expert"],
+           "ms_host": (time.perf_counter() - t0) * 1e3,
+           "f_launches": fa.flash_attention.launches,
+           "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+           "experts_a_rank": state0["params"]["layers"][0]["moe"]["wi"]
+           .shape[0]}
+    rec["update_rel"] = _mt_state_errors(dist, pls["opt"], new["opt"],
+                                         ocfg, ref["path"], dev)
+    del new
+    _, g = steps_lib.loss_and_grads(cfg, state0["params"], batch,
+                                    kv_chunk=conf["kv_chunk"], dist=dist)
+    undo = _mt_skip(("adafactor_all_reduce",), range(MT_WORLD))
+    try:
+        with torch.no_grad():
+            _, nopt, _ = optim.adafactor_update(
+                g, state0["opt"], state0["params"], ocfg,
+                stacks=tfm.param_stacks(cfg, state0["params"]),
+                specs=tfm.specs(cfg), dist=dist,
+                shapes=tfm.param_shapes(cfg))
+    finally:
+        undo()
+    rec["planted_rowmean_update"] = max(_mt_state_errors(
+        dist, pls["opt"], nopt, ocfg, ref["path"], dev).values())
+    rec["opt_elems"] = sum(t.numel() for t in tree_leaves(state0["opt"]))
+    return rec
+
+
+def _mt_resume(rank, dev, conf, ckpt_dir):
+    """(c): ``train(data=2, model=2, fail_at=...)``, then its last
+    checkpoint restored through ``restore_on_mesh`` on ``shrink_mesh(2,
+    model=2)`` (ranks 2, 3 left out), the params gathered whole there and
+    held bit for bit to the file."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import build_state, train
+    from repro_torch.runtime.elastic import restore_on_mesh, shrink_mesh
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              _placement_leaves)
+    from repro_torch.train.tree import tree_leaves, tree_paths
+    cfg = _mt_cfg(conf, "resume")
+    layers, steps, tb, ts, every, fail = conf["resume"]
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    losses, final = train("llama3.2-1b", cfg=cfg, steps=steps, batch=tb,
+                          seq=ts, ckpt_every=every, fail_at=(fail,),
+                          ckpt_dir=ckpt_dir, data=2, model=2, log_every=100,
+                          device=dev.type)
+    rec = {"rank": rank, "losses": losses, "final": final,
+           "f_launches": fa.flash_attention.launches,
+           "seconds": time.perf_counter() - t0}
+    d12 = steps_lib.make_dist(shrink_mesh(2, model=2), cfg,
+                              ShapeConfig("train", "train", ts, tb))
+    rec["small_mesh"] = dict(zip(d12.mesh.mesh_dim_names, d12.mesh.shape))
+    ck = CheckpointManager(ckpt_dir)
+    if d12.mesh.get_coordinate() is None:
+        rec["restored_bit_equal"] = None
+        return rec
+    ocfg = steps_lib.opt_config_for(cfg)
+    pls = {"params": steps_lib.train_state_specs(cfg, d12, ocfg)[1][
+        "params"]}
+    tmpl = {"params": build_state(cfg, seed=1, device=dev,
+                                  dist=d12)[0]["params"]}
+    got = restore_on_mesh(ck, tmpl, pls, d12)
+    step = ck.latest_step()
+    with np.load(os.path.join(ckpt_dir, f"step_{step:08d}",
+                              "arrays.npz")) as z:
+        equal = True
+        for (key, t), pl in zip(tree_paths(got), _placement_leaves(pls)):
+            whole = pl.gather(t).cpu()
+            want = torch.from_numpy(z[key]).to(whole.dtype)
+            equal &= bool(torch.equal(whole, want))
+    rec["restored_bit_equal"] = equal
+    rec["restored_step"] = step
+    rec["restored_leaves"] = len(tree_leaves(got))
+    return rec
+
+
+def _mt_rank(rank, world, dev, conf):
+    """One rank of phases 3p/4n (all ranks share the card)."""
+    import gc
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = {}
+    for key, fn, arg in (("llama", _mt_llama, conf["ref"]["llama"]),
+                         ("dbrx", _mt_dbrx, conf["ref"]["dbrx"]),
+                         ("resume", _mt_resume, conf["ckpt_dir"])):
+        t0 = time.perf_counter()
+        out[key] = fn(rank, dev, conf, arg)
+        out[key]["part_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phases(dev, smi):
+    """Phases 3p and 4n: LM training on a (data 2, model 2) mesh over
+    ``MT_WORLD`` ranks that share the card on a gloo group.  The one-rank
+    references run here first (their new params to a temporary directory,
+    the card freed).  (a) llama3.2-1b at full width and depth, B, S =
+    ``MT_LLAMA`` (one row a rank), AdamW with ZeRO-1, remat,
+    ``MT_STEPS`` steps of ``make_train_step(..., dist=)``: every step's
+    loss and gnorm and the first step's update of every leaf (rel L2 over
+    the whole leaf) against the one-rank steps; F twice an attention layer
+    a step on each rank's 16 q / 4 kv heads; planted: rank 1 skips the
+    gradient sum over 'data', the norm over the rank's own blocks, the
+    log-sum-exp's sum unreduced.  (b) dbrx-132b (``MT_DBRX``) on the
+    all-to-all path with Adafactor, one step held the same way; planted:
+    Adafactor's row means left local.  (c) ``train()`` killed by
+    ``fail_at`` on (2, 2), its losses against the one-rank run's, its last
+    checkpoint restored on ``shrink_mesh(2, model=2)`` bit for bit.  4n:
+    per rank the step's ms (events), device ms, peak memory, optimiser
+    state bytes over the unsharded state's, each collective kind's calls,
+    bytes and ms.  Returns (records, {kernel: {path: launches}})."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    conf = {"llama": MT_LLAMA, "steps": MT_STEPS, "kv_chunk": MT_KV_CHUNK,
+            "dbrx": MT_DBRX, "resume": MT_RESUME, "configs": MT_CONFIGS}
+    tmp = tempfile.mkdtemp(prefix="smoke-mt-")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t0 = time.perf_counter()
+        conf["ref"] = _mt_reference(dev, conf, tmp)
+        ref_s = time.perf_counter() - t0
+        conf["ckpt_dir"] = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        ranks = run_spmd(_mt_rank, MT_WORLD, conf, device=dev.type,
+                         timeout=900)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    ref = conf["ref"]
+    failed = []
+    paths = {"F": {}}
+
+    def r(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    # ---- (a) ------------------------------------------------------------
+    cfg = _mt_cfg(conf, "llama")
+    n_attn = attention_layers(cfg)
+    b, s = MT_LLAMA
+    recs = [x["llama"] for x in ranks]
+    r0 = recs[0]
+    paths["F"]["mesh_train_llama"] = sum(sum(x["f_launches"]) for x in recs)
+    loss_rel = [r(a, w) for a, w in zip(r0["losses"], ref["llama"]["losses"])]
+    gnorm_rel = [r(a, w) for a, w in zip(r0["gnorms"],
+                                         ref["llama"]["gnorms"])]
+    upd = r0["update_rel"]
+    worst_key = max(upd, key=upd.get)
+    planted = {"skipped data mean (update)": r0["planted_mean_update"],
+               "rank-local norm (gnorm)": r(r0["planted_norm_gnorm"],
+                                            ref["llama"]["gnorms"][0]),
+               "unreduced log-sum-exp (loss)": r(r0["planted_lse_loss"],
+                                                 ref["llama"]["losses"][0])}
+    limits = {"skipped data mean (update)": TOL_MT_UPDATE,
+              "rank-local norm (gnorm)": TOL_MT_GNORM,
+              "unreduced log-sum-exp (loss)": TOL_MT_LOSS}
+    print(f"[3p] llama3.2-1b on (data 2, model 2), {cfg.num_layers} layers, "
+          f"B={b} S={s}, AdamW {MT_ADAMW} with ZeRO-1, remat, rules "
+          f"{r0['rules']}: one-rank reference {ref['llama']['seconds']:.1f}"
+          f" s for {MT_STEPS} steps, peak {ms_text(ref['llama']['peak_gib'], '.2f')} GiB")
+    print(f"[3p] llama losses {r0['losses']} vs one-rank "
+          f"{ref['llama']['losses']}: rel {[f'{x:.2e}' for x in loss_rel]} "
+          f"(limit {TOL_MT_LOSS:.0e}); gnorms {r0['gnorms']} vs "
+          f"{ref['llama']['gnorms']}: rel {[f'{x:.2e}' for x in gnorm_rel]}"
+          f" (limit {TOL_MT_GNORM:.0e}); first step's update m^/(sqrt(v^) + "
+          f"eps), rel L2 a leaf:"
+          f" worst {upd[worst_key]:.3e} at {worst_key}, median "
+          f"{sorted(upd.values())[len(upd) // 2]:.3e} (limit "
+          f"{TOL_MT_UPDATE:.0e})")
+    print(f"[3p] llama planted faults (each past its limit): "
+          + ", ".join(f"{k} {v:.3e} (limit {limits[k]:.0e})"
+                      for k, v in planted.items()))
+    if max(loss_rel) > TOL_MT_LOSS or max(gnorm_rel) > TOL_MT_GNORM \
+            or upd[worst_key] > TOL_MT_UPDATE:
+        failed.append("llama gates")
+    if any(v <= limits[k] for k, v in planted.items()):
+        failed.append("llama planted faults")
+    for x in recs:
+        if x["losses"] != r0["losses"] or x["gnorms"] != r0["gnorms"]:
+            failed.append(f"llama rank {x['rank']} disagrees")
+        if dev.type == "cuda" and any(n != 2 * n_attn
+                                      for n in x["f_launches"]):
+            failed.append(f"llama rank {x['rank']} F launches")
+        print(f"[4n] llama rank {x['rank']}: step {ms_text(x.get('ms'), '.3f')}"
+              f" ms (events), device {ms_text(x.get('device_ms'), '.3f')} ms;"
+              f" F launches a step {x['f_launches']}; peak "
+              f"{x.get('peak_bytes')} bytes ({x.get('base_bytes')} before); "
+              f"optimiser state {x['opt_bytes']} bytes = "
+              f"{x['opt_bytes'] / x['opt_bytes_whole']:.3f} of the unsharded"
+              f" {x['opt_bytes_whole']} | {smi}")
+        print(f"[4n] llama rank {x['rank']} collectives a step (calls, "
+              f"bytes, host ms with the device synchronised): "
+              + ", ".join(f"{k} {v['calls']} / {v['bytes']} / "
+                          f"{v['seconds'] * 1e3:.2f}"
+                          for k, v in x["collectives"].items()))
+    # ---- (b) ------------------------------------------------------------
+    recs = [x["dbrx"] for x in ranks]
+    d0 = recs[0]
+    paths["F"]["mesh_train_dbrx"] = sum(x["f_launches"] for x in recs)
+    dcfg = _mt_cfg(conf, "dbrx")
+    dl = r(d0["loss"], ref["dbrx"]["losses"][0])
+    dg = r(d0["gnorm"], ref["dbrx"]["gnorms"][0])
+    du = d0["update_rel"]
+    dk = max(du, key=du.get)
+    print(f"[3p] dbrx-132b {dcfg.num_layers} layer(s), B={MT_DBRX[1][0]} "
+          f"S={MT_DBRX[1][1]}, Adafactor, experts over {d0['expert']} "
+          f"({d0['experts_a_rank']} a rank, capacity factor "
+          f"{dcfg.capacity_factor}: no drop, so the one-rank step is the "
+          f"same function): loss {d0['loss']:.6f} vs "
+          f"{ref['dbrx']['losses'][0]:.6f} (rel {dl:.2e}), gnorm rel "
+          f"{dg:.2e}, second moments worst {du[dk]:.3e} at {dk}; planted "
+          f"row means "
+          f"left local: {d0['planted_rowmean_update']:.3e}; one step "
+          f"{d0['ms_host']:.1f} ms (host) | {smi}")
+    if dl > TOL_MT_LOSS or dg > TOL_MT_GNORM or du[dk] > TOL_MT_UPDATE \
+            or d0["planted_rowmean_update"] <= TOL_MT_UPDATE:
+        failed.append("dbrx gates")
+    if dev.type == "cuda" and any(x["f_launches"] != 2 * attention_layers(
+            dcfg) for x in recs):
+        failed.append("dbrx F launches")
+    # ---- (c) ------------------------------------------------------------
+    recs = [x["resume"] for x in ranks]
+    c0 = recs[0]
+    paths["F"]["mesh_train_resume"] = sum(x["f_launches"] for x in recs)
+    want = ref["resume"]["losses"]
+    cl = max(r(a, w) for a, w in zip(c0["losses"], want)) \
+        if len(c0["losses"]) == len(want) else float("inf")
+    print(f"[3p] train() on (2, 2) at {MT_RESUME[0]} layer(s), fail_at "
+          f"{MT_RESUME[5]}: final step {c0['final']}, losses "
+          f"{[round(x, 5) for x in c0['losses']]} vs the uninterrupted "
+          f"one-rank run's, replayed from its checkpoint, "
+          f"{[round(x, 5) for x in want]} (rel worst {cl:.2e}); params "
+          f"restored on "
+          f"{c0['small_mesh']} bit for bit: "
+          f"{[x['restored_bit_equal'] for x in recs]} "
+          f"({c0.get('restored_leaves')} leaves, step "
+          f"{c0.get('restored_step')}); {c0['seconds']:.1f} s")
+    if any(x["final"] != MT_RESUME[1] or x["losses"] != c0["losses"]
+           for x in recs) or cl > TOL_MT_LOSS \
+            or [x["restored_bit_equal"] for x in recs] != [True, True, None,
+                                                           None]:
+        failed.append("train() on the mesh")
+    wall = time.perf_counter() - t_phase
+    parts = {k: [round(x[k]["part_s"], 1) for x in ranks]
+             for k in ("llama", "dbrx", "resume")}
+    print(f"[3p] mesh train phase: {wall:.1f} s (references {ref_s:.1f} s: "
+          f"llama {ref['llama']['seconds']:.1f}, dbrx "
+          f"{ref['dbrx']['seconds']:.1f}; ranks {ranks_s:.1f} s, a rank's "
+          f"parts {parts}), launches {json.dumps(paths)}")
+    if failed:
+        raise RuntimeError(f"mesh train gates failed: {failed}")
+    for x in ranks:
+        for k in ("llama", "dbrx"):
+            u = x[k].pop("update_rel")
+            key = max(u, key=u.get)
+            x[k]["update_rel_worst"] = (key, u[key])
+            x[k]["update_rel_median"] = sorted(u.values())[len(u) // 2]
+    return {"mesh_train": {"llama": [x["llama"] for x in ranks],
+                           "dbrx": [x["dbrx"] for x in ranks],
+                           "resume": [x["resume"] for x in ranks],
+                           "reference": {k: {kk: vv for kk, vv in v.items()
+                                             if kk != "path"}
+                                         for k, v in ref.items()},
+                           "seconds": wall}}, paths
+
+
+
 def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
 
-    unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh")]
+    unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh",
+                                            "--mesh-train")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -4535,9 +5180,9 @@ def main(argv=()) -> int:
         raise RuntimeError(f"kernel C or D instantiations with a stack "
                            f"frame (local memory): {framed}")
 
-    if "--plane-parallel" in argv or "--mesh" in argv:
-        # phase 3n and/or phases 3o/4m alone: with a card per rank their
-        # ranks meet on NCCL
+    if argv:
+        # phase 3n, phases 3o/4m and/or phases 3p/4n alone: with a card per
+        # rank their ranks meet on NCCL
         if "--plane-parallel" in argv:
             pp_records, pp_paths = plane_parallel_phases(dev, smi)
             print(json.dumps({"card": smi, **pp_records,
@@ -4546,6 +5191,10 @@ def main(argv=()) -> int:
             mesh_records, mesh_paths = mesh_phases(dev, smi)
             print(json.dumps({"card": smi, **mesh_records,
                               "launches_by_path": mesh_paths}))
+        if "--mesh-train" in argv:
+            mt_records, mt_paths = mesh_train_phases(dev, smi)
+            print(json.dumps({"card": smi, **mt_records,
+                              "launches_by_path": mt_paths}))
         print(f"[done] phase(s) {' '.join(argv)} passed in "
               f"{time.perf_counter() - t_start:.1f} s, the build included")
         print(smi)
@@ -5744,6 +6393,10 @@ def main(argv=()) -> int:
     mesh_records, mesh_paths = mesh_phases(dev, smi)
     print(json.dumps({"card": smi, **mesh_records}))
     f_entry["launches_by_path"].update(mesh_paths["F"])
+
+    mt_records, mt_paths = mesh_train_phases(dev, smi)
+    print(json.dumps({"card": smi, **mt_records}))
+    f_entry["launches_by_path"].update(mt_paths["F"])
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
 
     # ---- 5. the kernels line, the card line, the result line ---------------

@@ -2,8 +2,10 @@
 
 Two layers:
 
-- The transport helpers ``_send_recv``, ``_all_gather``, ``_all_reduce``
-  and ``_all_to_all`` move tensors over one group.  On a gloo group (the
+- The transport helpers ``_send_recv``, ``_all_gather``, ``_gather_to``,
+  ``_all_reduce``, ``_reduce_scatter``, ``_broadcast`` and ``_all_to_all``
+  move tensors
+  over one group.  On a gloo group (the
   one-card group: NCCL refuses two ranks on one device) a CUDA tensor goes
   through pinned host buffers, since gloo moves host tensors; the group's
   backend chooses this, not a caught failure.  On an NCCL group the same
@@ -13,11 +15,18 @@ Two layers:
   each with its conjugate backward, as in Megatron: ``copy_to`` (copy
   forward, all-reduce backward), ``reduce_from`` (all-reduce forward,
   copy backward), ``gather_from`` (all-gather along a dim forward, this
-  rank's slice backward), ``split_to`` (this rank's slice forward,
+  rank's slice backward; ``reduce_bwd=True``: the cotangents summed over
+  the group first, a reduce-scatter, where each rank reads its own part
+  of the gathered tensor), ``split_to`` (this rank's slice forward,
   all-gather backward) and ``all_to_all`` (its own transpose).  A group
   of ``None`` is a one-rank group: every Function is then the identity.
 
-Every Function call adds to ``traffic()``: per kind, the calls, the bytes
+The plain collectives ``all_reduce`` (sum or max), ``all_gather``,
+``gather_to``, ``reduce_scatter``, ``broadcast`` and ``all_to_all`` serve the train
+step's gradient buckets, the optimiser and the checkpoints; they carry no
+backward.
+
+Every Function call and every plain collective adds to ``traffic()``: per kind, the calls, the bytes
 this rank hands to the collective (its input tensor's bytes; for a
 backward, the cotangent's) and, under ``timed(True)``, the host seconds
 of the transfer with the device synchronised before and after it.
@@ -73,12 +82,57 @@ def _all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     return [p.to(t.device) for p in parts] if staged else parts
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     if _staged(t, group):
         h = _host(t)
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         return h.to(t.device)
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _gather_to(t: torch.Tensor, group, dim: int):
+    """Every rank's ``t`` concatenated along ``dim`` on the group's rank 0
+    (in group rank order); None on the others."""
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    first = dist.get_rank(group) == 0
+    parts = ([torch.empty_like(src) for _ in range(dist.get_world_size(
+        group))] if first else None)
+    dist.gather(src, parts, dst=dist.get_global_rank(group, 0), group=group)
+    if not first:
+        return None
+    return torch.cat([p.to(t.device) for p in parts] if staged else parts,
+                     dim)
+
+
+def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, this rank's equal part along
+    ``dim``.  gloo (and so every staged transfer) sums whole and cuts;
+    NCCL reduce-scatters."""
+    n = dist.get_world_size(group)
+    i = dist.get_rank(group)
+    size = t.shape[dim] // n
+    if dist.get_backend(group) == "gloo":
+        return _all_reduce(t.contiguous().clone(), group).narrow(
+            dim, i * size, size).contiguous()
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((size,) + src.shape[1:], dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter(out, list(src.chunk(n)), group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` of the group's rank ``src`` (a group rank) on every rank;
+    the others pass a buffer of its shape and dtype."""
+    peer = dist.get_global_rank(group, src)
+    if _staged(t, group):
+        h = _host(t)
+        dist.broadcast(h, src=peer, group=group)
+        return h.to(t.device)
+    t = t.contiguous()
+    dist.broadcast(t, src=peer, group=group)
     return t
 
 
@@ -138,15 +192,54 @@ def _run(kind: str, t: torch.Tensor, fn):
     return out
 
 
-def all_reduce(t: torch.Tensor, group, kind: str = "all_reduce"):
-    """The sum of ``t`` over ``group`` (a new tensor; ``t`` is left as it
-    is), counted under ``kind``."""
-    return _run(kind, t, lambda: _all_reduce(t.contiguous().clone(), group))
+def all_reduce(t: torch.Tensor, group, kind: str = "all_reduce",
+               op: str = "sum"):
+    """The sum (``op='max'``: the maximum) of ``t`` over ``group`` (a new
+    tensor; ``t`` is left as it is), counted under ``kind``; ``t`` itself
+    for a one-rank group (None)."""
+    if group is None:
+        return t
+    rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    return _run(kind, t, lambda: _all_reduce(t.contiguous().clone(), group,
+                                             rop))
+
+
+def gather_to(t: torch.Tensor, group, dim: int, kind: str = "gather"):
+    """Every rank's ``t`` concatenated along ``dim`` on the group's rank 0
+    only (None on the others; ``t`` for a one-rank group)."""
+    if group is None:
+        return t
+    return _run(kind, t, lambda: _gather_to(t, group, dim % t.dim()))
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0,
+                   kind: str = "reduce_scatter") -> torch.Tensor:
+    """The sum of ``t`` over ``group``, this rank's equal part along
+    ``dim`` (in group rank order)."""
+    if group is None:
+        return t
+    return _run(kind, t, lambda: _reduce_scatter(t, group, dim % t.dim()))
+
+
+def barrier(group) -> None:
+    """Every rank of ``group`` meets here (nothing for None)."""
+    if group is not None:
+        dist.barrier(group=group)
+
+
+def broadcast(t: torch.Tensor, src: int, group, kind: str = "broadcast"):
+    """Group rank ``src``'s ``t`` on every rank of ``group``."""
+    if group is None:
+        return t
+    return _run(kind, t, lambda: _broadcast(t, src, group))
 
 
 def all_gather(t: torch.Tensor, group, dim: int,
                kind: str = "all_gather") -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in group rank order."""
+    """Every rank's ``t`` concatenated along ``dim`` in group rank order
+    (``t`` for a one-rank group)."""
+    if group is None:
+        return t
     return _run(kind, t, lambda: torch.cat(
         _all_gather(t.contiguous(), group), dim=dim))
 
@@ -208,6 +301,23 @@ class _GatherFrom(torch.autograd.Function):
         return _slice(g, ctx.group, ctx.dim), None, None, None
 
 
+class _GatherFromReduce(torch.autograd.Function):
+    """Forward: every rank's ``x`` concatenated along ``dim`` in rank
+    order; backward: the cotangents summed over the group, this rank's
+    part (a reduce-scatter: each rank reads its own columns of the
+    gathered tensor, so each part's gradient comes from every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return all_gather(x, group, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.group, ctx.dim, ctx.kind + "_bwd"),
+                None, None, None)
+
+
 class _SplitTo(torch.autograd.Function):
     """Forward: this rank's equal slice of ``x`` along ``dim``; backward:
     every rank's cotangent slice gathered back along ``dim``."""
@@ -245,10 +355,14 @@ def reduce_from(x, group, kind: str = "all_reduce"):
     return x if group is None else _ReduceFrom.apply(x, group, kind)
 
 
-def gather_from(x, group, dim: int = -1, kind: str = "all_gather"):
+def gather_from(x, group, dim: int = -1, kind: str = "all_gather",
+                reduce_bwd: bool = False):
+    """``reduce_bwd``: the ranks read different parts of the gathered
+    tensor (the cotangents differ), so the backward sums them."""
     if group is None:
         return x
-    return _GatherFrom.apply(x, group, dim % x.dim(), kind)
+    fn = _GatherFromReduce if reduce_bwd else _GatherFrom
+    return fn.apply(x, group, dim % x.dim(), kind)
 
 
 def split_to(x, group, dim: int = 0, kind: str = "split_to"):

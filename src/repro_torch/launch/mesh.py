@@ -76,9 +76,21 @@ def mesh_shape(mesh) -> dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
-def make_host_mesh(data: int = 1, model: int = 1):
-    """Small explicit (data, model) mesh."""
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0):
+    """Small explicit (data, model) mesh; with ``pod`` a (pod, data,
+    model) one, the 'pod' axis the outer data-parallel axis (the batch
+    over ('pod', 'data'), major to minor)."""
+    if pod:
+        return _mesh((pod, data, model), ("pod", "data", "model"))
     return _mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """JAX's production mesh: (data 16, model 16), or (pod 2, data 16,
+    model 16) with ``multi_pod``; ``ValueError`` in a smaller world."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"))
+    return _mesh((16, 16), ("data", "model"))
 
 
 def make_spatial_mesh(sp_h: int, sp_w: int = 1, data: int = 1):

@@ -14,7 +14,10 @@ rank runs the attention core (kernel F on the card) on its local heads,
 q heads ``[r·H/TP, (r+1)·H/TP)`` and the kv heads they read (the GQA
 grouping stays contiguous); where k and v are not split at whole kv heads
 (replicated, or a block that cuts a head) the rank takes the kv heads its
-q heads read from the whole projection.  The output projection is
+q heads read from the whole projection.  Under autograd such a read is
+conjugated: a gathered projection's gradient is reduce-scattered back,
+and a replicated k/v weight's gradient summed over the group, since each
+rank reads other kv heads of it.  The output projection is
 row-parallel: the partial products are summed over the group in f32 and
 rounded once.
 """
@@ -206,11 +209,19 @@ def _kv_local(p, x, kh, dh, dist, kv, group):
     the rank's own columns where they hold those heads whole, else from
     the whole projection (gathered over ``group`` where it is split)."""
     k0, k1 = kv
-    y = cm.dense_apply(p, x)
     _, i, n = cm.tp(dist, "heads", kh * dh)
+    if n == 1:
+        # the whole projection on every rank, each reading its own kv
+        # heads of it: the weight's gradient is summed over the group
+        p = {k: comm.copy_to(w, group, kind="kv_weight")
+             for k, w in p.items()}
+    y = cm.dense_apply(p, x)
     c0 = i * (kh * dh // n)
     if n > 1 and not (c0 <= k0 * dh and k1 * dh <= c0 + y.shape[-1]):
-        y = comm.gather_from(y, group, dim=-1, kind="kv_gather")
+        # each rank reads other columns of the gathered projection: the
+        # backward reduce-scatters
+        y = comm.gather_from(y, group, dim=-1, kind="kv_gather",
+                             reduce_bwd=True)
         c0 = 0
     return y[..., k0 * dh - c0:k1 * dh - c0]
 
@@ -391,25 +402,30 @@ def _mla_heads(dist, cfg):
     return cm.tp(dist, "heads", h * widths[0])[0], h // n
 
 
-def _mla_q(p, x, cfg, h=None):
-    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation."""
+def _mla_q(p, x, cfg, h=None, group=None):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation.
+    ``group``: the heads' group; the compressed q, the same on every rank,
+    enters its head columns through ``copy_to``."""
     b, sq, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = cm.rmsnorm_apply(p["dq_n"], cm.dense_apply(p["dq"], x),
                           cfg.norm_eps)
+    cq = comm.copy_to(cq, group)
     q = cm.dense_apply(p["uq"], cq).reshape(b, sq, h or cfg.num_heads,
                                             dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
-def _mla_kv(p, x, cfg):
+def _mla_kv(p, x, cfg, group=None):
     """(c_kv (B, S, kv_lora_rank) normed, k_rope (B, S, 1, dr) before the
-    rotation)."""
+    rotation); ``group`` as ``_mla_q``'s."""
     b, sq, _ = x.shape
     kvr = cfg.kv_lora_rank
     ckv_full = cm.dense_apply(p["dkv"], x)
     ckv = cm.rmsnorm_apply(p["dkv_n"], ckv_full[..., :kvr], cfg.norm_eps)
-    return ckv, ckv_full[..., kvr:].reshape(b, sq, 1, cfg.qk_rope_dim)
+    return (comm.copy_to(ckv, group),
+            comm.copy_to(ckv_full[..., kvr:], group).reshape(
+                b, sq, 1, cfg.qk_rope_dim))
 
 
 def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
@@ -418,13 +434,15 @@ def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
     for the shared flash core (kernel F on the card: one launch) and the
     output sliced back to ``v_head_dim``, as JAX does.  ``dist``: each
     rank runs its ``H/TP`` heads (``uq``/``uk``/``uv`` columns, ``o``
-    rows, summed in f32 over the group)."""
+    rows, summed in f32 over the group).  The compressions ``dq`` and
+    ``dkv`` run whole on every rank; their outputs enter the head columns
+    through ``copy_to``, so their weights' gradients, summed over the
+    group there, are whole on every rank."""
     b, sq, _ = x.shape
     group, h = _mla_heads(dist, cfg)
-    x = comm.copy_to(x, group)
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg, h)
-    ckv, k_rope = _mla_kv(p, x, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, h, group)
+    ckv, k_rope = _mla_kv(p, x, cfg, group)
     pos2d = positions if positions.dim() == 2 else positions[0]
     q_rope = rp.apply_rope(q_rope, pos2d, cfg.rope_theta)
     k_rope = rp.apply_rope(k_rope, pos2d, cfg.rope_theta)

@@ -44,6 +44,12 @@ expert-capacity drop (``capacity_factor``):
   each expert's block to its rank, the local experts run, ``all_to_all``
   brings the results back and they are scatter-added in f32.
 
+Under autograd each path is conjugated as JAX's SPMD transpose is: the
+router, replicated, reads other tokens or other experts' gates on each
+rank, so its gradient is summed over the expert ranks that share a batch
+row (``copy_to``; the train step sums the batch axes), and a token
+gather whose rows other ranks read reduce-scatters its gradient back.
+
 Their arithmetic is JAX's EP arithmetic, not the dense path's:
 ``_expert_ffn_ep`` takes its products in the input dtype and casts ``h``
 to it before ``@ wo``.  ``jax.lax.top_k`` breaks ties by the lower
@@ -233,10 +239,16 @@ def _moe_dense_split(p, x, cfg, dist):
     expert group, this rank's rows, cast once."""
     b, s, d = x.shape
     axes, group, e0, _ = _expert_split(dist, cfg)
-    x2 = x.reshape(b * s, d)
     shared = tuple(a for a in _batch_axes(dist) if a in axes)
     tgroup = dist.group(shared)
-    xa = comm.gather_from(x2, tgroup, dim=0, kind="moe_token_gather")
+    # the expert axes off the batch see the same rows: their partial
+    # gradients of the rows and of the router are summed there (copy_to);
+    # the gathered rows' come back summed over the batch axes they span
+    rgroup = dist.group(tuple(a for a in axes if a not in shared))
+    x2 = comm.copy_to(x.reshape(b * s, d), rgroup)
+    xa = comm.gather_from(x2, tgroup, dim=0, kind="moe_token_gather",
+                          reduce_bwd=True)
+    p = dict(p, router=comm.copy_to(p["router"], rgroup))
     w, idx = _route(xa, p, cfg)
     out = comm.reduce_from(_moe_sorted(p, xa, w, idx, cfg, e0), group,
                            kind="moe_all_reduce")
@@ -300,6 +312,9 @@ def moe_apply_ep(p, x, cfg, dist):
     if len(axes) > 1:
         raise ValueError(f"moe_apply_ep takes one expert axis, got {axes}")
     x2 = comm.copy_to(x.reshape(b * s, d), group)
+    # every rank routes the same tokens and reads its experts' gates: the
+    # router's gradient is summed over the group
+    p = dict(p, router=comm.copy_to(p["router"], group))
     out = comm.reduce_from(ep_local_body(x2, p, cfg, e0), group,
                            kind="ep_psum")
     return out.to(x.dtype).reshape(b, s, d)
@@ -387,6 +402,10 @@ def moe_apply_ep_a2a(p, x, cfg, dist):
         i, _ = dist.shard_of(tok_axes, padded)
         t_l = xt.shape[0]
         valid = valid[i * t_l:(i + 1) * t_l]
+    # each rank routes other tokens: the router's gradient is summed over
+    # the token axes off the batch (the train step sums the batch axes)
+    p = dict(p, router=comm.copy_to(
+        p["router"], dist.group(tuple(a for a in tok_axes if a not in ba))))
     buf, gv, tok = ep_dispatch(xt, valid, p, cfg)
     recv = comm.all_to_all_fn(buf, group, kind="ep_all_to_all")
     back = ep_experts(recv, p, cfg, n_ep)

@@ -36,6 +36,8 @@ logits, JAX's ``P(batch, None, "vocab")``.  The ``rec``, ``ssd`` and
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -230,6 +232,26 @@ def specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         s["head"] = cm.dense_specs(None, "vocab")
     return s
+
+
+@functools.lru_cache(maxsize=16)
+def param_shapes(cfg):
+    """``init``'s whole params as meta tensors (shapes and dtypes, no
+    storage): what the optimisers and ``launch.steps.train_state_specs``
+    read as the leaves' whole shapes on a mesh."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init(cfg, device="cpu")
+    return _map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                           device="meta"), fake)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
 
 
 def param_stacks(cfg, params) -> list[list[str]]:
@@ -496,15 +518,73 @@ def gather_logits(logits, cfg, dist):
                             kind="logits_gather")
 
 
-def loss_fn(params, batch, cfg, *, kv_chunk=1024, remat=True):
+def loss_fn(params, batch, cfg, dist=None, *, kv_chunk=1024, remat=True):
     """The mean next-token cross entropy over the positions whose target
-    is ``>= 0``: ``logsumexp(logits) - logits[target]`` in f32."""
-    logits = forward(params, batch, cfg, kv_chunk=kv_chunk, remat=remat)
+    is ``>= 0``: ``logsumexp(logits) - logits[target]`` in f32.  On a mesh
+    (``dist``; the batch whole on every rank) the mean over the global
+    batch, the same on every rank: the rank's rows and vocab block of the
+    logits go through ``VocabParallelCE``, the masked sum and the count
+    are each summed over the batch axes before the divide (not a mean of
+    the ranks' means: with ragged ``targets < 0`` those differ).  Its
+    gradient on each rank is that rank's rows' share: the train step sums
+    it over the batch axes."""
+    logits = forward(params, batch, cfg, dist, kv_chunk=kv_chunk,
+                     remat=remat)
+    if dist is not None and dist.mesh is not None:
+        tgt = local_batch({"targets": batch["targets"]}, dist)["targets"]
+        group, i, n = cm.tp(dist, "vocab", cfg.padded_vocab)
+        tgt = tgt.long()
+        nll = VocabParallelCE.apply(logits, tgt - i * (cfg.padded_vocab // n),
+                                    group)
+        mask = (tgt >= 0).float()
+        axes, _ = dist.batch_ranks()
+        bgroup = dist.group(axes) if axes is not None else None
+        num = comm.reduce_from((nll * mask).sum(), bgroup,
+                               kind="loss_all_reduce")
+        count = comm.all_reduce(mask.sum(), bgroup, kind="loss_all_reduce")
+        return num / torch.clamp_min(count, 1.0)
     tgt = batch["targets"].long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tgt.clamp_min(0)[..., None])[..., 0]
     mask = (tgt >= 0).float()
     return ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+class VocabParallelCE(torch.autograd.Function):
+    """Cross entropy over logits split on the vocab: ``logits`` (..., V_l)
+    f32, this rank's block of the columns; ``local`` the targets minus
+    the block's first column (in the block where ``0 <= local < V_l``).
+    Forward: the row max and the sum of ``exp`` all-reduced over
+    ``group`` (max, then sum), the gold logit from the rank whose block
+    holds the target (summed: one nonzero term), ``log-sum-exp - gold``
+    per position, (...,) f32.  The padded columns, -1e30, add exp(-1e30 -
+    max) = 0.  Backward: ``(softmax - one-hot) * g`` on the block, no
+    collective (the cotangent is the same on every rank of the group).
+    Saves the logits and the log-sum-exp, not the (..., V_l) softmax."""
+
+    @staticmethod
+    def forward(ctx, logits, local, group):
+        v = logits.shape[-1]
+        hit = (local >= 0) & (local < v)
+        m = comm.all_reduce(logits.amax(-1), group, kind="lse_max",
+                            op="max")
+        se = torch.exp(logits - m[..., None]).sum(-1)
+        se = comm.all_reduce(se, group, kind="lse_all_reduce")
+        lse = m + torch.log(se)
+        gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])
+        gold = torch.where(hit, gold[..., 0], 0.0)
+        gold = comm.all_reduce(gold, group, kind="gold_all_reduce")
+        ctx.save_for_backward(logits, lse, local, hit)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, hit = ctx.saved_tensors
+        v = logits.shape[-1]
+        grad = torch.exp(logits - lse[..., None]) * g[..., None]
+        grad.scatter_add_(-1, local.clamp(0, v - 1)[..., None],
+                          torch.where(hit, -g, 0.0)[..., None])
+        return grad, None, None
 
 
 def _readout(params, x, cfg, dist=None):

@@ -6,6 +6,13 @@ monitor watches wall-clock per step and the injector raises at a chosen
 step, which the serving control plane (``serving/control_plane.py``)
 turns into re-queue + replay and a training driver into a restore from
 its latest state.
+
+Under SPMD (``launch.train.train`` on a mesh) every rank runs its own
+injector and restart loop: a failure keyed by the step fires on every rank at
+the same step, before the step's first collective, and every rank
+restores.  The restore joins the first rank's checkpoint writer and meets
+every rank at a barrier before any reads ``latest`` (JAX's launcher reads
+it at once, racing an async write: ROADMAP Queue 3).
 """
 from __future__ import annotations
 

@@ -127,13 +127,82 @@ def _spec_map(fn, specs):
 class Placement:
     """A resolved spec on a mesh (JAX's ``NamedSharding``): ``block``
     cuts this rank's block from a whole tensor, a dim its mesh axes do not
-    divide staying whole (``shard_params``' rule)."""
+    divide staying whole (``shard_params``' rule); ``gather`` makes a
+    rank's block whole again (a collective: every rank of the mesh calls
+    it).
+
+    A leaf of a stack JAX keeps as one stacked leaf (``index``: its place
+    in the stack) carries the stacked ``spec`` and whole ``shape``, the
+    stack dim first.  Where that dim is split (ZeRO-1 of a stack of
+    layers over 'data'), a rank holds the leaf whole if its part of the
+    stack has layer ``index`` and an empty tensor otherwise."""
 
     dist: "DistContext"
     spec: Spec
+    shape: Optional[tuple] = None
+    index: Optional[int] = None
+
+    def _leaf(self):
+        if self.index is None:
+            return self.spec, self.shape
+        return Spec(*self.spec[1:]), (None if self.shape is None
+                                      else tuple(self.shape[1:]))
+
+    def _owner(self):
+        """(this rank owns the leaf, the owner's rank in the stack dim's
+        group, that group) of a leaf whose stack dim is split; None
+        otherwise."""
+        if self.index is None or not self.spec or self.spec[0] is None:
+            return None
+        lead = self.spec[0]
+        j, n = self.dist.shard_of(lead, self.shape[0])
+        if n == 1:
+            return None
+        size = self.shape[0] // n
+        return (j == self.index // size, self.index // size,
+                self.dist.group(lead))
 
     def block(self, t):
-        return self.dist._block(t, self.spec)
+        own = self._owner()
+        if own is not None and not own[0]:
+            return t.new_empty((0,))
+        return self.dist._block(t, self._leaf()[0])
+
+    def gather(self, t, root=False):
+        """The whole leaf from this rank's block ``t`` (an empty tensor
+        where the stack's owner holds it).  ``root``: only on the mesh's
+        first rank (None on the others), each dim gathered to its group's
+        first rank, which moves each block once."""
+        import torch
+        from repro_torch.core import comm
+        spec, shape = self._leaf()
+        if shape is None:
+            raise ValueError("Placement.gather needs the whole shape "
+                             "(DistContext.placement)")
+        own = self._owner()
+        if own is not None:
+            if not own[0]:
+                blk = [b - a for a, b in self.dist._dims(shape, spec)]
+                t = torch.empty(blk, dtype=t.dtype, device=t.device)
+            t = comm.broadcast(t, own[1], own[2], kind="ckpt_broadcast")
+        spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+        for d, entry in enumerate(spec):
+            j, n = self.dist.shard_of(entry, shape[d])
+            if n == 1:
+                continue
+            if not root:
+                t = comm.all_gather(t, self.dist.group(entry), d,
+                                    kind="ckpt_gather")
+                continue
+            # the group's members share every other coordinate, so they
+            # all still hold data here, or none do
+            t = comm.gather_to(t, self.dist.group(entry), d,
+                               kind="ckpt_gather")
+            if t is None:
+                return None
+        if root and not self.dist.is_first():
+            return None
+        return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +305,21 @@ class DistContext:
 
     def sharding(self, spec) -> Placement:
         return Placement(self, self.resolve(spec))
+
+    def placement(self, resolved, shape, index=None) -> Placement:
+        """A ``Placement`` of a resolved spec over a whole ``shape`` (a
+        stacked one, the stack dim first, with ``index`` the leaf's place
+        in the stack)."""
+        return Placement(self, Spec(*resolved), tuple(shape), index)
+
+    def mesh_group(self):
+        """The group of every rank of the mesh (None for one rank)."""
+        return self.group(tuple(a for a in self.mesh.mesh_dim_names))
+
+    def is_first(self) -> bool:
+        """This rank is the mesh's first (every coordinate 0)."""
+        coord = self.mesh.get_coordinate()
+        return coord is not None and not any(coord)
 
     def param_shardings(self, specs_tree):
         return _spec_map(self.sharding, specs_tree)
