@@ -314,6 +314,23 @@ result line) if anything is off:
 4n. times of 3p: per rank the step's ms and device ms, F launches a
    step, peak memory, the optimiser state's bytes over the unsharded
    state's, every collective kind's calls, bytes and host ms;
+3q. serving on a (data 2, model 2) mesh over 4 ranks that share the card
+   (``mesh_serve_phases``), at full width in bf16 under ``make_dist``'s
+   decode rules: llama3.2-1b at B = 8, S = 32768 and B = 1, S = 131072,
+   gemma3-1b (12 layers), deepseek-v3-671b (1 + 1 layers, EP at decode),
+   recurrentgemma-2b (9 layers, a prefill at (1, 4096) first) and
+   seamless-m4t-large-v2 (6 + 6 layers, a prefill over 3072 source frames
+   first): each cache filled from a seed, 3 greedy steps of
+   ``make_serve_step(cfg, dist)``, every step's logits against the
+   one-rank step, the cache blocks against the one-rank cache's slices,
+   F on each rank's local heads (seamless's cross attention at every
+   decode step), the MoE layers against JAX's EP semantics, planted
+   faults (a 'kv_seq' rank skipping the merge, the new row written on
+   every rank, the RG-LRU's gather skipped, the cross attention's
+   all-reduce skipped on one rank, the EP return rotated);
+4o. times of 3q: per rank the step's ms and device ms beside the one-rank
+   step's, the cache bytes over the one-rank cache's, every collective
+   kind's calls and bytes a step, peak memory;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -321,10 +338,10 @@ result line) if anything is off:
     python3 chip_smoke.py        # from the repository root, one GPU
 
 ``--plane-parallel`` builds the kernels and runs phase 3n alone,
-``--mesh`` phases 3o/4m alone, ``--mesh-train`` phases 3p/4n alone (several
-flags: each).  On a machine with a
-card for each of its 4 ranks they meet on an NCCL group and exchange
-device tensors (no host staging):
+``--mesh`` phases 3o/4m alone, ``--mesh-train`` phases 3p/4n alone,
+``--mesh-serve`` phases 3q/4o alone (several flags: each).  On a machine
+with a card for each of its 4 ranks they meet on an NCCL group and
+exchange device tensors (no host staging):
 
     python3 chip_smoke.py --plane-parallel --mesh --mesh-train  # 4 GPUs
 """
@@ -5095,12 +5112,606 @@ def mesh_train_phases(dev, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# 3q / 4o. Serving on a (data, model) mesh over ranks that share the card
+# ---------------------------------------------------------------------------
+
+# (name, arch, depth, B, S, positions filled, prefill (B, S) or None,
+# source frames): depth None is the published depth, an int the first
+# layers (an encoder-decoder: that many encoder and decoder layers), a
+# tuple the stages.  Each cache is filled from a seed up to ``fill`` and
+# decoded ``MS_STEPS`` greedy steps from there: gemma3-1b's crosses its
+# 'kv_seq' blocks' boundary (the second block has no live position for
+# two steps), recurrentgemma-2b's local layers mask the first block (the
+# window of 2048 behind position 4092)
+MS_CASES = (
+    ("llama_B8", "llama3.2-1b", None, 8, 32768, 32768 - 4, None, 0),
+    ("llama_B1_128k", "llama3.2-1b", None, 1, 131072, 131072 - 4, None, 0),
+    ("gemma3", "gemma3-1b", 12, 8, 32768, 16384 - 2, None, 0),
+    ("deepseek", "deepseek-v3-671b", ((("mla",), 1), (("mla_moe",), 1)), 8,
+     32768, 32768 - 4, None, 0),
+    ("recurrentgemma", "recurrentgemma-2b", 9, 1, 4096, 4096 - 4, (1, 4096),
+     0),
+    ("seamless", "seamless-m4t-large-v2", 6, 2, 256, 256 - 4, (2, 64),
+     3072),
+)
+MS_STEPS = 3
+MS_WORLD = 4
+MS_CONFIGS = "full"           # "reduced": the CPU rehearsal's configs
+# limits (each read sound and with a planted fault; PERF.md's 3q rows give
+# both): relative to max|ref| (logits: over the vocab's real columns).
+# First chip run (NVIDIA H100 80GB HBM3, 700 W): sound logits 5.88e-3 to
+# 2.08e-2 and cache blocks up to 1.99e-2 (bf16 roundings of the new rows
+# against the seeded fill's max), planted 0.36 to 1.27
+TOL_MS_LOGITS = 5e-2          # a bf16 step's logits vs the one-rank step's
+TOL_MS_CACHE = 5e-2           # a cache leaf's block vs the one-rank slice
+TOL_MS_MOE = 3e-2             # a bf16 EP layer at decode vs its reference
+
+
+def _ms_logits_rel(ref, got, cfg):
+    """``_mesh_rel`` over the vocab's real columns (the padded ones hold
+    -1e30 in both)."""
+    v = cfg.vocab_size
+    return _mesh_rel(ref[..., :v], got[..., :v])
+
+
+def _ms_cfg(conf, arch, depth):
+    """A case's config: full width (reduced in the rehearsal), its depth
+    cut; the MoE archs on the EP path."""
+    from repro_torch.configs import registry
+    cfg = (registry.get_reduced(arch) if conf["configs"] == "reduced"
+           else registry.get_config(arch))
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_impl="ep")
+    if isinstance(depth, tuple):
+        return dataclasses.replace(cfg, stages=depth, num_layers=sum(
+            len(k) * r for k, r in depth))
+    if depth is None:
+        return cfg
+    if cfg.is_encoder_decoder:
+        return dataclasses.replace(cfg, stages=((("dec",), depth),),
+                                   encoder_stages=((("enc",), depth),),
+                                   num_layers=2 * depth)
+    return cut_depth(cfg, depth)
+
+
+def _ms_fill(cfg, dist, blocks, whole, b, s, fill, dev):
+    """Every cache leaf drawn whole from a seed, N(0, 1) (a K/V leaf's
+    positions from ``fill`` on zero, as a fresh cache holds), this rank's
+    block copied out (rank 0 keeps the whole leaf too)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    for i, kind in enumerate(tfm.layer_kinds(cfg)):
+        shapes = tfm.init_cache_layer(kind, cfg, b, s, device="meta")
+        specs = tfm.cache_layer_specs(kind, cfg)
+        for j, (k, meta) in enumerate(sorted(shapes.items())):
+            gen = torch.Generator(device=dev).manual_seed(1000 + 7 * i + j)
+            t = torch.randn(meta.shape, generator=gen, device=dev)
+            if k not in ("h", "conv"):
+                t[:, fill:] = 0
+            t = t.to(meta.dtype)
+            pl = dist.placement(dist.resolve(specs[k]), meta.shape)
+            blocks[i][k].copy_(pl.block(t))
+            if whole is not None:
+                whole[i][k].copy_(t)
+            del t
+
+
+def _ms_regions(cfg, whole, b, s, fill, steps, dev, dist):
+    """What the steps changed in the one-rank cache, broadcast from rank
+    0 to every rank: a K/V leaf's rows ``[fill, fill + steps)``, a state
+    leaf whole."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.models import transformer as tfm
+    out = []
+    for i, kind in enumerate(tfm.layer_kinds(cfg)):
+        layer = {}
+        for k, meta in tfm.init_cache_layer(kind, cfg, b, s,
+                                            device="meta").items():
+            shape = ((meta.shape[0], steps) + tuple(meta.shape[2:])
+                     if k not in ("h", "conv") else meta.shape)
+            t = (torch.empty(shape, dtype=meta.dtype, device=dev)
+                 if whole is None else
+                 (whole[i][k][:, fill:fill + steps] if k not in ("h", "conv")
+                  else whole[i][k]).contiguous())
+            layer[k] = comm.broadcast(t, 0, dist.mesh_group(),
+                                      kind="gate_broadcast")
+        out.append(layer)
+    return out
+
+
+def _ms_cache_rel(cfg, dist, blocks, before, regions, b, s, fill, steps):
+    """Each rank's cache blocks after the steps against what they must
+    hold: the blocks before the steps with the one-rank cache's changed
+    rows written where this block holds their positions (a state leaf:
+    its block of the one-rank state).  The worst max|Δ| / max|want| over
+    the leaves."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import Spec
+    worst = 0.0
+    for i, kind in enumerate(tfm.layer_kinds(cfg)):
+        specs = tfm.cache_layer_specs(kind, cfg)
+        for k, meta in tfm.init_cache_layer(kind, cfg, b, s,
+                                            device="meta").items():
+            r = dist.resolve(specs[k])
+            reg = regions[i][k]
+            if k in ("h", "conv"):
+                want = dist.placement(r, meta.shape).block(reg)
+            else:
+                want = before[i][k].clone()
+                reg = dist.placement(Spec(r[0], None, *r[2:]),
+                                     reg.shape).block(reg)
+                s0, s1 = dist.span(r[1], meta.shape[1])
+                for j in range(steps):
+                    if s0 <= fill + j < s1:
+                        want[:, fill + j - s0] = reg[:, j]
+            worst = max(worst, _mesh_rel(want.float(), blocks[i][k].float()))
+    return worst
+
+
+def _ms_write_everywhere(orig):
+    """Planted fault: the new row written by every rank of the sequence's
+    group, at its position clamped into the rank's block."""
+    import torch
+
+    def write(cache, rows, idx, s0, group):
+        n, length = rows.shape[1], cache.shape[1]
+        pos = (idx - s0 + torch.arange(n, device=cache.device)).clamp(
+            0, length - 1)
+        cache.index_copy_(1, pos, rows.to(cache.dtype))
+    return write
+
+
+def _ms_skip_merge(rank):
+    """Planted fault: rank 1 keeps its own partials of the 'kv_seq'
+    softmax merge (the collectives still run, so no rank waits)."""
+    def wrap(orig):
+        def all_reduce(t, group, kind="all_reduce", op="sum"):
+            y = orig(t, group, kind, op)
+            return t if rank == 1 and kind.startswith("kv_seq") else y
+        return all_reduce
+    return wrap
+
+
+def _ms_skip_gather(orig):
+    """Planted fault: the RG-LRU's channel gather before ``wa``/``wx``
+    skipped, the rank's own block standing in for every rank's."""
+    import torch
+    import torch.distributed as tdist
+
+    def gather(x, group, dim=-1, kind="all_gather", reduce_bwd=False):
+        y = orig(x, group, dim, kind, reduce_bwd)
+        if kind != "rec_gather":
+            return y
+        return torch.cat([x] * tdist.get_world_size(group), dim)
+    return gather
+
+
+def _ms_case(rank, dev, case, conf):
+    """One case of 3q and its 4o times: each rank's blocks of the seeded
+    params and cache, ``MS_STEPS`` greedy steps of ``make_serve_step(cfg,
+    dist)`` against the one-rank ``decode_step`` on rank 0 (the whole
+    params and cache, fed the mesh's tokens; its MoE layers on JAX's EP
+    semantics over the mesh run's MoE inputs), the cache blocks after the
+    steps, F's calls, the MoE layers, the planted faults, then the step's
+    times, collectives, cache bytes and peak memory."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_dist, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.layers import attention, moe
+    from repro_torch.models import transformer as tfm
+    name, arch, depth, b, s, fill, prefill, src = case
+    cfg = _ms_cfg(conf, arch, depth)
+    dist = make_dist(make_host_mesh(2, 2), cfg,
+                     ShapeConfig("decode", "decode", s, b))
+    rec = {"name": name, "arch": arch, "rank": rank,
+           "kinds": tfm.layer_kinds(cfg),
+           "enc_layers": len(tfm.enc_layer_kinds(cfg)), "rules": {
+               k: dist.rules[k] for k in ("batch", "heads", "kv_heads",
+                                          "kv_seq", "expert")}}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if rank == 0:
+            whole = tfm.init(cfg, seed=0, device=dev)
+            params = dist.shard_params(whole, tfm.specs(cfg))
+        else:
+            whole = None
+            params = tfm.init(cfg, seed=0, device=dev, dist=dist)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(70)
+    memory = None
+    # ---- the prefill on the mesh (recurrentgemma, seamless) ---------------
+    if prefill is not None:
+        pb, ps = prefill
+        batch = {"inputs": torch.randint(0, cfg.vocab_size, (pb, ps),
+                                         generator=g).to(dev)}
+        if src:
+            batch["src_embeds"] = torch.randn(
+                (pb, src, cfg.d_model), generator=g).to(dev, torch.bfloat16)
+        step = make_prefill_step(cfg, dist)
+        calls = []
+        with captured_attention(calls):
+            fa.flash_attention.launches = 0
+            logits = step(params, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec["prefill_f_launches"] = fa.flash_attention.launches
+        rec["prefill_f_gate"] = check_f_layers(
+            f"{name} prefill on the mesh, rank {rank}", calls, F_FAULT)
+        rec["f_heads"] = sorted({tuple(c[0].shape[1:3]) for c in calls})
+        del calls
+        bad = None
+        if cfg.lru_width:
+            undo = _pp_patch(comm, "gather_from", _ms_skip_gather)
+            try:
+                bad = step(params, batch)
+            finally:
+                undo()
+        if rank == 0:
+            with torch.no_grad():
+                ref = make_prefill_step(cfg)(whole, batch)
+            rec["prefill_rel"] = _ms_logits_rel(ref, logits, cfg)
+            if bad is not None:
+                rec["prefill_planted_rel"] = _ms_logits_rel(ref, bad, cfg)
+        if src:
+            with torch.no_grad():
+                memory = tfm.encode(params, batch["src_embeds"], cfg,
+                                    dist=dist)
+        del logits, bad
+    # ---- the caches ---------------------------------------------------------
+    blocks = tfm.init_cache(cfg, b, s, device=dev, dist=dist)
+    wcache = tfm.init_cache(cfg, b, s, device=dev) if rank == 0 else None
+    _ms_fill(cfg, dist, blocks, wcache, b, s, fill, dev)
+    before = [{k: v.clone() for k, v in c.items()} for c in blocks]
+    rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _tensors(blocks))
+    rec["whole_cache_bytes"] = sum(
+        t.numel() * t.element_size() for kind in tfm.layer_kinds(cfg)
+        for t in tfm.init_cache_layer(kind, cfg, b, s,
+                                      device="meta").values())
+    # ---- the greedy steps ---------------------------------------------------
+    moe_layers = [i for i, k in enumerate(rec["kinds"]) if k in tfm.MOE_KINDS]
+    n_ep = dist.extent(dist.rules["expert"]) if moe_layers else 1
+    serve = make_serve_step(cfg, dist)
+    kept = {}
+
+    def keep_logits(orig):
+        def f(*a, **kw):
+            out = orig(*a, **kw)
+            kept["logits"] = out[0]
+            return out
+        return f
+
+    def keep_moe(orig):
+        def f(p, x, *a, **kw):
+            y = orig(p, x, *a, **kw)
+            kept.setdefault("moe", []).append((p, x, y))
+            return y
+        return f
+
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=g).to(dev)
+    rec.update(steps=[], moe=[], decode_f_launches=[])
+    f_calls = []
+    ref_logits = None
+    for j in range(MS_STEPS):
+        idx = torch.tensor(fill + j, device=dev)
+        kept.clear()
+        undos = [_pp_patch(tfm, "decode_step", keep_logits),
+                 _pp_patch(moe, "moe_apply", keep_moe)]
+        try:
+            with captured_attention(f_calls):
+                fa.flash_attention.launches = 0
+                nxt, blocks = serve(params, blocks, tok, idx, memory)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                rec["decode_f_launches"].append(fa.flash_attention.launches)
+        finally:
+            for u in reversed(undos):
+                u()
+        logits = kept["logits"]
+        # the MoE layers' inputs and outputs, every rank's rows
+        moe_in, moe_out = [], []
+        for p, x, y in kept.get("moe", []):
+            xs, ys = _mesh_world_gather(x), _mesh_world_gather(y)
+            moe_in.append(torch.cat([xs[0], xs[2]]) if b > 1 else xs[0])
+            moe_out.append(ys)
+            if j == MS_STEPS - 1:
+                # planted: the experts' results return to the rotated rank
+                undo = _pp_patch(comm, "all_to_all_fn",
+                                 _mesh_rotated_return())
+                try:
+                    with torch.no_grad():
+                        bad = moe.moe_apply(p, x, cfg, dist)
+                finally:
+                    undo()
+                moe_out.append(_mesh_world_gather(bad))
+        step_rec = {"idx": fill + j,
+                    "tokens": nxt[:, 0].tolist()}
+        if rank == 0:
+            inputs = iter(moe_in)
+
+            def ep_ref(orig):
+                def f(p, x, cfg_):
+                    return _mesh_ep_ref(p, next(inputs), cfg_, n_ep)
+                return f
+            undo = (_pp_patch(moe, "moe_decode", ep_ref) if moe_layers
+                    else (lambda: None))
+            try:
+                with torch.no_grad():
+                    ref_logits, wcache = tfm.decode_step(
+                        whole, wcache, tok, fill + j, cfg, memory=memory)
+            finally:
+                undo()
+            step_rec["rel"] = _ms_logits_rel(ref_logits, logits, cfg)
+            step_rec["argmax_equal"] = bool(torch.equal(
+                ref_logits.argmax(-1), logits.argmax(-1)))
+            for k, i in enumerate(moe_layers):
+                wm = whole["layers"][i]["moe"]
+                with torch.no_grad():
+                    sim = _mesh_ep_ref(wm, moe_in[k], cfg, n_ep)
+                half = b // 2 if b > 1 else b
+                rows = [sim[:half], sim[:half], sim[-half:], sim[-half:]]
+                ys = moe_out[2 * k if j == MS_STEPS - 1 else k]
+                m = {"step": j, "layer": i,
+                     "rel": max(_mesh_rel(r, y) for r, y in zip(rows, ys))}
+                if j == MS_STEPS - 1:
+                    m["planted_rel"] = min(_mesh_rel(r, y) for r, y in zip(
+                        rows, moe_out[2 * k + 1]))
+                rec["moe"].append(m)
+        rec["steps"].append(step_rec)
+        tok_last, tok = tok, nxt
+        del kept["logits"], moe_in, moe_out
+    if f_calls:
+        rec["decode_f_gate"] = check_f_layers(
+            f"{name} decode on the mesh, rank {rank}", f_calls, F_FAULT)
+        rec["decode_f_shapes"] = sorted({(tuple(c[0].shape[1:3]),
+                                          c[1].shape[1]) for c in f_calls})
+    del f_calls
+    # ---- the cache blocks against the one-rank cache -----------------------
+    regions = _ms_regions(cfg, wcache, b, s, fill, MS_STEPS, dev, dist)
+    rec["cache_rel"] = _ms_cache_rel(cfg, dist, blocks, before, regions, b,
+                                     s, fill, MS_STEPS)
+    idx_last = torch.tensor(fill + MS_STEPS - 1, device=dev)
+
+    def run_last():
+        # the last step again on its own inputs: with sound code it writes
+        # the rows it wrote before (a recurrent state moves on)
+        return serve(params, blocks, tok_last, idx_last, memory)
+
+    def planted_logits(patches):
+        undos = [_pp_patch(*p) for p in patches]
+        undos.append(_pp_patch(tfm, "decode_step", keep_logits))
+        try:
+            run_last()
+        finally:
+            for u in reversed(undos):
+                u()
+        return (_ms_logits_rel(ref_logits, kept["logits"], cfg)
+                if rank == 0 else None)
+    split_seq = dist.extent(dist.resolve(("kv_seq",))[0]) > 1
+    if split_seq and not cfg.lru_width:
+        rec["merge_planted_rel"] = planted_logits(
+            [(comm, "all_reduce", _ms_skip_merge(rank))])
+    if cfg.is_encoder_decoder:
+        rec["cross_planted_rel"] = planted_logits(
+            [(comm, "reduce_from", _mesh_unsummed(rank, "cross_all_reduce"))])
+    kept.clear()
+    # ---- 4o: the step's times, collectives and memory ----------------------
+    rec["ms"] = _pp_ms(run_last, dev, iters=3)
+    rec["device_ms"] = _pp_device_ms(run_last, dev)
+    comm.traffic_reset()
+    run_last()
+    rec["collectives"] = comm.traffic()
+    rec["peak_bytes"], rec["base_bytes"] = _pp_peak(run_last, dev)
+    if rank == 0:
+        def single():
+            with torch.no_grad():
+                return tfm.decode_step(whole, wcache, tok_last, idx_last,
+                                       cfg, memory=memory)
+        rec["single_ms"] = _pp_ms(single, dev, iters=3)
+        rec["single_device_ms"] = _pp_device_ms(single, dev)
+    # ---- planted: the new row written on every rank (last: it stays) -------
+    if split_seq and not cfg.lru_width:
+        undo = _pp_patch(attention, "_write_rows", _ms_write_everywhere)
+        try:
+            run_last()
+        finally:
+            undo()
+        rec["write_planted_rel"] = _ms_cache_rel(
+            cfg, dist, blocks, before, regions, b, s, fill, MS_STEPS)
+    return rec
+
+
+def _ms_rank(rank, world, dev, conf):
+    """One rank of phases 3q/4o (all ranks share the card)."""
+    import gc
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    out = []
+    for case in conf["cases"]:
+        t0 = time.perf_counter()
+        out.append(_ms_case(rank, dev, case, conf))
+        out[-1]["case_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_phases(dev, smi):
+    """Phases 3q and 4o: serving on a (data 2, model 2) mesh over
+    ``MS_WORLD`` ranks that share the card on a gloo group, each case
+    under ``make_dist(mesh, cfg, ShapeConfig(.., "decode", S, B))`` at
+    full width in bf16 (``MS_CASES``): llama3.2-1b at B = 8, S = 32768
+    (kv heads over 'model') and B = 1, S = 131072 (the sequence over
+    'data', kv heads over 'model'), gemma3-1b (one kv head: the sequence
+    over 'model'), deepseek-v3-671b (MLA's cache sequence over 'model',
+    EP at decode), recurrentgemma-2b (the RG-LRU on its channel block; a
+    prefill at (1, 4096) with F on 5 local heads) and seamless-m4t-large-v2
+    (a prefill over 3072 source frames, cross attention on 8 of 16 heads;
+    F at every decode step at Sq = 1 over 3072 rows).  Gates: each step's
+    logits against the one-rank step on the same weights and cache, the
+    cache blocks after the steps against the one-rank cache's slices, F's
+    calls on local heads (``check_f_layers``), each MoE layer at decode
+    against JAX's EP semantics on the run's own inputs (``_mesh_ep_ref``),
+    the cache bytes a rank (a quarter of one rank's for the first four
+    cases); planted: a 'kv_seq' rank skipping the merge, the new row
+    written on every rank, the RG-LRU's gather skipped, one rank skipping
+    the cross attention's all-reduce, the EP return to the rotated rank.
+    4o: per rank the step's ms (events) and device ms beside the one-rank
+    step's, cache bytes over the one-rank cache's, each collective kind's
+    calls and bytes a step, peak memory.  Returns (records, {"F": {path:
+    launches}})."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_spmd(_ms_rank, MS_WORLD, {"cases": MS_CASES,
+                                              "configs": MS_CONFIGS},
+                         device=dev.type, timeout=900)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    wall = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    paths = {"F": {}}
+    failed = []
+    for c, case in enumerate(MS_CASES):
+        name, b, s, fill, prefill = case[0], case[3], case[4], case[5], \
+            case[6]
+        recs = [r[c] for r in ranks]
+        r0 = recs[0]
+        kinds = r0["kinds"]
+        n_dec = kinds.count("dec")
+        print(f"[3q] {name} ({r0['arch']}, {len(kinds)} layers, B={b}, "
+              f"S={s}, filled to {fill}, {MS_STEPS} steps): rules "
+              f"{r0['rules']}; {r0['case_s']:.1f} s")
+        if prefill is not None:
+            n_f = sum(k in ("local", "attn", "global", "dec")
+                      for k in kinds) + n_dec + r0["enc_layers"]
+            paths["F"][f"mesh_serve_{name}_prefill"] = sum(
+                r["prefill_f_launches"] for r in recs)
+            for r in recs:
+                fg = r["prefill_f_gate"]
+                print(f"[3q] {name} prefill rank {r['rank']}: F launches "
+                      f"{r['prefill_f_launches']} (sq, heads) "
+                      f"{r['f_heads']}, F vs plain worst share "
+                      f"{fg['worst_share']:.3f} (planted x{F_FAULT}: least "
+                      f"{fg['planted_least_share']:.2f})")
+                if cuda and r["prefill_f_launches"] != n_f:
+                    failed.append(f"{name} prefill F launches")
+            planted = r0.get("prefill_planted_rel")
+            print(f"[3q] {name} prefill's last-position logits vs the "
+                  f"one-rank prefill, limit {TOL_MS_LOGITS:.0e}: "
+                  f"{r0['prefill_rel']:.2e}" + (
+                      "" if planted is None else
+                      f", the RG-LRU's gather skipped {planted:.2e}"))
+            if r0["prefill_rel"] > TOL_MS_LOGITS or (
+                    planted is not None and not planted > TOL_MS_LOGITS):
+                failed.append(f"{name} prefill")
+        if n_dec:
+            paths["F"][f"mesh_serve_{name}_decode"] = sum(
+                sum(r["decode_f_launches"]) for r in recs)
+        for r in recs:
+            dl = r["decode_f_launches"]
+            line = f"[3q] {name} decode rank {r['rank']}: F launches a step {dl}"
+            if "decode_f_gate" in r:
+                fg = r["decode_f_gate"]
+                line += (f" ((sq, heads), keys) {r['decode_f_shapes']}, F vs "
+                         f"plain worst share {fg['worst_share']:.3f} "
+                         f"(planted x{F_FAULT}: least "
+                         f"{fg['planted_least_share']:.2f})")
+            print(line)
+            if cuda and dl != [n_dec] * MS_STEPS:
+                failed.append(f"{name} rank {r['rank']} decode F launches")
+        for st in r0["steps"]:
+            print(f"[3q] {name} step at {st['idx']}: logits vs the one-rank "
+                  f"step, limit {TOL_MS_LOGITS:.0e}: {st['rel']:.2e} "
+                  f"(argmax equal: {st['argmax_equal']}), tokens "
+                  f"{st['tokens']}")
+            if st["rel"] > TOL_MS_LOGITS:
+                failed.append(f"{name} step {st['idx']} logits")
+        for key, what in (("merge_planted_rel", "rank 1 skips the 'kv_seq' "
+                                                "merge"),
+                          ("cross_planted_rel", "rank 1 skips the cross "
+                                                "attention's all-reduce")):
+            if key in r0:
+                print(f"[3q] {name} last step, {what}: {r0[key]:.2e} (limit "
+                      f"{TOL_MS_LOGITS:.0e})")
+                if not r0[key] > TOL_MS_LOGITS:
+                    failed.append(f"{name} {key}")
+        cache = [r["cache_rel"] for r in recs]
+        write = [r.get("write_planted_rel") for r in recs]
+        print(f"[3q] {name} cache blocks after the steps vs the one-rank "
+              f"cache's slices, per rank, limit {TOL_MS_CACHE:.0e}: "
+              + ", ".join(f"{e:.2e}" for e in cache)
+              + ("" if write[0] is None else "; the new row written on every "
+                 "rank: " + ", ".join(f"{e:.2e}" for e in write)))
+        if max(cache) > TOL_MS_CACHE or (write[0] is not None
+                                         and not max(write) > TOL_MS_CACHE):
+            failed.append(f"{name} cache")
+        for m in r0["moe"]:
+            planted = m.get("planted_rel")
+            print(f"[3q] {name} MoE layer {m['layer']} step {m['step']} vs "
+                  f"JAX's EP semantics on the run's inputs, limit "
+                  f"{TOL_MS_MOE:.0e}: {m['rel']:.2e}" + (
+                      "" if planted is None else
+                      f", return to the rotated rank {planted:.2e}"))
+            if m["rel"] > TOL_MS_MOE or (planted is not None
+                                         and not planted > TOL_MS_MOE):
+                failed.append(f"{name} MoE layer {m['layer']}")
+        for r in recs:
+            share = r["cache_bytes"] / r0["whole_cache_bytes"]
+            single = (f", one rank {r0['single_ms']:.3f} ms, device "
+                      f"{ms_text(r0['single_device_ms'])} ms"
+                      if r["rank"] == 0 else "")
+            print(f"[4o] {name} rank {r['rank']}: step {r['ms']:.3f} ms "
+                  f"(events), device {ms_text(r['device_ms'])} ms{single}; "
+                  f"cache {r['cache_bytes']} bytes = {share:.4f} of one "
+                  f"rank's {r0['whole_cache_bytes']}; peak "
+                  f"{r['peak_bytes']} bytes ({r['base_bytes']} before) | "
+                  f"{smi}")
+            print(f"[4o] {name} rank {r['rank']} collectives a step (calls, "
+                  f"bytes): " + ", ".join(
+                      f"{k} {v['calls']} / {v['bytes']}"
+                      for k, v in r["collectives"].items()))
+            if c < 4 and abs(share - 0.25) > 1e-9:
+                failed.append(f"{name} rank {r['rank']} cache share {share}")
+    print(f"[3q] mesh serve phase: {wall:.1f} s over {MS_WORLD} ranks, F "
+          f"launches {json.dumps(paths['F'])}")
+    if failed:
+        raise RuntimeError(f"mesh serve gates failed: {failed}")
+    return {"mesh_serve": {"ranks": ranks, "seconds": wall}}, paths
+
+
 def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
 
     unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh",
-                                            "--mesh-train")]
+                                            "--mesh-train", "--mesh-serve")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -5181,8 +5792,8 @@ def main(argv=()) -> int:
                            f"frame (local memory): {framed}")
 
     if argv:
-        # phase 3n, phases 3o/4m and/or phases 3p/4n alone: with a card per
-        # rank their ranks meet on NCCL
+        # phase 3n, phases 3o/4m, 3p/4n and/or 3q/4o alone: with a card
+        # per rank their ranks meet on NCCL
         if "--plane-parallel" in argv:
             pp_records, pp_paths = plane_parallel_phases(dev, smi)
             print(json.dumps({"card": smi, **pp_records,
@@ -5195,6 +5806,10 @@ def main(argv=()) -> int:
             mt_records, mt_paths = mesh_train_phases(dev, smi)
             print(json.dumps({"card": smi, **mt_records,
                               "launches_by_path": mt_paths}))
+        if "--mesh-serve" in argv:
+            ms_records, ms_paths = mesh_serve_phases(dev, smi)
+            print(json.dumps({"card": smi, **ms_records,
+                              "launches_by_path": ms_paths}))
         print(f"[done] phase(s) {' '.join(argv)} passed in "
               f"{time.perf_counter() - t_start:.1f} s, the build included")
         print(smi)
@@ -6397,6 +7012,10 @@ def main(argv=()) -> int:
     mt_records, mt_paths = mesh_train_phases(dev, smi)
     print(json.dumps({"card": smi, **mt_records}))
     f_entry["launches_by_path"].update(mt_paths["F"])
+
+    ms_records, ms_paths = mesh_serve_phases(dev, smi)
+    print(json.dumps({"card": smi, **ms_records}))
+    f_entry["launches_by_path"].update(ms_paths["F"])
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
 
     # ---- 5. the kernels line, the card line, the result line ---------------

@@ -3,11 +3,12 @@
 Counterpart of ``repro.launch.steps``' ``make_dist``, ``dp_total``,
 ``make_train_step``, ``train_state_specs``, ``make_prefill_step``,
 ``make_serve_step``, ``opt_config_for`` and ``default_grad_accum``, for
-every layer kind the port runs.  ``make_train_step`` and
-``make_prefill_step`` run on a (data, model) mesh (``dist``: explicit
-SPMD, every rank the same code on its blocks, the batch whole on every
-rank); decode takes no mesh yet (the decode cache's rules are ROADMAP
-Queue 1 item 13c)."""
+every layer kind the port runs.  ``make_train_step``,
+``make_prefill_step`` and ``make_serve_step`` run on a (data, model) mesh
+(``dist``: explicit SPMD, every rank the same code on its blocks, the
+batch whole on every rank); ``make_dist``'s decode rules place the cache
+(heads over 'model', or the sequence over 'model' or 'data':
+context-parallel decode)."""
 from __future__ import annotations
 
 import numpy as np
@@ -376,14 +377,17 @@ def make_prefill_step(cfg, dist=None, kv_chunk: int = 1024):
     return prefill_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, dist=None):
     """``serve_step(params, cache, tokens, idx, memory=None) -> (next
     (B, 1), cache)``: one greedy decode step (``memory``: the encoder's
-    output, for an encoder-decoder)."""
+    output, for an encoder-decoder).  On a mesh (``dist``: ``params`` and
+    ``cache`` each rank's blocks, from ``tfm.init``/``tfm.init_cache``
+    with ``dist``; ``tokens`` and ``memory`` whole on every rank) the
+    next tokens come back whole on every rank."""
     def serve_step(params, cache, tokens, idx, memory=None):
         with torch.no_grad():
             logits, cache = tfm.decode_step(params, cache, tokens, idx, cfg,
-                                            memory=memory)
+                                            memory=memory, dist=dist)
             return torch.argmax(logits[:, -1, :], dim=-1)[:, None], cache
 
     return serve_step

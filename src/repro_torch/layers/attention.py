@@ -19,7 +19,14 @@ conjugated: a gathered projection's gradient is reduce-scattered back,
 and a replicated k/v weight's gradient summed over the group, since each
 rank reads other kv heads of it.  The output projection is
 row-parallel: the partial products are summed over the group in f32 and
-rounded once.
+rounded once.  The cross attention runs the same way on its local heads.
+
+Decode on a mesh (``gqa_decode``, ``mla_decode``): the cache is the
+rank's block of JAX's layout, kv heads over 'kv_heads' and positions over
+'kv_seq'.  Where 'kv_seq' splits the sequence (context-parallel decode)
+the new row is written by the rank that holds its position, each rank
+scores its own positions, and the softmax is merged over the sequence's
+group: the max, then the rescaled numerators and denominators.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from repro_torch.core import comm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.layers import common as cm
 from repro_torch.layers import rope as rp
+from repro_torch.sharding import _axes
 
 NEG_INF = -2.0 ** 30
 
@@ -282,40 +290,127 @@ def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
     return cm.row_parallel(p["o"], o.reshape(b, sq, -1), group)
 
 
-def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global"):
+def _write_rows(cache, rows, idx, s0, group):
+    """Write ``rows`` (B, n, ...) at the positions ``idx + [0, n)`` of a
+    cache block that holds positions ``[s0, s0 + L)`` on dim 1.  With
+    ``group`` (the ranks that hold the sequence's other blocks) a row
+    whose position lies in the block is written at ``position - s0`` and
+    any other row leaves the block as it is (its owner writes it).
+    ``idx`` is a 0-d device tensor and stays one: no host sync."""
+    n, length = rows.shape[1], cache.shape[1]
+    pos = idx - s0 + torch.arange(n, device=cache.device)
+    rows = rows.to(cache.dtype)
+    if group is None:
+        cache.index_copy_(1, pos, rows)
+        return
+    own = ((pos >= 0) & (pos < length)).view((1, n) + (1,) * (rows.dim() - 2))
+    local = pos.clamp(0, length - 1)
+    cache.index_copy_(1, local, torch.where(own, rows,
+                                            cache.index_select(1, local)))
+
+
+def _decode_seq(dist, length, heads_group):
+    """(group, first position, gather q) of a decode cache block of
+    ``length`` positions under ``dist``'s 'kv_seq' rule: the group of the
+    ranks that hold the sequence's other blocks (None where it is whole)
+    and this block's first position; ``gather q`` where that group shares
+    a mesh axis with the heads' group ``heads_group`` (its ranks hold
+    other q heads, so every rank scores every head on its positions)."""
+    if dist is None or dist.mesh is None:
+        return None, 0, False
+    entry = dist.resolve(("kv_seq",))[0]
+    n = dist.extent(entry)
+    if n == 1:
+        return None, 0, False
+    j, _ = dist.shard_of(entry, length * n)
+    seq_axes = {a for a in _axes(entry) if dist.extent(a) > 1}
+    head_axes = {a for a in _axes(dist.resolve(("heads",))[0])
+                 if dist.extent(a) > 1}
+    return (dist.group(entry), j * length,
+            heads_group is not None and bool(seq_axes & head_axes))
+
+
+def _attend(s, values, eq, group):
+    """``einsum(eq, softmax(s), values)``, the softmax over the keys (the
+    last dim of ``s``, f32).  With ``group`` (the ranks that hold the keys'
+    other blocks) every rank's partial is merged: the max all-reduced,
+    then one all-reduce of the rescaled numerators, the denominators
+    riding along as one more value column.  A rank whose keys are all
+    masked (``NEG_INF``) adds exp(NEG_INF - max) = 0."""
+    if group is None:
+        return torch.einsum(eq, torch.softmax(s, dim=-1), values)
+    m = comm.all_reduce(s.amax(-1), group, kind="kv_seq_max", op="max")
+    e = torch.exp(s - m[..., None])
+    ones = values.new_ones(values.shape[:-1] + (1,))
+    num = torch.einsum(eq, e, torch.cat([values, ones], -1))
+    num = comm.all_reduce(num, group, kind="kv_seq_merge")
+    return num[..., :-1] / num[..., -1:]
+
+
+def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global",
+               dist=None):
     """Single-token decode.  cache: {"k", "v"}: (B, Smax, Kh, Dh), updated
     in place at ``cache_index`` (JAX returns a new cache; the port writes
     the one it was given and returns it).  ``cache_index`` is a Python int
     or a 0-d int64 tensor on ``x``'s device (what a captured CUDA graph
     needs, as JAX traces it); both give the same bits.  The attention is
     JAX's dense f32 softmax over the whole cache; kernel F is not launched
-    here."""
+    here.
+
+    On a mesh (``dist``) ``cache`` is this rank's block of JAX's
+    ``("batch", "kv_seq", "kv_heads", None)`` layout and ``x`` its rows.
+    The rank's q heads are its 'heads' columns, k and v the kv heads its
+    block holds (``_kv_local``); ``o`` is row-parallel.  Where 'kv_seq'
+    splits the sequence, the new row is written by the block that holds
+    its position only (``_write_rows``), each rank scores its own
+    positions and the softmax is merged over the sequence's group
+    (``_attend``); where that group shares the heads' axis, q is gathered
+    over the heads first and the rank keeps its heads of the output."""
     b, sq, _ = x.shape
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(p, x, cfg)
+    ck, cv = cache["k"], cache["v"]
+    group, kv = _local_heads(dist, h, kh, dh)
+    sgroup, s0, gather = _decode_seq(dist, ck.shape[1], group)
+    c0, c1 = (0, kh) if dist is None else \
+        dist.span(dist.resolve(("kv_heads",))[0], kh)
+    _, i, n = cm.tp(dist, "heads", h * dh)
+    a0, a1 = (0, h) if gather else (i * h // n, (i + 1) * h // n)
+    ka, kb = (0, kh) if gather else kv
+    if not (c0 <= ka and kb <= c1):
+        raise NotImplementedError(
+            f"q heads [{a0}, {a1}) read kv heads [{ka}, {kb}) outside the "
+            f"cache block's [{c0}, {c1}) (ROADMAP Queue 1 item 13c)")
+    if group is None:
+        q, k, v = _qkv(p, x, cfg)
+    else:
+        q, k, v = _qkv(p, comm.copy_to(x, group), cfg, (dist, (c0, c1),
+                                                          group))
     pos = idx.expand(b, sq)
     if cfg.mrope_sections:
         pos = pos.expand(3, b, sq)
     theta = _theta(cfg, layer_kind)
     q = _rope(q, pos, cfg, theta)
     k = _rope(k, pos, cfg, theta)
-    ck, cv = cache["k"], cache["v"]
-    rows = idx + torch.arange(sq, device=x.device)
-    ck.index_copy_(1, rows, k.to(ck.dtype))
-    cv.index_copy_(1, rows, v.to(cv.dtype))
-    kpos = torch.arange(ck.shape[1], device=x.device)
+    _write_rows(ck, k, idx, s0, sgroup)
+    _write_rows(cv, v, idx, s0, sgroup)
+    if gather:
+        q = comm.gather_from(q, group, dim=2, kind="decode_q_gather")
+    if (ka, kb) != (c0, c1):
+        ck, cv = ck[:, :, ka - c0:kb - c0], cv[:, :, ka - c0:kb - c0]
+    kpos = s0 + torch.arange(ck.shape[1], device=x.device)
     window = cfg.window if layer_kind == "local" else 0
-    qr = q.reshape(b, sq, kh, h // kh, dh).float()
+    qr = q.reshape(b, sq, kb - ka, -1, dh).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, ck.float()) * (dh ** -0.5)
     mask = kpos <= idx
     if window:
         mask &= kpos > idx - window
     s = s.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", w, cv.float())
-    o = o.reshape(b, sq, h * dh).to(x.dtype)
-    return cm.dense_apply(p["o"], o), cache
+    o = _attend(s, cv.float(), "bkgqs,bskd->bqkgd", sgroup)
+    o = o.reshape(b, sq, -1)
+    if gather:
+        o = o[..., i * (h // n) * dh:(i + 1) * (h // n) * dh]
+    return cm.row_parallel(p["o"], o.to(x.dtype), group), cache
 
 
 # ---------------------------------------------------------------------------
@@ -338,20 +433,31 @@ def cross_specs(cfg) -> dict:
             "o": cm.dense_specs("heads", None)}
 
 
-def cross_apply(p, x, memory, cfg, kv_chunk=1024):
+def cross_apply(p, x, memory, cfg, kv_chunk=1024, dist=None):
     """x: (B, Sq, D) decoder states; memory: (B, Sk, D) encoder output.  q
     from the decoder, k and v from the memory, no RoPE, the shared core
     with ``causal=False`` (kernel F on the card: one launch, at prefill
     and at every decode step, where JAX recomputes k and v from the
-    memory too)."""
+    memory too).  ``dist``: tensor-parallel over 'heads' as
+    ``gqa_apply`` (``memory`` the same rows as ``x``): the rank's q heads
+    and the kv heads they read, F on those heads, ``o`` row-parallel."""
     b, sq, _ = x.shape
     sk = memory.shape[1]
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = cm.dense_apply(p["q"], x).reshape(b, sq, h, dh)
-    k = cm.dense_apply(p["k"], memory).reshape(b, sk, kh, dh)
-    v = cm.dense_apply(p["v"], memory).reshape(b, sk, kh, dh)
+    group, kv = _local_heads(dist, h, kh, dh)
+    if group is None:
+        k = cm.dense_apply(p["k"], memory)
+        v = cm.dense_apply(p["v"], memory)
+    else:
+        x, memory = comm.copy_to(x, group), comm.copy_to(memory, group)
+        k = _kv_local(p["k"], memory, kh, dh, dist, kv, group)
+        v = _kv_local(p["v"], memory, kh, dh, dist, kv, group)
+    q = cm.dense_apply(p["q"], x).reshape(b, sq, -1, dh)
+    k = k.reshape(b, sk, -1, dh)
+    v = v.reshape(b, sk, -1, dh)
     o = flash_attention(q, k, v, causal=False, kv_chunk=kv_chunk)
-    return cm.dense_apply(p["o"], o.reshape(b, sq, h * dh))
+    return cm.row_parallel(p["o"], o.reshape(b, sq, -1), group,
+                           kind="cross_all_reduce")
 
 
 # ---------------------------------------------------------------------------
@@ -457,38 +563,50 @@ def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
     return cm.row_parallel(p["o"], o.reshape(b, sq, h * dv), group)
 
 
-def mla_decode(p, x, cache, cache_index, cfg):
+def mla_decode(p, x, cache, cache_index, cfg, dist=None):
     """Absorbed-form MLA decode: attention runs in the compressed space,
     the cache holds (c_kv, k_rope) only.  cache: {"ckv": (B, Smax,
     kv_lora_rank), "kr": (B, Smax, qk_rope_dim)}, written in place at
     ``cache_index`` (a Python int or a 0-d int64 tensor, as
     ``gqa_decode``).  JAX's f32 einsums: ``W_uk`` folded into q, ``W_uv``
-    applied after; kernel F is not launched here."""
+    applied after; kernel F is not launched here.  ``dist``: the rank's
+    heads of ``uq``/``uk``/``uv`` (``_mla_heads``), ``o`` row-parallel;
+    the compressed cache has no heads, so a 'kv_seq' split (over 'model'
+    under ``make_dist``) has each rank score every head on its positions
+    (q gathered over the heads where the two groups share an axis) and
+    merge as ``gqa_decode`` does."""
     b, sq, _ = x.shape
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg)
+    group, hl = _mla_heads(dist, cfg)
+    cc, cr = cache["ckv"], cache["kr"]
+    sgroup, s0, gather = _decode_seq(dist, cc.shape[1], group)
+    q_nope, q_rope = _mla_q(p, x, cfg, hl, group)
     pos = idx.expand(b, sq)
     q_rope = rp.apply_rope(q_rope, pos, cfg.rope_theta)
-    ckv, k_rope = _mla_kv(p, x, cfg)
+    ckv, k_rope = _mla_kv(p, x, cfg, group)
     k_rope = rp.apply_rope(k_rope, pos, cfg.rope_theta)
-    cc, cr = cache["ckv"], cache["kr"]
-    rows = idx + torch.arange(sq, device=x.device)
-    cc.index_copy_(1, rows, ckv.to(cc.dtype))
-    cr.index_copy_(1, rows, k_rope[:, :, 0].to(cr.dtype))
-    wuk = p["uk"]["w"].reshape(kvr, h, dn).float()
+    _write_rows(cc, ckv, idx, s0, sgroup)
+    _write_rows(cr, k_rope[:, :, 0], idx, s0, sgroup)
+    wuk = p["uk"]["w"].reshape(kvr, hl, dn).float()
     q_c = torch.einsum("bqhd,khd->bqhk", q_nope.float(), wuk)
+    q_r = q_rope.float()
+    if gather:
+        q_c = comm.gather_from(q_c, group, dim=2, kind="decode_q_gather")
+        q_r = comm.gather_from(q_r, group, dim=2, kind="decode_q_gather")
     ccf = cc.float()
     s = (torch.einsum("bqhk,bsk->bhqs", q_c, ccf)
-         + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), cr.float())) \
+         + torch.einsum("bqhd,bsd->bhqs", q_r, cr.float())) \
         * ((dn + dr) ** -0.5)
-    kpos = torch.arange(cc.shape[1], device=x.device)
+    kpos = s0 + torch.arange(cc.shape[1], device=x.device)
     s = s.masked_fill(~(kpos <= idx), NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhqs,bsk->bqhk", w, ccf)
-    wuv = p["uv"]["w"].reshape(kvr, h, dv).float()
+    o_c = _attend(s, ccf, "bhqs,bsk->bqhk", sgroup)
+    if gather:
+        i = cm.tp(dist, "heads", h * (dn + dr))[1]
+        o_c = o_c[:, :, i * hl:(i + 1) * hl]
+    wuv = p["uv"]["w"].reshape(kvr, hl, dv).float()
     o = torch.einsum("bqhk,khd->bqhd", o_c, wuv)
-    o = o.reshape(b, sq, h * dv).to(x.dtype)
-    return cm.dense_apply(p["o"], o), cache
+    o = o.reshape(b, sq, hl * dv).to(x.dtype)
+    return cm.row_parallel(p["o"], o, group), cache

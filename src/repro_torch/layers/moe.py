@@ -73,9 +73,12 @@ def _expert_init(gen: torch.Generator, shape, scale, dtype, keep=None):
     expert at a time (no f32 copy of the whole stack).  ``keep`` = (e0,
     e1) keeps experts ``[e0, e1)`` only, every expert still drawn (the
     same numbers as the whole stack's)."""
+    from torch._subclasses.fake_tensor import FakeTensor
     e0, e1 = keep or (0, shape[0])
     w = torch.empty((e1 - e0,) + tuple(shape[1:]), dtype=dtype,
                     device=gen.device)
+    if isinstance(w, FakeTensor):
+        return w            # shapes only (``param_shapes``): no draw is read
     for e in range(shape[0]):
         x = cm._randn(gen, shape[1:])
         if e0 <= e < e1:

@@ -7,12 +7,20 @@ The temporal conv1d runs through the untangled depthwise path
 h_t = a_t h_{t-1} + b_t as a log-step (Hillis-Steele) scan over S with
 JAX's ``associative_scan`` combine; decode is the O(1) update, written
 into the state cache in place.
+
+On a mesh (``dist`` splitting 'heads', JAX's ``rglru_init`` specs) each
+rank runs its block of the ``lru_width`` channels: ``in_x``, ``in_g``,
+``conv``, ``lam``, the scan and the state.  ``wa`` and ``wx`` are
+column-parallel on the whole post-conv branch, so it is gathered over
+the heads' group first (its backward sums the ranks' cotangents: each
+rank reads every channel); ``out`` is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.core.untangle import untangled_depthwise_conv1d
 from repro_torch.layers import common as cm
 
@@ -44,10 +52,14 @@ def rglru_specs() -> dict:
             "lam": cm.spec("heads"), "out": cm.spec("heads", None)}
 
 
-def _rglru_gates(p, x):
-    """x: (..., dr) post-conv branch -> (a, gated_x) in f32."""
-    rg = torch.sigmoid(cm.dense_apply({"w": p["wa"]}, x).float())
-    ig = torch.sigmoid(cm.dense_apply({"w": p["wx"]}, x).float())
+def _rglru_gates(p, x, group=None):
+    """x: (..., dr) post-conv branch (this rank's channels on a mesh) ->
+    (a, gated_x) in f32; ``group``: the channels' group, over which x is
+    gathered whole for ``wa``/``wx``."""
+    xw = comm.gather_from(x, group, dim=-1, kind="rec_gather",
+                          reduce_bwd=True)
+    rg = torch.sigmoid(cm.dense_apply({"w": p["wa"]}, xw).float())
+    ig = torch.sigmoid(cm.dense_apply({"w": p["wx"]}, xw).float())
     log_a = -_C * rg * F.softplus(p["lam"])             # log a_t  (<= 0)
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -68,31 +80,43 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_apply(p, xin, cfg):
+def _group(dist, cfg):
+    """The group the ``lru_width`` channels split over (None: whole)."""
+    return cm.tp(dist, "heads", cfg.lru_width)[0]
+
+
+def rglru_apply(p, xin, cfg, dist=None):
     """Prefill / train.  xin: (B, S, D) -> (B, S, D)."""
+    group = _group(dist, cfg)
+    xin = comm.copy_to(xin, group)
     x = cm.dense_apply({"w": p["in_x"]}, xin)
     g = cm.dense_apply({"w": p["in_g"]}, xin)
     x = untangled_depthwise_conv1d(x, p["conv"], causal=True)
-    a, bx = _rglru_gates(p, x)
+    a, bx = _rglru_gates(p, x, group)
     h = linear_scan(a, bx)
     y = h * F.gelu(g.float(), approximate="tanh")
-    return cm.dense_apply({"w": p["out"]}, y.to(xin.dtype))
+    return cm.row_parallel({"w": p["out"]}, y.to(xin.dtype), group,
+                           kind="rec_all_reduce")
 
 
-def rglru_decode(p, xin, state, cfg):
+def rglru_decode(p, xin, state, cfg, dist=None):
     """O(1) decode.  state: {"h": (B, dr) f32, "conv": (B, K-1, dr)},
     written in place (a captured decode graph holds these buffers; JAX
-    returns new ones) and returned."""
+    returns new ones) and returned; on a mesh this rank's channel block
+    of it."""
     assert xin.shape[1] == 1
+    group = _group(dist, cfg)
+    xin = comm.copy_to(xin, group)
     x = cm.dense_apply({"w": p["in_x"]}, xin)
     g = cm.dense_apply({"w": p["in_g"]}, xin)
     window = torch.cat([state["conv"], x], 1)
     xc = torch.einsum("bkc,kc->bc", window.float(),
                       p["conv"].float())[:, None].to(xin.dtype)
-    a, bx = _rglru_gates(p, xc)
+    a, bx = _rglru_gates(p, xc, group)
     hnew = a[:, 0] * state["h"] + bx[:, 0]
     y = hnew[:, None] * F.gelu(g.float(), approximate="tanh")
-    out = cm.dense_apply({"w": p["out"]}, y.to(xin.dtype))
+    out = cm.row_parallel({"w": p["out"]}, y.to(xin.dtype), group,
+                          kind="rec_all_reduce")
     state["h"].copy_(hnew)
     state["conv"].copy_(window[:, 1:])
     return out, state

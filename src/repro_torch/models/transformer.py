@@ -31,8 +31,13 @@ dense FFN run tensor-parallel, the MoE on its mesh path
 (``moe.moe_apply``), the embedding vocab-parallel (each rank looks up the
 ids in its vocab block, zeros the rest, and the ranks' rows are summed)
 and the readout gives each rank its rows and its vocab block of the
-logits, JAX's ``P(batch, None, "vocab")``.  The ``rec``, ``ssd`` and
-``dec`` kinds refuse a mesh whose rules split their weights.
+logits, JAX's ``P(batch, None, "vocab")``.  The ``rec`` kind runs its
+channel block (``rglru``), the ``dec`` kind its heads of the cross
+attention; the ``ssd`` kind refuses a mesh whose rules split its weights.
+Decode on a mesh: ``cache_specs_only`` (JAX's cache specs, a dict a
+layer), ``init_cache(..., dist=)`` each rank's cache blocks (heads over
+'kv_heads', the sequence over 'kv_seq'), ``decode_step(..., dist=)``
+(the layouts: ``layers.attention.gqa_decode``).
 """
 from __future__ import annotations
 
@@ -331,24 +336,18 @@ def _sandwich(p, key, h, cfg):
 
 
 def _check_mesh(kind, cfg, dist):
-    """Refuse a layer kind this port does not shard on a mesh whose rules
-    would split its weights."""
-    if dist is None or dist.mesh is None or kind not in ("rec", "ssd",
-                                                         "dec"):
+    """Refuse an ``ssd`` layer on a mesh whose rules would split its
+    weights over 'heads' (``make_dist`` never does: the ssm family runs
+    with no TP)."""
+    if dist is None or dist.mesh is None or kind != "ssd":
         return
-    if kind == "rec":
-        sizes = (cfg.lru_width,)
-    elif kind == "ssd":
-        di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-        sizes = (di, 2 * di + 2 * gn + cfg.ssm_heads, di + 2 * gn)
-    else:
-        sizes = (cfg.num_heads * cfg.head_dim,
-                 cfg.num_kv_heads * cfg.head_dim)
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    sizes = (di, 2 * di + 2 * gn + cfg.ssm_heads, di + 2 * gn)
     if any(cm.tp(dist, "heads", n)[2] > 1 for n in sizes):
         raise NotImplementedError(
-            f"layer kind {kind!r} on a mesh that splits its weights over "
-            f"'heads': tensor parallelism for the rec, ssd and cross-"
-            f"attention kinds is ROADMAP Queue 1 item 13c")
+            "layer kind 'ssd' on a mesh that splits its weights over "
+            "'heads': tensor parallelism for the ssd kind is ROADMAP Queue 1 "
+            "item 13c")
 
 
 def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024,
@@ -360,7 +359,7 @@ def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024,
         h = ssm_lib.ssd_apply(p["ssd"], h, cfg)
         return x + _sandwich(p, "pn1", h, cfg)
     if kind == "rec":
-        h = rglru_lib.rglru_apply(p["rec"], h, cfg)
+        h = rglru_lib.rglru_apply(p["rec"], h, cfg, dist)
     elif kind in MLA_KINDS:
         h = attn.mla_apply(p["attn"], h, cfg, positions=positions,
                            kv_chunk=kv_chunk, dist=dist)
@@ -371,7 +370,7 @@ def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024,
     x = x + _sandwich(p, "pn1", h, cfg)
     if kind == "dec":
         x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
-                                 cfg, kv_chunk=kv_chunk)
+                                 cfg, kv_chunk=kv_chunk, dist=dist)
     h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply, dist)
     return x + _sandwich(p, "pn2", h, cfg)
 
@@ -608,61 +607,114 @@ def _readout(params, x, cfg, dist=None):
 # ---------------------------------------------------------------------------
 
 
+def cache_layer_specs(kind, cfg) -> dict:
+    """JAX's ``init_cache_layer`` specs for one layer's cache: k/v
+    ``("batch", "kv_seq", "kv_heads", None)``, MLA's ``ckv``/``kr``
+    ``("batch", "kv_seq", None)``, the recurrent states on "heads"."""
+    _check_kind(kind)
+    if kind == "ssd":
+        return {"h": cm.spec("batch", "heads", None, None),
+                "conv": cm.spec("batch", None, "heads")}
+    if kind == "rec":
+        return {"h": cm.spec("batch", "heads"),
+                "conv": cm.spec("batch", None, "heads")}
+    if kind in MLA_KINDS:
+        return {"ckv": cm.spec("batch", "kv_seq", None),
+                "kr": cm.spec("batch", "kv_seq", None)}
+    kv = cm.spec("batch", "kv_seq", "kv_heads", None)
+    return {"k": kv, "v": kv}
+
+
+def cache_specs_only(cfg) -> list:
+    """The decode cache's logical specs, one dict a layer in execution
+    order (JAX's ``cache_specs_only`` unstacked, as ``specs`` is); no
+    tensor is made."""
+    check_supported(cfg)
+    return [cache_layer_specs(kind, cfg) for kind in layer_kinds(cfg)]
+
+
+def _cache_shapes(kind, cfg, batch, max_len, dtype):
+    """{leaf: (whole shape, dtype)} of one layer's cache."""
+    if kind == "ssd":
+        di, h, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+        return {"h": ((batch, h, n, di // h), torch.float32),
+                "conv": ((batch, cfg.ssm_conv - 1,
+                          di + 2 * cfg.ssm_groups * n), dtype)}
+    if kind == "rec":
+        return {"h": ((batch, cfg.lru_width), torch.float32),
+                "conv": ((batch, cfg.conv_width - 1, cfg.lru_width), dtype)}
+    if kind in MLA_KINDS:
+        return {"ckv": ((batch, max_len, cfg.kv_lora_rank), dtype),
+                "kr": ((batch, max_len, cfg.qk_rope_dim), dtype)}
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
 def init_cache_layer(kind, cfg, batch, max_len, dtype=torch.bfloat16,
-                     device="cuda"):
+                     device="cuda", dist=None):
     """JAX's cache for one layer: {"k", "v"} (B, max_len, Kh, Dh) for GQA
     attention; MLA's compressed {"ckv": (B, max_len, kv_lora_rank), "kr":
     (B, max_len, qk_rope_dim)}; the recurrent state {"h" f32, "conv" (B,
-    K-1, width)} for ``rec`` and ``ssd``."""
+    K-1, width)} for ``rec`` and ``ssd``.  With ``dist`` on a mesh: this
+    rank's block of each leaf under ``cache_layer_specs``, as
+    ``NamedSharding`` lays it out (``DistContext.block_shape``)."""
     _check_kind(kind)
-
-    def zeros(shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
-    if kind == "ssd":
-        di, h, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
-        return {"h": zeros((batch, h, n, di // h), torch.float32),
-                "conv": zeros((batch, cfg.ssm_conv - 1,
-                               di + 2 * cfg.ssm_groups * n))}
-    if kind == "rec":
-        return {"h": zeros((batch, cfg.lru_width), torch.float32),
-                "conv": zeros((batch, cfg.conv_width - 1, cfg.lru_width))}
-    if kind in MLA_KINDS:
-        return {"ckv": zeros((batch, max_len, cfg.kv_lora_rank)),
-                "kr": zeros((batch, max_len, cfg.qk_rope_dim))}
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": zeros(shape), "v": zeros(shape)}
+    specs = cache_layer_specs(kind, cfg)
+    out = {}
+    for name, (shape, dt) in _cache_shapes(kind, cfg, batch, max_len,
+                                           dtype).items():
+        if dist is not None:
+            shape = dist.block_shape(shape, specs[name])
+        out[name] = torch.zeros(shape, dtype=dt, device=device)
+    return out
 
 
-def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda",
+               dist=None):
     """One cache per layer, in execution order (bf16 by default, as JAX's;
-    the recurrent states ``h`` in f32)."""
+    the recurrent states ``h`` in f32).  With ``dist`` on a mesh: each
+    rank's blocks (``init_cache_layer``); ``max_len`` must divide over the
+    'kv_seq' axes, so a block's length says where it starts."""
     check_supported(cfg)
-    return [init_cache_layer(kind, cfg, batch, max_len, dtype, device)
+    if dist is not None and dist.mesh is None:
+        dist = None
+    if dist is not None:
+        n = dist.extent(dist.resolve(("kv_seq",))[0])
+        if max_len % n:
+            raise ValueError(f"a cache of {max_len} positions over the "
+                             f"'kv_seq' axes' {n} ranks")
+    return [init_cache_layer(kind, cfg, batch, max_len, dtype, device, dist)
             for kind in layer_kinds(cfg)]
 
 
-def decode_layer(p, x, kind, cfg, cache, idx, memory=None):
+def decode_layer(p, x, kind, cfg, cache, idx, memory=None, dist=None):
+    """One layer of ``decode_step``; ``dist`` on a mesh: ``x``, ``cache``
+    and ``memory`` are this rank's rows (and the cache its blocks), the
+    attention, RG-LRU, cross attention and FFN tensor-parallel, the MoE on
+    its mesh path (``moe_apply``, as JAX's ``decode_layer``)."""
     _check_kind(kind)
+    _check_mesh(kind, cfg, dist)
     h = _rms(p["ln1"], x, cfg)
     if kind == "ssd":
         h, nc = ssm_lib.ssd_decode(p["ssd"], h, cache, cfg)
         return x + _sandwich(p, "pn1", h, cfg), nc
     if kind == "rec":
-        h, nc = rglru_lib.rglru_decode(p["rec"], h, cache, cfg)
+        h, nc = rglru_lib.rglru_decode(p["rec"], h, cache, cfg, dist)
     elif kind in MLA_KINDS:
-        h, nc = attn.mla_decode(p["attn"], h, cache, idx, cfg)
+        h, nc = attn.mla_decode(p["attn"], h, cache, idx, cfg, dist)
     else:
         h, nc = attn.gqa_decode(p["attn"], h, cache, idx, cfg,
-                                layer_kind=_attn_kind(kind))
+                                layer_kind=_attn_kind(kind), dist=dist)
     x = x + _sandwich(p, "pn1", h, cfg)
     if kind == "dec":
         x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
-                                 cfg)
-    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_decode)
+                                 cfg, dist=dist)
+    moe_fn = moe_lib.moe_decode if dist is None else moe_lib.moe_apply
+    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_fn, dist)
     return x + _sandwich(p, "pn2", h, cfg), nc
 
 
-def decode_step(params, cache, tokens, idx, cfg, memory=None):
+def decode_step(params, cache, tokens, idx, cfg, memory=None, dist=None):
     """One decode step.  tokens: (B, 1) int, or (B, 1, D) embeddings for
     a stub frontend; ``idx`` a Python int or a 0-d int64 tensor on the
     tokens' device (a captured graph's position); ``memory`` (B, S_src, D)
@@ -671,18 +723,31 @@ def decode_step(params, cache, tokens, idx, cfg, memory=None):
     (logits (B, 1, V), cache), the cache written in place: the KV (or
     MLA's compressed) rows at ``idx``, the recurrent states whole.  The
     MoE kinds run ``moe_decode``, whose static shapes a CUDA graph
-    captures."""
+    captures.
+
+    On a (data, model) mesh (``dist``; ``params`` and ``cache`` each
+    rank's blocks, from ``init``/``init_cache`` with ``dist``): ``tokens``
+    and ``memory`` are whole on every rank, as JAX's jit takes global
+    arrays, and each rank takes its rows (``local_batch``); the layers run
+    as ``decode_layer`` says and the logits come back whole on every rank
+    (``gather_logits``)."""
     check_supported(cfg)
+    if dist is not None and dist.mesh is None:
+        dist = None
+    rows = local_batch({"tokens": tokens, **({} if memory is None else
+                                             {"memory": memory})}, dist)
+    tokens, memory = rows["tokens"], rows.get("memory")
     if cfg.frontend != "none" and tokens.dim() == 3:
         x = tokens
     else:
-        x = cm.embed_apply(params["embed"], tokens)
+        x = _embed_lookup(params["embed"], tokens, cfg, dist)
     x = _embed_scale(x, cfg)
     idx = torch.as_tensor(idx, dtype=torch.int64, device=x.device)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, layer_kinds(cfg)):
-        x, nc = decode_layer(p, x, kind, cfg, c, idx, memory)
+        x, nc = decode_layer(p, x, kind, cfg, c, idx, memory, dist)
         new_cache.append(nc)
     x = cm.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                          gemma_style=cfg.gemma_norm)
-    return _readout(params, x, cfg), new_cache
+    return gather_logits(_readout(params, x, cfg, dist), cfg, dist), \
+        new_cache

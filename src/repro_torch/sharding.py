@@ -247,6 +247,22 @@ class DistContext:
             i = i * sizes.get(a, 1) + coord.get(a, 0)
         return i, n
 
+    def span(self, entry, size: int) -> tuple[int, int]:
+        """[start, stop) of this rank's block of a dim of ``size`` over
+        the resolved ``entry`` (``shard_of``'s block; the whole dim off
+        the mesh or where the extent does not divide ``size``)."""
+        if self.mesh is None:
+            return 0, size
+        j, n = self.shard_of(entry, size)
+        return j * (size // n), (j + 1) * (size // n)
+
+    def block_shape(self, shape, spec) -> tuple:
+        """This rank's block shape of a whole ``shape`` under the logical
+        ``spec`` (``shard_params``' layout; ``shape`` off the mesh)."""
+        if self.mesh is None:
+            return tuple(shape)
+        return tuple(b - a for a, b in self._dims(shape, self.resolve(spec)))
+
     def group(self, entry):
         """The process group of the ranks that share this rank's
         coordinates off ``entry``'s axes (a resolved entry: one mesh axis

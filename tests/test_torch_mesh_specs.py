@@ -320,12 +320,16 @@ def test_multi_axis_batch_index():
                                        ("mamba2-130m", "ssd"),
                                        ("seamless-m4t-large-v2", "dec")])
 def test_unsharded_kinds_refuse_a_mesh_that_splits_them(arch, kind):
-    """The ``rec``, ``ssd`` and ``dec`` kinds refuse a mesh whose rules
-    split their weights over 'heads', naming the ROADMAP item that ports
-    them; under ``dp_only`` rules (nothing split) they run."""
+    """The ``ssd`` kind refuses a mesh whose rules split its weights over
+    'heads', naming the ROADMAP item that ports it; the ``rec`` and
+    ``dec`` kinds run tensor-parallel there; under ``dp_only`` rules
+    (nothing split) every kind runs."""
     cfg = treg.get_config(arch)
     d = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)))
-    with pytest.raises(NotImplementedError, match="item 13c"):
+    if kind == "ssd":
+        with pytest.raises(NotImplementedError, match="item 13c"):
+            tfm._check_mesh(kind, cfg, d)
+    else:
         tfm._check_mesh(kind, cfg, d)
     dp = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
         tsh.DEFAULT_RULES, heads=None, ffn=None, vocab=None,
