@@ -5706,12 +5706,1240 @@ def mesh_serve_phases(dev, smi):
     return {"mesh_serve": {"ranks": ranks, "seconds": wall}}, paths
 
 
+# ---------------------------------------------------------------------------
+# phases 3r / 4p: the rest of the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MR_WORLD = 4
+MR_CONFIGS = "full"           # "reduced": the CPU rehearsal's configs
+MR_RG = ((1, 4096), 3, 2, (1, 1024))  # prefill, greedy steps, AdamW steps
+                                      # and their batch
+MR_GAN_BATCHES = (64, 1)
+MR_GAN_TRAIN = 16
+MR_DBRX = ((2, 1024), 3, 256)  # prefill, greedy steps (1 layer), the
+                                # Adafactor step's S (B as the prefill's)
+MR_LLAMA = ((2, 4096), 4)     # SP prefill at full depth; the train step's
+                              # layers (at the prefill's shape)
+MR_S2T = (6, 2, 256, 512)     # layers a stack, B, S, source frames
+MR_MAMBA = ((1, 4096), 3)
+MR_KV_CHUNK = 1024
+MR_ADAMW = dict(name="adamw", lr=3e-4, eps=1e-3)
+MR_ADAFACTOR = dict(name="adafactor", lr=1e-4)
+TOL_MR_GRAD = 5e-2            # a bf16 gradient block vs the one-rank block
+# a row-block launch of A or B vs its plain version on the same inputs,
+# max|Δ| / max|ref|: two f32 orders of the same <= 6400-term partial sums
+TOL_MR_ROWS = 1e-5
+
+
+def _mr_cfg(conf, arch, depth=None, **kw):
+    """A case's config: full width (the rehearsal's reduced one), its
+    depth cut to ``depth`` layers (an encoder-decoder: a stack each)."""
+    from repro_torch.configs import registry
+    cfg = (registry.get_reduced(arch) if conf["configs"] == "reduced"
+           else registry.get_config(arch))
+    cfg = dataclasses.replace(cfg, **kw)
+    if depth is None:
+        return cfg
+    if cfg.is_encoder_decoder:
+        return dataclasses.replace(cfg, stages=((("dec",), depth),),
+                                   encoder_stages=((("enc",), depth),),
+                                   num_layers=2 * depth)
+    return cut_depth(cfg, depth)
+
+
+def _mr_params(cfg, dist, dev, seed=0):
+    """(every rank's blocks of the seeded params, the whole params on
+    rank 0 and None elsewhere)."""
+    from repro_torch.models import transformer as tfm
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        if dist.is_first():
+            whole = tfm.init(cfg, seed=seed, device=dev)
+            return dist.shard_params(whole, tfm.specs(cfg)), whole
+        return tfm.init(cfg, seed=seed, device=dev, dist=dist), None
+
+
+def _mr_measure(fn, dev, single=None):
+    """4p: a call's events ms (one call after one), device ms (one
+    trace), each collective kind's calls and bytes (the warm-up call's),
+    peak memory; the one-rank call's ms and device ms on rank 0."""
+    from repro_torch.core import comm
+    comm.traffic_reset()
+    fn()
+    rec = {"collectives": comm.traffic(),
+           "ms": _pp_ms(fn, dev, iters=1, warmup=0),
+           "device_ms": _pp_device_ms(fn, dev)}
+    rec["peak_bytes"], rec["base_bytes"] = _pp_peak(fn, dev)
+    if single is not None:
+        rec["single_ms"] = _pp_ms(single, dev, iters=1)
+        rec["single_device_ms"] = _pp_device_ms(single, dev)
+    return rec
+
+
+def _mr_gather_fault(target, n=None, unsummed=False):
+    """``comm.gather_from`` wrong at the kind ``target``: the rank's own
+    block repeated ``n`` times (the gather skipped), or (``unsummed``) the
+    right forward with the rank's own cotangent slice as its backward."""
+    import torch
+
+    def wrap(orig):
+        def gather(x, group, dim=-1, kind="all_gather", reduce_bwd=False):
+            if kind != target:
+                return orig(x, group, dim, kind, reduce_bwd)
+            if unsummed:
+                return orig(x, group, dim, kind, False)
+            orig(x, group, dim, kind, reduce_bwd)
+            return torch.cat([x] * n, dim)
+        return gather
+    return wrap
+
+
+def _mr_whole(tree, placements):
+    """Every leaf gathered whole on every rank (a collective)."""
+    from repro_torch.train.checkpoint import _placement_leaves
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [pl.gather(t) for t, pl in zip(
+        tree_leaves(tree), _placement_leaves(placements))])
+
+
+def _mr_train(cfg, dist, dev, opt_kw, batch, steps, whole_ref=True,
+              planted=None):
+    """``steps`` train steps on the mesh (and on one rank, on rank 0):
+    losses, gnorms, the first step's AdamW first moment (f32, gathered
+    whole) against the one-rank step's (a bf16 param's first update is
+    below its rounding step) and the mesh step's closure.  ``planted``
+    (what it plants, a patch returning its undo): the first step again
+    under it, its first moment against the one-rank step's."""
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.tree import tree_leaves
+    state0, ocfg = _mt_state(cfg, dev, opt_kw, dist)
+    step = steps_lib.make_train_step(cfg, ocfg, kv_chunk=MR_KV_CHUNK,
+                                     dist=dist)
+    _, pls, _ = steps_lib.train_state_specs(cfg, dist, ocfg)
+    rec = {"losses": [], "gnorms": []}
+    state, first = state0, None
+    for i in range(steps):
+        state, m = step(state, batch)
+        rec["losses"].append(float(m["loss"]))
+        rec["gnorms"].append(float(m["gnorm"]))
+        if i == 0:
+            first = _mr_whole(state["opt"]["m"], pls["opt"]["m"])
+    del state
+    bad = None
+    if planted is not None:
+        rec["planted"] = planted[0]
+        undo = planted[1]()
+        try:
+            bad, _ = step(state0, batch)
+        finally:
+            undo()
+        bad = _mr_whole(bad["opt"]["m"], pls["opt"]["m"])
+    if dist.is_first() and whole_ref:
+        one, _ = _mt_state(cfg, dev, opt_kw)
+        step1 = steps_lib.make_train_step(cfg, ocfg, kv_chunk=MR_KV_CHUNK)
+        rec["one_losses"], rec["one_gnorms"] = [], []
+        for i in range(steps):
+            one, m = step1(one, batch)
+            rec["one_losses"].append(float(m["loss"]))
+            rec["one_gnorms"].append(float(m["gnorm"]))
+            if i == 0:
+                rec["update_rel"] = max(
+                    _mesh_rel(w.float(), g.float())
+                    for g, w in zip(tree_leaves(first),
+                                    tree_leaves(one["opt"]["m"])))
+                if bad is not None:
+                    rec["planted_update_rel"] = max(
+                        _mesh_rel(w.float(), g.float())
+                        for g, w in zip(tree_leaves(bad),
+                                        tree_leaves(one["opt"]["m"])))
+        del one
+    del first, bad
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return rec, (step, state0, pls)
+
+
+def _mr_rg(rank, dev, conf):
+    """recurrentgemma-2b on (1, 4): q cut at 2.5 heads a rank (its local
+    layer's 10 heads of 256)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_dist, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import transformer as tfm
+    (pb, ps), n_dec, n_train, (tb, ts) = conf["rg"]
+    cfg = _mr_cfg(conf, "recurrentgemma-2b", 3)
+    mesh = make_host_mesh(1, 4)
+    dist = make_dist(mesh, cfg, ShapeConfig("p", "prefill", ps, pb))
+    params, whole = _mr_params(cfg, dist, dev)
+    g = torch.Generator().manual_seed(71)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (pb, ps),
+                                     generator=g).to(dev)}
+    step = make_prefill_step(cfg, dist, kv_chunk=MR_KV_CHUNK)
+    calls = []
+    zero_counts()
+    with captured_attention(calls):
+        fa.flash_attention.launches = 0
+        logits = step(params, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    rec = {"rank": rank, "kinds": tfm.layer_kinds(cfg),
+           "rules": {k: dist.rules[k] for k in ("batch", "heads",
+                                                "kv_heads")},
+           "f_launches": fa.flash_attention.launches,
+           "f_heads": sorted({tuple(c[0].shape[1:3]) for c in calls}),
+           "f_gate": check_f_layers(f"rg prefill rank {rank}", calls,
+                                    F_FAULT)}
+    del calls
+    single = None
+    if whole is not None:
+        one = make_prefill_step(cfg, kv_chunk=MR_KV_CHUNK)
+        with torch.no_grad():
+            rec["prefill_rel"] = _ms_logits_rel(one(whole, batch), logits,
+                                                cfg)
+
+        def single():
+            return one(whole, batch)
+    rec["measure"] = _mr_measure(lambda: step(params, batch), dev, single)
+    del logits
+    # ---- greedy decode from an empty cache -----------------------------
+    ddist = make_dist(mesh, cfg, ShapeConfig("d", "decode", 64, pb))
+    dparams, _ = _mr_params(cfg, ddist, dev)
+    blocks = tfm.init_cache(cfg, pb, 64, device=dev, dist=ddist)
+    wcache = tfm.init_cache(cfg, pb, 64, device=dev) if whole else None
+    serve = make_serve_step(cfg, ddist)
+    tok = batch["inputs"][:, :1]
+    rec["decode_rel"] = []
+    for j in range(n_dec):
+        kept = {}
+        orig = tfm.decode_step
+
+        def keep(*a, **kw):
+            out = orig(*a, **kw)
+            kept["logits"] = out[0]
+            return out
+        tfm.decode_step = keep
+        try:
+            nxt, blocks = serve(dparams, blocks, tok, j)
+        finally:
+            tfm.decode_step = orig
+        if whole is not None:
+            with torch.no_grad():
+                ref, wcache = tfm.decode_step(whole, wcache, tok, j, cfg)
+            rec["decode_rel"].append(_ms_logits_rel(ref, kept["logits"],
+                                                    cfg))
+        tok = nxt
+    del dparams, blocks, wcache
+    # ---- AdamW steps -------------------------------------------------------
+    tdist = make_dist(mesh, cfg, ShapeConfig("t", "train", ts, tb))
+    tbatch = _mt_batch(cfg, tb, ts, dev)
+    rec["train"], (tstep, state0, pls) = _mr_train(
+        cfg, tdist, dev, MR_ADAMW, tbatch, n_train)
+    # the local layer's q gradient against the one-rank gradient's block:
+    # sound, and (planted) the cut head's gather with the rank's own
+    # cotangent slice as its backward
+    from repro_torch.launch import steps as steps_lib
+    li = tfm.layer_kinds(cfg).index("local")
+    spec = tdist.resolve(tfm.layer_specs("local", cfg)["attn"]["q"]["w"])
+
+    def qgrad(params):
+        _, gr = steps_lib.loss_and_grads(cfg, params, tbatch,
+                                         kv_chunk=MR_KV_CHUNK, dist=tdist)
+        return gr["layers"][li]["attn"]["q"]["w"]
+    sound = qgrad(state0["params"])
+    undo = _pp_patch(comm, "gather_from", _mr_gather_fault(
+        "q_head_gather", unsummed=True))
+    try:
+        bad = qgrad(state0["params"])
+    finally:
+        undo()
+    if whole is not None:
+        whole_t = tfm.init(cfg, seed=0, device=dev)
+        _, g1 = steps_lib.loss_and_grads(cfg, whole_t, tbatch,
+                                         kv_chunk=MR_KV_CHUNK)
+        ref = tdist._block(g1["layers"][li]["attn"]["q"]["w"], spec)
+        rec["qgrad_rel"] = _mesh_rel(ref, sound)
+        rec["planted_qgrad_rel"] = _mesh_rel(ref, bad)
+        del whole_t, g1
+    del bad, sound, state0
+    return rec
+
+
+def _mr_gan_cfg(conf, model, wd):
+    from repro_torch.models import gan
+    from repro_torch.train_gan import SMALL_LAYERS
+    base = gan.DCGAN if model == "dcgan" else gan.CGAN
+    cfg = dataclasses.replace(base, backend="cuda", wdtype=wd)
+    if conf["configs"] == "reduced":
+        cfg = dataclasses.replace(cfg, layers=SMALL_LAYERS)
+    return cfg
+
+
+def _mr_row_launches(records):
+    """Kernels A and B as ``core.plan`` calls them, each row-block launch
+    kept as (entry, its plain version, arguments, output); returns the
+    undo."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import untangled_conv as uc
+    undos = []
+    for name, plain in (
+            ("untangled_deconv2d", uc.untangled_deconv2d_rows_ref),
+            ("untangled_conv2d_superpack",
+             uc.untangled_conv2d_superpack_rows_ref)):
+        def wrap(orig, plain=plain):
+            def launch(*a, **kw):
+                y = orig(*a, **kw)
+                if kw.get("rows") is not None:
+                    records.append((orig, plain, a, kw, y))
+                return y
+            return launch
+        undos.append(_pp_patch(plan_mod, name, wrap))
+    return lambda: [u() for u in undos]
+
+
+def _mr_row_check(records):
+    """Each row-block launch of ``records`` against its plain version on
+    the same card inputs (max|Δ| / max|ref|, the worst); the plain version
+    on the block read one row off (planted: a wrong ``r0``; the least);
+    the launch again on the block as rows [r0, r1) of a superpack whose
+    other rows are NaN (NaN scales for int8 codes): the worst reading of
+    that output against the plain version, NaN unless the launch read its
+    block only."""
+    import torch
+    worst = guard = 0.0
+    planted = math.inf
+    for entry, plain, (x, blk), kw, y in records:
+        r0, r1 = kw["rows"]
+        taps = (sum(ex.taps[0] * ex.taps[1] for ex in kw["phases"])
+                if "phases" in kw else kw["taps_hw"][0] * kw["taps_hw"][1])
+        total = taps * x.shape[3]
+        want = plain(x, blk, **kw)
+        worst = max(worst, _mesh_rel(want, y))
+        off = 1 if r1 < total else -1
+        planted = min(planted, _mesh_rel(want, plain(
+            x, blk, **dict(kw, rows=(r0 + off, r1 + off)))))
+        sc = kw.get("scales")
+        if sc is None:
+            fence = torch.full((total, blk.shape[1]), math.nan,
+                               device=blk.device)
+        else:
+            fence = torch.zeros((total, blk.shape[1]), dtype=blk.dtype,
+                                device=blk.device)
+            fenced = torch.full((total, 1), math.nan, device=sc.device)
+            fenced[r0:r1] = sc
+            kw = dict(kw, scales=fenced[r0:r1])
+        fence[r0:r1] = blk
+        got = entry(x, fence[r0:r1], **kw)
+        guard = max(guard, _mesh_rel(want, got)
+                    if bool(torch.isfinite(got).all()) else math.nan)
+    return worst, planted, guard
+
+
+def _mr_site_signs(signs):
+    """``ConvPlan.apply`` as it is, each site's output signs (> 0) kept in
+    call order; returns the undo."""
+    from repro_torch.core import plan as plan_mod
+
+    depth = [0]                 # a site with a bias calls itself once
+
+    def wrap(orig):
+        def apply(self, x, packed, bias=None):
+            depth[0] += 1
+            try:
+                y = orig(self, x, packed, bias=bias)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                signs.append(y.detach() > 0)
+            return y
+        return apply
+    return _pp_patch(plan_mod.ConvPlan, "apply", wrap)
+
+
+def _mr_gan_f64(gw, dw, z, real, cfg, signs=None):
+    """The DCGAN step's summed losses in f64, written out apart from the
+    port's layers (the f64 oracle at every site on the unpacked kernels),
+    and every weight's gradient: the train gate's reference.  ``signs``
+    (each site's output signs in call order, from an f32 step): the
+    ReLUs take those signs, so the reference shares that step's discrete
+    choices (a pre-activation within its rounding bound of zero may take
+    either sign, and one such flip moves a block's gradient by 5e-3);
+    None: its own."""
+    import torch
+    from repro_torch.core import reference as ref
+    from repro_torch.models import gan
+    p = {k: v.detach().double().requires_grad_()
+         for k, v in {**gw, **dw}.items()}
+    order = iter(signs or ())
+
+    def act(y, slope):
+        pos = next(order) if signs is not None else y > 0
+        return torch.where(pos, y, slope * y)
+    l0 = cfg.layers[0]
+    x = torch.relu(z.double() @ p["proj"]).reshape(
+        z.shape[0], l0.in_hw, l0.in_hw, l0.in_c)
+    plans = gan.generator_plans(cfg)
+    for i, plan in enumerate(plans):
+        sp_ = plan.spec
+        x = ref.conv_oracle_f64(ref.zero_insert(x, sp_.strides),
+                                plan.unpack(p[f"dc{i}"]),
+                                padding=sp_.padding)[0] + p[f"b{i}"]
+        if i == len(plans) - 1:
+            next(order, None)
+            x = torch.tanh(x)
+        else:
+            x = act(x, 0.0)
+
+    def disc(x):
+        for i, plan in enumerate(gan.discriminator_plans(cfg)):
+            sp_ = plan.spec
+            x = act(ref.conv_oracle_f64(
+                x, plan.unpack(p[f"c{i}"]), strides=sp_.strides,
+                padding=sp_.padding)[0], 0.2)
+        return x.reshape(x.shape[0], -1) @ p["head"]
+    d_fake, d_real = disc(x), disc(real.double())
+    loss = (gan.softplus(-d_fake).mean()
+            + (gan.softplus(-d_real) + gan.softplus(d_fake)).mean())
+    loss.backward()
+    return float(loss.detach()), {k: v.grad for k, v in p.items()}
+
+
+def _mr_gan(rank, dev, conf):
+    """DCGAN and cGAN, generator and discriminator, with every superpack
+    row-parallel over 'model' (1, 4): f32 and int8 at each batch; each
+    row-block launch against its plain version on the card; the sites
+    against the f64 oracle; a DCGAN train step against the f64 step."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import untangled_conv as uc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gan
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    dist = DistContext(make_host_mesh(1, 4), rules=dict(
+        DEFAULT_RULES, conv_taps="model", conv_out=None))
+    out = []
+    for model in ("dcgan", "cgan"):
+        for wd in ("float32", "int8"):
+            cfg = _mr_gan_cfg(conf, model, wd)
+            gw = gan.generator_init(60, cfg, device=dev)
+            dw = gan.discriminator_init(61, cfg, device=dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                gp = dist.shard_params(gw, gan.generator_specs(cfg))
+                dp = dist.shard_params(dw, gan.discriminator_specs(cfg))
+            for b in conf["gan_batches"]:
+                z = torch.randn((b, cfg.z_dim), generator=torch.Generator(
+                    ).manual_seed(62 + b)).to(dev)
+                sites, launches = [], []
+                orig = plan_mod._rp_apply
+
+                def capture(plan, x, packed, bias):
+                    y = orig(plan, x, packed, bias)
+                    sites.append((plan, x, packed, y))
+                    return y
+                zero_counts()
+                uc.untangled_deconv2d.launches_rows = 0
+                uc.untangled_conv2d_superpack.launches_rows = 0
+                plan_mod._rp_apply = capture
+                undo = _mr_row_launches(launches)
+                try:
+                    with torch.no_grad():
+                        img = gan.generator_apply(gp, z, cfg, dist=dist)
+                        logit = gan.discriminator_apply(dp, img, cfg,
+                                                        dist=dist)
+                finally:
+                    undo()
+                    plan_mod._rp_apply = orig
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                counts, other = read_counts(wd)
+                rec = {"model": model, "wdtype": wd, "batch": b,
+                       "rank": rank, "launches": counts,
+                       "other_dtype_launches": other,
+                       "row_launches": len(launches),
+                       "rows_counted": uc.untangled_deconv2d.launches_rows
+                       + uc.untangled_conv2d_superpack.launches_rows}
+                with torch.no_grad():
+                    (rec["rows_rel"], rec["rows_planted"],
+                     rec["rows_fenced"]) = _mr_row_check(launches)
+                del launches
+                worst = 0.0
+                # the sites' outputs are the same on every rank (after the
+                # all-reduce): the f64 oracle runs on rank 0
+                for plan, x, packed, y in (sites if dist.is_first()
+                                           else ()):
+                    key = next(k for k, v in {**gp, **dp}.items()
+                               if v is packed)
+                    w = {**gw, **dw}[key]
+                    kern = plan.unpack(w)
+                    bias = (gp.get("b" + key[2:]) if key.startswith("dc")
+                            else None)
+                    y64, bound = f64_bound(plan, x, kern)
+                    if bias is not None:
+                        y64 = y64 + bias.double()
+                    worst = max(worst, float(((y.double() - y64).abs()
+                                              / bound).max()))
+                    del y64, bound
+                rec["ulp_share"] = worst
+                with torch.no_grad():
+                    ref_img = gan.generator_apply(gw, z, cfg)
+                rec["rel"] = _mesh_rel(ref_img, img)
+                if b == conf["gan_batches"][0] and wd == "float32":
+                    undo = _pp_patch(comm, "reduce_from", _mesh_unsummed(
+                        rank, "rows_all_reduce"))
+                    try:
+                        with torch.no_grad():
+                            bad = gan.generator_apply(gp, z, cfg, dist=dist)
+                    finally:
+                        undo()
+                    rec["planted_rel"] = _mesh_rel(ref_img, bad)
+                    single = ((lambda: gan.generator_apply(gw, z, cfg))
+                              if dist.is_first() else None)
+
+                    def fwd():
+                        with torch.no_grad():
+                            return gan.generator_apply(gp, z, cfg,
+                                                       dist=dist)
+                    rec["measure"] = _mr_measure(fwd, dev, single)
+                out.append(rec)
+                del sites, img, logit
+    # ---- a DCGAN train step: the superpack blocks' gradients ----------------
+    cfg = _mr_gan_cfg(conf, "dcgan", "float32")
+    gw = gan.generator_init(63, cfg, device=dev)
+    dw = gan.discriminator_init(64, cfg, device=dev)
+    gp = dist.shard_params(gw, gan.generator_specs(cfg))
+    dp = dist.shard_params(dw, gan.discriminator_specs(cfg))
+    gen = torch.Generator().manual_seed(65)
+    b = conf["gan_train"]
+    z = torch.randn((b, cfg.z_dim), generator=gen).to(dev)
+    real = torch.rand((b, *gan.generator_plans(cfg)[-1].out_hw, 3),
+                      generator=gen).to(dev) * 2 - 1
+
+    def losses(g_, d_, dist_):
+        fake = gan.generator_apply(g_, z, cfg, dist=dist_)
+        d_fake = gan.discriminator_apply(d_, fake, cfg, dist=dist_)
+        d_real = gan.discriminator_apply(d_, real, cfg, dist=dist_)
+        return (gan.softplus(-d_fake).mean()
+                + (gan.softplus(-d_real) + gan.softplus(d_fake)).mean())
+    rows = {k: v for k, v in {**gp, **dp}.items()
+            if isinstance(v, plan_mod.RowSuperpack)}
+
+    def block_grads():
+        """(loss, each row block's gradient) of a mesh step."""
+        leaves = {k: v.block.detach().requires_grad_()
+                  for k, v in rows.items()}
+        g_ = {k: (dataclasses.replace(gp[k], block=leaves[k])
+                  if k in leaves else v) for k, v in gp.items()}
+        d_ = {k: (dataclasses.replace(dp[k], block=leaves[k])
+                  if k in leaves else v) for k, v in dp.items()}
+        loss_ = losses(g_, d_, dist)
+        loss_.backward()
+        return float(loss_), {k: t.grad for k, t in leaves.items()}
+    signs, one_signs = [], []
+    zero_counts()
+    undo = _mr_site_signs(signs)
+    try:
+        loss, grads = block_grads()
+    finally:
+        undo()
+    counts, _ = read_counts("float32")
+    wl = {k: v.clone().requires_grad_() for k, v in {**gw, **dw}.items()
+          if k in rows}
+    undo = _mr_site_signs(one_signs)
+    try:
+        loss1 = losses({**gw, **{k: wl[k] for k in gw if k in wl}},
+                       {**dw, **{k: wl[k] for k in dw if k in wl}}, None)
+    finally:
+        undo()
+    loss1.backward()
+    loss64, g64 = _mr_gan_f64(gw, dw, z, real, cfg, signs)
+    _, g64_one = _mr_gan_f64(gw, dw, z, real, cfg, one_signs)
+    _, g64_own = _mr_gan_f64(gw, dw, z, real, cfg)
+    # planted: rank 1 leaves a row-parallel site's input gradient unsummed
+    undo = _mr_skip_all_reduce("rows_input_bwd", rank)
+    try:
+        _, bad = block_grads()
+    finally:
+        undo()
+
+    def worst(ref_, g_):
+        return max(_mesh_rel(ref_[k][slice(*rows[k].rows)], g_[k])
+                   for k in rows)
+    one = {k: wl[k].grad for k in rows}
+    out.append({"model": "dcgan_train", "batch": b, "rank": rank,
+                "launches": counts,
+                "loss_rel": abs(loss - loss64) / abs(loss64),
+                "grad_rel": worst(g64, grads), "one_rank_rel": max(
+                    _mesh_rel(g64_one[k], one[k]) for k in rows),
+                "vs_one_rank": worst(one, grads),
+                "vs_own_f64": worst(g64_own, grads),
+                "one_vs_own_f64": max(_mesh_rel(g64_own[k], one[k])
+                                      for k in rows),
+                "sign_flips": sum(int((a != b).sum()) for a, b in
+                                  zip(signs, one_signs)),
+                "grad_rel_by_site": {k: _mesh_rel(
+                    g64[k][slice(*rows[k].rows)], grads[k]) for k in rows},
+                "planted_grad_rel": worst(g64, bad)})
+    return out
+
+
+def _mr_skip_all_reduce(kind, rank, ranks=(1,)):
+    """The ranks ``ranks`` leave the all-reduces of ``kind`` unsummed (the
+    collective still runs, so no rank waits); returns the undo."""
+    from repro_torch.core import comm
+    orig = comm.all_reduce
+
+    def all_reduce(t, group, kind="all_reduce", op="sum", skip=kind):
+        y = orig(t, group, kind, op)
+        return t if rank in ranks and kind == skip else y
+    comm.all_reduce = all_reduce
+    return lambda: setattr(comm, "all_reduce", orig)
+
+
+def _mr_moe_capture(records):
+    """``moe.moe_apply`` as it is, each call's (x, output) kept."""
+    from repro_torch.layers import moe
+
+    def wrap(orig):
+        def f(p, x, cfg, dist=None):
+            y = orig(p, x, cfg, dist)
+            records.append((x, y))
+            return y
+        return f
+    return _pp_patch(moe, "moe_apply", wrap)
+
+
+def _mr_dbrx(rank, dev, conf):
+    """dbrx-132b, 1 layer, on its own ``moe_impl="ep"`` on (2, 2) with
+    'expert' on 'model' and 'expert_ffn' on 'data' (the production mesh's
+    rule for it): the MoE layer against JAX's EP semantics on its own
+    inputs (``_mesh_ep_ref``: a data rank's rows, the capacity of their
+    token count), the one-rank references under the same semantics."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_dist, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.layers import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import DistContext
+    (pb, ps), n_dec, ts = conf["dbrx"]
+    cfg = _mr_cfg(conf, "dbrx-132b", 1, moe_impl="ep")    # the reduced
+    mesh = make_host_mesh(2, 2)                           # config's dense
+    n_data = mesh.shape[0]
+
+    def ep_semantics():
+        """The one-rank model's MoE as the mesh's: each data rank's rows
+        routed apart with their capacity; returns the undo."""
+        return _pp_patch(moe, "moe_apply", lambda orig: (
+            lambda p, x, cfg_, dist=None: _mesh_ep_ref(p, x, cfg_, n_data)))
+
+    def rules_for(shape):
+        return DistContext(mesh, rules=dict(
+            make_dist(mesh, cfg, shape).rules, expert="model",
+            expert_ffn="data"))
+    dist = rules_for(ShapeConfig("p", "prefill", ps, pb))
+    params, whole = _mr_params(cfg, dist, dev)
+    g = torch.Generator().manual_seed(72)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (pb, ps),
+                                     generator=g).to(dev)}
+    step = make_prefill_step(cfg, dist, kv_chunk=MR_KV_CHUNK)
+    recs = []
+    undo = _mr_moe_capture(recs)
+    try:
+        fa.flash_attention.launches = 0
+        logits = step(params, batch)
+        f_launches = fa.flash_attention.launches
+    finally:
+        undo()
+    x, y = recs[0]
+    rec = {"rank": rank, "moe_impl": cfg.moe_impl, "rules": {
+        k: dist.rules[k] for k in ("batch", "expert", "expert_ffn")},
+        "f_launches": f_launches, "tokens": tuple(x.shape[:2]),
+        "capacity": moe._capacity(x.shape[0] * x.shape[1], cfg),
+        "block_bytes": sum(params["layers"][0]["moe"][k].numel() * 2
+                           for k in ("wi", "wg", "wo"))}
+    bad_recs = []
+    undo = _mr_moe_capture(bad_recs)
+    undo2 = _pp_patch(comm, "gather_from", _mr_gather_fault(
+        "expert_ffn_gather", n=2))
+    try:
+        step(params, batch)
+    finally:
+        undo2()
+        undo()
+    single = None
+    if whole is not None:
+        wm = whole["layers"][0]["moe"]
+        with torch.no_grad():
+            ref = _mesh_ep_ref(wm, x, cfg, 1)
+        rec["moe_rel"] = _mesh_rel(ref, y)
+        rec["moe_planted_rel"] = _mesh_rel(ref, bad_recs[0][1])
+        one = make_prefill_step(cfg, kv_chunk=MR_KV_CHUNK)
+        undo = ep_semantics()
+        try:
+            with torch.no_grad():
+                rec["prefill_rel"] = _ms_logits_rel(one(whole, batch),
+                                                    logits, cfg)
+        finally:
+            undo()
+
+        def single():
+            return one(whole, batch)
+    del recs, bad_recs, logits
+    rec["measure"] = _mr_measure(lambda: step(params, batch), dev, single)
+    # ---- decode: the MoE on its mesh path at each step --------------------
+    ddist = rules_for(ShapeConfig("d", "decode", 64, pb))
+    dparams, _ = _mr_params(cfg, ddist, dev)
+    blocks = tfm.init_cache(cfg, pb, 64, device=dev, dist=ddist)
+    serve = make_serve_step(cfg, ddist)
+    tok = batch["inputs"][:, :1]
+    rec["decode_moe_rel"] = []
+    for j in range(n_dec):
+        recs = []
+        undo = _mr_moe_capture(recs)
+        try:
+            tok, blocks = serve(dparams, blocks, tok, j)
+        finally:
+            undo()
+        if whole is not None:
+            with torch.no_grad():
+                rec["decode_moe_rel"].append(_mesh_rel(
+                    _mesh_ep_ref(wm, recs[0][0], cfg, 1), recs[0][1]))
+    del dparams, blocks
+    # ---- one Adafactor step (on the prefill's blocks: the train rules
+    # are the prefill's; rank 0's whole params go first) -------------------
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.train import optim
+    tbatch = _mt_batch(cfg, pb, ts, dev)
+    one_loss = None
+    if whole is not None:
+        undo = ep_semantics()
+        try:
+            with torch.no_grad():
+                one_loss = float(tfm.loss_fn(whole, tbatch, cfg,
+                                             kv_chunk=MR_KV_CHUNK))
+        finally:
+            undo()
+    # rank 0's whole params (and what holds them) go before the step
+    whole = wm = single = one = None
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ocfg = optim.OptConfig(**MR_ADAFACTOR)
+    state = {"params": params, "opt": optim.OPTIMIZERS[ocfg.name][0](
+        params, ocfg, stacks=tfm.param_stacks(cfg, params),
+        specs=tfm.specs(cfg), dist=dist, shapes=tfm.param_shapes(cfg)),
+        "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    tstep = steps_lib.make_train_step(cfg, ocfg, kv_chunk=MR_KV_CHUNK,
+                                      dist=dist)
+    comm.traffic_reset()
+    new, m = tstep(state, tbatch)
+    rec["train"] = {"loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                    "reduce_scattered": "expert_ffn_gather_bwd"
+                    in comm.traffic(), "one_loss": one_loss}
+    del new, state
+    return rec
+
+
+def _mr_llama(rank, dev, conf):
+    """llama3.2-1b under ``make_dist(..., seq_parallel=True)`` on (2, 2):
+    the prefill at full depth, a train step at ``MR_LLAMA[1]`` layers."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_dist, make_prefill_step
+    from repro_torch.models import transformer as tfm
+    (pb, ps), layers = conf["llama"]
+    cfg = _mr_cfg(conf, "llama3.2-1b")
+    mesh = make_host_mesh(2, 2)
+    dist = make_dist(mesh, cfg, ShapeConfig("p", "prefill", ps, pb),
+                     seq_parallel=True)
+    params, whole = _mr_params(cfg, dist, dev)
+    g = torch.Generator().manual_seed(73)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (pb, ps),
+                                     generator=g).to(dev)}
+    step = make_prefill_step(cfg, dist, kv_chunk=MR_KV_CHUNK)
+    seen = []
+    orig = tfm.apply_layer
+
+    def keep(p, x, *a, **kw):
+        seen.append(tuple(x.shape))
+        return orig(p, x, *a, **kw)
+    tfm.apply_layer = keep
+    try:
+        fa.flash_attention.launches = 0
+        logits = step(params, batch)
+        f_launches = fa.flash_attention.launches
+    finally:
+        tfm.apply_layer = orig
+    d = cfg.d_model
+    rec = {"rank": rank, "rules": {k: dist.rules[k] for k in (
+        "batch", "heads", "seq")}, "f_launches": f_launches,
+        "stream": seen[0], "stream_share": (seen[0][0] * seen[0][1] * d)
+        / (pb * ps * d)}
+    undo = _pp_patch(comm, "reduce_scatter_to", _mr_slice_fault(rank))
+    try:
+        bad = step(params, batch)
+    finally:
+        undo()
+    single = None
+    if whole is not None:
+        one = make_prefill_step(cfg, kv_chunk=MR_KV_CHUNK)
+        with torch.no_grad():
+            ref = one(whole, batch)
+        rec["prefill_rel"] = _ms_logits_rel(ref, logits, cfg)
+        rec["planted_rel"] = _ms_logits_rel(ref, bad, cfg)
+
+        def single():
+            return one(whole, batch)
+    del logits, bad
+    rec["measure"] = _mr_measure(lambda: step(params, batch), dev, single)
+    del whole, params, single
+    # ---- the train step at a cut depth -----------------------------------
+    tcfg = cut_depth(cfg, layers)
+    tdist = make_dist(mesh, tcfg, ShapeConfig("t", "train", ps, pb),
+                      seq_parallel=True)
+    tbatch = _mt_batch(tcfg, pb, ps, dev)
+    # planted: every rank keeps its own S rows' part of the gradients of
+    # the parameters read on them (the norm gains), unsummed
+    rec["train"], (tstep, state0, _) = _mr_train(
+        tcfg, tdist, dev, MR_ADAMW, tbatch, 1, planted=(
+            "the norm gains' gradients unsummed over S", lambda:
+            _mr_skip_all_reduce("sp_param_bwd", rank, range(MR_WORLD))))
+    rec["train_measure"] = _mr_measure(lambda: tstep(state0, tbatch), dev)
+    del state0
+    return rec
+
+
+def _mr_slice_fault(rank):
+    """Rank 1 keeps its slice of its own partial where S is
+    reduce-scattered (the collective still runs)."""
+    import torch
+
+    def wrap(orig):
+        def rs(x, group, dim=1, kind="reduce_scatter_to"):
+            y = orig(x, group, dim, kind)
+            if rank != 1 or kind != "sp_reduce_scatter":
+                return y
+            i = torch.distributed.get_rank(group)
+            return x.narrow(dim, i * y.shape[dim], y.shape[dim]).to(y.dtype)
+        return rs
+    return wrap
+
+
+def _mr_s2t(rank, dev, conf):
+    """seamless-m4t-large-v2, ``MR_S2T[0]`` + ``MR_S2T[0]`` layers: a
+    train step on (2, 2) under ``make_dist``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_dist
+    layers, b, s, src = conf["s2t"]
+    cfg = _mr_cfg(conf, "seamless-m4t-large-v2", layers)
+    dist = make_dist(make_host_mesh(2, 2), cfg,
+                     ShapeConfig("t", "train", s, b))
+    batch = _mt_batch(cfg, b, s, dev)
+    batch["src_embeds"] = torch.randn(
+        (b, src, cfg.d_model), generator=torch.Generator().manual_seed(74)
+    ).to(dev, torch.bfloat16)
+    rec = {"rank": rank, "rules": {k: dist.rules[k] for k in (
+        "batch", "heads")}}
+    # planted: every rank keeps its own heads' part of the gradient of the
+    # encoder's memory that the cross layers read, unsummed
+    rec["train"], (tstep, state0, _) = _mr_train(
+        cfg, dist, dev, MR_ADAMW, batch, 1, planted=(
+            "the memory's gradient unsummed over the heads", lambda:
+            _mr_skip_all_reduce("cross_memory_bwd", rank, range(MR_WORLD))))
+    rec["measure"] = _mr_measure(lambda: tstep(state0, batch), dev)
+    del state0
+    return rec
+
+
+def _mr_mamba(rank, dev, conf):
+    """mamba2-130m under ``DEFAULT_RULES`` on (2, 2) (the batch of one
+    replicated, as ``make_dist`` does): the in-projection, conv and norm
+    gathered over 'model', ``out`` row-parallel."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    (pb, ps), n_dec = conf["mamba"]
+    cfg = _mr_cfg(conf, "mamba2-130m")
+    dist = DistContext(make_host_mesh(2, 2), rules=dict(DEFAULT_RULES,
+                                                        batch=None))
+    params, whole = _mr_params(cfg, dist, dev)
+    g = torch.Generator().manual_seed(75)
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (pb, ps),
+                                     generator=g).to(dev)}
+    step = make_prefill_step(cfg, dist, kv_chunk=MR_KV_CHUNK)
+    logits = step(params, batch)
+    undo = _pp_patch(comm, "gather_from", _mr_gather_fault(
+        "ssd_in_gather", n=2))
+    try:
+        bad = step(params, batch)
+    finally:
+        undo()
+    rec = {"rank": rank, "in_block": tuple(
+        params["layers"][0]["ssd"]["in"].shape)}
+    single = None
+    if whole is not None:
+        one = make_prefill_step(cfg, kv_chunk=MR_KV_CHUNK)
+        with torch.no_grad():
+            ref = one(whole, batch)
+        rec["prefill_rel"] = _ms_logits_rel(ref, logits, cfg)
+        rec["planted_rel"] = _ms_logits_rel(ref, bad, cfg)
+
+        def single():
+            return one(whole, batch)
+    rec["measure"] = _mr_measure(lambda: step(params, batch), dev, single)
+    blocks = tfm.init_cache(cfg, pb, 16, device=dev, dist=dist)
+    wcache = tfm.init_cache(cfg, pb, 16, device=dev) if whole else None
+    serve = make_serve_step(cfg, dist)
+    tok = batch["inputs"][:, :1]
+    rec["decode_rel"] = []
+    for j in range(n_dec):
+        kept = {}
+        orig = tfm.decode_step
+
+        def keep(*a, **kw):
+            out = orig(*a, **kw)
+            kept["logits"] = out[0]
+            return out
+        tfm.decode_step = keep
+        try:
+            nxt, blocks = serve(params, blocks, tok, j)
+        finally:
+            tfm.decode_step = orig
+        if whole is not None:
+            with torch.no_grad():
+                ref, wcache = tfm.decode_step(whole, wcache, tok, j, cfg)
+            rec["decode_rel"].append(_ms_logits_rel(ref, kept["logits"],
+                                                    cfg))
+        tok = nxt
+    return rec
+
+
+MR_CASES = ("dbrx", "rg", "gan", "llama", "s2t", "mamba")
+
+
+def _mr_rank(rank, world, dev, conf):
+    """One rank of phases 3r/4p (all ranks share the card)."""
+    import gc
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    fns = {"rg": _mr_rg, "gan": _mr_gan, "dbrx": _mr_dbrx,
+           "llama": _mr_llama, "s2t": _mr_s2t, "mamba": _mr_mamba}
+    out = {}
+    for name in conf["cases"]:
+        t0 = time.perf_counter()
+        out[name] = fns[name](rank, dev, conf)
+        out[name + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mr_print_measure(tag, name, r, smi):
+    m = r.get("measure") or r.get("train_measure")
+    if m is None:
+        return
+    single = ("" if m.get("single_ms") is None else
+              f", one rank {m['single_ms']:.3f} ms, device "
+              f"{ms_text(m['single_device_ms'])} ms")
+    print(f"[4p] {name} rank {r['rank']} {tag}: {m['ms']:.3f} ms (events), "
+          f"device {ms_text(m['device_ms'])} ms{single}; peak "
+          f"{m['peak_bytes']} bytes ({m['base_bytes']} before) | {smi}")
+    print(f"[4p] {name} rank {r['rank']} {tag} collectives (calls, bytes): "
+          + ", ".join(f"{k} {v['calls']} / {v['bytes']}"
+                      for k, v in m["collectives"].items()))
+
+
+def _mr_train_gates(name, tr, failed):
+    """The mesh steps' losses, gnorms and first update against the
+    one-rank steps (rank 0's record)."""
+    for i, (a, b_) in enumerate(zip(tr["losses"], tr["one_losses"])):
+        rel = abs(a - b_) / abs(b_)
+        g = abs(tr["gnorms"][i] - tr["one_gnorms"][i]) / tr["one_gnorms"][i]
+        print(f"[3r] {name} train step {i}: loss {a:.6f} vs one rank "
+              f"{b_:.6f} (rel {rel:.2e}, limit {TOL_MT_LOSS:.0e}), gnorm "
+              f"{tr['gnorms'][i]:.4f} vs {tr['one_gnorms'][i]:.4f} (rel "
+              f"{g:.2e}, limit {TOL_MT_GNORM:.0e})")
+        if rel > TOL_MT_LOSS or g > TOL_MT_GNORM:
+            failed.append(f"{name} train step {i}")
+    print(f"[3r] {name} first step's AdamW first moment vs the one-rank "
+          f"step's, worst leaf {tr['update_rel']:.2e} (limit "
+          f"{TOL_MT_UPDATE:.0e})")
+    if tr["update_rel"] > TOL_MT_UPDATE:
+        failed.append(f"{name} update")
+    if "planted_update_rel" in tr:
+        print(f"[3r] {name} planted ({tr['planted']}): the first moment's "
+              f"worst leaf {tr['planted_update_rel']:.2e}")
+        if not tr["planted_update_rel"] > TOL_MT_UPDATE:
+            failed.append(f"{name} planted")
+
+
+def mesh_rest_phases(dev, smi):
+    """Phases 3r and 4p: the mesh rules of the rest of ROADMAP item 13c,
+    over ``MR_WORLD`` ranks that share the card on a gloo group, at full
+    width, the one-rank references on rank 0 in the same run:
+    recurrentgemma-2b on (1, 4) cut to one (rec, rec, local) group, its
+    q cut at 2.5 heads a rank (prefill, greedy steps, AdamW steps;
+    planted: the cut head's gather without its cotangent sum); the DCGAN
+    and cGAN generators and discriminators with 'conv_taps' on 'model'
+    (kernels A and B, f32 and int8, on each rank's rows: each row-block
+    launch against its plain version on the card, also on a block fenced
+    by NaN rows, planted: the plain version one row off; the sites
+    against the f64 oracle; a DCGAN train step's block gradients against
+    an f64 step; planted: one rank's partial left out); dbrx-132b at one
+    layer on its EP MoE with 'expert_ffn' on 'data' (the MoE layer on its
+    own inputs at prefill and decode against JAX's EP semantics, an
+    Adafactor step; planted: the hidden blocks' gather skipped);
+    llama3.2-1b under ``seq_parallel=True`` (the prefill at full depth, a
+    train step at ``MR_LLAMA[1]`` layers, the residual a rank a quarter
+    of one rank's; planted: a reduce-scatter replaced by a slice, and in
+    the train step the norm gains' gradients unsummed);
+    seamless-m4t-large-v2 training (planted: the cross layers' memory
+    gradient unsummed); mamba2-130m
+    under ``DEFAULT_RULES`` (planted: the in-projection's gather
+    skipped).  4p: each case's step ms and device ms beside the one-rank
+    step's, its collectives, peak memory.  Returns (records, {kernel:
+    {path: launches}})."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    conf = {"configs": MR_CONFIGS, "cases": MR_CASES, "rg": MR_RG,
+            "gan_batches": MR_GAN_BATCHES, "gan_train": MR_GAN_TRAIN,
+            "dbrx": MR_DBRX, "llama": MR_LLAMA, "s2t": MR_S2T,
+            "mamba": MR_MAMBA}
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_spmd(_mr_rank, MR_WORLD, conf, device=dev.type,
+                         timeout=900)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    wall = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    failed = []
+    paths = {"A": {}, "B": {}, "A_int8": {}, "B_int8": {}, "F": {}}
+    lim = TOL_MS_LOGITS
+    # ---- recurrentgemma-2b: a cut head ------------------------------------
+    if "rg" in ranks[0]:
+        r0 = ranks[0]["rg"]
+        print(f"[3r] recurrentgemma-2b on (1, 4) {r0['kinds']}: rules "
+              f"{r0['rules']}; {ranks[0]['rg_s']:.1f} s")
+        for r in (x["rg"] for x in ranks):
+            fg = r["f_gate"]
+            print(f"[3r] rg prefill rank {r['rank']}: F launches "
+                  f"{r['f_launches']} on (sq, heads) {r['f_heads']} (a cut "
+                  f"head computed whole on two ranks), F vs plain worst share "
+                  f"{fg['worst_share']:.3f} (planted x{F_FAULT}: least "
+                  f"{fg['planted_least_share']:.2f})")
+            if cuda and r["f_launches"] != 1:
+                failed.append(f"rg rank {r['rank']} F launches")
+            _mr_print_measure("prefill", "rg", r, smi)
+        paths["F"]["mesh_rest_rg_prefill"] = sum(x["rg"]["f_launches"]
+                                                 for x in ranks)
+        print(f"[3r] rg prefill logits vs one rank: {r0['prefill_rel']:.2e}; "
+              f"greedy steps {', '.join(f'{e:.2e}' for e in r0['decode_rel'])} "
+              f"(limit {lim:.0e})")
+        if r0["prefill_rel"] > lim or max(r0["decode_rel"]) > lim:
+            failed.append("rg logits")
+        _mr_train_gates("rg", r0["train"], failed)
+        print(f"[3r] rg local layer's q gradient (rank 0's block, a cut head "
+              f"in it) vs the one-rank gradient: {r0['qgrad_rel']:.2e} (limit "
+              f"{TOL_MR_GRAD:.0e}); the cut head's gather without its cotangent "
+              f"sum {r0['planted_qgrad_rel']:.2e}")
+        if r0["qgrad_rel"] > TOL_MR_GRAD or \
+                not r0["planted_qgrad_rel"] > TOL_MR_GRAD:
+            failed.append("rg q gradient")
+    # ---- GANs: row-parallel superpacks on kernels A and B ---------------
+    if "gan" in ranks[0]:
+        for recs in zip(*(x["gan"] for x in ranks)):
+            r0 = recs[0]
+            if r0["model"] == "dcgan_train":
+                for r in recs:
+                    print(f"[3r] DCGAN train step B={r0['batch']} rank "
+                          f"{r['rank']}: loss vs the f64 step "
+                          f"{r['loss_rel']:.2e} (limit {TOL_LOSS:.0e}), "
+                          f"block gradients vs the f64 step on the mesh "
+                          f"step's ReLU signs {r['grad_rel']:.2e} (limit "
+                          f"{TOL_GRAD:.0e}; by site "
+                          + json.dumps({k: float(f"{v:.3e}") for k, v in
+                                        r["grad_rel_by_site"].items()})
+                          + f"); one rank's f32 step vs the f64 step on its "
+                          f"signs {r['one_rank_rel']:.2e}; on the f64 step's "
+                          f"own signs: mesh {r['vs_own_f64']:.2e}, one rank "
+                          f"{r['one_vs_own_f64']:.2e}; mesh vs one rank "
+                          f"{r['vs_one_rank']:.2e} ({r['sign_flips']} ReLU "
+                          f"signs differ between them); launches "
+                          f"{r['launches']}")
+                    if r["loss_rel"] > TOL_LOSS or \
+                            r["grad_rel"] > TOL_GRAD:
+                        failed.append(f"DCGAN train rank {r['rank']}")
+                planted = max(r["planted_grad_rel"] for r in recs)
+                print(f"[3r] DCGAN train planted: rank 1's row-parallel "
+                      f"input gradients unsummed: block gradients "
+                      f"{planted:.2e}")
+                if not planted > TOL_GRAD:
+                    failed.append("DCGAN train planted")
+                paths["A"]["mesh_rest_dcgan_train"] = sum(
+                    r["launches"]["A"] for r in recs)
+                paths["B"]["mesh_rest_dcgan_train"] = sum(
+                    r["launches"]["B"] for r in recs)
+                continue
+            tag = f"{r0['model']} {r0['wdtype']} B={r0['batch']}"
+            key = "" if r0["wdtype"] == "float32" else "_int8"
+            for r in recs:
+                print(f"[3r] {tag} rank {r['rank']}: launches {r['launches']}; "
+                      f"{r['row_launches']} row-block launches (counted "
+                      f"{r['rows_counted']}) vs their "
+                      f"plain versions on the card, worst {r['rows_rel']:.2e}"
+                      f" (limit {TOL_MR_ROWS:.0e}; planted, r0 one row off: "
+                      f"least {r['rows_planted']:.2e}), on blocks fenced by "
+                      f"NaN rows {r['rows_fenced']:.2e}; output vs one rank "
+                      f"{r['rel']:.2e} (limit {TOL_MESH_IMG:.0e})"
+                      + ("" if r["rank"] else f"; sites vs the f64 oracle: "
+                         f"worst {r0['ulp_share']:.3f} of ulp_bound"))
+                rows_ok = (r["rows_rel"] <= TOL_MR_ROWS
+                           and r["rows_fenced"] <= TOL_MR_ROWS
+                           and r["rows_planted"] > TOL_MR_ROWS
+                           and (not cuda or r["row_launches"]
+                                == r["rows_counted"] > 0))
+                if not rows_ok or r["rel"] > TOL_MESH_IMG:
+                    failed.append(f"{tag} rank {r['rank']}")
+                if r["other_dtype_launches"]:
+                    failed.append(f"{tag} rank {r['rank']} other dtype")
+                _mr_print_measure("generator", tag, r, smi)
+            if r0["ulp_share"] > 1.0:
+                failed.append(f"{tag} ulp")
+            if "planted_rel" in r0:
+                planted = max(r["planted_rel"] for r in recs)
+                print(f"[3r] {tag} planted: rank 1's row-block partial left "
+                      f"out: {planted:.2e}")
+                if not planted > TOL_MESH_IMG:
+                    failed.append(f"{tag} planted")
+            name = f"mesh_rest_{r0['model']}_{r0['wdtype']}_B{r0['batch']}"
+            paths["A" + key][name] = sum(r["launches"]["A"] for r in recs)
+            paths["B" + key][name] = sum(r["launches"]["B"] for r in recs)
+    # ---- dbrx: the expert hidden dim ---------------------------------------
+    if "dbrx" in ranks[0]:
+        r0 = ranks[0]["dbrx"]
+        print(f"[3r] dbrx-132b, 1 layer, moe_impl {r0['moe_impl']!r} on "
+              f"(2, 2): rules {r0['rules']}, expert blocks "
+              f"{r0['block_bytes']} bytes a rank; {r0['tokens']} tokens a "
+              f"data rank at prefill, capacity {r0['capacity']} an expert; "
+              f"{ranks[0]['dbrx_s']:.1f} s")
+        print(f"[3r] dbrx MoE layer on its own inputs vs JAX's EP semantics "
+              f"(_mesh_ep_ref): prefill "
+              f"{r0['moe_rel']:.2e}, greedy steps "
+              f"{', '.join(f'{e:.2e}' for e in r0['decode_moe_rel'])} (limit "
+              f"{TOL_MESH_MOE:.0e}); the hidden blocks' gather skipped "
+              f"{r0['moe_planted_rel']:.2e}; prefill logits vs one rank "
+              f"{r0['prefill_rel']:.2e} (under the same EP semantics; "
+              f"reported: bf16 rounding can flip an expert choice there)")
+        if max([r0["moe_rel"]] + r0["decode_moe_rel"]) > TOL_MESH_MOE or \
+                not r0["moe_planted_rel"] > TOL_MESH_MOE:
+            failed.append("dbrx MoE")
+        tr = r0["train"]
+        rel = abs(tr["loss"] - tr["one_loss"]) / abs(tr["one_loss"])
+        print(f"[3r] dbrx Adafactor step: loss {tr['loss']:.6f} vs one-rank "
+              f"forward under the EP semantics {tr['one_loss']:.6f} (rel "
+              f"{rel:.2e}, limit "
+              f"{TOL_MT_LOSS:.0e}), gnorm {tr['gnorm']:.4f}, hidden gradients "
+              f"reduce-scattered {tr['reduce_scattered']}")
+        if rel > TOL_MT_LOSS or not tr["reduce_scattered"] or \
+                not math.isfinite(tr["gnorm"]):
+            failed.append("dbrx train")
+        for r in (x["dbrx"] for x in ranks):
+            _mr_print_measure("prefill", "dbrx", r, smi)
+        paths["F"]["mesh_rest_dbrx_prefill"] = sum(x["dbrx"]["f_launches"]
+                                                   for x in ranks)
+    # ---- llama3.2-1b: sequence parallelism --------------------------------
+    if "llama" in ranks[0]:
+        r0 = ranks[0]["llama"]
+        print(f"[3r] llama3.2-1b SP on (2, 2): rules {r0['rules']}; residual a "
+              f"rank {r0['stream']} = {r0['stream_share']:.4f} of one rank's; "
+              f"prefill logits vs one rank {r0['prefill_rel']:.2e} (limit "
+              f"{lim:.0e}), a reduce-scatter replaced by a slice "
+              f"{r0['planted_rel']:.2e}; {ranks[0]['llama_s']:.1f} s")
+        if r0["prefill_rel"] > lim or not r0["planted_rel"] > lim or \
+                abs(r0["stream_share"] - 0.25) > 1e-9:
+            failed.append("llama SP prefill")
+        for r in (x["llama"] for x in ranks):
+            if cuda and r["f_launches"] != 16:
+                failed.append(f"llama rank {r['rank']} F launches")
+            _mr_print_measure("prefill", "llama", r, smi)
+            m = r["train_measure"]
+            print(f"[4p] llama SP train step rank {r['rank']}: {m['ms']:.3f} ms"
+                  f" (events), device {ms_text(m['device_ms'])} ms; peak "
+                  f"{m['peak_bytes']} bytes | {smi}")
+        paths["F"]["mesh_rest_llama_prefill"] = sum(x["llama"]["f_launches"]
+                                                    for x in ranks)
+        _mr_train_gates("llama SP", r0["train"], failed)
+    # ---- seamless: training the dec kind ------------------------------------
+    if "s2t" in ranks[0]:
+        r0 = ranks[0]["s2t"]
+        print(f"[3r] seamless-m4t-large-v2 {MR_S2T[0]} + {MR_S2T[0]} layers on "
+              f"(2, 2): rules {r0['rules']}; {ranks[0]['s2t_s']:.1f} s")
+        _mr_train_gates("seamless", r0["train"], failed)
+        for r in (x["s2t"] for x in ranks):
+            _mr_print_measure("train step", "seamless", r, smi)
+    # ---- mamba2: ssd tensor-parallel ----------------------------------------
+    if "mamba" in ranks[0]:
+        r0 = ranks[0]["mamba"]
+        print(f"[3r] mamba2-130m on (2, 2) under DEFAULT_RULES: in-projection "
+              f"block {r0['in_block']}; prefill logits vs one rank "
+              f"{r0['prefill_rel']:.2e}, greedy steps "
+              f"{', '.join(f'{e:.2e}' for e in r0['decode_rel'])} (limit "
+              f"{lim:.0e}); the in-projection's gather skipped "
+              f"{r0['planted_rel']:.2e}; {ranks[0]['mamba_s']:.1f} s")
+        if r0["prefill_rel"] > lim or max(r0["decode_rel"]) > lim or \
+                not r0["planted_rel"] > lim:
+            failed.append("mamba")
+        for r in (x["mamba"] for x in ranks):
+            _mr_print_measure("prefill", "mamba", r, smi)
+    print(f"[3r] mesh rest phase: {wall:.1f} s over {MR_WORLD} ranks, "
+          f"launches {json.dumps(paths)}")
+    if failed:
+        raise RuntimeError(f"mesh rest gates failed: {failed}")
+    return {"mesh_rest": {"ranks": ranks, "seconds": wall}}, paths
+
+
 def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
 
     unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh",
-                                            "--mesh-train", "--mesh-serve")]
+                                            "--mesh-train", "--mesh-serve",
+                                            "--mesh-rest")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -5810,6 +7038,10 @@ def main(argv=()) -> int:
             ms_records, ms_paths = mesh_serve_phases(dev, smi)
             print(json.dumps({"card": smi, **ms_records,
                               "launches_by_path": ms_paths}))
+        if "--mesh-rest" in argv:
+            mr_records, mr_paths = mesh_rest_phases(dev, smi)
+            print(json.dumps({"card": smi, **mr_records,
+                              "launches_by_path": mr_paths}))
         print(f"[done] phase(s) {' '.join(argv)} passed in "
               f"{time.perf_counter() - t_start:.1f} s, the build included")
         print(smi)
@@ -7002,6 +8234,20 @@ def main(argv=()) -> int:
     cp_records, cp_paths = control_plane_phases(dev, smi, gen)
     print(json.dumps({"card": smi, **cp_records}))
 
+    # the image phases' weights, planes and batchers (with their CUDA
+    # graphs' memory pools) are done with: the mesh phases' ranks share the
+    # card beside this process
+    import gc
+    params = batcher = gen_fn = gp = dp = gp0 = dp0 = z0 = real0 = None
+    pipe = out_c = out_t = out_n = qparams = qb = qgen_fn = None
+    sb = seg_fn = sparams = u_params = params_u = xu = xd = denoise = None
+    gp_ = dp_ = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mem] before the mesh phases this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved)")
+
     pp_records, pp_paths = plane_parallel_phases(dev, smi)
     print(json.dumps({"card": smi, **pp_records}))
 
@@ -7016,6 +8262,10 @@ def main(argv=()) -> int:
     ms_records, ms_paths = mesh_serve_phases(dev, smi)
     print(json.dumps({"card": smi, **ms_records}))
     f_entry["launches_by_path"].update(ms_paths["F"])
+
+    mr_records, mr_paths = mesh_rest_phases(dev, smi)
+    print(json.dumps({"card": smi, **mr_records}))
+    f_entry["launches_by_path"].update(mr_paths["F"])
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
 
     # ---- 5. the kernels line, the card line, the result line ---------------
@@ -7041,15 +8291,17 @@ def main(argv=()) -> int:
 
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
                **unet_paths_of("A", "float32"), **vae_paths["A"],
-               **cp_paths["A"], **pp_paths["A"], **mesh_paths["A"]}
+               **cp_paths["A"], **pp_paths["A"], **mesh_paths["A"],
+               **mr_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
                **unet_paths_of("B", "float32"), **vae_paths["B"],
-               **cp_paths["B"], **pp_paths["B"], **mesh_paths["B"]}
+               **cp_paths["B"], **pp_paths["B"], **mesh_paths["B"],
+               **mr_paths["B"]}
     ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"],
-                 **mesh_paths["A_int8"]}
+                 **mesh_paths["A_int8"], **mr_paths["A_int8"]}
     bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"],
-                 **mesh_paths["B_int8"]}
+                 **mesh_paths["B_int8"], **mr_paths["B_int8"]}
     c_paths = {**unet_paths_of("C", "float32"), **pp_paths["C"]}
     d_paths = {**unet_paths_of("D", "float32"), **pp_paths["D"]}
     ci8_paths, di8_paths = (unet_paths_of("C", "int8"),

@@ -18,7 +18,9 @@ Two layers:
   rank's slice backward; ``reduce_bwd=True``: the cotangents summed over
   the group first, a reduce-scatter, where each rank reads its own part
   of the gathered tensor), ``split_to`` (this rank's slice forward,
-  all-gather backward) and ``all_to_all`` (its own transpose).  A group
+  all-gather backward), ``reduce_scatter_to`` (the sum over the group,
+  this rank's part along a dim, forward; all-gather backward: sequence
+  parallelism's exit) and ``all_to_all`` (its own transpose).  A group
   of ``None`` is a one-rank group: every Function is then the identity.
 
 The plain collectives ``all_reduce`` (sum or max), ``all_gather``,
@@ -114,8 +116,11 @@ def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     i = dist.get_rank(group)
     size = t.shape[dim] // n
     if dist.get_backend(group) == "gloo":
-        return _all_reduce(t.contiguous().clone(), group).narrow(
-            dim, i * size, size).contiguous()
+        # a staged transfer sums a host copy; a CPU tensor is summed in
+        # place, so it is copied first
+        src = t.contiguous() if _staged(t, group) else t.contiguous().clone()
+        return _all_reduce(src, group).narrow(dim, i * size,
+                                              size).contiguous()
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((size,) + src.shape[1:], dtype=t.dtype,
                       device=t.device)
@@ -333,6 +338,22 @@ class _SplitTo(torch.autograd.Function):
                 None, None, None)
 
 
+class _ReduceScatterTo(torch.autograd.Function):
+    """Forward: ``x`` summed over the group, this rank's equal part along
+    ``dim``; backward: every rank's cotangent part gathered back along
+    ``dim`` (every rank's partial gets the whole cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return reduce_scatter(x, group, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.group, ctx.dim, ctx.kind + "_bwd"),
+                None, None, None)
+
+
 class _AllToAll(torch.autograd.Function):
     """Forward and backward: the equal-block all-to-all along dim 0 (its
     own transpose)."""
@@ -369,6 +390,13 @@ def split_to(x, group, dim: int = 0, kind: str = "split_to"):
     if group is None:
         return x
     return _SplitTo.apply(x, group, dim % x.dim(), kind)
+
+
+def reduce_scatter_to(x, group, dim: int = 1,
+                      kind: str = "reduce_scatter_to"):
+    if group is None:
+        return x
+    return _ReduceScatterTo.apply(x, group, dim % x.dim(), kind)
 
 
 def all_to_all_fn(x, group, kind: str = "all_to_all"):

@@ -60,7 +60,12 @@ rank's ``N/TP`` columns, still a valid superpack of the same spec at
 ``out_c = N/TP`` (the row order does not change).  ``apply`` runs the
 *local plan* of that spec on it (kernel A, B, C or D as its route picks,
 the int8 entry on a quantized block), adds the rank's bias block and
-gathers the output channels over the group in rank order.
+gathers the output channels over the group in rank order.  A superpack
+split on its rows (its tap-major K: 'conv_taps' over a mesh axis) arrives
+as a ``RowSuperpack``: rows ``[r0, r1)``, which may cut a tap and span
+phases.  ``apply`` runs it as a row-parallel site (``_rp_apply``): kernel A
+or B on the rank's rows only (their ``rows=`` entries, int8 too), the f32
+partials summed over the group, the bias added once.
 """
 from __future__ import annotations
 
@@ -76,7 +81,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.core import decompose as dec
 from repro_torch.core.untangle import pad_or_crop, untangled_conv2d
 from repro_torch.kernels.untangled_conv import (
-    deconv_tap_span, halo_extent, pick_block_tile_single,
+    embed_rows, deconv_tap_span, halo_extent, pick_block_tile_single,
     pick_block_tile_transposed, untangled_conv2d_superpack,
     untangled_deconv2d)
 from repro_torch.runtime.compress import dequantize_int8, quantize_int8_rows
@@ -398,6 +403,109 @@ class TPSuperpack:
     def shape(self):
         rows, cols = self.block.shape
         return (rows, cols * self.n)
+
+
+@dataclasses.dataclass(eq=False)
+class RowSuperpack:
+    """This rank's row block ``rows`` = [r0, r1) of a superpack of
+    ``total`` rows whose rows are split over ``n`` ranks of ``group``
+    (block ``index``): a dense ``(r1 - r0, N)`` buffer or a
+    ``QuantizedSuperpack`` of those rows' codes and scale rows."""
+
+    block: object                 # torch.Tensor | QuantizedSuperpack
+    group: object                 # the 'conv_taps' axes' process group
+    index: int
+    n: int
+    rows: tuple
+    total: int
+
+    @property
+    def shape(self):
+        return (self.total, self.block.shape[1])
+
+
+def _rows_fwd(plan: "ConvPlan", x: torch.Tensor, w: torch.Tensor, scale,
+              rows) -> torch.Tensor:
+    """The f32 partial sum of the plan's conv over superpack rows ``rows``
+    (``w``: those rows; ``scale``: their scale rows for int8 codes): one
+    launch of kernel A (transposed) or B (conv/dilated) on the block, their
+    plain versions on the CPU."""
+    spec = plan.spec
+    lead = tuple(x.shape[:-3])
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:])).float()
+    scales = {} if scale is None else {"scales": scale}
+    if spec.kind == "transposed":
+        y = untangled_deconv2d(
+            _global_plane(plan, x4).contiguous(), w, phases=plan.phases,
+            out_hw=plan.out_hw, strides=spec.strides, sum_uv=plan.sum_uv,
+            out_dtype=torch.float32, rows=rows, **scales)
+    else:
+        strides, dilation, taps, _ = _single_geom(plan)
+        y = untangled_conv2d_superpack(
+            pad_or_crop(x4, spec.padding).contiguous(), w, taps_hw=taps,
+            strides=strides, rhs_dilation=dilation, out_dtype=torch.float32,
+            rows=rows, **scales)
+    return y.reshape(lead + tuple(y.shape[1:]))
+
+
+class _PlannedRows(torch.autograd.Function):
+    """A row block's partial sum (``_rows_fwd``) under autograd.  Backward:
+    the §3.2.3 backward of the plan's kind (``_pt_bwd``/``_ps_bwd``) with
+    the block in its rows of an otherwise zero superpack, so dx is the
+    block's partial (summed over the group by the caller's ``copy_to``)
+    and the block's rows of dK (and of d scale) are its gradient, local:
+    dY is whole on every rank after the forward's all-reduce."""
+
+    @staticmethod
+    def forward(ctx, plan, x, w, scale, rows):
+        ctx.plan, ctx.rows = plan, rows
+        ctx.save_for_backward(x, w, scale)
+        return _rows_fwd(plan, x.detach(), w.detach(),
+                         None if scale is None else scale.detach(), rows)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w, scale = ctx.saved_tensors
+        plan, (r0, r1) = ctx.plan, ctx.rows
+        whole, wscale = embed_rows(w, scale, ctx.rows,
+                                   plan.total_taps * plan.spec.in_c)
+        bwd = _pt_bwd if plan.spec.kind == "transposed" else _ps_bwd
+        dx, dpk, dscale = bwd(plan, x, _packed_operand(whole, wscale), dy,
+                              need_dx=ctx.needs_input_grad[1],
+                              need_dk=any(ctx.needs_input_grad[2:4]))
+        return (None, dx, None if dpk is None else dpk[r0:r1],
+                None if dscale is None else dscale[r0:r1], None)
+
+
+def _rp_apply(plan: "ConvPlan", x, packed: RowSuperpack, bias):
+    """The row-parallel site: the rank's rows through kernel A or B
+    (``_PlannedRows``), the f32 partials summed over the group, the bias
+    added once, one rounding to ``x``'s dtype.  ``x`` enters through
+    ``copy_to``: every rank reads all of it, so its gradient is summed over
+    the group.  A site whose plan picks the tiled kernels C or D, or that
+    is also split on its plane, is refused."""
+    from repro_torch.core import comm
+    if plan.spec.spatial != (1, 1):
+        raise NotImplementedError(
+            "a superpack split on both its plane and its rows: ROADMAP "
+            "Queue 1 item 13c")
+    if not isinstance(x, torch.Tensor):         # a plane held as blocks
+        x = x.full()
+    batch = x.reshape((-1,) + tuple(x.shape[-3:])).shape[0]
+    if plan.route_for_batch(batch).sp_tiles is not None:
+        raise NotImplementedError(
+            "a row-parallel superpack at a site whose plan picks the tiled "
+            "kernel C or D: ROADMAP Queue 1 item 13c")
+    blk = packed.block
+    w, scale = (blk.q, blk.scale) if isinstance(blk, QuantizedSuperpack) \
+        else (blk, None)
+    xin = comm.copy_to(x, packed.group, kind="rows_input")
+    y = comm.reduce_from(_PlannedRows.apply(plan, xin, w, scale,
+                                            packed.rows),
+                         packed.group, kind="rows_all_reduce")
+    y = y.to(x.dtype)
+    return y if bias is None else y + bias
 
 
 def _tp_apply(plan: "ConvPlan", x, packed: TPSuperpack, bias):
@@ -722,7 +830,8 @@ class ConvPlan:
         """Planned forward of NHWC ``x`` on the superpack (plus ``bias``,
         the out-channels' bias, where given), differentiable
         through the §3.2.3 backward of the plan's kind.  A ``TPSuperpack``
-        runs as a tensor-parallel site (``_tp_apply``).  Under a bound
+        runs as a tensor-parallel site (``_tp_apply``), a ``RowSuperpack``
+        as a row-parallel one (``_rp_apply``).  Under a bound
         spatial mesh matching the route's ``dev_tiles`` the conv runs
         plane-parallel across the mesh's ranks (``spatial.try_spatial``)
         and returns the output held as blocks (``spatial.PlaneBlocks``,
@@ -736,6 +845,8 @@ class ConvPlan:
                 f"at build time; plan_conv a spec for this shape")
         if isinstance(packed, TPSuperpack):
             return _tp_apply(self, x, packed, bias)
+        if isinstance(packed, RowSuperpack):
+            return _rp_apply(self, x, packed, bias)
         if bias is not None:
             return self.apply(x, packed) + bias
         if self.spec.spatial != (1, 1):

@@ -22,6 +22,11 @@
 // the first discriminator layer, C = 3, K = 75) wastes no K slot; each
 // copy finds its tap from k, from a cursor that steps with the chunks.
 //
+// A row-parallel block: the call may hold superpack rows [k0, k0 + K)
+// only (K = R*S*C is the whole superpack), and the result is the f32
+// partial sum over them.  K is walked from row k0 (the cursor finds each
+// row's tap from k0 + k), so a block that cuts a tap needs nothing more.
+//
 // A work unit is one (M tile, K slice, N tile): the wrapper's schedule
 // (untangled_conv.conv_schedule) picks the tile and a slice length of L
 // chunks.  Unsplit (L at least K's chunks), each unit stores its tile into
@@ -137,6 +142,8 @@ struct Geometry {
   int grid_x;     // work units over (M tile, slice)
   int grid_n;     // N tiles
   int m_tiles;    // the reduction's M tiles
+  int k0;         // the call's first superpack row (a row-parallel block)
+  int K;          // its superpack rows: R*S*C for the whole superpack
 };
 
 // Where superpack row k reads the plane, relative to its pixel's tap-(0, 0)
@@ -236,7 +243,7 @@ conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   const int OHW = g.OH * g.OW;
   const int M = g.B * OHW;
   const int N = g.N, C = g.C, S = g.S;
-  const int K = g.R * S * C;
+  const int K = g.K;  // the block's rows, from superpack row g.k0
   const int kc = (K + kBK - 1) / kBK;
   const int S_k = n_slices(kc, g.chunk_len);
   const int mt = blockIdx.x / S_k;
@@ -279,7 +286,7 @@ conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   }
   const int step_h = g.dh * g.Wp * C, step_w = g.dw * C;
   int k_next = c_begin * kBK + a_k;
-  TapCursor cur(k_next, C, S);
+  TapCursor cur(g.k0 + k_next, C, S);
 
   // issue the cp.async copies of K chunk `it` (the next in order) into
   // ring slot `st`
@@ -287,7 +294,8 @@ conv_kernel(const float* __restrict__ x, const WT* __restrict__ w,
     float* a_dst = As + st * A_STAGE + a_k;
     const int k = k_next;
     if (g.avec) {
-      // C % 4 == 0: k .. k+3 lie in one tap, and K % 4 == 0
+      // C % 4 == 0 and k0 % 4 == 0: k .. k+3 lie in one tap, and
+      // K % 4 == 0
       const float* xk = x + cur.shift(step_h, step_w);
 #pragma unroll
       for (int i = 0; i < A_PT; ++i) {
@@ -551,7 +559,7 @@ int launch(const float* x, const WT* w, const float* scale, float* y,
       x, w, scale, y, ws, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || ws == nullptr) return static_cast<int>(err);
-  const int kc = (g.R * g.S * g.C + kBK - 1) / kBK;
+  const int kc = (g.K + kBK - 1) / kBK;
   const int parts = (BM * BN + kReduceThreads - 1) / kReduceThreads;
   conv_split_reduce<<<dim3(g.m_tiles * parts, g.grid_n), kReduceThreads, 0,
                       stream>>>(ws, y, g.B * g.OH * g.OW, g.N, BM, BN,
@@ -607,23 +615,26 @@ int dispatch(const float* x, const WT* w, const float* scale, float* y,
 // `grid_x` the work units over (M tile, slice), `grid_n` the N tiles and
 // `m_tiles` the M tiles, all from the wrapper's conv_schedule; `ws` the
 // f32 workspace of grid_x * grid_n partial tiles, or null when K is not
-// split.
+// split.  `w` holds superpack rows [k0, k0 + K) (K = R*S*C: the whole
+// superpack; less: a row-parallel block, whose partial sum the caller adds
+// to its peers'); `avec` then also needs k0 % 4 == 0 and K % 4 == 0.
 extern "C" int untangled_conv2d_f32(const float* x, const float* w, float* y,
                                     float* ws, int B, int Hp, int Wp, int C,
                                     int N, int OH, int OW, int R, int S,
                                     int sh, int sw, int dh, int dw,
                                     int config, int avec, int bvec,
                                     int chunk_len, int grid_x, int grid_n,
-                                    int m_tiles, void* stream) {
+                                    int m_tiles, int k0, int K,
+                                    void* stream) {
   const Geometry g{B,  Hp, Wp,   C,    N,         OH,     OW,
                    R,  S,  sh,   sw,   dh,        dw,     avec,
-                   bvec, chunk_len, grid_x, grid_n, m_tiles};
+                   bvec, chunk_len, grid_x, grid_n, m_tiles, k0, K};
   return dispatch<float>(x, w, nullptr, y, ws, g, config, stream);
 }
 
 // Kernel E inside kernel B: as untangled_conv2d_f32 on int8 codes `q` with
-// one f32 scale per superpack row (`scale`, R*S*C floats); `bvec` also
-// needs `q` 4-byte aligned (4-code copies).
+// one f32 scale per superpack row of the block (`scale`, K floats);
+// `bvec` also needs `q` 4-byte aligned (4-code copies).
 extern "C" int untangled_conv2d_i8(const float* x, const int8_t* q,
                                    const float* scale, float* y, float* ws,
                                    int B, int Hp, int Wp, int C, int N,
@@ -631,9 +642,9 @@ extern "C" int untangled_conv2d_i8(const float* x, const int8_t* q,
                                    int sw, int dh, int dw, int config,
                                    int avec, int bvec, int chunk_len,
                                    int grid_x, int grid_n, int m_tiles,
-                                   void* stream) {
+                                   int k0, int K, void* stream) {
   const Geometry g{B,  Hp, Wp,   C,    N,         OH,     OW,
                    R,  S,  sh,   sw,   dh,        dw,     avec,
-                   bvec, chunk_len, grid_x, grid_n, m_tiles};
+                   bvec, chunk_len, grid_x, grid_n, m_tiles, k0, K};
   return dispatch<int8_t>(x, q, scale, y, ws, g, config, stream);
 }

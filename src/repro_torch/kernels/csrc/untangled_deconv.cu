@@ -41,6 +41,16 @@
 // (the FFMA loop reads four rows as one float4); superpack rows go 16 bytes
 // at a time on the vector path (N % 4 == 0, aligned), 4 bytes otherwise.
 //
+// A row-parallel block.  The call may hold superpack rows [r0, r1) only
+// (the rank's block of a superpack split on its rows; [0, sum T*C) is the
+// whole one): W is then indexed from r0, and the result is the f32
+// partial sum over those rows.  The block may cut a tap and span phases,
+// so each phase walks the K chunks that hold rows of the block
+// (phase_krange: one range, since the wide tiles walk a phase's rows in
+// ascending order) and reads the rows of a boundary chunk outside it as
+// zeros; the thin tile walks every chunk with the rows outside read as
+// zeros.  The slices then cover the block's chunks only.
+//
 // Tiles (the wrapper's _DECONV_CONFIGS): 128x128 (8x8 a thread) when that
 // fills the card, 64x64 (4x4), and 32x64 / 16x64 for the few rows of a
 // batch-1 phase, so no block holds 48 empty rows of 64.  N <= 16 (the RGB
@@ -138,6 +148,8 @@ struct Geometry {
   int grid_x;      // work units over (phase, M tile, slice)
   int grid_n;      // N tiles
   int red_x;       // M tiles over all phases (the reduction's grid)
+  int r0, r1;      // the superpack rows the call holds: [0, sum T*C) whole,
+                   // less for a row-parallel block
 };
 
 // One work unit: blockIdx.x -> (phase, M tile, slice), as the wrapper's
@@ -176,14 +188,41 @@ __device__ __forceinline__ int tile_row(const int* rec, int B, int BM,
   return ul < TU && u < U && v < V ? (b * U + u) * V + v : -1;
 }
 
+// The K chunks [lo, lo + count) of a phase that a call on superpack rows
+// [r0, r1) walks.  The wide tiles' K order (tap by tap, BK channels a
+// chunk) walks the phase's rows in ascending order, so the chunks that hold
+// rows of [r0, r1) are one range, and the rows outside it are read as
+// zeros.  The thin tile's order (C chunk by C chunk, tap by tap inside
+// one) does not, so it walks every chunk and reads the rows outside
+// [r0, r1) as zeros.  The wrapper's _phase_krange.
+__device__ __forceinline__ void phase_krange(const int* rec, int C, int BK,
+                                             int kc, int r0, int r1,
+                                             bool thin, int* lo, int* count) {
+  const int T = rec[3] * rec[4];
+  *lo = 0;
+  *count = T * kc;
+  if (thin) return;
+  const int base = rec[2] * C;
+  const int a = max(r0 - base, 0), b = min(r1 - base, T * C);
+  if (b <= a) {
+    *count = 0;
+    return;
+  }
+  *lo = (a / C) * kc + (a % C) / BK;
+  *count = ((b - 1) / C) * kc + ((b - 1) % C) / BK + 1 - *lo;
+}
+
 __device__ __forceinline__ Unit find_unit(const int* table, int n_phases,
-                                          int B, int BM, bool thin, int kc,
-                                          int L) {
+                                          int B, int BM, bool thin, int C,
+                                          int BK, int kc, int L, int r0,
+                                          int r1) {
   int unit = blockIdx.x;
   for (int p = 0; p < n_phases; ++p) {
     const int* rec = table + p * kRec;
     const int tiles = phase_tiles(rec, B, BM, thin);
-    const int S = n_slices(rec[3] * rec[4] * kc, L);
+    int lo, K;
+    phase_krange(rec, C, BK, kc, r0, r1, thin, &lo, &K);
+    const int S = n_slices(K, L);
     if (unit < tiles * S) return {p, unit / S, unit % S, S};
     unit -= tiles * S;
   }
@@ -245,7 +284,7 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
               const float* __restrict__ scale, const int* __restrict__ table,
               float* __restrict__ y, float* __restrict__ ws, int B, int Hg,
               int Wg, int C, int N, int OH, int OW, int sh, int sw,
-              int n_phases, int L) {
+              int n_phases, int L, int r0, int r1) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr bool I8 = std::is_same<WT, int8_t>::value;
   static_assert(TM % 4 == 0 && TN % 4 == 0 && BK % 4 == 0, "float4 groups");
@@ -268,16 +307,18 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
   int8_t* Qs = reinterpret_cast<int8_t*>(Ss + R * BK);  // int8: codes
 
   const int kc = (C + BK - 1) / BK;
-  const Unit un = find_unit(table, n_phases, B, BM, false, kc, L);
+  const Unit un =
+      find_unit(table, n_phases, B, BM, false, C, BK, kc, L, r0, r1);
   if (un.p == n_phases) return;
   const int* rec = table + un.p * kRec;
   const int qh = rec[0], qw = rec[1], tap_off = rec[2], tw = rec[4];
   const int V = rec[8];
   const int UV = rec[7] * V;
   const int M = B * UV;
-  const int K = rec[3] * tw * kc;
-  const int k_begin = slice_begin(K, un.S, un.s);
-  const int n_iter = slice_begin(K, un.S, un.s + 1) - k_begin;
+  int k_lo, K;
+  phase_krange(rec, C, BK, kc, r0, r1, false, &k_lo, &K);
+  const int k_begin = k_lo + slice_begin(K, un.S, un.s);
+  const int n_iter = k_lo + slice_begin(K, un.S, un.s + 1) - k_begin;
   const int m0 = un.mt * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
@@ -300,7 +341,10 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
       const bool ok = base >= 0 && c < C;
       cp_async4(a_dst + k * AS + row, ok ? xg + base + shift + c : xg, ok);
     }
+    // superpack row wrow0 + row lies at row wrow0 + row - r0 of the call's
+    // block; rows outside [r0, r1) are read as zeros
     const int wrow0 = (tap_off + t) * C + c0;
+    const int lo_row = max(r0 - wrow0, 0), hi_row = r1 - wrow0;
     if constexpr (!I8) {
       float* b_dst = Bs + st * B_STAGE;
       if (VEC) {
@@ -308,9 +352,10 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
         for (int i = 0; i < BK * BN / 4 / NT; ++i) {
           const int q = tid + i * NT;
           const int row = q / (BN / 4), col = (q % (BN / 4)) * 4;
-          const bool ok = c0 + row < C && n0 + col < N;
-          const float* src = w + static_cast<size_t>(wrow0 + row) * N + n0 +
-                             col;
+          const bool ok = c0 + row < C && n0 + col < N && row >= lo_row &&
+                          row < hi_row;
+          const float* src =
+              w + static_cast<size_t>(wrow0 + row - r0) * N + n0 + col;
           cp_async16(b_dst + row * BS + col, ok ? src : w, ok);
         }
       } else {
@@ -318,9 +363,10 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
         for (int i = 0; i < BK * BN / NT; ++i) {
           const int q = tid + i * NT;
           const int row = q / BN, col = q % BN;
-          const bool ok = c0 + row < C && n0 + col < N;
-          const float* src = w + static_cast<size_t>(wrow0 + row) * N + n0 +
-                             col;
+          const bool ok = c0 + row < C && n0 + col < N && row >= lo_row &&
+                          row < hi_row;
+          const float* src =
+              w + static_cast<size_t>(wrow0 + row - r0) * N + n0 + col;
           cp_async4(b_dst + row * BS + col, ok ? src : w, ok);
         }
       }
@@ -331,23 +377,25 @@ deconv_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
         for (int i = 0; i < BK * BN / 4 / NT; ++i) {
           const int q = tid + i * NT;
           const int row = q / (BN / 4), col = (q % (BN / 4)) * 4;
-          const bool ok = c0 + row < C && n0 + col < N;
-          const int8_t* src = w + static_cast<size_t>(wrow0 + row) * N + n0 +
-                              col;
+          const bool ok = c0 + row < C && n0 + col < N && row >= lo_row &&
+                          row < hi_row;
+          const int8_t* src =
+              w + static_cast<size_t>(wrow0 + row - r0) * N + n0 + col;
           cp_async4(q_dst + row * BN + col, ok ? src : w, ok);
         }
       } else {  // ragged N or unaligned codes: plain loads, synchronous
         for (int q = tid; q < BK * BN; q += NT) {
           const int row = q / BN, col = q % BN;
-          const bool ok = c0 + row < C && n0 + col < N;
+          const bool ok = c0 + row < C && n0 + col < N && row >= lo_row &&
+                          row < hi_row;
           q_dst[row * BN + col] =
-              ok ? w[static_cast<size_t>(wrow0 + row) * N + n0 + col]
+              ok ? w[static_cast<size_t>(wrow0 + row - r0) * N + n0 + col]
                  : static_cast<int8_t>(0);
         }
       }
       for (int r = tid; r < BK; r += NT) {
-        const bool ok = c0 + r < C;
-        cp_async4(Ss + st * BK + r, ok ? scale + wrow0 + r : scale, ok);
+        const bool ok = c0 + r < C && r >= lo_row && r < hi_row;
+        cp_async4(Ss + st * BK + r, ok ? scale + wrow0 + r - r0 : scale, ok);
       }
     }
   };
@@ -506,7 +554,7 @@ deconv_thin_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
                    const int* __restrict__ table, float* __restrict__ y,
                    float* __restrict__ ws, int B, int Hg, int Wg, int C,
                    int N, int OH, int OW, int sh, int sw, int n_phases,
-                   int L, int halo) {
+                   int L, int halo, int r0, int r1) {
   constexpr int NT = BM / TM;
   constexpr int BN = 4;
   constexpr int AS = BK + kPad;     // halo pixel stride (floats)
@@ -518,7 +566,8 @@ deconv_thin_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
   float* Ws = Hs + thin_halo_floats<BK, ST>(halo);
 
   const int kc = (C + BK - 1) / BK;
-  const Unit un = find_unit(table, n_phases, B, BM, true, kc, L);
+  const Unit un =
+      find_unit(table, n_phases, B, BM, true, C, BK, kc, L, r0, r1);
   if (un.p == n_phases) return;
   const int* rec = table + un.p * kRec;
   const int qh = rec[0], qw = rec[1], tap_off = rec[2], th = rec[3];
@@ -575,8 +624,10 @@ deconv_thin_kernel(const float* __restrict__ xg, const WT* __restrict__ w,
     const int cc = it / T;
     const int c = cc * BK + k;
     const int n = n0 + j;
-    const size_t row = static_cast<size_t>(tap_off + it - cc * T) * C + c;
-    Ws[e] = c < C && n < N ? weight_f32(w, scale, row, n, N) : 0.f;
+    const int row = (tap_off + it - cc * T) * C + c;
+    Ws[e] = c < C && n < N && row >= r0 && row < r1
+                ? weight_f32(w, scale, static_cast<size_t>(row - r0), n, N)
+                : 0.f;
   }
 
   // each thread's TM slots: their pixel in the halo (tap (0, 0)); slots
@@ -661,7 +712,8 @@ __global__ void __launch_bounds__(kReduceThreads)
 deconv_split_reduce(const float* __restrict__ ws,
                     const int* __restrict__ table, float* __restrict__ y,
                     int B, int C, int N, int OH, int OW, int sh, int sw,
-                    int n_phases, int BM, int BN, int BK, int L, int thin) {
+                    int n_phases, int BM, int BN, int BK, int L, int thin,
+                    int r0, int r1) {
   const int kc = (C + BK - 1) / BK;
   const int tile_sz = BM * BN;
   const int parts = (tile_sz + kReduceThreads - 1) / kReduceThreads;
@@ -670,7 +722,9 @@ deconv_split_reduce(const float* __restrict__ ws,
   for (; p < n_phases; ++p) {
     const int* rec = table + p * kRec;
     const int tiles = phase_tiles(rec, B, BM, thin != 0);
-    S = n_slices(rec[3] * rec[4] * kc, L);
+    int lo, K;
+    phase_krange(rec, C, BK, kc, r0, r1, thin != 0, &lo, &K);
+    S = n_slices(K, L);
     if (tile < tiles) break;
     tile -= tiles;
     unit0 += tiles * S;
@@ -712,7 +766,7 @@ int reduce_if_split(const int* table, float* y, float* ws, const Geometry& g,
   deconv_split_reduce<<<dim3(g.red_x * parts, g.grid_n), kReduceThreads, 0,
                         stream>>>(ws, table, y, g.B, g.C, g.N, g.OH, g.OW,
                                   g.sh, g.sw, g.n_phases, BM, BN, BK,
-                                  g.chunk_len, thin ? 1 : 0);
+                                  g.chunk_len, thin ? 1 : 0, g.r0, g.r1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -729,7 +783,7 @@ int launch_wide(const float* xg, const WT* w, const float* scale,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(g.grid_x, g.grid_n), (BM / TM) * (BN / TN), smem, stream>>>(
       xg, w, scale, table, y, ws, g.B, g.Hg, g.Wg, g.C, g.N, g.OH, g.OW, g.sh,
-      g.sw, g.n_phases, g.chunk_len);
+      g.sw, g.n_phases, g.chunk_len, g.r0, g.r1);
   return reduce_if_split(table, y, ws, g, BM, BN, BK, false, stream);
 }
 
@@ -745,7 +799,7 @@ int launch_thin(const float* xg, const WT* w, const float* scale,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(g.grid_x, g.grid_n), BM / TM, smem, stream>>>(
       xg, w, scale, table, y, ws, g.B, g.Hg, g.Wg, g.C, g.N, g.OH, g.OW, g.sh,
-      g.sw, g.n_phases, g.chunk_len, g.halo);
+      g.sw, g.n_phases, g.chunk_len, g.halo, g.r0, g.r1);
   return reduce_if_split(table, y, ws, g, BM, 4, BK, true, stream);
 }
 
@@ -799,7 +853,10 @@ int dispatch(const float* xg, const WT* w, const float* scale,
 // thin tile's halo pixels, `grid_x` the work units, `grid_n` the N tiles
 // and `red_x` the M tiles over all phases, all from the wrapper's
 // deconv_schedule; `ws` the f32 workspace
-// of grid_x * grid_n partial tiles, or null when no phase is split.
+// of grid_x * grid_n partial tiles, or null when no phase is split.  `w`
+// holds superpack rows [r0, r1): [0, sum T*C) is the whole superpack, a
+// smaller range a row-parallel block (a range per phase: the block may
+// span phases), whose partial sum the caller adds to its peers'.
 extern "C" int untangled_deconv2d_f32(const float* xg, const float* w,
                                       const int* table, float* y, float* ws,
                                       int B, int Hg, int Wg, int C, int N,
@@ -807,16 +864,20 @@ extern "C" int untangled_deconv2d_f32(const float* xg, const float* w,
                                       int n_phases, int config, int vec,
                                       int chunk_len, int max_chunks,
                                       int halo, int grid_x, int grid_n,
-                                      int red_x, void* stream) {
-  const Geometry g{B,  Hg, Wg, C,  N,  OH, OW, sh, sw, n_phases,
-                   chunk_len, max_chunks, halo, grid_x, grid_n, red_x};
+                                      int red_x, int r0, int r1,
+                                      void* stream) {
+  const Geometry g{B,         Hg,         Wg,   C,      N,      OH,
+                   OW,        sh,         sw,   n_phases,
+                   chunk_len, max_chunks, halo, grid_x, grid_n, red_x,
+                   r0,        r1};
   return dispatch<float>(xg, w, nullptr, table, y, ws, g, config, vec,
                          stream);
 }
 
 // Kernel E inside kernel A: as untangled_deconv2d_f32 on int8 codes `q`
-// with one f32 scale per superpack row (`scale`, sum T*C floats); `vec`
-// (wide tiles) also needs `q` 4-byte aligned (4-code copies).
+// with one f32 scale per superpack row of the block (`scale`, r1 - r0
+// floats); `vec` (wide tiles) also needs `q` 4-byte aligned (4-code
+// copies).
 extern "C" int untangled_deconv2d_i8(const float* xg, const int8_t* q,
                                      const float* scale, const int* table,
                                      float* y, float* ws, int B, int Hg,
@@ -824,9 +885,12 @@ extern "C" int untangled_deconv2d_i8(const float* xg, const int8_t* q,
                                      int sh, int sw, int n_phases, int config,
                                      int vec, int chunk_len, int max_chunks,
                                      int halo, int grid_x, int grid_n,
-                                     int red_x, void* stream) {
-  const Geometry g{B,  Hg, Wg, C,  N,  OH, OW, sh, sw, n_phases,
-                   chunk_len, max_chunks, halo, grid_x, grid_n, red_x};
+                                     int red_x, int r0, int r1,
+                                     void* stream) {
+  const Geometry g{B,         Hg,         Wg,   C,      N,      OH,
+                   OW,        sh,         sw,   n_phases,
+                   chunk_len, max_chunks, halo, grid_x, grid_n, red_x,
+                   r0,        r1};
   return dispatch<int8_t>(xg, q, scale, table, y, ws, g, config, vec,
                           stream);
 }

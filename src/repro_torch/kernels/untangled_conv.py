@@ -26,6 +26,15 @@ the codes their ring brought to shared memory), so the int8 kernel on
 ``(q, scale)`` is bit-equal to the f32 kernel on
 ``dequantize_int8(q, scale)``.
 
+A row-parallel superpack (its tap-major K split over ranks) runs A or B
+on the rank's rows only: ``rows=(r0, r1)`` on either wrapper marks the
+weight operand (and an int8 one's scales) as superpack rows ``[r0, r1)``,
+and the kernel returns the f32 partial sum over them, reading no other
+weight row.  A block may cut a tap and, for A, span phases: A walks each
+phase's K chunks that hold rows of the block (``_phase_krange``; its thin
+tile walks every chunk with the rows outside read as zeros), B its flat
+K range from ``r0``.  Their plain versions are ``*_rows_ref``.
+
 Kernels C and D are the spatially tiled forms of B and A (TPU kernels
 ``_tiled_kernel`` and ``_deconv_tiled_kernel`` with ``_halo_stream``):
 ``sp_tiles=`` on either wrapper names the spatial output tile one thread
@@ -127,6 +136,36 @@ def untangled_deconv2d_ref(xg: torch.Tensor, superpack: torch.Tensor, *,
             acc = term if acc is None else acc + term
         y[:, ex.q[0]::sh, ex.q[1]::sw, :] = acc
     return y.to(out_dtype or xg.dtype)
+
+
+def embed_rows(block: torch.Tensor, scales, rows: Pair, total: int):
+    """A row block ``block`` (and its ``scales``) at rows ``rows`` = [r0,
+    r1) of an otherwise zero superpack of ``total`` rows: the plain row
+    versions run the whole plain versions on it."""
+    whole = block.new_zeros((total, block.shape[1]))
+    whole[rows[0]:rows[1]] = block
+    if scales is None:
+        return whole, None
+    wscales = scales.new_zeros((total, 1))
+    wscales[rows[0]:rows[1]] = scales
+    return whole, wscales
+
+
+def untangled_deconv2d_rows_ref(xg: torch.Tensor, block: torch.Tensor, *,
+                                rows: Pair, phases, out_hw: Pair,
+                                strides: Pair, sum_uv: int, out_dtype=None,
+                                scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel A on a row-parallel block: ``block``
+    holds superpack rows ``rows`` = [r0, r1) only (with ``scales``, their
+    int8 codes and scale rows), and the result is the f32 partial sum over
+    those rows, ``untangled_deconv2d_ref`` on the block in its rows of an
+    otherwise zero superpack.  Summed over the blocks of every rank it is
+    ``untangled_deconv2d_ref`` on the whole superpack."""
+    total = sum(ex.taps[0] * ex.taps[1] for ex in phases) * xg.shape[3]
+    whole, wscales = embed_rows(block, scales, rows, total)
+    return untangled_deconv2d_ref(xg, whole, phases=phases, out_hw=out_hw,
+                                  strides=strides, sum_uv=sum_uv,
+                                  out_dtype=out_dtype, scales=wscales)
 
 
 @functools.lru_cache(maxsize=256)
@@ -264,16 +303,37 @@ def _thin_halo(phases) -> int:
     return out
 
 
-def _phase_chunks(config: int, phases, c: int) -> list[int]:
-    """K chunks of each phase: its T_h·T_w taps times ceil(C / BK)."""
+def _phase_krange(ex, c: int, bk: int, rows, thin: bool = False
+                  ) -> tuple[int, int]:
+    """(first K chunk, chunks) of one phase that a call on superpack rows
+    ``rows`` = (r0, r1) walks (None: the whole superpack): the wide tiles
+    walk a phase's rows in ascending order (tap by tap, ``bk`` channels a
+    chunk), so the chunks holding rows of [r0, r1) are one range; the thin
+    tile walks every chunk, the rows outside read as zeros.  The kernel's
+    ``phase_krange``."""
+    t, kc = ex.taps[0] * ex.taps[1], -(-c // bk)
+    if rows is None or thin:
+        return 0, t * kc
+    base = ex.tap_off * c
+    a, b = max(rows[0] - base, 0), min(rows[1] - base, t * c)
+    if b <= a:
+        return 0, 0
+    lo = (a // c) * kc + (a % c) // bk
+    return lo, ((b - 1) // c) * kc + ((b - 1) % c) // bk + 1 - lo
+
+
+def _phase_chunks(config: int, phases, c: int, rows=None) -> list[int]:
+    """K chunks of each phase: its T_h·T_w taps times ceil(C / BK), or
+    those of a row block's range (``_phase_krange``)."""
     bk = _DECONV_CONFIGS[config][2]
-    return [ex.taps[0] * ex.taps[1] * -(-c // bk) for ex in phases]
+    return [_phase_krange(ex, c, bk, rows, config == _THIN)[1]
+            for ex in phases]
 
 
 def _schedule(config: int, phases, b: int, c: int, n: int,
-              chunk_len: int) -> DeconvSchedule:
+              chunk_len: int, rows=None) -> DeconvSchedule:
     bm, bn, _ = _DECONV_CONFIGS[config]
-    phase_chunks = _phase_chunks(config, phases, c)
+    phase_chunks = _phase_chunks(config, phases, c, rows)
     m_tiles = tuple(_m_tiles(config, b, ex) for ex in phases)
     slices = tuple(_n_slices(k, chunk_len) for k in phase_chunks)
     gn = -(-n // bn)
@@ -288,27 +348,27 @@ def _schedule(config: int, phases, b: int, c: int, n: int,
         workspace_bytes=4 * gx * gn * bm * bn if split else 0)
 
 
-def _best_split(config: int, phases, b: int, c: int, n: int
+def _best_split(config: int, phases, b: int, c: int, n: int, rows=None
                 ) -> DeconvSchedule:
     """The schedule of one tile: unsplit when that already gives 132 units
     (and, for the thin tile, fits its weight stage); else the slice length
     L, among those giving at least 132 units (at most ``_UNITS_MAX`` where
     possible), of least greedy makespan on 132 SMs."""
-    phase_chunks = _phase_chunks(config, phases, c)
+    phase_chunks = _phase_chunks(config, phases, c, rows)
     k_max = max(max(phase_chunks), 1)
     cap = _THIN_ROWS_MAX // _DECONV_CONFIGS[config][2] if config == _THIN \
         else k_max
-    whole = _schedule(config, phases, b, c, n, min(k_max, cap))
+    whole = _schedule(config, phases, b, c, n, min(k_max, cap), rows)
     if whole.units >= SMS and cap >= k_max:
         return whole
-    most = _schedule(config, phases, b, c, n, 1).units
+    most = _schedule(config, phases, b, c, n, 1, rows).units
     lengths = sorted({-(-k // j) for k in phase_chunks if k
                       for j in range(1, k + 1)} | {1}, reverse=True)
     best = None
     for length in lengths:
         if length > cap:
             continue
-        sch = _schedule(config, phases, b, c, n, length)
+        sch = _schedule(config, phases, b, c, n, length, rows)
         if sch.workspace_bytes > _WORKSPACE_MAX and best is not None:
             break
         if sch.units < min(SMS, most) or (sch.units > _UNITS_MAX
@@ -321,7 +381,7 @@ def _best_split(config: int, phases, b: int, c: int, n: int
 
 
 @functools.lru_cache(maxsize=1024)
-def deconv_schedule(phases: tuple, b: int, c: int, n: int
+def deconv_schedule(phases: tuple, b: int, c: int, n: int, rows=None
                     ) -> DeconvSchedule:
     """Kernel A's schedule for a call on ``b`` images of C input and N
     output channels (f32 and int8 entries alike).  No phase is split when
@@ -330,12 +390,14 @@ def deconv_schedule(phases: tuple, b: int, c: int, n: int
     9-tap and a 4-tap phase end together.  Where that leaves slices shorter
     than ``_MIN_SLICE`` chunks, the M tile steps down (64 -> 32 -> 16) for
     more tiles and longer slices.  The thin tile also caps a slice at
-    ``_THIN_ROWS_MAX`` weight rows (its shared-memory stage)."""
+    ``_THIN_ROWS_MAX`` weight rows (its shared-memory stage).  ``rows`` =
+    (r0, r1): a call on a row-parallel block of the superpack, each phase
+    walking only its chunks of those rows (``_phase_krange``)."""
     phases = tuple(phases)
-    rows = [b * ex.out_hw[0] * ex.out_hw[1] for ex in phases]
-    config = _deconv_config(n, rows)
+    m_rows = [b * ex.out_hw[0] * ex.out_hw[1] for ex in phases]
+    config = _deconv_config(n, m_rows)
     while True:
-        sch = _best_split(config, phases, b, c, n)
+        sch = _best_split(config, phases, b, c, n, rows)
         if sch.split and sch.chunk_len < _MIN_SLICE and config in (1, 2):
             config += 1
             continue
@@ -345,7 +407,7 @@ def deconv_schedule(phases: tuple, b: int, c: int, n: int
 # the C entries' parameters: every pointer and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int and cut the address); the
 # int8 entry takes the scale column after the codes
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 18
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 20
              + [ctypes.c_void_p])
 _ARGTYPES_I8 = [ctypes.c_void_p] + _ARGTYPES
 
@@ -393,16 +455,30 @@ def _vec_ok(c: int, n: int, tensors) -> int:
         t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
 
 
+def _check_rows(name: str, rows, total: int, got: int) -> Pair:
+    """The call's superpack rows: ``rows`` = (r0, r1), a block of the
+    ``total`` rows that the weight operand's ``got`` rows hold, or the
+    whole superpack (None)."""
+    if rows is None:
+        rows = (0, total)
+    r0, r1 = (int(r) for r in rows)
+    if not 0 <= r0 < r1 <= total or got != r1 - r0:
+        raise ValueError(f"{name}: a weight operand of {got} rows for "
+                         f"superpack rows {rows} of {total}")
+    return r0, r1
+
+
 def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
-           out_hw: Pair, strides: Pair, sum_uv: int):
+           out_hw: Pair, strides: Pair, sum_uv: int, rows=None) -> Pair:
     if xg.dim() != 4 or superpack.dim() != 2:
         raise ValueError(f"want xg (B, Hg, Wg, C) and superpack (ΣT·C, N), "
                          f"got {tuple(xg.shape)} and {tuple(superpack.shape)}")
     c = xg.shape[3]
     total_taps = sum(ex.taps[0] * ex.taps[1] for ex in phases)
-    if superpack.shape[0] != total_taps * c:
+    if rows is None and superpack.shape[0] != total_taps * c:
         raise ValueError(f"superpack has {superpack.shape[0]} rows, the "
                          f"phases need {total_taps}·{c}")
+    rows = _check_rows("kernel A", rows, total_taps * c, superpack.shape[0])
     if sum(ex.out_hw[0] * ex.out_hw[1] for ex in phases) != sum_uv \
             or sum_uv != out_hw[0] * out_hw[1] \
             or len({ex.q for ex in phases}) != len(phases):
@@ -419,19 +495,26 @@ def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
                 or min(ex.xoff) < 0):
             raise ValueError(f"phase {ex.q} reads outside the plane "
                              f"{tuple(xg.shape[1:3])}")
+    return rows
 
 
 def deconv_launch_ints(xg: torch.Tensor, superpack: torch.Tensor,
-                       y: torch.Tensor, phases: tuple, strides: Pair):
+                       y: torch.Tensor, phases: tuple, strides: Pair,
+                       rows=None):
     """Kernel A's schedule for a call and the C entry's int arguments after
     its pointers: the geometry, the tile, the 16-byte path (the thin tile's
     plane copies, C % 4 == 0; the wide tiles' superpack copies and stores,
     N % 4 == 0; every operand aligned) and the schedule's slice length,
-    longest slice, grid and reduction tiles.  The f32 and int8 entries take
-    the same ones (int8 codes need 4-byte, f32 16-byte alignment)."""
+    longest slice, grid and reduction tiles, and the superpack rows ``rows``
+    = (r0, r1) the weight operand holds (None: all of them).  The f32 and
+    int8 entries take the same ones (int8 codes need 4-byte, f32 16-byte
+    alignment)."""
     b, hg, wg, c = xg.shape
     _, oh, ow, n = y.shape
-    sch = deconv_schedule(phases, b, c, n)
+    sch = deconv_schedule(phases, b, c, n) if rows is None else \
+        deconv_schedule(phases, b, c, n, tuple(rows))
+    if rows is None:
+        rows = (0, sum(ex.taps[0] * ex.taps[1] for ex in phases) * c)
     if sch.grid[1] > _GRID_YZ_MAX or sch.grid[0] > _INT32_MAX:
         raise ValueError(f"kernel A: N {n} or batch {b} beyond the grid")
     if sch.config == _THIN and thin_smem_bytes(sch) > SMEM_BLOCK_MAX:
@@ -441,14 +524,16 @@ def deconv_launch_ints(xg: torch.Tensor, superpack: torch.Tensor,
         else _vec_ok(4, n, (superpack, y))
     return sch, (b, hg, wg, c, n, oh, ow, strides[0], strides[1],
                  len(phases), sch.config, vec, sch.chunk_len, sch.max_chunks,
-                 sch.halo, sch.grid[0], sch.grid[1], sch.reduce_tiles)
+                 sch.halo, sch.grid[0], sch.grid[1], sch.reduce_tiles,
+                 rows[0], rows[1])
 
 
 def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                        phases: Sequence, out_hw: Pair, strides: Pair,
                        sum_uv: int, out_dtype=None,
                        scales: torch.Tensor | None = None,
-                       sp_tiles: Pair | None = None) -> torch.Tensor:
+                       sp_tiles: Pair | None = None,
+                       rows: Pair | None = None) -> torch.Tensor:
     """Fused transposed conv: ONE kernel launch for all s_h·s_w phases.
 
     xg: (B, Hg, Wg, C) globally padded plane; superpack: (ΣT·C, N) tap-major
@@ -457,15 +542,23 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
     as int8 codes (a ``QuantizedSuperpack``'s ``q``) and takes the int8
     entry.  ``sp_tiles=(T_u, T_v)`` (phase-output pixels; uniform phases
     with ``out % stride == 0`` only, else ``ValueError``) takes the
-    spatially tiled kernel D.  Returns (B, out_h, out_w, N), written
-    interleaved by the kernel.  CUDA tensors launch the kernel (float32
-    plane, contiguous, no grad) and count one in
+    spatially tiled kernel D.  ``rows=(r0, r1)``: ``superpack`` (and
+    ``scales``) hold those superpack rows only, a row-parallel block, and
+    the result is the f32 partial sum over them (kernel A only; the launch
+    reads the block and nothing else of the weights).  Returns (B, out_h,
+    out_w, N), written interleaved by the kernel.  CUDA tensors launch the
+    kernel (float32 plane, contiguous, no grad) and count one in
     ``untangled_deconv2d.launches`` (f32), ``.launches_int8``,
-    ``.launches_tiled`` or ``.launches_tiled_int8``; CPU tensors run
-    ``untangled_deconv2d_ref`` or ``untangled_deconv2d_tiled_ref``."""
+    ``.launches_tiled`` or ``.launches_tiled_int8`` (a row block's launch
+    also in ``.launches_rows``); CPU tensors run ``untangled_deconv2d_ref``,
+    ``untangled_deconv2d_rows_ref`` or ``untangled_deconv2d_tiled_ref``."""
     phases = tuple(phases)
     out_dtype = out_dtype or xg.dtype
-    _check(xg, superpack, phases, out_hw, strides, sum_uv)
+    whole = rows is None
+    rows = _check(xg, superpack, phases, out_hw, strides, sum_uv, rows)
+    if not whole and sp_tiles is not None:
+        raise ValueError("kernel D takes no row block (rows=): a "
+                         "row-parallel site runs kernel A")
     if sp_tiles is not None:
         _check_uniform(phases, out_hw, strides)
         deconv_tap_span(phases)                 # at least one live phase
@@ -474,6 +567,11 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         if min(sp_tiles) < 1:
             raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if xg.device.type == "cpu" and superpack.device.type == "cpu":
+        if not whole:
+            return untangled_deconv2d_rows_ref(
+                xg, superpack, rows=rows, phases=phases, out_hw=out_hw,
+                strides=strides, sum_uv=sum_uv, out_dtype=out_dtype,
+                scales=scales)
         if sp_tiles is not None:
             return untangled_deconv2d_tiled_ref(
                 xg, superpack, phases=phases, out_hw=out_hw,
@@ -515,7 +613,8 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         else:
             untangled_deconv2d.launches_tiled_int8 += 1
         return y
-    sch, ints = deconv_launch_ints(xg, superpack, y, phases, strides)
+    sch, ints = deconv_launch_ints(xg, superpack, y, phases, strides,
+                                   None if whole else rows)
     table = _phase_table(phases, xg.device)
     ws = torch.empty(sch.workspace_bytes // 4, dtype=torch.float32,
                      device=xg.device) if sch.split else None
@@ -532,11 +631,14 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         untangled_deconv2d.launches += 1
     else:
         untangled_deconv2d.launches_int8 += 1
+    if not whole:
+        untangled_deconv2d.launches_rows += 1
     return y
 
 
 untangled_deconv2d.launches = 0
 untangled_deconv2d.launches_int8 = 0
+untangled_deconv2d.launches_rows = 0
 untangled_deconv2d.launches_tiled = 0
 untangled_deconv2d.launches_tiled_int8 = 0
 
@@ -577,6 +679,25 @@ def untangled_conv2d_superpack_ref(x: torch.Tensor, superpack: torch.Tensor,
             term = torch.matmul(xs, w32[row:row + c])
             acc = term if acc is None else acc + term
     return acc.to(out_dtype or x.dtype)
+
+
+def untangled_conv2d_superpack_rows_ref(x: torch.Tensor, block: torch.Tensor,
+                                        *, rows: Pair, taps_hw: Pair,
+                                        strides: Pair = (1, 1),
+                                        rhs_dilation: Pair = (1, 1),
+                                        out_dtype=None,
+                                        scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B on a row-parallel block: ``block``
+    holds superpack rows ``rows`` = [r0, r1) only (with ``scales``, int8
+    codes and their scale rows); the f32 partial sum over those rows,
+    ``untangled_conv2d_superpack_ref`` on the block in its rows of an
+    otherwise zero superpack.  Summed over every rank's block it is
+    ``untangled_conv2d_superpack_ref``."""
+    total = taps_hw[0] * taps_hw[1] * x.shape[3]
+    whole, wscales = embed_rows(block, scales, rows, total)
+    return untangled_conv2d_superpack_ref(
+        x, whole, taps_hw=taps_hw, strides=strides,
+        rhs_dilation=rhs_dilation, out_dtype=out_dtype, scales=wscales)
 
 
 # kernel B's tiles (BM, BN, blocks an SM holds: the kernel's MINB), indexed
@@ -730,30 +851,35 @@ def conv_schedule(m_rows: int, k: int, n: int) -> ConvSchedule:
 
 
 # the C entries' parameters, as for kernel A
-_CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 20
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 22
                   + [ctypes.c_void_p])
 _CONV_ARGTYPES_I8 = [ctypes.c_void_p] + _CONV_ARGTYPES
 
 
 def conv_launch_ints(x: torch.Tensor, superpack: torch.Tensor,
                      y: torch.Tensor, taps_hw: Pair, strides: Pair,
-                     rhs_dilation: Pair):
+                     rhs_dilation: Pair, rows=None):
     """Kernel B's schedule for a call and the C entry's int arguments after
     its pointers: the geometry, the tile, the plane's 16-byte path (C % 4
-    == 0, aligned plane), the superpack's and output's (N % 4 == 0, every
-    operand aligned) and the schedule's slice length, grid and M tiles.
-    The f32 and int8 entries take the same ones (int8 codes need 4-byte,
-    f32 16-byte alignment)."""
+    == 0, aligned plane; for a row block also its first row and its rows
+    a multiple of 4), the superpack's and output's (N % 4 == 0, every
+    operand aligned), the schedule's slice length, grid and M tiles, and
+    the call's superpack rows (first row, rows: ``rows`` = (r0, r1), or
+    all of them).  The f32 and int8 entries take the same ones (int8 codes
+    need 4-byte, f32 16-byte alignment)."""
     b, hp, wp, c = x.shape
     _, oh, ow, n = y.shape
     r, s = taps_hw
-    sch = conv_schedule(b * oh * ow, r * s * c, n)
+    k0, k1 = (0, r * s * c) if rows is None else rows
+    sch = conv_schedule(b * oh * ow, k1 - k0, n)
     if sch.grid[1] > _GRID_YZ_MAX or sch.grid[0] > _INT32_MAX:
         raise ValueError(f"kernel B: N {n} or batch {b} beyond the grid")
     return sch, (b, hp, wp, c, n, oh, ow, r, s, strides[0], strides[1],
                  rhs_dilation[0], rhs_dilation[1], sch.config,
-                 _vec_ok(c, 4, (x,)), _vec_ok(4, n, (superpack, y)),
-                 sch.chunk_len, sch.grid[0], sch.grid[1], sch.m_tiles)
+                 int(_vec_ok(c, 4, (x,)) and k0 % 4 == 0
+                     and (k1 - k0) % 4 == 0),
+                 _vec_ok(4, n, (superpack, y)), sch.chunk_len, sch.grid[0],
+                 sch.grid[1], sch.m_tiles, k0, k1 - k0)
 
 
 @functools.cache
@@ -768,8 +894,8 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
                                taps_hw: Pair, strides: Pair = (1, 1),
                                rhs_dilation: Pair = (1, 1), out_dtype=None,
                                scales: torch.Tensor | None = None,
-                               sp_tiles: Pair | None = None
-                               ) -> torch.Tensor:
+                               sp_tiles: Pair | None = None,
+                               rows: Pair | None = None) -> torch.Tensor:
     """ONE launch of the valid (pre-padded) untangled correlation.
 
     x: (B, Hp, Wp, C) padded plane; superpack: (R·S·C, N) tap-major
@@ -777,20 +903,29 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
     dilation only moves each tap's read origin.  ``scales`` ((R·S·C, 1)
     f32) marks ``superpack`` as int8 codes and takes the int8 entry.
     ``sp_tiles=(T_oh, T_ow)`` takes the spatially tiled kernel C.
-    Returns (B, OH, OW, N).  CUDA tensors launch the kernel (float32 plane,
-    contiguous, no grad) and count one in
+    ``rows=(r0, r1)``: ``superpack`` (and ``scales``) hold those superpack
+    rows only, a row-parallel block, and the result is the f32 partial sum
+    over them (kernel B only; the launch reads the block and nothing else
+    of the weights).  Returns (B, OH, OW, N).  CUDA tensors launch the
+    kernel (float32 plane, contiguous, no grad) and count one in
     ``untangled_conv2d_superpack.launches`` (f32), ``.launches_int8``,
-    ``.launches_tiled`` or ``.launches_tiled_int8``; CPU tensors run
-    ``untangled_conv2d_superpack_ref`` or its tiled form."""
+    ``.launches_tiled`` or ``.launches_tiled_int8`` (a row block's launch
+    also in ``.launches_rows``); CPU tensors run ``untangled_conv2d_superpack_ref``, its rows form or its
+    tiled form."""
     if x.dim() != 4 or superpack.dim() != 2:
         raise ValueError(f"want x (B, Hp, Wp, C) and superpack (R·S·C, N), "
                          f"got {tuple(x.shape)} and {tuple(superpack.shape)}")
     b, hp, wp, c = x.shape
     r, s = taps_hw
     n = superpack.shape[1]
-    if superpack.shape[0] != r * s * c:
+    whole = rows is None
+    if whole and superpack.shape[0] != r * s * c:
         raise ValueError(f"superpack has {superpack.shape[0]} rows, taps "
                          f"{taps_hw} need {r}·{s}·{c}")
+    rows = _check_rows("kernel B", rows, r * s * c, superpack.shape[0])
+    if not whole and sp_tiles is not None:
+        raise ValueError("kernel C takes no row block (rows=): a "
+                         "row-parallel site runs kernel B")
     oh, ow = single_out_hw(hp, wp, taps_hw, strides, rhs_dilation)
     if oh <= 0 or ow <= 0 or min(*strides, *rhs_dilation) < 1:
         raise ValueError(f"no valid output: plane {hp}x{wp}, taps "
@@ -802,6 +937,11 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         if min(sp_tiles) < 1:
             raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if x.device.type == "cpu" and superpack.device.type == "cpu":
+        if not whole:
+            return untangled_conv2d_superpack_rows_ref(
+                x, superpack, rows=rows, taps_hw=taps_hw, strides=strides,
+                rhs_dilation=rhs_dilation, out_dtype=out_dtype,
+                scales=scales)
         if sp_tiles is not None:
             return untangled_conv2d_superpack_tiled_ref(
                 x, superpack, taps_hw=taps_hw, sp_tiles=sp_tiles,
@@ -841,7 +981,7 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
             untangled_conv2d_superpack.launches_tiled_int8 += 1
         return y
     sch, ints = conv_launch_ints(x, superpack, y, taps_hw, strides,
-                                 rhs_dilation)
+                                 rhs_dilation, None if whole else rows)
     ws = torch.empty(sch.workspace_bytes // 4, dtype=torch.float32,
                      device=x.device) if sch.split else None
     weights = (superpack.data_ptr(),) if scales is None else (
@@ -857,11 +997,14 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         untangled_conv2d_superpack.launches += 1
     else:
         untangled_conv2d_superpack.launches_int8 += 1
+    if not whole:
+        untangled_conv2d_superpack.launches_rows += 1
     return y
 
 
 untangled_conv2d_superpack.launches = 0
 untangled_conv2d_superpack.launches_int8 = 0
+untangled_conv2d_superpack.launches_rows = 0
 untangled_conv2d_superpack.launches_tiled = 0
 untangled_conv2d_superpack.launches_tiled_int8 = 0
 

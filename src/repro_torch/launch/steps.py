@@ -33,15 +33,17 @@ def _mesh_sizes(mesh) -> dict[str, int]:
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
 
-def make_dist(mesh, cfg, shape, *, parallelism: str = "auto") -> DistContext:
+def make_dist(mesh, cfg, shape, *, seq_parallel: bool = False,
+              parallelism: str = "auto") -> DistContext:
     """JAX's rules per (mesh, shape): the batch over ('pod', 'data'),
     replicated where it does not divide (the long KV-cache sequence then
     over 'data'); TP on 'model' (heads, ffn, vocab, experts); the decode
     cache's sequence over 'model' where its heads cannot split; mamba2 with
     no TP; the huge MoEs' experts over data·model where they divide, else
-    dbrx's expert hidden dim over 'data'.  ``parallelism='dp_only'``: the
-    batch over every mesh axis and no TP (TP's rules where the batch does
-    not cover the mesh)."""
+    dbrx's expert hidden dim over 'data'.  ``seq_parallel``: the residual
+    stream's S over 'model' between layers (``rules['seq']``).
+    ``parallelism='dp_only'``: the batch over every mesh axis and no TP
+    (TP's rules where the batch does not cover the mesh)."""
     rules = dict(DEFAULT_RULES)
     sizes = _mesh_sizes(mesh)
     if parallelism == "dp_only":
@@ -50,7 +52,8 @@ def make_dist(mesh, cfg, shape, *, parallelism: str = "auto") -> DistContext:
         for a in batch_axes:
             dp *= sizes[a]
         if shape.global_batch % max(dp, 1) != 0 or shape.global_batch < dp:
-            return make_dist(mesh, cfg, shape, parallelism="auto")
+            return make_dist(mesh, cfg, shape, seq_parallel=seq_parallel,
+                             parallelism="auto")
         rules.update(heads=None, ffn=None, vocab=None, kv_heads=None,
                      batch=batch_axes)
         return DistContext(mesh=mesh, rules=rules)
@@ -70,6 +73,8 @@ def make_dist(mesh, cfg, shape, *, parallelism: str = "auto") -> DistContext:
         rules["kv_heads"] = None
         if rules["kv_seq"] is None:
             rules["kv_seq"] = "model"
+    if seq_parallel:
+        rules["seq"] = "model"
     if cfg.family == "ssm":
         rules["heads"] = None
         rules["ffn"] = None

@@ -11,13 +11,20 @@ replicated).
 
 Tensor parallelism (``dist`` with 'heads' split over TP ranks): each
 rank runs the attention core (kernel F on the card) on its local heads,
-q heads ``[r·H/TP, (r+1)·H/TP)`` and the kv heads they read (the GQA
-grouping stays contiguous); where k and v are not split at whole kv heads
+the q heads its block of the ``H·Dh`` columns touches, and the kv heads
+they read.  Where the block cuts a head (JAX's ``shard_params`` splits the
+columns wherever they divide the axis: gemma3-1b's 4 heads over 16 ranks)
+the rank gathers its heads' other columns of q, runs F on those whole
+heads and keeps its own columns of the output, so a cut head is computed
+on each rank that holds part of it (``Heads``); where the local q heads do
+not group contiguously onto their kv heads, each q head's kv head is
+picked out (``_group_kv``).  Where k and v are not split at whole kv heads
 (replicated, or a block that cuts a head) the rank takes the kv heads its
 q heads read from the whole projection.  Under autograd such a read is
-conjugated: a gathered projection's gradient is reduce-scattered back,
-and a replicated k/v weight's gradient summed over the group, since each
-rank reads other kv heads of it.  The output projection is
+conjugated: a gathered projection's gradient (k/v, or q where a block
+cuts a head) is reduce-scattered back, and a replicated weight's gradient
+(k/v, the qk-norm gains) summed over the group, since each rank reads
+other heads of it.  The output projection is
 row-parallel: the partial products are summed over the group in f32 and
 rounded once.  The cross attention runs the same way on its local heads.
 
@@ -29,6 +36,8 @@ scores its own positions, and the softmax is merged over the sequence's
 group: the max, then the rescaled numerators and denominators.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -191,31 +200,98 @@ def gqa_specs(cfg) -> dict:
     return s
 
 
-def _local_heads(dist, h, kh, dh):
-    """(group, the kv heads [k0, k1) this rank's q heads [q0, q1) read)
-    under ``dist``'s 'heads' split; (None, all) off a mesh or where the q
-    projection stays whole."""
+class Heads(NamedTuple):
+    """How a rank's block of the 'heads' columns meets the heads
+    (``_local_heads``): ``group`` the heads' group (None: whole); ``cols``
+    = [c0, c1) the rank's columns of q and of o's rows; ``heads`` = [ha,
+    hb) the q heads those columns touch; ``kv`` = [k0, k1) the kv heads
+    those heads read; ``cut`` where a column block cuts a head (the rank
+    gathers its heads' other columns); ``kv_gather`` where some rank reads
+    kv heads outside its block of the k/v projection (every rank then
+    gathers it, so the collective runs on all of them)."""
+
+    group: object
+    cols: tuple
+    heads: tuple
+    kv: tuple
+    cut: bool
+    kv_gather: bool
+
+
+def _head_span(c0, c1, dh, g):
+    """(the q heads [ha, hb) columns [c0, c1) touch, the kv heads they
+    read) for ``g`` q heads a kv head."""
+    ha, hb = c0 // dh, -(-c1 // dh)
+    return (ha, hb), (ha // g, (hb - 1) // g + 1)
+
+
+def _local_heads(dist, h, kh, dh) -> Heads:
+    """``Heads`` of this rank under ``dist``'s 'heads' split (all heads,
+    group None, off a mesh or where the q projection stays whole).  A
+    block may cut a head (JAX's ``shard_params`` splits ``h·dh`` columns
+    wherever they divide the axis, as GSPMD then runs the cut)."""
     group, i, n = cm.tp(dist, "heads", h * dh)
     if n == 1:
-        return None, (0, kh)
-    if h % n:
-        raise NotImplementedError(
-            f"{h} heads over {n} ranks: a block that cuts a head "
-            f"(ROADMAP Queue 1 item 13c)")
-    g = h // kh
-    q0, q1 = i * h // n, (i + 1) * h // n
-    k0, k1 = q0 // g, (q1 - 1) // g + 1
-    if (q1 - q0) % max(1, k1 - k0) or (q1 - q0 < g and g % (q1 - q0)):
-        raise NotImplementedError(
-            f"local q heads [{q0}, {q1}) do not group onto kv heads "
-            f"[{k0}, {k1}) (ROADMAP Queue 1 item 13c)")
-    return group, (k0, k1)
+        return Heads(None, (0, h * dh), (0, h), (0, kh), False, False)
+    g, w = h // kh, h * dh // n
+    nk = cm.tp(dist, "heads", kh * dh)[2]
+    wk = kh * dh // nk
+
+    def outside(j):
+        k0, k1 = _head_span(j * w, (j + 1) * w, dh, g)[1]
+        return not (j * wk <= k0 * dh and k1 * dh <= (j + 1) * wk)
+    heads, kv = _head_span(i * w, (i + 1) * w, dh, g)
+    return Heads(group, (i * w, (i + 1) * w), heads, kv, w % dh != 0,
+                 nk > 1 and any(outside(j) for j in range(n)))
 
 
-def _kv_local(p, x, kh, dh, dist, kv, group):
-    """The k (or v) projection's kv heads ``[k0, k1)`` on this rank: from
-    the rank's own columns where they hold those heads whole, else from
-    the whole projection (gathered over ``group`` where it is split)."""
+def _q_heads(pq, x, hd: Heads, dh, whole=False, kind="q_head_gather"):
+    """q of ``x`` on this rank's heads [ha, hb) (every head with
+    ``whole``), (B, S, heads, dh): the rank's columns of the projection,
+    gathered over the heads' group where its block cuts a head (or for
+    ``whole``).  Each rank reads other columns of the gathered q, so its
+    backward reduce-scatters: every rank's cotangent summed into the
+    owner's columns."""
+    b, s, _ = x.shape
+    q = cm.dense_apply(pq, x)
+    if hd.group is not None and (whole or hd.cut):
+        q = comm.gather_from(q, hd.group, dim=-1, kind=kind,
+                             reduce_bwd=True)
+        if not whole:
+            q = q[..., hd.heads[0] * dh:hd.heads[1] * dh]
+    return q.reshape(b, s, -1, dh)
+
+
+def _own_cols(o, hd: Heads, dh, h0=None):
+    """The rank's columns [c0, c1) of the attention output ``o`` (B, S,
+    heads·dh) computed on heads from ``h0`` (``hd.heads[0]`` by default):
+    what its block of o's rows reads."""
+    h0 = hd.heads[0] if h0 is None else h0
+    c0, c1 = hd.cols
+    if (c0 - h0 * dh, c1 - h0 * dh) == (0, o.shape[-1]):
+        return o
+    return o[..., c0 - h0 * dh:c1 - h0 * dh]
+
+
+def _group_kv(k, v, heads, kv, g):
+    """k and v on the kv heads [k0, k1) as kernel F reads them for the q
+    heads [ha, hb): as they are where F's contiguous grouping (local q
+    head j on local kv head j // (H_l / K_l)) reads each q head's own kv
+    head; else each q head's kv head picked out (one kv head a q head)."""
+    (ha, hb), (k0, k1) = heads, kv
+    hl, kl = hb - ha, k1 - k0
+    want = [(ha + j) // g - k0 for j in range(hl)]
+    if hl % kl == 0 and want == [j // (hl // kl) for j in range(hl)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _kv_local(p, x, kh, dh, dist, kv, group, gather):
+    """The k (or v) projection's kv heads ``kv`` = [k0, k1) on this rank:
+    from the rank's own columns where they hold those heads whole, else
+    from the whole projection (gathered over ``group`` where it is split;
+    ``gather`` is the same on every rank of the group)."""
     k0, k1 = kv
     _, i, n = cm.tp(dist, "heads", kh * dh)
     if n == 1:
@@ -225,7 +301,7 @@ def _kv_local(p, x, kh, dh, dist, kv, group):
              for k, w in p.items()}
     y = cm.dense_apply(p, x)
     c0 = i * (kh * dh // n)
-    if n > 1 and not (c0 <= k0 * dh and k1 * dh <= c0 + y.shape[-1]):
+    if n > 1 and gather:
         # each rank reads other columns of the gathered projection: the
         # backward reduce-scatters
         y = comm.gather_from(y, group, dim=-1, kind="kv_gather",
@@ -249,23 +325,33 @@ def _rope(x, positions, cfg, theta):
     return rp.apply_rope(x, pos2d, theta)
 
 
-def _qkv(p, x, cfg, tp=None):
-    """(q, k, v) heads of ``x``; with ``tp`` = (dist, kv heads, group) on
-    this rank's columns of q and the kv heads they read (``_kv_local``)."""
+def _qkv(p, x, cfg, hd=None, dist=None, q_whole=False):
+    """(q, k, v) heads of ``x``; with ``hd`` (``Heads`` on a mesh) q on
+    this rank's heads (every head with ``q_whole``, ``_q_heads``) and k
+    and v on the kv heads ``hd.kv`` (``_kv_local``)."""
     b, sq, _ = x.shape
     kh, dh = cfg.num_kv_heads, cfg.head_dim
-    q = cm.dense_apply(p["q"], x).reshape(b, sq, -1, dh)
-    if tp is None:
+    if hd is None:
+        q = cm.dense_apply(p["q"], x).reshape(b, sq, -1, dh)
         k = cm.dense_apply(p["k"], x)
         v = cm.dense_apply(p["v"], x)
     else:
+        q = _q_heads(p["q"], x, hd, dh, q_whole,
+                     "decode_q_gather" if q_whole else "q_head_gather")
+        tp = (dist, hd.kv, hd.group, hd.kv_gather)
         k = _kv_local(p["k"], x, kh, dh, *tp)
         v = _kv_local(p["v"], x, kh, dh, *tp)
     k = k.reshape(b, sq, -1, dh)
     v = v.reshape(b, sq, -1, dh)
     if "qn" in p:
-        q = cm.rmsnorm_apply(p["qn"], q, cfg.norm_eps)
-        k = cm.rmsnorm_apply(p["kn"], k, cfg.norm_eps)
+        qn, kn = p["qn"], p["kn"]
+        if hd is not None and hd.group is not None:
+            # each rank norms its own heads with the replicated scales:
+            # their gradients are summed over the heads' group
+            qn, kn = ({k: comm.copy_to(w, hd.group, kind="qk_norm_weight")
+                       for k, w in n.items()} for n in (qn, kn))
+        q = cm.rmsnorm_apply(qn, q, cfg.norm_eps)
+        k = cm.rmsnorm_apply(kn, k, cfg.norm_eps)
     return q, k, v
 
 
@@ -274,20 +360,23 @@ def gqa_apply(p, x, cfg, *, positions, layer_kind="global", kv_chunk=1024,
     """Training / prefill self-attention.  x: (B, S, D); positions (B, S),
     or (3, B, S) under M-RoPE.  ``dist``: tensor-parallel over 'heads'
     (module docstring)."""
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    hd = _local_heads(dist, h, kh, cfg.head_dim)
+    x = cm.tp_input(x, hd.group)
     b, sq, _ = x.shape
-    group, kv = _local_heads(dist, cfg.num_heads, cfg.num_kv_heads,
-                             cfg.head_dim)
-    if group is None:
+    if hd.group is None:
         q, k, v = _qkv(p, x, cfg)
     else:
-        q, k, v = _qkv(p, comm.copy_to(x, group), cfg, (dist, kv, group))
+        q, k, v = _qkv(p, x, cfg, hd, dist)
     theta = _theta(cfg, layer_kind)
     q = _rope(q, positions, cfg, theta)
     k = _rope(k, positions, cfg, theta)
+    k, v = _group_kv(k, v, hd.heads, hd.kv, h // kh)
     window = cfg.window if layer_kind == "local" else 0
     o = flash_attention(q, k, v, causal=causal, window=window,
                         kv_chunk=kv_chunk)
-    return cm.row_parallel(p["o"], o.reshape(b, sq, -1), group)
+    o = _own_cols(o.reshape(b, sq, -1), hd, cfg.head_dim)
+    return cm.row_parallel(p["o"], o, hd.group)
 
 
 def _write_rows(cache, rows, idx, s0, group):
@@ -370,22 +459,24 @@ def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global",
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
     ck, cv = cache["k"], cache["v"]
-    group, kv = _local_heads(dist, h, kh, dh)
+    hd = _local_heads(dist, h, kh, dh)
+    group = hd.group
     sgroup, s0, gather = _decode_seq(dist, ck.shape[1], group)
-    c0, c1 = (0, kh) if dist is None else \
-        dist.span(dist.resolve(("kv_heads",))[0], kh)
-    _, i, n = cm.tp(dist, "heads", h * dh)
-    a0, a1 = (0, h) if gather else (i * h // n, (i + 1) * h // n)
-    ka, kb = (0, kh) if gather else kv
-    if not (c0 <= ka and kb <= c1):
-        raise NotImplementedError(
-            f"q heads [{a0}, {a1}) read kv heads [{ka}, {kb}) outside the "
-            f"cache block's [{c0}, {c1}) (ROADMAP Queue 1 item 13c)")
+    kv_entry = None if dist is None else dist.resolve(("kv_heads",))[0]
+    c0, c1 = (0, kh) if dist is None else dist.span(kv_entry, kh)
+    heads = (0, h) if gather else hd.heads
+    ka, kb = (0, kh) if gather else hd.kv
     if group is None:
         q, k, v = _qkv(p, x, cfg)
     else:
-        q, k, v = _qkv(p, comm.copy_to(x, group), cfg, (dist, (c0, c1),
-                                                          group))
+        # k and v of the cache block's kv heads, gathered where the
+        # projection's blocks are not the cache's
+        nk = cm.tp(dist, "heads", kh * dh)[2]
+        aligned = (kv_entry == dist.resolve(("heads",))[0]
+                   and kh % nk == 0)
+        q, k, v = _qkv(p, comm.copy_to(x, group), cfg, hd._replace(
+            kv=(c0, c1), kv_gather=nk > 1 and not aligned), dist,
+            q_whole=gather)
     pos = idx.expand(b, sq)
     if cfg.mrope_sections:
         pos = pos.expand(3, b, sq)
@@ -394,22 +485,27 @@ def gqa_decode(p, x, cache, cache_index, cfg, *, layer_kind="global",
     k = _rope(k, pos, cfg, theta)
     _write_rows(ck, k, idx, s0, sgroup)
     _write_rows(cv, v, idx, s0, sgroup)
-    if gather:
-        q = comm.gather_from(q, group, dim=2, kind="decode_q_gather")
-    if (ka, kb) != (c0, c1):
-        ck, cv = ck[:, :, ka - c0:kb - c0], cv[:, :, ka - c0:kb - c0]
+    if not (c0 <= ka and kb <= c1):
+        # the rank's q heads read kv heads outside its cache block: the
+        # blocks gathered over the kv heads' group (after every rank wrote
+        # its own rows)
+        kgroup = dist.group(kv_entry)
+        ck = comm.all_gather(ck, kgroup, 2, kind="decode_kv_gather")
+        cv = comm.all_gather(cv, kgroup, 2, kind="decode_kv_gather")
+        c0, c1 = 0, kh
+    ck, cv = ck[:, :, ka - c0:kb - c0], cv[:, :, ka - c0:kb - c0]
+    ck, cv = _group_kv(ck, cv, heads, (ka, kb), h // kh)
+    kv_n = ck.shape[2]
     kpos = s0 + torch.arange(ck.shape[1], device=x.device)
     window = cfg.window if layer_kind == "local" else 0
-    qr = q.reshape(b, sq, kb - ka, -1, dh).float()
+    qr = q.reshape(b, sq, kv_n, -1, dh).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, ck.float()) * (dh ** -0.5)
     mask = kpos <= idx
     if window:
         mask &= kpos > idx - window
     s = s.masked_fill(~mask, NEG_INF)
     o = _attend(s, cv.float(), "bkgqs,bskd->bqkgd", sgroup)
-    o = o.reshape(b, sq, -1)
-    if gather:
-        o = o[..., i * (h // n) * dh:(i + 1) * (h // n) * dh]
+    o = _own_cols(o.reshape(b, sq, -1), hd, dh, heads[0])
     return cm.row_parallel(p["o"], o.to(x.dtype), group), cache
 
 
@@ -441,23 +537,26 @@ def cross_apply(p, x, memory, cfg, kv_chunk=1024, dist=None):
     memory too).  ``dist``: tensor-parallel over 'heads' as
     ``gqa_apply`` (``memory`` the same rows as ``x``): the rank's q heads
     and the kv heads they read, F on those heads, ``o`` row-parallel."""
-    b, sq, _ = x.shape
     sk = memory.shape[1]
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    group, kv = _local_heads(dist, h, kh, dh)
+    hd = _local_heads(dist, h, kh, dh)
+    group = hd.group
+    x = cm.tp_input(x, group)
+    b, sq, _ = x.shape
     if group is None:
         k = cm.dense_apply(p["k"], memory)
         v = cm.dense_apply(p["v"], memory)
     else:
-        x, memory = comm.copy_to(x, group), comm.copy_to(memory, group)
-        k = _kv_local(p["k"], memory, kh, dh, dist, kv, group)
-        v = _kv_local(p["v"], memory, kh, dh, dist, kv, group)
-    q = cm.dense_apply(p["q"], x).reshape(b, sq, -1, dh)
-    k = k.reshape(b, sk, -1, dh)
-    v = v.reshape(b, sk, -1, dh)
+        memory = comm.copy_to(memory, group, kind="cross_memory")
+        tp = (dist, hd.kv, group, hd.kv_gather)
+        k = _kv_local(p["k"], memory, kh, dh, *tp)
+        v = _kv_local(p["v"], memory, kh, dh, *tp)
+    q = _q_heads(p["q"], x, hd, dh)
+    k, v = _group_kv(k.reshape(b, sk, -1, dh), v.reshape(b, sk, -1, dh),
+                     hd.heads, hd.kv, h // kh)
     o = flash_attention(q, k, v, causal=False, kv_chunk=kv_chunk)
-    return cm.row_parallel(p["o"], o.reshape(b, sq, -1), group,
-                           kind="cross_all_reduce")
+    o = _own_cols(o.reshape(b, sq, -1), hd, dh)
+    return cm.row_parallel(p["o"], o, group, kind="cross_all_reduce")
 
 
 # ---------------------------------------------------------------------------
@@ -491,47 +590,104 @@ def mla_specs(cfg) -> dict:
             "o": cm.dense_specs("heads", None)}
 
 
-def _mla_heads(dist, cfg):
-    """(group, local heads) of MLA under ``dist``: ``uq``, ``uk``, ``uv``
-    and ``o`` split at the same head boundaries, or all whole."""
+class MlaHeads(NamedTuple):
+    """How a rank's blocks of MLA's 'heads' columns meet the heads
+    (``_mla_heads``): ``group`` the heads' group (None: every projection
+    whole); ``heads`` = [ha, hb) the heads the rank computes, those its
+    block of o's rows (``h·v_head_dim`` columns: ``cols``) touches, every
+    head where o stays whole; ``o_split`` where o's rows are split (the
+    ranks read different heads, so their gradients are summed)."""
+
+    group: object
+    heads: tuple
+    cols: tuple
+    o_split: bool
+
+
+def _mla_heads(dist, cfg) -> MlaHeads:
+    """``MlaHeads`` under ``dist``: o's row block picks the heads; ``uq``,
+    ``uk`` and ``uv`` give them from the rank's own columns where they
+    split at the same head boundaries, else gathered (``_mla_proj``)."""
+    h, dv = cfg.num_heads, cfg.v_head_dim
+    widths = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim, dv)
+    if all(cm.tp(dist, "heads", h * w)[2] == 1 for w in widths):
+        return MlaHeads(None, (0, h), (0, h * dv), False)
+    entry = dist.resolve(("heads",))[0]
+    group, i, n = cm.tp(dist, "heads", h * dv)
+    if n == 1:
+        return MlaHeads(dist.group(entry), (0, h), (0, h * dv), False)
+    c0, c1 = i * (h * dv // n), (i + 1) * (h * dv // n)
+    return MlaHeads(group, (c0 // dv, -(-c1 // dv)), (c0, c1), True)
+
+
+def _mla_proj(pw, x, width, cfg, hd: MlaHeads, dist, heads=None,
+              kind="mla_head_gather"):
+    """A head projection (``uq``, ``uk`` or ``uv``, ``width`` columns a
+    head) of ``x`` on the heads ``heads`` (``hd.heads`` by default), (B,
+    S, heads, width).  The rank's own columns where they are exactly those
+    heads; else the whole output, gathered where the weight is split (each
+    rank reads its own heads: a reduce-scatter backward where o is split,
+    the rank's slice where every rank computes every head), and a
+    replicated weight's gradient summed over the group where o is split.
+    ``x`` enters through ``copy_to`` wherever the ranks' gradients of it
+    are partial."""
+    b, s, _ = x.shape
     h = cfg.num_heads
-    widths = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim,
-              cfg.v_head_dim)
-    splits = {cm.tp(dist, "heads", h * w)[2] for w in widths}
-    if splits == {1}:
-        return None, h
-    n = splits.pop()
-    if splits or h % n:
-        raise NotImplementedError(
-            f"MLA's {h} heads over {n} ranks cut a head or split "
-            f"uq/uk/uv unevenly (ROADMAP Queue 1 item 13c)")
-    return cm.tp(dist, "heads", h * widths[0])[0], h // n
+    ha, hb = hd.heads if heads is None else heads
+    if hd.group is None:
+        return cm.dense_apply(pw, x).reshape(b, s, h, width)[:, :, ha:hb]
+    group, i, n = cm.tp(dist, "heads", h * width)
+    own = n > 1 and (ha, hb) == (i * h // n, (i + 1) * h // n) \
+        and h % n == 0
+    if hd.o_split or n > 1:
+        x = comm.copy_to(x, hd.group)
+    if n == 1 and hd.o_split:
+        pw = {k: comm.copy_to(w, hd.group, kind="mla_weight")
+              for k, w in pw.items()}
+    y = cm.dense_apply(pw, x)
+    if not own:
+        if n > 1:
+            y = comm.gather_from(y, group, dim=-1, kind=kind,
+                                 reduce_bwd=hd.o_split)
+        y = y[..., ha * width:hb * width]
+    return y.reshape(b, s, hb - ha, width)
 
 
-def _mla_q(p, x, cfg, h=None, group=None):
-    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation.
-    ``group``: the heads' group; the compressed q, the same on every rank,
-    enters its head columns through ``copy_to``."""
-    b, sq, _ = x.shape
-    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+def _mla_weight(w, width, cfg, hd: MlaHeads, dist, heads):
+    """A head projection's weight on the heads ``heads``, (in, heads,
+    width): the rank's columns where they are those heads, else gathered
+    whole over the group (decode: no gradient)."""
+    h = cfg.num_heads
+    ha, hb = heads
+    group, i, n = cm.tp(dist, "heads", h * width)
+    if n > 1 and not ((ha, hb) == (i * h // n, (i + 1) * h // n)
+                      and h % n == 0):
+        w = comm.all_gather(w, group, 1, kind="mla_weight_gather")
+    if w.shape[1] != (hb - ha) * width:
+        w = w[:, ha * width:hb * width]
+    return w.reshape(w.shape[0], hb - ha, width)
+
+
+def _mla_q(p, x, cfg, hd=None, dist=None, heads=None, kind=None):
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)) before the rotation,
+    on the heads ``heads`` (``_mla_proj``)."""
+    dn = cfg.qk_nope_dim
     cq = cm.rmsnorm_apply(p["dq_n"], cm.dense_apply(p["dq"], x),
                           cfg.norm_eps)
-    cq = comm.copy_to(cq, group)
-    q = cm.dense_apply(p["uq"], cq).reshape(b, sq, h or cfg.num_heads,
-                                            dn + dr)
+    hd = hd or MlaHeads(None, (0, cfg.num_heads), None, False)
+    q = _mla_proj(p["uq"], cq, dn + cfg.qk_rope_dim, cfg, hd, dist, heads,
+                  kind or "mla_head_gather")
     return q[..., :dn], q[..., dn:]
 
 
-def _mla_kv(p, x, cfg, group=None):
+def _mla_kv(p, x, cfg):
     """(c_kv (B, S, kv_lora_rank) normed, k_rope (B, S, 1, dr) before the
-    rotation); ``group`` as ``_mla_q``'s."""
+    rotation)."""
     b, sq, _ = x.shape
     kvr = cfg.kv_lora_rank
     ckv_full = cm.dense_apply(p["dkv"], x)
     ckv = cm.rmsnorm_apply(p["dkv_n"], ckv_full[..., :kvr], cfg.norm_eps)
-    return (comm.copy_to(ckv, group),
-            comm.copy_to(ckv_full[..., kvr:], group).reshape(
-                b, sq, 1, cfg.qk_rope_dim))
+    return ckv, ckv_full[..., kvr:].reshape(b, sq, 1, cfg.qk_rope_dim)
 
 
 def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
@@ -539,28 +695,34 @@ def mla_apply(p, x, cfg, *, positions, kv_chunk=1024, dist=None):
     ``qk_nope + qk_rope`` (192 at deepseek-v3-671b), v zero-padded to it
     for the shared flash core (kernel F on the card: one launch) and the
     output sliced back to ``v_head_dim``, as JAX does.  ``dist``: each
-    rank runs its ``H/TP`` heads (``uq``/``uk``/``uv`` columns, ``o``
-    rows, summed in f32 over the group).  The compressions ``dq`` and
-    ``dkv`` run whole on every rank; their outputs enter the head columns
-    through ``copy_to``, so their weights' gradients, summed over the
-    group there, are whole on every rank."""
+    rank runs the heads its block of o's rows touches (``_mla_heads``;
+    ``uq``/``uk``/``uv`` on those heads, gathered where a block cuts a
+    head or they split unevenly), its columns of o's output summed in f32
+    over the group.  The compressions ``dq`` and ``dkv`` run whole on
+    every rank; their outputs enter the head projections through
+    ``copy_to``, so their weights' gradients, summed over the group there,
+    are whole on every rank."""
     b, sq, _ = x.shape
-    group, h = _mla_heads(dist, cfg)
+    hd = _mla_heads(dist, cfg)
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg, h, group)
-    ckv, k_rope = _mla_kv(p, x, cfg, group)
+    q_nope, q_rope = _mla_q(p, x, cfg, hd, dist)
+    ckv, k_rope = _mla_kv(p, x, cfg)
+    h = hd.heads[1] - hd.heads[0]
+    if hd.o_split:
+        k_rope = comm.copy_to(k_rope, hd.group)
     pos2d = positions if positions.dim() == 2 else positions[0]
     q_rope = rp.apply_rope(q_rope, pos2d, cfg.rope_theta)
     k_rope = rp.apply_rope(k_rope, pos2d, cfg.rope_theta)
-    k_nope = cm.dense_apply(p["uk"], ckv).reshape(b, sq, h, dn)
-    v = cm.dense_apply(p["uv"], ckv).reshape(b, sq, h, dv)
+    k_nope = _mla_proj(p["uk"], ckv, dn, cfg, hd, dist)
+    v = _mla_proj(p["uv"], ckv, dv, cfg, hd, dist)
     q_full = torch.cat([q_nope, q_rope], -1)
     k_full = torch.cat([k_nope, k_rope.expand(b, sq, h, dr)], -1)
     if dv < dn + dr:
         v = torch.nn.functional.pad(v, (0, dn + dr - dv))
     o = flash_attention(q_full, k_full, v, causal=True, kv_chunk=kv_chunk,
                         scale=(dn + dr) ** -0.5)[..., :dv]
-    return cm.row_parallel(p["o"], o.reshape(b, sq, h * dv), group)
+    o = _own_cols(o.reshape(b, sq, h * dv), hd, dv)
+    return cm.row_parallel(p["o"], o, hd.group if hd.o_split else None)
 
 
 def mla_decode(p, x, cache, cache_index, cfg, dist=None):
@@ -580,22 +742,23 @@ def mla_decode(p, x, cache, cache_index, cfg, dist=None):
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     idx = torch.as_tensor(cache_index, dtype=torch.int64, device=x.device)
-    group, hl = _mla_heads(dist, cfg)
+    hd = _mla_heads(dist, cfg)
+    group = hd.group if hd.o_split else None
     cc, cr = cache["ckv"], cache["kr"]
     sgroup, s0, gather = _decode_seq(dist, cc.shape[1], group)
-    q_nope, q_rope = _mla_q(p, x, cfg, hl, group)
+    # every head where the sequence's group shares the heads' axis
+    heads = (0, h) if gather else hd.heads
+    q_nope, q_rope = _mla_q(p, x, cfg, hd, dist, heads,
+                            "decode_q_gather" if gather else None)
     pos = idx.expand(b, sq)
     q_rope = rp.apply_rope(q_rope, pos, cfg.rope_theta)
-    ckv, k_rope = _mla_kv(p, x, cfg, group)
+    ckv, k_rope = _mla_kv(p, x, cfg)
     k_rope = rp.apply_rope(k_rope, pos, cfg.rope_theta)
     _write_rows(cc, ckv, idx, s0, sgroup)
     _write_rows(cr, k_rope[:, :, 0], idx, s0, sgroup)
-    wuk = p["uk"]["w"].reshape(kvr, hl, dn).float()
+    wuk = _mla_weight(p["uk"]["w"], dn, cfg, hd, dist, heads).float()
     q_c = torch.einsum("bqhd,khd->bqhk", q_nope.float(), wuk)
     q_r = q_rope.float()
-    if gather:
-        q_c = comm.gather_from(q_c, group, dim=2, kind="decode_q_gather")
-        q_r = comm.gather_from(q_r, group, dim=2, kind="decode_q_gather")
     ccf = cc.float()
     s = (torch.einsum("bqhk,bsk->bhqs", q_c, ccf)
          + torch.einsum("bqhd,bsd->bhqs", q_r, cr.float())) \
@@ -603,10 +766,9 @@ def mla_decode(p, x, cache, cache_index, cfg, dist=None):
     kpos = s0 + torch.arange(cc.shape[1], device=x.device)
     s = s.masked_fill(~(kpos <= idx), NEG_INF)
     o_c = _attend(s, ccf, "bhqs,bsk->bqhk", sgroup)
-    if gather:
-        i = cm.tp(dist, "heads", h * (dn + dr))[1]
-        o_c = o_c[:, :, i * hl:(i + 1) * hl]
-    wuv = p["uv"]["w"].reshape(kvr, hl, dv).float()
+    ha, hb = hd.heads
+    o_c = o_c[:, :, ha - heads[0]:hb - heads[0]]
+    wuv = _mla_weight(p["uv"]["w"], dv, cfg, hd, dist, hd.heads).float()
     o = torch.einsum("bqhk,khd->bqhd", o_c, wuv)
-    o = o.reshape(b, sq, hl * dv).to(x.dtype)
+    o = _own_cols(o.reshape(b, sq, (hb - ha) * dv), hd, dv).to(x.dtype)
     return cm.row_parallel(p["o"], o, group), cache

@@ -14,6 +14,18 @@ rank's columns of the output) or row-parallel (its in dim split:
 ``row_parallel`` sums the ranks' f32 partial products over the group and
 rounds once, as the single-rank product rounds once).
 
+Sequence parallelism (``seq_parallel(group)``, which
+``models.transformer`` enters around each layer where the residual
+stream's S is split over ``group``): a tensor-parallel block takes its
+input through ``tp_input`` (the S rows gathered on entry: over the
+block's own group, with a reduce-scatter backward in place of
+``copy_to``'s all-reduce) and leaves through ``row_parallel`` (a
+reduce-scatter over S in place of the all-reduce); a block without tensor
+parallelism gathers S on entry and keeps its rows of the output.
+``sp_param`` puts a replicated parameter used on the rank's own rows (a
+norm's gain) behind ``copy_to``, so its gradient is summed over the rows'
+group.
+
 ``dense_apply`` and ``embed_logits`` accumulate in f32, as JAX's
 ``preferred_element_type=f32`` dots do.  On the CPU (and for f32 inputs)
 both operands go up to f32 first, as JAX does on its CPU backend, so the
@@ -27,6 +39,7 @@ f32, as JAX's transpose of an f32-preferring dot computes them.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -68,6 +81,48 @@ def tp(dist, logical, size: int):
     entry = dist.resolve((logical,))[0]
     i, n = dist.shard_of(entry, size)
     return (dist.group(entry) if n > 1 else None), i, n
+
+
+# the group the residual stream's S is split over in the layer running
+# (None: whole)
+_SEQ: list = [None]
+
+
+@contextlib.contextmanager
+def seq_parallel(group):
+    """Run a layer whose residual stream holds this rank's S rows of
+    ``group`` (None: the whole sequence)."""
+    prev, _SEQ[0] = _SEQ[0], group
+    try:
+        yield
+    finally:
+        _SEQ[0] = prev
+
+
+def tp_input(x, group):
+    """A tensor-parallel block's input over ``group``: ``copy_to`` (its
+    gradient summed over the group).  Under sequence parallelism ``x`` is
+    the rank's S rows, gathered whole along dim 1: over the block's own
+    group a gather whose backward reduce-scatters (the sum and the split
+    in one), over another group a plain gather before the ``copy_to``."""
+    sp = _SEQ[0]
+    if sp is None:
+        return comm.copy_to(x, group)
+    if group is sp:
+        return comm.gather_from(x, sp, dim=1, kind="sp_gather",
+                                reduce_bwd=True)
+    return comm.copy_to(comm.gather_from(x, sp, dim=1, kind="sp_gather"),
+                        group)
+
+
+def sp_param(p):
+    """``p`` (a dict of tensors) as a layer reads it on the rank's own S
+    rows: behind ``copy_to`` over the sequence's group, so the partial
+    gradients of the rows are summed; ``p`` itself with S whole."""
+    sp = _SEQ[0]
+    if sp is None:
+        return p
+    return {k: comm.copy_to(v, sp, kind="sp_param") for k, v in p.items()}
 
 
 def _randn(gen: torch.Generator, shape) -> torch.Tensor:
@@ -118,10 +173,22 @@ def row_parallel(p, x, group, kind="row_parallel_all_reduce"):
     """A row-parallel dense layer: the rank's rows of ``w`` on its
     columns of ``x``, the f32 partial products summed over ``group``, the
     bias added in f32, one rounding to ``x``'s dtype (``dense_apply``
-    itself where ``group`` is None)."""
+    itself where ``group`` is None).  Under sequence parallelism
+    (``seq_parallel``) the rank keeps its S rows of the output: over the
+    sequence's own group the all-reduce is a reduce-scatter over S."""
+    sp = _SEQ[0]
     if group is None:
-        return dense_apply(p, x)
-    y = comm.reduce_from(dense_partial(p, x), group, kind)
+        y = dense_apply(p, x)
+        return y if sp is None else comm.split_to(y, sp, dim=1,
+                                                  kind="sp_split")
+    y = dense_partial(p, x)
+    if sp is group:
+        y = comm.reduce_scatter_to(y, group, dim=1,
+                                   kind="sp_reduce_scatter")
+    else:
+        y = comm.reduce_from(y, group, kind)
+        if sp is not None:
+            y = comm.split_to(y, sp, dim=1, kind="sp_split")
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)

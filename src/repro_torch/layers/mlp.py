@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import comm
 from repro_torch.layers import common as cm
 
 
@@ -30,7 +29,7 @@ def glu_apply(p, x, act="silu", dist=None, width=None):
     group = None
     if dist is not None:
         group, _, _ = cm.tp(dist, "ffn", width)
-        x = comm.copy_to(x, group)
+        x = cm.tp_input(x, group)
     a = cm.ACTS[act](cm.dense_apply(p["wg"], x).float())
     h = a * cm.dense_apply(p["wi"], x).float()
     return cm.row_parallel(p["wo"], h.to(x.dtype), group)

@@ -57,6 +57,15 @@ index; the capacity selection here is a stable descending sort, which
 does the same.  A ``moe_impl="dense"`` config on a mesh keeps the dense
 semantics (no capacity), its experts split as the rules say: each rank's
 experts over the tokens of its expert group, summed in f32 over the group.
+
+Where 'expert_ffn' splits the experts' hidden dim (``make_dist`` sets it
+to 'data' for dbrx-132b on the production mesh, beside 'expert' on
+'model'), every path first gathers the layer's hidden blocks over those
+axes (``_whole_hidden``), as GSPMD gathers them into JAX's ``shard_map``
+whose specs name 'expert' only, and runs as above.  The gather's backward
+reduce-scatters: the weights' gradients summed over the ranks of the
+axes, which, 'data' carrying batch rows, is also their sum over the
+batch (the train step sums over the batch axes a spec leaves out only).
 """
 from __future__ import annotations
 
@@ -197,8 +206,10 @@ def moe_apply(p, x, cfg, dist=None):
     host.  On a mesh JAX's dispatch: ``moe_impl="ep"`` takes
     ``moe_apply_ep_a2a`` where ``rules["expert"]`` is a tuple,
     ``moe_apply_ep`` where it is one axis; a dense config keeps the dense
-    semantics on its split experts (``_moe_dense_split``)."""
+    semantics on its split experts (``_moe_dense_split``); the experts'
+    hidden blocks are gathered first where 'expert_ffn' splits them."""
     if dist is not None and dist.mesh is not None:
+        p = _whole_hidden(p, cfg, dist)
         if cfg.moe_impl == "ep":
             if isinstance(dist.rules.get("expert"), tuple):
                 return moe_apply_ep_a2a(p, x, cfg, dist)
@@ -215,13 +226,22 @@ def moe_apply(p, x, cfg, dist=None):
 # ---------------------------------------------------------------------------
 
 
+def _whole_hidden(p, cfg, dist):
+    """The rank's experts with their hidden dim whole: where 'expert_ffn'
+    splits it, ``wi``/``wg`` (E_l, d, de) and ``wo`` (E_l, de, d) gathered
+    over its axes, the backward a reduce-scatter (module docstring)."""
+    group, _, n = cm.tp(dist, "expert_ffn", cfg.d_expert)
+    if n == 1:
+        return p
+    return dict(p, **{k: comm.gather_from(p[k], group, dim=dim,
+                                          kind="expert_ffn_gather",
+                                          reduce_bwd=True)
+                      for k, dim in (("wi", 2), ("wg", 2), ("wo", 1))})
+
+
 def _expert_split(dist, cfg):
     """(mesh axes the experts split over, their group, this rank's first
-    expert, local count); refuses a split expert hidden dim."""
-    if dist.extent(dist.rules.get("expert_ffn")) > 1:
-        raise NotImplementedError(
-            "experts split on their hidden dim ('expert_ffn'): ROADMAP "
-            "Queue 1 item 13c")
+    expert, local count)."""
     entry = dist.rules.get("expert")
     i, n = dist.shard_of(entry, cfg.n_experts)
     axes = tuple(a for a in _axes(entry) if dist.extent(a) > 1) if n > 1 \

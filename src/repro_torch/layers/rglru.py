@@ -86,9 +86,10 @@ def _group(dist, cfg):
 
 
 def rglru_apply(p, xin, cfg, dist=None):
-    """Prefill / train.  xin: (B, S, D) -> (B, S, D)."""
+    """Prefill / train.  xin: (B, S, D) -> (B, S, D) (under sequence
+    parallelism the rank's S rows of each: ``common.tp_input``)."""
     group = _group(dist, cfg)
-    xin = comm.copy_to(xin, group)
+    xin = cm.tp_input(xin, group)
     x = cm.dense_apply({"w": p["in_x"]}, xin)
     g = cm.dense_apply({"w": p["in_g"]}, xin)
     x = untangled_depthwise_conv1d(x, p["conv"], causal=True)

@@ -7,12 +7,27 @@ has ``lax.scan`` (S / ``ssm_chunk`` steps).  Decode is the O(1)
 recurrent update, written into the state cache in place.  The short
 causal depthwise conv in front of (x, B, C) runs through the untangled
 depthwise path (``core.untangle``).
+
+Tensor parallelism (``dist`` whose rules split 'heads', as JAX's specs
+put ``in``, ``conv``, ``norm`` and ``out`` there; ``make_dist`` never
+does for mamba2, hand-written rules may): the fused in-projection's
+blocks do not fall on its segment boundaries (under ``DEFAULT_RULES`` on
+(2, 2) the 3352 columns split at 1676, across z | x), so each rank runs
+its columns of the in-projection and gathers them, with the conv and
+norm weights, over the heads' group; z, x, B, C and dt are whole, the
+conv and the SSD run whole on every rank, and the rank's block of the
+gated norm's output feeds its rows of ``out``, summed in f32 over the
+group.  Where ``out`` is split the ranks read different columns, so the
+gathers' backwards reduce-scatter and the replicated parameters' (and
+the input's) gradients are summed over the group.  Decode gathers the
+rank's blocks of the state cache the same way and writes back its own.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import comm
 from repro_torch.core.untangle import untangled_depthwise_conv1d
 from repro_torch.layers import common as cm
 
@@ -119,11 +134,47 @@ def _gated_norm(yss, z, p):
     return yn * torch.rsqrt(var + 1e-6) * p["norm"]
 
 
-def ssd_apply(p, xin, cfg):
-    """Full mixer: in-proj -> conv -> SSD -> gated norm -> out-proj."""
+def _tp(p, xin, cfg, dist):
+    """(the params with ``in``'s output, ``conv`` and ``norm`` made whole,
+    the in-projection's whole output, the group ``out``'s rows split over
+    (None: whole), its row block) under ``dist`` (module docstring)."""
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    sizes = {"in": 2 * di + 2 * gn + cfg.ssm_heads, "conv": di + 2 * gn,
+             "norm": di}
+    group, i, n = cm.tp(dist, "heads", di)
+    split = {k: cm.tp(dist, "heads", m)[2] > 1 for k, m in sizes.items()}
+    if n == 1 and not any(split.values()):
+        return p, cm.dense_apply({"w": p["in"]}, xin), None, (0, di)
+    heads = dist.group(dist.resolve(("heads",))[0])
+    o_split = n > 1
+    p = dict(p)
+    if o_split:
+        for k in ("A_log", "D", "dt_bias"):
+            p[k] = comm.copy_to(p[k], heads, kind="ssd_param")
+    for k in ("in", "conv", "norm"):
+        if o_split and not split[k]:
+            # a whole weight read for other columns on each rank
+            p[k] = comm.copy_to(p[k], heads, kind="ssd_param")
+    if split["in"] or o_split:
+        xin = comm.copy_to(xin, heads)
+    y = cm.dense_apply({"w": p["in"]}, xin)
+    if split["in"]:
+        y = comm.gather_from(y, heads, dim=-1, kind="ssd_in_gather",
+                             reduce_bwd=o_split)
+    for k, dim in (("conv", -1), ("norm", 0)):
+        if split[k]:
+            p[k] = comm.gather_from(p[k], heads, dim=dim,
+                                    kind="ssd_weight_gather",
+                                    reduce_bwd=o_split)
+    return p, y, group, (i * di // n, (i + 1) * di // n)
+
+
+def ssd_apply(p, xin, cfg, dist=None):
+    """Full mixer: in-proj -> conv -> SSD -> gated norm -> out-proj
+    (``dist``: tensor-parallel, module docstring)."""
     bsz, s, _ = xin.shape
     di, h, n, g = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
-    y = cm.dense_apply({"w": p["in"]}, xin)
+    p, y, group, (r0, r1) = _tp(p, xin, cfg, dist)
     z, x, bmat, cmat, dt = _split_in(y, cfg)
     xbc = torch.cat([x, bmat, cmat], -1)
     xbc = untangled_depthwise_conv1d(xbc, p["conv"], causal=True)
@@ -134,21 +185,36 @@ def ssd_apply(p, xin, cfg):
     dt = F.softplus(dt.float() + p["dt_bias"])
     yss = ssd_chunked(x, dt, p["A_log"], bmat, cmat, p["D"],
                       chunk=cfg.ssm_chunk).reshape(bsz, s, di)
-    return cm.dense_apply({"w": p["out"]},
-                          _gated_norm(yss, z, p).to(xin.dtype))
+    yn = _gated_norm(yss, z, p).to(xin.dtype)
+    return cm.row_parallel({"w": p["out"]}, yn[..., r0:r1], group,
+                           kind="ssd_all_reduce")
 
 
-def ssd_decode(p, xin, state, cfg):
+def _state_whole(t, dist, dim, size):
+    """(a state cache block gathered whole along ``dim``, its [start,
+    stop) there) under the cache's 'heads' spec (``t`` itself whole)."""
+    group, i, n = cm.tp(dist, "heads", size)
+    if n == 1:
+        return t, (0, size)
+    return (comm.all_gather(t, group, dim, kind="ssd_state_gather"),
+            (i * size // n, (i + 1) * size // n))
+
+
+def ssd_decode(p, xin, state, cfg, dist=None):
     """O(1) decode.  state: {"h": (B, H, N, P) f32, "conv": (B, K-1,
     conv_dim)}, written in place (a captured decode graph holds these
-    buffers; JAX returns new ones) and returned."""
+    buffers; JAX returns new ones) and returned; on a mesh this rank's
+    blocks of it (JAX's cache specs), gathered whole for the step and
+    written back block by block."""
     bsz, s, _ = xin.shape
     assert s == 1
     di, h, n, g = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
-    y = cm.dense_apply({"w": p["in"]}, xin)
+    p, y, group, (r0, r1) = _tp(p, xin, cfg, dist)
     z, x, bmat, cmat, dt = _split_in(y, cfg)
+    hs, (h0, h1) = _state_whole(state["h"], dist, 1, h)
+    cs, (k0, k1) = _state_whole(state["conv"], dist, 2, di + 2 * g * n)
     xbc = torch.cat([x, bmat, cmat], -1)                    # (B,1,conv_dim)
-    window = torch.cat([state["conv"], xbc], 1)             # (B,K,conv_dim)
+    window = torch.cat([cs, xbc], 1)                        # (B,K,conv_dim)
     conv_out = torch.einsum("bkc,kc->bc", window.float(),
                             p["conv"].float())[:, None]
     xbc = F.silu(conv_out).to(xin.dtype)
@@ -160,12 +226,12 @@ def ssd_decode(p, xin, state, cfg):
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]        # (B,H)
     dec = torch.exp(dt * -torch.exp(p["A_log"]))            # (B,H)
     inj = torch.einsum("bh,bhs,bhp->bhsp", dt, bmat.float(), x.float())
-    hnew = state["h"] * dec[:, :, None, None] + inj
+    hnew = hs * dec[:, :, None, None] + inj
     yss = torch.einsum("bhs,bhsp->bhp", cmat.float(), hnew)
     yss = yss + p["D"][None, :, None] * x.float()
-    out = cm.dense_apply({"w": p["out"]},
-                         _gated_norm(yss.reshape(bsz, 1, di), z, p)
-                         .to(xin.dtype))
-    state["h"].copy_(hnew)
-    state["conv"].copy_(window[:, 1:])
+    yn = _gated_norm(yss.reshape(bsz, 1, di), z, p).to(xin.dtype)
+    out = cm.row_parallel({"w": p["out"]}, yn[..., r0:r1], group,
+                          kind="ssd_all_reduce")
+    state["h"].copy_(hnew[:, h0:h1])
+    state["conv"].copy_(window[:, 1:, k0:k1])
     return out, state

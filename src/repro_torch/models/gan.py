@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import resolve_device
+from repro_torch.core import comm, resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
@@ -263,6 +263,9 @@ def discriminator_apply(p, x: torch.Tensor, cfg: GANConfig,
     x = x.reshape(x.shape[0], -1)
     group, i, n = cm.tp(dist, "model", x.shape[-1])
     blk = x.shape[-1] // n
+    # every rank reads its own features of x: their gradients are summed
+    # over the group
+    x = comm.copy_to(x, group, kind="head_input")
     return cm.row_parallel({"w": p["head"]}, x.narrow(-1, i * blk, blk),
                            group, kind="head_all_reduce")
 

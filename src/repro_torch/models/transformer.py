@@ -33,7 +33,10 @@ ids in its vocab block, zeros the rest, and the ranks' rows are summed)
 and the readout gives each rank its rows and its vocab block of the
 logits, JAX's ``P(batch, None, "vocab")``.  The ``rec`` kind runs its
 channel block (``rglru``), the ``dec`` kind its heads of the cross
-attention; the ``ssd`` kind refuses a mesh whose rules split its weights.
+attention; the ``ssd`` kind its columns of the in-projection, gathered
+(``layers.ssm``).  Under ``make_dist(..., seq_parallel=True)`` the
+residual stream between layers holds each rank's S rows (``hidden``,
+``apply_layer``).
 Decode on a mesh: ``cache_specs_only`` (JAX's cache specs, a dict a
 layer), ``init_cache(..., dist=)`` each rank's cache blocks (heads over
 'kv_heads', the sequence over 'kv_seq'), ``decode_step(..., dist=)``
@@ -100,7 +103,10 @@ def _check_kind(kind):
 
 
 def _rms(p, x, cfg):
-    return cm.rmsnorm_apply(p, x, cfg.norm_eps, gemma_style=cfg.gemma_norm)
+    """The layer norm on ``x`` (under sequence parallelism the rank's S
+    rows: the gain's gradient summed over them, ``common.sp_param``)."""
+    return cm.rmsnorm_apply(cm.sp_param(p), x, cfg.norm_eps,
+                            gemma_style=cfg.gemma_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +176,8 @@ def init(cfg, *, seed=0, device="cuda", dtype=torch.bfloat16, dist=None):
         if mesh and kind in MOE_KINDS:
             i, n = dist.shard_of(dist.rules["expert"], cfg.n_experts)
             keep = (i * cfg.n_experts // n, (i + 1) * cfg.n_experts // n)
-            for k in ("wi", "wg", "wo"):        # already the rank's block
-                sp["moe"][k] = cm.spec(None, None, None)
+            for k in ("wi", "wg", "wo"):        # the rank's experts already
+                sp["moe"][k] = cm.spec(None, *sp["moe"][k][1:])
         return put(init_layer(gen, kind, cfg, dtype, experts=keep), sp)
 
     params = {"embed": put(cm.embed_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -335,44 +341,56 @@ def _sandwich(p, key, h, cfg):
     return _rms(p[key], h, cfg) if cfg.sandwich_norm else h
 
 
-def _check_mesh(kind, cfg, dist):
-    """Refuse an ``ssd`` layer on a mesh whose rules would split its
-    weights over 'heads' (``make_dist`` never does: the ssm family runs
-    with no TP)."""
-    if dist is None or dist.mesh is None or kind != "ssd":
-        return
-    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-    sizes = (di, 2 * di + 2 * gn + cfg.ssm_heads, di + 2 * gn)
-    if any(cm.tp(dist, "heads", n)[2] > 1 for n in sizes):
-        raise NotImplementedError(
-            "layer kind 'ssd' on a mesh that splits its weights over "
-            "'heads': tensor parallelism for the ssd kind is ROADMAP Queue 1 "
-            "item 13c")
+def _whole_seq(fn, h, sp):
+    """``fn(h)`` where the block needs the whole sequence and does not take
+    part in sequence parallelism itself (the MoE, MLA, SSD): under ``sp``
+    the rank's S rows are gathered, ``fn`` runs as without it (its own
+    collectives make its input's gradient whole on every rank, so the
+    gather's backward keeps the rank's rows) and the rank keeps its rows
+    of the output."""
+    if sp is None:
+        return fn(h)
+    with cm.seq_parallel(None):
+        y = fn(comm.gather_from(h, sp, dim=1, kind="sp_gather"))
+    return comm.split_to(y, sp, dim=1, kind="sp_split")
 
 
 def apply_layer(p, x, kind, cfg, *, positions, memory=None, kv_chunk=1024,
-                dist=None):
+                dist=None, sp=None):
+    """One layer on the residual stream ``x``; ``sp``: the group its S is
+    split over (sequence parallelism, ``x`` the rank's rows: the norms and
+    residual adds on them, each block gathering S on entry and keeping
+    its rows of the output, ``common.seq_parallel``)."""
     _check_kind(kind)
-    _check_mesh(kind, cfg, dist)
-    h = _rms(p["ln1"], x, cfg)
-    if kind == "ssd":
-        h = ssm_lib.ssd_apply(p["ssd"], h, cfg)
-        return x + _sandwich(p, "pn1", h, cfg)
-    if kind == "rec":
-        h = rglru_lib.rglru_apply(p["rec"], h, cfg, dist)
-    elif kind in MLA_KINDS:
-        h = attn.mla_apply(p["attn"], h, cfg, positions=positions,
-                           kv_chunk=kv_chunk, dist=dist)
-    else:
-        h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
-                           layer_kind=_attn_kind(kind), kv_chunk=kv_chunk,
-                           causal=kind != "enc", dist=dist)
-    x = x + _sandwich(p, "pn1", h, cfg)
-    if kind == "dec":
-        x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg), memory,
-                                 cfg, kv_chunk=kv_chunk, dist=dist)
-    h = _ffn(p, _rms(p["ln2"], x, cfg), kind, cfg, moe_lib.moe_apply, dist)
-    return x + _sandwich(p, "pn2", h, cfg)
+    with cm.seq_parallel(sp):
+        h = _rms(p["ln1"], x, cfg)
+        if kind == "ssd":
+            h = _whole_seq(lambda t: ssm_lib.ssd_apply(p["ssd"], t, cfg,
+                                                       dist), h, sp)
+            return x + _sandwich(p, "pn1", h, cfg)
+        if kind == "rec":
+            h = rglru_lib.rglru_apply(p["rec"], h, cfg, dist)
+        elif kind in MLA_KINDS:
+            h = _whole_seq(lambda t: attn.mla_apply(
+                p["attn"], t, cfg, positions=positions, kv_chunk=kv_chunk,
+                dist=dist), h, sp)
+        else:
+            h = attn.gqa_apply(p["attn"], h, cfg, positions=positions,
+                               layer_kind=_attn_kind(kind),
+                               kv_chunk=kv_chunk, causal=kind != "enc",
+                               dist=dist)
+        x = x + _sandwich(p, "pn1", h, cfg)
+        if kind == "dec":
+            x = x + attn.cross_apply(p["cross"], _rms(p["lnx"], x, cfg),
+                                     memory, cfg, kv_chunk=kv_chunk,
+                                     dist=dist)
+        h = _rms(p["ln2"], x, cfg)
+        if kind in MOE_KINDS:
+            h = _whole_seq(lambda t: _ffn(p, t, kind, cfg, moe_lib.moe_apply,
+                                          dist), h, sp)
+        else:
+            h = _ffn(p, h, kind, cfg, moe_lib.moe_apply, dist)
+        return x + _sandwich(p, "pn2", h, cfg)
 
 
 def _ffn(p, h, kind, cfg, moe_fn, dist=None):
@@ -406,28 +424,50 @@ def _embed_scale(x, cfg):
     return x
 
 
-def _embed_lookup(p, ids, cfg, dist=None):
+def _embed_lookup(p, ids, cfg, dist=None, sp=None):
     """The embedding rows of ``ids``; vocab-parallel where ``dist``
     splits 'vocab': the rank's rows of the ids in its block, zeros
     elsewhere, summed over the group (in f32: one nonzero term a row,
-    exact)."""
+    exact).  ``sp``: the rank's S rows only (over the vocab's own group
+    the sum is a reduce-scatter over S)."""
     group, i, n = cm.tp(dist, "vocab", cfg.padded_vocab)
     if group is None:
-        return cm.embed_apply(p, ids)
+        return _split_seq(cm.embed_apply(p, ids), sp)
     v = cfg.padded_vocab // n
     local = ids - i * v
     hit = (local >= 0) & (local < v)
     x = p["w"][local.clamp(0, v - 1)].float().masked_fill(~hit[..., None],
                                                           0.0)
-    return comm.reduce_from(x, group, kind="vocab_all_reduce") \
-        .to(p["w"].dtype)
+    if sp is group:
+        return comm.reduce_scatter_to(x, group, dim=1,
+                                      kind="vocab_reduce_scatter") \
+            .to(p["w"].dtype)
+    return _split_seq(comm.reduce_from(x, group, kind="vocab_all_reduce")
+                      .to(p["w"].dtype), sp)
 
 
-def _embed_in(params, batch, cfg, dist=None):
+def _split_seq(x, sp):
+    """The rank's S rows of ``x`` (B, S, ...) under sequence parallelism
+    over ``sp`` (``x`` itself for None)."""
+    return x if sp is None else comm.split_to(x, sp, dim=1,
+                                              kind="sp_split")
+
+
+def _seq_group(dist, s: int):
+    """The group the residual stream's S rows split over: the 'seq' rule's
+    axes (``make_dist(..., seq_parallel=True)``: 'model'); None off a
+    mesh, without the rule, or where its extent does not divide ``s``
+    (decode, S = 1: ``shard_params``' best-effort rule)."""
+    if dist is None or dist.mesh is None or dist.rules.get("seq") is None:
+        return None
+    return cm.tp(dist, "seq", s)[0]
+
+
+def _embed_in(params, batch, cfg, dist=None, sp=None):
     if cfg.frontend != "none" and "embeds" in batch:
-        x = batch["embeds"]
+        x = _split_seq(batch["embeds"], sp)
     else:
-        x = _embed_lookup(params["embed"], batch["inputs"], cfg, dist)
+        x = _embed_lookup(params["embed"], batch["inputs"], cfg, dist, sp)
     return _embed_scale(x, cfg)
 
 
@@ -447,7 +487,7 @@ def local_batch(batch, dist):
 
 
 def _run_layers(layers, kinds, x, cfg, *, positions, memory=None,
-                kv_chunk=1024, remat=False, dist=None):
+                kv_chunk=1024, remat=False, dist=None, sp=None):
     """The layers in order over ``x``; with ``remat`` (and grad on) each
     layer under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward, not kept."""
@@ -455,7 +495,8 @@ def _run_layers(layers, kinds, x, cfg, *, positions, memory=None,
     for p, kind in zip(layers, kinds):
         def layer(x, p=p, kind=kind):
             return apply_layer(p, x, kind, cfg, positions=positions,
-                               memory=memory, kv_chunk=kv_chunk, dist=dist)
+                               memory=memory, kv_chunk=kv_chunk, dist=dist,
+                               sp=sp)
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return x
 
@@ -466,12 +507,19 @@ def encode(params, src_embeds, cfg, *, kv_chunk=1024, remat=True,
     (B, S_src, D), cast to the params' dtype: the ``enc`` layers
     (non-causal self-attention) and ``enc_norm``.  Returns the memory the
     ``dec`` layers attend to, (B, S_src, D) (this rank's rows on a
-    mesh, whose batch split ``hidden`` made)."""
-    x = _embed_scale(src_embeds.to(params["embed"]["w"].dtype), cfg)
-    positions = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
+    mesh, whose batch split ``hidden`` made; under sequence parallelism
+    the encoder's stream is split on its S too, and gathered whole before
+    ``enc_norm``)."""
+    b, s = src_embeds.shape[0], src_embeds.shape[1]
+    sp = _seq_group(dist, s)
+    x = _embed_scale(_split_seq(src_embeds.to(params["embed"]["w"].dtype),
+                                sp), cfg)
+    positions = _positions_for(cfg, b, s, x.device)
     x = _run_layers(params["enc_layers"], enc_layer_kinds(cfg), x, cfg,
                     positions=positions, kv_chunk=kv_chunk, remat=remat,
-                    dist=dist)
+                    dist=dist, sp=sp)
+    if sp is not None:
+        x = comm.gather_from(x, sp, dim=1, kind="sp_gather")
     return cm.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -481,19 +529,26 @@ def hidden(params, batch, cfg, dist=None, *, kv_chunk=1024, remat=True):
     the frontend is a stub and the batch has them, takes the place of the
     token embeddings; an encoder-decoder encodes ``batch["src_embeds"]``
     first.  On a mesh (``dist``) the batch is whole on every rank and the
-    result is this rank's rows."""
+    result is this rank's rows.  Under sequence parallelism (the 'seq'
+    rule) the stream between layers holds the rank's S / extent rows
+    (``apply_layer``) and is gathered whole at the end."""
     check_supported(cfg)
     batch = local_batch(batch, dist)
-    x = _embed_in(params, batch, cfg, dist)
-    b, s = x.shape[0], x.shape[1]
-    positions = _positions_for(cfg, b, s, x.device)
+    s = batch["inputs"].shape[1] if "inputs" in batch \
+        else batch["embeds"].shape[1]
+    sp = _seq_group(dist, s)
+    x = _embed_in(params, batch, cfg, dist, sp)
+    positions = _positions_for(cfg, x.shape[0], s, x.device)
     memory = None
     if cfg.is_encoder_decoder:
         memory = encode(params, batch["src_embeds"], cfg, kv_chunk=kv_chunk,
                         remat=remat, dist=dist)
-    return _run_layers(params["layers"], layer_kinds(cfg), x, cfg,
-                       positions=positions, memory=memory,
-                       kv_chunk=kv_chunk, remat=remat, dist=dist)
+    x = _run_layers(params["layers"], layer_kinds(cfg), x, cfg,
+                    positions=positions, memory=memory, kv_chunk=kv_chunk,
+                    remat=remat, dist=dist, sp=sp)
+    if sp is not None:
+        x = comm.gather_from(x, sp, dim=1, kind="sp_gather")
+    return x
 
 
 def forward(params, batch, cfg, dist=None, *, kv_chunk=1024, remat=True):
@@ -693,10 +748,9 @@ def decode_layer(p, x, kind, cfg, cache, idx, memory=None, dist=None):
     attention, RG-LRU, cross attention and FFN tensor-parallel, the MoE on
     its mesh path (``moe_apply``, as JAX's ``decode_layer``)."""
     _check_kind(kind)
-    _check_mesh(kind, cfg, dist)
     h = _rms(p["ln1"], x, cfg)
     if kind == "ssd":
-        h, nc = ssm_lib.ssd_decode(p["ssd"], h, cache, cfg)
+        h, nc = ssm_lib.ssd_decode(p["ssd"], h, cache, cfg, dist)
         return x + _sandwich(p, "pn1", h, cfg), nc
     if kind == "rec":
         h, nc = rglru_lib.rglru_decode(p["rec"], h, cache, cfg, dist)

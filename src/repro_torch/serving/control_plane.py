@@ -497,7 +497,7 @@ class ControlPlane:
             self.on_fault(self, err)
 
     def degrade(self, devices_left: int, *, model_parallel: int = 1,
-                serve_fns: Optional[dict] = None,
+                pod: int = 0, serve_fns: Optional[dict] = None,
                 spatial_tiles: Optional[tuple] = None):
         """Degraded serving after replica loss: shrink the mesh to the
         surviving ranks and rebind every image backend to it.
@@ -506,9 +506,10 @@ class ControlPlane:
         existing closures serve on the shrunk mesh.
 
         Data-parallel (default): ``runtime.elastic.shrink_mesh``, the
-        model-parallel extent kept, whole data-parallel replicas dropped;
-        each rank serves its rows of every batch the 'data' extent
-        divides (``DistContext.split_batch``).
+        model-parallel extent kept, whole data-parallel replicas dropped
+        (``pod``: a (pod, data, model) mesh of that many pods); each rank
+        serves its rows of every batch the 'data' extent divides
+        (``DistContext.split_batch``).
 
         Plane-parallel (``spatial_tiles=(D_h, D_w)``): the survivors form a
         spatial mesh (``launch.mesh.make_spatial_mesh``, the leftover
@@ -531,7 +532,7 @@ class ControlPlane:
             spatialmod.set_spatial_mesh(mesh)
         else:
             from repro_torch.runtime.elastic import shrink_mesh
-            mesh = shrink_mesh(devices_left, model_parallel)
+            mesh = shrink_mesh(devices_left, model_parallel, pod)
         dist = DistContext(mesh=mesh)
         for name, be in self.backends.items():
             if isinstance(be, ImageBackend):

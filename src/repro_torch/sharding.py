@@ -398,10 +398,13 @@ class DistContext:
         ``QuantizedSuperpack`` shards its int8 codes like the dense buffer
         and its (rows, 1) scales along the row axis only.  A superpack
         (spec ``SUPERPACK_SPEC``) whose out-channels split comes back as a
-        ``TPSuperpack`` (``ConvPlan.apply``'s tensor-parallel site)."""
+        ``TPSuperpack`` (``ConvPlan.apply``'s tensor-parallel site), one
+        whose rows split ('conv_taps') as a ``RowSuperpack`` (its
+        row-parallel site)."""
         if self.mesh is None:
             return params
-        from repro_torch.core.plan import QuantizedSuperpack, TPSuperpack
+        from repro_torch.core.plan import (QuantizedSuperpack, RowSuperpack,
+                                           TPSuperpack)
 
         def put(path, p, sp):
             name = keystr(path)
@@ -418,9 +421,14 @@ class DistContext:
                 return blk
             (rows, n) = shape
             if blk.shape[0] != rows:
-                raise NotImplementedError(
-                    f"{name}: a row-parallel superpack ('conv_taps' -> "
-                    f"{resolved[0]!r}): ROADMAP Queue 1 item 13c")
+                if blk.shape[1] != n:
+                    raise NotImplementedError(
+                        f"{name}: a superpack split on both its rows and "
+                        f"its out-channels: ROADMAP Queue 1 item 13c")
+                j, m = self.shard_of(resolved[0], rows)
+                return RowSuperpack(blk, self.group(resolved[0]), j, m,
+                                    (j * rows // m, (j + 1) * rows // m),
+                                    rows)
             if blk.shape[1] == n:
                 return blk                      # replicated: runs whole
             j, m = self.shard_of(resolved[1], n)

@@ -530,9 +530,11 @@ def _adafactor_update_mesh(grads, state, params, cfg, groups, dist, sliced):
     def mean(x, g, dims, keepdim=False):
         """The whole leaf's mean over ``dims`` (dims of ``g.shape``) from
         this rank's block ``x``: the block's sum all-reduced over the axes
-        that split them, over the whole extent."""
-        axes = tuple(a for d in dims
-                     for a in _split_axes(dist, g.spec[d], g.shape[d]))
+        that split them (in mesh order: a sum's group), over the whole
+        extent."""
+        split = {a for d in dims
+                 for a in _split_axes(dist, g.spec[d], g.shape[d])}
+        axes = tuple(a for a in dist.mesh.mesh_dim_names if a in split)
         s = comm.all_reduce(x.sum(dim=dims, keepdim=keepdim),
                             dist.group(axes), kind="adafactor_all_reduce")
         n = 1
@@ -541,6 +543,8 @@ def _adafactor_update_mesh(grads, state, params, cfg, groups, dist, sliced):
         return s / n
 
     for g in groups:
+        # each f32 leaf-sized temporary goes as soon as it is read (the
+        # leaves of a MoE layer's block are ~1 GB in f32)
         p = _stacked(leaves, g)
         gg = _stacked(gl, g).float() * scale
         f = state["f"][g.name]
@@ -549,18 +553,23 @@ def _adafactor_update_mesh(grads, state, params, cfg, groups, dist, sliced):
         if _factored(g.shape):
             vr = beta2 * f["vr"] + (1 - beta2) * mean(g2, g, (nd - 1,))
             vc = beta2 * f["vc"] + (1 - beta2) * mean(g2, g, (nd - 2,))
+            del g2
             vr_mean = mean(vr, g, (nd - 2,), keepdim=True)
             denom = (vr[..., None] * vc[..., None, :]
                      / torch.clamp_min(vr_mean[..., None], 1e-30))
             u = gg * torch.rsqrt(denom + 1e-30)
+            del denom
             nf[g.name] = {"vr": vr, "vc": vc}
         else:
             v = beta2 * f["v"] + (1 - beta2) * g2
+            del g2
             u = gg * torch.rsqrt(v + 1e-30)
             nf[g.name] = {"v": v}
+        del gg
         rms_u = torch.sqrt(mean(u * u, g, tuple(range(nd))) + 1e-30)
         u = u / torch.clamp_min(rms_u, 1.0)
         newp = p.float() - lr * u
+        del u
         if nd >= 2:
             newp = newp - lr * cfg.weight_decay * p.float()
         for i, t in zip(g.idx, _unstacked(newp.to(p.dtype), g)):

@@ -532,6 +532,25 @@ def test_on_fault_hook_can_degrade(one_rank_world):
     assert cp.stats()["faults"]["degraded"]["devices_left"] == 1
 
 
+def test_degrade_onto_pods(one_rank_world):
+    """``degrade(..., pod=)`` shrinks onto a (pod, data, model) mesh, as
+    JAX's does, and ``degraded`` holds its shape."""
+    from repro_torch.launch.mesh import mesh_shape
+
+    def scenario(mod, _):
+        cp, _ = echo_plane(mod)
+        mesh = cp.degrade(1, pod=1)
+        cp.run([mod.ServeRequest(rid=0, model="echo",
+                                 payload=payloads(1)[0])])
+        assert len(cp.done) == 1
+        return mesh, cp.stats()["faults"]["degraded"]
+
+    (mesh, deg), (jmesh, jdeg) = on_both(scenario)
+    want = {"pod": 1, "data": 1, "model": 1}
+    assert mesh_shape(mesh) == dict(jmesh.shape) == want
+    assert deg == jdeg and deg["mesh_shape"] == want
+
+
 # ---------------------------------------------------------------------------
 # accounting
 # ---------------------------------------------------------------------------

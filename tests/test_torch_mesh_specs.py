@@ -320,27 +320,44 @@ def test_multi_axis_batch_index():
                                        ("mamba2-130m", "ssd"),
                                        ("seamless-m4t-large-v2", "dec")])
 def test_unsharded_kinds_refuse_a_mesh_that_splits_them(arch, kind):
-    """The ``ssd`` kind refuses a mesh whose rules split its weights over
-    'heads', naming the ROADMAP item that ports it; the ``rec`` and
-    ``dec`` kinds run tensor-parallel there; under ``dp_only`` rules
-    (nothing split) every kind runs."""
+    """No kind refuses a mesh whose rules split its weights over 'heads':
+    ``ssd`` runs tensor-parallel there (its in-projection's columns
+    gathered, ``layers.ssm``), as ``rec`` and ``dec`` do, its mixer's
+    block the mesh's slice; under ``dp_only`` rules (nothing split) the
+    mixer's weights stay whole."""
     cfg = treg.get_config(arch)
     d = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)))
-    if kind == "ssd":
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            tfm._check_mesh(kind, cfg, d)
-    else:
-        tfm._check_mesh(kind, cfg, d)
     dp = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
         tsh.DEFAULT_RULES, heads=None, ffn=None, vocab=None,
         batch=("data", "model")))
-    tfm._check_mesh(kind, cfg, dp)
-    tfm._check_mesh("attn", cfg, d)
+    i = tfm.layer_kinds(cfg).index(kind)
+    leaf, spec = tfm.param_shapes(cfg)["layers"][i], \
+        tfm.layer_specs(kind, cfg)
+    for key in {"ssd": ("ssd", "in"), "rec": ("rec", "in_x"),
+                "dec": ("cross", "q", "w")}[kind]:
+        leaf, spec = leaf[key], spec[key]
+    whole = tuple(leaf.shape)
+    assert d.block_shape(whole, spec) == (whole[0], whole[1] // 2)
+    assert dp.block_shape(whole, spec) == whole
 
 
 def test_row_parallel_superpack_is_refused():
+    """A superpack split on its rows ('conv_taps' over 'model') is no
+    longer refused: it becomes a ``RowSuperpack`` of the rank's rows (its
+    int8 codes' scale rows with them); one split on both its rows and its
+    out-channels still is."""
+    from repro_torch.core.plan import QuantizedSuperpack, RowSuperpack
     d = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
         tsh.DEFAULT_RULES, conv_taps="model", conv_out=None))
-    with pytest.raises(NotImplementedError, match="row-parallel"):
-        d.shard_params({"w": torch.zeros((8, 4))},
-                       {"w": tsh.SUPERPACK_SPEC})
+    w = torch.arange(32.0).reshape(8, 4)
+    q = QuantizedSuperpack(torch.ones((8, 4), dtype=torch.int8),
+                           torch.arange(8.0).reshape(8, 1))
+    out = d.shard_params({"w": w, "q": q}, {"w": tsh.SUPERPACK_SPEC,
+                                            "q": tsh.SUPERPACK_SPEC})
+    assert isinstance(out["w"], RowSuperpack) and out["w"].rows == (4, 8)
+    assert torch.equal(out["w"].block, w[4:]) and out["w"].total == 8
+    assert torch.equal(out["q"].block.scale, q.scale[4:])
+    both = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
+        tsh.DEFAULT_RULES, conv_taps="data", conv_out="model"))
+    with pytest.raises(NotImplementedError, match="item 13c"):
+        both.shard_params({"w": w}, {"w": tsh.SUPERPACK_SPEC})

@@ -822,3 +822,119 @@ def test_production_mesh_needs_its_world_and_pod_names_the_axis():
         assert tuple(m.mesh_dim_names) == ("pod", "data", "model")
     finally:
         tmesh.one_rank_world_end()
+
+
+# ---------------------------------------------------------------------------
+# training the ``rec`` and ``dec`` kinds on the mesh (recurrentgemma-2b on
+# (1, 4), where a q head is cut, is in tests/test_torch_mesh_cuts.py)
+# ---------------------------------------------------------------------------
+
+REC_DEC_CASES = [("rg_2x2", "recurrentgemma-2b", (2, 2)),
+                 ("seamless_2x2", "seamless-m4t-large-v2", (2, 2))]
+SRC = 8
+
+JAX_REC_DEC = r"""
+import pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import registry
+from repro.configs.base import ShapeConfig
+from repro.launch import steps as jsteps
+from repro.launch.mesh import make_host_mesh
+from repro.models import transformer as tfm
+from repro.train import optim as jopt
+
+with open(sys.argv[1], "rb") as f:
+    conf = pickle.load(f)
+B, S, SRC, KV = conf["B"], conf["S"], conf["src"], conf["kv_chunk"]
+np_tree = lambda t: jax.tree.map(np.asarray, t)
+out = {}
+for name, arch, mesh_shape in conf["cases"]:
+    cfg = registry.get_reduced(arch)
+    rng = np.random.default_rng(len(name))
+    shapes = jax.eval_shape(lambda k: tfm.init(k, cfg, dtype=jnp.float32)[0],
+                            jax.random.PRNGKey(0))
+    p = jax.tree.map(lambda s: jnp.asarray(
+        rng.standard_normal(s.shape).astype(np.float32)
+        * (0.5 if len(s.shape) < 3 else 0.1)), shapes)
+    batch = {"inputs": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = rng.standard_normal(
+            (B, SRC, cfg.d_model)).astype(np.float32)
+    mesh = make_host_mesh(*mesh_shape)
+    dist = jsteps.make_dist(mesh, cfg, ShapeConfig("t", "train", S, B))
+    ocfg = jopt.OptConfig(**conf["adamw"])
+    st = {"params": p, "opt": jopt.OPTIMIZERS["adamw"][0](p, None, None,
+                                                          ocfg)[0],
+          "step": jnp.zeros((), jnp.int32)}
+    with mesh:
+        new, m = jax.jit(jsteps.make_train_step(cfg, dist, ocfg,
+                                                kv_chunk=KV))(
+            st, {k: jnp.asarray(v) for k, v in batch.items()})
+    out[name] = {"params": np_tree(p), "batch": batch,
+                 "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+                 "new": np_tree(new["params"]), "rules": dict(dist.rules)}
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(out, f, protocol=5)
+"""
+
+
+def _rec_dec_rank(rank, world, dev, path):
+    import warnings
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tfm
+    from test_torch_mesh_cuts import _train
+    torch.set_num_threads(1)
+    warnings.simplefilter("ignore", RuntimeWarning)
+    with open(path, "rb") as f:
+        refs = pickle.load(f)
+    out = {}
+    for name, arch, mesh_shape in REC_DEC_CASES:
+        ref = refs[name]
+        cfg = registry.get_reduced(arch)
+        dist = steps.make_dist(make_host_mesh(*mesh_shape), cfg,
+                               ShapeConfig("t", "train", S, B))
+        batch = {k: torch.from_numpy(v if v.dtype == np.float32
+                                     else v.astype(np.int64))
+                 for k, v in ref["batch"].items()}
+        whole = tfm.params_from_jax(ref["params"], cfg, device="cpu")
+        out[name] = dict(_train(cfg, dist, whole, batch, ADAMW, ref),
+                         rules=dict(dist.rules))
+    return out
+
+
+@pytest.fixture(scope="module")
+def rec_dec(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("rec_dec")
+    with open(tmp / "conf.pkl", "wb") as f:
+        pickle.dump({"cases": REC_DEC_CASES, "B": B, "S": S, "src": SRC,
+                     "kv_chunk": KV_CHUNK, "adamw": ADAMW}, f)
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(JAX_REC_DEC),
+                        str(tmp / "conf.pkl"), str(tmp / "refs.pkl")],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(tmp / "refs.pkl", "rb") as f:
+        refs = pickle.load(f)
+    return {"ranks": run_spmd(_rec_dec_rank, WORLD, str(tmp / "refs.pkl"),
+                              device="cpu", timeout=300), "refs": refs}
+
+
+@pytest.mark.parametrize("name", [c[0] for c in REC_DEC_CASES])
+def test_rec_and_dec_train_on_the_mesh(rec_dec, name):
+    """recurrentgemma-2b (the RG-LRU's channel block, its local layers'
+    heads) and seamless-m4t-large-v2 (the encoder, the cross attention on
+    local heads) train on (2, 2) under ``make_dist``: the loss, the gnorm
+    and every AdamW update against JAX's mesh train step."""
+    for res in rec_dec["ranks"]:
+        rec = res[name]
+        assert rec["rules"] == rec_dec["refs"][name]["rules"]
+        assert rec["loss"] < TOL_LOSS and rec["gnorm"] < TOL_GNORM, rec
+        assert rec["update"] < TOL_GRAD, rec
