@@ -331,6 +331,20 @@ result line) if anything is off:
 4o. times of 3q: per rank the step's ms and device ms beside the one-rank
    step's, the cache bytes over the one-rank cache's, every collective
    kind's calls and bytes a step, peak memory;
+3s. the dry-run's count held against the card (``dryrun_phases``): the
+   DCGAN generator and discriminator at B = 64, the 512 px U-Net forward
+   at B = 16, llama3.2-1b's prefill at B = 1, S = 4096 and its train step
+   at B = 2, S = 4096, each counted on fake tensors
+   (``launch.hlo_analysis``) and run on the card: (a) each kernel entry's
+   counted launches equal its counter's delta (planted: kernel B's fake
+   branch silent), (b) the counted product FLOPs equal ``FlopCounterMode``
+   over the card's run and the kernel FLOPs the work formulas at the
+   launched shapes, (c) the roofline's compute term at most the trace's
+   device busy time (planted: x1000), the memory term printed, (d) the
+   llama cells' counted activation peak within ``DRY_PEAK_BAND`` of the
+   card's (planted: the tracker taking a view of an input for a new
+   storage, at the prefill); (e), inside 3o: rank 0's collectives of the llama3.2-1b (2, 2)
+   prefill counted on a fake world of 4 equal its ``comm.traffic()``;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -339,7 +353,8 @@ result line) if anything is off:
 
 ``--plane-parallel`` builds the kernels and runs phase 3n alone,
 ``--mesh`` phases 3o/4m alone, ``--mesh-train`` phases 3p/4n alone,
-``--mesh-serve`` phases 3q/4o alone (several flags: each).  On a machine
+``--mesh-serve`` phases 3q/4o alone, ``--mesh-rest`` 3r/4p, ``--dryrun``
+3s (several flags: each).  On a machine
 with a card for each of its 4 ranks they meet on an NCCL group and
 exchange device tensors (no host staging):
 
@@ -372,12 +387,6 @@ TOL_GRAD = 1e-3
 TOL_LOSS = 1e-4               # relative, on the two losses
 TRAIN_STEPS = 3
 TRAIN_BATCH = 16
-# published dense peaks by card: fp32 on CUDA cores, HBM bytes/s, and bf16
-# on the tensor cores (kernel F's bound)
-PEAKS = {"H100 PCIe": (51e12, 2.0e12, 756e12),
-         "H100 NVL": (60e12, 3.9e12, 835e12),
-         "H100": (67e12, 3.35e12, 989e12),
-         "H200": (67e12, 4.8e12, 989e12)}
 BURST = 24
 # forward tolerance of the U-Net's 'cuda' route against its 'torch' route,
 # relative to max|y_torch| (the CPU tests' TOL_FWD form against JAX)
@@ -704,13 +713,6 @@ def ptxas_report(log: str) -> list[dict]:
         if m and out:
             out[-1]["registers"] = int(m.group(1))
     return out
-
-
-def card_peaks(name: str) -> tuple[float, float, float]:
-    for key, peaks in PEAKS.items():
-        if all(part in name for part in key.split()):
-            return peaks
-    raise RuntimeError(f"no published peaks recorded for {name!r}")
 
 
 def library_args(x, kernel, strides, padding):
@@ -1449,11 +1451,8 @@ def f_layer_time(fa, F, q, k, v, window, peak_bw, peak_bf16, time_ms,
     if lib_err > TOL_F_LIBRARY:
         raise RuntimeError(f"library yardstick disagrees with kernel F at "
                            f"S={s} window={window}: {lib_err:.3e}")
-    w = window or s
-    pairs = (b * h * sum(min(i + 1, w) for i in range(s)) if causal
-             else b * h * s * sk)
-    flops = 4 * d * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + y_k.numel())
+    flops, nbytes = fa.work(q, k, v, causal=causal, window=window)
+    pairs = flops // (4 * d)
     t_ops, t_bytes = flops / peak_bf16 * 1e3, nbytes / peak_bw * 1e3
     rec = {"batch": b, "seq": s, "keys": sk, "heads": h,
            "kv_heads": k.shape[2], "head_dim": d, "window": window,
@@ -2677,6 +2676,7 @@ def vae_phases(dev, smi, peak_flops, peak_bw, gen):
     from repro_torch.core import autotune as at
     from repro_torch.core.plan import plan_cache_clear, plan_conv
     from repro_torch.core.untangle import pad_or_crop
+    from repro_torch.kernels.untangled_conv import work_conv, work_deconv
     from repro_torch.models import gan, unet, vae
 
     def randn(*shape):
@@ -2811,8 +2811,7 @@ def vae_phases(dev, smi, peak_flops, peak_bw, gen):
                                 F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
                                 y_k)
         oh, ow = y_k.shape[1:3]
-        flops = 2 * b * oh * ow * k * k * c * n
-        nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+        flops, nbytes = work_conv(xp, sp, y_k)
         bound, by = bound_of(flops, nbytes)
         rec = {"site": name, "batch": b, "flops": flops, "bytes": nbytes,
                "ms": time_ms(lambda: conv_call(xp, sp, k, s, 1)),
@@ -2854,10 +2853,7 @@ def vae_phases(dev, smi, peak_flops, peak_bw, gen):
         y_k = kernel_call(plan, xg, packed)
         lib_err = check_library(f"{name} B={b}",
                                 library().permute(0, 2, 3, 1), y_k)
-        flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
-                        * ex.taps[1] for ex in plan.phases) \
-            * sp_.in_c * sp_.out_c
-        nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+        flops, nbytes = work_deconv(xg, packed, y_k, plan.phases)
         bound, by = bound_of(flops, nbytes)
         rec = {"site": name, "batch": b, "flops": flops, "bytes": nbytes,
                "ms": time_ms(lambda: kernel_call(plan, xg, packed)),
@@ -3853,6 +3849,370 @@ def plane_parallel_phases(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# 3s. the dry-run's count (launch/hlo_analysis.py) held against the card
+# ---------------------------------------------------------------------------
+
+# the cells, at full width: the DCGAN generator and discriminator at this
+# batch (A, B), the 512 px U-Net forward at this batch (B, C, D),
+# llama3.2-1b's prefill at (B, S) (F) and its train step at TRAIN_SHAPE (F
+# forward, the plain backward: phase 4l's shape)
+DRY_GAN_B = 64
+DRY_UNET_B = 16
+DRY_PREFILL = (1, 4096)
+# (d): the counted peak of the step's own storages over the delta of
+# torch.cuda.max_memory_allocated, for the two llama cells: the band
+# PERF.md predicted before the first card run (0.98-1.02 at the prefill,
+# 0.95-1.05 at the train step); the planted fault (a view of an input taken
+# for a new storage, which that run met) reads 1.12 at the prefill
+DRY_PEAK_BAND = (0.95, 1.05)
+DRY_KERNELS = ("A", "A_int8", "B", "B_int8", "C", "C_int8", "D", "D_int8",
+               "F")
+
+
+def dry_counters() -> dict:
+    """Every kernel entry's launch counter, by the analysis's names."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import untangled_conv as uc
+    d, c = uc.untangled_deconv2d, uc.untangled_conv2d_superpack
+    return {"A": d.launches, "A_int8": d.launches_int8,
+            "D": d.launches_tiled, "D_int8": d.launches_tiled_int8,
+            "B": c.launches, "B_int8": c.launches_int8,
+            "C": c.launches_tiled, "C_int8": c.launches_tiled_int8,
+            "F": fa.flash_attention.launches}
+
+
+@contextlib.contextmanager
+def launch_works(works):
+    """Each real launch of kernels A–F inside the block appended to
+    ``works`` as (kernel, FLOPs, bytes), its work function at the shapes it
+    launched on: the entries wrapped where the port calls them (their
+    counters are the originals', the wrapper shares their attributes)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import untangled_conv as uc
+
+    def deconv(y, xg, sp, *, phases, scales=None, sp_tiles=None, rows=None,
+               **_):
+        name = ("A" if sp_tiles is None else "D") + (
+            "" if scales is None else "_int8")
+        return (name,) + uc.work_deconv(xg, sp, y, tuple(phases), scales,
+                                        rows)
+
+    def conv(y, x, sp, *, scales=None, sp_tiles=None, **_):
+        name = ("B" if sp_tiles is None else "C") + (
+            "" if scales is None else "_int8")
+        return (name,) + uc.work_conv(x, sp, y, scales)
+
+    def attn(y, q, k, v, *, causal=True, window=0, q_offset=0, **_):
+        return ("F",) + fa.work(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
+
+    def wrap(orig, work):
+        def entry(*a, **kw):
+            y = orig(*a, **kw)
+            if y.is_cuda and y.numel():
+                works.append(work(y, *a, **kw))
+            return y
+        entry.__dict__ = orig.__dict__
+        return entry
+
+    undo = []
+    for mods, name, work in (((uc, plan_mod), "untangled_deconv2d", deconv),
+                             ((uc, plan_mod), "untangled_conv2d_superpack",
+                              conv),
+                             ((fa,), "flash_attention", attn)):
+        orig = getattr(mods[0], name)
+        w = wrap(orig, work)
+        for m in mods:
+            undo.append((m, name, getattr(m, name)))
+            setattr(m, name, w)
+    try:
+        yield works
+    finally:
+        for m, name, orig in reversed(undo):
+            setattr(m, name, orig)
+
+
+def dry_cell(name, fn, real_args, fake_args, dev, measure_peak=False):
+    """One cell of phase 3s: ``fn`` counted on ``fake_args``
+    (``hlo_analysis.analyze_step``), then run on ``real_args`` on the card
+    once to warm up, once with the launch counters zeroed under
+    ``FlopCounterMode`` and ``launch_works`` (and the peak memory reset),
+    and once under ``torch.profiler`` for its device busy time.  Returns
+    the cell's record with gates (a)–(d) read (``failed``: the gates it
+    failed)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import roofline as rl
+    t0 = time.perf_counter()
+    hc = ha.analyze_step(fn, *fake_args)
+    count_s = time.perf_counter() - t0
+    hc.pop("out")
+    fn(*real_args)
+    torch.cuda.synchronize()
+    gc_collect()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dry_counters()
+    works = []
+    with FlopCounterMode(display=False) as fc, launch_works(works):
+        out = fn(*real_args)
+        torch.cuda.synchronize()
+    measured_peak = torch.cuda.max_memory_allocated(dev) - base
+    del out
+    after = dry_counters()
+    real_launches = {k: after[k] - before[k] for k in DRY_KERNELS}
+    counted = {k: hc["kernels"].get(k, {}).get("launches", 0)
+               for k in DRY_KERNELS}
+    _, evs = device_events(lambda: fn(*real_args), 1)
+    busy_s = (None if evs is None
+              else sum(ev.device_time_total for ev in evs) / 1e6)
+    roof = rl.roofline_from({"flops": hc["flops"],
+                             "bytes accessed": hc["hbm_bytes"]},
+                            {"total": hc["coll_total"]}, 1, 0.0)
+    k_flops = sum(v["flops"] for v in hc["kernels"].values())
+    rec = {"cell": name, "count_s": count_s,
+           "launches_counted": counted, "launches_real": real_launches,
+           "product_flops_counted": hc["product_flops"],
+           "product_flops_real": fc.get_total_flops(),
+           "kernel_flops_counted": k_flops,
+           "kernel_flops_real": sum(w[1] for w in works),
+           "kernel_launches_real_works": len(works),
+           "flops": hc["flops"], "hbm_bytes": hc["hbm_bytes"],
+           "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+           "device_busy_s": busy_s,
+           "compute_share": (None if busy_s is None
+                             else roof.compute_s / busy_s),
+           "compute_share_x1000": (None if busy_s is None
+                                   else 1000 * roof.compute_s / busy_s),
+           "memory_share": (None if busy_s is None
+                            else roof.memory_s / busy_s),
+           "top_bytes_op": next(iter(hc["hbm_by_op"].items()), None),
+           "input_bytes": hc["input_bytes"],
+           "peak_activation_counted": hc["peak_activation_bytes"],
+           "peak_activation_real": measured_peak,
+           "top_buffers": hc["top_buffers"][:4]}
+    failed = []
+    if counted != real_launches:
+        failed.append("(a) launches")
+    if rec["product_flops_counted"] != rec["product_flops_real"] \
+            or k_flops != rec["kernel_flops_real"] \
+            or len(works) != sum(real_launches.values()):
+        failed.append("(b) FLOPs")
+    if busy_s is None or not (rec["compute_share"] <= 1
+                              < rec["compute_share_x1000"]):
+        failed.append("(c) compute term")
+    if measure_peak:
+        rec["peak_ratio"] = (rec["peak_activation_counted"]
+                             / max(measured_peak, 1))
+        if not DRY_PEAK_BAND[0] <= rec["peak_ratio"] <= DRY_PEAK_BAND[1]:
+            failed.append("(d) peak memory")
+    rec["failed"] = failed
+    return rec
+
+
+def dry_planted_peak(fn, fake_args) -> int:
+    """Gate (d)'s planted fault: ``fn`` counted on ``fake_args`` by a
+    tracker that takes the result of a view of an input for a new storage
+    (the fault the gate's first card run met); its activation peak."""
+    from repro_torch.launch import hlo_analysis as ha
+
+    class ViewsAsNew(ha._Counter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.is_view:
+                for t in ha._tensors(out):
+                    self._track(t, "planted view")
+            return out
+    orig = ha._Counter
+    ha._Counter = ViewsAsNew
+    try:
+        return ha.analyze_step(fn, *fake_args)["peak_activation_bytes"]
+    finally:
+        ha._Counter = orig
+
+
+def gc_collect():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_phases(dev, smi):
+    """Phase 3s: the dry-run's count of a step (``launch.hlo_analysis``,
+    on fake tensors, in this process) held against the same step on the
+    card, at full width: the DCGAN generator and discriminator at B =
+    ``DRY_GAN_B`` (kernels A, B), the 512 px U-Net forward at B =
+    ``DRY_UNET_B`` (B, C, D), llama3.2-1b's prefill at ``DRY_PREFILL`` and
+    its train step at ``TRAIN_SHAPE`` (F).  Gates, each cell: (a) the
+    counted launches of every kernel entry equal its counter's delta on
+    the card, exactly (planted: the discriminator's count with kernel B's
+    fake branch not reporting must fail); (b) the counted product FLOPs
+    equal ``FlopCounterMode`` over the card's run, and the counted kernel
+    FLOPs the work formulas at the shapes the card launched, exactly; (c)
+    the roofline's compute term (every FLOP at the bf16 peak, a lower
+    bound) at most the trace's device busy time (planted: the FLOPs x
+    1000 must exceed it); the memory term printed beside it, not gated;
+    (d) for the llama cells, the counted activation peak within
+    ``DRY_PEAK_BAND`` of the delta of ``max_memory_allocated`` (planted at
+    the prefill: ``dry_planted_peak`` must fall outside it).  Returns
+    (records, None)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import fake
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import gan, unet
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.data import TokenPipeline
+
+    t_phase = time.perf_counter()
+    gc_collect()
+
+    def fake_of(tree):
+        return tfm._map_tree(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=ha.DEVICE), tree)
+
+    def fake_like(*tensors):
+        with ha.fake_mode():
+            return tuple(fake_of(t) for t in tensors)
+
+    recs, g = [], torch.Generator().manual_seed(3)
+    # ---- the DCGAN generator and discriminator (A, B) ---------------------
+    gcfg = dc.replace(gan.DCGAN, backend="cuda")
+    gp = gan.generator_init(1, gcfg, device=dev)
+    dp = gan.discriminator_init(2, gcfg, device=dev)
+    z = torch.randn((DRY_GAN_B, gcfg.z_dim), generator=g).to(dev)
+
+    def gen_fn(p, z):
+        with torch.no_grad():
+            return gan.generator_apply(p, z, gcfg)
+
+    def disc_fn(p, x):
+        with torch.no_grad():
+            return gan.discriminator_apply(p, x, gcfg)
+    with torch.no_grad():
+        img = gen_fn(gp, z)
+    recs.append(dry_cell(f"DCGAN generator B={DRY_GAN_B}", gen_fn, (gp, z),
+                         fake_like(gp, z), dev))
+    disc_fake = fake_like(dp, img)
+    recs.append(dry_cell(f"DCGAN discriminator B={DRY_GAN_B}", disc_fn,
+                         (dp, img), disc_fake, dev))
+    # planted: kernel B's fake branch does not report
+    orig = fake.launched
+    fake.launched = (lambda kernel, work: None if kernel == "B"
+                     else orig(kernel, work))
+    try:
+        planted = ha.analyze_step(disc_fn, *disc_fake)["kernels"]
+    finally:
+        fake.launched = orig
+    planted_b = planted.get("B", {}).get("launches", 0)
+    if planted_b == recs[-1]["launches_real"]["B"]:
+        recs[-1]["failed"].append("(a) planted fault not caught")
+    recs[-1]["planted_b_launches"] = planted_b
+    del gp, dp, z, img, disc_fake
+    # ---- the 512 px U-Net forward (B, C, D) -------------------------------
+    ucfg = unet.UNetConfig("unet-512", image_hw=UNET_512_HW, backend="cuda")
+    up = unet.unet_init(6, ucfg, device=dev)
+    xu = torch.randn((DRY_UNET_B, ucfg.image_hw, ucfg.image_hw, ucfg.in_c),
+                     generator=g).to(dev)
+    tu = torch.rand((DRY_UNET_B,), generator=g).to(dev)
+
+    def unet_fn(p, x, t):
+        with torch.no_grad():
+            return unet.unet_apply(p, x, t, ucfg)
+    recs.append(dry_cell(f"U-Net {ucfg.image_hw}px B={DRY_UNET_B}", unet_fn,
+                         (up, xu, tu), fake_like(up, xu, tu), dev))
+    del up, xu, tu
+    gc_collect()
+    # ---- llama3.2-1b: the prefill and the train step (F) ------------------
+    cfg = registry.get_config("llama3.2-1b")
+    params = tfm.init(cfg, seed=0, device=dev)
+    b, s = DRY_PREFILL
+    batch = {"inputs": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=g).to(dev)}
+    prefill = steps_lib.make_prefill_step(cfg, None, kv_chunk=TRAIN_KV_CHUNK)
+    prefill_fake = fake_like(params, batch)
+    recs.append(dry_cell(f"llama3.2-1b prefill B={b} S={s}", prefill,
+                         (params, batch), prefill_fake, dev,
+                         measure_peak=True))
+    # planted: the tracker takes a view of an input for a new storage
+    r = recs[-1]
+    r["planted_peak_ratio"] = (dry_planted_peak(prefill, prefill_fake)
+                               / max(r["peak_activation_real"], 1))
+    if DRY_PEAK_BAND[0] <= r["planted_peak_ratio"] <= DRY_PEAK_BAND[1]:
+        r["failed"].append("(d) planted fault not caught")
+    del params, batch, prefill_fake
+    gc_collect()
+    b, s = TRAIN_SHAPE
+    state, opt_cfg = build_state(cfg, device=dev)
+    batch = steps_lib.batch_to(TokenPipeline(cfg, b, s, seed=3).batch_at(0),
+                               dev)
+    step = steps_lib.make_train_step(cfg, opt_cfg, kv_chunk=TRAIN_KV_CHUNK)
+    with ha.fake_mode():
+        fstate, _ = build_state(cfg, params=fake_of(tfm.param_shapes(cfg)))
+        fbatch = fake_of(batch)
+    recs.append(dry_cell(f"llama3.2-1b train step B={b} S={s}", step,
+                         (state, batch), (fstate, fbatch), dev,
+                         measure_peak=True))
+    del state, batch, fstate, fbatch
+    gc_collect()
+    failed = []
+    for r in recs:
+        cs, ms_ = r["compute_share"], r["memory_share"]
+        print(f"[3s] {r['cell']}: counted in {r['count_s']:.2f} s on fake "
+              f"tensors; launches counted {_nonzero(r['launches_counted'])}"
+              f" vs the card's counters {_nonzero(r['launches_real'])}; "
+              f"product FLOPs counted {r['product_flops_counted']} vs "
+              f"FlopCounterMode {r['product_flops_real']}; kernel FLOPs "
+              f"counted {r['kernel_flops_counted']} vs the work formulas at "
+              f"the launched shapes {r['kernel_flops_real']}")
+        busy = r["device_busy_s"]
+        print(f"[3s] {r['cell']}: roofline compute term "
+              f"{r['compute_s'] * 1e3:.4f} ms (bf16 peak), memory term "
+              f"{r['memory_s'] * 1e3:.4f} ms, device busy "
+              f"{ms_text(None if busy is None else busy * 1e3)}"
+              f" ms: compute share {ms_text(cs, '.4f')} (x1000 planted: "
+              f"{ms_text(r['compute_share_x1000'], '.1f')}), memory share "
+              f"{ms_text(ms_, '.4f')} (not gated; most bytes: "
+              f"{r['top_bytes_op']}) | {smi}")
+        if "peak_ratio" in r:
+            print(f"[3s] {r['cell']}: activation peak counted "
+                  f"{r['peak_activation_counted']} bytes, card "
+                  f"(max_memory_allocated delta) "
+                  f"{r['peak_activation_real']} bytes: ratio "
+                  f"{r['peak_ratio']:.4f}, band {DRY_PEAK_BAND}; inputs "
+                  f"{r['input_bytes']} bytes; largest live at the peak "
+                  f"{r['top_buffers']}")
+        if "planted_peak_ratio" in r:
+            print(f"[3s] {r['cell']}: planted (the tracker takes a view of "
+                  f"an input for a new storage): ratio "
+                  f"{r['planted_peak_ratio']:.4f}: gate (d) fails")
+        if "planted_b_launches" in r:
+            print(f"[3s] {r['cell']}: planted (kernel B's fake branch not "
+                  f"reporting): {r['planted_b_launches']} B launches "
+                  f"counted vs {r['launches_real']['B']}: gate (a) fails")
+        failed += [f"{r['cell']} {f}" for f in r["failed"]]
+    phase_s = time.perf_counter() - t_phase
+    print(f"[3s] dry-run phase: {phase_s:.1f} s")
+    if failed:
+        raise RuntimeError(f"phase 3s gates failed: {failed}")
+    return {"dryrun": recs, "dryrun_s": phase_s}, None
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+# ---------------------------------------------------------------------------
 # 3o / 4m. the forward on a (data, model) mesh over ranks that share the card
 # ---------------------------------------------------------------------------
 
@@ -4476,12 +4836,57 @@ def mesh_phases(dev, smi):
                   + ", ".join(f"{k} {v['calls']} / {v['bytes']} / "
                               f"{v['seconds'] * 1e3:.2f}"
                               for k, v in rec["collectives"].items()))
+    # ---- phase 3s (e): rank 0's collectives counted on a fake world --------
+    j = [c[0] for c in MESH_LM].index("llama3.2-1b")
+    arch, stages, (b, s) = MESH_LM[j]
+    real = {k: (v["calls"], v["bytes"])
+            for k, v in ranks[0]["lm"][j]["collectives"].items()}
+    counted = mesh_prefill_count(arch, stages, b, s)
+    print(f"[3s] (e) {arch} (2, 2) prefill B={b} S={s}, rank 0: collectives "
+          f"(calls, bytes) counted on a fake world of {MESH_WORLD} "
+          f"{json.dumps(counted)}; the card's rank 0 {json.dumps(real)}")
+    if counted != real:
+        failed.append(f"{arch} collectives counted on a fake world")
     print(f"[3o] mesh phase: {wall:.1f} s over {MESH_WORLD} ranks, launches "
           f"{json.dumps(paths)}")
     if failed:
         raise RuntimeError(f"mesh gates failed: {failed}")
     return {"mesh": {"images": [r["images"] for r in ranks],
-                     "lm": [r["lm"] for r in ranks], "seconds": wall}}, paths
+                     "lm": [r["lm"] for r in ranks], "seconds": wall,
+                     "collectives_counted": counted}}, paths
+
+
+def mesh_prefill_count(arch, stages, b, s) -> dict:
+    """Phase 3s (e): {kind: (calls, bytes)} of rank 0's ``comm.traffic()``
+    in phase 3o (b)'s prefill of ``arch`` on (data 2, model 2), counted on
+    fake tensors in a fake world of ``MESH_WORLD`` ranks in this process
+    (``launch.hlo_analysis``)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch.mesh import make_host_mesh, one_rank_world_end
+    from repro_torch.launch.steps import make_dist, make_prefill_step
+    from repro_torch.models import transformer as tfm
+    full = registry.get_config(arch)
+    cfg = full if stages is None else dataclasses.replace(
+        full, stages=stages, num_layers=sum(len(k) * r for k, r in stages))
+    one_rank_world_end()
+    with ha.fake_world(MESH_WORLD, rank=0):
+        dist = make_dist(make_host_mesh(2, 2), cfg,
+                         ShapeConfig("prefill", "prefill", s, b))
+        with ha.fake_mode(), warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            params = dist.shard_params(tfm._map_tree(
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      device=ha.DEVICE),
+                tfm.param_shapes(cfg)), tfm.specs(cfg))
+            batch = {"inputs": torch.empty((b, s), dtype=torch.int64,
+                                           device=ha.DEVICE)}
+        r = ha.analyze_step(make_prefill_step(cfg, dist), params, batch,
+                            default_group=MESH_WORLD)
+    return {k: (v["calls"], v["bytes"]) for k, v in r["collectives"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -6939,7 +7344,7 @@ def main(argv=()) -> int:
 
     unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh",
                                             "--mesh-train", "--mesh-serve",
-                                            "--mesh-rest")]
+                                            "--mesh-rest", "--dryrun")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -6957,6 +7362,8 @@ def main(argv=()) -> int:
     from repro_torch.core.untangle import pad_or_crop
     from repro_torch.kernels import _build
     from repro_torch import serve_segnet, train_gan
+    from repro_torch.kernels.untangled_conv import work_conv, work_deconv
+    from repro_torch.launch.roofline import card_peaks
     from repro_torch.kernels.untangled_conv import (
         _MIN_SLICE as MIN_SLICE, SMS, deconv_schedule,
         pick_block_tile_single,
@@ -7042,6 +7449,9 @@ def main(argv=()) -> int:
             mr_records, mr_paths = mesh_rest_phases(dev, smi)
             print(json.dumps({"card": smi, **mr_records,
                               "launches_by_path": mr_paths}))
+        if "--dryrun" in argv:
+            dry_records, _ = dryrun_phases(dev, smi)
+            print(json.dumps({"card": smi, **dry_records}))
         print(f"[done] phase(s) {' '.join(argv)} passed in "
               f"{time.perf_counter() - t_start:.1f} s, the build included")
         print(smi)
@@ -7799,10 +8209,7 @@ def main(argv=()) -> int:
             lib_err = check_library(
                 f"DC{i + 1} B={b}",
                 F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1), y_k)
-            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
-                            * ex.taps[1] for ex in plan.phases) \
-                * l.in_c * l.out_c
-            nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+            flops, nbytes = work_deconv(xg, packed, y_k, plan.phases)
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
             rec = {
                 "site": f"DC{i + 1}", "batch": b, "flops": flops,
@@ -7856,8 +8263,7 @@ def main(argv=()) -> int:
                 f"{name} B={b}", F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
                 y_k)
             oh, ow = y_k.shape[1:3]
-            flops = 2 * b * oh * ow * k * k * c * n
-            nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+            flops, nbytes = work_conv(xp, sp, y_k)
             t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
             rec = {
                 "site": name, "batch": b, "flops": flops, "bytes": nbytes,
@@ -7949,16 +8355,17 @@ def main(argv=()) -> int:
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                      else "bytes")
 
-    def time_int8(name, b, flops, in_bytes, out_numel, kernel, f32_kernel,
-                  plain, library, lib_err, schedule=None):
+    def time_int8(name, b, work, kernel, f32_kernel, plain, library,
+                  lib_err, schedule=None):
         """One int8 site's record: the int8 kernel against the f32 kernel
         on the dequantized weights, the plain version and the library call
-        (already checked against the kernel); the bound counts the input,
-        1 B per code, 4 B per scale row and the f32 output.  With kernel
-        A's, B's or D's ``schedule``, also the three calls' device times."""
-        bound, by = bound_of(flops, in_bytes + 4 * out_numel)
-        rec = {"site": name, "batch": b, "flops": flops,
-               "bytes": in_bytes + 4 * out_numel,
+        (already checked against the kernel); the bound is the call's
+        ``work`` (FLOPs, bytes: the input, 1 B per code, 4 B per scale row
+        and the f32 output).  With kernel A's, B's or D's ``schedule``,
+        also the three calls' device times."""
+        flops, nbytes = work
+        bound, by = bound_of(flops, nbytes)
+        rec = {"site": name, "batch": b, "flops": flops, "bytes": nbytes,
                "ms": time_ms(kernel), "f32_ms": time_ms(f32_kernel),
                "plain_ms": time_ms(plain), "library_ms": time_ms(library),
                "bound_ms": bound, "bound_by": by,
@@ -7996,8 +8403,7 @@ def main(argv=()) -> int:
                 y_k)
             oh, ow = y_k.shape[1:3]
             i8_bsites.append(time_int8(
-                name, b, 2 * b * oh * ow * k * k * c * n,
-                4 * xp.numel() + q.numel() + 4 * scale.numel(), y_k.numel(),
+                name, b, work_conv(xp, q, y_k, scale),
                 lambda: conv_call(xp, q, k, s, d, scales=scale),
                 lambda: conv_call(xp, wd, k, s, d),
                 lambda: conv_call(xp, q, k, s, d, plain=True, scales=scale),
@@ -8020,12 +8426,8 @@ def main(argv=()) -> int:
             lib_err = check_library(
                 f"DC{i + 1} B={b}",
                 F.conv_transpose2d(xl, wl, **kw).permute(0, 2, 3, 1), y_k)
-            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
-                            * ex.taps[1] for ex in plan.phases) \
-                * l.in_c * l.out_c
             i8_asites.append(time_int8(
-                f"DC{i + 1}", b, flops,
-                4 * xg.numel() + q.numel() + 4 * scale.numel(), y_k.numel(),
+                f"DC{i + 1}", b, work_deconv(xg, q, y_k, plan.phases, scale),
                 lambda: kernel_call(plan, xg, q, scales=scale),
                 lambda: kernel_call(plan, xg, wd),
                 lambda: ref_call(plan, xg, q, scales=scale),
@@ -8050,8 +8452,7 @@ def main(argv=()) -> int:
             lib_err = check_library(
                 f"{name} B={b}", F.conv2d(xl, wl, **kw).permute(0, 2, 3, 1),
                 y_k)
-            flops = 2 * y_k.numel() * r * s_ * sp_.in_c
-            nbytes = 4 * (xp.numel() + sp.numel() + y_k.numel())
+            flops, nbytes = work_conv(xp, sp, y_k)
             bound, by = bound_of(flops, nbytes)
             rec = {"site": name, "batch": b, "flops": flops,
                    "bytes": nbytes, "tile": tile,
@@ -8082,8 +8483,7 @@ def main(argv=()) -> int:
                 f"{name} int8 B={b}",
                 F.conv2d(xl8, wl8, **kw8).permute(0, 2, 3, 1), y_k8)
             ci8_sites.append(time_int8(
-                f"C {name}", b, flops,
-                4 * xp.numel() + q.numel() + 4 * scale.numel(), y_k8.numel(),
+                f"C {name}", b, work_conv(xp, q, y_k8, scale),
                 lambda: tiled_conv_call(xp, q, r, s_, st, 1, tile,
                                         scales=scale),
                 lambda: tiled_conv_call(xp, wd, r, s_, st, 1, tile),
@@ -8112,10 +8512,7 @@ def main(argv=()) -> int:
             y_k = tiled_deconv_call(plan, xg, packed, tile)
             lib_err = check_library(f"{name} B={b}",
                                     library().permute(0, 2, 3, 1), y_k)
-            flops = 2 * sum(b * ex.out_hw[0] * ex.out_hw[1] * ex.taps[0]
-                            * ex.taps[1] for ex in plan.phases) \
-                * sp_.in_c * sp_.out_c
-            nbytes = 4 * (xg.numel() + packed.numel() + y_k.numel())
+            flops, nbytes = work_deconv(xg, packed, y_k, plan.phases)
             bound, by = bound_of(flops, nbytes)
             sched = tiled_deconv_schedule_of(plan, sp_.in_c, sp_.out_c,
                                              tile)
@@ -8147,8 +8544,7 @@ def main(argv=()) -> int:
             lib_err8 = check_library(f"{name} int8 B={b}",
                                      library(wl8).permute(0, 2, 3, 1), y_k8)
             di8_sites.append(time_int8(
-                f"D {name}", b, flops,
-                4 * xg.numel() + q.numel() + 4 * scale.numel(), y_k8.numel(),
+                f"D {name}", b, work_deconv(xg, q, y_k8, plan.phases, scale),
                 lambda: tiled_deconv_call(plan, xg, q, tile, scales=scale),
                 lambda: tiled_deconv_call(plan, xg, wd, tile),
                 lambda: tiled_deconv_call(plan, xg, q, tile, plain=True,
@@ -8247,6 +8643,9 @@ def main(argv=()) -> int:
     print(f"[mem] before the mesh phases this process holds "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
           f"({torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB reserved)")
+
+    dry_records, _ = dryrun_phases(dev, smi)
+    print(json.dumps({"card": smi, **dry_records}))
 
     pp_records, pp_paths = plane_parallel_phases(dev, smi)
     print(json.dumps({"card": smi, **pp_records}))

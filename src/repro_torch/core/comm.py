@@ -32,6 +32,15 @@ Every Function call and every plain collective adds to ``traffic()``: per kind, 
 this rank hands to the collective (its input tensor's bytes; for a
 backward, the cotangent's) and, under ``timed(True)``, the host seconds
 of the transfer with the device synchronised before and after it.
+``collectives()`` gives beside the calls and bytes what the roofline's
+ring factors read (``launch.roofline.collective_bytes``): each kind's
+``op`` (``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``all_to_all``, ``broadcast``, ``gather``, ``send_recv``) and its
+``sizes``, {group size: bytes} summed over the calls in XLA's convention
+(an all-gather's output, a reduce-scatter's output, what a send-receive
+step lands here, the tensor itself otherwise).  ``_send_recv``, the
+plane-parallel halo exchange, adds its steps under the kind
+``halo_exchange``.
 """
 from __future__ import annotations
 
@@ -62,6 +71,8 @@ def _send_recv(sends, recvs, group) -> None:
     global ranks, receives land in their buffers."""
     if not sends and not recvs:
         return
+    _record("halo_exchange", "send_recv", sum(_bytes(t) for t, _ in sends),
+            2, size=sum(_bytes(b) for b, _ in recvs))
     probe = (sends or recvs)[0][0]
     staged = _staged(probe, group)
     hs = [(_host(t) if staged else t, p) for t, p in sends]
@@ -166,6 +177,15 @@ def traffic() -> dict[str, dict]:
             for k, v in _TRAFFIC.items()}
 
 
+def collectives() -> dict[str, dict]:
+    """{kind: {"op", "calls", "bytes", "sizes"}} since ``traffic_reset``:
+    ``traffic()``'s calls and bytes with what the ring factors read
+    (module docstring)."""
+    return {k: {"op": v[3], "calls": v[0], "bytes": v[1],
+                "sizes": dict(v[4])}
+            for k, v in _TRAFFIC.items()}
+
+
 def traffic_reset() -> None:
     _TRAFFIC.clear()
 
@@ -181,10 +201,33 @@ def timed(on: bool = True):
         _TIMED[0] = prev
 
 
-def _run(kind: str, t: torch.Tensor, fn):
-    rec = _TRAFFIC.setdefault(kind, [0, 0, 0.0])
+def _bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# the size XLA's convention gives a collective, from its input's bytes and
+# its group size: an all-gather's (and a gather's) output, a
+# reduce-scatter's output, the input itself otherwise
+_SIZE = {"all_gather": lambda b, n: b * n, "gather": lambda b, n: b * n,
+         "reduce_scatter": lambda b, n: b // n}
+
+
+def _record(kind: str, op: str, nbytes: int, n: int, size=None) -> list:
+    """Add one call of ``op`` over ``n`` ranks to ``kind``: ``nbytes``
+    handed to it, ``size`` in XLA's convention (from ``nbytes`` by
+    default)."""
+    rec = _TRAFFIC.setdefault(kind, [0, 0, 0.0, op, {}])
     rec[0] += 1
-    rec[1] += t.numel() * t.element_size()
+    rec[1] += nbytes
+    if size is None:
+        size = _SIZE.get(op, lambda b, n: b)(nbytes, n)
+    rec[4][n] = rec[4].get(n, 0) + size
+    return rec
+
+
+def _run(kind: str, t: torch.Tensor, fn, op: str, group):
+    rec = _record(kind, op, _bytes(t), 1 if group is None
+                  else dist.get_world_size(group))
     if not _TIMED[0]:
         return fn()
     if t.is_cuda:
@@ -206,7 +249,7 @@ def all_reduce(t: torch.Tensor, group, kind: str = "all_reduce",
         return t
     rop = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
     return _run(kind, t, lambda: _all_reduce(t.contiguous().clone(), group,
-                                             rop))
+                                             rop), "all_reduce", group)
 
 
 def gather_to(t: torch.Tensor, group, dim: int, kind: str = "gather"):
@@ -214,7 +257,8 @@ def gather_to(t: torch.Tensor, group, dim: int, kind: str = "gather"):
     only (None on the others; ``t`` for a one-rank group)."""
     if group is None:
         return t
-    return _run(kind, t, lambda: _gather_to(t, group, dim % t.dim()))
+    return _run(kind, t, lambda: _gather_to(t, group, dim % t.dim()),
+                "gather", group)
 
 
 def reduce_scatter(t: torch.Tensor, group, dim: int = 0,
@@ -223,7 +267,8 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0,
     ``dim`` (in group rank order)."""
     if group is None:
         return t
-    return _run(kind, t, lambda: _reduce_scatter(t, group, dim % t.dim()))
+    return _run(kind, t, lambda: _reduce_scatter(t, group, dim % t.dim()),
+                "reduce_scatter", group)
 
 
 def barrier(group) -> None:
@@ -236,7 +281,8 @@ def broadcast(t: torch.Tensor, src: int, group, kind: str = "broadcast"):
     """Group rank ``src``'s ``t`` on every rank of ``group``."""
     if group is None:
         return t
-    return _run(kind, t, lambda: _broadcast(t, src, group))
+    return _run(kind, t, lambda: _broadcast(t, src, group), "broadcast",
+                group)
 
 
 def all_gather(t: torch.Tensor, group, dim: int,
@@ -246,11 +292,12 @@ def all_gather(t: torch.Tensor, group, dim: int,
     if group is None:
         return t
     return _run(kind, t, lambda: torch.cat(
-        _all_gather(t.contiguous(), group), dim=dim))
+        _all_gather(t.contiguous(), group), dim=dim), "all_gather", group)
 
 
 def all_to_all(t: torch.Tensor, group, kind: str = "all_to_all"):
-    return _run(kind, t, lambda: _all_to_all(t, group))
+    return _run(kind, t, lambda: _all_to_all(t, group), "all_to_all",
+                group)
 
 
 def _slice(t: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -69,6 +69,7 @@ from repro_torch.core import decompose as dec
 from repro_torch.core.comm import _all_gather, _all_reduce, _send_recv
 from repro_torch.core.plan import (ConvSpec, QuantizedSuperpack, Route,
                                    plan_conv)
+from repro_torch.sharding import _ranks
 
 Pair = tuple[int, int]
 
@@ -340,7 +341,7 @@ def _place(mesh, axes: Pair, batch: int) -> _Place:
         def rank_at(j):
             c = list(coord)
             c[i] = j
-            return int(mesh.mesh[tuple(c)])
+            return int(_ranks(mesh)[tuple(c)])
         nbrs[ax] = (rank_at(coord[i] - 1) if coord[i] > 0 else None,
                     rank_at(coord[i] + 1) if coord[i] < sizes[ax] - 1
                     else None)

@@ -21,14 +21,20 @@ The wrapper launches the kernel for CUDA tensors and raises on anything
 the kernel does not take (a head dim outside ``HEAD_DIMS``, another
 dtype, a tensor that requires grad); it takes the plain version
 ``flash_attention_plain`` (F's recurrence in PyTorch, the same masks and
-constants) only for tensors on the CPU.
+constants) only for tensors on the CPU.  A fake tensor off the CPU
+(``kernels.fake``) gets the empty output, and the launch and its ``work``
+go to the analysis that made it; ``launches`` moves only where the kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import fake
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (32, 64, 128, 192, 256)
@@ -72,6 +78,29 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
         m = m2
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def pairs_per_head(sq: int, sk: int, causal: bool = True, window: int = 0,
+                   q_offset: int = 0) -> int:
+    """The (query, key) pairs F's masks leave in one head: query i at
+    position ``q_offset + i`` reads the keys k < Sk with k <= its position
+    (``causal``) and position - k < ``window`` (``window`` > 0)."""
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(q, k, v, *, causal: bool = True, window: int = 0,
+         q_offset: int = 0) -> tuple[int, int]:
+    """(FLOPs, bytes) of one kernel F call: 4·D a (query, key) pair the
+    masks leave (two products, Q·Kᵀ and P·V), and q, k, v and the output
+    each moved once at their dtype's size."""
+    b, sq, h, d = q.shape
+    pairs = b * h * pairs_per_head(sq, k.shape[1], bool(causal),
+                                   int(window), int(q_offset))
+    return 4 * d * pairs, fake.nbytes(q, k, v) + fake.nbytes(q)
 
 
 @functools.cache
@@ -123,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if devs == {torch.device("cpu")}:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
-    if len(devs) != 1 or q.device.type != "cuda":
+    if len(devs) != 1 or (q.device.type != "cuda" and not fake.is_fake(q)):
         raise ValueError(f"kernel F needs q, k, v on one CUDA device, got "
                          f"{sorted(map(str, devs))}")
     if any(t.requires_grad for t in (q, k, v)):
@@ -144,6 +173,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kernel F: (B, Sq, H) = {(b, sq, h)} is too large")
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
+        return o
+    if fake.is_fake(q):
+        fake.launched("F", work(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset))
         return o
     esize = q.element_size()
     vec = int(all(t.data_ptr() % 16 == 0

@@ -53,10 +53,13 @@ blocks (tap loop, register split, tile, BN, ring, halo pitch) and
 
 Each wrapper launches its kernel for CUDA tensors, and raises on anything
 the kernel does not take.  It takes its plain version (``*_ref``) only for
-tensors on the CPU.  The kernels have no backward of their own: inputs that
-require grad raise, and training goes through ``ConvPlan.apply``, whose
-autograd Functions call the wrappers on detached inputs and run the §3.2.3
-backward as plain products.
+tensors on the CPU.  A fake tensor off the CPU (``kernels.fake``) gets the
+empty output, and the launch and its work (``work_deconv``, ``work_conv``)
+go to the analysis that made it; the launch counters move only where a
+kernel launches.  The kernels have no
+backward of their own: inputs that require grad raise, and training goes
+through ``ConvPlan.apply``, whose autograd Functions call the wrappers on
+detached inputs and run the §3.2.3 backward as plain products.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import fake
 from repro_torch.runtime.compress import dequantize_int8
 
 Pair = tuple[int, int]
@@ -404,6 +408,34 @@ def deconv_schedule(phases: tuple, b: int, c: int, n: int, rows=None
         return sch
 
 
+def work_deconv(xg: torch.Tensor, superpack: torch.Tensor, y: torch.Tensor,
+                phases, scales=None, rows=None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one kernel A or D call: 2·B·U·V·T·C·N summed over
+    the phases, over the superpack rows ``rows`` = (r0, r1) only for a row
+    block, and the plane, the weight operand (int8 codes with their
+    scales) and the output each moved once at their dtype's size."""
+    b, c, n = xg.shape[0], xg.shape[3], superpack.shape[1]
+    r0, r1 = (0, superpack.shape[0]) if rows is None else rows
+    macs, row = 0, 0
+    for ex in phases:
+        k = ex.taps[0] * ex.taps[1] * c
+        macs += b * ex.out_hw[0] * ex.out_hw[1] * max(
+            0, min(row + k, r1) - max(row, r0))
+        row += k
+    return 2 * macs * n, fake.nbytes(xg, superpack, scales, y)
+
+
+def work_conv(x: torch.Tensor, superpack: torch.Tensor, y: torch.Tensor,
+              scales=None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one kernel B or C call: 2·B·OH·OW·K·N for the
+    superpack's K rows (R·S·C, or a row block's), and the plane, the
+    weight operand and the output each moved once at their dtype's
+    size."""
+    b, oh, ow, n = y.shape
+    return (2 * b * oh * ow * superpack.shape[0] * n,
+            fake.nbytes(x, superpack, scales, y))
+
+
 # the C entries' parameters: every pointer and the stream as c_void_p (a
 # bare Python int would be passed as a 32-bit int and cut the address); the
 # int8 entry takes the scale column after the codes
@@ -466,6 +498,19 @@ def _check_rows(name: str, rows, total: int, got: int) -> Pair:
         raise ValueError(f"{name}: a weight operand of {got} rows for "
                          f"superpack rows {rows} of {total}")
     return r0, r1
+
+
+def _count(entry, sp_tiles, scales, whole: bool) -> None:
+    """Add one to the launch counter of ``entry`` (``untangled_deconv2d``
+    or ``untangled_conv2d_superpack``) that a launch of this form adds to:
+    ``launches_tiled`` or ``launches`` (``_int8`` with scales), and
+    ``launches_rows`` for a row block."""
+    tiled = "_tiled" if sp_tiles is not None else ""
+    i8 = "" if scales is None else "_int8"
+    attr = f"launches{tiled}{i8}"
+    setattr(entry, attr, getattr(entry, attr) + 1)
+    if not whole:
+        entry.launches_rows += 1
 
 
 def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
@@ -582,7 +627,8 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
                                       sum_uv=sum_uv, out_dtype=out_dtype,
                                       scales=scales)
     name = "kernel A" if sp_tiles is None else "kernel D"
-    if xg.device.type != "cuda" or superpack.device != xg.device:
+    if (xg.device.type != "cuda" and not fake.is_fake(xg)) \
+            or superpack.device != xg.device:
         raise ValueError(f"{name} needs both operands on one CUDA device, "
                          f"got {xg.device} and {superpack.device}")
     if xg.requires_grad or superpack.requires_grad or (
@@ -605,13 +651,16 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         raise ValueError(f"{name} indexes with int32: tensor too large")
     if y.numel() == 0:
         return y
+    if fake.is_fake(xg):
+        name = ("A" if sp_tiles is None else "D") + (
+            "" if scales is None else "_int8")
+        fake.launched(name, work_deconv(xg, superpack, y, phases, scales,
+                                        None if whole else rows))
+        return y
     if sp_tiles is not None:
         _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
                              sp_tiles)
-        if scales is None:
-            untangled_deconv2d.launches_tiled += 1
-        else:
-            untangled_deconv2d.launches_tiled_int8 += 1
+        _count(untangled_deconv2d, sp_tiles, scales, whole)
         return y
     sch, ints = deconv_launch_ints(xg, superpack, y, phases, strides,
                                    None if whole else rows)
@@ -627,12 +676,7 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
             None if ws is None else ws.data_ptr(), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"kernel A launch failed: cudaError {rc}")
-    if scales is None:
-        untangled_deconv2d.launches += 1
-    else:
-        untangled_deconv2d.launches_int8 += 1
-    if not whole:
-        untangled_deconv2d.launches_rows += 1
+    _count(untangled_deconv2d, None, scales, whole)
     return y
 
 
@@ -951,7 +995,8 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
             x, superpack, taps_hw=taps_hw, strides=strides,
             rhs_dilation=rhs_dilation, out_dtype=out_dtype, scales=scales)
     name = "kernel B" if sp_tiles is None else "kernel C"
-    if x.device.type != "cuda" or superpack.device != x.device:
+    if (x.device.type != "cuda" and not fake.is_fake(x)) \
+            or superpack.device != x.device:
         raise ValueError(f"{name} needs both operands on one CUDA device, "
                          f"got {x.device} and {superpack.device}")
     if x.requires_grad or superpack.requires_grad or (
@@ -972,13 +1017,15 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         raise ValueError(f"{name} indexes with int32: tensor too large")
     if y.numel() == 0:
         return y
+    if fake.is_fake(x):
+        name = ("B" if sp_tiles is None else "C") + (
+            "" if scales is None else "_int8")
+        fake.launched(name, work_conv(x, superpack, y, scales))
+        return y
     if sp_tiles is not None:
         _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides,
                            rhs_dilation, sp_tiles)
-        if scales is None:
-            untangled_conv2d_superpack.launches_tiled += 1
-        else:
-            untangled_conv2d_superpack.launches_tiled_int8 += 1
+        _count(untangled_conv2d_superpack, sp_tiles, scales, whole)
         return y
     sch, ints = conv_launch_ints(x, superpack, y, taps_hw, strides,
                                  rhs_dilation, None if whole else rows)
@@ -993,12 +1040,7 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
             None if ws is None else ws.data_ptr(), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
-    if scales is None:
-        untangled_conv2d_superpack.launches += 1
-    else:
-        untangled_conv2d_superpack.launches_int8 += 1
-    if not whole:
-        untangled_conv2d_superpack.launches_rows += 1
+    _count(untangled_conv2d_superpack, None, scales, whole)
     return y
 
 

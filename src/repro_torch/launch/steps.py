@@ -225,12 +225,13 @@ def _zero2_parts(gs, groups, specs, dist):
 
 def make_train_step(cfg, opt_cfg: opt_lib.OptConfig, grad_accum: int = 1,
                     kv_chunk: int = 1024, remat: bool = True, *, dist=None,
-                    grad_shardings=None):
+                    grad_shardings=None, accum_dtype=torch.float32):
     """``train_step(state, batch) -> (state, {"loss", "gnorm"})``:
     ``loss_and_grads`` (``grad_accum`` microbatches: the batch split along
-    its rows, the gradients summed in f32 and averaged, as JAX's scan
-    does), then the optimiser of ``opt_cfg`` over JAX's stacked shapes
-    (``tfm.param_stacks``), under the profiler range "optimizer".
+    its rows, the gradients summed in ``accum_dtype``, f32 by default,
+    and averaged, as JAX's scan does), then the optimiser of ``opt_cfg``
+    over JAX's stacked shapes (``tfm.param_stacks``), under the profiler
+    range "optimizer".
     ``state`` is {"params", "opt", "step"}; the returned state holds new
     tensors.
 
@@ -243,7 +244,7 @@ def make_train_step(cfg, opt_cfg: opt_lib.OptConfig, grad_accum: int = 1,
     ``grad_shardings`` (ZeRO-2, ``train_state_specs``' third tree: only
     whether it is given matters, its dims are ``optim.mesh_groups``'):
     each microbatch's gradients are reduce-scattered over 'data' into an
-    f32 accumulator kept at 1/data."""
+    ``accum_dtype`` accumulator kept at 1/data."""
     _, opt_update = opt_lib.OPTIMIZERS[opt_cfg.name]
     mesh = dist is not None and dist.mesh is not None
     zero2 = mesh and grad_shardings is not None
@@ -261,7 +262,7 @@ def make_train_step(cfg, opt_cfg: opt_lib.OptConfig, grad_accum: int = 1,
                                  remat=remat, dist=dist, reduce=False)
         gs = tree_leaves(g)
         if grad_accum > 1 or zero2:
-            gs = [t.float() for t in gs]
+            gs = [t.to(accum_dtype) for t in gs]
         if zero2:
             return (loss,) + _zero2_parts(gs, groups, leaf_specs, dist)
         return loss, gs, set()

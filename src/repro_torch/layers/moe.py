@@ -73,6 +73,7 @@ import torch
 
 from repro_torch.core import comm
 from repro_torch.core.reference import ieee_fp32
+from repro_torch.kernels import fake
 from repro_torch.layers import common as cm
 from repro_torch.sharding import _axes
 
@@ -173,6 +174,19 @@ def moe_apply_dense(p, x, cfg):
     return out.to(x.dtype).reshape(b, s, d)
 
 
+def _expert_counts(flat, n_experts: int) -> list[int]:
+    """Tokens routed to each expert, on the host.  A fake tensor
+    (``launch.hlo_analysis``) has no data: its counts are the balanced
+    load, ``len(flat) / n_experts`` an expert, the first ones one more
+    where it does not divide (the load ``roofline.model_flops_for``
+    assumes), and the analysis is told so."""
+    if fake.is_fake(flat):
+        fake.note("moe_load", "balanced")
+        q, r = divmod(flat.numel(), n_experts)
+        return [q + (e < r) for e in range(n_experts)]
+    return torch.bincount(flat, minlength=n_experts).tolist()
+
+
 def _moe_sorted(p, x2, w, idx, cfg, e0=0):
     """The f32 sum over tokens' selected experts among the ``p`` experts
     ``[e0, e0 + E_l)``: the tokens sorted by expert, one product per
@@ -182,7 +196,7 @@ def _moe_sorted(p, x2, w, idx, cfg, e0=0):
     order = torch.argsort(flat, stable=True)
     tok = order // cfg.top_k                  # token of each sorted slot
     gate = w.reshape(-1)[order]
-    counts = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    counts = _expert_counts(flat, cfg.n_experts)
     out = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
     start = sum(counts[:e0])
     for e in range(e_l):

@@ -205,6 +205,14 @@ class Placement:
         return t
 
 
+def _ranks(mesh):
+    """The mesh's ranks as a numpy array, read with no dispatch mode on (a
+    fake tensor mode would read the mesh's tensor as a fake one)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return mesh.mesh.cpu().numpy()
+
+
 @dataclasses.dataclass(frozen=True)
 class DistContext:
     mesh: Any                       # a DeviceMesh, or None
@@ -274,7 +282,7 @@ class DistContext:
             return None
         if len(axes) == 1:
             return self.mesh.get_group(axes[0])
-        key = (tuple(self.mesh.mesh.flatten().tolist()),
+        key = (tuple(_ranks(self.mesh).ravel().tolist()),
                tuple(self.mesh.mesh_dim_names), axes)
         if key not in _GROUPS:
             _GROUPS[key] = self._new_group(axes)
@@ -286,7 +294,7 @@ class DistContext:
         import numpy as np
         import torch.distributed as dist
         names = list(self.mesh.mesh_dim_names)
-        ranks = np.asarray(self.mesh.mesh.cpu().numpy())
+        ranks = _ranks(self.mesh)
         # the group's axes last, in the listed order; the rest index groups
         others = [i for i, a in enumerate(names) if a not in axes]
         order = others + [names.index(a) for a in axes]
