@@ -345,6 +345,18 @@ result line) if anything is off:
    card's (planted: the tracker taking a view of an input for a new
    storage, at the prefill); (e), inside 3o: rank 0's collectives of the llama3.2-1b (2, 2)
    prefill counted on a fake world of 4 equal its ``comm.traffic()``;
+3t. the last superpack splits over 4 ranks that share the card
+   (``mesh_splits_phases``): the 512 px U-Net at B = 1 with 'conv_taps'
+   on 'model', f32 and int8, its C and D sites on row blocks (each launch
+   against its plain version, also on a block fenced by NaN rows), a C and
+   a D site against the f64 oracle, output and a DSM gradient against one
+   rank's; the same U-Net plane-parallel on (2, 2) with its superpack
+   rows on 'sp_h', then its out-channels on 'sp_w'; the DCGAN generator
+   and discriminator through the batcher's split batch on (2, 2) with one
+   superpack split on the batch axis; each with a planted fault;
+4q. times of 3t: per rank each case's ms and device ms beside one rank's,
+   its collectives and peak memory, and each C and D row-block launch
+   beside the whole superpack's launch at its site;
 5. the ``kernels`` line (A, B, A-int8, B-int8, C, D, C-int8, D-int8, F;
    A's, B's, A-int8's and B-int8's B = 64 sums with their B = 1 sums
    beside), the card line, and the result line.
@@ -353,8 +365,8 @@ result line) if anything is off:
 
 ``--plane-parallel`` builds the kernels and runs phase 3n alone,
 ``--mesh`` phases 3o/4m alone, ``--mesh-train`` phases 3p/4n alone,
-``--mesh-serve`` phases 3q/4o alone, ``--mesh-rest`` 3r/4p, ``--dryrun``
-3s (several flags: each).  On a machine
+``--mesh-serve`` phases 3q/4o alone, ``--mesh-rest`` 3r/4p,
+``--mesh-splits`` 3t/4q, ``--dryrun`` 3s (several flags: each).  On a machine
 with a card for each of its 4 ranks they meet on an NCCL group and
 exchange device tensors (no host staging):
 
@@ -3895,13 +3907,16 @@ def launch_works(works):
                **_):
         name = ("A" if sp_tiles is None else "D") + (
             "" if scales is None else "_int8")
+        # a D row block walks every row: its work is the whole K's
         return (name,) + uc.work_deconv(xg, sp, y, tuple(phases), scales,
-                                        rows)
+                                        rows if sp_tiles is None else None)
 
-    def conv(y, x, sp, *, scales=None, sp_tiles=None, **_):
+    def conv(y, x, sp, *, taps_hw, scales=None, sp_tiles=None, **_):
         name = ("B" if sp_tiles is None else "C") + (
             "" if scales is None else "_int8")
-        return (name,) + uc.work_conv(x, sp, y, scales)
+        return (name,) + uc.work_conv(
+            x, sp, y, scales,
+            None if sp_tiles is None else taps_hw[0] * taps_hw[1] * x.shape[3])
 
     def attn(y, q, k, v, *, causal=True, window=0, q_offset=0, **_):
         return ("F",) + fa.work(q, k, v, causal=causal, window=window,
@@ -6385,16 +6400,25 @@ def _mr_gan_cfg(conf, model, wd):
 
 
 def _mr_row_launches(records):
-    """Kernels A and B as ``core.plan`` calls them, each row-block launch
-    kept as (entry, its plain version, arguments, output); returns the
-    undo."""
+    """Kernels A-D as ``core.plan`` calls them, each row-block launch
+    kept as (entry, its plain version: the rows form of the whole-plane or
+    the tiled plain version, arguments, output); returns the undo."""
     from repro_torch.core import plan as plan_mod
     from repro_torch.kernels import untangled_conv as uc
+    def deconv_plain(x, blk, sp_tiles=None, sum_uv=None, **kw):
+        if sp_tiles is None:
+            return uc.untangled_deconv2d_rows_ref(x, blk, sum_uv=sum_uv, **kw)
+        return uc.untangled_deconv2d_tiled_rows_ref(x, blk, sp_tiles=sp_tiles,
+                                                    **kw)
+
+    def conv_plain(x, blk, sp_tiles=None, **kw):
+        if sp_tiles is None:
+            return uc.untangled_conv2d_superpack_rows_ref(x, blk, **kw)
+        return uc.untangled_conv2d_superpack_tiled_rows_ref(
+            x, blk, sp_tiles=sp_tiles, **kw)
     undos = []
-    for name, plain in (
-            ("untangled_deconv2d", uc.untangled_deconv2d_rows_ref),
-            ("untangled_conv2d_superpack",
-             uc.untangled_conv2d_superpack_rows_ref)):
+    for name, plain in (("untangled_deconv2d", deconv_plain),
+                        ("untangled_conv2d_superpack", conv_plain)):
         def wrap(orig, plain=plain):
             def launch(*a, **kw):
                 y = orig(*a, **kw)
@@ -7338,13 +7362,687 @@ def mesh_rest_phases(dev, smi):
     return {"mesh_rest": {"ranks": ranks, "seconds": wall}}, paths
 
 
+# ---------------------------------------------------------------------------
+# phases 3t / 4q: the last superpack splits
+# ---------------------------------------------------------------------------
+
+MX_WORLD = 4
+MX_CONFIGS = "full"           # "reduced": the CPU rehearsal's configs
+MX_UNET_B = 1                 # the 512 px U-Net's batch: C and D at B = 1
+MX_GAN_BATCHES = (64, 1)
+# (case, its rule set): the U-Net's rows on 'model' over (1, 4), and its
+# rows and out-channels together over (2, 2) with neither axis on the
+# batch (the rank's row block of its column block through C and D's rows
+# entries on the local plan at N/2); its superpack rows on 'sp_h' and then
+# its out-channels on 'sp_w' of a bound (2, 2) spatial mesh; the DCGAN on
+# (2, 2) with one split on the batch axis
+MX_UNET_RULES = {
+    "rows": ((1, 4), dict(conv_taps="model", conv_out=None),
+             ("float32", "int8")),
+    "rows_cols": ((2, 2), dict(conv_taps="data", conv_out="model",
+                               batch=()), ("float32",))}
+MX_GAN_RULES = {"taps_data_out_model": dict(conv_taps="data",
+                                            conv_out="model"),
+                "taps_model_out_data": dict(conv_taps="model",
+                                            conv_out="data")}
+MX_PLANE_RULES = {"rows_sp_h": dict(conv_taps="sp_h", conv_out=None),
+                  "cols_sp_w": dict(conv_taps=None, conv_out="sp_w")}
+MX_CASES = ("unet", "plane", "gan")
+# the CPU rehearsal's cuts: the U-Net's widths, the reference's
+# tiled-verdict budget and the plane-parallel floor at which a small image
+# tiles and splits as the 512 px one does; none on the card
+MX_UNET_KW: dict = {}
+MX_REF_BUDGET = None
+MX_SPATIAL_MIN = None
+
+
+def _mx_unet_cfg(conf, wd, spatial=(1, 1)):
+    from repro_torch.models import unet
+    return unet.UNetConfig("unet-512", image_hw=conf["unet_hw"],
+                           backend="cuda", wdtype=wd, spatial=spatial,
+                           **conf["unet_kw"])
+
+
+def _mx_tiled_sites(cfg, b):
+    """The sites whose route at batch ``b`` carries ``sp_tiles`` (kernel C
+    or D), by name; asserts the 512 px verdict: C at the stem, down0,
+    fuse0 and the head, D at up0."""
+    from repro_torch.models import unet
+    out = {n: ("D" if p.spec.kind == "transposed" else "C")
+           for n, p in unet.unet_plans(cfg).items()
+           if p.route_for_batch(b).sp_tiles is not None}
+    if out != {"stem": "C", "down0": "C", "fuse0": "C", "head": "C",
+               "up0": "D"}:
+        raise RuntimeError(f"the U-Net's tiled sites at B = {b}: {out}")
+    return out
+
+
+def _mx_dsm(p, x0, t, noise, cfg, dist=None):
+    """The U-Net's DSM loss at given ``t`` and ``noise`` (``unet_loss``'s
+    arithmetic) under ``dist``."""
+    import torch
+    from repro_torch.models import unet
+    ab = unet.alpha_bar(t)[:, None, None, None]
+    x_t = torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+    eps = unet.unet_apply(p, x_t, t, cfg, dist=dist)
+    return torch.mean(torch.square(eps - noise))
+
+
+def _mx_block_leaf(p, key):
+    """``p`` with the block of ``key`` (its dense buffer or an int8
+    block's scale rows) a fresh leaf that requires grad; (params, leaf)."""
+    from repro_torch.core.plan import QuantizedSuperpack, map_block
+    leaf = []
+
+    def fresh(v):
+        if isinstance(v, QuantizedSuperpack):
+            return QuantizedSuperpack(v.q, fresh(v.scale))
+        leaf.append(v.detach().clone().requires_grad_())
+        return leaf[0]
+    return {**p, key: map_block(p[key], fresh)}, leaf[0]
+
+
+def _mx_rows_f64(sites, records):
+    """Each C and D row-block launch of ``records`` (one a row-parallel
+    site of ``sites``, in call order) against the f64 oracle of its
+    partial (the site's conv with the block in its rows of an otherwise
+    zero superpack): the worst share of ``ulp_bound``."""
+    from repro_torch.core.plan import QuantizedSuperpack
+    from repro_torch.kernels.untangled_conv import embed_rows
+    worst = 0.0
+    for (plan, x, packed, _, _), (_, _, _, kw, y) in zip(sites, records):
+        if kw.get("sp_tiles") is None:
+            continue
+        blk = packed.block
+        if isinstance(blk, QuantizedSuperpack):
+            blk = blk.dequant()
+        whole, _ = embed_rows(blk, None, packed.rows, packed.total)
+        y64, bound = f64_bound(plan, x, plan.unpack(whole))
+        worst = max(worst, float(((y.double() - y64).abs() / bound).max()))
+        del y64, bound
+    return worst
+
+
+def _mx_row_times(records, dev):
+    """4q: each C and D row-block launch of ``records`` timed beside the
+    whole superpack's launch at its site (CUDA events, and device ms from
+    one trace), on the same plane."""
+    import torch
+    out = []
+    for entry, plain, (x, blk), kw, y in records:
+        if kw.get("sp_tiles") is None:
+            continue
+        r0, r1 = kw["rows"]
+        taps = (sum(ex.taps[0] * ex.taps[1] for ex in kw["phases"])
+                if "phases" in kw else kw["taps_hw"][0] * kw["taps_hw"][1])
+        total = taps * x.shape[3]
+        whole = torch.zeros((total, blk.shape[1]), dtype=blk.dtype,
+                            device=blk.device)
+        whole[r0:r1] = blk
+        wkw = dict(kw, rows=None)
+        sc = kw.get("scales")
+        if sc is not None:
+            ws = torch.ones((total, 1), device=sc.device)
+            ws[r0:r1] = sc
+            wkw["scales"] = ws
+
+        def row():
+            return entry(x, blk, **kw)
+
+        def full():
+            return entry(x, whole, **wkw)
+        out.append({"kernel": "D" if "phases" in kw else "C",
+                    "int8": sc is not None, "rows": [r0, r1, total],
+                    "ms": _pp_ms(row, dev, iters=10, warmup=2),
+                    "whole_ms": _pp_ms(full, dev, iters=10, warmup=2),
+                    "device_ms": _pp_device_ms(row, dev),
+                    "whole_device_ms": _pp_device_ms(full, dev)})
+    return out
+
+
+def _mx_split_kind(v):
+    """How a placed superpack is split: 'rows', 'cols', 'rows+cols', or
+    None where it stays whole."""
+    from repro_torch.core.plan import RowSuperpack, TPSuperpack
+    if isinstance(v, TPSuperpack):
+        return "rows+cols" if isinstance(v.block, RowSuperpack) else "cols"
+    return "rows" if isinstance(v, RowSuperpack) else None
+
+
+def _mx_buffer(v):
+    """The tensor a placed superpack holds (an int8 block's codes), inside
+    its split layers: what a site's operand shares with its param."""
+    from repro_torch.core.plan import QuantizedSuperpack, map_block
+    held = []
+    map_block(v, held.append)
+    return held[0].q if isinstance(held[0], QuantizedSuperpack) else held[0]
+
+
+def _mx_unet(rank, dev, conf):
+    """The 512 px U-Net at ``MX_UNET_B`` under each of ``MX_UNET_RULES``
+    (its wdtypes): every row-block launch (C, D and the whole-plane
+    sites' A, B) against its plain version on the card and on a block
+    fenced by NaN rows; a C and a D site against the f64 oracle; the
+    output and a DSM gradient against one rank's; planted: one rank's
+    partial left out."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import untangled_conv as uc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import unet
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    b = conf["unet_b"]
+    out = []
+    for case, (shape, rules, wd) in ((c, (sh, r, w)) for c, (sh, r, ws)
+                                     in conf["unet_rules"].items()
+                                     for w in ws):
+        dist = DistContext(make_host_mesh(*shape),
+                           rules=dict(DEFAULT_RULES, **rules))
+        cfg = _mx_unet_cfg(conf, wd)
+        tiled = _mx_tiled_sites(cfg, b)
+        whole = unet.unet_init(70, cfg, device=dev)
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always", RuntimeWarning)
+            p = dist.shard_params(whole, unet.unet_specs(cfg))
+        split = {k: _mx_split_kind(v) for k, v in p.items()
+                 if _mx_split_kind(v)}
+        gen = torch.Generator().manual_seed(71)
+        x = torch.randn((b, cfg.image_hw, cfg.image_hw, cfg.in_c),
+                        generator=gen).to(dev)
+        t = torch.rand((b,), generator=gen).to(dev)
+        sites, launches = [], []
+        orig = plan_mod._rp_apply
+
+        def capture(plan, x_, packed, bias):
+            y_ = orig(plan, x_, packed, bias)
+            sites.append((plan, x_, packed, bias, y_))
+            return y_
+        zero_counts()
+        uc.untangled_deconv2d.launches_tiled_rows = 0
+        uc.untangled_conv2d_superpack.launches_tiled_rows = 0
+        plan_mod._rp_apply = capture
+        undo = _mr_row_launches(launches)
+        try:
+            with torch.no_grad():
+                y = unet.unet_apply(p, x, t, cfg, dist=dist)
+        finally:
+            undo()
+            plan_mod._rp_apply = orig
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts, other = read_counts(wd)
+        tiled_rows = [r for r in launches if r[3].get("sp_tiles")]
+        rec = {"case": case, "mesh": shape, "wdtype": wd, "batch": b,
+               "rank": rank, "split_sites": split, "whole_sites": sorted(
+                   k for k in unet.unet_plans(cfg) if k not in split),
+               "warned": len(warned), "tiled": tiled,
+               "launches": counts, "other_dtype_launches": other,
+               "row_launches": len(launches),
+               "tiled_row_launches": {k: sum(
+                   1 for r in tiled_rows
+                   if ("D" if "phases" in r[3] else "C") == k)
+                   for k in ("C", "D")},
+               "tiled_rows_counted":
+                   uc.untangled_deconv2d.launches_tiled_rows
+                   + uc.untangled_conv2d_superpack.launches_tiled_rows}
+        with torch.no_grad():
+            (rec["rows_rel"], rec["rows_planted"],
+             rec["rows_fenced"]) = _mr_row_check(launches)
+            rec["tiled_rows_rel"] = _mr_row_check(tiled_rows)
+            rec["tiled_rows_ulp"] = _mx_rows_f64(sites, launches)
+        if rank == 0:
+            rec["row_times"] = _mx_row_times(tiled_rows, dev)
+        del launches, tiled_rows
+        # a C and a D site against the f64 oracle (rank 0): a row block of
+        # a column block runs the local plan on the rank's columns
+        worst = {}
+        for plan, x_, packed, bias, y_ in (sites if rank == 0 else ()):
+            key, outer = next((k, v) for k, v in p.items()
+                              if _mx_buffer(v) is _mx_buffer(packed))
+            if key not in ("fuse0", "up0"):
+                continue
+            w = whole[key]
+            if isinstance(outer.block, plan_mod.RowSuperpack):
+                m = plan.spec.out_c
+                cols = slice(outer.index * m, (outer.index + 1) * m)
+                w = (plan_mod.QuantizedSuperpack(w.q[:, cols], w.scale)
+                     if isinstance(w, plan_mod.QuantizedSuperpack)
+                     else w[:, cols])
+            y64, bound = f64_bound(plan, x_, plan.unpack(w))
+            if bias is not None:
+                y64 = y64 + bias.double()
+            worst[key] = float(((y_.double() - y64).abs() / bound).max())
+            del y64, bound
+        rec["ulp_share"] = worst
+        del sites
+        with torch.no_grad():
+            ref = unet.unet_apply(whole, x, t, cfg)
+        rec["rel"] = _mesh_rel(ref, y)
+        undo = _pp_patch(comm, "reduce_from", _mesh_unsummed(
+            rank, "rows_all_reduce"))
+        try:
+            with torch.no_grad():
+                rec["planted_rel"] = _mesh_rel(
+                    ref, unet.unet_apply(p, x, t, cfg, dist=dist))
+        finally:
+            undo()
+        # a DSM gradient of a C site's block (fuse0) against one rank's
+        noise = torch.randn(tuple(x.shape), generator=gen).to(dev)
+        pg, leaf = _mx_block_leaf(p, "fuse0")
+        _mx_dsm(pg, x, t, noise, cfg, dist).backward()
+        wg, wleaf = _mx_block_leaf(whole, "fuse0")
+        _mx_dsm(wg, x, t, noise, cfg).backward()
+        blk = dist.sharding(unet.unet_specs(cfg)["fuse0"]).block(wleaf.grad)
+        rec["grad_rel"] = _mesh_rel(blk, leaf.grad)
+        undo = _mr_skip_all_reduce("rows_input_bwd", rank)
+        try:
+            pg, bad = _mx_block_leaf(p, "fuse0")
+            _mx_dsm(pg, x, t, noise, cfg, dist).backward()
+        finally:
+            undo()
+        rec["planted_grad_rel"] = _mesh_rel(blk, bad.grad)
+        if wd == "float32":
+            def fwd():
+                with torch.no_grad():
+                    return unet.unet_apply(p, x, t, cfg, dist=dist)
+            single = ((lambda: unet.unet_apply(whole, x, t, cfg))
+                      if rank == 0 else None)
+            with torch.no_grad():
+                rec["measure"] = _mr_measure(fwd, dev, single)
+        out.append(rec)
+        del p, whole, pg, wg, y, ref, blk
+    return out
+
+
+def _mx_plane(rank, dev, conf):
+    """The 512 px U-Net (f32, B = ``MX_UNET_B``) plane-parallel on a bound
+    (2, 2) spatial mesh with its superpacks split on their rows over
+    'sp_h', then on their out-channels over 'sp_w': the output and a DSM
+    gradient against one rank's, the activations held as blocks between
+    sites; planted: the gather's backward without its sum."""
+    import torch
+    from repro_torch.core import comm, spatial
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.launch import faults
+    from repro_torch.launch.mesh import make_spatial_mesh
+    from repro_torch.models import unet
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    mesh = make_spatial_mesh(2, 2)
+    b = conf["unet_b"]
+    cfg = _mx_unet_cfg(conf, "float32", spatial=(2, 2))
+    whole = unet.unet_init(72, cfg, device=dev)
+    gen = torch.Generator().manual_seed(73)
+    x = torch.randn((b, cfg.image_hw, cfg.image_hw, cfg.in_c),
+                    generator=gen).to(dev)
+    t = torch.rand((b,), generator=gen).to(dev)
+    noise = torch.randn(tuple(x.shape), generator=gen).to(dev)
+    with torch.no_grad():
+        ref = unet.unet_apply(whole, x, t, cfg)
+    wg, wleaf = _mx_block_leaf(whole, "fuse0")
+    _mx_dsm(wg, x, t, noise, cfg).backward()
+    out = []
+    for name, rules in conf["plane_rules"].items():
+        dist = DistContext(mesh, rules=dict(DEFAULT_RULES, **rules))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            p = dist.shard_params(whole, unet.unet_specs(cfg))
+        kinds = {k: type(v).__name__ for k, v in p.items()
+                 if type(v).__name__ in ("RowSuperpack", "TPSuperpack")}
+        outs = []
+        orig_apply = plan_mod.ConvPlan.apply
+
+        def keep(self, x_, packed, bias=None):
+            y_ = orig_apply(self, x_, packed, bias=bias)
+            outs.append(type(y_).__name__)
+            return y_
+        comm.traffic_reset()
+        spatial.SPLIT_SITES[0] = 0
+        plan_mod.ConvPlan.apply = keep
+        try:
+            with spatial.use_spatial_mesh(mesh), torch.no_grad():
+                y = unet.unet_apply(p, x, t, cfg, dist=dist)
+        finally:
+            plan_mod.ConvPlan.apply = orig_apply
+        rec = {"case": name, "rank": rank, "split": kinds,
+               "split_sites": spatial.SPLIT_SITES[0],
+               "blocks_out": outs.count("PlaneBlocks"), "sites": len(outs),
+               "collectives": comm.traffic(), "rel": _mesh_rel(ref, y)}
+        pg, leaf = _mx_block_leaf(p, "fuse0")
+        with spatial.use_spatial_mesh(mesh):
+            _mx_dsm(pg, x, t, noise, cfg, dist).backward()
+        blk = dist.sharding(unet.unet_specs(cfg)["fuse0"]).block(wleaf.grad)
+        rec["grad_rel"] = _mesh_rel(blk, leaf.grad)
+        undo = _pp_patch(comm, "gather_from", faults.skip_gather_sum)
+        try:
+            pg, bad = _mx_block_leaf(p, "fuse0")
+            with spatial.use_spatial_mesh(mesh):
+                _mx_dsm(pg, x, t, noise, cfg, dist).backward()
+        finally:
+            undo()
+        rec["planted_grad_rel"] = _mesh_rel(blk, bad.grad)
+
+        def fwd():
+            with spatial.use_spatial_mesh(mesh), torch.no_grad():
+                return unet.unet_apply(p, x, t, cfg, dist=dist)
+        single = ((lambda: unet.unet_apply(whole, x, t, cfg))
+                  if rank == 0 else None)
+        with torch.no_grad():
+            rec["measure"] = _mr_measure(fwd, dev, single)
+        out.append(rec)
+        del p, pg, y
+    return out
+
+
+def _mx_gan(rank, dev, conf):
+    """The DCGAN generator and discriminator on (2, 2) through the image
+    batcher's split of each batch, f32 and int8, at each batch, with one
+    of the superpack's two splits on the batch axis: each rank's images
+    and logits against the one-rank forward on the same rows; planted:
+    the batch-axis gather bypassed."""
+    import torch
+    from repro_torch import sharding
+    from repro_torch.launch import faults
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import gan
+    from repro_torch.sharding import DEFAULT_RULES, DistContext
+    mesh = make_host_mesh(2, 2)
+    out = []
+    for rule, rules in conf["gan_rules"].items():
+        dist = DistContext(mesh, rules=dict(DEFAULT_RULES, **rules))
+        for wd in ("float32", "int8"):
+            cfg = _mr_gan_cfg(conf, "dcgan", wd)
+            gw = gan.generator_init(80, cfg, device=dev)
+            dw = gan.discriminator_init(81, cfg, device=dev)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                gp = dist.shard_params(gw, gan.generator_specs(cfg))
+                dp = dist.shard_params(dw, gan.discriminator_specs(cfg))
+            for b in conf["gan_batches"]:
+                z = torch.randn((b, cfg.z_dim), generator=torch.Generator(
+                    ).manual_seed(82 + b)).to(dev)
+
+                def serve(gp_, dp_, z_=z):
+                    rows, group = dist.split_batch(z_)
+                    img = gan.generator_apply(gp_, rows, cfg, dist=dist)
+                    logit = gan.discriminator_apply(dp_, img, cfg,
+                                                    dist=dist)
+                    return rows, group, img, logit
+                zero_counts()
+                with torch.no_grad():
+                    rows, group, img, logit = serve(gp, dp)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    counts, other = read_counts(wd)
+                    ref_img = gan.generator_apply(gw, rows, cfg)
+                    ref_logit = gan.discriminator_apply(dw, ref_img, cfg)
+                rec = {"rule": rule, "wdtype": wd, "batch": b,
+                       "rank": rank, "rows": int(rows.shape[0]),
+                       "split": group is not None, "launches": counts,
+                       "other_dtype_launches": other,
+                       "rel": _mesh_rel(ref_img, img),
+                       "logit_rel": _mesh_rel(ref_logit, logit)}
+                if group is not None:
+                    undo = _pp_patch(sharding.DistContext, "axes_of",
+                                     faults.no_batch_axes)
+                    try:
+                        with warnings.catch_warnings():
+                            warnings.simplefilter("ignore", RuntimeWarning)
+                            bgp = dist.shard_params(
+                                gw, gan.generator_specs(cfg))
+                        with torch.no_grad():
+                            bad = gan.generator_apply(bgp, rows, cfg,
+                                                      dist=dist)
+                    finally:
+                        undo()
+                    rec["planted_rel"] = _mesh_rel(ref_img, bad)
+                if wd == "float32":
+                    def fwd():
+                        with torch.no_grad():
+                            return dist.join_batch(serve(gp, dp)[2], group)
+                    single = ((lambda: gan.discriminator_apply(
+                        dw, gan.generator_apply(gw, z, cfg), cfg))
+                        if rank == 0 else None)
+                    with torch.no_grad():
+                        rec["measure"] = _mr_measure(fwd, dev, single)
+                out.append(rec)
+                del img, logit, ref_img, ref_logit
+            del gp, dp, gw, dw
+    return out
+
+
+def _mx_rank(rank, world, dev, conf):
+    """One rank of phases 3t/4q (all ranks share the card)."""
+    import gc
+
+    import torch
+    from repro_torch.core import plan as plan_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if conf["ref_budget"] is not None or conf["spatial_min"] is not None:
+        if conf["ref_budget"] is not None:
+            plan_mod._REF_VMEM_BUDGET = conf["ref_budget"]
+        if conf["spatial_min"] is not None:
+            plan_mod._SPATIAL_MIN_BYTES = conf["spatial_min"]
+        plan_mod.plan_cache_clear()
+    fns = {"unet": _mx_unet, "plane": _mx_plane, "gan": _mx_gan}
+    out = {}
+    for name in conf["cases"]:
+        t0 = time.perf_counter()
+        out[name] = fns[name](rank, dev, conf)
+        out[name + "_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mx_print_measure(tag, r, smi):
+    m = r.get("measure")
+    if m is None:
+        return
+    single = ("" if m.get("single_ms") is None else
+              f", one rank {m['single_ms']:.3f} ms, device "
+              f"{ms_text(m['single_device_ms'])} ms")
+    print(f"[4q] {tag} rank {r['rank']}: {m['ms']:.3f} ms (events), device "
+          f"{ms_text(m['device_ms'])} ms{single}; peak {m['peak_bytes']} "
+          f"bytes ({m['base_bytes']} before) | {smi}")
+    print(f"[4q] {tag} rank {r['rank']} collectives (calls, bytes): "
+          + ", ".join(f"{k} {v['calls']} / {v['bytes']}"
+                      for k, v in m["collectives"].items()))
+
+
+def mesh_splits_phases(dev, smi):
+    """Phases 3t and 4q: the last superpack splits, over ``MX_WORLD``
+    ranks that share the card on a gloo group, at full width, the
+    one-rank references in every rank of the same run.  (a) The 512 px
+    U-Net at ``MX_UNET_B`` with 'conv_taps' on 'model' over (1, 4), f32
+    and int8: row blocks inside kernels C and D (each launch against its
+    plain version on the card and on a block fenced by NaN rows; planted:
+    the plain version one row off), fuse0 (C) and up0 (D) against the f64
+    oracle, the output and a DSM gradient of fuse0's block against one
+    rank's (planted: one rank's partial left out, its input gradient
+    unsummed); the stem's rows do not divide and it stays whole.  The same
+    checks, f32, with its rows on 'data' and its out-channels on 'model'
+    over (2, 2) and neither axis carrying the batch: the rank's row block
+    of its column block through C's and D's rows entries on the local plan
+    at N/2, the partials summed over 'data', the channels gathered over
+    'model'.  (b) The same U-Net plane-parallel on a bound (2, 2) spatial mesh with its
+    superpack rows on 'sp_h', then its out-channels on 'sp_w': output and
+    gradient against one rank's, the activations held as blocks (planted:
+    the split weight's gather without its cotangent sum).  (c) The DCGAN
+    generator and discriminator on (2, 2) through the image batcher's
+    split batch at each of ``MX_GAN_BATCHES``, f32 and int8, with
+    'conv_taps' on 'data' and 'conv_out' on 'model', then the other way
+    round (planted: the batch-axis gather bypassed).  4q: each case's ms
+    and device ms beside one rank's, its collectives and peak memory, and
+    each C and D row-block launch's ms beside the whole superpack's at its
+    site.  Returns (records, {kernel: {path: launches}}, {kernel:
+    row-block launches})."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import run_spmd
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    conf = {"configs": MX_CONFIGS, "cases": MX_CASES, "unet_b": MX_UNET_B,
+            "unet_hw": UNET_512_HW, "unet_kw": MX_UNET_KW,
+            "unet_rules": MX_UNET_RULES,
+            "gan_batches": MX_GAN_BATCHES, "gan_rules": MX_GAN_RULES,
+            "plane_rules": MX_PLANE_RULES, "ref_budget": MX_REF_BUDGET,
+            "spatial_min": MX_SPATIAL_MIN}
+    t0 = time.perf_counter()
+    ranks = run_spmd(_mx_rank, MX_WORLD, conf, device=dev.type, timeout=900)
+    wall = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    failed = []
+    paths = {k: {} for k in ("A", "B", "C", "D", "A_int8", "B_int8",
+                             "C_int8", "D_int8")}
+    rows_by = {"C": 0, "D": 0, "C_int8": 0, "D_int8": 0}
+    # ---- (a) the U-Net's row blocks inside C and D ------------------------
+    if "unet" in ranks[0]:
+        for recs in zip(*(x["unet"] for x in ranks)):
+            r0 = recs[0]
+            wd = r0["wdtype"]
+            key = "" if wd == "float32" else "_int8"
+            tag = (f"U-Net {UNET_512_HW}px {wd} B={r0['batch']} "
+                   f"{tuple(r0['mesh'])} {r0['case']}")
+            print(f"[3t] {tag}: split sites {r0['split_sites']}; whole "
+                  f"{r0['whole_sites']} (a dim the split does not divide "
+                  f"stays whole: {r0['warned']} warning(s)); tiled sites "
+                  f"{r0['tiled']}; {ranks[0]['unet_s']:.1f} s")
+            for r in recs:
+                tr, tp_, tf = r["tiled_rows_rel"]
+                tu = r["tiled_rows_ulp"]
+                print(f"[3t] {tag} rank {r['rank']}: launches "
+                      f"{r['launches']}; C/D row-block launches "
+                      f"{r['tiled_row_launches']} (counted "
+                      f"{r['tiled_rows_counted']}) vs their plain versions "
+                      f"on the card, worst {tr:.2e} (limit "
+                      f"{TOL_MR_ROWS:.0e}; planted, r0 one row off: least "
+                      f"{tp_:.2e}), on blocks fenced by NaN rows {tf:.2e}, "
+                      f"against the f64 oracle of their partials {tu:.3f} "
+                      f"of ulp_bound; "
+                      f"all {r['row_launches']} row blocks (A-D) worst "
+                      f"{r['rows_rel']:.2e}, fenced {r['rows_fenced']:.2e}; "
+                      f"output vs one rank {r['rel']:.2e} (limit "
+                      f"{TOL_MESH_IMG:.0e}); fuse0 block's DSM gradient vs "
+                      f"one rank {r['grad_rel']:.2e} (limit {TOL_GRAD:.0e})")
+                want = {"C": 3, "D": 1}
+                ok = (tr <= TOL_MR_ROWS and tf <= TOL_MR_ROWS
+                      and tp_ > TOL_MR_ROWS and tu <= 1.0
+                      and r["rows_rel"] <= TOL_MR_ROWS
+                      and r["rows_fenced"] <= TOL_MR_ROWS
+                      and r["tiled_row_launches"] == want
+                      and (not cuda or r["tiled_rows_counted"] == 4))
+                if not ok or r["rel"] > TOL_MESH_IMG \
+                        or r["grad_rel"] > TOL_GRAD:
+                    failed.append(f"{tag} rank {r['rank']}")
+                if r["other_dtype_launches"]:
+                    failed.append(f"{tag} rank {r['rank']} other dtype")
+                _mx_print_measure(tag, r, smi)
+            print(f"[3t] {tag}: fuse0 (C) and up0 (D) vs the f64 oracle: "
+                  + json.dumps({k: float(f"{v:.3f}") for k, v in
+                                r0["ulp_share"].items()})
+                  + " of ulp_bound")
+            if set(r0["ulp_share"]) != {"fuse0", "up0"} or \
+                    max(r0["ulp_share"].values()) > 1.0:
+                failed.append(f"{tag} ulp")
+            planted = max(r["planted_rel"] for r in recs)
+            pgrad = max(r["planted_grad_rel"] for r in recs)
+            print(f"[3t] {tag} planted: rank 1's row-block partial left out "
+                  f"{planted:.2e}; its input gradients unsummed: fuse0 "
+                  f"block's gradient {pgrad:.2e}")
+            if not planted > TOL_MESH_IMG or not pgrad > TOL_GRAD:
+                failed.append(f"{tag} planted")
+            for t in r0.get("row_times", ()):
+                print(f"[4q] {tag} kernel {t['kernel']}"
+                      f"{' int8' if t['int8'] else ''} rows {t['rows'][:2]} "
+                      f"of {t['rows'][2]}: {t['ms']:.4f} ms (events), "
+                      f"device {ms_text(t['device_ms'])} ms; the whole "
+                      f"superpack at the site {t['whole_ms']:.4f} ms, "
+                      f"device {ms_text(t['whole_device_ms'])} ms | {smi}")
+            name = f"mesh_splits_unet_{r0['case']}_{wd}_B{r0['batch']}"
+            for k in ("A", "B", "C", "D"):
+                paths[k + key][name] = sum(r["launches"][k] for r in recs)
+            for k in ("C", "D"):
+                rows_by[k + key] += sum(r["tiled_row_launches"][k]
+                                        for r in recs)
+    # ---- (b) a split superpack at a plane-parallel site -------------------
+    if "plane" in ranks[0]:
+        for recs in zip(*(x["plane"] for x in ranks)):
+            r0 = recs[0]
+            tag = f"U-Net {UNET_512_HW}px plane-parallel (2, 2) {r0['case']}"
+            print(f"[3t] {tag}: split superpacks {r0['split']}; "
+                  f"{ranks[0]['plane_s']:.1f} s")
+            for r in recs:
+                print(f"[3t] {tag} rank {r['rank']}: {r['split_sites']} "
+                      f"sites plane-parallel, {r['blocks_out']} of "
+                      f"{r['sites']} outputs held as blocks; output vs one "
+                      f"rank {r['rel']:.2e} (limit {TOL_MESH_IMG:.0e}); "
+                      f"fuse0 block's DSM gradient {r['grad_rel']:.2e} "
+                      f"(limit {TOL_GRAD:.0e}); the gather's backward "
+                      f"without its sum {r['planted_grad_rel']:.2e}; "
+                      f"collectives " + ", ".join(
+                          f"{k} {v['calls']} / {v['bytes']}"
+                          for k, v in r["collectives"].items()))
+                if r["rel"] > TOL_MESH_IMG or r["grad_rel"] > TOL_GRAD \
+                        or not r["split"] or r["split_sites"] == 0 \
+                        or r["blocks_out"] == 0:
+                    failed.append(f"{tag} rank {r['rank']}")
+                _mx_print_measure(tag, r, smi)
+            if not max(r["planted_grad_rel"] for r in recs) > TOL_GRAD:
+                failed.append(f"{tag} planted")
+    # ---- (c) the DCGAN through the batcher's split batch -------------------
+    if "gan" in ranks[0]:
+        for recs in zip(*(x["gan"] for x in ranks)):
+            r0 = recs[0]
+            wd = r0["wdtype"]
+            key = "" if wd == "float32" else "_int8"
+            tag = f"DCGAN {wd} B={r0['batch']} (2, 2) {r0['rule']}"
+            for r in recs:
+                print(f"[3t] {tag} rank {r['rank']}: {r['rows']} rows "
+                      f"(batch split {r['split']}), launches "
+                      f"{r['launches']}; images vs one rank on the same rows "
+                      f"{r['rel']:.2e}, logits {r['logit_rel']:.2e} (limit "
+                      f"{TOL_MESH_IMG:.0e})"
+                      + ("" if "planted_rel" not in r else
+                         f"; planted, the batch-axis gather bypassed: "
+                         f"{r['planted_rel']:.2e}"))
+                # a lone logit (B = 1) may sit near zero: its relative
+                # error is printed, the gate reads the batch's; the mesh
+                # forward alone launches A at the generator's four sites
+                # and B at the discriminator's four, once each
+                if r["rel"] > TOL_MESH_IMG or (
+                        r["rows"] > 1 and r["logit_rel"] > TOL_MESH_IMG) \
+                        or cuda and (r["launches"]["A"] != 4
+                                     or r["launches"]["B"] != 4):
+                    failed.append(f"{tag} rank {r['rank']}")
+                if r["other_dtype_launches"]:
+                    failed.append(f"{tag} rank {r['rank']} other dtype")
+                if "planted_rel" in r and not r["planted_rel"] > TOL_MESH_IMG:
+                    failed.append(f"{tag} rank {r['rank']} planted")
+                _mx_print_measure(tag, r, smi)
+            name = f"mesh_splits_dcgan_{r0['rule']}_{wd}_B{r0['batch']}"
+            for k in ("A", "B"):
+                paths[k + key][name] = sum(r["launches"][k] for r in recs)
+    print(f"[3t] mesh splits phase: {wall:.1f} s over {MX_WORLD} ranks, "
+          f"launches {json.dumps(paths)}, C/D row-block launches "
+          f"{json.dumps(rows_by)}")
+    if failed:
+        raise RuntimeError(f"mesh splits gates failed: {failed}")
+    return {"mesh_splits": {"ranks": ranks, "seconds": wall}}, paths, rows_by
+
+
 def main(argv=()) -> int:
     import torch
     import torch.nn.functional as F
 
     unknown = [a for a in argv if a not in ("--plane-parallel", "--mesh",
                                             "--mesh-train", "--mesh-serve",
-                                            "--mesh-rest", "--dryrun")]
+                                            "--mesh-rest", "--mesh-splits",
+                                            "--dryrun")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -7449,6 +8147,11 @@ def main(argv=()) -> int:
             mr_records, mr_paths = mesh_rest_phases(dev, smi)
             print(json.dumps({"card": smi, **mr_records,
                               "launches_by_path": mr_paths}))
+        if "--mesh-splits" in argv:
+            mx_records, mx_paths, mx_rows = mesh_splits_phases(dev, smi)
+            print(json.dumps({"card": smi, **mx_records,
+                              "launches_by_path": mx_paths,
+                              "row_block_launches": mx_rows}))
         if "--dryrun" in argv:
             dry_records, _ = dryrun_phases(dev, smi)
             print(json.dumps({"card": smi, **dry_records}))
@@ -8667,6 +9370,9 @@ def main(argv=()) -> int:
     f_entry["launches_by_path"].update(mr_paths["F"])
     f_entry["launches"] = sum(f_entry["launches_by_path"].values())
 
+    mx_records, mx_paths, mx_rows = mesh_splits_phases(dev, smi)
+    print(json.dumps({"card": smi, **mx_records}))
+
     # ---- 5. the kernels line, the card line, the result line ---------------
     def sums(recs):
         t_ops = sum(r["flops"] for r in recs) / peak_flops * 1e3
@@ -8691,20 +9397,24 @@ def main(argv=()) -> int:
     a_paths = {"serve_dcgan": launches, "train_dcgan": train_launches["A"],
                **unet_paths_of("A", "float32"), **vae_paths["A"],
                **cp_paths["A"], **pp_paths["A"], **mesh_paths["A"],
-               **mr_paths["A"]}
+               **mr_paths["A"], **mx_paths["A"]}
     b_paths = {"train_dcgan": train_launches["B"],
                "serve_segnet": seg_launches["float32"],
                **unet_paths_of("B", "float32"), **vae_paths["B"],
                **cp_paths["B"], **pp_paths["B"], **mesh_paths["B"],
-               **mr_paths["B"]}
+               **mr_paths["B"], **mx_paths["B"]}
     ai8_paths = {**unet_paths_of("A", "int8"), **vae_paths["A_int8"],
-                 **mesh_paths["A_int8"], **mr_paths["A_int8"]}
+                 **mesh_paths["A_int8"], **mr_paths["A_int8"],
+                 **mx_paths["A_int8"]}
     bi8_paths = {**unet_paths_of("B", "int8"), **vae_paths["B_int8"],
-                 **mesh_paths["B_int8"], **mr_paths["B_int8"]}
-    c_paths = {**unet_paths_of("C", "float32"), **pp_paths["C"]}
-    d_paths = {**unet_paths_of("D", "float32"), **pp_paths["D"]}
-    ci8_paths, di8_paths = (unet_paths_of("C", "int8"),
-                            unet_paths_of("D", "int8"))
+                 **mesh_paths["B_int8"], **mr_paths["B_int8"],
+                 **mx_paths["B_int8"]}
+    c_paths = {**unet_paths_of("C", "float32"), **pp_paths["C"],
+               **mx_paths["C"]}
+    d_paths = {**unet_paths_of("D", "float32"), **pp_paths["D"],
+               **mx_paths["D"]}
+    ci8_paths = {**unet_paths_of("C", "int8"), **mx_paths["C_int8"]}
+    di8_paths = {**unet_paths_of("D", "int8"), **mx_paths["D_int8"]}
     for kern_, paths_ in (("C", unet_paths_of("C", "float32")),
                           ("D", unet_paths_of("D", "float32")),
                           ("C int8", ci8_paths), ("D int8", di8_paths)):
@@ -8763,6 +9473,7 @@ def main(argv=()) -> int:
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tiled_kernel "
                       "+ _halo_stream",
         "launches": sum(c_paths.values()), "launches_by_path": c_paths,
+        "row_block_launches": mx_rows["C"],
         "held_against_plain": True, "max_abs_err": max_err_c,
         "shape": f"U-Net 512px tiled sites stem, down0, fuse0, head, "
                  f"B={big} (sums)",
@@ -8773,6 +9484,7 @@ def main(argv=()) -> int:
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::"
                       "_deconv_tiled_kernel + _halo_stream",
         "launches": sum(d_paths.values()), "launches_by_path": d_paths,
+        "row_block_launches": mx_rows["D"],
         "held_against_plain": True, "max_abs_err": max_err_d,
         "shape": f"U-Net 512px up0, B={big}",
         **sums([r for r in d_sites if r["batch"] == big])}, {
@@ -8782,6 +9494,7 @@ def main(argv=()) -> int:
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
                       "inside _tiled_kernel",
         "launches": sum(ci8_paths.values()), "launches_by_path": ci8_paths,
+        "row_block_launches": mx_rows["C_int8"],
         "held_against_plain": True, "max_abs_err": max_err_ci8,
         "shape": f"U-Net 512px int8 tiled sites, B={big} (sums)",
         **sums([r for r in ci8_sites if r["batch"] == big])}, {
@@ -8791,6 +9504,7 @@ def main(argv=()) -> int:
         "tpu_kernel": "src/repro/kernels/untangled_conv.py::_tap_panel "
                       "inside _deconv_tiled_kernel",
         "launches": sum(di8_paths.values()), "launches_by_path": di8_paths,
+        "row_block_launches": mx_rows["D_int8"],
         "held_against_plain": True, "max_abs_err": max_err_di8,
         "shape": f"U-Net 512px int8 up0, B={big}",
         **sums([r for r in di8_sites if r["batch"] == big])}, f_entry]

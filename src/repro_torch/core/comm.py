@@ -17,7 +17,8 @@ Two layers:
   copy backward), ``gather_from`` (all-gather along a dim forward, this
   rank's slice backward; ``reduce_bwd=True``: the cotangents summed over
   the group first, a reduce-scatter, where each rank reads its own part
-  of the gathered tensor), ``split_to`` (this rank's slice forward,
+  of the gathered tensor; ``gather_axes``: over several mesh axes in
+  turn), ``split_to`` (this rank's slice forward,
   all-gather backward), ``reduce_scatter_to`` (the sum over the group,
   this rank's part along a dim, forward; all-gather backward: sequence
   parallelism's exit) and ``all_to_all`` (its own transpose).  A group
@@ -431,6 +432,19 @@ def gather_from(x, group, dim: int = -1, kind: str = "all_gather",
         return x
     fn = _GatherFromReduce if reduce_bwd else _GatherFrom
     return fn.apply(x, group, dim % x.dim(), kind)
+
+
+def gather_axes(x, axes, dim: int, reduce=(), kind: str = "all_gather"):
+    """``x``, a block split along ``dim`` over ``axes`` ((mesh axis,
+    group) pairs, major to minor, as ``DistContext.shard_of`` counts
+    blocks), gathered whole: over each axis in turn, minor first.  The
+    backward keeps the rank's block of the cotangent, summed first over
+    the axes named in ``reduce`` (``gather_from(reduce_bwd=True)``: their
+    ranks read different inputs, so each block's gradient comes from all
+    of them)."""
+    for name, group in reversed(tuple(axes)):
+        x = gather_from(x, group, dim, kind, reduce_bwd=name in reduce)
+    return x
 
 
 def split_to(x, group, dim: int = 0, kind: str = "split_to"):

@@ -63,9 +63,21 @@ the int8 entry on a quantized block), adds the rank's bias block and
 gathers the output channels over the group in rank order.  A superpack
 split on its rows (its tap-major K: 'conv_taps' over a mesh axis) arrives
 as a ``RowSuperpack``: rows ``[r0, r1)``, which may cut a tap and span
-phases.  ``apply`` runs it as a row-parallel site (``_rp_apply``): kernel A
-or B on the rank's rows only (their ``rows=`` entries, int8 too), the f32
-partials summed over the group, the bias added once.
+phases.  ``apply`` runs it as a row-parallel site (``_rp_apply``): kernel
+A, B, C or D on the rank's rows only (their ``rows=`` entries, int8 too),
+the f32 partials summed over the group, the bias added once.  Split on
+both, it arrives as a ``TPSuperpack`` of a ``RowSuperpack`` (the rank's
+row block of its column block): the local plan's row-parallel site
+inside the tensor-parallel one.
+
+Every rank of such a site must read the same input.  A dim split over a
+mesh axis that also carries the image batch (``DistContext.batch_ranks``:
+each rank holds other rows) is gathered whole over that axis first, as
+GSPMD gathers it, and the gradient of the gathered weight is summed over
+the axis, each rank keeping its block (``_gather_split``).  At a site
+that runs plane-parallel (``spatial.split_axes`` takes it) every split
+dim is gathered, as ``shard_map`` passes the superpack whole; a site the
+plane-parallel executor declines runs as the ordinary split site.
 """
 from __future__ import annotations
 
@@ -391,13 +403,18 @@ class QuantizedSuperpack:
 class TPSuperpack:
     """This rank's column block of a superpack whose out-channels are
     split over ``n`` ranks of ``group`` (block ``index``): a dense
-    ``(rows, N/n)`` buffer or a ``QuantizedSuperpack`` of the same
-    columns (its scale column is the whole row's)."""
+    ``(rows, N/n)`` buffer, a ``QuantizedSuperpack`` of the same columns
+    (its scale column is the whole row's) or a ``RowSuperpack`` of them
+    (rows split too).  ``axes``: each mesh axis of the split with its own
+    group, major to minor (how ``DistContext.shard_of`` counts blocks);
+    ``batch``: those of them that carry the image batch."""
 
-    block: object                 # torch.Tensor | QuantizedSuperpack
+    block: object       # torch.Tensor | QuantizedSuperpack | RowSuperpack
     group: object                 # the 'conv_out' axes' process group
     index: int
     n: int
+    axes: tuple = ()              # ((mesh axis, group), ...)
+    batch: frozenset = frozenset()
 
     @property
     def shape(self):
@@ -410,7 +427,8 @@ class RowSuperpack:
     """This rank's row block ``rows`` = [r0, r1) of a superpack of
     ``total`` rows whose rows are split over ``n`` ranks of ``group``
     (block ``index``): a dense ``(r1 - r0, N)`` buffer or a
-    ``QuantizedSuperpack`` of those rows' codes and scale rows."""
+    ``QuantizedSuperpack`` of those rows' codes and scale rows.
+    ``axes`` and ``batch`` as ``TPSuperpack``'s."""
 
     block: object                 # torch.Tensor | QuantizedSuperpack
     group: object                 # the 'conv_taps' axes' process group
@@ -418,6 +436,8 @@ class RowSuperpack:
     n: int
     rows: tuple
     total: int
+    axes: tuple = ()              # ((mesh axis, group), ...)
+    batch: frozenset = frozenset()
 
     @property
     def shape(self):
@@ -428,23 +448,25 @@ def _rows_fwd(plan: "ConvPlan", x: torch.Tensor, w: torch.Tensor, scale,
               rows) -> torch.Tensor:
     """The f32 partial sum of the plan's conv over superpack rows ``rows``
     (``w``: those rows; ``scale``: their scale rows for int8 codes): one
-    launch of kernel A (transposed) or B (conv/dilated) on the block, their
-    plain versions on the CPU."""
+    launch of kernel A (transposed) or B (conv/dilated) on the block, or of
+    their tiled forms D or C where the batch's route carries ``sp_tiles``;
+    their plain versions on the CPU."""
     spec = plan.spec
     lead = tuple(x.shape[:-3])
     x4 = x.reshape((-1,) + tuple(x.shape[-3:])).float()
     scales = {} if scale is None else {"scales": scale}
+    sp_tiles = plan.route_for_batch(x4.shape[0]).sp_tiles
     if spec.kind == "transposed":
         y = untangled_deconv2d(
             _global_plane(plan, x4).contiguous(), w, phases=plan.phases,
             out_hw=plan.out_hw, strides=spec.strides, sum_uv=plan.sum_uv,
-            out_dtype=torch.float32, rows=rows, **scales)
+            out_dtype=torch.float32, rows=rows, sp_tiles=sp_tiles, **scales)
     else:
         strides, dilation, taps, _ = _single_geom(plan)
         y = untangled_conv2d_superpack(
             pad_or_crop(x4, spec.padding).contiguous(), w, taps_hw=taps,
             strides=strides, rhs_dilation=dilation, out_dtype=torch.float32,
-            rows=rows, **scales)
+            rows=rows, sp_tiles=sp_tiles, **scales)
     return y.reshape(lead + tuple(y.shape[1:]))
 
 
@@ -478,25 +500,128 @@ class _PlannedRows(torch.autograd.Function):
                 None if dscale is None else dscale[r0:r1], None)
 
 
-def _rp_apply(plan: "ConvPlan", x, packed: RowSuperpack, bias):
-    """The row-parallel site: the rank's rows through kernel A or B
-    (``_PlannedRows``), the f32 partials summed over the group, the bias
-    added once, one rounding to ``x``'s dtype.  ``x`` enters through
-    ``copy_to``: every rank reads all of it, so its gradient is summed over
-    the group.  A site whose plan picks the tiled kernels C or D, or that
-    is also split on its plane, is refused."""
+def map_block(packed, fn):
+    """``packed`` with its buffer (a dense tensor or a
+    ``QuantizedSuperpack``) replaced by ``fn(buffer)``, inside whatever
+    ``TPSuperpack``/``RowSuperpack`` nesting holds it."""
+    if isinstance(packed, (TPSuperpack, RowSuperpack)):
+        return dataclasses.replace(packed, block=map_block(packed.block, fn))
+    return fn(packed)
+
+
+def _split_layers(packed):
+    """The split layers of ``packed`` (``TPSuperpack``, ``RowSuperpack``),
+    outermost first."""
+    while isinstance(packed, (TPSuperpack, RowSuperpack)):
+        yield packed
+        packed = packed.block
+
+
+def _gather_rows(packed: RowSuperpack, reduce):
+    """The whole superpack of a row block: codes and scale rows (or the
+    dense rows) gathered over the split's axes, the cotangents summed over
+    the axes in ``reduce`` (``comm.gather_axes``)."""
     from repro_torch.core import comm
+    blk, axes = packed.block, packed.axes
+    if isinstance(blk, QuantizedSuperpack):
+        return QuantizedSuperpack(
+            comm.gather_axes(blk.q, axes, 0, reduce, "rows_weight_gather"),
+            comm.gather_axes(blk.scale, axes, 0, reduce,
+                             "rows_scale_gather"))
+    return comm.gather_axes(blk, axes, 0, reduce, "rows_weight_gather")
+
+
+def _gather_cols(packed: TPSuperpack, reduce, scale_reduce):
+    """The whole columns of a column block (of its row block's columns for
+    a ``RowSuperpack`` inside): gathered over the split's axes, the
+    cotangents summed over the axes in ``reduce``.  An int8 block gathers
+    its codes; its scale column is the whole row's and enters through
+    ``copy_to`` over the axes in ``scale_reduce`` (its gradient summed
+    there)."""
+    from repro_torch.core import comm
+    axes = packed.axes
+
+    def whole(blk):
+        if isinstance(blk, QuantizedSuperpack):
+            scale = blk.scale
+            for name, group in axes:
+                if name in scale_reduce:
+                    scale = comm.copy_to(scale, group, kind="cols_scale")
+            return QuantizedSuperpack(
+                comm.gather_axes(blk.q, axes, 1, reduce,
+                                 "cols_weight_gather"), scale)
+        return comm.gather_axes(blk, axes, 1, reduce, "cols_weight_gather")
+    return map_block(packed.block, whole)
+
+
+def _gather_split(packed, bias, gather, reduce, bias_reduce=(),
+                  scale_reduce=()):
+    """(``packed``, ``bias``) with each split layer over a mesh axis in
+    ``gather`` gathered whole (the out-channels' bias block with the
+    columns) and the rest of the split kept.  The gathers' backward sums
+    the cotangents over the axes in ``reduce``, the bias's over those in
+    ``bias_reduce``; an int8 column block's scale column is summed over
+    those in ``scale_reduce`` (``_gather_cols``)."""
+    from repro_torch.core import comm
+    if isinstance(packed, TPSuperpack):
+        inner, _ = _gather_split(packed.block, None, gather, reduce,
+                                 scale_reduce=scale_reduce)
+        packed = dataclasses.replace(packed, block=inner)
+        if not gather & {name for name, _ in packed.axes}:
+            return packed, bias
+        if bias is not None:
+            bias = comm.gather_axes(bias, packed.axes, -1, bias_reduce,
+                                    "cols_bias_gather")
+        return _gather_cols(packed, reduce, scale_reduce), bias
+    if isinstance(packed, RowSuperpack) and \
+            gather & {name for name, _ in packed.axes}:
+        return _gather_rows(packed, reduce), bias
+    return packed, bias
+
+
+def _split_apply(plan: "ConvPlan", x, packed, bias):
+    """A site whose superpack is split (``TPSuperpack``, ``RowSuperpack``
+    or one inside the other).  Where the plane-parallel executor takes the
+    site, every split dim is gathered whole, its cotangents (and an int8
+    column block's scale column's) summed over the axes whose ranks hold
+    other pieces of the plane or the batch, and ``spatial_apply`` sums
+    over the rest of them only; the bias's gradient is summed over the
+    plane's ranks by the block-wise add (``spatial._operand``), so its
+    gather sums none.  Otherwise a dim split over an axis that carries the
+    batch is gathered (everything summed over those axes: the int8 scale
+    column by the step, ``launch.steps.sum_over_batch``, as its spec names
+    none of them), and what stays split runs as a tensor-parallel
+    (``_tp_apply``) or row-parallel (``_rp_apply``) site."""
     if plan.spec.spatial != (1, 1):
-        raise NotImplementedError(
-            "a superpack split on both its plane and its rows: ROADMAP "
-            "Queue 1 item 13c")
+        from repro_torch.core import spatial
+        distinct = spatial.split_axes(plan, x)
+        if distinct is not None:
+            names = frozenset(name for layer in _split_layers(packed)
+                              for name, _ in layer.axes)
+            whole, bias = _gather_split(packed, bias, names, distinct,
+                                        scale_reduce=distinct)
+            y = spatial.try_spatial(plan, x, whole, summed=names & distinct)
+            return y if bias is None else y + bias
+    batch = frozenset().union(*(layer.batch
+                                for layer in _split_layers(packed)))
+    packed, bias = _gather_split(packed, bias, batch, batch,
+                                 bias_reduce=batch)
+    if isinstance(packed, TPSuperpack):
+        return _tp_apply(plan, x, packed, bias)
+    if isinstance(packed, RowSuperpack):
+        return _rp_apply(plan, x, packed, bias)
+    return plan.apply(x, packed, bias=bias)
+
+
+def _rp_apply(plan: "ConvPlan", x, packed: RowSuperpack, bias):
+    """The row-parallel site: the rank's rows through kernel A or B, or D
+    or C where the batch's route tiles the plane (``_PlannedRows``), the
+    f32 partials summed over the group, the bias added once, one rounding
+    to ``x``'s dtype.  ``x`` enters through ``copy_to``: every rank reads
+    all of it, so its gradient is summed over the group."""
+    from repro_torch.core import comm
     if not isinstance(x, torch.Tensor):         # a plane held as blocks
         x = x.full()
-    batch = x.reshape((-1,) + tuple(x.shape[-3:])).shape[0]
-    if plan.route_for_batch(batch).sp_tiles is not None:
-        raise NotImplementedError(
-            "a row-parallel superpack at a site whose plan picks the tiled "
-            "kernel C or D: ROADMAP Queue 1 item 13c")
     blk = packed.block
     w, scale = (blk.q, blk.scale) if isinstance(blk, QuantizedSuperpack) \
         else (blk, None)
@@ -509,19 +634,26 @@ def _rp_apply(plan: "ConvPlan", x, packed: RowSuperpack, bias):
 
 
 def _tp_apply(plan: "ConvPlan", x, packed: TPSuperpack, bias):
-    """The tensor-parallel site: the local plan at ``out_c = N/n`` on the
-    rank's block, its bias block added, the channels gathered over the
-    group in rank order."""
+    """The tensor-parallel site: the local plan at ``out_c = N/n`` (on one
+    rank's plane) on the rank's block, a row-parallel site where its rows
+    are split too, its bias block added, the channels gathered over the
+    group in rank order.  ``x`` and an int8 block's scale column enter
+    through ``copy_to``: every rank of the group reads all of them for its
+    own columns, so their gradients are summed over the group."""
     from repro_torch.core import comm
-    if plan.spec.spatial != (1, 1):
-        raise NotImplementedError(
-            "a superpack split on both its plane and its out-channels: "
-            "ROADMAP Queue 1 item 13c")
     if not isinstance(x, torch.Tensor):         # a plane held as blocks
         x = x.full()
     n_local = plan.spec.out_c // packed.n
-    local = plan_conv(dataclasses.replace(plan.spec, out_c=n_local))
-    y = local.apply(x, packed.block)
+    local = plan_conv(dataclasses.replace(plan.spec, out_c=n_local,
+                                          spatial=(1, 1)))
+    x = comm.copy_to(x, packed.group, kind="channel_input")
+
+    def scale_in(blk):
+        if isinstance(blk, QuantizedSuperpack):
+            return QuantizedSuperpack(blk.q, comm.copy_to(
+                blk.scale, packed.group, kind="channel_scale"))
+        return blk
+    y = local.apply(x, map_block(packed.block, scale_in))
     if bias is not None:
         y = y + bias
     return comm.gather_from(y, packed.group, dim=-1, kind="channel_gather")
@@ -831,7 +963,9 @@ class ConvPlan:
         the out-channels' bias, where given), differentiable
         through the §3.2.3 backward of the plan's kind.  A ``TPSuperpack``
         runs as a tensor-parallel site (``_tp_apply``), a ``RowSuperpack``
-        as a row-parallel one (``_rp_apply``).  Under a bound
+        as a row-parallel one (``_rp_apply``), each gathered where its
+        split axes carry the batch or the site runs plane-parallel
+        (``_split_apply``).  Under a bound
         spatial mesh matching the route's ``dev_tiles`` the conv runs
         plane-parallel across the mesh's ranks (``spatial.try_spatial``)
         and returns the output held as blocks (``spatial.PlaneBlocks``,
@@ -843,10 +977,8 @@ class ConvPlan:
                 f"input {tuple(x.shape[-3:])} does not match plan spec "
                 f"{self.spec.in_hw + (self.spec.in_c,)} — plans bake geometry "
                 f"at build time; plan_conv a spec for this shape")
-        if isinstance(packed, TPSuperpack):
-            return _tp_apply(self, x, packed, bias)
-        if isinstance(packed, RowSuperpack):
-            return _rp_apply(self, x, packed, bias)
+        if isinstance(packed, (TPSuperpack, RowSuperpack)):
+            return _split_apply(self, x, packed, bias)
         if bias is not None:
             return self.apply(x, packed) + bias
         if self.spec.spatial != (1, 1):

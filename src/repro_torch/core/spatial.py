@@ -486,10 +486,13 @@ class _Layout:
         return (self.mesh is other.mesh and self.axes == other.axes
                 and self.batch == other.batch and self.hw == other.hw)
 
-    def groups(self) -> list:
-        """The groups of every split dim, inner dims first."""
+    def groups(self, skip=()) -> list:
+        """The groups of every split dim, inner dims first, but those of
+        the mesh axes in ``skip``."""
         return [g for _, g in self.place.span(
-            ((2, self.axes[1]), (1, self.axes[0]), (0, DATA_AXIS)))]
+            tuple((d, ax) for d, ax in ((2, self.axes[1]),
+                                        (1, self.axes[0]), (0, DATA_AXIS))
+                  if ax not in skip))]
 
 
 def _layout(sp: SpatialPlan, mesh, axes: Pair, batch: int,
@@ -753,20 +756,22 @@ def scatter_plane(sp: SpatialPlan, x4, mesh,
 
 
 def spatial_apply(sp: SpatialPlan, xb: PlaneBlocks, packed, mesh,
-                  axes: Pair = SPATIAL_AXES) -> PlaneBlocks:
+                  axes: Pair = SPATIAL_AXES, summed=()) -> PlaneBlocks:
     """The shard_map body on the rank's block ``xb`` (``scatter_plane``):
     zero the padding rows, exchange the halos (rows, then the columns of
     the row-extended slab), run the local plan, and return the output
     block.  Only halo rows move, forward and backward; the superpack's
     gradient is summed over the ranks that hold pieces (the batch's too
-    where it is split over 'data')."""
+    where it is split over 'data'), but over the mesh axes ``summed``,
+    where the caller's gather of a split superpack sums it."""
     lay = xb.layout
     place = lay.place
     th, tw = sp.dims
     xl = _zero_padding(xb.block, lay)
     xl = _exchange(xl, 1, th, place, axes[0])
     xl = _exchange(xl, 2, tw, place, axes[1])
-    yb = plan_conv(sp.local_spec).apply(xl, _sum_grad(packed, lay.groups()))
+    yb = plan_conv(sp.local_spec).apply(xl, _sum_grad(packed,
+                                                      lay.groups(summed)))
     SPLIT_SITES[0] += 1
     return PlaneBlocks(yb, _layout(sp, mesh, axes, lay.batch, out=True))
 
@@ -776,12 +781,10 @@ def spatial_apply(sp: SpatialPlan, xb: PlaneBlocks, packed, mesh,
 SPLIT_SITES = [0]
 
 
-def try_spatial(plan, x, packed):
-    """``ConvPlan.apply``'s dispatch hook: run plane-parallel when a
-    spatial mesh is bound and its extents match the route's ``dev_tiles``
-    verdict, and return the output as blocks (``PlaneBlocks``); None
-    otherwise (the route's path and tiles are the single-device verdict,
-    so the plan's own route then runs on the gathered plane)."""
+def _site(plan, x):
+    """(spatial plan, mesh, axes, batch) where the plane-parallel executor
+    takes the site: a spatial mesh is bound and its extents match the
+    route's ``dev_tiles`` verdict; None otherwise."""
     active = active_spatial_mesh()
     if active is None:
         return None
@@ -796,10 +799,37 @@ def try_spatial(plan, x, packed):
     sp = spatial_plan(plan.spec)
     if sp is None:
         return None
+    return sp, mesh, axes, batch
+
+
+def split_axes(plan, x):
+    """The mesh axes whose ranks hold other pieces of the site's input
+    (the plane's split axes, 'data' where the batch splits) where the
+    plane-parallel executor takes the site; None where it declines it."""
+    site = _site(plan, x)
+    if site is None:
+        return None
+    _, mesh, axes, batch = site
+    return frozenset(_place(mesh, axes, batch).groups)
+
+
+def try_spatial(plan, x, packed, summed=()):
+    """``ConvPlan.apply``'s dispatch hook: run plane-parallel when a
+    spatial mesh is bound and its extents match the route's ``dev_tiles``
+    verdict, and return the output as blocks (``PlaneBlocks``); None
+    otherwise (the route's path and tiles are the single-device verdict,
+    so the plan's own route then runs on the gathered plane).  ``summed``:
+    the mesh axes over which the superpack's gradient is summed already
+    (``spatial_apply``)."""
+    site = _site(plan, x)
+    if site is None:
+        return None
+    sp, mesh, axes, _ = site
+    lead = tuple(x.shape[:-3])
     x4 = x if len(lead) == 1 else \
         gather_plane(x).reshape((-1,) + tuple(x.shape[-3:]))
     y = spatial_apply(sp, scatter_plane(sp, x4, mesh, axes),
-                      plan.as_superpack(packed), mesh, axes)
+                      plan.as_superpack(packed), mesh, axes, summed)
     if len(lead) == 1:
         return y
     y = y.full()

@@ -63,6 +63,15 @@
 // than by instructions.  The stem's C = 3 is one chunk of 4 channels (the
 // fourth zero-filled): 36 K steps a pixel, not 72.
 //
+// A row block (a row-parallel site: the superpack's tap-major rows split
+// over ranks).  The weight operand holds superpack rows [r0, r1) only, and
+// the launch returns the f32 partial sum over them: a ring slot's weight
+// copies read row t*C + ch from row t*C + ch - r0 of the operand where it
+// lies in [r0, r1), and zero-fill it (src-size 0, as past C and N)
+// elsewhere, so no other weight row is read.  The tile, the halo ring and
+// the register loop are the whole superpack's: a row-block launch walks
+// every chunk and tap and costs about what a whole launch costs.
+//
 // Kernel E, int8 weights (replaces the TPU kernel's int8 tap panel,
 // src/repro/kernels/untangled_conv.py::_tap_panel).  The int8 entry's codes
 // (4 bytes a copy on the vector path; plain loads otherwise) and row
@@ -108,6 +117,7 @@ struct Geometry {
   int stages;        // ring slots
   int xvec;          // 16-byte plane copies (C % 4 == 0, aligned plane)
   int wvec;          // 16-byte superpack copies and float4 stores
+  int r0, r1;         // superpack rows the weight operand holds
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -281,29 +291,34 @@ conv_tiled_kernel(const float* __restrict__ x, const WT* __restrict__ w,
       const int wr = u / NQ, nq = u - wr * NQ;
       const int t = wr / kCK, ch = ch0 + wr - t * kCK;
       const int n = n0 + nq * 4;
-      const size_t src = (static_cast<size_t>(t) * C + ch) * N + n;
+      // superpack row t*C + ch, held at row - r0 of the operand; rows
+      // outside [g.r0, g.r1) (another rank's block) read as zeros
+      const int row = t * C + ch;
+      const bool held_row = ch < C && row >= g.r0 && row < g.r1;
+      const size_t src =
+          held_row ? static_cast<size_t>(row - g.r0) * N + n : 0;
       if constexpr (!I8) {
         float* dst = Ws + st * w_fl + wr * BN + nq * 4;
         if (g.wvec) {
-          const bool ok = ch < C && n < N;
+          const bool ok = held_row && n < N;
           cp_async16(dst, ok ? w + src : w, ok);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const bool ok = ch < C && n + q < N;
+            const bool ok = held_row && n + q < N;
             cp_async4(dst + q, ok ? w + src + q : w, ok);
           }
         }
       } else {
         int8_t* dst = Qs + st * q_bytes + wr * BN + nq * 4;
         if (g.wvec) {
-          const bool ok = ch < C && n < N;
+          const bool ok = held_row && n < N;
           cp_async4(dst, ok ? w + src : w, ok);
         } else {  // ragged N or unaligned codes: plain loads
           unsigned word = 0;
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            if (ch < C && n + q < N) {
+            if (held_row && n + q < N) {
               word |= static_cast<unsigned>(static_cast<uint8_t>(w[src + q]))
                       << (8 * q);
             }
@@ -320,9 +335,10 @@ conv_tiled_kernel(const float* __restrict__ x, const WT* __restrict__ w,
     if constexpr (I8) {
       for (int r = tid; r < taps * kCK; r += T) {
         const int t = r / kCK, ch = ch0 + r - t * kCK;
-        const bool ok = ch < C;
-        cp_async4(Ss + st * taps * kCK + r,
-                  ok ? scale + static_cast<size_t>(t) * C + ch : scale, ok);
+        const int row = t * C + ch;
+        const bool ok = ch < C && row >= g.r0 && row < g.r1;
+        cp_async4(Ss + st * taps * kCK + r, ok ? scale + (row - g.r0) : scale,
+                  ok);
       }
     }
   };
@@ -571,15 +587,20 @@ int dispatch(const float* x, const WT* w, const float* scale, float* y,
 // plane's 16-byte copies (C % 4 == 0, 16-byte aligned plane), `wvec` the
 // superpack's 16-byte copies and the float4 stores (N % 4 == 0, aligned
 // superpack and output).
+// [r0, r1): the superpack rows the weight operand holds (0 and all of
+// them for the whole superpack; a row-parallel block otherwise, whose
+// launch returns the f32 partial sum over those rows and reads no other
+// weight row).
 extern "C" int untangled_conv2d_tiled_f32(
     const float* x, const float* w, float* y, int B, int Hp, int Wp, int C,
     int N, int OH, int OW, int R, int S, int sh, int sw, int dh, int dw,
     int T_oh, int T_ow, int tin_h, int tin_w, int pitch, int n_ti, int n_tj,
     int gpr, int pd, int bn, int path, int stages, int xvec, int wvec,
-    void* stream) {
+    int r0, int r1, void* stream) {
   const Geometry g{Hp,   Wp,    C,     N,     OH,   OW,  R,      S,
                    sh,   sw,    dh,    dw,    T_oh, T_ow, tin_h, tin_w,
-                   pitch, n_tj, gpr,   pd,    stages, xvec, wvec};
+                   pitch, n_tj, gpr,   pd,    stages, xvec, wvec,
+                   r0,   r1};
   return dispatch<float>(x, w, nullptr, y, B, g, n_ti, bn, path, stream);
 }
 
@@ -591,9 +612,10 @@ extern "C" int untangled_conv2d_tiled_i8(
     int Hp, int Wp, int C, int N, int OH, int OW, int R, int S, int sh,
     int sw, int dh, int dw, int T_oh, int T_ow, int tin_h, int tin_w,
     int pitch, int n_ti, int n_tj, int gpr, int pd, int bn, int path,
-    int stages, int xvec, int wvec, void* stream) {
+    int stages, int xvec, int wvec, int r0, int r1, void* stream) {
   const Geometry g{Hp,   Wp,    C,     N,     OH,   OW,  R,      S,
                    sh,   sw,    dh,    dw,    T_oh, T_ow, tin_h, tin_w,
-                   pitch, n_tj, gpr,   pd,    stages, xvec, wvec};
+                   pitch, n_tj, gpr,   pd,    stages, xvec, wvec,
+                   r0,   r1};
   return dispatch<int8_t>(x, q, scale, y, B, g, n_ti, bn, path, stream);
 }

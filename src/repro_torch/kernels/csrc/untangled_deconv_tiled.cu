@@ -64,6 +64,15 @@
 // 16, not 4.3).  On an H100 up0 runs at about half of its FFMA bound
 // (PERF.md).
 //
+// A row block (a row-parallel site: the superpack's tap-major rows split
+// over ranks).  The weight operand holds superpack rows [r0, r1) only, and
+// the launch returns the f32 partial sum over them: a ring slot's weight
+// copies read row t*C + ch from row t*C + ch - r0 of the operand where it
+// lies in [r0, r1), and zero-fill it (src-size 0, as past C and N)
+// elsewhere, so no other weight row is read.  The tile, the halo ring and
+// the register loop are the whole superpack's: a row-block launch walks
+// every chunk and tap and costs about what a whole launch costs.
+//
 // Kernel E, int8 weights (replaces the TPU kernel's int8 tap panel,
 // src/repro/kernels/untangled_conv.py::_tap_panel).  The int8 entry's codes
 // (4 bytes a copy on the vector path; plain loads otherwise) and row scales
@@ -103,6 +112,7 @@ struct Geometry {
   int stages;          // ring slots
   int xvec;            // 16-byte plane copies (C % 4 == 0, aligned plane)
   int wvec;            // 16-byte superpack copies and float4 stores
+  int r0, r1;         // superpack rows the weight operand holds
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -288,29 +298,34 @@ deconv_tiled_kernel(const float* __restrict__ x, const WT* __restrict__ w,
       const int wr = u / NQ, nq = u - wr * NQ;
       const int t = wr / kCK, ch = ch0 + wr - t * kCK;
       const int n = n0 + nq * 4;
-      const size_t src = (static_cast<size_t>(t) * C + ch) * N + n;
+      // superpack row t*C + ch, held at row - r0 of the operand; rows
+      // outside [g.r0, g.r1) (another rank's block) read as zeros
+      const int row = t * C + ch;
+      const bool held_row = ch < C && row >= g.r0 && row < g.r1;
+      const size_t src =
+          held_row ? static_cast<size_t>(row - g.r0) * N + n : 0;
       if constexpr (!I8) {
         float* dst = Ws + st * w_fl + wr * BN + nq * 4;
         if (g.wvec) {
-          const bool ok = ch < C && n < N;
+          const bool ok = held_row && n < N;
           cp_async16(dst, ok ? w + src : w, ok);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const bool ok = ch < C && n + q < N;
+            const bool ok = held_row && n + q < N;
             cp_async4(dst + q, ok ? w + src + q : w, ok);
           }
         }
       } else {
         int8_t* dst = Qs + st * q_bytes + wr * BN + nq * 4;
         if (g.wvec) {
-          const bool ok = ch < C && n < N;
+          const bool ok = held_row && n < N;
           cp_async4(dst, ok ? w + src : w, ok);
         } else {  // ragged N or unaligned codes: plain loads
           unsigned word = 0;
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            if (ch < C && n + q < N) {
+            if (held_row && n + q < N) {
               word |= static_cast<unsigned>(static_cast<uint8_t>(w[src + q]))
                       << (8 * q);
             }
@@ -322,9 +337,10 @@ deconv_tiled_kernel(const float* __restrict__ x, const WT* __restrict__ w,
     if constexpr (I8) {
       for (int r = tid; r < taps * kCK; r += T) {
         const int t = r / kCK, ch = ch0 + r - t * kCK;
-        const bool ok = ch < C;
-        cp_async4(Ss + st * taps * kCK + r,
-                  ok ? scale + static_cast<size_t>(t) * C + ch : scale, ok);
+        const int row = t * C + ch;
+        const bool ok = ch < C && row >= g.r0 && row < g.r1;
+        cp_async4(Ss + st * taps * kCK + r, ok ? scale + (row - g.r0) : scale,
+                  ok);
       }
     }
   };
@@ -554,17 +570,21 @@ int dispatch(const float* x, const WT* w, const float* scale,
 // ring's slots; `xvec` the plane's 16-byte copies (C % 4 == 0, aligned
 // plane), `wvec` the superpack's 16-byte copies and the float4 stores (N %
 // 4 == 0, aligned superpack and output).
+// [r0, r1): the superpack rows the weight operand holds (0 and all of
+// them for the whole superpack; a row-parallel block otherwise, whose
+// launch returns the f32 partial sum over those rows and reads no other
+// weight row).
 extern "C" int untangled_deconv2d_tiled_f32(
     const float* xg, const float* w, const int* table, float* y, int B,
     int Hg, int Wg, int C, int N, int OH, int OW, int sh, int sw,
     int n_phases, int taps, int T_u, int T_v, int U, int V, int org_h,
     int org_w, int tin_h, int tin_w, int pitch, int n_ti, int n_tj, int gpr,
     int gpp, int bn, int path, int tm, int tp, int threads, int stages,
-    int xvec, int wvec, void* stream) {
+    int xvec, int wvec, int r0, int r1, void* stream) {
   const Geometry g{Hg,   Wg,    C,     N,     OH,    OW,     sh,   sw,
                    n_phases, taps, T_u, T_v,   U,     V,      org_h, org_w,
                    tin_h, tin_w, pitch, n_tj, gpr,   gpp,    stages, xvec,
-                   wvec};
+                   wvec,  r0,    r1};
   return dispatch<float>(xg, w, nullptr, table, y, B, n_ti, g, bn, path, tm,
                          tp, threads, static_cast<cudaStream_t>(stream));
 }
@@ -578,11 +598,12 @@ extern "C" int untangled_deconv2d_tiled_i8(
     int sw, int n_phases, int taps, int T_u, int T_v, int U, int V,
     int org_h, int org_w, int tin_h, int tin_w, int pitch, int n_ti,
     int n_tj, int gpr, int gpp, int bn, int path, int tm, int tp,
-    int threads, int stages, int xvec, int wvec, void* stream) {
+    int threads, int stages, int xvec, int wvec, int r0, int r1,
+    void* stream) {
   const Geometry g{Hg,   Wg,    C,     N,     OH,    OW,     sh,   sw,
                    n_phases, taps, T_u, T_v,   U,     V,      org_h, org_w,
                    tin_h, tin_w, pitch, n_tj, gpr,   gpp,    stages, xvec,
-                   wvec};
+                   wvec,  r0,    r1};
   return dispatch<int8_t>(xg, q, scale, table, y, B, n_ti, g, bn, path, tm,
                           tp, threads, static_cast<cudaStream_t>(stream));
 }

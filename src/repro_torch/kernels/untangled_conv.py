@@ -26,14 +26,16 @@ the codes their ring brought to shared memory), so the int8 kernel on
 ``(q, scale)`` is bit-equal to the f32 kernel on
 ``dequantize_int8(q, scale)``.
 
-A row-parallel superpack (its tap-major K split over ranks) runs A or B
-on the rank's rows only: ``rows=(r0, r1)`` on either wrapper marks the
-weight operand (and an int8 one's scales) as superpack rows ``[r0, r1)``,
-and the kernel returns the f32 partial sum over them, reading no other
-weight row.  A block may cut a tap and, for A, span phases: A walks each
-phase's K chunks that hold rows of the block (``_phase_krange``; its thin
-tile walks every chunk with the rows outside read as zeros), B its flat
-K range from ``r0``.  Their plain versions are ``*_rows_ref``.
+A row-parallel superpack (its tap-major K split over ranks) runs A, B, C
+or D on the rank's rows only: ``rows=(r0, r1)`` on either wrapper marks
+the weight operand (and an int8 one's scales) as superpack rows ``[r0,
+r1)``, and the kernel returns the f32 partial sum over them, reading no
+other weight row.  A block may cut a tap and, for A and D, span phases: A
+walks each phase's K chunks that hold rows of the block
+(``_phase_krange``; its thin tile walks every chunk with the rows outside
+read as zeros), B its flat K range from ``r0``; C and D walk every chunk
+and tap, their weight copies zero-filling the rows outside the block.
+Their plain versions are ``*_rows_ref``.
 
 Kernels C and D are the spatially tiled forms of B and A (TPU kernels
 ``_tiled_kernel`` and ``_deconv_tiled_kernel`` with ``_halo_stream``):
@@ -411,11 +413,14 @@ def deconv_schedule(phases: tuple, b: int, c: int, n: int, rows=None
 def work_deconv(xg: torch.Tensor, superpack: torch.Tensor, y: torch.Tensor,
                 phases, scales=None, rows=None) -> tuple[int, int]:
     """(FLOPs, bytes) of one kernel A or D call: 2·B·U·V·T·C·N summed over
-    the phases, over the superpack rows ``rows`` = (r0, r1) only for a row
-    block, and the plane, the weight operand (int8 codes with their
-    scales) and the output each moved once at their dtype's size."""
+    the phases, over the superpack rows ``rows`` = (r0, r1) only where the
+    launch walks only those (A's row block; D's row block walks every
+    row, so its caller passes None), and the plane, the weight operand
+    (int8 codes with their scales) and the output each moved once at their
+    dtype's size."""
     b, c, n = xg.shape[0], xg.shape[3], superpack.shape[1]
-    r0, r1 = (0, superpack.shape[0]) if rows is None else rows
+    r0, r1 = (0, sum(ex.taps[0] * ex.taps[1] for ex in phases) * c) \
+        if rows is None else rows
     macs, row = 0, 0
     for ex in phases:
         k = ex.taps[0] * ex.taps[1] * c
@@ -426,14 +431,15 @@ def work_deconv(xg: torch.Tensor, superpack: torch.Tensor, y: torch.Tensor,
 
 
 def work_conv(x: torch.Tensor, superpack: torch.Tensor, y: torch.Tensor,
-              scales=None) -> tuple[int, int]:
-    """(FLOPs, bytes) of one kernel B or C call: 2·B·OH·OW·K·N for the
-    superpack's K rows (R·S·C, or a row block's), and the plane, the
+              scales=None, k=None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one kernel B or C call: 2·B·OH·OW·K·N for the K
+    rows the launch walks (``k``; by default the weight operand's: R·S·C,
+    or B's row block; C's row block walks all R·S·C), and the plane, the
     weight operand and the output each moved once at their dtype's
     size."""
     b, oh, ow, n = y.shape
-    return (2 * b * oh * ow * superpack.shape[0] * n,
-            fake.nbytes(x, superpack, scales, y))
+    k = superpack.shape[0] if k is None else k
+    return (2 * b * oh * ow * k * n, fake.nbytes(x, superpack, scales, y))
 
 
 # the C entries' parameters: every pointer and the stream as c_void_p (a
@@ -503,14 +509,16 @@ def _check_rows(name: str, rows, total: int, got: int) -> Pair:
 def _count(entry, sp_tiles, scales, whole: bool) -> None:
     """Add one to the launch counter of ``entry`` (``untangled_deconv2d``
     or ``untangled_conv2d_superpack``) that a launch of this form adds to:
-    ``launches_tiled`` or ``launches`` (``_int8`` with scales), and
-    ``launches_rows`` for a row block."""
+    ``launches_tiled`` or ``launches`` (``_int8`` with scales), and for a
+    row block also ``launches_rows`` (A, B) or ``launches_tiled_rows`` (C,
+    D), f32 and int8 alike."""
     tiled = "_tiled" if sp_tiles is not None else ""
     i8 = "" if scales is None else "_int8"
     attr = f"launches{tiled}{i8}"
     setattr(entry, attr, getattr(entry, attr) + 1)
     if not whole:
-        entry.launches_rows += 1
+        attr = f"launches{tiled}_rows"
+        setattr(entry, attr, getattr(entry, attr) + 1)
 
 
 def _check(xg: torch.Tensor, superpack: torch.Tensor, phases,
@@ -589,21 +597,19 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
     with ``out % stride == 0`` only, else ``ValueError``) takes the
     spatially tiled kernel D.  ``rows=(r0, r1)``: ``superpack`` (and
     ``scales``) hold those superpack rows only, a row-parallel block, and
-    the result is the f32 partial sum over them (kernel A only; the launch
-    reads the block and nothing else of the weights).  Returns (B, out_h,
+    the result is the f32 partial sum over them (A or D; the launch reads
+    the block and nothing else of the weights).  Returns (B, out_h,
     out_w, N), written interleaved by the kernel.  CUDA tensors launch the
     kernel (float32 plane, contiguous, no grad) and count one in
     ``untangled_deconv2d.launches`` (f32), ``.launches_int8``,
     ``.launches_tiled`` or ``.launches_tiled_int8`` (a row block's launch
-    also in ``.launches_rows``); CPU tensors run ``untangled_deconv2d_ref``,
-    ``untangled_deconv2d_rows_ref`` or ``untangled_deconv2d_tiled_ref``."""
+    also in ``.launches_rows`` or ``.launches_tiled_rows``); CPU tensors
+    run ``untangled_deconv2d_ref``, ``untangled_deconv2d_tiled_ref`` or
+    their row forms ``*_rows_ref``."""
     phases = tuple(phases)
     out_dtype = out_dtype or xg.dtype
     whole = rows is None
     rows = _check(xg, superpack, phases, out_hw, strides, sum_uv, rows)
-    if not whole and sp_tiles is not None:
-        raise ValueError("kernel D takes no row block (rows=): a "
-                         "row-parallel site runs kernel A")
     if sp_tiles is not None:
         _check_uniform(phases, out_hw, strides)
         deconv_tap_span(phases)                 # at least one live phase
@@ -612,6 +618,11 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
         if min(sp_tiles) < 1:
             raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if xg.device.type == "cpu" and superpack.device.type == "cpu":
+        if not whole and sp_tiles is not None:
+            return untangled_deconv2d_tiled_rows_ref(
+                xg, superpack, rows=rows, phases=phases, out_hw=out_hw,
+                strides=strides, sp_tiles=sp_tiles, out_dtype=out_dtype,
+                scales=scales)
         if not whole:
             return untangled_deconv2d_rows_ref(
                 xg, superpack, rows=rows, phases=phases, out_hw=out_hw,
@@ -654,12 +665,13 @@ def untangled_deconv2d(xg: torch.Tensor, superpack: torch.Tensor, *,
     if fake.is_fake(xg):
         name = ("A" if sp_tiles is None else "D") + (
             "" if scales is None else "_int8")
-        fake.launched(name, work_deconv(xg, superpack, y, phases, scales,
-                                        None if whole else rows))
+        fake.launched(name, work_deconv(
+            xg, superpack, y, phases, scales,
+            None if whole or sp_tiles is not None else rows))
         return y
     if sp_tiles is not None:
         _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
-                             sp_tiles)
+                             sp_tiles, rows)
         _count(untangled_deconv2d, sp_tiles, scales, whole)
         return y
     sch, ints = deconv_launch_ints(xg, superpack, y, phases, strides,
@@ -685,6 +697,7 @@ untangled_deconv2d.launches_int8 = 0
 untangled_deconv2d.launches_rows = 0
 untangled_deconv2d.launches_tiled = 0
 untangled_deconv2d.launches_tiled_int8 = 0
+untangled_deconv2d.launches_tiled_rows = 0
 
 
 # ---------------------------------------------------------------------------
@@ -949,13 +962,14 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
     ``sp_tiles=(T_oh, T_ow)`` takes the spatially tiled kernel C.
     ``rows=(r0, r1)``: ``superpack`` (and ``scales``) hold those superpack
     rows only, a row-parallel block, and the result is the f32 partial sum
-    over them (kernel B only; the launch reads the block and nothing else
-    of the weights).  Returns (B, OH, OW, N).  CUDA tensors launch the
-    kernel (float32 plane, contiguous, no grad) and count one in
+    over them (B or C; the launch reads the block and nothing else of the
+    weights).  Returns (B, OH, OW, N).  CUDA tensors launch the kernel
+    (float32 plane, contiguous, no grad) and count one in
     ``untangled_conv2d_superpack.launches`` (f32), ``.launches_int8``,
     ``.launches_tiled`` or ``.launches_tiled_int8`` (a row block's launch
-    also in ``.launches_rows``); CPU tensors run ``untangled_conv2d_superpack_ref``, its rows form or its
-    tiled form."""
+    also in ``.launches_rows`` or ``.launches_tiled_rows``); CPU tensors
+    run ``untangled_conv2d_superpack_ref``, its tiled form or their row
+    forms ``*_rows_ref``."""
     if x.dim() != 4 or superpack.dim() != 2:
         raise ValueError(f"want x (B, Hp, Wp, C) and superpack (R·S·C, N), "
                          f"got {tuple(x.shape)} and {tuple(superpack.shape)}")
@@ -967,9 +981,6 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         raise ValueError(f"superpack has {superpack.shape[0]} rows, taps "
                          f"{taps_hw} need {r}·{s}·{c}")
     rows = _check_rows("kernel B", rows, r * s * c, superpack.shape[0])
-    if not whole and sp_tiles is not None:
-        raise ValueError("kernel C takes no row block (rows=): a "
-                         "row-parallel site runs kernel B")
     oh, ow = single_out_hw(hp, wp, taps_hw, strides, rhs_dilation)
     if oh <= 0 or ow <= 0 or min(*strides, *rhs_dilation) < 1:
         raise ValueError(f"no valid output: plane {hp}x{wp}, taps "
@@ -981,6 +992,11 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
         if min(sp_tiles) < 1:
             raise ValueError(f"sp_tiles {sp_tiles} must be positive")
     if x.device.type == "cpu" and superpack.device.type == "cpu":
+        if not whole and sp_tiles is not None:
+            return untangled_conv2d_superpack_tiled_rows_ref(
+                x, superpack, rows=rows, taps_hw=taps_hw, sp_tiles=sp_tiles,
+                strides=strides, rhs_dilation=rhs_dilation,
+                out_dtype=out_dtype, scales=scales)
         if not whole:
             return untangled_conv2d_superpack_rows_ref(
                 x, superpack, rows=rows, taps_hw=taps_hw, strides=strides,
@@ -1020,11 +1036,13 @@ def untangled_conv2d_superpack(x: torch.Tensor, superpack: torch.Tensor, *,
     if fake.is_fake(x):
         name = ("B" if sp_tiles is None else "C") + (
             "" if scales is None else "_int8")
-        fake.launched(name, work_conv(x, superpack, y, scales))
+        fake.launched(name, work_conv(
+            x, superpack, y, scales,
+            None if sp_tiles is None else r * s * c))
         return y
     if sp_tiles is not None:
         _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides,
-                           rhs_dilation, sp_tiles)
+                           rhs_dilation, sp_tiles, rows)
         _count(untangled_conv2d_superpack, sp_tiles, scales, whole)
         return y
     sch, ints = conv_launch_ints(x, superpack, y, taps_hw, strides,
@@ -1049,6 +1067,7 @@ untangled_conv2d_superpack.launches_int8 = 0
 untangled_conv2d_superpack.launches_rows = 0
 untangled_conv2d_superpack.launches_tiled = 0
 untangled_conv2d_superpack.launches_tiled_int8 = 0
+untangled_conv2d_superpack.launches_tiled_rows = 0
 
 
 def untangled_conv2d(x: torch.Tensor, kernel: torch.Tensor, *,
@@ -1568,6 +1587,22 @@ def untangled_conv2d_superpack_tiled_ref(
     return y.to(out_dtype or x.dtype)
 
 
+def untangled_conv2d_superpack_tiled_rows_ref(
+        x: torch.Tensor, block: torch.Tensor, *, rows: Pair, taps_hw: Pair,
+        sp_tiles: Pair, strides: Pair = (1, 1), rhs_dilation: Pair = (1, 1),
+        out_dtype=None, scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel C on a row-parallel block: ``block``
+    holds superpack rows ``rows`` = [r0, r1) only (with ``scales``, int8
+    codes and their scale rows); the f32 partial sum over those rows,
+    ``untangled_conv2d_superpack_tiled_ref`` on the block in its rows of
+    an otherwise zero superpack."""
+    total = taps_hw[0] * taps_hw[1] * x.shape[3]
+    whole, wscales = embed_rows(block, scales, rows, total)
+    return untangled_conv2d_superpack_tiled_ref(
+        x, whole, taps_hw=taps_hw, sp_tiles=sp_tiles, strides=strides,
+        rhs_dilation=rhs_dilation, out_dtype=out_dtype, scales=wscales)
+
+
 def _check_uniform(phases, out_hw: Pair, strides: Pair) -> Pair:
     """Kernel D's geometry: every phase of one extent (U, V) with
     ``out = stride·(U, V)``, so the interleaved output tiles block cleanly
@@ -1622,6 +1657,22 @@ def untangled_deconv2d_tiled_ref(xg: torch.Tensor, superpack: torch.Tensor,
     return y[:, :out_hw[0], :out_hw[1]].to(out_dtype or xg.dtype)
 
 
+def untangled_deconv2d_tiled_rows_ref(
+        xg: torch.Tensor, block: torch.Tensor, *, rows: Pair, phases,
+        out_hw: Pair, strides: Pair, sp_tiles: Pair, out_dtype=None,
+        scales=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel D on a row-parallel block: ``block``
+    holds superpack rows ``rows`` = [r0, r1) only (with ``scales``, int8
+    codes and their scale rows); the f32 partial sum over those rows,
+    ``untangled_deconv2d_tiled_ref`` on the block in its rows of an
+    otherwise zero superpack."""
+    total = sum(ex.taps[0] * ex.taps[1] for ex in phases) * xg.shape[3]
+    whole, wscales = embed_rows(block, scales, rows, total)
+    return untangled_deconv2d_tiled_ref(
+        xg, whole, phases=phases, out_hw=out_hw, strides=strides,
+        sp_tiles=sp_tiles, out_dtype=out_dtype, scales=wscales)
+
+
 def _tiled_vec_ok(n: int, tensors) -> int:
     """Kernels C's and D's weight and output vector path: N % 4 == 0 and
     the weights and the output aligned for 4-element loads and stores
@@ -1631,9 +1682,9 @@ def _tiled_vec_ok(n: int, tensors) -> int:
 
 
 # the C entries' parameters, as for kernels A and B
-_CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 27
+_CONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 29
                         + [ctypes.c_void_p])
-_DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 32
+_DECONV_TILED_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 34
                           + [ctypes.c_void_p])
 
 
@@ -1660,10 +1711,11 @@ _GRID_YZ_MAX = 65535
 
 
 def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
-                       tile: Pair):
+                       tile: Pair, rows: Pair):
     """Kernel C (or its int8 entry) on ``tile``-sized blocks, as
-    ``tiled_conv_schedule`` lays them out; raises when the tile does not
-    fit one block."""
+    ``tiled_conv_schedule`` lays them out, on the weight operand's
+    superpack rows ``rows``; raises when the tile does not fit one
+    block."""
     b, hp, wp, c = x.shape
     _, oh, ow, n = y.shape
     r, s = taps_hw
@@ -1685,16 +1737,17 @@ def _launch_tiled_conv(x, superpack, scales, y, taps_hw, strides, dilation,
             r, s, strides[0], strides[1], dilation[0], dilation[1],
             *sch.tile, *sch.halo, sch.pitch, *sch.tiles, sch.gpr, sch.pd,
             sch.bn, sch.path, sch.stages, _vec_ok(c, 4, (x,)),
-            _tiled_vec_ok(n, (superpack, y)), stream)
+            _tiled_vec_ok(n, (superpack, y)), *rows, stream)
     if rc != 0:
         raise RuntimeError(f"kernel C launch failed: cudaError {rc}")
 
 
 def _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
-                         tile: Pair):
+                         tile: Pair, rows: Pair):
     """Kernel D (or its int8 entry) on ``tile``-sized blocks, as
-    ``tiled_deconv_schedule`` lays them out; raises when the tile does not
-    fit one block."""
+    ``tiled_deconv_schedule`` lays them out, on the weight operand's
+    superpack rows ``rows``; raises when the tile does not fit one
+    block."""
     b, hg, wg, c = xg.shape
     _, oh, ow, n = y.shape
     sch = tiled_deconv_schedule(phases, (oh, ow), c, n, tuple(tile))
@@ -1716,6 +1769,6 @@ def _launch_tiled_deconv(xg, superpack, scales, y, phases, strides,
             *sch.tile, *phases[0].out_hw, *sch.origin, *sch.halo, sch.pitch,
             *sch.tiles, sch.gpr, sch.gpp, sch.bn, sch.path, sch.tm, sch.tp,
             sch.threads, sch.stages, _vec_ok(c, 4, (xg,)),
-            _tiled_vec_ok(n, (superpack, y)), stream)
+            _tiled_vec_ok(n, (superpack, y)), *rows, stream)
     if rc != 0:
         raise RuntimeError(f"kernel D launch failed: cudaError {rc}")

@@ -16,11 +16,30 @@ def shard(p: dict, specs: dict, dist) -> dict:
     return p if dist is None else dist.shard_params(p, specs)
 
 
-def gather_cols(y: torch.Tensor, dist, full: int) -> torch.Tensor:
-    """``y``, the product of a (None, 'conv_out') weight's column block,
-    gathered whole over the 'conv_out' axes in rank order (``y`` itself
-    where the weight stays whole)."""
+def dense_cols(x: torch.Tensor, w: torch.Tensor, dist, full: int,
+               b: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ w (+ b)`` whole on every rank, for a (None, 'conv_out') weight
+    ``w`` of ``full`` columns and its bias ``b``, each rank holding their
+    column blocks (``w``, ``b`` themselves where they stay whole).  Where
+    the 'conv_out' axes carry the image batch (each rank holds other rows
+    of ``x``), the blocks are gathered whole first, their gradients summed
+    over those axes; otherwise the product's columns are gathered over the
+    'conv_out' axes in rank order, ``x`` entering through ``copy_to`` (its
+    gradient summed over them)."""
     group, _, _ = cm.tp(dist, "conv_out", full)
+    if group is not None:
+        axes, batch = dist.axes_of(dist.resolve(("conv_out",))[0])
+        if batch:
+            w = comm.gather_axes(w, axes, -1, batch, "feature_weight_gather")
+            if b is not None:
+                b = comm.gather_axes(b, axes, -1, batch,
+                                     "feature_bias_gather")
+            group = None
+        else:
+            x = comm.copy_to(x, group, kind="feature_input")
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b
     if group is None:
         return y
     return comm.gather_from(y, group, dim=-1, kind="feature_gather")

@@ -41,7 +41,7 @@ from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
 from repro_torch.layers import common as cm
-from repro_torch.models import gather_cols, params_from_numpy, shard
+from repro_torch.models import dense_cols, params_from_numpy, shard
 from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
 
@@ -236,8 +236,7 @@ def generator_apply(p, z: torch.Tensor, cfg: GANConfig,
     (``dist``: the params are each rank's blocks, module docstring)."""
     plans = generator_plans(cfg, z.dtype)      # cache hits after model load
     l0 = cfg.layers[0]
-    x = gather_cols(torch.matmul(z, p["proj"]), dist,
-                    l0.in_hw * l0.in_hw * l0.in_c)
+    x = dense_cols(z, p["proj"], dist, l0.in_hw * l0.in_hw * l0.in_c)
     x = torch.relu(x).reshape(z.shape[0], l0.in_hw, l0.in_hw, l0.in_c)
     for i, plan in enumerate(plans):
         x = plan.apply(x, p[f"dc{i}"], bias=p[f"b{i}"])

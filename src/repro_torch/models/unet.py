@@ -39,7 +39,7 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import gather_cols, params_from_numpy, shard
+from repro_torch.models import dense_cols, params_from_numpy, shard
 from repro_torch.models.gan import deconv_padding
 from repro_torch.models.segnet import atrous_padding
 from repro_torch.sharding import SUPERPACK_SPEC, Spec
@@ -228,7 +228,7 @@ def unet_apply(p, x: torch.Tensor, t: torch.Tensor,
         return plans[name].apply(h, p[name], bias=p[f"{name}_b"])
 
     def tproj(i):
-        y = gather_cols(emb @ p[f"tproj{i}"], dist, _tproj_width(cfg, i))
+        y = dense_cols(emb, p[f"tproj{i}"], dist, _tproj_width(cfg, i))
         return y[:, None, None, :]
 
     emb = torch.nn.functional.silu(

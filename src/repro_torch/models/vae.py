@@ -34,7 +34,7 @@ from repro_torch.core import resolve_device
 from repro_torch.core.autotune import AutotunePolicy
 from repro_torch.core.plan import ConvPlan, ConvSpec, dtype_name, plan_conv
 from repro_torch.core.spatial import gather_plane
-from repro_torch.models import gather_cols, params_from_numpy, shard
+from repro_torch.models import dense_cols, params_from_numpy, shard
 from repro_torch.models.gan import DeconvLayer, _cpu_generator, deconv_padding
 from repro_torch.sharding import SUPERPACK_SPEC, Spec
 
@@ -226,8 +226,9 @@ def decode(p, z: torch.Tensor, cfg: VAEConfig, dist=None) -> torch.Tensor:
     conv one planned launch on its superpack (``dist``: the params are each
     rank's blocks; ``proj``'s column block is gathered before ``dec0``)."""
     plans = decoder_plans(cfg, z.dtype)
-    h = torch.relu(torch.matmul(z, p["proj"]) + p["projb"])
-    h = gather_cols(h, dist, cfg.feat_hw * cfg.feat_hw * cfg.feat_c)
+    h = torch.relu(dense_cols(z, p["proj"], dist,
+                              cfg.feat_hw * cfg.feat_hw * cfg.feat_c,
+                              b=p["projb"]))
     x = h.reshape(z.shape[0], cfg.feat_hw, cfg.feat_hw, cfg.feat_c)
     for i, plan in enumerate(plans):
         x = plan.apply(x, p[f"dec{i}"], bias=p[f"decb{i}"])

@@ -16,8 +16,9 @@ each sharded leaf, the block its mesh coordinate selects, as
 to minor in the order listed); every rank runs the same code, and the
 layers call the collectives of ``core.comm`` on the groups of the mesh
 axes (``DistContext.group``).  A superpack whose out-channels are split
-comes back as a ``core.plan.TPSuperpack``, which ``ConvPlan.apply`` runs
-as a tensor-parallel site.
+comes back as a ``core.plan.TPSuperpack``, one whose rows are split as a
+``core.plan.RowSuperpack`` (both: the first holding the second), which
+``ConvPlan.apply`` runs as a tensor- or row-parallel site.
 
 Placement of activations: a batch over the batch axes is split by
 ``split_batch`` (each rank runs its rows; several axes split it major to
@@ -271,6 +272,17 @@ class DistContext:
             return tuple(shape)
         return tuple(b - a for a, b in self._dims(shape, self.resolve(spec)))
 
+    def axes_of(self, entry) -> tuple:
+        """(((mesh axis, its process group), ...), batch): each axis of the
+        resolved ``entry`` with more than one rank, in the order listed
+        (major to minor, as ``shard_of`` counts blocks), and the names of
+        those of them that the image batch splits over (``batch_ranks``):
+        a weight split over one of these is gathered whole before use."""
+        axes = tuple((a, self.mesh.get_group(a)) for a in _axes(entry)
+                     if self.extent(a) > 1)
+        batch, _ = self.batch_ranks()
+        return axes, frozenset(_axes(batch)) & {a for a, _ in axes}
+
     def group(self, entry):
         """The process group of the ranks that share this rank's
         coordinates off ``entry``'s axes (a resolved entry: one mesh axis
@@ -408,7 +420,10 @@ class DistContext:
         (spec ``SUPERPACK_SPEC``) whose out-channels split comes back as a
         ``TPSuperpack`` (``ConvPlan.apply``'s tensor-parallel site), one
         whose rows split ('conv_taps') as a ``RowSuperpack`` (its
-        row-parallel site)."""
+        row-parallel site), one split on both as a ``TPSuperpack`` of a
+        ``RowSuperpack`` (the rank's row block of its column block); each
+        names its split's mesh axes and those of them that carry the image
+        batch."""
         if self.mesh is None:
             return params
         from repro_torch.core.plan import (QuantizedSuperpack, RowSuperpack,
@@ -429,18 +444,15 @@ class DistContext:
                 return blk
             (rows, n) = shape
             if blk.shape[0] != rows:
-                if blk.shape[1] != n:
-                    raise NotImplementedError(
-                        f"{name}: a superpack split on both its rows and "
-                        f"its out-channels: ROADMAP Queue 1 item 13c")
                 j, m = self.shard_of(resolved[0], rows)
-                return RowSuperpack(blk, self.group(resolved[0]), j, m,
-                                    (j * rows // m, (j + 1) * rows // m),
-                                    rows)
+                blk = RowSuperpack(blk, self.group(resolved[0]), j, m,
+                                   (j * rows // m, (j + 1) * rows // m),
+                                   rows, *self.axes_of(resolved[0]))
             if blk.shape[1] == n:
-                return blk                      # replicated: runs whole
+                return blk              # rows split, or replicated: whole
             j, m = self.shard_of(resolved[1], n)
-            return TPSuperpack(blk, self.group(resolved[1]), j, m)
+            return TPSuperpack(blk, self.group(resolved[1]), j, m,
+                               *self.axes_of(resolved[1]))
 
         return _tree_map_with_path(
             put, params, specs,

@@ -13,6 +13,9 @@ least, where it is 16) and with no card:
 - reduced dbrx-132b: the MoE's counts set to the balanced load, and the
   counted products equal ``model_flops_for``;
 - a fake world of 4: each collective's ring traffic against hand values;
+  a row-parallel site on kernel C (its launch walks the whole K) and a
+  weight gathered over the batch axis (its gather and, in the backward,
+  its reduce-scatter), launches, work and collective bytes exactly;
 - the (2, 2) forward of reduced llama3.2-1b over 4 real gloo ranks: rank
   0's ``comm.traffic()`` calls and bytes per kind equal its count on a
   fake world of 4;
@@ -286,6 +289,69 @@ def test_fake_launches_never_build(monkeypatch):
     # nothing launched: the counters stay where they were
     assert (fa.flash_attention.launches, uc.untangled_deconv2d.launches,
             uc.untangled_conv2d_superpack.launches) == before
+
+
+def test_split_sites_on_a_fake_world_of_4():
+    """(2, 2), rank 0.  A conv site whose route picks kernel C with its
+    rows on 'model' (rows [0, 36) of 72): one C launch on the row block
+    that walks all R·S·C rows (2·B·OH·OW·72·N FLOPs) and reads the padded
+    plane, the block and the output once, and one all-reduce of the f32
+    partial.  A transposed site with its rows on 'data', which carries the
+    batch: the block (64 of 128 rows) gathered whole, one kernel A launch
+    on the whole superpack, and in the backward its gradient
+    reduce-scattered (the whole dK handed over, the block kept)."""
+    from repro_torch.core.plan import ConvSpec, RowSuperpack, plan_conv
+    from repro_torch.sharding import DEFAULT_RULES, SUPERPACK_SPEC, DistContext
+    b = 2
+    conv = plan_conv(ConvSpec(kind="conv", in_hw=(16, 16), in_c=8, out_c=8,
+                              kernel_hw=(3, 3), padding=((1, 1), (1, 1)),
+                              backend="cuda"))
+    conv = conv.with_routes(tuple(dataclasses.replace(r, sp_tiles=(8, 8))
+                                  for r in conv.routes))
+    deconv = plan_conv(ConvSpec(kind="transposed", in_hw=(4, 4), in_c=8,
+                                out_c=8, kernel_hw=(4, 4), strides=(2, 2),
+                                padding=((1, 3), (1, 3)), backend="cuda"))
+    with ha.fake_world(WORLD, rank=0):
+        mesh = make_host_mesh(2, 2)
+        rows = DistContext(mesh, rules=dict(DEFAULT_RULES, conv_taps="model",
+                                            conv_out=None))
+        batch = DistContext(mesh, rules=dict(DEFAULT_RULES, conv_taps="data",
+                                             conv_out=None))
+        with ha.fake_mode():
+            x = torch.empty((b, 16, 16, 8), device=ha.DEVICE)
+            xd = torch.empty((b, 4, 4, 8), device=ha.DEVICE)
+            wc = rows.shard_params(
+                {"w": torch.empty((72, 8), device=ha.DEVICE)},
+                {"w": SUPERPACK_SPEC})["w"]
+            wd = batch.shard_params(
+                {"w": torch.empty((128, 8), device=ha.DEVICE)},
+                {"w": SUPERPACK_SPEC})["w"]
+        assert isinstance(wc, RowSuperpack) and wc.rows == (0, 36)
+        assert isinstance(wd, RowSuperpack) and wd.batch == {"data"}
+        rc = ha.analyze_step(lambda x, w: conv.apply(x, w), x, wc,
+                             default_group=WORLD)
+
+        def step(x, blk):
+            blk = blk.requires_grad_()
+            y = deconv.apply(x, dataclasses.replace(wd, block=blk))
+            return torch.autograd.grad(y.sum(), blk)[0]
+        rd = ha.analyze_step(step, xd, wd.block, default_group=WORLD)
+    c = rc["kernels"]
+    assert set(c) == {"C"} and c["C"]["launches"] == 1
+    assert c["C"]["flops"] == 2 * b * 16 * 16 * 72 * 8
+    assert c["C"]["bytes"] == 4 * (b * 18 * 18 * 8 + 36 * 8 + b * 16 * 16 * 8)
+    assert {k: (v["calls"], v["bytes"]) for k, v in
+            rc["collectives"].items()} == {
+        "rows_all_reduce": (1, 4 * b * 16 * 16 * 8)}
+    pix_taps = sum(ex.out_hw[0] * ex.out_hw[1] * ex.taps[0] * ex.taps[1]
+                   for ex in deconv.phases)
+    assert rd["kernels"]["A"]["launches"] == 1
+    assert rd["kernels"]["A"]["flops"] == 2 * b * pix_taps * 8 * 8
+    assert {k: (v["op"], v["calls"], v["bytes"]) for k, v in
+            rd["collectives"].items()} == {
+        "rows_weight_gather": ("all_gather", 1, 4 * 64 * 8),
+        "rows_weight_gather_bwd": ("reduce_scatter", 1, 4 * 128 * 8)}
+    assert tuple(rd["out"].shape) == (64, 8)
 
 
 def test_real_tensors_never_take_the_fake_branch():

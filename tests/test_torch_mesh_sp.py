@@ -401,24 +401,56 @@ def test_row_parallel_superpacks_match_jax(launch, name, wd):
     assert max(r[(name, wd)]["planted"] for r in launch["ranks"]) > TOL_F32
 
 
-def test_row_parallel_tiled_site_refuses():
-    """A row-parallel site whose plan picks the tiled kernel C or D
-    refuses (it never gathers the superpack and runs it whole)."""
-    from repro_torch.core.plan import ConvSpec, RowSuperpack, plan_conv
+def test_row_parallel_tiled_site_runs_the_tiled_rows():
+    """A row-parallel site whose plan picks the tiled kernel C runs each
+    row block through C's rows entry (its tiled rows plain version on the
+    CPU); the blocks' partials summed (a group of one rank per block here)
+    equal the whole superpack's tiled plain version within the f64
+    bound."""
+    from repro_torch.core import reference as tref
+    from repro_torch.core.plan import (ConvSpec, RowSuperpack, pad_or_crop,
+                                       plan_conv)
+    from repro_torch.kernels import untangled_conv as uc
     plan = plan_conv(ConvSpec(kind="conv", in_hw=(8, 8), in_c=4, out_c=4,
                               kernel_hw=(3, 3), strides=(1, 1),
                               padding=((1, 1), (1, 1)), backend="torch"))
     tiled = plan.with_routes(tuple(dataclasses.replace(
         r, path="cuda", sp_tiles=(4, 4)) for r in plan.routes))
-    blk = RowSuperpack(torch.zeros(18, 4), None, 0, 2, (0, 18), 36)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        tiled.apply(torch.zeros(1, 8, 8, 4), blk)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 8, 8, 4), generator=g)
+    w = torch.randn((36, 4), generator=g)
+    seen = []
+    orig = uc.untangled_conv2d_superpack_tiled_rows_ref
+
+    def rows_ref(*a, **kw):
+        seen.append(kw["rows"])
+        return orig(*a, **kw)
+    uc.untangled_conv2d_superpack_tiled_rows_ref = rows_ref
+    try:
+        with torch.no_grad():
+            y = sum(tiled.apply(x, RowSuperpack(w[r0:r1], None, i, 2,
+                                                (r0, r1), 36))
+                    for i, (r0, r1) in enumerate(((0, 18), (18, 36))))
+    finally:
+        uc.untangled_conv2d_superpack_tiled_rows_ref = orig
+    assert seen == [(0, 18), (18, 36)]
+    whole = uc.untangled_conv2d_superpack_tiled_ref(
+        pad_or_crop(x, plan.spec.padding), w, taps_hw=(3, 3),
+        sp_tiles=(4, 4))
+    y64, amax = tref.conv_oracle_f64(x, w.reshape(3, 3, 4, 4).double(),
+                                     padding=plan.spec.padding)
+    bound = tref.ulp_bound(y64, amax, 36)
+    assert ((y.double() - y64).abs() <= bound).all()
+    assert ((whole.double() - y64).abs() <= bound).all()
 
 
-def test_row_block_plain_versions_sum_to_the_whole():
+@pytest.mark.parametrize("sp_tiles", [None, (2, 2)],
+                         ids=["whole_plane", "tiled"])
+def test_row_block_plain_versions_sum_to_the_whole(sp_tiles):
     """The row-block entries' plain versions (kernels A and B on rows [r0,
-    r1)), f32 and int8, summed over blocks that cut taps and span phases,
-    equal the whole superpack's plain version within the f64 bound."""
+    r1); with ``sp_tiles`` their tiled forms D and C), f32 and int8,
+    summed over blocks that cut taps and span phases, equal the whole
+    superpack's plain version within the f64 bound."""
     from repro_torch.core import reference as tref
     from repro_torch.core.plan import (ConvSpec, _global_plane, pad_or_crop,
                                        plan_conv)
@@ -445,12 +477,12 @@ def test_row_block_plain_versions_sum_to_the_whole():
                         _global_plane(plan, x), wq[r0:r1],
                         phases=plan.phases, out_hw=plan.out_hw,
                         strides=spec.strides, sum_uv=plan.sum_uv,
-                        rows=(r0, r1), **kw))
+                        rows=(r0, r1), sp_tiles=sp_tiles, **kw))
                 else:
                     parts.append(uc.untangled_conv2d_superpack(
                         pad_or_crop(x, spec.padding), wq[r0:r1],
                         taps_hw=(5, 5), strides=(2, 2), rows=(r0, r1),
-                        **kw))
+                        sp_tiles=sp_tiles, **kw))
             kd = plan.unpack(w if sc is None else
                              uc.dequantize_int8(wq, sc)).double()
             if kind == "transposed":

@@ -341,11 +341,13 @@ def test_unsharded_kinds_refuse_a_mesh_that_splits_them(arch, kind):
     assert dp.block_shape(whole, spec) == whole
 
 
-def test_row_parallel_superpack_is_refused():
-    """A superpack split on its rows ('conv_taps' over 'model') is no
-    longer refused: it becomes a ``RowSuperpack`` of the rank's rows (its
-    int8 codes' scale rows with them); one split on both its rows and its
-    out-channels still is."""
+def test_row_parallel_and_two_way_superpack_blocks():
+    """A superpack split on its rows ('conv_taps' over 'model') becomes a
+    ``RowSuperpack`` of the rank's rows (its int8 codes' scale rows with
+    them); one split on both its rows and its out-channels a
+    ``TPSuperpack`` of a ``RowSuperpack``: the rank's row block of its
+    column block, both groups, the scale rows following the rows only,
+    and the split axes that carry the batch named."""
     from repro_torch.core.plan import QuantizedSuperpack, RowSuperpack
     d = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
         tsh.DEFAULT_RULES, conv_taps="model", conv_out=None))
@@ -357,7 +359,19 @@ def test_row_parallel_superpack_is_refused():
     assert isinstance(out["w"], RowSuperpack) and out["w"].rows == (4, 8)
     assert torch.equal(out["w"].block, w[4:]) and out["w"].total == 8
     assert torch.equal(out["q"].block.scale, q.scale[4:])
+    assert out["w"].axes == (("model", "group:model"),)
+    assert out["w"].batch == frozenset()
     both = tsh.DistContext(PortMesh(SHARD_MESH, (0, 1)), rules=dict(
         tsh.DEFAULT_RULES, conv_taps="data", conv_out="model"))
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        both.shard_params({"w": w}, {"w": tsh.SUPERPACK_SPEC})
+    out = both.shard_params({"w": w, "q": q}, {"w": tsh.SUPERPACK_SPEC,
+                                               "q": tsh.SUPERPACK_SPEC})
+    tp = out["w"]
+    assert isinstance(tp, TPSuperpack) and (tp.index, tp.n) == (1, 2)
+    assert tp.group == "group:model" and tp.batch == frozenset()
+    rows = tp.block
+    assert isinstance(rows, RowSuperpack) and rows.rows == (0, 4)
+    assert rows.group == "group:data" and rows.batch == {"data"}
+    assert torch.equal(rows.block, w[:4, 2:]) and tp.shape == (8, 4)
+    qb = out["q"].block.block
+    assert torch.equal(qb.q, q.q[:4, 2:])
+    assert torch.equal(qb.scale, q.scale[:4])
